@@ -1,0 +1,50 @@
+"""Env registry for the port: the reference env IDs that the torch package
+runs [ref: pybulletgym/envs/__init__.py — gym.envs.registration.register].
+
+Only `HalfCheetahPyBulletEnv-v0` is ported so far; any other ID raises
+`KeyError` listing the known ones. Nothing is registered with gymnasium
+(the JAX package registers the same IDs for itself on import).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvSpec:
+    id: str
+    task_factory: Callable
+    max_episode_steps: int
+    reward_threshold: Optional[float]
+
+
+def _half_cheetah():
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+
+    return loco.WalkerTask(loco.HALF_CHEETAH)
+
+
+registry: Dict[str, EnvSpec] = {
+    "HalfCheetahPyBulletEnv-v0": EnvSpec(
+        "HalfCheetahPyBulletEnv-v0", _half_cheetah, 1000, 3000.0
+    ),
+}
+
+
+def make_task(id: str):
+    """The Task (model + scalar hooks) behind an env id; a fresh instance."""
+    if id not in registry:
+        raise KeyError(f"unknown env id {id!r}; known: {sorted(registry)}")
+    spec = registry[id]
+    task = spec.task_factory()
+    task.max_episode_steps = spec.max_episode_steps
+    return task
+
+
+def make_batched(id: str, batch_size: int, device="cpu"):
+    """A `BatchedEnv` of `batch_size` envs on `device` ("cpu" or "cuda")."""
+    from pybulletgym_tpu_torch.envs.base import BatchedEnv
+
+    return BatchedEnv(make_task(id), batch_size, device=device)

@@ -1,0 +1,870 @@
+// Table-driven core of the env-step engine, one env per call.
+//
+// The same source is compiled twice: by nvcc into the CUDA kernels of
+// engine.cu (one thread per env) and by g++ into the host twin of
+// engine_host.cpp (a loop over envs, used only by the CPU tests). Every
+// function here is __host__ __device__.
+//
+// The JAX package traces its kernel body once per model into straight-line
+// code with structural zeros pruned. Here the algorithm is written once and
+// loops over the tables that `ops/cuda_engine.py · pack_tables` lays out:
+// bodies, dofs, contact rows, limit rows and task constants. Every sum is
+// taken in the order of the JAX package's unrolled sums; a structural zero
+// is a stored 0 that adds nothing, so the rounding follows the plain version
+// (up to FMA contraction on the GPU and the last bits of sinf/cosf).
+//
+// Scope: hinge and slide joints, point contacts against planes, joint
+// limits, and the walker task with the "cheetah" alive mode. pack_tables
+// refuses anything else (free joints, disk and pair rows, other tasks).
+
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define ENG_HD __host__ __device__ __forceinline__
+#else
+#define ENG_HD inline
+#endif
+
+namespace eng {
+
+// ---- caps of the per-thread scratch; pack_tables raises above them -------
+constexpr int MAX_BODIES = 16;
+constexpr int MAX_NV = 16;        // hinge/slide only: nq == nv == bodies
+constexpr int MAX_ROWS = 32;      // contact rows
+constexpr int MAX_LIMITS = 32;    // joint-limit rows
+constexpr int MAX_ACT = 16;
+constexpr int MAX_FEET = 8;
+constexpr int MAX_PARTS = 16;
+constexpr int NAUX = 4;           // initial_z, potential, target_x, target_y
+constexpr int NCOMP = 5;          // alive, electricity, feet_collision,
+                                  // joints_at_limit, progress
+constexpr int JT_HINGE = 1;
+constexpr int JT_SLIDE = 2;
+
+// The table layout, as one list. S(type, name) is a scalar, A(type, name,
+// count) a flat array. ops/cuda_engine.py parses this list to build the
+// matching ctypes structure, and checks it against eng_tables_layout().
+// Every field is 4 bytes wide, so the struct has no padding.
+#define ENG_TABLE_FIELDS(S, A)                                                \
+  S(int32_t, nb)                                                              \
+  S(int32_t, nq)                                                              \
+  S(int32_t, nv)                                                              \
+  S(int32_t, nr)                                                              \
+  S(int32_t, nl)                                                              \
+  S(int32_t, frame_skip)                                                      \
+  S(int32_t, iterations)                                                      \
+  S(int32_t, e_comb_zero)                                                     \
+  S(int32_t, act)                                                             \
+  S(int32_t, nfeet)                                                           \
+  S(int32_t, nparts)                                                          \
+  S(int32_t, obs_dim)                                                         \
+  S(int32_t, max_steps)                                                       \
+  S(int32_t, base_body)                                                       \
+  /* physics constants, each the float32 of the JAX package's constant */     \
+  S(float, dt)                                                                \
+  A(float, gravity_neg, 3)                                                    \
+  S(float, max_velocity)                                                      \
+  S(float, erp_over_dt)                                                       \
+  S(float, slop)                                                              \
+  S(float, limit_erp_over_dt)                                                 \
+  S(float, reg)                                                               \
+  S(float, neg_e_comb)                                                        \
+  S(float, neg_rest_threshold)                                                \
+  /* bodies, parents before children */                                      \
+  A(int32_t, parent, MAX_BODIES)                                              \
+  A(int32_t, jtype, MAX_BODIES)                                               \
+  A(int32_t, q_adr, MAX_BODIES)                                               \
+  A(int32_t, v_adr, MAX_BODIES)                                               \
+  A(int32_t, has_mass, MAX_BODIES)                                            \
+  A(uint32_t, anc_mask, MAX_BODIES) /* bit d: dof d on the root path */       \
+  A(float, off_r, MAX_BODIES * 9)                                             \
+  A(float, off_p, MAX_BODIES * 3)                                             \
+  A(float, jpos, MAX_BODIES * 3)                                              \
+  A(float, jaxis, MAX_BODIES * 3)                                             \
+  A(float, jref, MAX_BODIES)                                                  \
+  A(float, mass, MAX_BODIES)                                                  \
+  A(float, cmass, MAX_BODIES) /* composite (subtree) mass, CRBA */            \
+  A(float, com, MAX_BODIES * 3)                                               \
+  A(float, inertia, MAX_BODIES * 9)                                           \
+  /* dofs */                                                                  \
+  A(float, neg_damping, MAX_NV)                                               \
+  A(float, neg_stiffness, MAX_NV)                                             \
+  A(float, springref, MAX_NV)                                                 \
+  A(float, armature, MAX_NV)                                                  \
+  A(float, qpos0, MAX_NV)                                                     \
+  /* contact rows: point candidates against planes */                         \
+  A(int32_t, row_body, MAX_ROWS)                                              \
+  A(float, row_local, MAX_ROWS * 3)                                           \
+  A(float, row_n, MAX_ROWS * 3)                                               \
+  A(float, row_t1, MAX_ROWS * 3)                                              \
+  A(float, row_t2, MAX_ROWS * 3)                                              \
+  A(float, row_depth0, MAX_ROWS) /* plane_d + radius */                       \
+  A(float, row_nrad, MAX_ROWS * 3) /* n * radius */                           \
+  A(float, row_mu, MAX_ROWS)                                                  \
+  /* joint-limit rows */                                                      \
+  A(int32_t, lim_dof, MAX_LIMITS)                                             \
+  A(int32_t, lim_qadr, MAX_LIMITS)                                            \
+  A(float, lim_sign, MAX_LIMITS)                                              \
+  A(float, lim_bound, MAX_LIMITS)                                             \
+  /* walker task */                                                           \
+  A(int32_t, act_dof, MAX_ACT)                                                \
+  A(int32_t, act_qadr, MAX_ACT)                                               \
+  A(float, gain, MAX_ACT)                                                     \
+  A(float, j_mid, MAX_ACT)                                                    \
+  A(float, j_half, MAX_ACT)                                                   \
+  A(int32_t, part_host, MAX_PARTS)                                            \
+  A(float, part_pos, MAX_PARTS * 3)                                           \
+  A(uint32_t, foot_rows, MAX_FEET) /* bit r: contact row r is this foot's */  \
+  S(float, reset_lo)                                                          \
+  S(float, reset_span)                                                        \
+  S(float, initial_z)                                                         \
+  S(float, target_x)                                                          \
+  S(float, target_y)                                                          \
+  S(float, control_dt)                                                        \
+  S(float, elec_coef)                                                         \
+  S(float, stall_coef)                                                        \
+  S(float, limit_coef)                                                        \
+  S(float, n_act)
+
+#define ENG_DECL_S(T, name) T name;
+#define ENG_DECL_A(T, name, n) T name[n];
+struct Tables {
+  ENG_TABLE_FIELDS(ENG_DECL_S, ENG_DECL_A)
+};
+#undef ENG_DECL_S
+#undef ENG_DECL_A
+
+// Pointers of one env-step launch; every array is (rows, B) batch-trailing.
+struct EnvIO {
+  const float* q;
+  const float* v;
+  const float* act;
+  const float* aux;
+  const uint8_t* term;
+  const uint8_t* trunc;
+  const int32_t* step_count;
+  const uint32_t* epoch;
+  const uint32_t* seed;
+  const int32_t* env_id;
+  float* q_out;
+  float* v_out;
+  float* obs;
+  float* reward;
+  uint8_t* term_out;
+  uint8_t* trunc_out;
+  int32_t* step_out;
+  uint32_t* epoch_out;
+  float* aux_out;
+  float* comps;
+};
+
+// ---- scalar helpers --------------------------------------------------------
+
+// Products and sums that must round exactly as the plain version's separate
+// tensor ops do (the reset draws are compared bitwise): never contracted.
+ENG_HD float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+ENG_HD float add_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
+// jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates.
+ENG_HD float jmax(float a, float b) { return (a != a || a > b) ? a : b; }
+ENG_HD float jmin(float a, float b) { return (a != a || a < b) ? a : b; }
+ENG_HD float jclip(float x, float lo, float hi) { return jmin(jmax(x, lo), hi); }
+ENG_HD float jsign(float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : x); }
+ENG_HD bool finite(float x) { return (x == x) && (fabsf(x) < 3.0e38f); }
+
+// ---- small vector algebra, formula for formula as ops/smath.py -------------
+
+struct V3 { float x, y, z; };
+struct M3 { float m[9]; };
+struct SV { V3 ang, lin; };            // spatial motion or force
+struct Inertia { float m; V3 h; M3 I; };
+
+ENG_HD V3 v3(float x, float y, float z) { V3 r = {x, y, z}; return r; }
+ENG_HD V3 v3_load(const float* p) { return v3(p[0], p[1], p[2]); }
+ENG_HD V3 v3_zero() { return v3(0.f, 0.f, 0.f); }
+ENG_HD V3 v3_add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+ENG_HD V3 v3_sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+ENG_HD V3 v3_scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+ENG_HD float v3_dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+ENG_HD V3 v3_cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+
+ENG_HD M3 m3_load(const float* p) {
+  M3 r;
+  for (int k = 0; k < 9; ++k) r.m[k] = p[k];
+  return r;
+}
+ENG_HD M3 m3_identity() {
+  M3 r;
+  for (int k = 0; k < 9; ++k) r.m[k] = (k % 4 == 0) ? 1.f : 0.f;
+  return r;
+}
+ENG_HD V3 m3_vec(const M3& a, V3 v) {
+  return v3(a.m[0] * v.x + a.m[1] * v.y + a.m[2] * v.z,
+            a.m[3] * v.x + a.m[4] * v.y + a.m[5] * v.z,
+            a.m[6] * v.x + a.m[7] * v.y + a.m[8] * v.z);
+}
+ENG_HD M3 m3_mul(const M3& a, const M3& b) {
+  M3 r;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      r.m[3 * i + j] = a.m[3 * i] * b.m[j] + a.m[3 * i + 1] * b.m[3 + j] +
+                       a.m[3 * i + 2] * b.m[6 + j];
+  return r;
+}
+ENG_HD M3 m3_transpose(const M3& a) {
+  M3 r;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) r.m[3 * i + j] = a.m[3 * j + i];
+  return r;
+}
+
+ENG_HD SV sv_zero() { SV r = {v3_zero(), v3_zero()}; return r; }
+ENG_HD SV sv_add(const SV& a, const SV& b) {
+  SV r = {v3_add(a.ang, b.ang), v3_add(a.lin, b.lin)};
+  return r;
+}
+ENG_HD SV sv_sub(const SV& a, const SV& b) {
+  SV r = {v3_sub(a.ang, b.ang), v3_sub(a.lin, b.lin)};
+  return r;
+}
+ENG_HD SV sv_scale(const SV& a, float s) {
+  SV r = {v3_scale(a.ang, s), v3_scale(a.lin, s)};
+  return r;
+}
+ENG_HD float sv_dot(const SV& a, const SV& b) {
+  return v3_dot(a.ang, b.ang) + v3_dot(a.lin, b.lin);
+}
+ENG_HD SV sv_cross_motion(const SV& v, const SV& m) {
+  SV r = {v3_cross(v.ang, m.ang),
+          v3_add(v3_cross(v.ang, m.lin), v3_cross(v.lin, m.ang))};
+  return r;
+}
+ENG_HD SV sv_cross_force(const SV& v, const SV& f) {
+  SV r = {v3_add(v3_cross(v.ang, f.ang), v3_cross(v.lin, f.lin)),
+          v3_cross(v.ang, f.lin)};
+  return r;
+}
+// motion -> force: (I_o w + h x v_o, m v_o - h x w)
+ENG_HD SV inertia_mul(const Inertia& I, const SV& v) {
+  SV r = {v3_add(m3_vec(I.I, v.ang), v3_cross(I.h, v.lin)),
+          v3_sub(v3_scale(v.lin, I.m), v3_cross(I.h, v.ang))};
+  return r;
+}
+
+// ---- Cephes atan/atan2, exactly as ops/smath.py ----------------------------
+
+ENG_HD float s_atan(float x) {
+  const float PI_2 = (float)1.5707963267948966, PI_4 = (float)0.7853981633974483;
+  float ax = fabsf(x);
+  bool big = ax > (float)2.414213562373095;
+  bool mid = ax > (float)0.4142135623730950;
+  float safe = ax > (float)1e-30 ? ax : (float)1e-30;
+  float z = big ? -1.f / safe : (mid ? (ax - 1.f) / (ax + 1.f) : ax);
+  float off = big ? PI_2 : (mid ? PI_4 : 0.f);
+  float zz = z * z;
+  float y = (((float)8.05374449538e-2 * zz - (float)1.38776856032e-1) * zz +
+             (float)1.99777106478e-1) * zz - (float)3.33329491539e-1;
+  y = y * zz * z + z;
+  return jsign(x) * (off + y);
+}
+
+ENG_HD float s_atan2(float y, float x) {
+  const float PI = (float)3.141592653589793, PI_2 = (float)1.5707963267948966;
+  float safe_x = fabsf(x) > (float)1e-30 ? x : (float)1e-30;
+  float base = s_atan(y / safe_x);
+  float shift = x < 0.f ? (y >= 0.f ? PI : -PI) : 0.f;
+  float out = base + shift;
+  if (fabsf(x) <= (float)1e-30) return y >= 0.f ? PI_2 : -PI_2;
+  return out;
+}
+
+// ---- Threefry-2x32 (20 rounds), bitwise as ops/rand.py ---------------------
+
+ENG_HD uint32_t rotl32(uint32_t x, int d) { return (x << d) | (x >> (32 - d)); }
+
+ENG_HD uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) {
+  const int ROT[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  uint32_t x0 = c0 + k0, x1 = c1 + k1;
+  for (int block = 0; block < 5; ++block) {
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = rotl32(x1, ROT[block % 2][r]) ^ x0;
+    }
+    int inj = block + 1;
+    x0 += ks[inj % 3];
+    x1 += ks[(inj + 1) % 3] + (uint32_t)inj;
+  }
+  return x0;
+}
+
+// U[lo, lo + span): 24-bit mantissa, then lo + span * u, each rounded once.
+ENG_HD float uniform(uint32_t seed, uint32_t stream, uint32_t env_id, uint32_t epoch,
+                     float lo, float span) {
+  uint32_t b = threefry_bits(seed, stream, env_id, epoch);
+  float u = mul_rn((float)(int32_t)(b >> 8), 5.9604644775390625e-08f);  // 2^-24
+  return add_rn(lo, mul_rn(span, u));
+}
+
+// ---- forward kinematics ------------------------------------------------------
+
+struct FKOut {
+  M3 R[MAX_BODIES];
+  V3 p[MAX_BODIES];
+  SV vel[MAX_BODIES];
+  V3 com[MAX_BODIES];
+  SV S[MAX_NV];
+};
+
+ENG_HD M3 rodrigues(V3 u, float th) {
+  float s = sinf(th);
+  float c = 1.f - cosf(th);
+  float ux = u.x, uy = u.y, uz = u.z;
+  M3 r;
+  r.m[0] = 1.f - c * (uy * uy + uz * uz);
+  r.m[1] = -s * uz + c * ux * uy;
+  r.m[2] = s * uy + c * ux * uz;
+  r.m[3] = s * uz + c * ux * uy;
+  r.m[4] = 1.f - c * (ux * ux + uz * uz);
+  r.m[5] = -s * ux + c * uy * uz;
+  r.m[6] = -s * uy + c * ux * uz;
+  r.m[7] = s * ux + c * uy * uz;
+  r.m[8] = 1.f - c * (ux * ux + uy * uy);
+  return r;
+}
+
+// World-frame FK, motion subspaces, body velocities and (if `inert` is not
+// null) origin-frame spatial inertias. dynamics.py · forward_kinematics.
+ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
+                               FKOut& fk, Inertia* inert) {
+  for (int i = 0; i < t.nb; ++i) {
+    const int par = t.parent[i];
+    M3 Rp = par < 0 ? m3_identity() : fk.R[par];
+    V3 pp = par < 0 ? v3_zero() : fk.p[par];
+    SV vp = par < 0 ? sv_zero() : fk.vel[par];
+    M3 R0 = m3_mul(Rp, m3_load(t.off_r + 9 * i));
+    V3 p0 = v3_add(pp, m3_vec(Rp, v3_load(t.off_p + 3 * i)));
+    const int d = t.v_adr[i];
+    M3 Ri;
+    V3 pi;
+    SV S;
+    if (t.jtype[i] == JT_HINGE) {
+      float th = q[t.q_adr[i]] - t.jref[i];
+      V3 a = v3_add(p0, m3_vec(R0, v3_load(t.jpos + 3 * i)));
+      V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
+      M3 Rj = rodrigues(u, th);
+      Ri = m3_mul(Rj, R0);
+      pi = v3_add(a, m3_vec(Rj, v3_sub(p0, a)));
+      S.ang = u;
+      S.lin = v3_cross(a, u);
+    } else {  // JT_SLIDE
+      V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
+      Ri = R0;
+      pi = v3_add(p0, v3_scale(u, q[t.q_adr[i]] - t.jref[i]));
+      S.ang = v3_zero();
+      S.lin = u;
+    }
+    fk.S[d] = S;
+    fk.vel[i] = sv_add(vp, sv_scale(S, v[d]));
+    fk.R[i] = Ri;
+    fk.p[i] = pi;
+    if (t.has_mass[i]) {
+      V3 c = v3_add(pi, m3_vec(Ri, v3_load(t.com + 3 * i)));
+      fk.com[i] = c;
+      if (inert) {
+        // I_o = R I_c R^T + m (|c|^2 E - c c^T); smath.inertia_from_body
+        M3 icw = m3_mul(Ri, m3_mul(m3_load(t.inertia + 9 * i), m3_transpose(Ri)));
+        const float mass = t.mass[i];
+        float c2 = v3_dot(c, c);
+        float cc[3] = {c.x, c.y, c.z};
+        Inertia In;
+        In.m = mass;
+        In.h = v3_scale(c, mass);
+        for (int a = 0; a < 3; ++a)
+          for (int b = 0; b < 3; ++b) {
+            float para = (a == b ? c2 : 0.f) - cc[a] * cc[b];
+            In.I.m[3 * a + b] = icw.m[3 * a + b] + para * mass;
+          }
+        inert[i] = In;
+      }
+    } else {
+      fk.com[i] = pi;
+      if (inert) {
+        Inertia In;
+        In.m = 0.f;
+        In.h = v3_zero();
+        for (int k = 0; k < 9; ++k) In.I.m[k] = 0.f;
+        inert[i] = In;
+      }
+    }
+  }
+}
+
+// ---- dynamics: RNE bias, CRBA, Cholesky and its solves ---------------------
+
+// C(q, qd), world-frame RNE with the gravity trick. dynamics.py · bias_forces
+ENG_HD void bias_forces(const Tables& t, const FKOut& fk, const Inertia* inert, float* C) {
+  SV avp[MAX_BODIES], f[MAX_BODIES];
+  SV a0 = {v3_zero(), v3_load(t.gravity_neg)};
+  for (int i = 0; i < t.nb; ++i) {
+    const int par = t.parent[i];
+    const SV& ap = par < 0 ? a0 : avp[par];
+    SV parent_vel = par < 0 ? sv_zero() : fk.vel[par];
+    SV vj = sv_sub(fk.vel[i], parent_vel);
+    avp[i] = sv_add(ap, sv_cross_motion(fk.vel[i], vj));
+    SV hi = inertia_mul(inert[i], fk.vel[i]);
+    f[i] = sv_add(inertia_mul(inert[i], avp[i]), sv_cross_force(fk.vel[i], hi));
+  }
+  for (int i = t.nb - 1; i >= 0; --i)
+    if (t.parent[i] >= 0) f[t.parent[i]] = sv_add(f[t.parent[i]], f[i]);
+  for (int i = 0; i < t.nb; ++i) C[t.v_adr[i]] = sv_dot(fk.S[t.v_adr[i]], f[i]);
+}
+
+// CRBA lower triangle into M (nv*nv, row-major); composite inertias sum
+// leafwise, composite masses come from the tables. dynamics.py · mass_matrix
+ENG_HD void mass_matrix(const Tables& t, const FKOut& fk, Inertia* Ic, float* M) {
+  const int nv = t.nv;
+  for (int k = 0; k < nv * nv; ++k) M[k] = 0.f;
+  for (int i = t.nb - 1; i >= 0; --i) {
+    const int par = t.parent[i];
+    if (par >= 0) {
+      Ic[par].h = v3_add(Ic[par].h, Ic[i].h);
+      for (int k = 0; k < 9; ++k) Ic[par].I.m[k] = Ic[par].I.m[k] + Ic[i].I.m[k];
+    }
+  }
+  for (int i = 0; i < t.nb; ++i) {
+    const int d = t.v_adr[i];
+    Inertia I = Ic[i];
+    I.m = t.cmass[i];
+    SV F = inertia_mul(I, fk.S[d]);
+    for (int e = 0; e <= d; ++e)
+      if (t.anc_mask[i] & (1u << e)) M[d * nv + e] = sv_dot(fk.S[e], F);
+  }
+  for (int d = 0; d < nv; ++d)
+    if (t.armature[d] != 0.f) M[d * nv + d] = M[d * nv + d] + t.armature[d];
+}
+
+// Lower Cholesky M = L L^T; L (nv*nv) zero above the diagonal.
+ENG_HD void cholesky(int n, const float* M, float* L, float* inv_diag) {
+  for (int k = 0; k < n * n; ++k) L[k] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float s = M[j * n + j];
+    for (int k = 0; k < j; ++k) s = s - L[j * n + k] * L[j * n + k];
+    float djj = sqrtf(jmax(s, (float)1e-9));
+    L[j * n + j] = djj;
+    inv_diag[j] = 1.f / djj;
+    for (int i = j + 1; i < n; ++i) {
+      float r = M[i * n + j];
+      for (int k = 0; k < j; ++k) r = r - L[i * n + k] * L[j * n + k];
+      L[i * n + j] = r * inv_diag[j];
+    }
+  }
+}
+
+// y = L^-1 b
+ENG_HD void chol_fwd(int n, const float* L, const float* inv_diag, const float* b, float* y) {
+  for (int i = 0; i < n; ++i) {
+    float s = b[i];
+    for (int k = 0; k < i; ++k) s = s - L[i * n + k] * y[k];
+    y[i] = s * inv_diag[i];
+  }
+}
+
+// x = L^-T y
+ENG_HD void chol_back(int n, const float* L, const float* inv_diag, const float* y, float* x) {
+  for (int i = n - 1; i >= 0; --i) {
+    float s = y[i];
+    for (int k = i + 1; k < n; ++k) s = s - L[k * n + i] * x[k];
+    x[i] = s * inv_diag[i];
+  }
+}
+
+ENG_HD float dotn(int n, const float* a, const float* b) {
+  float s = 0.f;
+  for (int d = 0; d < n; ++d) s = s + a[d] * b[d];
+  return s;
+}
+
+ENG_HD void axpy(int n, float* v, const float* w, float s) {
+  for (int d = 0; d < n; ++d) v[d] = v[d] + w[d] * s;
+}
+
+// ---- one physics substep: step.py · make_substep_scalar --------------------
+
+// Advances q, v in place; writes the contact depths of this substep.
+ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float* depth) {
+  const int nv = t.nv, nr = t.nr, nl = t.nl;
+  FKOut fk;
+  Inertia inert[MAX_BODIES];
+  forward_kinematics(t, q, v, fk, inert);
+
+  float C[MAX_NV], rhs[MAX_NV];
+  bias_forces(t, fk, inert, C);
+  for (int d = 0; d < nv; ++d) {
+    // passive forces (dynamics.py · passive_forces), bodies carry one dof
+    float tp = 0.f;
+    if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * v[d];
+    if (t.neg_stiffness[d] != 0.f)
+      tp = tp + t.neg_stiffness[d] * (q[t.q_adr[d]] - t.springref[d]);
+    rhs[d] = (tau[d] + tp) - C[d];
+  }
+  float M[MAX_NV * MAX_NV], L[MAX_NV * MAX_NV], inv_diag[MAX_NV];
+  mass_matrix(t, fk, inert, M);
+  cholesky(nv, M, L, inv_diag);
+  float y_dyn[MAX_NV];
+  chol_fwd(nv, L, inv_diag, rhs, y_dyn);
+
+  // narrowphase: point candidates vs planes (contacts.py · narrowphase_scalar)
+  V3 P[MAX_ROWS];
+  for (int r = 0; r < nr; ++r) {
+    const int b = t.row_body[r];
+    V3 x = v3_add(fk.p[b], m3_vec(fk.R[b], v3_load(t.row_local + 3 * r)));
+    depth[r] = t.row_depth0[r] - v3_dot(v3_load(t.row_n + 3 * r), x);
+    P[r] = v3_sub(x, v3_load(t.row_nrad + 3 * r));
+  }
+
+  float v3o[MAX_NV], vp[MAX_NV];
+  if (nr > 0 || nl > 0) {
+    // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
+    float z[MAX_NV];
+    for (int i = 0; i < nv; ++i) {
+      float s = L[i * nv + i] * v[i];
+      for (int k = i + 1; k < nv; ++k) s = s + L[k * nv + i] * v[k];
+      z[i] = s + t.dt * y_dyn[i];
+    }
+    // forward-solved constraint rows y = L^-1 J^T (contacts.py ·
+    // scalar_jacobians, step.py): 3 directions per contact row, one per limit
+    float y_rows[MAX_ROWS * 3 * MAX_NV];
+    float y_lim[MAX_LIMITS * MAX_NV];
+    for (int r = 0; r < nr; ++r) {
+      const uint32_t mask = t.anc_mask[t.row_body[r]];
+      const V3 dirs[3] = {v3_load(t.row_n + 3 * r), v3_load(t.row_t1 + 3 * r),
+                          v3_load(t.row_t2 + 3 * r)};
+      float J[3][MAX_NV];
+      for (int d = 0; d < nv; ++d) {
+        if (mask & (1u << d)) {
+          V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, P[r]));
+          for (int k = 0; k < 3; ++k) J[k][d] = v3_dot(dirs[k], vel);
+        } else {
+          for (int k = 0; k < 3; ++k) J[k][d] = 0.f;
+        }
+      }
+      for (int k = 0; k < 3; ++k) chol_fwd(nv, L, inv_diag, J[k], y_rows + (3 * r + k) * nv);
+    }
+    for (int l = 0; l < nl; ++l) {
+      float e[MAX_NV];
+      for (int d = 0; d < nv; ++d) e[d] = d == t.lim_dof[l] ? 1.f : 0.f;
+      chol_fwd(nv, L, inv_diag, e, y_lim + l * nv);
+    }
+
+    // PGS set-up (contacts.py · solve_scalar)
+    float dinv[MAX_ROWS * 3], b_vel[MAX_ROWS], b_pos[MAX_ROWS];
+    for (int r = 0; r < nr; ++r) {
+      const float* yn = y_rows + 3 * r * nv;
+      for (int k = 0; k < 3; ++k) {
+        const float* yk = y_rows + (3 * r + k) * nv;
+        dinv[3 * r + k] = 1.f / (dotn(nv, yk, yk) + t.reg);
+      }
+      const float dep = depth[r];
+      if (t.e_comb_zero) {
+        b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
+      } else {
+        float vn_pre = dotn(nv, yn, z);
+        float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
+        bool touching = dep >= vn_pre * t.dt;
+        b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
+      }
+      b_pos[r] = t.erp_over_dt * (dep - t.slop);
+    }
+    float dinv_l[MAX_LIMITS], b_l[MAX_LIMITS];
+    for (int l = 0; l < nl; ++l) {
+      const float* w = y_lim + l * nv;
+      dinv_l[l] = 1.f / (dotn(nv, w, w) + t.reg);
+      float viol = t.lim_sign[l] * (t.lim_bound[l] - q[t.lim_qadr[l]]);
+      b_l[l] = t.limit_erp_over_dt * viol;
+    }
+
+    float lam_n[MAX_ROWS], lam_t1[MAX_ROWS], lam_t2[MAX_ROWS], lam_p[MAX_ROWS];
+    float lam_l[MAX_LIMITS];
+    for (int r = 0; r < nr; ++r) lam_n[r] = lam_t1[r] = lam_t2[r] = lam_p[r] = 0.f;
+    for (int l = 0; l < nl; ++l) lam_l[l] = 0.f;
+    float zp[MAX_NV];
+    for (int d = 0; d < nv; ++d) zp[d] = 0.f;
+
+    for (int it = 0; it < t.iterations; ++it) {
+      for (int r = 0; r < nr; ++r) {
+        const float* yn = y_rows + 3 * r * nv;
+        const float* yt1 = yn + nv;
+        const float* yt2 = yn + 2 * nv;
+        float vn = dotn(nv, yn, z);
+        float nw = jmax(lam_n[r] + (b_vel[r] - vn) * dinv[3 * r], 0.f);
+        axpy(nv, z, yn, nw - lam_n[r]);
+        lam_n[r] = nw;
+        float hi = t.row_mu[r] * nw;
+        float vt = dotn(nv, yt1, z);
+        nw = jclip(lam_t1[r] - vt * dinv[3 * r + 1], -hi, hi);
+        axpy(nv, z, yt1, nw - lam_t1[r]);
+        lam_t1[r] = nw;
+        vt = dotn(nv, yt2, z);
+        nw = jclip(lam_t2[r] - vt * dinv[3 * r + 2], -hi, hi);
+        axpy(nv, z, yt2, nw - lam_t2[r]);
+        lam_t2[r] = nw;
+        // split-impulse position correction
+        float vpn = dotn(nv, yn, zp);
+        nw = jmax(lam_p[r] + (b_pos[r] - vpn) * dinv[3 * r], 0.f);
+        axpy(nv, zp, yn, nw - lam_p[r]);
+        lam_p[r] = nw;
+      }
+      for (int l = 0; l < nl; ++l) {
+        const float* w = y_lim + l * nv;
+        const float sign = t.lim_sign[l];
+        float vd = sign * dotn(nv, w, z);
+        float nw = jmax(lam_l[l] + (b_l[l] - vd) * dinv_l[l], 0.f);
+        axpy(nv, z, w, sign * (nw - lam_l[l]));
+        lam_l[l] = nw;
+      }
+    }
+    chol_back(nv, L, inv_diag, z, v3o);
+    chol_back(nv, L, inv_diag, zp, vp);
+  } else {
+    float qdd[MAX_NV];
+    chol_back(nv, L, inv_diag, y_dyn, qdd);
+    for (int d = 0; d < nv; ++d) {
+      v3o[d] = v[d] + t.dt * qdd[d];
+      vp[d] = 0.f;
+    }
+  }
+  // velocity clamp, then semi-implicit Euler with the split-impulse velocity
+  for (int d = 0; d < nv; ++d) v3o[d] = jclip(v3o[d], -t.max_velocity, t.max_velocity);
+  for (int i = 0; i < t.nb; ++i) {
+    const int qa = t.q_adr[i], va = t.v_adr[i];
+    q[qa] = q[qa] + t.dt * (v3o[va] + vp[va]);
+  }
+  for (int d = 0; d < nv; ++d) v[d] = v3o[d];
+}
+
+// ---- walker task: locomotion.py · WalkerTask --------------------------------
+
+ENG_HD void mean_parts_xy(const Tables& t, const FKOut& fk, float& bx, float& by) {
+  float sx = 0.f, sy = 0.f;
+  for (int k = 0; k < t.nparts; ++k) {
+    const int h = t.part_host[k];
+    V3 p = v3_add(fk.p[h], m3_vec(fk.R[h], v3_load(t.part_pos + 3 * k)));
+    sx = sx + p.x;
+    sy = sy + p.y;
+  }
+  bx = sx / (float)t.nparts;
+  by = sy / (float)t.nparts;
+}
+
+// Fresh episode: initial_state_scalar. aux in sorted key order.
+ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                          float* q, float* v, float* aux) {
+  for (int j = 0; j < t.nq; ++j) q[j] = t.qpos0[j];
+  for (int k = 0; k < t.act; ++k) {
+    const int qa = t.act_qadr[k];
+    float u = uniform(seed, (uint32_t)k, env_id, epoch, t.reset_lo, t.reset_span);
+    q[qa] = add_rn(t.qpos0[qa], u);
+  }
+  for (int d = 0; d < t.nv; ++d) v[d] = 0.f;
+  FKOut fk;
+  forward_kinematics(t, q, v, fk, nullptr);
+  float bx, by;
+  mean_parts_xy(t, fk, bx, by);
+  float dx = t.target_x - bx, dy = t.target_y - by;
+  float dist = sqrtf(dx * dx + dy * dy);
+  aux[0] = t.initial_z;
+  aux[1] = -dist / t.control_dt;
+  aux[2] = t.target_x;
+  aux[3] = t.target_y;
+}
+
+// obs, reward, termination, new aux and reward components: output_scalar.
+ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const float* depth,
+                          const float* a, const float* aux, float* obs, float& reward,
+                          bool& term, float* aux2, float* comps) {
+  FKOut fk;
+  forward_kinematics(t, q, v, fk, nullptr);
+  const int na = t.act;
+  float rel[MAX_ACT], jspeed[MAX_ACT];
+  float joints_at_limit = 0.f;
+  for (int k = 0; k < na; ++k) {
+    rel[k] = (q[t.act_qadr[k]] - t.j_mid[k]) / t.j_half[k];
+    jspeed[k] = (float)0.1 * v[t.act_dof[k]];
+  }
+  for (int k = 0; k < na; ++k) joints_at_limit = joints_at_limit + (fabsf(rel[k]) > (float)0.99 ? 1.f : 0.f);
+
+  const int bb = t.base_body;
+  const M3& Rb = fk.R[bb];
+  V3 com = fk.com[bb];
+  float roll = s_atan2(Rb.m[7], Rb.m[8]);
+  float pitch = s_atan2(-Rb.m[6], sqrtf(Rb.m[7] * Rb.m[7] + Rb.m[8] * Rb.m[8]));
+  float yaw = s_atan2(Rb.m[3], Rb.m[0]);
+  V3 vel = v3_add(fk.vel[bb].lin, v3_cross(fk.vel[bb].ang, com));
+
+  float bx, by;
+  mean_parts_xy(t, fk, bx, by);
+  float bz = com.z;
+  float tx = aux[2], ty = aux[3];
+  float dx = tx - bx, dy = ty - by;
+  float angle_to_target = s_atan2(dy, dx) - yaw;
+  float dist = sqrtf(dx * dx + dy * dy);
+  float cy = cosf(-yaw), sy = sinf(-yaw);
+  float vx = cy * vel.x - sy * vel.y;
+  float vy = sy * vel.x + cy * vel.y;
+  float vz = vel.z;
+
+  float feet[MAX_FEET];
+  for (int f = 0; f < t.nfeet; ++f) {
+    bool flag = false;
+    for (int r = 0; r < t.nr; ++r)
+      if ((t.foot_rows[f] & (1u << r)) && depth[r] > 0.f) flag = true;
+    feet[f] = flag ? 1.f : 0.f;
+  }
+
+  int o = 0;
+  obs[o++] = bz - aux[0];
+  obs[o++] = sinf(angle_to_target);
+  obs[o++] = cosf(angle_to_target);
+  obs[o++] = (float)0.3 * vx;
+  obs[o++] = (float)0.3 * vy;
+  obs[o++] = (float)0.3 * vz;
+  obs[o++] = roll;
+  obs[o++] = pitch;
+  for (int k = 0; k < na; ++k) {
+    obs[o++] = rel[k];
+    obs[o++] = jspeed[k];
+  }
+  for (int f = 0; f < t.nfeet; ++f) obs[o++] = feet[f];
+  for (int k = 0; k < o; ++k) obs[k] = jclip(obs[k], -5.f, 5.f);
+
+  // alive bonus, "cheetah" mode: dead if a shin or thigh (foot_list
+  // indices 1, 2, 4, 5) touches, or |pitch| >= 1
+  bool bad_touch = (feet[1] + feet[2] + feet[4] + feet[5]) > 0.5f;
+  bool ok = (fabsf(pitch) < 1.f) && !bad_touch;
+  float alive = ok ? 1.f : -1.f;
+
+  float potential = -dist / t.control_dt;
+  float progress = potential - aux[1];
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = 0; k < na; ++k) s1 = s1 + fabsf(a[k] * jspeed[k]);
+  for (int k = 0; k < na; ++k) s2 = s2 + a[k] * a[k];
+  float electricity = t.elec_coef * s1 / t.n_act + t.stall_coef * s2 / t.n_act;
+  float limit_cost = t.limit_coef * joints_at_limit;
+  float feet_collision = 0.f;
+  reward = alive + progress + electricity + limit_cost + feet_collision;
+  term = alive < 0.f;
+  aux2[0] = aux[0];
+  aux2[1] = potential;
+  aux2[2] = tx;
+  aux2[3] = ty;
+  comps[0] = alive;
+  comps[1] = electricity;
+  comps[2] = feet_collision;
+  comps[3] = limit_cost;
+  comps[4] = progress;
+}
+
+// ---- the two kernel bodies ---------------------------------------------------
+
+// `frame_skip` substeps with held torques; depths of the last substep.
+// pallas_engine.py · make_pallas_physics_step
+ENG_HD void physics_step_one(const Tables& t, int i, int B, const float* q_in,
+                             const float* v_in, const float* tau_in, float* q_out,
+                             float* v_out, float* d_out) {
+  float q[MAX_NV], v[MAX_NV], tau[MAX_NV], depth[MAX_ROWS];
+  for (int k = 0; k < t.nq; ++k) q[k] = q_in[k * B + i];
+  for (int k = 0; k < t.nv; ++k) {
+    v[k] = v_in[k * B + i];
+    tau[k] = tau_in[k * B + i];
+  }
+  for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
+  for (int s = 0; s < t.frame_skip; ++s) substep(t, q, v, tau, depth);
+  for (int k = 0; k < t.nq; ++k) q_out[k * B + i] = q[k];
+  for (int k = 0; k < t.nv; ++k) v_out[k * B + i] = v[k];
+  for (int r = 0; r < t.nr; ++r) d_out[r * B + i] = depth[r];
+}
+
+// The whole env step. pallas_engine.py · make_pallas_env_step
+ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
+  const bool done = io.term[i] != 0 || io.trunc[i] != 0;
+  const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
+  const uint32_t seed = io.seed[i];
+  const uint32_t env_id = (uint32_t)io.env_id[i];
+  float q[MAX_NV], v[MAX_NV], aux[NAUX];
+  int32_t step_count;
+  if (done) {  // auto-reset [ref: env_bases.py · BaseBulletEnv.reset]
+    initial_state(t, seed, env_id, epoch, q, v, aux);
+    step_count = 0;
+  } else {
+    for (int k = 0; k < t.nq; ++k) q[k] = io.q[k * B + i];
+    for (int k = 0; k < t.nv; ++k) v[k] = io.v[k * B + i];
+    for (int k = 0; k < NAUX; ++k) aux[k] = io.aux[k * B + i];
+    step_count = io.step_count[i];
+  }
+  // torques [ref: WalkerBase.apply_action]
+  float a[MAX_ACT], tau[MAX_NV], depth[MAX_ROWS];
+  for (int k = 0; k < t.act; ++k) a[k] = jclip(io.act[k * B + i], -1.f, 1.f);
+  for (int d = 0; d < t.nv; ++d) tau[d] = 0.f;
+  for (int k = 0; k < t.act; ++k) tau[t.act_dof[k]] = t.gain[k] * a[k];
+  for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
+  for (int s = 0; s < t.frame_skip; ++s) substep(t, q, v, tau, depth);
+
+  float obs[8 + 2 * MAX_ACT + MAX_FEET], reward, aux2[NAUX], comps[NCOMP];
+  bool term;
+  walker_output(t, q, v, depth, a, aux, obs, reward, term, aux2, comps);
+
+  // NaN guard [ref: walker_base_env.py · step isfinite check]
+  bool fin = finite(reward);
+  for (int k = 0; k < t.obs_dim; ++k) fin = fin && finite(obs[k]);
+  for (int k = 0; k < t.nq; ++k) fin = fin && finite(q[k]);
+  for (int k = 0; k < t.nv; ++k) fin = fin && finite(v[k]);
+  term = term || !fin;
+  for (int k = 0; k < t.obs_dim; ++k) obs[k] = finite(obs[k]) ? obs[k] : 0.f;
+  reward = finite(reward) ? reward : 0.f;
+  const int32_t step2 = step_count + 1;
+  const bool trunc = (step2 >= t.max_steps) && !term;
+
+  for (int k = 0; k < t.nq; ++k) io.q_out[k * B + i] = q[k];
+  for (int k = 0; k < t.nv; ++k) io.v_out[k * B + i] = v[k];
+  for (int k = 0; k < t.obs_dim; ++k) io.obs[k * B + i] = obs[k];
+  io.reward[i] = reward;
+  io.term_out[i] = term ? 1 : 0;
+  io.trunc_out[i] = trunc ? 1 : 0;
+  io.step_out[i] = step2;
+  io.epoch_out[i] = epoch;
+  for (int k = 0; k < NAUX; ++k) io.aux_out[k * B + i] = aux2[k];
+  for (int k = 0; k < NCOMP; ++k) io.comps[k * B + i] = comps[k];
+}
+
+// Byte offset of every table field, in declaration order; the Python side
+// checks its ctypes mirror against these.
+inline int tables_layout(int32_t* out, int cap) {
+  int n = 0;
+#define ENG_OFF_S(T, name) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
+#define ENG_OFF_A(T, name, k) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
+  ENG_TABLE_FIELDS(ENG_OFF_S, ENG_OFF_A)
+#undef ENG_OFF_S
+#undef ENG_OFF_A
+  return n;
+}
+
+}  // namespace eng

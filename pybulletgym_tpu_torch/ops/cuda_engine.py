@@ -1,0 +1,561 @@
+"""CUDA engine: the env step as hand-written kernels for Hopper (sm_90a).
+
+Counterpart of the JAX package's `ops/pallas_engine.py`:
+
+* `make_cuda_physics_step(model, cfg)` replaces `make_pallas_physics_step`:
+  frame_skip substeps of FK -> RNE/CRBA -> Cholesky -> narrowphase ->
+  square-root-space PGS -> semi-implicit Euler, one CUDA thread per env.
+* `make_cuda_env_step(task)` replaces `make_pallas_env_step`: the whole env
+  step (auto-reset with Threefry draws, torques, substeps, obs/reward/
+  termination, NaN guard, step count, truncation) in one launch.
+
+The kernels' source is `csrc/engine_core.h` (the algorithm, table-driven,
+`__host__ __device__`) and `csrc/engine.cu` (two thin `__global__` kernels
+and their `extern "C"` launchers). `pack_tables` flattens the frozen
+`Model`, the contact and limit plans and the task constants into one
+fixed-size `Tables` struct, whose layout is parsed from the header.
+
+The library is built at first use with nvcc into `_build/` (keyed by the
+sources' content hash) and loaded with ctypes. Each wrapper checks its
+tensors, allocates outputs with `torch.empty` and launches on the current
+stream without synchronising. A CPU tensor goes to the plain PyTorch
+version; a CUDA tensor launches the kernel or raises. There is no fallback.
+
+`HostTwin` builds the same core with g++ for the CPU tests only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pybulletgym_tpu_torch.models.schema import JointType, Model
+from pybulletgym_tpu_torch.ops import contacts as ct
+from pybulletgym_tpu_torch.ops.dynamics import _quat_np_to_mat
+from pybulletgym_tpu_torch.ops.step import PhysicsConfig, make_physics_step_plain, sc_rows
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+AUX_KEYS = ("initial_z", "potential", "target_x", "target_y")
+COMP_KEYS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
+
+_CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
+
+
+# ---------------------------------------------------------------------------
+# the Tables struct, mirrored from csrc/engine_core.h
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def tables_type():
+    """ctypes mirror of `eng::Tables` and the header's caps, parsed from
+    engine_core.h (the single source of the layout)."""
+    src = open(os.path.join(CSRC, "engine_core.h")).read()
+    caps = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("#define ENG_DECL_S")]
+    fields = []
+    for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
+        kind, ctype, name, count = m.groups()
+        t = _CTYPES[ctype]
+        if kind == "A":
+            t = t * int(eval(count, {"__builtins__": {}}, caps))
+        fields.append((name, t))
+    cls = type("Tables", (ctypes.Structure,), {"_fields_": fields})
+    return cls, caps
+
+
+def _set(arr, values, cap, what):
+    values = list(values)
+    if len(values) > cap:
+        raise ValueError(f"{what}: {len(values)} entries exceed the kernel cap {cap}")
+    for k, x in enumerate(values):
+        arr[k] = x
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _composite_masses(model: Model):
+    """CRBA composite masses with the plain version's arithmetic: a body's
+    mass enters as a Python float (double sums) when positive and as a
+    float32 zero tensor otherwise, where sums round to float32."""
+    vals = [("py", float(b.mass)) if b.mass > 0.0 else ("f32", np.float32(0.0))
+            for b in model.bodies]
+    for i in range(len(model.bodies) - 1, -1, -1):
+        p = model.bodies[i].parent
+        if p != -1:
+            (ka, a), (kb, b) = vals[p], vals[i]
+            vals[p] = ("py", a + b) if ka == kb == "py" else ("f32", np.float32(a) + np.float32(b))
+    return [_f32(v) for _, v in vals]
+
+
+def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None):
+    """Physics part of the tables (model, plans, solver constants). Raises
+    for what the kernels do not have yet: free joints, disk and pair
+    contact rows, models over the caps."""
+    Tables, caps = tables_type()
+    t = Tables()
+    nb = len(model.bodies)
+    for i, b in enumerate(model.bodies):
+        if b.jtype == JointType.FREE:
+            raise NotImplementedError(f"{model.name}: free joints are not in the CUDA kernels yet")
+        if b.q_adr != i or b.v_adr != i:
+            raise NotImplementedError(f"{model.name}: body {b.name} has a multi-dof layout")
+    if nb > caps["MAX_BODIES"] or model.nv > caps["MAX_NV"]:
+        raise ValueError(f"{model.name}: {nb} bodies / {model.nv} dofs exceed the kernel caps")
+    floor, pairs = ct.build_contact_plan(model, cfg.solver)
+    if pairs:
+        raise NotImplementedError(f"{model.name}: pair contact rows are not in the CUDA kernels yet")
+    if any(c.kind != "point" for c in floor):
+        raise NotImplementedError(f"{model.name}: disk contact rows are not in the CUDA kernels yet")
+    rows = sc_rows((floor, pairs))
+    lim = ct.build_limit_plan(model)
+    nl = 0 if lim is None else int(lim.dof.shape[0])
+    t.nb, t.nq, t.nv, t.nr, t.nl = nb, model.nq, model.nv, len(rows), nl
+    t.frame_skip = cfg.frame_skip if frame_skip is None else int(frame_skip)
+    t.iterations = cfg.solver.iterations
+    sol = cfg.solver
+    e_comb = sol.restitution * sol.geom_restitution
+    t.e_comb_zero = int(e_comb == 0.0)
+    dt = cfg.timestep
+    t.dt = _f32(dt)
+    _set(t.gravity_neg, [_f32(-float(g)) for g in cfg.gravity], 3, "gravity")
+    t.max_velocity = _f32(cfg.max_velocity)
+    t.erp_over_dt = _f32(sol.erp / dt)
+    t.slop = _f32(sol.slop)
+    t.limit_erp_over_dt = _f32(sol.limit_erp / dt)
+    t.reg = _f32(sol.regularization)
+    t.neg_e_comb = _f32(-e_comb)
+    t.neg_rest_threshold = _f32(-sol.rest_threshold)
+
+    cmass = _composite_masses(model)
+    f3 = lambda a: [_f32(float(x)) for x in np.asarray(a, np.float64).reshape(-1)]  # noqa: E731
+    off_r, off_p, jpos, jaxis, com, inertia = [], [], [], [], [], []
+    for i, b in enumerate(model.bodies):
+        t.parent[i] = b.parent
+        t.jtype[i] = int(b.jtype)
+        t.q_adr[i] = b.q_adr
+        t.v_adr[i] = b.v_adr
+        t.has_mass[i] = int(b.mass > 0.0)
+        t.anc_mask[i] = sum(1 << d for d in model.ancestor_dofs[i])
+        off_r += f3(_quat_np_to_mat(b.quat))
+        off_p += f3(b.pos)
+        jpos += f3(b.jpos)
+        jaxis += f3(b.jaxis)
+        t.jref[i] = _f32(b.jref)
+        t.mass[i] = _f32(b.mass) if b.mass > 0.0 else 0.0
+        t.cmass[i] = cmass[i]
+        com += f3(b.com)
+        inertia += f3(b.inertia)
+    _set(t.off_r, off_r, 9 * caps["MAX_BODIES"], "off_r")
+    _set(t.off_p, off_p, 3 * caps["MAX_BODIES"], "off_p")
+    _set(t.jpos, jpos, 3 * caps["MAX_BODIES"], "jpos")
+    _set(t.jaxis, jaxis, 3 * caps["MAX_BODIES"], "jaxis")
+    _set(t.com, com, 3 * caps["MAX_BODIES"], "com")
+    _set(t.inertia, inertia, 9 * caps["MAX_BODIES"], "inertia")
+    for d in range(model.nv):
+        t.neg_damping[d] = _f32(-float(model.dof_damping[d]))
+        t.neg_stiffness[d] = _f32(-float(model.dof_stiffness[d]))
+        t.springref[d] = _f32(model.dof_springref[d])
+        t.armature[d] = _f32(model.dof_armature[d])
+        t.qpos0[d] = _f32(model.qpos0[d])
+
+    if len(rows) > caps["MAX_ROWS"] or nl > caps["MAX_LIMITS"]:
+        raise ValueError(f"{model.name}: {len(rows)} contact / {nl} limit rows exceed the kernel caps")
+    for r, c in enumerate(rows):
+        n = tuple(float(x) for x in c.plane_n)
+        t1, t2 = ct._tangent_basis_static(c.plane_n)
+        t.row_body[r] = c.body
+        for k in range(3):
+            t.row_local[3 * r + k] = _f32(c.local[k])
+            t.row_n[3 * r + k] = _f32(n[k])
+            t.row_t1[3 * r + k] = _f32(t1[k])
+            t.row_t2[3 * r + k] = _f32(t2[k])
+            t.row_nrad[3 * r + k] = _f32(n[k] * c.radius)
+        t.row_depth0[r] = _f32(c.plane_d + c.radius)
+        t.row_mu[r] = _f32(c.mu)
+    for l in range(nl):
+        t.lim_dof[l] = int(lim.dof[l])
+        t.lim_qadr[l] = int(lim.qadr[l])
+        t.lim_sign[l] = _f32(lim.sign[l])
+        t.lim_bound[l] = _f32(lim.bound[l])
+    return t
+
+
+def pack_tables(task, frame_skip: Optional[int] = None):
+    """All tables of the env-step kernel for `task` (physics + walker task
+    constants). Raises for a task the kernel does not implement: anything
+    but the port's plain `WalkerTask` with the "cheetah" alive mode (other
+    alive modes, retargeting or pre-physics hooks, other task families)."""
+    from pybulletgym_tpu_torch.envs.base import Task
+    from pybulletgym_tpu_torch.envs.locomotion import WalkerTask
+
+    if type(task) is not WalkerTask:
+        raise NotImplementedError(f"{type(task).__name__}: only WalkerTask is in the CUDA kernels yet")
+    if type(task).pre_physics_scalar is not Task.pre_physics_scalar:
+        raise NotImplementedError("pre_physics_scalar is not in the CUDA kernels yet")
+    if task.spec.alive_mode != "cheetah":
+        raise NotImplementedError(f"alive mode {task.spec.alive_mode!r} is not in the CUDA kernels yet")
+    t = pack_physics(task.model, task.physics, frame_skip)
+    _, caps = tables_type()
+    if len(task.foot_rows) < 6:
+        raise ValueError("the cheetah alive mode reads feet 1, 2, 4 and 5")
+    _check_keys(task)
+    t.act = task.act_dim
+    t.nfeet = len(task.foot_rows)
+    t.nparts = len(task.part_frames)
+    t.obs_dim = task.obs_dim
+    t.max_steps = int(task.max_episode_steps)
+    t.base_body = int(task.base_body)
+    if task.act_dim > caps["MAX_ACT"] or t.nfeet > caps["MAX_FEET"] or t.nparts > caps["MAX_PARTS"]:
+        raise ValueError(f"{task.spec.name}: actuators/feet/parts exceed the kernel caps")
+    for k in range(task.act_dim):
+        t.act_dof[k] = int(task.act_dofs[k])
+        t.act_qadr[k] = int(task.act_qadr[k])
+        t.gain[k] = _f32(task.gains[k, 0])
+        t.j_mid[k] = _f32(task.j_mid[k, 0])
+        t.j_half[k] = _f32(task.j_halfrange[k, 0])
+    for k, (host, pos, _quat) in enumerate(task.part_frames):
+        t.part_host[k] = int(host)
+        for j in range(3):
+            t.part_pos[3 * k + j] = _f32(float(pos[j]))
+    for f, rows in enumerate(task.foot_rows):
+        t.foot_rows[f] = sum(1 << r for r in rows)
+    # reset draws: uniform(-0.1, 0.1) per actuated joint (WalkerTask)
+    t.reset_lo = _f32(-0.1)
+    t.reset_span = _f32(0.1 - (-0.1))
+    t.initial_z = _f32(task.initial_z)
+    t.target_x = _f32(task.walk_target[0])
+    t.target_y = _f32(task.walk_target[1])
+    t.control_dt = _f32(task.physics.control_dt)
+    stall_scale = task.spec.cost_scale if task.spec.stall_scale is None else task.spec.stall_scale
+    t.elec_coef = _f32(task.spec.cost_scale * WalkerTask.electricity_cost)
+    t.stall_coef = _f32(stall_scale * WalkerTask.stall_torque_cost)
+    t.limit_coef = _f32(WalkerTask.joints_at_limit_cost)
+    t.n_act = _f32(float(task.act_dim))
+    return t
+
+
+def _check_keys(task):
+    """The kernel writes aux and reward components in a fixed sorted order;
+    probe the task's hooks once on one env to confirm its keys."""
+    one = torch.zeros((1,), dtype=torch.uint32)
+    q, v, aux = task.initial_state_scalar(one, torch.zeros((1,), dtype=torch.int32), one)
+    z = torch.zeros((1,))
+    n_rows = len(sc_rows(ct.build_contact_plan(task.model, task.physics.solver)))
+    _, _, _, aux2, comps = task.output_scalar(
+        list(q), list(v), [z] * n_rows, [z] * task.act_dim, aux
+    )
+    if tuple(sorted(aux)) != AUX_KEYS or tuple(sorted(aux2)) != AUX_KEYS:
+        raise NotImplementedError(f"aux keys {sorted(aux)} differ from the kernel's {AUX_KEYS}")
+    if tuple(sorted(comps)) != COMP_KEYS:
+        raise NotImplementedError(f"reward keys {sorted(comps)} differ from the kernel's {COMP_KEYS}")
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+
+def _sources(names):
+    h = hashlib.sha256()
+    for n in names:
+        with open(os.path.join(CSRC, n), "rb") as f:
+            h.update(n.encode() + b"\0" + f.read())
+    return h
+
+
+def _compile(cmd_prefix, src: str, out_name: str, flags) -> Tuple[str, str]:
+    """Compile `src` into BUILD_DIR/out_name unless it is there; returns
+    (path, compiler output). Builds into a temp file, then renames it into
+    place, so concurrent processes never load a half-written library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, out_name)
+    log = so + ".log"
+    if os.path.exists(so):
+        return so, open(log).read() if os.path.exists(log) else ""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = list(cmd_prefix) + list(flags) + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {src} failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
+            )
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so, proc.stdout + proc.stderr
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def _check_layout(lib):
+    Tables, caps = tables_type()
+    lib.eng_tables_bytes.restype = ctypes.c_int
+    lib.eng_tables_layout.restype = ctypes.c_int
+    lib.eng_tables_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    n = len(Tables._fields_)
+    offs = (ctypes.c_int32 * n)()
+    got = lib.eng_tables_layout(ctypes.addressof(offs), n)
+    want = [getattr(Tables, name).offset for name, _ in Tables._fields_]
+    if lib.eng_tables_bytes() != ctypes.sizeof(Tables) or got != n or list(offs) != want:
+        raise RuntimeError("Tables layout of the built library differs from engine_core.h's parse")
+
+
+_P = ctypes.c_void_p
+_ENV_ARGS = [_P] * 21 + [ctypes.c_int]
+
+
+@functools.lru_cache(maxsize=None)
+def load_cuda_library():
+    """Build (once per source hash) and load the CUDA library. Returns
+    (ctypes library, nvcc output including -Xptxas -v)."""
+    h = _sources(["engine_core.h", "engine.cu"])
+    h.update(" ".join(NVCC_FLAGS).encode())
+    so, log = _compile([nvcc_path()], "engine.cu", f"libengine_cuda_{h.hexdigest()[:16]}.so",
+                       NVCC_FLAGS)
+    lib = ctypes.CDLL(so)
+    _check_layout(lib)
+    lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, _P]
+    lib.launch_physics_step.restype = ctypes.c_int
+    lib.launch_env_step.argtypes = _ENV_ARGS + [_P]
+    lib.launch_env_step.restype = ctypes.c_int
+    return lib, log
+
+
+# ---------------------------------------------------------------------------
+# argument checks and pointers
+# ---------------------------------------------------------------------------
+
+
+def _check(x: torch.Tensor, name, dtype, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _env_tensors(task, state, action):
+    """Check an env step's inputs; returns (inputs, outputs) tensor lists in
+    the launchers' argument order, outputs freshly allocated."""
+    m = task.model
+    B = state.q.shape[-1]
+    dev = state.q.device
+    f32, b8 = torch.float32, torch.bool
+    aux = torch.stack([state.aux[k] for k in AUX_KEYS], 0)
+    ins = [
+        (state.q, "q", f32, (m.nq, B)), (state.v, "v", f32, (m.nv, B)),
+        (action, "action", f32, (task.act_dim, B)), (aux, "aux", f32, (len(AUX_KEYS), B)),
+        (state.terminated, "terminated", b8, (B,)), (state.truncated, "truncated", b8, (B,)),
+        (state.step_count, "step_count", torch.int32, (B,)),
+        (state.epoch, "epoch", torch.uint32, (B,)), (state.seed, "seed", torch.uint32, (B,)),
+        (state.env_id, "env_id", torch.int32, (B,)),
+    ]
+    for x, name, dt, shape in ins:
+        _check(x, name, dt, shape, dev)
+    e = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+    outs = [
+        e(m.nq, B), e(m.nv, B), e(task.obs_dim, B), e(B), e(B, dtype=b8), e(B, dtype=b8),
+        e(B, dtype=torch.int32), e(B, dtype=torch.uint32), e(len(AUX_KEYS), B),
+        e(len(COMP_KEYS), B),
+    ]
+    return [x for x, *_ in ins], outs
+
+
+def _env_state(state, outs):
+    from pybulletgym_tpu_torch.envs.base import EnvState
+
+    q2, v2, obs, rew, term, trunc, sc, ep, aux, comps = outs
+    return EnvState(
+        q=q2, v=v2, obs=obs, reward=rew, terminated=term, truncated=trunc,
+        step_count=sc, epoch=ep, env_id=state.env_id, seed=state.seed,
+        aux={k: aux[j] for j, k in enumerate(AUX_KEYS)},
+        rewards={k: comps[j] for j, k in enumerate(COMP_KEYS)},
+    )
+
+
+def _ptrs(tensors):
+    return [_P(x.data_ptr()) for x in tensors]
+
+
+class _TableCache:
+    """Tables uploaded once per device."""
+
+    def __init__(self, tables):
+        self.tables = tables
+        self._dev: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device) -> torch.Tensor:
+        if device not in self._dev:
+            raw = bytearray(bytes(self.tables))
+            self._dev[device] = torch.frombuffer(raw, dtype=torch.uint8).to(device)
+        return self._dev[device]
+
+
+def _launch_checked(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+class CudaPhysicsStep:
+    """step(q (nq,B), v (nv,B), tau (nv,B)) -> (q', v', depths (R,B)).
+
+    CUDA tensors launch `physics_step_kernel`; CPU tensors run
+    `make_physics_step_plain`. `launches` counts kernel launches."""
+
+    def __init__(self, model: Model, cfg: PhysicsConfig):
+        self.model, self.cfg = model, cfg
+        self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
+        self._tables = _TableCache(pack_physics(model, cfg))
+        self.launches = 0
+
+    def __call__(self, q, v, tau):
+        if q.device.type == "cpu":
+            return self.plain(q, v, tau)
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        m, dev, B = self.model, q.device, q.shape[-1]
+        _check(q, "q", torch.float32, (m.nq, B), dev)
+        _check(v, "v", torch.float32, (m.nv, B), dev)
+        _check(tau, "tau", torch.float32, (m.nv, B), dev)
+        lib, _ = load_cuda_library()
+        outs = [torch.empty((m.nq, B), device=dev), torch.empty((m.nv, B), device=dev),
+                torch.empty((self.n_rows, B), device=dev)]
+        with torch.cuda.device(dev):
+            rc = lib.launch_physics_step(
+                _P(self._tables.on(dev).data_ptr()), *_ptrs([q, v, tau] + outs), B,
+                _P(torch.cuda.current_stream(dev).cuda_stream),
+            )
+        _launch_checked(rc, "physics_step_kernel")
+        self.launches += 1
+        return tuple(outs)
+
+
+class CudaEnvStep:
+    """step(state: EnvState, action (act, B)) -> EnvState.
+
+    CUDA tensors launch `env_step_kernel`; CPU tensors run
+    `envs.base.env_step_plain`. `launches` counts kernel launches."""
+
+    def __init__(self, task, frame_skip: Optional[int] = None):
+        self.task = task
+        self.frame_skip = frame_skip
+        self._tables = _TableCache(pack_tables(task, frame_skip))
+        self.launches = 0
+
+    def __call__(self, state, action):
+        from pybulletgym_tpu_torch.envs.base import env_step_plain
+
+        dev = state.q.device
+        if dev.type == "cpu":
+            return env_step_plain(self.task, state, action, self.frame_skip)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        ins, outs = _env_tensors(self.task, state, action)
+        lib, _ = load_cuda_library()
+        B = state.q.shape[-1]
+        with torch.cuda.device(dev):
+            rc = lib.launch_env_step(
+                _P(self._tables.on(dev).data_ptr()), *_ptrs(ins + outs), B,
+                _P(torch.cuda.current_stream(dev).cuda_stream),
+            )
+        _launch_checked(rc, "env_step_kernel")
+        self.launches += 1
+        return _env_state(state, outs)
+
+
+def make_cuda_physics_step(model: Model, cfg: PhysicsConfig):
+    """(step, plan, n_rows), like `ops.step.make_physics_step_plain`."""
+    step = CudaPhysicsStep(model, cfg)
+    return step, step.plan, step.n_rows
+
+
+def make_cuda_env_step(task, frame_skip: Optional[int] = None) -> CudaEnvStep:
+    """The env-step wrapper for `task`; `frame_skip` overrides the task's
+    number of physics substeps (0 returns the post-reset state)."""
+    return CudaEnvStep(task, frame_skip)
+
+
+# ---------------------------------------------------------------------------
+# host twin (CPU tests only)
+# ---------------------------------------------------------------------------
+
+
+class HostTwin:
+    """engine_core.h built with g++ for the host: the kernels' own C++
+    arithmetic on CPU tensors. Used only by tests; no wrapper routes here."""
+
+    def __init__(self):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found")
+        h = _sources(["engine_core.h", "engine_host.cpp"])
+        h.update(" ".join(GXX_FLAGS).encode())
+        so, _ = _compile([gxx], "engine_host.cpp", f"libengine_host_{h.hexdigest()[:16]}.so",
+                         GXX_FLAGS)
+        self.lib = ctypes.CDLL(so)
+        _check_layout(self.lib)
+        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
+        self.lib.host_physics_step.restype = ctypes.c_int
+        self.lib.host_env_step.argtypes = _ENV_ARGS
+        self.lib.host_env_step.restype = ctypes.c_int
+
+    def physics_step(self, tables, q, v, tau):
+        nq, B = q.shape
+        n_rows = tables.nr
+        outs = [torch.empty_like(q), torch.empty_like(v), torch.empty((n_rows, B))]
+        for x, name in ((q, "q"), (v, "v"), (tau, "tau")):
+            _check(x, name, torch.float32, x.shape, torch.device("cpu"))
+        self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B)
+        return tuple(outs)
+
+    def env_step(self, tables, task, state, action):
+        ins, outs = _env_tensors(task, state, action)
+        self.lib.host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs), state.q.shape[-1])
+        return _env_state(state, outs)

@@ -1,0 +1,262 @@
+"""The port's env step against the JAX package, and the CUDA kernels' C++
+against the plain version.
+
+(a) make_physics_step_plain vs an eager JAX frame_skip loop over
+    `make_substep_scalar`: the same float32 formulas in the same order,
+    mean |dq| < 1e-5.
+(b) env_step_plain vs an eager JAX composition of the TPU kernel body
+    (pallas_engine.py · make_pallas_env_step, rebuilt below), through a
+    forced auto-reset: epoch, step count and the reset q exact.
+(c) the 20-step CPU golden: median |dobs| < 1e-3 at step 5, < 3e-2 at
+    step 20 (the drift budget of test_pallas_equivalence.py), terminated
+    equal.
+(d) the host twin (csrc/engine_core.h built with g++) vs the plain version,
+    under the bounds chip_smoke.py holds the CUDA kernels to.
+(e) BatchedEnv(device="cuda") raises when no GPU is present.
+test_torch_cuda.py holds the CUDA kernels against the plain version on a GPU.
+"""
+
+import dataclasses
+import os
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pybulletgym_tpu as pg
+from pybulletgym_tpu.envs.base import make_env
+from pybulletgym_tpu.ops import smath as sm_j
+from pybulletgym_tpu.ops import step as step_j
+from pybulletgym_tpu_torch import make_batched, make_task
+from pybulletgym_tpu_torch.envs import locomotion as loco_t
+from pybulletgym_tpu_torch.envs.base import BatchedEnv, env_step_plain, reset_fn
+from pybulletgym_tpu_torch.ops import cuda_engine as ce
+from pybulletgym_tpu_torch.ops.step import make_physics_step_plain
+from pybulletgym_tpu_torch.utils.interop import (
+    env_state_from_numpy, env_state_to_numpy, policy_from_npz,
+)
+from test_torch_cuda import bounds_env  # chip_smoke.py's env-step bounds
+
+ENV = "HalfCheetahPyBulletEnv-v0"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def tasks():
+    return pg.make_task(ENV), make_task(ENV)
+
+
+def _jax_reset(task_j, B, seed):
+    reset, _ = make_env(task_j)
+    s = reset(jnp.full((B,), seed, jnp.uint32), jnp.arange(B, dtype=jnp.int32),
+              jnp.zeros((B,), jnp.uint32))
+    return env_state_to_numpy(s)
+
+
+def _jax_kernel_body(task, st, action, frame_skip):
+    """pallas_engine.py · make_pallas_env_step's kernel body, eagerly on
+    (B,) arrays (env_id read from the state, as the XLA path does)."""
+    model, cfg = task.model, task.physics
+    substep, _, n_rows = step_j.make_substep_scalar(model, cfg)
+    seed = jnp.asarray(st["seed"], jnp.uint32)
+    env_id = jnp.asarray(st["env_id"], jnp.int32)
+    done = jnp.asarray(st["terminated"] | st["truncated"])
+    epoch = jnp.asarray(st["epoch"], jnp.uint32) + done.astype(jnp.uint32)
+    fq, fv, faux = task.initial_state_scalar(seed, env_id, epoch)
+    q = [jnp.where(done, fq[i], st["q"][i]) for i in range(model.nq)]
+    v = [jnp.where(done, fv[i], st["v"][i]) for i in range(model.nv)]
+    aux = {k: jnp.where(done, faux[k], st["aux"][k]) for k in sorted(faux)}
+    step_count = jnp.where(done, 0, jnp.asarray(st["step_count"]))
+    ids = (seed, env_id, epoch)
+    q, v, aux = task.pre_physics_scalar(q, v, aux, ids)
+    a = [jnp.clip(jnp.asarray(action[i]), -1.0, 1.0) for i in range(task.act_dim)]
+    zero = jnp.zeros_like(q[0])
+    tau = tuple(t if not isinstance(t, float) else zero for t in task.action_tau_scalar(a))
+    d = [zero] * n_rows
+    for _ in range(frame_skip):
+        q, v, d = substep(q, v, tau)
+    obs, reward, term, aux2, comps = task.output_scalar(list(q), list(v), list(d), a, aux, ids)
+    finite = sm_j.isfinite(reward)
+    for x in list(obs) + list(q) + list(v):
+        finite = finite & sm_j.isfinite(x)
+    term = term | ~finite
+    obs = [jnp.where(sm_j.isfinite(o), o, 0.0) for o in obs]
+    step2 = step_count + 1
+    return dict(
+        q=np.stack([np.asarray(x) for x in q]), obs=np.stack([np.asarray(x) for x in obs]),
+        reward=np.asarray(jnp.where(sm_j.isfinite(reward), reward, 0.0)),
+        terminated=np.asarray(term), truncated=np.asarray((step2 >= task.max_episode_steps) & ~term),
+        step_count=np.asarray(step2), epoch=np.asarray(epoch),
+        aux={k: np.asarray(x) for k, x in aux2.items()},
+    )
+
+
+def test_reset_matches_jax(tasks):
+    tj, tt = tasks
+    sj = _jax_reset(tj, 3, 5)
+    st = reset_fn(tt, torch.full((3,), 5, dtype=torch.uint32),
+                  torch.arange(3, dtype=torch.int32), torch.zeros(3, dtype=torch.uint32))
+    np.testing.assert_array_equal(sj["q"], st.q.numpy())  # reset draws are bitwise
+    np.testing.assert_allclose(sj["obs"], st.obs.numpy(), atol=1e-6)
+    for k in sj["aux"]:
+        np.testing.assert_allclose(sj["aux"][k], st.aux[k].numpy(), rtol=1e-6, err_msg=k)
+
+
+def test_physics_step_plain_matches_jax(tasks):
+    """(a)"""
+    tj, tt = tasks
+    B = 2
+    s = _jax_reset(tj, B, 9)
+    tau = np.zeros((9, B), np.float32)
+    tau[3:] = tj.gains * np.random.default_rng(9).uniform(-1, 1, (6, B)).astype(np.float32)
+    substep, _, _ = step_j.make_substep_scalar(tj.model, tj.physics)
+    q, v = [jnp.asarray(r) for r in s["q"]], [jnp.asarray(r) for r in s["v"]]
+    taus = [jnp.asarray(r) for r in tau]
+    for _ in range(tj.physics.frame_skip):
+        q, v, d = substep(q, v, taus)
+    step, _, n_rows = make_physics_step_plain(tt.model, tt.physics)
+    q2, v2, d2 = step(torch.tensor(s["q"]), torch.tensor(s["v"]), torch.from_numpy(tau))
+    dq = np.abs(np.stack([np.asarray(x) for x in q]) - q2.numpy())
+    assert dq.mean() < 1e-5, dq.mean()
+    np.testing.assert_allclose(np.stack([np.asarray(x) for x in d]), d2.numpy(), atol=1e-5)
+    assert d2.shape == (n_rows, B) == (16, B)
+
+
+def test_env_step_plain_matches_jax_kernel_body(tasks):
+    """(b)"""
+    tj, tt = tasks
+    B = 3
+    sj = _jax_reset(tj, B, 21)
+    sj["terminated"] = np.array([True, False, False])
+    sj["epoch"] = np.array([2**32 - 1, 4, 0], np.uint32)  # epoch wraps like uint32
+    sj["step_count"] = np.array([17, 999, 3], np.int32)  # env 1 truncates
+    st = env_state_from_numpy(sj)
+    a = np.random.default_rng(21).uniform(-1.5, 1.5, (6, B)).astype(np.float32)
+
+    rj0 = _jax_kernel_body(tj, sj, a, frame_skip=0)
+    rt0 = env_step_plain(tt, st, torch.from_numpy(a), frame_skip=0)
+    np.testing.assert_array_equal(rj0["q"], rt0.q.numpy())  # reset q exact
+    rj = _jax_kernel_body(tj, sj, a, frame_skip=tj.physics.frame_skip)
+    rt = env_step_plain(tt, st, torch.from_numpy(a))
+    for r_j, r_t in ((rj0, rt0), (rj, rt)):
+        np.testing.assert_array_equal(r_j["epoch"], r_t.epoch.numpy())
+        np.testing.assert_array_equal(r_j["step_count"], r_t.step_count.numpy())
+        np.testing.assert_array_equal(r_j["truncated"], r_t.truncated.numpy())
+        np.testing.assert_array_equal(r_j["terminated"], r_t.terminated.numpy())
+    assert rt.epoch.tolist() == [0, 4, 0] and rt.step_count.tolist() == [1, 1000, 4]
+    assert rt.truncated.tolist() == [False, not rt.terminated[1].item(), False]
+    assert np.abs(rj["q"] - rt.q.numpy()).mean() < 1e-5
+    np.testing.assert_allclose(rj["obs"], rt.obs.numpy(), atol=1e-4)
+    np.testing.assert_allclose(rj["reward"], rt.reward.numpy(), atol=1e-3)
+    for k in rj["aux"]:
+        np.testing.assert_allclose(rj["aux"][k], rt.aux[k].numpy(), rtol=1e-5, atol=1e-3)
+
+
+def test_golden_rollout():
+    """(c)"""
+    g = np.load(os.path.join(ROOT, "tests", "goldens", f"{ENV}.cpu.npz"))
+    B, n, seed = int(g["batch"]), int(g["n_steps"]), int(g["seed"])
+    env = make_batched(ENV, B)
+    s = env.reset(seed=seed)
+    acts = np.random.default_rng(seed).uniform(-1, 1, (n, B, env.action_size)).astype(np.float32)
+    meds = []
+    for t in range(n):
+        s = env.step(s, acts[t])
+        meds.append(np.median(np.abs(s.obs.numpy() - g["obs"][t])))
+        np.testing.assert_array_equal(s.terminated.numpy(), g["terminated"][t])
+    assert meds[4] < 1e-3 and meds[-1] < 3e-2, meds
+    assert env.step_fn.launches == 0  # CPU tensors never launch a kernel
+
+
+@pytest.fixture(scope="module")
+def twin():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the host twin")
+    return ce.HostTwin()
+
+
+def test_host_twin_physics_step(tasks, twin):
+    """(d) physics"""
+    _, tt = tasks
+    B = 8
+    s = make_batched(ENV, B).reset(seed=0)
+    tau = torch.zeros(9, B)
+    a = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (6, B)).astype(np.float32))
+    tau[3:] = torch.from_numpy(tt.gains) * a
+    qp, vp, dp = make_physics_step_plain(tt.model, tt.physics)[0](s.q, s.v, tau)
+    qh, vh, dh = twin.physics_step(ce.pack_physics(tt.model, tt.physics), s.q, s.v, tau)
+    dq = (qp - qh).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert ((dp > 0) != (dh > 0)).float().mean() < 0.01
+
+
+def test_host_twin_env_step(tasks, twin):
+    """(d) env step: 3 steps, every 3rd env forced to reset before step 2."""
+    _, tt = tasks
+    B = 8
+    tab, tab0 = ce.pack_tables(tt), ce.pack_tables(tt, frame_skip=0)
+    sp = sh = make_batched(ENV, B).reset(seed=4)
+    rng = np.random.default_rng(4)
+    for t in range(3):
+        if t == 1:
+            forced = torch.zeros(B, dtype=torch.bool)
+            forced[::3] = True
+            sp = sp._replace(terminated=sp.terminated | forced)
+            sh = sh._replace(terminated=sh.terminated | forced)
+            a0 = torch.zeros(6, B)
+            # same input state: the post-reset q is bitwise the plain one
+            assert torch.equal(twin.env_step(tab0, tt, sh, a0).q,
+                               env_step_plain(tt, sh, a0, frame_skip=0).q)
+            again = twin.env_step(tab, tt, sh, a0)
+            assert torch.equal(again.q, twin.env_step(tab, tt, sh, a0).q)
+        a = torch.from_numpy(rng.uniform(-1, 1, (6, B)).astype(np.float32))
+        sp = env_step_plain(tt, sp, a)
+        sh = twin.env_step(tab, tt, sh, a)
+        bounds_env(sh, sp, len(tt.foot_rows))
+
+
+def test_frozen_sac_policy_on_host_twin(tasks, twin):
+    """The shipped SAC policy keeps its 3000 floor (test_frozen_policy.py:41)
+    on the kernels' arithmetic: B=8, reset(seed=123), 1000 steps, returns
+    masked after the first done."""
+    _, tt = tasks
+    tab = ce.pack_tables(tt)
+    policy = policy_from_npz(os.path.join(ROOT, "examples", "weights", f"{ENV}.npz"))
+    s = make_batched(ENV, 8).reset(seed=123)
+    rews, dones = [], []
+    with torch.no_grad():
+        for _ in range(1000):
+            s = twin.env_step(tab, tt, s, policy(s.obs.T).T.contiguous())
+            rews.append(s.reward)
+            dones.append(s.done)
+    alive = torch.cumprod(1.0 - torch.stack(dones).float(), 0)
+    prev = torch.cat([torch.ones_like(alive[:1]), alive[:-1]], 0)
+    returns = (torch.stack(rews) * prev).sum(0)
+    assert torch.isfinite(returns).all() and returns.mean() >= 3000.0, returns
+
+
+def test_batched_env_cuda_without_gpu_raises():
+    """(e)"""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batched(ENV, 4, device="cuda")
+
+
+def test_pack_tables_refuses_what_the_kernels_lack(tasks):
+    _, tt = tasks
+    hopper_mode = loco_t.WalkerTask(dataclasses.replace(loco_t.HALF_CHEETAH, alive_mode="hopper"))
+    with pytest.raises(NotImplementedError, match="alive mode"):
+        ce.pack_tables(hopper_mode)
+
+    class Pushed(loco_t.WalkerTask):
+        def pre_physics_scalar(self, q, v, aux, ids=None):
+            return q, v, aux
+
+    with pytest.raises(NotImplementedError):
+        ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
+    env = BatchedEnv(tt, 4)  # the kernel library is built lazily: no GPU needed here
+    with pytest.raises(ValueError, match="action shape"):
+        env.step(env.reset(), np.zeros((4, 5), np.float32))
