@@ -1,9 +1,10 @@
 """Env registry for the port: the reference env IDs that the torch package
 runs [ref: pybulletgym/envs/__init__.py — gym.envs.registration.register].
 
-Only `HalfCheetahPyBulletEnv-v0` is ported so far; any other ID raises
-`KeyError` listing the known ones. Nothing is registered with gymnasium
-(the JAX package registers the same IDs for itself on import).
+The MJCF walkers with point contacts are ported so far (Hopper, Walker2D,
+HalfCheetah, Ant); any other ID raises `KeyError` listing the known ones.
+Nothing is registered with gymnasium (the JAX package registers the same
+IDs for itself on import).
 """
 
 from __future__ import annotations
@@ -20,16 +21,22 @@ class EnvSpec:
     reward_threshold: Optional[float]
 
 
-def _half_cheetah():
-    from pybulletgym_tpu_torch.envs import locomotion as loco
+def _walker(spec_name: str) -> Callable:
+    def factory():
+        from pybulletgym_tpu_torch.envs import locomotion as loco
 
-    return loco.WalkerTask(loco.HALF_CHEETAH)
+        return loco.WalkerTask(getattr(loco, spec_name))
+
+    return factory
 
 
 registry: Dict[str, EnvSpec] = {
-    "HalfCheetahPyBulletEnv-v0": EnvSpec(
-        "HalfCheetahPyBulletEnv-v0", _half_cheetah, 1000, 3000.0
-    ),
+    s.id: s for s in (
+        EnvSpec("HopperPyBulletEnv-v0", _walker("HOPPER"), 1000, 2500.0),
+        EnvSpec("Walker2DPyBulletEnv-v0", _walker("WALKER2D"), 1000, 2500.0),
+        EnvSpec("HalfCheetahPyBulletEnv-v0", _walker("HALF_CHEETAH"), 1000, 3000.0),
+        EnvSpec("AntPyBulletEnv-v0", _walker("ANT"), 1000, 2500.0),
+    )
 }
 
 
@@ -43,8 +50,9 @@ def make_task(id: str):
     return task
 
 
-def make_batched(id: str, batch_size: int, device="cpu"):
-    """A `BatchedEnv` of `batch_size` envs on `device` ("cpu" or "cuda")."""
+def make_batched(id: str, batch_size: int, device="cuda"):
+    """A `BatchedEnv` of `batch_size` envs on `device`: the GPU unless the
+    caller asks for "cpu" (without a GPU, "cuda" raises)."""
     from pybulletgym_tpu_torch.envs.base import BatchedEnv
 
     return BatchedEnv(make_task(id), batch_size, device=device)

@@ -20,9 +20,13 @@
 // bytes a step) but the latency of a few thousand dependent scalar
 // float operations per substep and the traffic to local memory: the
 // per-thread scratch (M and L are nv*nv, the forward-solved constraint rows
-// y_rows are rows*3*nv = 432 floats for HalfCheetah) does not fit in
-// registers and lives in local memory, cached in L1/L2. Models with more
-// dofs and rows (the humanoid's nv=23 and 95+ rows) would spill far more.
+// y_rows are rows*3*nv = 432 floats for HalfCheetah, 1050 for Ant) does not
+// fit in registers and lives in local memory, cached in L1/L2; the stack
+// frame is sized by the caps (~16 KB), not by the model. Ant's free root
+// couples every dof to the root's six, so its M and L are dense and each
+// contact row's forward solve runs over all 14 dofs: ~2.3x HalfCheetah's
+// operations a step. Models with more dofs and rows (the humanoid's nv=23
+// and 95+ rows) would spill far more.
 // Making it fast (scratch in shared memory, warp-cooperative solves,
 // specialising the loops per model) is later work; this version is the
 // plain, correct one.

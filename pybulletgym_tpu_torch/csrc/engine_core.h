@@ -13,9 +13,10 @@
 // is a stored 0 that adds nothing, so the rounding follows the plain version
 // (up to FMA contraction on the GPU and the last bits of sinf/cosf).
 //
-// Scope: hinge and slide joints, point contacts against planes, joint
-// limits, and the walker task with the "cheetah" alive mode. pack_tables
-// refuses anything else (free joints, disk and pair rows, other tasks).
+// Scope: free, hinge and slide joints, point contacts against planes, joint
+// limits, and the walker task with the "cheetah", "hopper" and "ant" alive
+// modes. pack_tables refuses anything else (disk and pair rows, the
+// humanoid mode, pre-physics hooks, other tasks).
 
 #pragma once
 
@@ -33,7 +34,8 @@ namespace eng {
 
 // ---- caps of the per-thread scratch; pack_tables raises above them -------
 constexpr int MAX_BODIES = 16;
-constexpr int MAX_NV = 16;        // hinge/slide only: nq == nv == bodies
+constexpr int MAX_NV = 16;
+constexpr int MAX_NQ = 17;        // a free joint has 7 q entries and 6 dofs
 constexpr int MAX_ROWS = 32;      // contact rows
 constexpr int MAX_LIMITS = 32;    // joint-limit rows
 constexpr int MAX_ACT = 16;
@@ -42,8 +44,13 @@ constexpr int MAX_PARTS = 16;
 constexpr int NAUX = 4;           // initial_z, potential, target_x, target_y
 constexpr int NCOMP = 5;          // alive, electricity, feet_collision,
                                   // joints_at_limit, progress
+constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
+                                  // v: body-frame angular, then linear
 constexpr int JT_HINGE = 1;
 constexpr int JT_SLIDE = 2;
+constexpr int ALIVE_CHEETAH = 0;  // WalkerSpec.alive_mode, as pack_tables codes it
+constexpr int ALIVE_HOPPER = 1;
+constexpr int ALIVE_ANT = 2;
 
 // The table layout, as one list. S(type, name) is a scalar, A(type, name,
 // count) a flat array. ops/cuda_engine.py parses this list to build the
@@ -64,6 +71,7 @@ constexpr int JT_SLIDE = 2;
   S(int32_t, obs_dim)                                                         \
   S(int32_t, max_steps)                                                       \
   S(int32_t, base_body)                                                       \
+  S(int32_t, alive_mode)                                                      \
   /* physics constants, each the float32 of the JAX package's constant */     \
   S(float, dt)                                                                \
   A(float, gravity_neg, 3)                                                    \
@@ -95,7 +103,9 @@ constexpr int JT_SLIDE = 2;
   A(float, neg_stiffness, MAX_NV)                                             \
   A(float, springref, MAX_NV)                                                 \
   A(float, armature, MAX_NV)                                                  \
-  A(float, qpos0, MAX_NV)                                                     \
+  A(int32_t, dof_body, MAX_NV)                                                \
+  A(int32_t, dof_qadr, MAX_NV) /* q entry of a hinge/slide dof */             \
+  A(float, qpos0, MAX_NQ)                                                     \
   /* contact rows: point candidates against planes */                         \
   A(int32_t, row_body, MAX_ROWS)                                              \
   A(float, row_local, MAX_ROWS * 3)                                           \
@@ -236,6 +246,40 @@ ENG_HD M3 m3_transpose(const M3& a) {
   return r;
 }
 
+// smath.m3_from_quat of (w, x, y, z)
+ENG_HD M3 m3_from_quat(const float* qt) {
+  const float w = qt[0], x = qt[1], y = qt[2], z = qt[3];
+  const float x2 = x + x, y2 = y + y, z2 = z + z;
+  const float xx = x * x2, yy = y * y2, zz = z * z2;
+  const float xy = x * y2, xz = x * z2, yz = y * z2;
+  const float wx = w * x2, wy = w * y2, wz = w * z2;
+  M3 r = {{1.f - (yy + zz), xy - wz, xz + wy,
+           xy + wz, 1.f - (xx + zz), yz - wx,
+           xz - wy, yz + wx, 1.f - (xx + yy)}};
+  return r;
+}
+
+// q <- quat_normalize(exp(dt/2 * omega) * q), omega in the world frame:
+// smath.quat_integrate, with its series branch for small angles.
+ENG_HD void quat_integrate(float* qt, V3 omega, float dt) {
+  const V3 ang = v3_scale(omega, dt);
+  const float theta2 = v3_dot(ang, ang);
+  const float theta = sqrtf(theta2 + 1e-20f);
+  const float half = 0.5f * theta;
+  const float k = theta2 > 1e-12f ? sinf(half) / theta : 0.5f - theta2 / 48.f;
+  const float aw = cosf(half), ax = ang.x * k, ay = ang.y * k, az = ang.z * k;
+  const float bw = qt[0], bx = qt[1], by = qt[2], bz = qt[3];
+  const float w = aw * bw - ax * bx - ay * by - az * bz;
+  const float x = aw * bx + ax * bw + ay * bz - az * by;
+  const float y = aw * by - ax * bz + ay * bw + az * bx;
+  const float z = aw * bz + ax * by - ay * bx + az * bw;
+  const float inv = 1.f / sqrtf(w * w + x * x + y * y + z * z + 1e-12f);
+  qt[0] = w * inv;
+  qt[1] = x * inv;
+  qt[2] = y * inv;
+  qt[3] = z * inv;
+}
+
 ENG_HD SV sv_zero() { SV r = {v3_zero(), v3_zero()}; return r; }
 ENG_HD SV sv_add(const SV& a, const SV& b) {
   SV r = {v3_add(a.ang, b.ang), v3_add(a.lin, b.lin)};
@@ -360,30 +404,52 @@ ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
     M3 Rp = par < 0 ? m3_identity() : fk.R[par];
     V3 pp = par < 0 ? v3_zero() : fk.p[par];
     SV vp = par < 0 ? sv_zero() : fk.vel[par];
-    M3 R0 = m3_mul(Rp, m3_load(t.off_r + 9 * i));
-    V3 p0 = v3_add(pp, m3_vec(Rp, v3_load(t.off_p + 3 * i)));
     const int d = t.v_adr[i];
     M3 Ri;
     V3 pi;
-    SV S;
-    if (t.jtype[i] == JT_HINGE) {
-      float th = q[t.q_adr[i]] - t.jref[i];
-      V3 a = v3_add(p0, m3_vec(R0, v3_load(t.jpos + 3 * i)));
-      V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
-      M3 Rj = rodrigues(u, th);
-      Ri = m3_mul(Rj, R0);
-      pi = v3_add(a, m3_vec(Rj, v3_sub(p0, a)));
-      S.ang = u;
-      S.lin = v3_cross(a, u);
-    } else {  // JT_SLIDE
-      V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
-      Ri = R0;
-      pi = v3_add(p0, v3_scale(u, q[t.q_adr[i]] - t.jref[i]));
-      S.ang = v3_zero();
-      S.lin = u;
+    SV vel;
+    if (t.jtype[i] == JT_FREE) {
+      // root-level (the MJCF loader enforces it): no frame offset; the six
+      // dofs' subspaces are R's columns, angular ones about the origin
+      const int qa = t.q_adr[i];
+      pi = v3(q[qa], q[qa + 1], q[qa + 2]);
+      Ri = m3_from_quat(q + qa + 3);
+      vel = vp;
+      for (int k = 0; k < 3; ++k) {
+        V3 col = v3(Ri.m[k], Ri.m[3 + k], Ri.m[6 + k]);
+        SV S = {col, v3_cross(pi, col)};
+        fk.S[d + k] = S;
+        vel = sv_add(vel, sv_scale(S, v[d + k]));
+      }
+      for (int k = 0; k < 3; ++k) {
+        SV S = {v3_zero(), v3(Ri.m[k], Ri.m[3 + k], Ri.m[6 + k])};
+        fk.S[d + 3 + k] = S;
+        vel = sv_add(vel, sv_scale(S, v[d + 3 + k]));
+      }
+    } else {
+      M3 R0 = m3_mul(Rp, m3_load(t.off_r + 9 * i));
+      V3 p0 = v3_add(pp, m3_vec(Rp, v3_load(t.off_p + 3 * i)));
+      SV S;
+      if (t.jtype[i] == JT_HINGE) {
+        float th = q[t.q_adr[i]] - t.jref[i];
+        V3 a = v3_add(p0, m3_vec(R0, v3_load(t.jpos + 3 * i)));
+        V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
+        M3 Rj = rodrigues(u, th);
+        Ri = m3_mul(Rj, R0);
+        pi = v3_add(a, m3_vec(Rj, v3_sub(p0, a)));
+        S.ang = u;
+        S.lin = v3_cross(a, u);
+      } else {  // JT_SLIDE
+        V3 u = m3_vec(R0, v3_load(t.jaxis + 3 * i));
+        Ri = R0;
+        pi = v3_add(p0, v3_scale(u, q[t.q_adr[i]] - t.jref[i]));
+        S.ang = v3_zero();
+        S.lin = u;
+      }
+      fk.S[d] = S;
+      vel = sv_add(vp, sv_scale(S, v[d]));
     }
-    fk.S[d] = S;
-    fk.vel[i] = sv_add(vp, sv_scale(S, v[d]));
+    fk.vel[i] = vel;
     fk.R[i] = Ri;
     fk.p[i] = pi;
     if (t.has_mass[i]) {
@@ -435,7 +501,7 @@ ENG_HD void bias_forces(const Tables& t, const FKOut& fk, const Inertia* inert, 
   }
   for (int i = t.nb - 1; i >= 0; --i)
     if (t.parent[i] >= 0) f[t.parent[i]] = sv_add(f[t.parent[i]], f[i]);
-  for (int i = 0; i < t.nb; ++i) C[t.v_adr[i]] = sv_dot(fk.S[t.v_adr[i]], f[i]);
+  for (int d = 0; d < t.nv; ++d) C[d] = sv_dot(fk.S[d], f[t.dof_body[d]]);
 }
 
 // CRBA lower triangle into M (nv*nv, row-major); composite inertias sum
@@ -450,8 +516,8 @@ ENG_HD void mass_matrix(const Tables& t, const FKOut& fk, Inertia* Ic, float* M)
       for (int k = 0; k < 9; ++k) Ic[par].I.m[k] = Ic[par].I.m[k] + Ic[i].I.m[k];
     }
   }
-  for (int i = 0; i < t.nb; ++i) {
-    const int d = t.v_adr[i];
+  for (int d = 0; d < nv; ++d) {  // every dof of every body
+    const int i = t.dof_body[d];
     Inertia I = Ic[i];
     I.m = t.cmass[i];
     SV F = inertia_mul(I, fk.S[d]);
@@ -519,11 +585,12 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
   float C[MAX_NV], rhs[MAX_NV];
   bias_forces(t, fk, inert, C);
   for (int d = 0; d < nv; ++d) {
-    // passive forces (dynamics.py · passive_forces), bodies carry one dof
+    // passive forces (dynamics.py · passive_forces); pack_tables zeroes
+    // the stiffness of free dofs, so dof_qadr is read for hinge/slide only
     float tp = 0.f;
     if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * v[d];
     if (t.neg_stiffness[d] != 0.f)
-      tp = tp + t.neg_stiffness[d] * (q[t.q_adr[d]] - t.springref[d]);
+      tp = tp + t.neg_stiffness[d] * (q[t.dof_qadr[d]] - t.springref[d]);
     rhs[d] = (tau[d] + tp) - C[d];
   }
   float M[MAX_NV * MAX_NV], L[MAX_NV * MAX_NV], inv_diag[MAX_NV];
@@ -654,9 +721,23 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
   }
   // velocity clamp, then semi-implicit Euler with the split-impulse velocity
   for (int d = 0; d < nv; ++d) v3o[d] = jclip(v3o[d], -t.max_velocity, t.max_velocity);
+  // (dynamics.py · integrate): a free joint moves by R v_lin and turns by
+  // the exponential map of R v_ang, both read from the old quaternion
   for (int i = 0; i < t.nb; ++i) {
     const int qa = t.q_adr[i], va = t.v_adr[i];
-    q[qa] = q[qa] + t.dt * (v3o[va] + vp[va]);
+    if (t.jtype[i] == JT_FREE) {
+      float w[6];
+      for (int k = 0; k < 6; ++k) w[k] = v3o[va + k] + vp[va + k];
+      const M3 R = m3_from_quat(q + qa + 3);
+      const V3 omega = m3_vec(R, v3(w[0], w[1], w[2]));
+      const V3 lin = m3_vec(R, v3(w[3], w[4], w[5]));
+      q[qa] = q[qa] + t.dt * lin.x;
+      q[qa + 1] = q[qa + 1] + t.dt * lin.y;
+      q[qa + 2] = q[qa + 2] + t.dt * lin.z;
+      quat_integrate(q + qa + 3, omega, t.dt);
+    } else {
+      q[qa] = q[qa] + t.dt * (v3o[va] + vp[va]);
+    }
   }
   for (int d = 0; d < nv; ++d) v[d] = v3o[d];
 }
@@ -756,10 +837,16 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
   for (int f = 0; f < t.nfeet; ++f) obs[o++] = feet[f];
   for (int k = 0; k < o; ++k) obs[k] = jclip(obs[k], -5.f, 5.f);
 
-  // alive bonus, "cheetah" mode: dead if a shin or thigh (foot_list
-  // indices 1, 2, 4, 5) touches, or |pitch| >= 1
-  bool bad_touch = (feet[1] + feet[2] + feet[4] + feet[5]) > 0.5f;
-  bool ok = (fabsf(pitch) < 1.f) && !bad_touch;
+  // alive bonus (WalkerTask._alive)
+  bool ok;
+  if (t.alive_mode == ALIVE_HOPPER) {  // Hopper, Walker2D
+    ok = bz > 0.8f && fabsf(pitch) < 1.f;
+  } else if (t.alive_mode == ALIVE_ANT) {
+    ok = bz > 0.26f;
+  } else {  // "cheetah": dead if a shin or thigh (feet 1, 2, 4, 5) touches
+    bool bad_touch = (feet[1] + feet[2] + feet[4] + feet[5]) > 0.5f;
+    ok = (fabsf(pitch) < 1.f) && !bad_touch;
+  }
   float alive = ok ? 1.f : -1.f;
 
   float potential = -dist / t.control_dt;
@@ -790,7 +877,7 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
 ENG_HD void physics_step_one(const Tables& t, int i, int B, const float* q_in,
                              const float* v_in, const float* tau_in, float* q_out,
                              float* v_out, float* d_out) {
-  float q[MAX_NV], v[MAX_NV], tau[MAX_NV], depth[MAX_ROWS];
+  float q[MAX_NQ], v[MAX_NV], tau[MAX_NV], depth[MAX_ROWS];
   for (int k = 0; k < t.nq; ++k) q[k] = q_in[k * B + i];
   for (int k = 0; k < t.nv; ++k) {
     v[k] = v_in[k * B + i];
@@ -809,7 +896,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];
   const uint32_t env_id = (uint32_t)io.env_id[i];
-  float q[MAX_NV], v[MAX_NV], aux[NAUX];
+  float q[MAX_NQ], v[MAX_NV], aux[NAUX];
   int32_t step_count;
   if (done) {  // auto-reset [ref: env_bases.py · BaseBulletEnv.reset]
     initial_state(t, seed, env_id, epoch, q, v, aux);

@@ -195,10 +195,11 @@ class BatchedEnv:
     The batch-leading (B, dim) convention is used at this public boundary;
     internally everything is batch-trailing. On a CUDA device every step is
     one launch of the env-step kernel; on the CPU the same wrapper runs the
-    plain version. A CUDA device without a GPU raises here, at construction.
+    plain version. The device is the GPU unless the caller asks for "cpu";
+    a CUDA device without a GPU raises here, at construction.
     """
 
-    def __init__(self, task: Task, batch_size: int, device="cpu"):
+    def __init__(self, task: Task, batch_size: int, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,7 +1,7 @@
 """Locomotion tasks: the Roboschool walker contract (torch port).
 
 Counterpart of the JAX package's `envs/locomotion.py` for the MJCF walkers
-(WalkerSpec, WalkerTask) and the HalfCheetah spec:
+(WalkerSpec, WalkerTask) and the Hopper, Walker2D, HalfCheetah and Ant specs:
 
 * obs  = clip(concat(more(8), joints(2n), feet_contact(nf)), -5, 5)
   [ref: …/robots/locomotors/walker_base.py · WalkerBase.calc_state]
@@ -301,6 +301,23 @@ def _qadr(model: Model, v_adr: int) -> int:
 # roster (SURVEY §2.4/§2.6 constants)
 # ---------------------------------------------------------------------------
 
+HOPPER = WalkerSpec(
+    name="hopper",
+    xml="hopper.xml",
+    power=0.75,
+    alive_mode="hopper",
+    foot_geoms=("foot_geom",),
+)
+
+WALKER2D = WalkerSpec(
+    name="walker2d",
+    xml="walker2d.xml",
+    power=0.40,
+    alive_mode="hopper",
+    foot_geoms=("foot_geom", "foot_left_geom"),
+    coef_overrides={"foot_joint": 30.0, "foot_left_joint": 30.0},
+)
+
 HALF_CHEETAH = WalkerSpec(
     name="half_cheetah",
     xml="half_cheetah.xml",
@@ -311,4 +328,14 @@ HALF_CHEETAH = WalkerSpec(
         "bthigh": 120.0, "bshin": 90.0, "bfoot": 60.0,
         "fthigh": 140.0, "fshin": 60.0, "ffoot": 30.0,
     },
+)
+
+ANT = WalkerSpec(
+    name="ant",
+    xml="ant.xml",
+    power=2.5,
+    alive_mode="ant",
+    foot_geoms=(
+        "left_ankle_geom", "right_ankle_geom", "third_ankle_geom", "fourth_ankle_geom"
+    ),
 )

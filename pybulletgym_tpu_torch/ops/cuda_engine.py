@@ -49,7 +49,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 AUX_KEYS = ("initial_z", "potential", "target_x", "target_y")
+NAUX = len(AUX_KEYS)
 COMP_KEYS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
+NCOMP = len(COMP_KEYS)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -111,18 +113,14 @@ def _composite_masses(model: Model):
 
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None):
     """Physics part of the tables (model, plans, solver constants). Raises
-    for what the kernels do not have yet: free joints, disk and pair
-    contact rows, models over the caps."""
+    for what the kernels do not have yet: disk and pair contact rows, models
+    over the caps."""
     Tables, caps = tables_type()
     t = Tables()
     nb = len(model.bodies)
-    for i, b in enumerate(model.bodies):
-        if b.jtype == JointType.FREE:
-            raise NotImplementedError(f"{model.name}: free joints are not in the CUDA kernels yet")
-        if b.q_adr != i or b.v_adr != i:
-            raise NotImplementedError(f"{model.name}: body {b.name} has a multi-dof layout")
-    if nb > caps["MAX_BODIES"] or model.nv > caps["MAX_NV"]:
-        raise ValueError(f"{model.name}: {nb} bodies / {model.nv} dofs exceed the kernel caps")
+    if nb > caps["MAX_BODIES"] or model.nv > caps["MAX_NV"] or model.nq > caps["MAX_NQ"]:
+        raise ValueError(f"{model.name}: {nb} bodies / {model.nq} q / {model.nv} dofs "
+                         "exceed the kernel caps")
     floor, pairs = ct.build_contact_plan(model, cfg.solver)
     if pairs:
         raise NotImplementedError(f"{model.name}: pair contact rows are not in the CUDA kernels yet")
@@ -173,12 +171,19 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
     _set(t.jaxis, jaxis, 3 * caps["MAX_BODIES"], "jaxis")
     _set(t.com, com, 3 * caps["MAX_BODIES"], "com")
     _set(t.inertia, inertia, 9 * caps["MAX_BODIES"], "inertia")
+    for i, b in enumerate(model.bodies):
+        for d in model.body_dofs[i]:
+            t.dof_body[d] = i
+            # free dofs have no spring: stiffness masked as step.py · _passive_tables
+            t.dof_qadr[d] = 0 if b.jtype == JointType.FREE else b.q_adr
+            stiff = 0.0 if b.jtype == JointType.FREE else float(model.dof_stiffness[d])
+            t.neg_stiffness[d] = _f32(-stiff)
     for d in range(model.nv):
         t.neg_damping[d] = _f32(-float(model.dof_damping[d]))
-        t.neg_stiffness[d] = _f32(-float(model.dof_stiffness[d]))
         t.springref[d] = _f32(model.dof_springref[d])
         t.armature[d] = _f32(model.dof_armature[d])
-        t.qpos0[d] = _f32(model.qpos0[d])
+    for j in range(model.nq):
+        t.qpos0[j] = _f32(model.qpos0[j])
 
     if len(rows) > caps["MAX_ROWS"] or nl > caps["MAX_LIMITS"]:
         raise ValueError(f"{model.name}: {len(rows)} contact / {nl} limit rows exceed the kernel caps")
@@ -202,11 +207,15 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
     return t
 
 
+ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2}  # engine_core.h · ALIVE_*
+
+
 def pack_tables(task, frame_skip: Optional[int] = None):
     """All tables of the env-step kernel for `task` (physics + walker task
     constants). Raises for a task the kernel does not implement: anything
-    but the port's plain `WalkerTask` with the "cheetah" alive mode (other
-    alive modes, retargeting or pre-physics hooks, other task families)."""
+    but the port's plain `WalkerTask` with the "cheetah", "hopper" or "ant"
+    alive mode (the humanoid mode, retargeting or pre-physics hooks, other
+    task families)."""
     from pybulletgym_tpu_torch.envs.base import Task
     from pybulletgym_tpu_torch.envs.locomotion import WalkerTask
 
@@ -214,12 +223,14 @@ def pack_tables(task, frame_skip: Optional[int] = None):
         raise NotImplementedError(f"{type(task).__name__}: only WalkerTask is in the CUDA kernels yet")
     if type(task).pre_physics_scalar is not Task.pre_physics_scalar:
         raise NotImplementedError("pre_physics_scalar is not in the CUDA kernels yet")
-    if task.spec.alive_mode != "cheetah":
-        raise NotImplementedError(f"alive mode {task.spec.alive_mode!r} is not in the CUDA kernels yet")
+    mode = task.spec.alive_mode
+    if mode not in ALIVE_MODES:
+        raise NotImplementedError(f"alive mode {mode!r} is not in the CUDA kernels yet")
     t = pack_physics(task.model, task.physics, frame_skip)
     _, caps = tables_type()
-    if len(task.foot_rows) < 6:
+    if mode == "cheetah" and len(task.foot_rows) < 6:
         raise ValueError("the cheetah alive mode reads feet 1, 2, 4 and 5")
+    t.alive_mode = ALIVE_MODES[mode]
     _check_keys(task)
     t.act = task.act_dim
     t.nfeet = len(task.foot_rows)
@@ -438,6 +449,16 @@ def _launch_checked(rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
+# Launches of each kernel by every wrapper instance since the last reset;
+# each wrapper also keeps its own `launches`.
+LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
@@ -474,6 +495,7 @@ class CudaPhysicsStep:
             )
         _launch_checked(rc, "physics_step_kernel")
         self.launches += 1
+        LAUNCHES["physics_step_kernel"] += 1
         return tuple(outs)
 
 
@@ -507,6 +529,7 @@ class CudaEnvStep:
             )
         _launch_checked(rc, "env_step_kernel")
         self.launches += 1
+        LAUNCHES["env_step_kernel"] += 1
         return _env_state(state, outs)
 
 
@@ -520,6 +543,89 @@ def make_cuda_env_step(task, frame_skip: Optional[int] = None) -> CudaEnvStep:
     """The env-step wrapper for `task`; `frame_skip` overrides the task's
     number of physics substeps (0 returns the post-reset state)."""
     return CudaEnvStep(task, frame_skip)
+
+
+# ---------------------------------------------------------------------------
+# work per env step, for the kernels' bound
+# ---------------------------------------------------------------------------
+
+# float operations of engine_core.h's primitives (a product or a sum is
+# one; sqrt, division, sin and cos count one each, so this is a floor)
+_V_ADD, _V_DOT, _V_CROSS, _M3_VEC, _M3_MUL = 3, 5, 9, 15, 45
+_SV_ADD, _SV_DOT, _SV_CROSS = 6, 10, 30
+_INERTIA_MUL = 42
+_RODRIGUES, _M3_FROM_QUAT, _ATAN2 = 42, 24, 17
+_QUAT_INTEGRATE = 59
+
+
+def _fk_flops(t, inert: bool) -> int:
+    n = 0
+    for i in range(t.nb):
+        jt = t.jtype[i]
+        if jt == int(JointType.FREE):
+            n += _M3_FROM_QUAT + 3 * _V_CROSS + 6 * 2 * _SV_ADD
+        else:
+            n += _M3_MUL + _M3_VEC + _V_ADD + 2 * _SV_ADD  # R0, p0, velocity
+            if jt == int(JointType.HINGE):
+                n += 1 + 2 * (_M3_VEC + _V_ADD) + _RODRIGUES + _M3_MUL + _M3_VEC + 6 + _V_CROSS - _V_ADD
+            else:
+                n += _M3_VEC + 7
+        if t.has_mass[i]:
+            n += _M3_VEC + _V_ADD + (2 * _M3_MUL + _V_DOT + 3 + 36 if inert else 0)
+    return n
+
+
+def _chol_flops(n: int) -> Tuple[int, int]:
+    """(factorisation, one forward or back substitution)"""
+    fact = sum(2 * j + 2 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+    return fact, sum(2 * i + 1 for i in range(n))
+
+
+def substep_flops(t) -> int:
+    """Float operations of one `substep` of engine_core.h for the tables
+    `t`, counted from its loop bounds."""
+    nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
+    fact, solve = _chol_flops(nv)
+    n = _fk_flops(t, inert=True)
+    n += nb * (3 * _SV_ADD + 2 * _SV_CROSS + 2 * _INERTIA_MUL) + (nb - 1) * _SV_ADD
+    n += nv * _SV_DOT  # C
+    n += sum(2 * (t.neg_damping[d] != 0) + 3 * (t.neg_stiffness[d] != 0) + 2 for d in range(nv))
+    n += (nb - 1) * 12 + sum(t.armature[d] != 0 for d in range(nv))
+    n += sum(_INERTIA_MUL + _SV_DOT * sum(1 for e in range(d + 1) if t.anc_mask[t.dof_body[d]] >> e & 1)
+             for d in range(nv))
+    n += fact + solve + nr * (_M3_VEC + _V_ADD + _V_DOT + 4)
+    if nr or nl:
+        n += sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))  # z
+        ndofs = [bin(t.anc_mask[t.row_body[r]]).count("1") for r in range(nr)]
+        n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * solve for k in ndofs)
+        n += nl * solve
+        setup_vel = 1 if t.e_comb_zero else 2 * nv + 4
+        n += nr * (3 * (2 * nv + 2) + setup_vel + 2) + nl * (2 * nv + 7)
+        n += t.iterations * (nr * (4 * 4 * nv + 17) + nl * (4 * nv + 5))
+        n += 2 * solve
+    else:
+        n += solve + 2 * nv
+    for i in range(nb):
+        n += 6 + 2 * _M3_VEC + 6 + _QUAT_INTEGRATE if t.jtype[i] == int(JointType.FREE) else 3
+    return n
+
+
+def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
+    """(float operations, bytes) that one env of one launch needs, for the
+    tables `t`: `env_step_kernel` (auto-reset draws not counted: they
+    depend on the data), or `physics_step_kernel`. Bytes count each input
+    read once and each output written once; the tables once per launch are
+    left to the caller."""
+    n = t.frame_skip * substep_flops(t)
+    f32 = 4
+    if not env_step:
+        return n, f32 * (2 * t.nq + 2 * t.nv + t.nv + t.nr)
+    na = t.act
+    n += na + _fk_flops(t, inert=False) + 3 * na + 3 * _ATAN2 + 4 + _V_CROSS + _V_ADD
+    n += t.nparts * (_M3_VEC + _V_ADD + 2) + 2 + 2 + _ATAN2 + 1 + 4 + 2 + 6 + 5 * na + 20
+    ins = f32 * (t.nq + t.nv + na + NAUX) + 2 + 4 * 4   # term, trunc, step, epoch, seed, id
+    outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + NAUX + NCOMP) + 2 + 4 * 2
+    return n, ins + outs
 
 
 # ---------------------------------------------------------------------------

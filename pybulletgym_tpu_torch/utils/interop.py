@@ -3,18 +3,20 @@
 States cross as plain numpy: a dict with the `EnvState` field names, whose
 `aux` and `rewards` entries are dicts of (B,) arrays. Weights cross as the
 npz files that `examples/weights/` ships (keys `n_layers`, `w{i}`, `b{i}`,
-optional `normalized`/`obs_mean`/`obs_var` and `squash`).
+optional `normalized`/`obs_mean`/`obs_var` and `squash`). A PPO learner's
+state crosses as the JAX package's `utils/checkpoint.py` npz (`leaf_{i}`,
+read with numpy alone).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from pybulletgym_tpu_torch.envs.base import EnvState
-from pybulletgym_tpu_torch.parallel.networks import MLPPolicy
+from pybulletgym_tpu_torch.parallel.networks import ActorCritic, MLPPolicy
 
 _DTYPES = {
     "q": torch.float32, "v": torch.float32, "obs": torch.float32,
@@ -49,8 +51,9 @@ def env_state_to_numpy(state) -> Dict:
     return out
 
 
-def policy_from_npz(path: str, device="cpu") -> MLPPolicy:
-    """A shipped policy npz -> `MLPPolicy` on `device`."""
+def policy_from_npz(path: str, device="cuda") -> MLPPolicy:
+    """A shipped policy npz -> `MLPPolicy` on `device` (the GPU unless the
+    caller asks for "cpu")."""
     with np.load(path) as d:
         n = int(d["n_layers"])
         ws = [torch.as_tensor(d[f"w{i}"], dtype=torch.float32) for i in range(n)]
@@ -61,3 +64,44 @@ def policy_from_npz(path: str, device="cpu") -> MLPPolicy:
                     torch.as_tensor(d["obs_var"], dtype=torch.float32))
         squash = "squash" in d and bool(d["squash"])
     return MLPPolicy(ws, bs, squash=squash, norm=norm).to(device)
+
+
+def train_state_from_npz(path: str, device="cuda", seed: int = 0) -> Tuple[object, np.ndarray]:
+    """A JAX `ppo.TrainState` checkpoint (`utils/checkpoint.py · save`) ->
+    (the port's `ppo.TrainState` on `device`, the JAX key as uint32[2]).
+
+    The leaves are in `jax.tree.flatten(TrainState)` order: params
+    (policy weights, policy biases, value weights, value biases, log_std),
+    opt_m and opt_v (each like params), opt_count, key, obs_stats (mean,
+    var, count). The layer count follows from the number of leaves. The JAX
+    key is returned as data; the port's sampling draws from a
+    torch.Generator seeded with `seed`."""
+    from pybulletgym_tpu_torch.parallel.ppo import ObsStats, TrainState
+
+    dev = torch.device(device)
+    with np.load(path) as d:
+        leaves = []
+        while f"leaf_{len(leaves)}" in d:
+            leaves.append(np.array(d[f"leaf_{len(leaves)}"]))
+    n_params = (len(leaves) - 5) // 3
+    n_layers = (n_params - 1) // 4
+    if len(leaves) != 3 * n_params + 5 or n_params != 4 * n_layers + 1 or n_layers < 1:
+        raise ValueError(f"{path}: {len(leaves)} leaves do not form a PPO TrainState")
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)  # noqa: E731
+
+    def params(xs):
+        L = n_layers
+        return xs[:L], xs[L:2 * L], xs[2 * L:3 * L], xs[3 * L:4 * L], xs[4 * L]
+
+    pw, pb, vw, vb, log_std = params([t(x) for x in leaves[:n_params]])
+    ac = ActorCritic(pw, pb, vw, vb, log_std)
+    shapes = [tuple(p.shape) for p in ac.leaves()]
+    opt_m = [t(x) for x in leaves[n_params:2 * n_params]]
+    opt_v = [t(x) for x in leaves[2 * n_params:3 * n_params]]
+    if [tuple(x.shape) for x in opt_m] != shapes or [tuple(x.shape) for x in opt_v] != shapes:
+        raise ValueError(f"{path}: Adam moments do not match the parameters' shapes")
+    count, key, mean, var, n_seen = leaves[3 * n_params:]
+    stats = ObsStats(t(mean), t(var), t(n_seen))
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    ts = TrainState(ac, opt_m, opt_v, torch.as_tensor(count, dtype=torch.int32).to(dev), gen, stats)
+    return ts, np.asarray(key, np.uint32)

@@ -7,7 +7,8 @@ machine without the JAX package (tests/conftest.py imports jax, hence
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Without a GPU every test here skips. The bounds are the walker budget of
-test_pallas_equivalence.py:38-51, as chip_smoke.py holds them.
+test_pallas_equivalence.py:38-51, as chip_smoke.py holds them. The kernel
+tests run on HalfCheetah (hinge and slide joints) and Ant (a free root).
 """
 
 import pytest
@@ -16,8 +17,10 @@ import torch
 from pybulletgym_tpu_torch import make_batched, make_task
 from pybulletgym_tpu_torch.envs.base import env_step_plain
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
+from pybulletgym_tpu_torch.parallel import ppo
 
 ENV = "HalfCheetahPyBulletEnv-v0"
+ANT = "AntPyBulletEnv-v0"
 B = 300  # two full blocks of 128 threads and a ragged third
 
 pytestmark = pytest.mark.cuda
@@ -37,16 +40,20 @@ def bounds_env(a, b, nf):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
-@pytest.fixture(scope="module")
-def task():
+def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    return make_task(ENV)
 
 
-def _state(seed):
+@pytest.fixture(scope="module", params=[ENV, ANT])
+def task(request):
+    _need_gpu()
+    return make_task(request.param)
+
+
+def _state(task, seed):
     """A CUDA batch after reset, with every 3rd env due for an auto-reset."""
-    env = make_batched(ENV, B, device="cuda")
+    env = make_batched({"half_cheetah": ENV, "ant": ANT}[task.spec.name], B, device="cuda")
     s = env.reset(seed=seed)
     forced = torch.zeros(B, dtype=torch.bool, device="cuda")
     forced[::3] = True
@@ -54,7 +61,7 @@ def _state(seed):
 
 
 def test_env_kernel_matches_plain(task):
-    env, s = _state(2)
+    env, s = _state(task, 2)
     g = torch.Generator(device="cuda").manual_seed(2)
     a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
     out = env.step_fn(s, a)
@@ -69,10 +76,12 @@ def test_env_kernel_matches_plain(task):
     again = env.step_fn(s, a)
     for name in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
         assert torch.equal(getattr(out, name), getattr(again, name)), name
+    if task.model.nq != task.model.nv:  # the free joint's quaternion stays a unit one
+        assert (1 - out.q[3:7].norm(dim=0)).abs().max() < 1e-5
 
 
 def test_physics_kernel_matches_plain(task):
-    _, s = _state(3)
+    _, s = _state(task, 3)
     phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
     g = torch.Generator(device="cuda").manual_seed(3)
     tau = torch.zeros((task.model.nv, B), device="cuda")
@@ -88,7 +97,7 @@ def test_physics_kernel_matches_plain(task):
 
 
 def test_wrappers_refuse_bad_cuda_inputs(task):
-    env, s = _state(4)
+    env, s = _state(task, 4)
     a = torch.zeros((task.act_dim, B), device="cuda")
     with pytest.raises(TypeError, match="q: dtype"):
         env.step_fn(s._replace(q=s.q.double()), a)
@@ -102,3 +111,19 @@ def test_wrappers_refuse_bad_cuda_inputs(task):
     with pytest.raises(ValueError, match="tau: shape"):
         phys(s.q, s.v, torch.zeros((task.model.nv, B + 1), device="cuda"))
     assert env.step_fn.launches == 0 and phys.launches == 0
+
+
+def test_ppo_train_step_launches_the_env_kernel():
+    """One PPO train step on Ant on the GPU: T launches of env_step_kernel,
+    a finite loss, num_epochs x num_minibatches Adam updates."""
+    _need_gpu()
+    cfg = ppo.PPOConfig(rollout_length=4, num_epochs=2, num_minibatches=2)
+    env = make_batched(ANT, 256)
+    ts = ppo.init_train_state(0, env.observation_size, env.action_size, cfg)
+    step = ppo.make_train_step(env.task, cfg, step_fn=env.step_fn)
+    ce.reset_launch_counts()
+    ts, es, metrics = step(ts, env.reset(seed=0))
+    torch.cuda.synchronize()
+    assert env.step_fn.launches == ce.LAUNCHES["env_step_kernel"] == 4
+    assert int(ts.opt_count) == 4
+    assert torch.isfinite(metrics["loss"]) and es.q.is_cuda

@@ -1,5 +1,6 @@
 """The port's env step against the JAX package, and the CUDA kernels' C++
-against the plain version.
+against the plain version, on HalfCheetah (hinge and slide joints) and Ant
+(a free root joint and the "ant" alive mode).
 
 (a) make_physics_step_plain vs an eager JAX frame_skip loop over
     `make_substep_scalar`: the same float32 formulas in the same order,
@@ -9,10 +10,11 @@ against the plain version.
     forced auto-reset: epoch, step count and the reset q exact.
 (c) the 20-step CPU golden: median |dobs| < 1e-3 at step 5, < 3e-2 at
     step 20 (the drift budget of test_pallas_equivalence.py), terminated
-    equal.
+    equal; through the plain version for HalfCheetah and Ant, through the
+    host twin for Hopper, Walker2D, HalfCheetah and Ant.
 (d) the host twin (csrc/engine_core.h built with g++) vs the plain version,
     under the bounds chip_smoke.py holds the CUDA kernels to.
-(e) BatchedEnv(device="cuda") raises when no GPU is present.
+(e) BatchedEnv on "cuda", the default device, raises when no GPU is present.
 test_torch_cuda.py holds the CUDA kernels against the plain version on a GPU.
 """
 
@@ -40,12 +42,21 @@ from pybulletgym_tpu_torch.utils.interop import (
 from test_torch_cuda import bounds_env  # chip_smoke.py's env-step bounds
 
 ENV = "HalfCheetahPyBulletEnv-v0"
+ANT = "AntPyBulletEnv-v0"
+WALKERS = ("HopperPyBulletEnv-v0", "Walker2DPyBulletEnv-v0", ENV, ANT)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module")
-def tasks():
-    return pg.make_task(ENV), make_task(ENV)
+@pytest.fixture(scope="module", params=[ENV, ANT])
+def tasks(request):
+    return pg.make_task(request.param), make_task(request.param)
+
+
+def _rand_tau(task, B, seed):
+    tau = np.zeros((task.model.nv, B), np.float32)
+    a = np.random.default_rng(seed).uniform(-1, 1, (task.act_dim, B)).astype(np.float32)
+    tau[task.act_dofs] = task.gains * a
+    return tau
 
 
 def _jax_reset(task_j, B, seed):
@@ -109,8 +120,7 @@ def test_physics_step_plain_matches_jax(tasks):
     tj, tt = tasks
     B = 2
     s = _jax_reset(tj, B, 9)
-    tau = np.zeros((9, B), np.float32)
-    tau[3:] = tj.gains * np.random.default_rng(9).uniform(-1, 1, (6, B)).astype(np.float32)
+    tau = _rand_tau(tj, B, 9)
     substep, _, _ = step_j.make_substep_scalar(tj.model, tj.physics)
     q, v = [jnp.asarray(r) for r in s["q"]], [jnp.asarray(r) for r in s["v"]]
     taus = [jnp.asarray(r) for r in tau]
@@ -121,7 +131,7 @@ def test_physics_step_plain_matches_jax(tasks):
     dq = np.abs(np.stack([np.asarray(x) for x in q]) - q2.numpy())
     assert dq.mean() < 1e-5, dq.mean()
     np.testing.assert_allclose(np.stack([np.asarray(x) for x in d]), d2.numpy(), atol=1e-5)
-    assert d2.shape == (n_rows, B) == (16, B)
+    assert d2.shape == (n_rows, B) == ({9: 16, 15: 25}[tt.model.nq], B)
 
 
 def test_env_step_plain_matches_jax_kernel_body(tasks):
@@ -133,7 +143,7 @@ def test_env_step_plain_matches_jax_kernel_body(tasks):
     sj["epoch"] = np.array([2**32 - 1, 4, 0], np.uint32)  # epoch wraps like uint32
     sj["step_count"] = np.array([17, 999, 3], np.int32)  # env 1 truncates
     st = env_state_from_numpy(sj)
-    a = np.random.default_rng(21).uniform(-1.5, 1.5, (6, B)).astype(np.float32)
+    a = np.random.default_rng(21).uniform(-1.5, 1.5, (tt.act_dim, B)).astype(np.float32)
 
     rj0 = _jax_kernel_body(tj, sj, a, frame_skip=0)
     rt0 = env_step_plain(tt, st, torch.from_numpy(a), frame_skip=0)
@@ -154,19 +164,27 @@ def test_env_step_plain_matches_jax_kernel_body(tasks):
         np.testing.assert_allclose(rj["aux"][k], rt.aux[k].numpy(), rtol=1e-5, atol=1e-3)
 
 
-def test_golden_rollout():
-    """(c)"""
-    g = np.load(os.path.join(ROOT, "tests", "goldens", f"{ENV}.cpu.npz"))
+def _replay_golden(env_id, step):
+    """Replay the 20-step CPU golden through `step(state, actions (B, act))`
+    and hold it to the drift budget."""
+    g = np.load(os.path.join(ROOT, "tests", "goldens", f"{env_id}.cpu.npz"))
     B, n, seed = int(g["batch"]), int(g["n_steps"]), int(g["seed"])
-    env = make_batched(ENV, B)
+    env = make_batched(env_id, B, device="cpu")
     s = env.reset(seed=seed)
     acts = np.random.default_rng(seed).uniform(-1, 1, (n, B, env.action_size)).astype(np.float32)
     meds = []
     for t in range(n):
-        s = env.step(s, acts[t])
+        s = step(env, s, acts[t])
         meds.append(np.median(np.abs(s.obs.numpy() - g["obs"][t])))
         np.testing.assert_array_equal(s.terminated.numpy(), g["terminated"][t])
     assert meds[4] < 1e-3 and meds[-1] < 3e-2, meds
+    return env
+
+
+@pytest.mark.parametrize("env_id", [ENV, ANT])
+def test_golden_rollout(env_id):
+    """(c) the plain version"""
+    env = _replay_golden(env_id, lambda env, s, a: env.step(s, a))
     assert env.step_fn.launches == 0  # CPU tensors never launch a kernel
 
 
@@ -177,14 +195,21 @@ def twin():
     return ce.HostTwin()
 
 
+@pytest.mark.parametrize("env_id", WALKERS)
+def test_golden_rollout_on_host_twin(env_id, twin):
+    """(c) the kernels' C++"""
+    task = make_task(env_id)
+    tab = ce.pack_tables(task)
+    _replay_golden(env_id, lambda env, s, a: twin.env_step(
+        tab, task, s, torch.from_numpy(a.T.copy())))
+
+
 def test_host_twin_physics_step(tasks, twin):
     """(d) physics"""
     _, tt = tasks
     B = 8
-    s = make_batched(ENV, B).reset(seed=0)
-    tau = torch.zeros(9, B)
-    a = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (6, B)).astype(np.float32))
-    tau[3:] = torch.from_numpy(tt.gains) * a
+    s = BatchedEnv(tt, B, device="cpu").reset(seed=0)
+    tau = torch.from_numpy(_rand_tau(tt, B, 3))
     qp, vp, dp = make_physics_step_plain(tt.model, tt.physics)[0](s.q, s.v, tau)
     qh, vh, dh = twin.physics_step(ce.pack_physics(tt.model, tt.physics), s.q, s.v, tau)
     dq = (qp - qh).abs()
@@ -197,7 +222,7 @@ def test_host_twin_env_step(tasks, twin):
     _, tt = tasks
     B = 8
     tab, tab0 = ce.pack_tables(tt), ce.pack_tables(tt, frame_skip=0)
-    sp = sh = make_batched(ENV, B).reset(seed=4)
+    sp = sh = BatchedEnv(tt, B, device="cpu").reset(seed=4)
     rng = np.random.default_rng(4)
     for t in range(3):
         if t == 1:
@@ -205,26 +230,28 @@ def test_host_twin_env_step(tasks, twin):
             forced[::3] = True
             sp = sp._replace(terminated=sp.terminated | forced)
             sh = sh._replace(terminated=sh.terminated | forced)
-            a0 = torch.zeros(6, B)
+            a0 = torch.zeros(tt.act_dim, B)
             # same input state: the post-reset q is bitwise the plain one
             assert torch.equal(twin.env_step(tab0, tt, sh, a0).q,
                                env_step_plain(tt, sh, a0, frame_skip=0).q)
             again = twin.env_step(tab, tt, sh, a0)
             assert torch.equal(again.q, twin.env_step(tab, tt, sh, a0).q)
-        a = torch.from_numpy(rng.uniform(-1, 1, (6, B)).astype(np.float32))
+        a = torch.from_numpy(rng.uniform(-1, 1, (tt.act_dim, B)).astype(np.float32))
         sp = env_step_plain(tt, sp, a)
         sh = twin.env_step(tab, tt, sh, a)
         bounds_env(sh, sp, len(tt.foot_rows))
+    if tt.model.nq != tt.model.nv:  # the free joint's quaternion stays a unit one
+        assert (1 - sh.q[3:7].norm(dim=0)).abs().max() < 1e-5
 
 
-def test_frozen_sac_policy_on_host_twin(tasks, twin):
+def test_frozen_sac_policy_on_host_twin(twin):
     """The shipped SAC policy keeps its 3000 floor (test_frozen_policy.py:41)
     on the kernels' arithmetic: B=8, reset(seed=123), 1000 steps, returns
     masked after the first done."""
-    _, tt = tasks
+    tt = make_task(ENV)
     tab = ce.pack_tables(tt)
-    policy = policy_from_npz(os.path.join(ROOT, "examples", "weights", f"{ENV}.npz"))
-    s = make_batched(ENV, 8).reset(seed=123)
+    policy = policy_from_npz(os.path.join(ROOT, "examples", "weights", f"{ENV}.npz"), device="cpu")
+    s = make_batched(ENV, 8, device="cpu").reset(seed=123)
     rews, dones = [], []
     with torch.no_grad():
         for _ in range(1000):
@@ -243,13 +270,48 @@ def test_batched_env_cuda_without_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_batched(ENV, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batched(ANT, 4)  # the default device is the GPU
+
+
+@pytest.mark.parametrize("env_id", WALKERS)
+def test_pack_tables_takes_the_walkers(env_id):
+    task = make_task(env_id)
+    t = ce.pack_tables(task)
+    assert (t.nq, t.nv, t.act, t.nfeet) == (task.model.nq, task.model.nv, task.act_dim,
+                                            len(task.foot_rows))
+    assert t.alive_mode == ce.ALIVE_MODES[task.spec.alive_mode]
+    assert list(t.qpos0[:t.nq]) == [float(np.float32(x)) for x in task.model.qpos0]
+
+
+def test_work_per_env_step_counts_the_loops(tasks):
+    """The floor count behind the kernels' bound: the substeps scale with
+    frame_skip, and the bytes are each input read once, each output written
+    once (HalfCheetah: 130 in, 226 out)."""
+    _, tt = tasks
+    t, t0 = ce.pack_tables(tt), ce.pack_tables(tt, frame_skip=0)
+    (f, nbytes), (f0, _) = ce.work_per_env_step(t), ce.work_per_env_step(t0)
+    assert f - f0 == 4 * ce.substep_flops(t) > 0
+    phys_f, phys_b = ce.work_per_env_step(ce.pack_physics(tt.model, tt.physics), env_step=False)
+    # q and v in and out, tau in, the depths out
+    assert phys_f == 4 * ce.substep_flops(t)
+    assert phys_b == 4 * (2 * tt.model.nq + 3 * tt.model.nv + t.nr)
+    if tt.model.nq == tt.model.nv:
+        assert nbytes == 356
+    else:  # the free joint and twice the contact rows make Ant's substep dearer
+        assert ce.substep_flops(t) > ce.substep_flops(ce.pack_tables(make_task(ENV)))
 
 
 def test_pack_tables_refuses_what_the_kernels_lack(tasks):
     _, tt = tasks
-    hopper_mode = loco_t.WalkerTask(dataclasses.replace(loco_t.HALF_CHEETAH, alive_mode="hopper"))
+    humanoid_mode = loco_t.WalkerTask(dataclasses.replace(loco_t.HALF_CHEETAH, alive_mode="humanoid"))
     with pytest.raises(NotImplementedError, match="alive mode"):
-        ce.pack_tables(hopper_mode)
+        ce.pack_tables(humanoid_mode)
+    # a free-joint model with a self-collision pair: pair rows are not in the kernels
+    paired = loco_t.WalkerTask(dataclasses.replace(
+        loco_t.ANT, self_collision=(("left_ankle_geom", "right_ankle_geom"),)))
+    with pytest.raises(NotImplementedError, match="pair contact rows"):
+        ce.pack_tables(paired)
 
     class Pushed(loco_t.WalkerTask):
         def pre_physics_scalar(self, q, v, aux, ids=None):
@@ -257,6 +319,6 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks):
 
     with pytest.raises(NotImplementedError):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
-    env = BatchedEnv(tt, 4)  # the kernel library is built lazily: no GPU needed here
+    env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):
-        env.step(env.reset(), np.zeros((4, 5), np.float32))
+        env.step(env.reset(), np.zeros((4, tt.act_dim - 1), np.float32))

@@ -69,6 +69,7 @@ def _jax_policy(path):
     "HalfCheetahPyBulletEnv-v0",            # SAC: tanh head, raw observations
     "InvertedPendulumPyBulletEnv-v0",       # clip head, raw observations
     "HopperPyBulletEnv-v0",                 # clip head, normalized observations
+    "AntPyBulletEnv-v0",                    # clip head, normalized observations
 ])
 def test_policy_from_npz_matches_jax(name):
     path = os.path.join(WEIGHTS, f"{name}.npz")
@@ -76,7 +77,7 @@ def test_policy_from_npz_matches_jax(name):
         obs_dim = d["w0"].shape[0]
     obs = np.random.default_rng(0).normal(0, 2, (16, obs_dim)).astype(np.float32)
     want = np.asarray(_jax_policy(path)(jnp.asarray(obs)))
-    got = policy_from_npz(path)(torch.from_numpy(obs)).detach().numpy()
+    got = policy_from_npz(path, device="cpu")(torch.from_numpy(obs)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 

@@ -1,6 +1,6 @@
-"""The port's host-side model data equals the JAX package's for HalfCheetah:
-Model, contact and limit plans, and the WalkerTask constants. Exact equality
-throughout (both sides run the same numpy code on the same XML)."""
+"""The port's host-side model data equals the JAX package's for HalfCheetah
+and Ant: Model, contact and limit plans, and the WalkerTask constants. Exact
+equality throughout (both sides run the same numpy code on the same XML)."""
 
 import os
 import subprocess
@@ -15,12 +15,22 @@ from pybulletgym_tpu_torch import make_task
 from pybulletgym_tpu_torch.ops import contacts as ct_t
 
 ENV = "HalfCheetahPyBulletEnv-v0"
+ANT = "AntPyBulletEnv-v0"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (nq, nv, bodies), contact rows, limit rows, obs, act, initial_z
+EXPECT = {
+    ENV: ((9, 9, 9), 16, 12, 26, 6, 0.72539830),
+    ANT: ((15, 14, 9), 25, 16, 28, 8, 0.75),
+}
 
 
-@pytest.fixture(scope="module")
-def tasks():
-    return pg.make_task(ENV), make_task(ENV)
+@pytest.fixture(scope="module", params=[ENV, ANT])
+def tasks(request):
+    return pg.make_task(request.param), make_task(request.param)
+
+
+def _expect(tt):
+    return EXPECT[{"half_cheetah": ENV, "ant": ANT}[tt.spec.name]]
 
 
 def _same(a, b, what):
@@ -52,7 +62,7 @@ def test_model_equal(tasks):
             assert len(getattr(mj, f)) == len(getattr(mt, f))
         else:
             _same(getattr(mj, f), getattr(mt, f), f)
-    assert (mt.nq, mt.nv, len(mt.bodies)) == (9, 9, 9)
+    assert (mt.nq, mt.nv, len(mt.bodies)) == _expect(tt)[0]
 
 
 def test_plans_equal(tasks):
@@ -61,13 +71,13 @@ def test_plans_equal(tasks):
     pt = ct_t.build_contact_plan(tt.model, tt.physics.solver)
     assert [tuple(c) for c in pj[0]] == [tuple(c) for c in pt[0]]
     assert [tuple(c) for c in pj[1]] == [tuple(c) for c in pt[1]] == []
-    assert ct_j.plan_rows(pj) == ct_t.plan_rows(pt) == 16
+    assert ct_j.plan_rows(pj) == ct_t.plan_rows(pt) == _expect(tt)[1]
     assert ct_j.plan_row_geoms(pj) == ct_t.plan_row_geoms(pt)
     assert all(c.kind == "point" for c in pt[0])
     lj, lt = ct_j.build_limit_plan(tj.model), ct_t.build_limit_plan(tt.model)
     for f in lj._fields:
         np.testing.assert_array_equal(getattr(lj, f), getattr(lt, f))
-    assert lt.dof.shape == (12,)
+    assert lt.dof.shape == (_expect(tt)[2],)
 
 
 def test_task_constants_equal(tasks):
@@ -77,17 +87,17 @@ def test_task_constants_equal(tasks):
     _same(tj.part_frames, tt.part_frames, "part_frames")
     for name in ("gains", "act_dofs", "act_qadr", "j_mid", "j_halfrange"):
         np.testing.assert_array_equal(getattr(tj, name), getattr(tt, name), err_msg=name)
-    assert (tt.obs_dim, tt.act_dim, tt.max_episode_steps) == (26, 6, 1000)
+    assert (tt.obs_dim, tt.act_dim, tt.max_episode_steps) == (*_expect(tt)[3:5], 1000)
     assert tt.physics == tt.physics.__class__(**{
         f: getattr(tj.physics, f) for f in tj.physics.__dataclass_fields__
         if f != "solver"}, solver=tt.physics.solver)
     assert tt.initial_z == tj.initial_z  # bitwise: the float32 FK result
-    assert abs(tt.initial_z - 0.72539830) < 1e-7
+    assert abs(tt.initial_z - _expect(tt)[5]) < 1e-7
 
 
 def test_unknown_id_lists_known():
-    with pytest.raises(KeyError, match="HalfCheetahPyBulletEnv-v0"):
-        make_task("HopperPyBulletEnv-v0")
+    with pytest.raises(KeyError, match="AntPyBulletEnv-v0"):
+        make_task("HumanoidPyBulletEnv-v0")
 
 
 def test_import_never_loads_jax():
@@ -96,8 +106,9 @@ def test_import_never_loads_jax():
         "from pybulletgym_tpu_torch.envs import base, locomotion\n"
         "from pybulletgym_tpu_torch.ops import cuda_engine, step, contacts, dynamics\n"
         "from pybulletgym_tpu_torch.utils import interop\n"
-        "from pybulletgym_tpu_torch.parallel import networks\n"
+        "from pybulletgym_tpu_torch.parallel import networks, ppo\n"
         "pybulletgym_tpu_torch.make_task('HalfCheetahPyBulletEnv-v0')\n"
+        "pybulletgym_tpu_torch.make_task('AntPyBulletEnv-v0')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pybulletgym_tpu' or m.startswith('pybulletgym_tpu.')]\n"
         "assert not bad, bad\n"
