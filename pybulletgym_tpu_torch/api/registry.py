@@ -1,8 +1,9 @@
 """Env registry for the port: the reference env IDs that the torch package
 runs [ref: pybulletgym/envs/__init__.py — gym.envs.registration.register].
 
-The MJCF walkers with point contacts are ported so far (Hopper, Walker2D,
-HalfCheetah, Ant); any other ID raises `KeyError` listing the known ones.
+The MJCF walkers are ported so far: Hopper, Walker2D, HalfCheetah, Ant and
+the humanoid family (Humanoid, HumanoidFlagrun, HumanoidFlagrunHarder);
+any other ID raises `KeyError` listing the known ones.
 Nothing is registered with gymnasium (the JAX package registers the same
 IDs for itself on import).
 """
@@ -30,12 +31,25 @@ def _walker(spec_name: str) -> Callable:
     return factory
 
 
+def _task(class_name: str) -> Callable:
+    def factory():
+        from pybulletgym_tpu_torch.envs import locomotion as loco
+
+        return getattr(loco, class_name)()
+
+    return factory
+
+
 registry: Dict[str, EnvSpec] = {
     s.id: s for s in (
         EnvSpec("HopperPyBulletEnv-v0", _walker("HOPPER"), 1000, 2500.0),
         EnvSpec("Walker2DPyBulletEnv-v0", _walker("WALKER2D"), 1000, 2500.0),
         EnvSpec("HalfCheetahPyBulletEnv-v0", _walker("HALF_CHEETAH"), 1000, 3000.0),
         EnvSpec("AntPyBulletEnv-v0", _walker("ANT"), 1000, 2500.0),
+        EnvSpec("HumanoidPyBulletEnv-v0", _walker("HUMANOID"), 1000, None),
+        EnvSpec("HumanoidFlagrunPyBulletEnv-v0", _task("HumanoidFlagrunTask"), 1000, 2000.0),
+        EnvSpec("HumanoidFlagrunHarderPyBulletEnv-v0", _task("HumanoidFlagrunHarderTask"),
+                1000, None),
     )
 }
 

@@ -13,10 +13,18 @@
 // is a stored 0 that adds nothing, so the rounding follows the plain version
 // (up to FMA contraction on the GPU and the last bits of sinf/cosf).
 //
-// Scope: free, hinge and slide joints, point contacts against planes, joint
-// limits, and the walker task with the "cheetah", "hopper" and "ant" alive
-// modes. pack_tables refuses anything else (disk and pair rows, the
-// humanoid mode, pre-physics hooks, other tasks).
+// Scope: free, hinge and slide joints (any number of free roots), point
+// contacts against planes, capsule/sphere pairs (self-collision), joint
+// limits, and the walker task with the "cheetah", "hopper", "ant" and
+// "humanoid" alive modes, Flagrun's flags and FlagrunHarder's lying reset,
+// cube throw and get-up machine. pack_tables refuses anything else (disk
+// rows, other pre-physics hooks, other tasks, models over the caps).
+//
+// The per-thread scratch is sized by a caps type (template parameter C),
+// not by the model: CUDA reserves a thread's whole stack frame for every
+// resident thread, so the walkers keep a small instantiation and the
+// humanoid family gets its own. The Tables struct is sized once, at the
+// larger caps.
 
 #pragma once
 
@@ -32,16 +40,26 @@
 
 namespace eng {
 
-// ---- caps of the per-thread scratch; pack_tables raises above them -------
-constexpr int MAX_BODIES = 16;
-constexpr int MAX_NV = 16;
-constexpr int MAX_NQ = 17;        // a free joint has 7 q entries and 6 dofs
-constexpr int MAX_ROWS = 32;      // contact rows
-constexpr int MAX_LIMITS = 32;    // joint-limit rows
-constexpr int MAX_ACT = 16;
+// ---- caps; pack_tables raises above them -----------------------------------
+// The Tables struct, and the scratch of the large instantiation (the
+// humanoid family: up to 32 dofs, so that a root-path mask is one uint32)
+constexpr int MAX_BODIES = 20;
+constexpr int MAX_NV = 32;
+constexpr int MAX_NQ = 34;        // a free joint has 7 q entries and 6 dofs
+constexpr int MAX_ROWS = 108;     // contact rows, point rows first
+constexpr int MAX_PAIRS = 80;     // of which capsule/sphere pair rows
+constexpr int MAX_LIMITS = 36;    // joint-limit rows
+constexpr int MAX_ACT = 20;
+// The scratch of the walker instantiation (Hopper ... Ant; no pair rows)
+constexpr int WALKER_BODIES = 16;
+constexpr int WALKER_NV = 16;
+constexpr int WALKER_NQ = 17;
+constexpr int WALKER_ROWS = 32;
+constexpr int WALKER_LIMITS = 32;
+constexpr int WALKER_ACT = 16;
 constexpr int MAX_FEET = 8;
 constexpr int MAX_PARTS = 16;
-constexpr int NAUX = 4;           // initial_z, potential, target_x, target_y
+constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
 constexpr int NCOMP = 5;          // alive, electricity, feet_collision,
                                   // joints_at_limit, progress
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
@@ -51,6 +69,20 @@ constexpr int JT_SLIDE = 2;
 constexpr int ALIVE_CHEETAH = 0;  // WalkerSpec.alive_mode, as pack_tables codes it
 constexpr int ALIVE_HOPPER = 1;
 constexpr int ALIVE_ANT = 2;
+constexpr int ALIVE_HUMANOID = 3;
+constexpr int TASK_WALKER = 0;    // the task class, as pack_tables codes it
+constexpr int TASK_FLAGRUN = 1;
+constexpr int TASK_FLAGRUN_HARDER = 2;
+
+template <int BODIES_, int NV_, int NQ_, int ROWS_, int PAIRS_, int LIMITS_, int ACT_, int ID_>
+struct Caps {
+  static constexpr int BODIES = BODIES_, NV = NV_, NQ = NQ_, ROWS = ROWS_, PAIRS = PAIRS_,
+                       LIMITS = LIMITS_, ACT = ACT_, ID = ID_;
+};
+// ID is Tables::caps_id, which pack_physics picks from the model
+using CapsWalker = Caps<WALKER_BODIES, WALKER_NV, WALKER_NQ, WALKER_ROWS, 0, WALKER_LIMITS,
+                        WALKER_ACT, 0>;
+using CapsLarge = Caps<MAX_BODIES, MAX_NV, MAX_NQ, MAX_ROWS, MAX_PAIRS, MAX_LIMITS, MAX_ACT, 1>;
 
 // The table layout, as one list. S(type, name) is a scalar, A(type, name,
 // count) a flat array. ops/cuda_engine.py parses this list to build the
@@ -62,6 +94,8 @@ constexpr int ALIVE_ANT = 2;
   S(int32_t, nv)                                                              \
   S(int32_t, nr)                                                              \
   S(int32_t, nl)                                                              \
+  S(int32_t, npair) /* the last npair contact rows are pair rows */          \
+  S(int32_t, caps_id) /* the scratch instantiation: 0 walker, 1 large */     \
   S(int32_t, frame_skip)                                                      \
   S(int32_t, iterations)                                                      \
   S(int32_t, e_comb_zero)                                                     \
@@ -72,6 +106,7 @@ constexpr int ALIVE_ANT = 2;
   S(int32_t, max_steps)                                                       \
   S(int32_t, base_body)                                                       \
   S(int32_t, alive_mode)                                                      \
+  S(int32_t, task_kind)                                                       \
   /* physics constants, each the float32 of the JAX package's constant */     \
   S(float, dt)                                                                \
   A(float, gravity_neg, 3)                                                    \
@@ -106,7 +141,7 @@ constexpr int ALIVE_ANT = 2;
   A(int32_t, dof_body, MAX_NV)                                                \
   A(int32_t, dof_qadr, MAX_NV) /* q entry of a hinge/slide dof */             \
   A(float, qpos0, MAX_NQ)                                                     \
-  /* contact rows: point candidates against planes */                         \
+  /* contact rows: point candidates against planes (row r < nr - npair) */   \
   A(int32_t, row_body, MAX_ROWS)                                              \
   A(float, row_local, MAX_ROWS * 3)                                           \
   A(float, row_n, MAX_ROWS * 3)                                               \
@@ -114,7 +149,17 @@ constexpr int ALIVE_ANT = 2;
   A(float, row_t2, MAX_ROWS * 3)                                              \
   A(float, row_depth0, MAX_ROWS) /* plane_d + radius */                       \
   A(float, row_nrad, MAX_ROWS * 3) /* n * radius */                           \
-  A(float, row_mu, MAX_ROWS)                                                  \
+  A(float, row_mu, MAX_ROWS) /* every row; a pair's is the product */       \
+  /* pair rows (row nr - npair + k): segment ends in the bodies' frames */    \
+  A(int32_t, pair_a, MAX_PAIRS)                                               \
+  A(int32_t, pair_b, MAX_PAIRS)                                               \
+  A(float, pair_a0, MAX_PAIRS * 3)                                            \
+  A(float, pair_a1, MAX_PAIRS * 3)                                            \
+  A(float, pair_b0, MAX_PAIRS * 3)                                            \
+  A(float, pair_b1, MAX_PAIRS * 3)                                            \
+  A(float, pair_rsum, MAX_PAIRS) /* ra + rb */                                \
+  A(float, pair_ra, MAX_PAIRS)                                                \
+  A(float, pair_rb, MAX_PAIRS)                                                \
   /* joint-limit rows */                                                      \
   A(int32_t, lim_dof, MAX_LIMITS)                                             \
   A(int32_t, lim_qadr, MAX_LIMITS)                                            \
@@ -128,7 +173,17 @@ constexpr int ALIVE_ANT = 2;
   A(float, j_half, MAX_ACT)                                                   \
   A(int32_t, part_host, MAX_PARTS)                                            \
   A(float, part_pos, MAX_PARTS * 3)                                           \
-  A(uint32_t, foot_rows, MAX_FEET) /* bit r: contact row r is this foot's */  \
+  A(int32_t, row_foot, MAX_ROWS) /* the foot whose geom row r is, or -1 */    \
+  /* aux: the slot of each key in sorted key order, -1 where absent */        \
+  S(int32_t, naux)                                                            \
+  S(int32_t, ax_flag_count)                                                   \
+  S(int32_t, ax_flag_timeout)                                                 \
+  S(int32_t, ax_frame)                                                        \
+  S(int32_t, ax_ground_counter)                                               \
+  S(int32_t, ax_initial_z)                                                    \
+  S(int32_t, ax_potential)                                                    \
+  S(int32_t, ax_target_x)                                                     \
+  S(int32_t, ax_target_y)                                                     \
   S(float, reset_lo)                                                          \
   S(float, reset_span)                                                        \
   S(float, initial_z)                                                         \
@@ -138,7 +193,33 @@ constexpr int ALIVE_ANT = 2;
   S(float, elec_coef)                                                         \
   S(float, stall_coef)                                                        \
   S(float, limit_coef)                                                        \
-  S(float, n_act)
+  S(float, n_act)                                                             \
+  /* Flagrun: flag draws U[lo, lo + span) on streams (x, y) */               \
+  A(int32_t, flag_streams, 2)                                                 \
+  S(float, flag_lo_x)                                                         \
+  S(float, flag_span_x)                                                       \
+  S(float, flag_lo_y)                                                         \
+  S(float, flag_span_y)                                                       \
+  S(float, flag_timeout)                                                      \
+  /* FlagrunHarder: lying reset on streams (lying?, side) */                 \
+  A(int32_t, lie_streams, 2)                                                  \
+  S(int32_t, root_qadr)                                                       \
+  S(float, lie_z)                                                             \
+  S(float, lie_c)                                                             \
+  /* the cube: streams (angle, speed, jitter x, y, z) */                     \
+  A(int32_t, cube_streams, 5)                                                 \
+  S(int32_t, cube_qadr)                                                       \
+  S(int32_t, cube_vadr)                                                       \
+  S(float, cube_period)                                                       \
+  S(float, cube_min_frame)                                                    \
+  S(float, cube_from_dist)                                                    \
+  S(float, angle_lo)                                                          \
+  S(float, angle_span)                                                        \
+  S(float, speed_lo)                                                          \
+  S(float, speed_span)                                                        \
+  S(float, jitter_lo)                                                         \
+  S(float, jitter_span)                                                       \
+  S(float, ground_limit)
 
 #define ENG_DECL_S(T, name) T name;
 #define ENG_DECL_A(T, name, n) T name[n];
@@ -368,14 +449,21 @@ ENG_HD float uniform(uint32_t seed, uint32_t stream, uint32_t env_id, uint32_t e
   return add_rn(lo, mul_rn(span, u));
 }
 
+// The counter of a Flagrun flag or FlagrunHarder cube draw: rand.py ·
+// hash_epoch, uint32 arithmetic wrapping mod 2^32.
+ENG_HD uint32_t hash_epoch(uint32_t epoch, float count) {
+  return epoch * 2654435761u + (uint32_t)(int32_t)count * 0x9E3779B9u;
+}
+
 // ---- forward kinematics ------------------------------------------------------
 
+template <class C>
 struct FKOut {
-  M3 R[MAX_BODIES];
-  V3 p[MAX_BODIES];
-  SV vel[MAX_BODIES];
-  V3 com[MAX_BODIES];
-  SV S[MAX_NV];
+  M3 R[C::BODIES];
+  V3 p[C::BODIES];
+  SV vel[C::BODIES];
+  V3 com[C::BODIES];
+  SV S[C::NV];
 };
 
 ENG_HD M3 rodrigues(V3 u, float th) {
@@ -397,8 +485,9 @@ ENG_HD M3 rodrigues(V3 u, float th) {
 
 // World-frame FK, motion subspaces, body velocities and (if `inert` is not
 // null) origin-frame spatial inertias. dynamics.py · forward_kinematics.
+template <class C>
 ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
-                               FKOut& fk, Inertia* inert) {
+                               FKOut<C>& fk, Inertia* inert) {
   for (int i = 0; i < t.nb; ++i) {
     const int par = t.parent[i];
     M3 Rp = par < 0 ? m3_identity() : fk.R[par];
@@ -487,8 +576,9 @@ ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
 // ---- dynamics: RNE bias, CRBA, Cholesky and its solves ---------------------
 
 // C(q, qd), world-frame RNE with the gravity trick. dynamics.py · bias_forces
-ENG_HD void bias_forces(const Tables& t, const FKOut& fk, const Inertia* inert, float* C) {
-  SV avp[MAX_BODIES], f[MAX_BODIES];
+template <class C>
+ENG_HD void bias_forces(const Tables& t, const FKOut<C>& fk, const Inertia* inert, float* Cq) {
+  SV avp[C::BODIES], f[C::BODIES];
   SV a0 = {v3_zero(), v3_load(t.gravity_neg)};
   for (int i = 0; i < t.nb; ++i) {
     const int par = t.parent[i];
@@ -501,12 +591,13 @@ ENG_HD void bias_forces(const Tables& t, const FKOut& fk, const Inertia* inert, 
   }
   for (int i = t.nb - 1; i >= 0; --i)
     if (t.parent[i] >= 0) f[t.parent[i]] = sv_add(f[t.parent[i]], f[i]);
-  for (int d = 0; d < t.nv; ++d) C[d] = sv_dot(fk.S[d], f[t.dof_body[d]]);
+  for (int d = 0; d < t.nv; ++d) Cq[d] = sv_dot(fk.S[d], f[t.dof_body[d]]);
 }
 
 // CRBA lower triangle into M (nv*nv, row-major); composite inertias sum
 // leafwise, composite masses come from the tables. dynamics.py · mass_matrix
-ENG_HD void mass_matrix(const Tables& t, const FKOut& fk, Inertia* Ic, float* M) {
+template <class C>
+ENG_HD void mass_matrix(const Tables& t, const FKOut<C>& fk, Inertia* Ic, float* M) {
   const int nv = t.nv;
   for (int k = 0; k < nv * nv; ++k) M[k] = 0.f;
   for (int i = t.nb - 1; i >= 0; --i) {
@@ -573,17 +664,55 @@ ENG_HD void axpy(int n, float* v, const float* w, float s) {
   for (int d = 0; d < n; ++d) v[d] = v[d] + w[d] * s;
 }
 
+// ---- narrowphase of one capsule/sphere pair: contacts.py · narrowphase_scalar
+
+// Closest points of the segments, the normal from b into a, the depth, the
+// midpoint of the two surface points and the per-env tangent basis.
+template <class C>
+ENG_HD void pair_contact(const Tables& t, const FKOut<C>& fk, int k, float& depth, V3& mid,
+                         V3* dirs) {
+  const int ba = t.pair_a[k], bb = t.pair_b[k];
+  const V3 a0 = v3_add(fk.p[ba], m3_vec(fk.R[ba], v3_load(t.pair_a0 + 3 * k)));
+  const V3 a1 = v3_add(fk.p[ba], m3_vec(fk.R[ba], v3_load(t.pair_a1 + 3 * k)));
+  const V3 b0 = v3_add(fk.p[bb], m3_vec(fk.R[bb], v3_load(t.pair_b0 + 3 * k)));
+  const V3 b1 = v3_add(fk.p[bb], m3_vec(fk.R[bb], v3_load(t.pair_b1 + 3 * k)));
+  // _segment_closest, with its branchless clamps and guards
+  const V3 d1 = v3_sub(a1, a0), d2 = v3_sub(b1, b0), r = v3_sub(a0, b0);
+  const float a = v3_dot(d1, d1), e = v3_dot(d2, d2), f = v3_dot(d2, r);
+  const float cdot = v3_dot(d1, r), b = v3_dot(d1, d2);
+  const float denom = a * e - b * b;
+  float s = denom > 1e-12f ? jclip((b * f - cdot * e) / (denom + 1e-20f), 0.f, 1.f) : 0.f;
+  const float u = jclip((b * s + f) / (e + 1e-20f), 0.f, 1.f);
+  s = jclip((b * u - cdot) / (a + 1e-20f), 0.f, 1.f);
+  const V3 ca = v3_add(a0, v3_scale(d1, s)), cb = v3_add(b0, v3_scale(d2, u));
+  const V3 dvec = v3_sub(ca, cb);
+  const float dist = sqrtf(v3_dot(dvec, dvec) + 1e-12f);
+  const V3 n = v3_scale(dvec, 1.f / dist);
+  depth = t.pair_rsum[k] - dist;
+  const V3 pa = v3_sub(ca, v3_scale(n, t.pair_ra[k]));
+  const V3 pb = v3_add(cb, v3_scale(n, t.pair_rb[k]));
+  mid = v3_add(pa, v3_scale(v3_sub(pb, pa), 0.5f));
+  const V3 ref = fabsf(n.x) < 0.9f ? v3(1.f, 0.f, 0.f) : v3(0.f, 1.f, 0.f);
+  const V3 c = v3_cross(n, ref);
+  const V3 t1 = v3_scale(c, 1.f / sqrtf(v3_dot(c, c) + 1e-12f));
+  dirs[0] = n;
+  dirs[1] = t1;
+  dirs[2] = v3_cross(n, t1);
+}
+
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
 // Advances q, v in place; writes the contact depths of this substep.
+template <class C>
 ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float* depth) {
   const int nv = t.nv, nr = t.nr, nl = t.nl;
-  FKOut fk;
-  Inertia inert[MAX_BODIES];
+  const int nfloor = nr - t.npair;
+  FKOut<C> fk;
+  Inertia inert[C::BODIES];
   forward_kinematics(t, q, v, fk, inert);
 
-  float C[MAX_NV], rhs[MAX_NV];
-  bias_forces(t, fk, inert, C);
+  float Cq[C::NV], rhs[C::NV];
+  bias_forces(t, fk, inert, Cq);
   for (int d = 0; d < nv; ++d) {
     // passive forces (dynamics.py · passive_forces); pack_tables zeroes
     // the stiffness of free dofs, so dof_qadr is read for hinge/slide only
@@ -591,45 +720,68 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
     if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * v[d];
     if (t.neg_stiffness[d] != 0.f)
       tp = tp + t.neg_stiffness[d] * (q[t.dof_qadr[d]] - t.springref[d]);
-    rhs[d] = (tau[d] + tp) - C[d];
+    rhs[d] = (tau[d] + tp) - Cq[d];
   }
-  float M[MAX_NV * MAX_NV], L[MAX_NV * MAX_NV], inv_diag[MAX_NV];
+  float M[C::NV * C::NV], L[C::NV * C::NV], inv_diag[C::NV];
   mass_matrix(t, fk, inert, M);
   cholesky(nv, M, L, inv_diag);
-  float y_dyn[MAX_NV];
+  float y_dyn[C::NV];
   chol_fwd(nv, L, inv_diag, rhs, y_dyn);
 
-  // narrowphase: point candidates vs planes (contacts.py · narrowphase_scalar)
-  V3 P[MAX_ROWS];
-  for (int r = 0; r < nr; ++r) {
+  // narrowphase (contacts.py · narrowphase_scalar): point candidates vs
+  // planes, then the pair rows, whose directions are per env
+  V3 P[C::ROWS];
+  V3 pair_dirs[C::PAIRS > 0 ? 3 * C::PAIRS : 1];
+  for (int r = 0; r < nfloor; ++r) {
     const int b = t.row_body[r];
     V3 x = v3_add(fk.p[b], m3_vec(fk.R[b], v3_load(t.row_local + 3 * r)));
     depth[r] = t.row_depth0[r] - v3_dot(v3_load(t.row_n + 3 * r), x);
     P[r] = v3_sub(x, v3_load(t.row_nrad + 3 * r));
   }
+  if constexpr (C::PAIRS > 0) {
+    for (int k = 0; k < t.npair; ++k)
+      pair_contact(t, fk, k, depth[nfloor + k], P[nfloor + k], pair_dirs + 3 * k);
+  }
 
-  float v3o[MAX_NV], vp[MAX_NV];
+  float v3o[C::NV], vp[C::NV];
   if (nr > 0 || nl > 0) {
     // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
-    float z[MAX_NV];
+    float z[C::NV];
     for (int i = 0; i < nv; ++i) {
       float s = L[i * nv + i] * v[i];
       for (int k = i + 1; k < nv; ++k) s = s + L[k * nv + i] * v[k];
       z[i] = s + t.dt * y_dyn[i];
     }
     // forward-solved constraint rows y = L^-1 J^T (contacts.py ·
-    // scalar_jacobians, step.py): 3 directions per contact row, one per limit
-    float y_rows[MAX_ROWS * 3 * MAX_NV];
-    float y_lim[MAX_LIMITS * MAX_NV];
+    // scalar_jacobians, step.py): 3 directions per contact row, one per
+    // limit. A dof's weight is +1 on body a's root path only, -1 on body
+    // b's only (pair rows), 0 on both or neither.
+    float y_rows[C::ROWS * 3 * C::NV];
+    float y_lim[C::LIMITS * C::NV];
     for (int r = 0; r < nr; ++r) {
-      const uint32_t mask = t.anc_mask[t.row_body[r]];
-      const V3 dirs[3] = {v3_load(t.row_n + 3 * r), v3_load(t.row_t1 + 3 * r),
-                          v3_load(t.row_t2 + 3 * r)};
-      float J[3][MAX_NV];
+      uint32_t plus, minus = 0u;
+      V3 dirs[3];
+      if (C::PAIRS == 0 || r < nfloor) {
+        plus = t.anc_mask[t.row_body[r]];
+        dirs[0] = v3_load(t.row_n + 3 * r);
+        dirs[1] = v3_load(t.row_t1 + 3 * r);
+        dirs[2] = v3_load(t.row_t2 + 3 * r);
+      } else {
+        const int k = r - nfloor;
+        const uint32_t ma = t.anc_mask[t.pair_a[k]], mb = t.anc_mask[t.pair_b[k]];
+        plus = ma & ~mb;
+        minus = mb & ~ma;
+        for (int j = 0; j < 3; ++j) dirs[j] = pair_dirs[3 * k + j];
+      }
+      float J[3][C::NV];
       for (int d = 0; d < nv; ++d) {
-        if (mask & (1u << d)) {
+        const uint32_t bit = 1u << d;
+        if ((plus | minus) & bit) {
           V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, P[r]));
-          for (int k = 0; k < 3; ++k) J[k][d] = v3_dot(dirs[k], vel);
+          for (int k = 0; k < 3; ++k) {
+            const float jd = v3_dot(dirs[k], vel);
+            J[k][d] = (minus & bit) ? -jd : jd;
+          }
         } else {
           for (int k = 0; k < 3; ++k) J[k][d] = 0.f;
         }
@@ -637,13 +789,13 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
       for (int k = 0; k < 3; ++k) chol_fwd(nv, L, inv_diag, J[k], y_rows + (3 * r + k) * nv);
     }
     for (int l = 0; l < nl; ++l) {
-      float e[MAX_NV];
+      float e[C::NV];
       for (int d = 0; d < nv; ++d) e[d] = d == t.lim_dof[l] ? 1.f : 0.f;
       chol_fwd(nv, L, inv_diag, e, y_lim + l * nv);
     }
 
-    // PGS set-up (contacts.py · solve_scalar)
-    float dinv[MAX_ROWS * 3], b_vel[MAX_ROWS], b_pos[MAX_ROWS];
+    // PGS set-up (contacts.py · solve_scalar); pair rows as point rows
+    float dinv[C::ROWS * 3], b_vel[C::ROWS], b_pos[C::ROWS];
     for (int r = 0; r < nr; ++r) {
       const float* yn = y_rows + 3 * r * nv;
       for (int k = 0; k < 3; ++k) {
@@ -661,7 +813,7 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
       }
       b_pos[r] = t.erp_over_dt * (dep - t.slop);
     }
-    float dinv_l[MAX_LIMITS], b_l[MAX_LIMITS];
+    float dinv_l[C::LIMITS], b_l[C::LIMITS];
     for (int l = 0; l < nl; ++l) {
       const float* w = y_lim + l * nv;
       dinv_l[l] = 1.f / (dotn(nv, w, w) + t.reg);
@@ -669,11 +821,11 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
       b_l[l] = t.limit_erp_over_dt * viol;
     }
 
-    float lam_n[MAX_ROWS], lam_t1[MAX_ROWS], lam_t2[MAX_ROWS], lam_p[MAX_ROWS];
-    float lam_l[MAX_LIMITS];
+    float lam_n[C::ROWS], lam_t1[C::ROWS], lam_t2[C::ROWS], lam_p[C::ROWS];
+    float lam_l[C::LIMITS];
     for (int r = 0; r < nr; ++r) lam_n[r] = lam_t1[r] = lam_t2[r] = lam_p[r] = 0.f;
     for (int l = 0; l < nl; ++l) lam_l[l] = 0.f;
-    float zp[MAX_NV];
+    float zp[C::NV];
     for (int d = 0; d < nv; ++d) zp[d] = 0.f;
 
     for (int it = 0; it < t.iterations; ++it) {
@@ -712,7 +864,7 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
     chol_back(nv, L, inv_diag, z, v3o);
     chol_back(nv, L, inv_diag, zp, vp);
   } else {
-    float qdd[MAX_NV];
+    float qdd[C::NV];
     chol_back(nv, L, inv_diag, y_dyn, qdd);
     for (int d = 0; d < nv; ++d) {
       v3o[d] = v[d] + t.dt * qdd[d];
@@ -742,9 +894,10 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
   for (int d = 0; d < nv; ++d) v[d] = v3o[d];
 }
 
-// ---- walker task: locomotion.py · WalkerTask --------------------------------
+// ---- walker task: locomotion.py · WalkerTask and the Flagrun tasks ---------
 
-ENG_HD void mean_parts_xy(const Tables& t, const FKOut& fk, float& bx, float& by) {
+template <class C>
+ENG_HD void mean_parts_xy(const Tables& t, const FKOut<C>& fk, float& bx, float& by) {
   float sx = 0.f, sy = 0.f;
   for (int k = 0; k < t.nparts; ++k) {
     const int h = t.part_host[k];
@@ -756,7 +909,16 @@ ENG_HD void mean_parts_xy(const Tables& t, const FKOut& fk, float& bx, float& by
   by = sy / (float)t.nparts;
 }
 
-// Fresh episode: initial_state_scalar. aux in sorted key order.
+// HumanoidFlagrunTask._draw_flag: flag number `count` of this episode.
+ENG_HD void draw_flag(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                      float count, float& tx, float& ty) {
+  const uint32_t e2 = hash_epoch(epoch, count);
+  tx = uniform(seed, (uint32_t)t.flag_streams[0], env_id, e2, t.flag_lo_x, t.flag_span_x);
+  ty = uniform(seed, (uint32_t)t.flag_streams[1], env_id, e2, t.flag_lo_y, t.flag_span_y);
+}
+
+// Fresh episode: initial_state_scalar of the task. aux in sorted key order.
+template <class C>
 ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
                           float* q, float* v, float* aux) {
   for (int j = 0; j < t.nq; ++j) q[j] = t.qpos0[j];
@@ -766,26 +928,95 @@ ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint3
     q[qa] = add_rn(t.qpos0[qa], u);
   }
   for (int d = 0; d < t.nv; ++d) v[d] = 0.f;
-  FKOut fk;
+  float tx = t.target_x, ty = t.target_y;
+  if (t.task_kind != TASK_WALKER) {  // the first flag; the potential is against it
+    draw_flag(t, seed, env_id, epoch, 0.f, tx, ty);
+    aux[t.ax_flag_timeout] = t.flag_timeout;
+    aux[t.ax_flag_count] = 0.f;
+  }
+  FKOut<C> fk;
   forward_kinematics(t, q, v, fk, nullptr);
   float bx, by;
   mean_parts_xy(t, fk, bx, by);
-  float dx = t.target_x - bx, dy = t.target_y - by;
+  float dx = tx - bx, dy = ty - by;
   float dist = sqrtf(dx * dx + dy * dy);
-  aux[0] = t.initial_z;
-  aux[1] = -dist / t.control_dt;
-  aux[2] = t.target_x;
-  aux[3] = t.target_y;
+  aux[t.ax_initial_z] = t.initial_z;
+  aux[t.ax_potential] = -dist / t.control_dt;
+  aux[t.ax_target_x] = tx;
+  aux[t.ax_target_y] = ty;
+  if (t.task_kind == TASK_FLAGRUN_HARDER) {
+    aux[t.ax_ground_counter] = 0.f;
+    aux[t.ax_frame] = 0.f;
+    // half the episodes start lying down, the root pitched +-90 degrees
+    // about y (after the potential, as the plain version does)
+    const bool lying = uniform(seed, (uint32_t)t.lie_streams[0], env_id, epoch, 0.f, 1.f) < 0.5f;
+    const float sign =
+        uniform(seed, (uint32_t)t.lie_streams[1], env_id, epoch, 0.f, 1.f) < 0.5f ? 1.f : -1.f;
+    if (lying) {
+      const int root = t.root_qadr;
+      q[root + 2] = t.lie_z;
+      q[root + 3] = t.lie_c;
+      q[root + 5] = mul_rn(sign, t.lie_c);
+    }
+  }
 }
 
-// obs, reward, termination, new aux and reward components: output_scalar.
-ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const float* depth,
-                          const float* a, const float* aux, float* obs, float& reward,
-                          bool& term, float* aux2, float* comps) {
-  FKOut fk;
+// HumanoidFlagrunHarderTask.pre_physics_scalar: every cube_period frames
+// past cube_min_frame, while the robot stands (ground_counter 0), the cube
+// is put 4 m from the torso's led position and hurled at it. The root's
+// q/v entries are 0..6 / 3..5, as in the plain version (pack_tables checks
+// that the root is the first body).
+ENG_HD void cube_throw(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                       float* q, float* v, const float* aux) {
+  const float frame = aux[t.ax_frame];
+  const bool hit = fmodf(frame, t.cube_period) == 0.f && frame > t.cube_min_frame &&
+                   aux[t.ax_ground_counter] == 0.f;
+  if (!hit) return;
+  const uint32_t e2 = hash_epoch(epoch, frame);
+  const int* cs = t.cube_streams;
+  const float angle = uniform(seed, (uint32_t)cs[0], env_id, e2, t.angle_lo, t.angle_span);
+  const float speed = uniform(seed, (uint32_t)cs[1], env_id, e2, t.speed_lo, t.speed_span);
+  const float fd = t.cube_from_dist;
+  // smath.quat_rotate(root quaternion, body-frame linear velocity)
+  const float w = q[3], x = q[4], y = q[5], z = q[6];
+  const float v0 = v[3], v1 = v[4], v2 = v[5];
+  const float tx = 2.f * (y * v2 - z * v1);
+  const float ty = 2.f * (z * v0 - x * v2);
+  const float tz = 2.f * (x * v1 - y * v0);
+  const float vw0 = v0 + w * tx + (y * tz - z * ty);
+  const float vw1 = v1 + w * ty + (z * tx - x * tz);
+  const float vw2 = v2 + w * tz + (x * ty - y * tx);
+  const float lead = fd / speed;
+  const float g0 = q[0] + vw0 * lead, g1 = q[1] + vw1 * lead, g2 = q[2] + vw2 * lead;
+  const float px = g0 + fd * cosf(angle), py = g1 + fd * sinf(angle), pz = g2 + 1.f;
+  const float d0 = g0 - px, d1 = g1 - py, d2 = g2 - pz;
+  const float dn = sqrtf(d0 * d0 + d1 * d1 + d2 * d2) + 1e-9f;
+  const float jx = uniform(seed, (uint32_t)cs[2], env_id, e2, t.jitter_lo, t.jitter_span);
+  const float jy = uniform(seed, (uint32_t)cs[3], env_id, e2, t.jitter_lo, t.jitter_span);
+  const float jz = uniform(seed, (uint32_t)cs[4], env_id, e2, t.jitter_lo, t.jitter_span);
+  const int qa = t.cube_qadr, va = t.cube_vadr;
+  q[qa] = px;
+  q[qa + 1] = py;
+  q[qa + 2] = pz;
+  q[qa + 3] = 1.f;
+  q[qa + 4] = q[qa + 5] = q[qa + 6] = 0.f;
+  v[va] = v[va + 1] = v[va + 2] = 0.f;
+  v[va + 3] = speed * d0 / dn + jx;
+  v[va + 4] = speed * d1 / dn + jy;
+  v[va + 5] = speed * d2 / dn + jz;
+}
+
+// obs, reward, termination, new aux and reward components: output_scalar,
+// with the Flagrun retarget and the FlagrunHarder get-up machine.
+template <class C>
+ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                          const float* q, const float* v, const float* depth, const float* a,
+                          const float* aux, float* obs, float& reward, bool& term,
+                          float* aux2, float* comps) {
+  FKOut<C> fk;
   forward_kinematics(t, q, v, fk, nullptr);
   const int na = t.act;
-  float rel[MAX_ACT], jspeed[MAX_ACT];
+  float rel[C::ACT], jspeed[C::ACT];
   float joints_at_limit = 0.f;
   for (int k = 0; k < na; ++k) {
     rel[k] = (q[t.act_qadr[k]] - t.j_mid[k]) / t.j_half[k];
@@ -804,8 +1035,22 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
   float bx, by;
   mean_parts_xy(t, fk, bx, by);
   float bz = com.z;
-  float tx = aux[2], ty = aux[3];
+  for (int k = 0; k < t.naux; ++k) aux2[k] = aux[k];
+  float tx = aux[t.ax_target_x], ty = aux[t.ax_target_y];
   float dx = tx - bx, dy = ty - by;
+  if (t.task_kind != TASK_WALKER) {
+    // HumanoidFlagrunTask._retarget: a new flag when this one is reached
+    // (dist < 1) or its timer runs out
+    const float dist0 = sqrtf(dx * dx + dy * dy);
+    const float timeout = aux[t.ax_flag_timeout] - 1.f;
+    const bool need = (dist0 < 1.f) || (timeout <= 0.f);
+    const float count = aux[t.ax_flag_count];
+    if (need) draw_flag(t, seed, env_id, epoch, count + 1.f, tx, ty);
+    aux2[t.ax_flag_timeout] = need ? t.flag_timeout : timeout;
+    aux2[t.ax_flag_count] = need ? count + 1.f : count;
+    dx = tx - bx;
+    dy = ty - by;
+  }
   float angle_to_target = s_atan2(dy, dx) - yaw;
   float dist = sqrtf(dx * dx + dy * dy);
   float cy = cosf(-yaw), sy = sinf(-yaw);
@@ -814,15 +1059,14 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
   float vz = vel.z;
 
   float feet[MAX_FEET];
-  for (int f = 0; f < t.nfeet; ++f) {
-    bool flag = false;
-    for (int r = 0; r < t.nr; ++r)
-      if ((t.foot_rows[f] & (1u << r)) && depth[r] > 0.f) flag = true;
-    feet[f] = flag ? 1.f : 0.f;
+  for (int f = 0; f < t.nfeet; ++f) feet[f] = 0.f;
+  for (int r = 0; r < t.nr; ++r) {
+    const int f = t.row_foot[r];
+    if (f >= 0 && depth[r] > 0.f) feet[f] = 1.f;
   }
 
   int o = 0;
-  obs[o++] = bz - aux[0];
+  obs[o++] = bz - aux[t.ax_initial_z];
   obs[o++] = sinf(angle_to_target);
   obs[o++] = cosf(angle_to_target);
   obs[o++] = (float)0.3 * vx;
@@ -837,20 +1081,34 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
   for (int f = 0; f < t.nfeet; ++f) obs[o++] = feet[f];
   for (int k = 0; k < o; ++k) obs[k] = jclip(obs[k], -5.f, 5.f);
 
-  // alive bonus (WalkerTask._alive)
-  bool ok;
-  if (t.alive_mode == ALIVE_HOPPER) {  // Hopper, Walker2D
-    ok = bz > 0.8f && fabsf(pitch) < 1.f;
-  } else if (t.alive_mode == ALIVE_ANT) {
-    ok = bz > 0.26f;
-  } else {  // "cheetah": dead if a shin or thigh (feet 1, 2, 4, 5) touches
-    bool bad_touch = (feet[1] + feet[2] + feet[4] + feet[5]) > 0.5f;
-    ok = (fabsf(pitch) < 1.f) && !bad_touch;
+  // alive bonus (WalkerTask._alive, or FlagrunHarder's _alive_aux)
+  float alive;
+  if (t.task_kind == TASK_FLAGRUN_HARDER) {
+    // get-up machine: count consecutive low frames, decay when up
+    const float c0 = aux[t.ax_ground_counter];
+    const float counter = bz < 0.8f ? c0 + 1.f : jmax(c0 - 1.f, 0.f);
+    const float leak = 2.f * jclip(bz, 0.f, 0.8f) / 0.8f;
+    alive = counter < t.ground_limit ? leak : -1.f;
+    aux2[t.ax_ground_counter] = counter;
+    aux2[t.ax_frame] = aux[t.ax_frame] + 1.f;
+  } else {
+    bool ok;
+    if (t.alive_mode == ALIVE_HOPPER) {  // Hopper, Walker2D
+      ok = bz > 0.8f && fabsf(pitch) < 1.f;
+    } else if (t.alive_mode == ALIVE_ANT) {
+      ok = bz > 0.26f;
+    } else if (t.alive_mode == ALIVE_HUMANOID) {
+      ok = bz > 0.78f;
+    } else {  // "cheetah": dead if a shin or thigh (feet 1, 2, 4, 5) touches
+      bool bad_touch = (feet[1] + feet[2] + feet[4] + feet[5]) > 0.5f;
+      ok = (fabsf(pitch) < 1.f) && !bad_touch;
+    }
+    const float up = t.alive_mode == ALIVE_HUMANOID ? 2.f : 1.f;
+    alive = ok ? up : -1.f;
   }
-  float alive = ok ? 1.f : -1.f;
 
   float potential = -dist / t.control_dt;
-  float progress = potential - aux[1];
+  float progress = potential - aux[t.ax_potential];
   float s1 = 0.f, s2 = 0.f;
   for (int k = 0; k < na; ++k) s1 = s1 + fabsf(a[k] * jspeed[k]);
   for (int k = 0; k < na; ++k) s2 = s2 + a[k] * a[k];
@@ -859,10 +1117,9 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
   float feet_collision = 0.f;
   reward = alive + progress + electricity + limit_cost + feet_collision;
   term = alive < 0.f;
-  aux2[0] = aux[0];
-  aux2[1] = potential;
-  aux2[2] = tx;
-  aux2[3] = ty;
+  aux2[t.ax_potential] = potential;
+  aux2[t.ax_target_x] = tx;
+  aux2[t.ax_target_y] = ty;
   comps[0] = alive;
   comps[1] = electricity;
   comps[2] = feet_collision;
@@ -874,50 +1131,54 @@ ENG_HD void walker_output(const Tables& t, const float* q, const float* v, const
 
 // `frame_skip` substeps with held torques; depths of the last substep.
 // pallas_engine.py · make_pallas_physics_step
+template <class C>
 ENG_HD void physics_step_one(const Tables& t, int i, int B, const float* q_in,
                              const float* v_in, const float* tau_in, float* q_out,
                              float* v_out, float* d_out) {
-  float q[MAX_NQ], v[MAX_NV], tau[MAX_NV], depth[MAX_ROWS];
+  float q[C::NQ], v[C::NV], tau[C::NV], depth[C::ROWS];
   for (int k = 0; k < t.nq; ++k) q[k] = q_in[k * B + i];
   for (int k = 0; k < t.nv; ++k) {
     v[k] = v_in[k * B + i];
     tau[k] = tau_in[k * B + i];
   }
   for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
-  for (int s = 0; s < t.frame_skip; ++s) substep(t, q, v, tau, depth);
+  for (int s = 0; s < t.frame_skip; ++s) substep<C>(t, q, v, tau, depth);
   for (int k = 0; k < t.nq; ++k) q_out[k * B + i] = q[k];
   for (int k = 0; k < t.nv; ++k) v_out[k * B + i] = v[k];
   for (int r = 0; r < t.nr; ++r) d_out[r * B + i] = depth[r];
 }
 
 // The whole env step. pallas_engine.py · make_pallas_env_step
+template <class C>
 ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   const bool done = io.term[i] != 0 || io.trunc[i] != 0;
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];
   const uint32_t env_id = (uint32_t)io.env_id[i];
-  float q[MAX_NQ], v[MAX_NV], aux[NAUX];
+  float q[C::NQ], v[C::NV], aux[MAX_AUX];
   int32_t step_count;
   if (done) {  // auto-reset [ref: env_bases.py · BaseBulletEnv.reset]
-    initial_state(t, seed, env_id, epoch, q, v, aux);
+    initial_state<C>(t, seed, env_id, epoch, q, v, aux);
     step_count = 0;
   } else {
     for (int k = 0; k < t.nq; ++k) q[k] = io.q[k * B + i];
     for (int k = 0; k < t.nv; ++k) v[k] = io.v[k * B + i];
-    for (int k = 0; k < NAUX; ++k) aux[k] = io.aux[k * B + i];
+    for (int k = 0; k < t.naux; ++k) aux[k] = io.aux[k * B + i];
     step_count = io.step_count[i];
   }
+  // pre-physics hook (FlagrunHarder's cube)
+  if (t.task_kind == TASK_FLAGRUN_HARDER) cube_throw(t, seed, env_id, epoch, q, v, aux);
   // torques [ref: WalkerBase.apply_action]
-  float a[MAX_ACT], tau[MAX_NV], depth[MAX_ROWS];
+  float a[C::ACT], tau[C::NV], depth[C::ROWS];
   for (int k = 0; k < t.act; ++k) a[k] = jclip(io.act[k * B + i], -1.f, 1.f);
   for (int d = 0; d < t.nv; ++d) tau[d] = 0.f;
   for (int k = 0; k < t.act; ++k) tau[t.act_dof[k]] = t.gain[k] * a[k];
   for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
-  for (int s = 0; s < t.frame_skip; ++s) substep(t, q, v, tau, depth);
+  for (int s = 0; s < t.frame_skip; ++s) substep<C>(t, q, v, tau, depth);
 
-  float obs[8 + 2 * MAX_ACT + MAX_FEET], reward, aux2[NAUX], comps[NCOMP];
+  float obs[8 + 2 * C::ACT + MAX_FEET], reward, aux2[MAX_AUX], comps[NCOMP];
   bool term;
-  walker_output(t, q, v, depth, a, aux, obs, reward, term, aux2, comps);
+  walker_output<C>(t, seed, env_id, epoch, q, v, depth, a, aux, obs, reward, term, aux2, comps);
 
   // NaN guard [ref: walker_base_env.py · step isfinite check]
   bool fin = finite(reward);
@@ -938,7 +1199,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   io.trunc_out[i] = trunc ? 1 : 0;
   io.step_out[i] = step2;
   io.epoch_out[i] = epoch;
-  for (int k = 0; k < NAUX; ++k) io.aux_out[k * B + i] = aux2[k];
+  for (int k = 0; k < t.naux; ++k) io.aux_out[k * B + i] = aux2[k];
   for (int k = 0; k < NCOMP; ++k) io.comps[k * B + i] = comps[k];
 }
 

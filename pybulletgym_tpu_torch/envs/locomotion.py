@@ -1,7 +1,9 @@
 """Locomotion tasks: the Roboschool walker contract (torch port).
 
 Counterpart of the JAX package's `envs/locomotion.py` for the MJCF walkers
-(WalkerSpec, WalkerTask) and the Hopper, Walker2D, HalfCheetah and Ant specs:
+(WalkerSpec, WalkerTask), the Hopper, Walker2D, HalfCheetah, Ant and
+Humanoid specs, and the Flagrun tasks (HumanoidFlagrunTask,
+HumanoidFlagrunHarderTask):
 
 * obs  = clip(concat(more(8), joints(2n), feet_contact(nf)), -5, 5)
   [ref: …/robots/locomotors/walker_base.py · WalkerBase.calc_state]
@@ -32,7 +34,9 @@ from pybulletgym_tpu_torch.models.schema import GeomType, Model
 from pybulletgym_tpu_torch.ops import dynamics as dyn
 from pybulletgym_tpu_torch.ops import rand
 from pybulletgym_tpu_torch.ops import smath as sm
-from pybulletgym_tpu_torch.ops.contacts import SolverConfig, build_contact_plan, plan_row_geoms
+from pybulletgym_tpu_torch.ops.contacts import (
+    SolverConfig, build_contact_plan, full_self_collision_pairs, plan_row_geoms,
+)
 from pybulletgym_tpu_torch.ops.step import PhysicsConfig
 
 
@@ -77,7 +81,10 @@ class WalkerTask(Task):
         m = self.model
         sc = spec.self_collision
         if sc and sc[0] == "full":
-            raise NotImplementedError(f"{spec.name}: full self-collision is not ported yet")
+            # every non-ancestor pair of the robot, then any explicit pairs
+            # after the sentinel (FlagrunHarder's cube against the robot);
+            # the cube is a separate body in the reference, not in the set
+            sc = full_self_collision_pairs(m, exclude_geoms=("cube_geom",)) + tuple(sc[1:])
         solver = SolverConfig(self_collision_pairs=sc)
         # Walker timing [ref: scene_bases.py · SinglePlayerStadiumScene]:
         # gravity 9.8, timestep 0.0165/4, frame_skip 4.
@@ -207,6 +214,12 @@ class WalkerTask(Task):
 
         tx, ty = aux["target_x"], aux["target_y"]
         dx, dy = tx - bx, ty - by
+        dist0 = torch.sqrt(dx * dx + dy * dy)
+        # flag retargeting hook (identity for plain walkers)
+        # [ref: HumanoidFlagrun.calc_state — flag_reposition when
+        #  walk_target_dist < 1 or flag_timeout expires]
+        tx, ty, aux = self._retarget(bx, by, dist0, aux, ids)
+        dx, dy = tx - bx, ty - by
         angle_to_target = sm.atan2(dy, dx) - yaw
         dist = torch.sqrt(dx * dx + dy * dy)
 
@@ -239,7 +252,7 @@ class WalkerTask(Task):
         obs = [torch.clamp(x, -5.0, 5.0) for x in (more + jobs + feet)]
 
         # ---- rewards [ref: walker_base_env.py · step] ------------------
-        alive = self._alive(bz, pitch, feet)
+        alive, aux = self._alive_aux(bz, pitch, feet, aux)
         potential = -dist / self.physics.control_dt
         progress = potential - aux["potential"]
         n = float(self.act_dim)
@@ -270,6 +283,14 @@ class WalkerTask(Task):
             "feet_collision": feet_collision,
         }
         return obs, reward, terminated, new_aux, comps
+
+    def _retarget(self, bx, by, dist, aux, ids):
+        """Walk-target selection hook; plain walkers keep (1000, 0)."""
+        return aux["target_x"], aux["target_y"], aux
+
+    def _alive_aux(self, z, pitch, feet, aux):
+        """Alive-bonus hook; stateful variants (FlagrunHarder) override."""
+        return self._alive(z, pitch, feet), aux
 
     def _alive(self, z, pitch, feet):
         """alive_bonus(z, pitch) [ref: per-robot classes, SURVEY §2.6]."""
@@ -338,4 +359,224 @@ ANT = WalkerSpec(
     foot_geoms=(
         "left_ankle_geom", "right_ankle_geom", "third_ankle_geom", "fourth_ankle_geom"
     ),
+)
+
+# Humanoid self-collision: the reference loads with URDF_USE_SELF_COLLISION
+# | EXCLUDE_ALL_PARENTS [ref: MJCFBasedRobot.reset, self_collision=True];
+# the "full" sentinel generates the all-non-ancestor pair set from the
+# model at build time (ops.contacts.full_self_collision_pairs: 66 pairs).
+
+HUMANOID = WalkerSpec(
+    name="humanoid",
+    xml="humanoid.xml",
+    power=0.41,
+    alive_mode="humanoid",
+    foot_geoms=("right_foot", "left_foot"),
+    cost_scale=4.25,
+    self_collision=("full",),
+    coef_overrides={
+        "abdomen_z": 100.0, "abdomen_y": 100.0, "abdomen_x": 100.0,
+        "right_hip_x": 100.0, "right_hip_z": 100.0, "right_hip_y": 300.0,
+        "right_knee": 200.0,
+        "left_hip_x": 100.0, "left_hip_z": 100.0, "left_hip_y": 300.0,
+        "left_knee": 200.0,
+        "right_shoulder1": 75.0, "right_shoulder2": 75.0, "right_elbow": 75.0,
+        "left_shoulder1": 75.0, "left_shoulder2": 75.0, "left_elbow": 75.0,
+    },
+)
+
+
+# ---------------------------------------------------------------------------
+# Flagrun family [ref: …/robots/locomotors/humanoid_flagrun.py ·
+# HumanoidFlagrun / HumanoidFlagrunHarder]
+# ---------------------------------------------------------------------------
+
+# Roboschool stadium extents: halflen 105/4, halfwidth 50/4, compacted x0.5
+# [ref: scene_stadium.py · StadiumScene + HumanoidFlagrun.flag_reposition
+#  (more_compact = 0.5)].
+FLAG_X = 0.5 * 105.0 / 4.0
+FLAG_Y = 0.5 * 50.0 / 4.0
+FLAG_TIMEOUT = 600.0 / 4.0   # 600 frames / frame_skip [ref: flag_reposition]
+FLAG_STREAM = 101            # rand stream ids disjoint from joint resets
+
+
+class HumanoidFlagrunTask(WalkerTask):
+    """Humanoid chasing repositioned flags. The walk target re-randomizes
+    when reached (dist < 1) or when the flag timer expires
+    [ref: HumanoidFlagrun.calc_state/flag_reposition]."""
+
+    def __init__(self, spec: Optional[WalkerSpec] = None):
+        super().__init__(spec if spec is not None else HUMANOID_FLAGRUN)
+
+    def _draw_flag(self, ids, count):
+        seed, env_id, epoch = ids
+        # unique counter per (episode, flag index): hash-combine epoch/count
+        e2 = rand.hash_epoch(epoch, count)
+        tx = rand.uniform(seed, FLAG_STREAM, env_id, e2, -FLAG_X, FLAG_X)
+        ty = rand.uniform(seed, FLAG_STREAM + 1, env_id, e2, -FLAG_Y, FLAG_Y)
+        return tx, ty
+
+    def initial_state_scalar(self, seed, env_id, epoch):
+        q, v, aux = super().initial_state_scalar(seed, env_id, epoch)
+        count = torch.zeros_like(aux["target_x"])
+        tx, ty = self._draw_flag((seed, env_id, epoch), count)
+        aux["target_x"], aux["target_y"] = tx, ty
+        aux["flag_timeout"] = torch.full_like(tx, FLAG_TIMEOUT)
+        aux["flag_count"] = count
+        # reset potential against the drawn flag (reference reset() ends
+        # with calc_potential [ref: env_bases.py · BaseBulletEnv.reset])
+        aux["potential"] = self._potential(q, v, tx, ty)
+        return q, v, aux
+
+    def _retarget(self, bx, by, dist, aux, ids):
+        timeout = aux["flag_timeout"] - 1.0
+        need = (dist < 1.0) | (timeout <= 0.0)
+        count = aux["flag_count"]
+        ntx, nty = self._draw_flag(ids, count + 1.0)
+        tx = torch.where(need, ntx, aux["target_x"])
+        ty = torch.where(need, nty, aux["target_y"])
+        aux = dict(aux)
+        aux["flag_timeout"] = torch.where(need, FLAG_TIMEOUT, timeout)
+        aux["flag_count"] = torch.where(need, count + 1.0, count)
+        return tx, ty, aux
+
+
+class HumanoidFlagrunHarderTask(HumanoidFlagrunTask):
+    """Flagrun + adversity [ref: HumanoidFlagrunHarder]: electricity cost
+    quartered (crawling allowed), an aggressive cube hurled at the torso
+    every 30 frames, and a get-up state machine replacing the alive bonus:
+    potential_leak = 2 * clip(z, 0, 0.8)/0.8 while fewer than 170
+    consecutive low-z frames, else -1."""
+
+    GROUND_LIMIT = 170.0
+    CUBE_PERIOD = 30
+    CUBE_MIN_FRAME = 100
+    LIE_STREAMS = (120, 121)           # lying?, which side
+    CUBE_STREAMS = (110, 111, 112, 113, 114)  # angle, speed, jitter x/y/z
+    CUBE_FROM_DIST = 4.0
+
+    def __init__(self):
+        super().__init__(HUMANOID_FLAGRUN_HARDER)
+        m = self.model
+        self.cube_body = m.body_index("aggressive_cube")
+        self.cube_qadr = m.bodies[self.cube_body].q_adr
+        self.cube_vadr = m.bodies[self.cube_body].v_adr
+
+    def initial_state_scalar(self, seed, env_id, epoch):
+        q, v, aux = super().initial_state_scalar(seed, env_id, epoch)
+        like = aux["target_x"]
+        aux["ground_counter"] = torch.zeros_like(like)
+        aux["frame"] = torch.zeros_like(like)
+        # reference pins initial_z to 0.8 [ref: FlagrunHarder
+        # robot_specific_reset — self.initial_z = 0.8]
+        aux["initial_z"] = torch.full_like(like, 0.8)
+
+        # half the episodes start lying down and must get up
+        # [ref: HumanoidFlagrunHarder — random on-ground initial pose]:
+        # root pitched ±90° about y at z = 0.3
+        lying = rand.uniform(seed, self.LIE_STREAMS[0], env_id, epoch) < 0.5
+        sign = torch.where(
+            rand.uniform(seed, self.LIE_STREAMS[1], env_id, epoch) < 0.5, 1.0, -1.0
+        )
+        c = float(np.cos(np.pi / 4.0))
+        root = self.model.bodies[self.base_body].q_adr
+        q = list(q)
+        q[root + 2] = torch.where(lying, 0.3, q[root + 2])          # z
+        q[root + 3] = torch.where(lying, c, q[root + 3])            # w
+        q[root + 5] = torch.where(lying, sign * c, q[root + 5])     # qy
+        return q, v, aux
+
+    def pre_physics_scalar(self, q, v, aux, ids=None):
+        """Hurl the cube at the torso every CUBE_PERIOD frames while the
+        robot is standing [ref: HumanoidFlagrunHarder.alive_bonus —
+        aggressive_cube.reset_position/reset_velocity]."""
+        frame = aux["frame"]
+        period_hit = (frame % float(self.CUBE_PERIOD)) == 0.0
+        throw = period_hit & (frame > float(self.CUBE_MIN_FRAME)) & (
+            aux["ground_counter"] == 0.0
+        )
+
+        seed, env_id, epoch = ids
+        e2 = rand.hash_epoch(epoch, frame)
+        s_angle, s_speed, s_jx, s_jy, s_jz = self.CUBE_STREAMS
+        angle = rand.uniform(seed, s_angle, env_id, e2, -3.14, 3.14)
+        speed = rand.uniform(seed, s_speed, env_id, e2, 20.0, 30.0)
+        from_dist = self.CUBE_FROM_DIST
+
+        # torso position ~ root free-joint translation (q[0:3]), led by the
+        # robot's current velocity over the cube's travel time [ref:
+        # HumanoidFlagrunHarder — target_xyz += robot_speed*time_to_travel].
+        # Root free-joint dofs are [ang_body(3), lin_body(3)]; rotate the
+        # body-frame linear velocity into world by the root quaternion.
+        root_quat = (q[3], q[4], q[5], q[6])
+        vel_world = sm.quat_rotate(root_quat, (v[3], v[4], v[5]))
+        lead = from_dist / speed
+        txyz = (
+            q[0] + vel_world[0] * lead,
+            q[1] + vel_world[1] * lead,
+            q[2] + vel_world[2] * lead,
+        )
+        px = txyz[0] + from_dist * torch.cos(angle)
+        py = txyz[1] + from_dist * torch.sin(angle)
+        pz = txyz[2] + 1.0
+        dvec = (txyz[0] - px, txyz[1] - py, txyz[2] - pz)
+        dn = torch.sqrt(dvec[0] * dvec[0] + dvec[1] * dvec[1] + dvec[2] * dvec[2]) + 1e-9
+        jx = rand.uniform(seed, s_jx, env_id, e2, -1.0, 1.0)
+        jy = rand.uniform(seed, s_jy, env_id, e2, -1.0, 1.0)
+        jz = rand.uniform(seed, s_jz, env_id, e2, -1.0, 1.0)
+        vx = speed * dvec[0] / dn + jx
+        vy = speed * dvec[1] / dn + jy
+        vz = speed * dvec[2] / dn + jz
+
+        q = list(q)
+        v = list(v)
+        qa, va = self.cube_qadr, self.cube_vadr
+        one = torch.ones_like(px)
+        new_q = (px, py, pz, one, 0.0 * one, 0.0 * one, 0.0 * one)
+        for i, val in enumerate(new_q):
+            q[qa + i] = torch.where(throw, val, q[qa + i])
+        # cube free-joint dofs: [ang_body(3), lin_body(3)]; identity
+        # orientation at throw time => body frame == world frame
+        new_v = (0.0 * one, 0.0 * one, 0.0 * one, vx, vy, vz)
+        for i, val in enumerate(new_v):
+            v[va + i] = torch.where(throw, val, v[va + i])
+        return q, v, aux
+
+    def _alive_aux(self, z, pitch, feet, aux):
+        """Get-up state machine [ref: HumanoidFlagrunHarder.alive_bonus]:
+        count consecutive low-z frames (decay when recovered); alive =
+        potential_leak while the counter is under GROUND_LIMIT, else -1."""
+        counter = aux["ground_counter"]
+        counter = torch.where(
+            z < 0.8, counter + 1.0, torch.clamp_min(counter - 1.0, 0.0)
+        )
+        leak = 2.0 * torch.clamp(z, 0.0, 0.8) / 0.8
+        alive = torch.where(counter < self.GROUND_LIMIT, leak, -torch.ones_like(z))
+        aux = dict(aux)
+        aux["ground_counter"] = counter
+        aux["frame"] = aux["frame"] + 1.0
+        return alive, aux
+
+
+HUMANOID_FLAGRUN = dataclasses.replace(HUMANOID, name="humanoid_flagrun")
+
+# cube <-> robot contact pairs: the hurled cube must actually knock the
+# robot [ref: HumanoidFlagrunHarder — aggressive_cube]. The reference cube
+# is a small Bullet box; here a sphere proxy (r=0.06) against the torso,
+# head, and limbs (documented deviation).
+_CUBE_PAIRS = tuple(
+    ("cube_geom", g) for g in (
+        "torso1", "head", "uwaist", "lwaist", "butt",
+        "right_thigh1", "left_thigh1", "right_uarm1", "left_uarm1",
+    )
+)
+
+HUMANOID_FLAGRUN_HARDER = dataclasses.replace(
+    HUMANOID,
+    name="humanoid_flagrun_harder",
+    xml="humanoid_cube.xml",
+    cost_scale=4.25 / 4.0,   # electricity quartered [ref: FlagrunHarder]
+    stall_scale=4.25,        # stall torque stays at full humanoid scale
+    exclude_parts=("aggressive_cube",),
+    self_collision=("full",) + _CUBE_PAIRS,
 )

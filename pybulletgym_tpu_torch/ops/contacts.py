@@ -95,6 +95,39 @@ def _geom_capsule_ends(g) -> List[np.ndarray]:
     return [g.pos + hl * axis, g.pos - hl * axis]
 
 
+def full_self_collision_pairs(model: Model, exclude_geoms: Tuple[str, ...] = ()):
+    """All non-ancestor geom pairs: Bullet's URDF_USE_SELF_COLLISION |
+    URDF_USE_SELF_COLLISION_EXCLUDE_ALL_PARENTS semantics
+    [ref: robot_bases.py · MJCFBasedRobot.reset when self_collision=True]:
+    every link pair collides except a link against any of its ancestors
+    (and geoms sharing one body). Only sphere, capsule and cylinder geoms
+    take part (the analytic pair narrowphase's domain)."""
+
+    def ancestors(i):
+        out = set()
+        while model.bodies[i].parent >= 0:
+            i = model.bodies[i].parent
+            out.add(i)
+        return out
+
+    anc = {i: ancestors(i) for i in range(len(model.bodies))}
+    ok_types = (GeomType.SPHERE, GeomType.CAPSULE, GeomType.CYLINDER)
+    geoms = [
+        g for g in model.geoms
+        if g.body >= 0 and g.gtype in ok_types and g.name not in exclude_geoms
+    ]
+    pairs = []
+    for i in range(len(geoms)):
+        for j in range(i + 1, len(geoms)):
+            a, b = geoms[i], geoms[j]
+            if a.body == b.body:
+                continue
+            if a.body in anc[b.body] or b.body in anc[a.body]:
+                continue
+            pairs.append((a.name, b.name))
+    return tuple(pairs)
+
+
 def build_contact_plan(model: Model, cfg: SolverConfig):
     """Static candidate list: the compile-time analog of Bullet's DBVT broadphase,
     run once at model-build time (SURVEY §2.2 'compile-time broadphase')."""

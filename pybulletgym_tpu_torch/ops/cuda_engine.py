@@ -6,14 +6,17 @@ Counterpart of the JAX package's `ops/pallas_engine.py`:
   frame_skip substeps of FK -> RNE/CRBA -> Cholesky -> narrowphase ->
   square-root-space PGS -> semi-implicit Euler, one CUDA thread per env.
 * `make_cuda_env_step(task)` replaces `make_pallas_env_step`: the whole env
-  step (auto-reset with Threefry draws, torques, substeps, obs/reward/
-  termination, NaN guard, step count, truncation) in one launch.
+  step (auto-reset with Threefry draws, the pre-physics hook, torques,
+  substeps, obs/reward/termination, NaN guard, step count, truncation) in
+  one launch.
 
 The kernels' source is `csrc/engine_core.h` (the algorithm, table-driven,
 `__host__ __device__`) and `csrc/engine.cu` (two thin `__global__` kernels
 and their `extern "C"` launchers). `pack_tables` flattens the frozen
 `Model`, the contact and limit plans and the task constants into one
-fixed-size `Tables` struct, whose layout is parsed from the header.
+fixed-size `Tables` struct, whose layout is parsed from the header, and
+picks the scratch instantiation (`caps_id`): the walkers' small one, or the
+large one of the humanoid family.
 
 The library is built at first use with nvcc into `_build/` (keyed by the
 sources' content hash) and loaded with ctypes. Each wrapper checks its
@@ -48,8 +51,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-AUX_KEYS = ("initial_z", "potential", "target_x", "target_y")
-NAUX = len(AUX_KEYS)
+# every aux key the kernels know; a task's aux is a sorted subset of them
+AUX_KEYS = ("flag_count", "flag_timeout", "frame", "ground_counter",
+            "initial_z", "potential", "target_x", "target_y")
 COMP_KEYS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
 NCOMP = len(COMP_KEYS)
 
@@ -111,25 +115,39 @@ def _composite_masses(model: Model):
     return [_f32(v) for _, v in vals]
 
 
-def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None):
-    """Physics part of the tables (model, plans, solver constants). Raises
-    for what the kernels do not have yet: disk and pair contact rows, models
-    over the caps."""
+def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
+    """The scratch instantiation for these sizes: 0 (the walkers') when it
+    fits and there are no pair rows, else 1 (the large one); raises above
+    the large caps."""
+    sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
+             "ACT": act}
+    over = {k: n for k, n in sizes.items() if n > caps["MAX_" + k]}
+    if over:
+        raise NotImplementedError(f"sizes {over} exceed the kernels' caps "
+                                  f"{ {k: caps['MAX_' + k] for k in over} }")
+    walker = all(n <= caps["WALKER_" + k] for k, n in sizes.items() if k != "PAIRS")
+    return 0 if walker and npair == 0 else 1
+
+
+def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0):
+    """Physics part of the tables (model, plans, solver constants), and the
+    scratch instantiation that fits the model (`caps_id`). Raises for what
+    the kernels do not have yet: disk contact rows, models over the caps."""
     Tables, caps = tables_type()
     t = Tables()
     nb = len(model.bodies)
-    if nb > caps["MAX_BODIES"] or model.nv > caps["MAX_NV"] or model.nq > caps["MAX_NQ"]:
-        raise ValueError(f"{model.name}: {nb} bodies / {model.nq} q / {model.nv} dofs "
-                         "exceed the kernel caps")
     floor, pairs = ct.build_contact_plan(model, cfg.solver)
-    if pairs:
-        raise NotImplementedError(f"{model.name}: pair contact rows are not in the CUDA kernels yet")
     if any(c.kind != "point" for c in floor):
         raise NotImplementedError(f"{model.name}: disk contact rows are not in the CUDA kernels yet")
     rows = sc_rows((floor, pairs))
     lim = ct.build_limit_plan(model)
     nl = 0 if lim is None else int(lim.dof.shape[0])
+    try:
+        t.caps_id = _pick_caps(caps, nb, model.nq, model.nv, len(rows), len(pairs), nl, act)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{model.name}: {e}") from None
     t.nb, t.nq, t.nv, t.nr, t.nl = nb, model.nq, model.nv, len(rows), nl
+    t.npair = len(pairs)
     t.frame_skip = cfg.frame_skip if frame_skip is None else int(frame_skip)
     t.iterations = cfg.solver.iterations
     sol = cfg.solver
@@ -185,9 +203,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
     for j in range(model.nq):
         t.qpos0[j] = _f32(model.qpos0[j])
 
-    if len(rows) > caps["MAX_ROWS"] or nl > caps["MAX_LIMITS"]:
-        raise ValueError(f"{model.name}: {len(rows)} contact / {nl} limit rows exceed the kernel caps")
-    for r, c in enumerate(rows):
+    for r, c in enumerate(floor):
         n = tuple(float(x) for x in c.plane_n)
         t1, t2 = ct._tangent_basis_static(c.plane_n)
         t.row_body[r] = c.body
@@ -198,7 +214,18 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
             t.row_t2[3 * r + k] = _f32(t2[k])
             t.row_nrad[3 * r + k] = _f32(n[k] * c.radius)
         t.row_depth0[r] = _f32(c.plane_d + c.radius)
+    for r, c in enumerate(rows):
         t.row_mu[r] = _f32(c.mu)
+    for k, c in enumerate(pairs):
+        t.pair_a[k], t.pair_b[k] = c.body_a, c.body_b
+        for j in range(3):
+            t.pair_a0[3 * k + j] = _f32(c.a0[j])
+            t.pair_a1[3 * k + j] = _f32(c.a1[j])
+            t.pair_b0[3 * k + j] = _f32(c.b0[j])
+            t.pair_b1[3 * k + j] = _f32(c.b1[j])
+        t.pair_rsum[k] = _f32(c.ra + c.rb)
+        t.pair_ra[k] = _f32(c.ra)
+        t.pair_rb[k] = _f32(c.rb)
     for l in range(nl):
         t.lim_dof[l] = int(lim.dof[l])
         t.lim_qadr[l] = int(lim.qadr[l])
@@ -207,39 +234,49 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
     return t
 
 
-ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2}  # engine_core.h · ALIVE_*
+ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2, "humanoid": 3}  # engine_core.h · ALIVE_*
 
 
 def pack_tables(task, frame_skip: Optional[int] = None):
-    """All tables of the env-step kernel for `task` (physics + walker task
+    """All tables of the env-step kernel for `task` (physics + task
     constants). Raises for a task the kernel does not implement: anything
-    but the port's plain `WalkerTask` with the "cheetah", "hopper" or "ant"
-    alive mode (the humanoid mode, retargeting or pre-physics hooks, other
-    task families)."""
-    from pybulletgym_tpu_torch.envs.base import Task
-    from pybulletgym_tpu_torch.envs.locomotion import WalkerTask
+    but the port's own `WalkerTask` (any alive mode of ALIVE_MODES),
+    `HumanoidFlagrunTask` and `HumanoidFlagrunHarderTask` (other task
+    families, subclasses, other pre-physics hooks)."""
+    from pybulletgym_tpu_torch.envs import locomotion as loco
 
-    if type(task) is not WalkerTask:
-        raise NotImplementedError(f"{type(task).__name__}: only WalkerTask is in the CUDA kernels yet")
-    if type(task).pre_physics_scalar is not Task.pre_physics_scalar:
-        raise NotImplementedError("pre_physics_scalar is not in the CUDA kernels yet")
+    # the task classes the kernels implement, by engine_core.h · TASK_*
+    kinds = {loco.WalkerTask: 0, loco.HumanoidFlagrunTask: 1, loco.HumanoidFlagrunHarderTask: 2}
+    if type(task) not in kinds:
+        raise NotImplementedError(
+            f"{type(task).__name__}: only {', '.join(k.__name__ for k in kinds)} are in the "
+            "CUDA kernels yet")
     mode = task.spec.alive_mode
     if mode not in ALIVE_MODES:
         raise NotImplementedError(f"alive mode {mode!r} is not in the CUDA kernels yet")
-    t = pack_physics(task.model, task.physics, frame_skip)
+    t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
     _, caps = tables_type()
     if mode == "cheetah" and len(task.foot_rows) < 6:
         raise ValueError("the cheetah alive mode reads feet 1, 2, 4 and 5")
     t.alive_mode = ALIVE_MODES[mode]
-    _check_keys(task)
+    t.task_kind = kinds[type(task)]
+    keys = _check_keys(task)
+    want = {"initial_z", "potential", "target_x", "target_y"}
+    want |= {"flag_count", "flag_timeout"} if t.task_kind >= 1 else set()
+    want |= {"frame", "ground_counter"} if t.task_kind == 2 else set()
+    if set(keys) != want:
+        raise NotImplementedError(f"aux keys {keys} differ from the kernel's {sorted(want)}")
+    t.naux = len(keys)
+    for k in AUX_KEYS:
+        setattr(t, "ax_" + k, keys.index(k) if k in keys else -1)
     t.act = task.act_dim
     t.nfeet = len(task.foot_rows)
     t.nparts = len(task.part_frames)
     t.obs_dim = task.obs_dim
     t.max_steps = int(task.max_episode_steps)
     t.base_body = int(task.base_body)
-    if task.act_dim > caps["MAX_ACT"] or t.nfeet > caps["MAX_FEET"] or t.nparts > caps["MAX_PARTS"]:
-        raise ValueError(f"{task.spec.name}: actuators/feet/parts exceed the kernel caps")
+    if t.nfeet > caps["MAX_FEET"] or t.nparts > caps["MAX_PARTS"]:
+        raise ValueError(f"{task.spec.name}: feet/parts exceed the kernel caps")
     for k in range(task.act_dim):
         t.act_dof[k] = int(task.act_dofs[k])
         t.act_qadr[k] = int(task.act_qadr[k])
@@ -250,37 +287,78 @@ def pack_tables(task, frame_skip: Optional[int] = None):
         t.part_host[k] = int(host)
         for j in range(3):
             t.part_pos[3 * k + j] = _f32(float(pos[j]))
+    # row -> foot table (a row's primary geom is at most one foot's)
+    for r in range(t.nr):
+        t.row_foot[r] = -1
     for f, rows in enumerate(task.foot_rows):
-        t.foot_rows[f] = sum(1 << r for r in rows)
+        for r in rows:
+            if t.row_foot[r] != -1:
+                raise ValueError(f"contact row {r} belongs to feet {t.row_foot[r]} and {f}")
+            t.row_foot[r] = f
     # reset draws: uniform(-0.1, 0.1) per actuated joint (WalkerTask)
     t.reset_lo = _f32(-0.1)
     t.reset_span = _f32(0.1 - (-0.1))
-    t.initial_z = _f32(task.initial_z)
     t.target_x = _f32(task.walk_target[0])
     t.target_y = _f32(task.walk_target[1])
     t.control_dt = _f32(task.physics.control_dt)
     stall_scale = task.spec.cost_scale if task.spec.stall_scale is None else task.spec.stall_scale
-    t.elec_coef = _f32(task.spec.cost_scale * WalkerTask.electricity_cost)
-    t.stall_coef = _f32(stall_scale * WalkerTask.stall_torque_cost)
-    t.limit_coef = _f32(WalkerTask.joints_at_limit_cost)
+    t.elec_coef = _f32(task.spec.cost_scale * loco.WalkerTask.electricity_cost)
+    t.stall_coef = _f32(stall_scale * loco.WalkerTask.stall_torque_cost)
+    t.limit_coef = _f32(loco.WalkerTask.joints_at_limit_cost)
     t.n_act = _f32(float(task.act_dim))
+    t.initial_z = _f32(task.initial_z)
+    if t.task_kind >= 1:  # HumanoidFlagrunTask: flags U[-x, x) x U[-y, y)
+        t.flag_streams[0], t.flag_streams[1] = loco.FLAG_STREAM, loco.FLAG_STREAM + 1
+        t.flag_lo_x, t.flag_span_x = _f32(-loco.FLAG_X), _f32(loco.FLAG_X - (-loco.FLAG_X))
+        t.flag_lo_y, t.flag_span_y = _f32(-loco.FLAG_Y), _f32(loco.FLAG_Y - (-loco.FLAG_Y))
+        t.flag_timeout = _f32(loco.FLAG_TIMEOUT)
+    if t.task_kind == 2:  # HumanoidFlagrunHarderTask
+        _pack_harder(t, task)
     return t
 
 
-def _check_keys(task):
-    """The kernel writes aux and reward components in a fixed sorted order;
-    probe the task's hooks once on one env to confirm its keys."""
+def _pack_harder(t, task):
+    """FlagrunHarder's constants: initial_z pinned to 0.8, the lying reset,
+    the cube throw and the get-up limit (locomotion.py)."""
+    m = task.model
+    root = m.bodies[task.base_body]
+    if task.base_body != 0 or root.jtype != JointType.FREE or root.q_adr != 0 or root.v_adr != 0:
+        raise NotImplementedError("the cube throw reads the root free joint at q[0:7], v[0:6]")
+    t.initial_z = _f32(0.8)
+    t.lie_streams[0], t.lie_streams[1] = task.LIE_STREAMS
+    t.root_qadr = root.q_adr
+    t.lie_z = _f32(0.3)
+    t.lie_c = _f32(float(np.cos(np.pi / 4.0)))
+    for j, stream in enumerate(task.CUBE_STREAMS):
+        t.cube_streams[j] = stream
+    t.cube_qadr, t.cube_vadr = task.cube_qadr, task.cube_vadr
+    t.cube_period = _f32(task.CUBE_PERIOD)
+    t.cube_min_frame = _f32(task.CUBE_MIN_FRAME)
+    t.cube_from_dist = _f32(task.CUBE_FROM_DIST)
+    t.angle_lo, t.angle_span = _f32(-3.14), _f32(3.14 - (-3.14))
+    t.speed_lo, t.speed_span = _f32(20.0), _f32(30.0 - 20.0)
+    t.jitter_lo, t.jitter_span = _f32(-1.0), _f32(1.0 - (-1.0))
+    t.ground_limit = _f32(task.GROUND_LIMIT)
+
+
+def _check_keys(task) -> Tuple[str, ...]:
+    """The kernel writes aux and reward components in sorted key order;
+    probe the task's hooks once on one env to confirm its keys. Returns the
+    aux keys."""
     one = torch.zeros((1,), dtype=torch.uint32)
-    q, v, aux = task.initial_state_scalar(one, torch.zeros((1,), dtype=torch.int32), one)
+    ids = (one, torch.zeros((1,), dtype=torch.int32), one)
+    q, v, aux = task.initial_state_scalar(*ids)
     z = torch.zeros((1,))
     n_rows = len(sc_rows(ct.build_contact_plan(task.model, task.physics.solver)))
     _, _, _, aux2, comps = task.output_scalar(
-        list(q), list(v), [z] * n_rows, [z] * task.act_dim, aux
+        list(q), list(v), [z] * n_rows, [z] * task.act_dim, aux, ids
     )
-    if tuple(sorted(aux)) != AUX_KEYS or tuple(sorted(aux2)) != AUX_KEYS:
-        raise NotImplementedError(f"aux keys {sorted(aux)} differ from the kernel's {AUX_KEYS}")
+    keys = tuple(sorted(aux))
+    if tuple(sorted(aux2)) != keys:
+        raise NotImplementedError(f"output aux keys {sorted(aux2)} differ from the reset's {keys}")
     if tuple(sorted(comps)) != COMP_KEYS:
         raise NotImplementedError(f"reward keys {sorted(comps)} differ from the kernel's {COMP_KEYS}")
+    return keys
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +440,9 @@ def load_cuda_library():
                        NVCC_FLAGS)
     lib = ctypes.CDLL(so)
     _check_layout(lib)
-    lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, _P]
+    lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int, _P]
     lib.launch_physics_step.restype = ctypes.c_int
-    lib.launch_env_step.argtypes = _ENV_ARGS + [_P]
+    lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
     lib.launch_env_step.restype = ctypes.c_int
     return lib, log
 
@@ -387,17 +465,21 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _env_tensors(task, state, action):
+def _env_tensors(task, tables, state, action):
     """Check an env step's inputs; returns (inputs, outputs) tensor lists in
-    the launchers' argument order, outputs freshly allocated."""
+    the launchers' argument order, outputs freshly allocated. The aux rows
+    are the state's keys in sorted order, as many as the tables say."""
     m = task.model
     B = state.q.shape[-1]
     dev = state.q.device
     f32, b8 = torch.float32, torch.bool
-    aux = torch.stack([state.aux[k] for k in AUX_KEYS], 0)
+    keys = sorted(state.aux)
+    if len(keys) != tables.naux:
+        raise ValueError(f"aux keys {keys}: the kernel's tables have {tables.naux}")
+    aux = torch.stack([state.aux[k] for k in keys], 0)
     ins = [
         (state.q, "q", f32, (m.nq, B)), (state.v, "v", f32, (m.nv, B)),
-        (action, "action", f32, (task.act_dim, B)), (aux, "aux", f32, (len(AUX_KEYS), B)),
+        (action, "action", f32, (task.act_dim, B)), (aux, "aux", f32, (len(keys), B)),
         (state.terminated, "terminated", b8, (B,)), (state.truncated, "truncated", b8, (B,)),
         (state.step_count, "step_count", torch.int32, (B,)),
         (state.epoch, "epoch", torch.uint32, (B,)), (state.seed, "seed", torch.uint32, (B,)),
@@ -408,7 +490,7 @@ def _env_tensors(task, state, action):
     e = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     outs = [
         e(m.nq, B), e(m.nv, B), e(task.obs_dim, B), e(B), e(B, dtype=b8), e(B, dtype=b8),
-        e(B, dtype=torch.int32), e(B, dtype=torch.uint32), e(len(AUX_KEYS), B),
+        e(B, dtype=torch.int32), e(B, dtype=torch.uint32), e(len(keys), B),
         e(len(COMP_KEYS), B),
     ]
     return [x for x, *_ in ins], outs
@@ -421,27 +503,13 @@ def _env_state(state, outs):
     return EnvState(
         q=q2, v=v2, obs=obs, reward=rew, terminated=term, truncated=trunc,
         step_count=sc, epoch=ep, env_id=state.env_id, seed=state.seed,
-        aux={k: aux[j] for j, k in enumerate(AUX_KEYS)},
+        aux={k: aux[j] for j, k in enumerate(sorted(state.aux))},
         rewards={k: comps[j] for j, k in enumerate(COMP_KEYS)},
     )
 
 
 def _ptrs(tensors):
     return [_P(x.data_ptr()) for x in tensors]
-
-
-class _TableCache:
-    """Tables uploaded once per device."""
-
-    def __init__(self, tables):
-        self.tables = tables
-        self._dev: Dict[torch.device, torch.Tensor] = {}
-
-    def on(self, device) -> torch.Tensor:
-        if device not in self._dev:
-            raw = bytearray(bytes(self.tables))
-            self._dev[device] = torch.frombuffer(raw, dtype=torch.uint8).to(device)
-        return self._dev[device]
 
 
 def _launch_checked(rc: int, what: str):
@@ -473,7 +541,7 @@ class CudaPhysicsStep:
     def __init__(self, model: Model, cfg: PhysicsConfig):
         self.model, self.cfg = model, cfg
         self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
-        self._tables = _TableCache(pack_physics(model, cfg))
+        self.tables = pack_physics(model, cfg)
         self.launches = 0
 
     def __call__(self, q, v, tau):
@@ -490,8 +558,8 @@ class CudaPhysicsStep:
                 torch.empty((self.n_rows, B), device=dev)]
         with torch.cuda.device(dev):
             rc = lib.launch_physics_step(
-                _P(self._tables.on(dev).data_ptr()), *_ptrs([q, v, tau] + outs), B,
-                _P(torch.cuda.current_stream(dev).cuda_stream),
+                _P(ctypes.addressof(self.tables)), *_ptrs([q, v, tau] + outs), B,
+                self.tables.caps_id, _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "physics_step_kernel")
         self.launches += 1
@@ -508,7 +576,7 @@ class CudaEnvStep:
     def __init__(self, task, frame_skip: Optional[int] = None):
         self.task = task
         self.frame_skip = frame_skip
-        self._tables = _TableCache(pack_tables(task, frame_skip))
+        self.tables = pack_tables(task, frame_skip)
         self.launches = 0
 
     def __call__(self, state, action):
@@ -519,13 +587,13 @@ class CudaEnvStep:
             return env_step_plain(self.task, state, action, self.frame_skip)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
-        ins, outs = _env_tensors(self.task, state, action)
+        ins, outs = _env_tensors(self.task, self.tables, state, action)
         lib, _ = load_cuda_library()
         B = state.q.shape[-1]
         with torch.cuda.device(dev):
             rc = lib.launch_env_step(
-                _P(self._tables.on(dev).data_ptr()), *_ptrs(ins + outs), B,
-                _P(torch.cuda.current_stream(dev).cuda_stream),
+                _P(ctypes.addressof(self.tables)), *_ptrs(ins + outs), B,
+                self.tables.caps_id, _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "env_step_kernel")
         self.launches += 1
@@ -556,6 +624,10 @@ _SV_ADD, _SV_DOT, _SV_CROSS = 6, 10, 30
 _INERTIA_MUL = 42
 _RODRIGUES, _M3_FROM_QUAT, _ATAN2 = 42, 24, 17
 _QUAT_INTEGRATE = 59
+# one capsule/sphere pair (engine_core.h · pair_contact): four segment ends,
+# the closest points (less the branch that only parallel capsules skip), the
+# normal, depth, midpoint and tangent basis
+_PAIR_CONTACT = 194
 
 
 def _fk_flops(t, inert: bool) -> int:
@@ -586,17 +658,23 @@ def substep_flops(t) -> int:
     `t`, counted from its loop bounds."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
     fact, solve = _chol_flops(nv)
+    nchild = sum(1 for i in range(nb) if t.parent[i] >= 0)  # sums into a parent
     n = _fk_flops(t, inert=True)
-    n += nb * (3 * _SV_ADD + 2 * _SV_CROSS + 2 * _INERTIA_MUL) + (nb - 1) * _SV_ADD
+    n += nb * (3 * _SV_ADD + 2 * _SV_CROSS + 2 * _INERTIA_MUL) + nchild * _SV_ADD
     n += nv * _SV_DOT  # C
     n += sum(2 * (t.neg_damping[d] != 0) + 3 * (t.neg_stiffness[d] != 0) + 2 for d in range(nv))
-    n += (nb - 1) * 12 + sum(t.armature[d] != 0 for d in range(nv))
+    n += nchild * 12 + sum(t.armature[d] != 0 for d in range(nv))
     n += sum(_INERTIA_MUL + _SV_DOT * sum(1 for e in range(d + 1) if t.anc_mask[t.dof_body[d]] >> e & 1)
              for d in range(nv))
-    n += fact + solve + nr * (_M3_VEC + _V_ADD + _V_DOT + 4)
+    nfloor = nr - t.npair
+    n += fact + solve + nfloor * (_M3_VEC + _V_ADD + _V_DOT + 4) + t.npair * _PAIR_CONTACT
     if nr or nl:
         n += sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))  # z
-        ndofs = [bin(t.anc_mask[t.row_body[r]]).count("1") for r in range(nr)]
+        # the dofs a row's Jacobian touches: body a's root path, and for a
+        # pair row body b's, less the dofs the two share
+        masks = [t.anc_mask[t.row_body[r]] for r in range(nfloor)]
+        masks += [t.anc_mask[t.pair_a[k]] ^ t.anc_mask[t.pair_b[k]] for k in range(t.npair)]
+        ndofs = [bin(mask).count("1") for mask in masks]
         n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * solve for k in ndofs)
         n += nl * solve
         setup_vel = 1 if t.e_comb_zero else 2 * nv + 4
@@ -612,10 +690,10 @@ def substep_flops(t) -> int:
 
 def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
     """(float operations, bytes) that one env of one launch needs, for the
-    tables `t`: `env_step_kernel` (auto-reset draws not counted: they
-    depend on the data), or `physics_step_kernel`. Bytes count each input
-    read once and each output written once; the tables once per launch are
-    left to the caller."""
+    tables `t`: `env_step_kernel`, or `physics_step_kernel`. Work that
+    depends on the data is not counted: auto-reset draws, a new flag, a cube
+    throw. Bytes count each input read once and each output written once;
+    the tables once per launch are left to the caller."""
     n = t.frame_skip * substep_flops(t)
     f32 = 4
     if not env_step:
@@ -623,8 +701,12 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
     na = t.act
     n += na + _fk_flops(t, inert=False) + 3 * na + 3 * _ATAN2 + 4 + _V_CROSS + _V_ADD
     n += t.nparts * (_M3_VEC + _V_ADD + 2) + 2 + 2 + _ATAN2 + 1 + 4 + 2 + 6 + 5 * na + 20
-    ins = f32 * (t.nq + t.nv + na + NAUX) + 2 + 4 * 4   # term, trunc, step, epoch, seed, id
-    outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + NAUX + NCOMP) + 2 + 4 * 2
+    if t.task_kind >= 1:  # the retarget test: the distance, the timer, dx and dy again
+        n += 4 + 1 + 2
+    if t.task_kind == 2:  # the cube's frame test, the get-up counter, leak and frame
+        n += 1 + 1 + 2 + 1
+    ins = f32 * (t.nq + t.nv + na + t.naux) + 2 + 4 * 4   # term, trunc, step, epoch, seed, id
+    outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + t.naux + NCOMP) + 2 + 4 * 2
     return n, ins + outs
 
 
@@ -647,9 +729,9 @@ class HostTwin:
                          GXX_FLAGS)
         self.lib = ctypes.CDLL(so)
         _check_layout(self.lib)
-        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
+        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int]
         self.lib.host_physics_step.restype = ctypes.c_int
-        self.lib.host_env_step.argtypes = _ENV_ARGS
+        self.lib.host_env_step.argtypes = _ENV_ARGS + [ctypes.c_int]
         self.lib.host_env_step.restype = ctypes.c_int
 
     def physics_step(self, tables, q, v, tau):
@@ -658,10 +740,14 @@ class HostTwin:
         outs = [torch.empty_like(q), torch.empty_like(v), torch.empty((n_rows, B))]
         for x, name in ((q, "q"), (v, "v"), (tau, "tau")):
             _check(x, name, torch.float32, x.shape, torch.device("cpu"))
-        self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B)
+        rc = self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B,
+                                        tables.caps_id)
+        _launch_checked(rc, "host physics step")
         return tuple(outs)
 
     def env_step(self, tables, task, state, action):
-        ins, outs = _env_tensors(task, state, action)
-        self.lib.host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs), state.q.shape[-1])
+        ins, outs = _env_tensors(task, tables, state, action)
+        rc = self.lib.host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs),
+                                    state.q.shape[-1], tables.caps_id)
+        _launch_checked(rc, "host env step")
         return _env_state(state, outs)

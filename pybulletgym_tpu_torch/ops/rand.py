@@ -58,6 +58,26 @@ def uniform(seed, stream, env_id, epoch, lo=0.0, hi=1.0):
     return lo + (hi - lo) * u
 
 
+_GOLDEN = 2654435761
+_HASH = 0x9E3779B9
+
+
+def _mul32(x, k: int):
+    """x * k mod 2^32 for a uint32 word x (int64) and a 32-bit constant k,
+    in 16-bit halves of k so that no int64 product overflows."""
+    lo = x * (k & 0xFFFF)
+    hi = (x * (k >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def hash_epoch(epoch, count):
+    """The per-draw counter of Flagrun's flags and FlagrunHarder's cube:
+    epoch * 2654435761 + uint32(int32(count)) * 0x9E3779B9, mod 2^32
+    (count is a float32 tensor, truncated to int32 first)."""
+    c = count.to(torch.int32).to(torch.int64) & _M32
+    return (_mul32(_u32(epoch), _GOLDEN) + _mul32(c, _HASH)) & _M32
+
+
 def randint(seed, stream, env_id, epoch, n):
     """Uniform int32 in [0, n) (n is a static Python int)."""
     return (_bits(seed, stream, env_id, epoch) % int(n)).to(torch.int32)

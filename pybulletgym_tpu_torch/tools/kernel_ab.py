@@ -1,0 +1,85 @@
+"""A/B timing of the two CUDA kernels across checkouts of this repository.
+
+    python3 pybulletgym_tpu_torch/tools/kernel_ab.py ROOT_A ROOT_B [ROOT ...]
+        [--envs HalfCheetahPyBulletEnv-v0,AntPyBulletEnv-v0] [--batch 4096]
+        [--rounds 2]
+
+Each round runs every root once, forwards then backwards (A B B A for two
+roots and two rounds), so that drift of the card over the call shows up
+as a symmetric pattern. For each root a fresh process imports that
+checkout's `pybulletgym_tpu_torch` (PYTHONPATH=ROOT), builds its kernels,
+and times `env_step_kernel` (`BatchedEnv.step_fn`) and
+`physics_step_kernel` (`make_cuda_physics_step`) per env id with CUDA
+events: 50 launches after 5 warm-ups, on a post-reset state and random
+actions in [-1, 1]. It prints one JSON line per (root, env, kernel), then
+the card's name and power limit. Needs one CUDA GPU; uses only entry points
+that every slice of the port has.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_CHILD = r"""
+import json, sys, torch
+from pybulletgym_tpu_torch import make_batched, make_task
+from pybulletgym_tpu_torch.ops import cuda_engine as ce
+
+def ms(fn, n=50, warm=5):
+    for _ in range(warm):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+root, B, envs = sys.argv[1], int(sys.argv[2]), sys.argv[3].split(",")
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+for env_id in envs:
+    task = make_task(env_id)
+    env = make_batched(env_id, B)
+    s = env.reset(seed=0)
+    a = torch.rand((task.act_dim, B), device=dev, generator=g) * 2 - 1
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    tau = torch.zeros((task.model.nv, B), device=dev)
+    act = torch.as_tensor(task.act_dofs, dtype=torch.int64, device=dev)
+    tau[act] = torch.as_tensor(task.gains, device=dev) * a
+    for name, fn in (("env_step_kernel", lambda: env.step_fn(s, a)),
+                     ("physics_step_kernel", lambda: phys(s.q, s.v, tau))):
+        print(json.dumps({"root": root, "env": env_id, "kernel": name, "B": B,
+                          "ms": ms(fn)}), flush=True)
+"""
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("roots", nargs="+")
+    p.add_argument("--envs", default="HalfCheetahPyBulletEnv-v0,AntPyBulletEnv-v0")
+    p.add_argument("--batch", type=int, default=4096)
+    p.add_argument("--rounds", type=int, default=2)
+    args = p.parse_args(argv)
+    roots = [os.path.abspath(r) for r in args.roots]
+    order = []
+    for k in range(args.rounds):
+        order += roots if k % 2 == 0 else roots[::-1]
+    for root in order:
+        env = dict(os.environ, PYTHONPATH=root)
+        subprocess.run([sys.executable, "-c", _CHILD, root, str(args.batch), args.envs],
+                       cwd=root, env=env, check=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "order": order}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,11 @@ machine without the JAX package (tests/conftest.py imports jax, hence
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Without a GPU every test here skips. The bounds are the walker budget of
-test_pallas_equivalence.py:38-51, as chip_smoke.py holds them. The kernel
-tests run on HalfCheetah (hinge and slide joints) and Ant (a free root).
+test_pallas_equivalence.py:38-51 on HalfCheetah (hinge and slide joints)
+and Ant (a free root), and the humanoid-family budget of
+test_pallas_equivalence.py:80-86 on Humanoid and FlagrunHarder (self-
+collision pairs, the large scratch instantiation, the cube), as
+chip_smoke.py holds them.
 """
 
 import pytest
@@ -21,6 +24,9 @@ from pybulletgym_tpu_torch.parallel import ppo
 
 ENV = "HalfCheetahPyBulletEnv-v0"
 ANT = "AntPyBulletEnv-v0"
+HUMANOID = "HumanoidPyBulletEnv-v0"
+HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
+IDS = {"half_cheetah": ENV, "ant": ANT, "humanoid": HUMANOID, "humanoid_flagrun_harder": HARDER}
 B = 300  # two full blocks of 128 threads and a ragged third
 
 pytestmark = pytest.mark.cuda
@@ -40,6 +46,19 @@ def bounds_env(a, b, nf):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
+def bounds_humanoid(a, b):
+    """The humanoid family's env-step parity: median/mean/max |dq|,
+    termination flips, aux medians; epoch, step count and truncation
+    exact."""
+    dq = (a.q - b.q).abs()
+    assert dq.median() < 1.5e-3 and dq.mean() < 5e-3 and dq.max() < 8e-2
+    assert (a.terminated != b.terminated).float().mean() < 0.01
+    for k in b.aux:
+        assert (a.aux[k] - b.aux[k]).abs().median() < 5e-2, k
+    for name in ("epoch", "step_count", "truncated"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
@@ -53,7 +72,7 @@ def task(request):
 
 def _state(task, seed):
     """A CUDA batch after reset, with every 3rd env due for an auto-reset."""
-    env = make_batched({"half_cheetah": ENV, "ant": ANT}[task.spec.name], B, device="cuda")
+    env = make_batched(IDS[task.spec.name], B, device="cuda")
     s = env.reset(seed=seed)
     forced = torch.zeros(B, dtype=torch.bool, device="cuda")
     forced[::3] = True
@@ -92,6 +111,56 @@ def test_physics_kernel_matches_plain(task):
     qp, vp, dp = phys.plain(s.q, s.v, tau)
     dq = (qk - qp).abs()
     assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+    assert torch.isfinite(vk).all() and phys.launches == 1
+
+
+@pytest.fixture(scope="module", params=[HUMANOID, HARDER])
+def humanoid(request):
+    _need_gpu()
+    return make_task(request.param)
+
+
+def test_humanoid_env_kernel_matches_plain(humanoid):
+    """The large instantiation: pair rows, the humanoid alive mode, flags,
+    the lying reset, the cube and the get-up machine"""
+    task = humanoid
+    env, s = _state(task, 2)
+    if "frame" in s.aux:  # a cube throw on every 4th env
+        throw = torch.zeros(B, dtype=torch.bool, device="cuda")
+        throw[1::4] = True
+        s.aux["frame"] = torch.where(throw, 120.0, s.aux["frame"])
+        s.aux["ground_counter"] = torch.where(throw, 0.0, s.aux["ground_counter"])
+    g = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
+    out = env.step_fn(s, a)
+    assert env.step_fn.launches == 1
+    bounds_humanoid(out, env_step_plain(task, s, a))
+    forced = s.terminated
+    reset_k = ce.make_cuda_env_step(task, frame_skip=0)(s, a)
+    reset_p = env_step_plain(task, s, a, frame_skip=0)
+    assert torch.equal(reset_k.q[:, forced], reset_p.q[:, forced])
+    for k in ("target_x", "target_y"):  # the flag draws
+        assert torch.equal(reset_k.aux[k][forced], reset_p.aux[k][forced]), k
+    again = env.step_fn(s, a)
+    for name in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
+        assert torch.equal(getattr(out, name), getattr(again, name)), name
+    assert (1 - out.q[3:7].norm(dim=0)).abs().max() < 1e-5
+
+
+def test_humanoid_physics_kernel_matches_plain(humanoid):
+    task = humanoid
+    _, s = _state(task, 3)
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tau = torch.zeros((task.model.nv, B), device="cuda")
+    act = torch.as_tensor(task.act_dofs, dtype=torch.int64, device="cuda")
+    gains = torch.as_tensor(task.gains, device="cuda")
+    tau[act] = gains * (torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1)
+    qk, vk, dk = phys(s.q, s.v, tau)
+    qp, vp, dp = phys.plain(s.q, s.v, tau)
+    dq = (qk - qp).abs()
+    assert dq.median() < 1.5e-3 and dq.mean() < 5e-3 and dq.max() < 8e-2
     assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
     assert torch.isfinite(vk).all() and phys.launches == 1
 

@@ -34,6 +34,8 @@ from pybulletgym_tpu.ops import step as step_j
 from pybulletgym_tpu_torch import make_batched, make_task
 from pybulletgym_tpu_torch.envs import locomotion as loco_t
 from pybulletgym_tpu_torch.envs.base import BatchedEnv, env_step_plain, reset_fn
+from pybulletgym_tpu_torch.models.mjcf import load_mjcf
+from pybulletgym_tpu_torch.models.schema import GeomType
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
 from pybulletgym_tpu_torch.ops.step import make_physics_step_plain
 from pybulletgym_tpu_torch.utils.interop import (
@@ -44,6 +46,8 @@ from test_torch_cuda import bounds_env  # chip_smoke.py's env-step bounds
 ENV = "HalfCheetahPyBulletEnv-v0"
 ANT = "AntPyBulletEnv-v0"
 WALKERS = ("HopperPyBulletEnv-v0", "Walker2DPyBulletEnv-v0", ENV, ANT)
+HUMANOIDS = ("HumanoidPyBulletEnv-v0", "HumanoidFlagrunPyBulletEnv-v0",
+             "HumanoidFlagrunHarderPyBulletEnv-v0")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -274,7 +278,7 @@ def test_batched_env_cuda_without_gpu_raises():
         make_batched(ANT, 4)  # the default device is the GPU
 
 
-@pytest.mark.parametrize("env_id", WALKERS)
+@pytest.mark.parametrize("env_id", WALKERS + HUMANOIDS)
 def test_pack_tables_takes_the_walkers(env_id):
     task = make_task(env_id)
     t = ce.pack_tables(task)
@@ -282,6 +286,11 @@ def test_pack_tables_takes_the_walkers(env_id):
                                             len(task.foot_rows))
     assert t.alive_mode == ce.ALIVE_MODES[task.spec.alive_mode]
     assert list(t.qpos0[:t.nq]) == [float(np.float32(x)) for x in task.model.qpos0]
+    # the walkers keep the small scratch; the humanoid family, with its
+    # self-collision pairs, takes the large one
+    assert t.caps_id == (env_id in HUMANOIDS) and (t.npair > 0) == (env_id in HUMANOIDS)
+    assert t.naux == len(reset_fn(task, *(torch.zeros(1, dtype=dt) for dt in (
+        torch.uint32, torch.int32, torch.uint32))).aux)
 
 
 def test_work_per_env_step_counts_the_loops(tasks):
@@ -302,23 +311,35 @@ def test_work_per_env_step_counts_the_loops(tasks):
         assert ce.substep_flops(t) > ce.substep_flops(ce.pack_tables(make_task(ENV)))
 
 
-def test_pack_tables_refuses_what_the_kernels_lack(tasks):
+def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path):
     _, tt = tasks
-    humanoid_mode = loco_t.WalkerTask(dataclasses.replace(loco_t.HALF_CHEETAH, alive_mode="humanoid"))
-    with pytest.raises(NotImplementedError, match="alive mode"):
-        ce.pack_tables(humanoid_mode)
-    # a free-joint model with a self-collision pair: pair rows are not in the kernels
-    paired = loco_t.WalkerTask(dataclasses.replace(
-        loco_t.ANT, self_collision=(("left_ankle_geom", "right_ankle_geom"),)))
-    with pytest.raises(NotImplementedError, match="pair contact rows"):
-        ce.pack_tables(paired)
+    # disk rows: a cylinder against the floor plane
+    disked = loco_t.WalkerTask(loco_t.HALF_CHEETAH)
+    m = disked.model
+    g = m.geom_index("bthigh")
+    cyl = dataclasses.replace(m.geoms[g], gtype=GeomType.CYLINDER)
+    disked.model = m.replace(geoms=m.geoms[:g] + (cyl,) + m.geoms[g + 1:])
+    with pytest.raises(NotImplementedError, match="disk contact rows"):
+        ce.pack_tables(disked)
 
+    # a pre-physics hook that is not FlagrunHarder's
     class Pushed(loco_t.WalkerTask):
         def pre_physics_scalar(self, q, v, aux, ids=None):
             return q, v, aux
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Pushed"):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
+    # a model above 32 dofs (six free balls: 36), over the large caps
+    balls = "".join(
+        f'<body name="b{i}" pos="{i} 0 1"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(6))
+    xml = tmp_path / "balls.xml"
+    xml.write_text('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                   f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
+    model = load_mjcf(str(xml))
+    assert model.nv == 36
+    with pytest.raises(NotImplementedError, match="exceed the kernels' caps"):
+        ce.pack_physics(model, tt.physics)
     env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):
         env.step(env.reset(), np.zeros((4, tt.act_dim - 1), np.float32))
