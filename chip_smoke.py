@@ -4,24 +4,27 @@
 
 Needs one CUDA GPU (built for sm_90a: an H100), nvcc, and this checkout. It
 builds the kernels from `pybulletgym_tpu_torch/csrc/` (each in two scratch
-instantiations: the walkers' and the humanoid family's) and, for
-HalfCheetah (hinge and slide joints), Ant (a free root joint), Humanoid
-(66 self-collision pairs, nv=23) and HumanoidFlagrunHarder (75 pairs, a
-second free joint: the cube, nv=29):
+instantiations: the walkers' and the large one) and, for HalfCheetah
+(hinge and slide joints), Ant (a free root joint), Humanoid (66
+self-collision pairs, nv=23), HumanoidFlagrunHarder (75 pairs, a second
+free joint: the cube, nv=29), and the fixed-base family: Reacher (no
+contact rows, no gravity), Pusher (disk rows), Striker, Thrower (a free
+ball) and the two pendula:
   * holds both kernels against their plain PyTorch versions on the card at
-    B=4096 (forced resets, reset q bitwise, bitwise repeatable launches;
-    the quaternion stays a unit one), and FlagrunHarder's cube throw;
-  * replays the CPU golden rollouts (plus Hopper's and Walker2D's) and the
-    humanoid family's TPU-recorded ones;
+    B=4096 (forced resets, reset draws bitwise, bitwise repeatable
+    launches; the quaternion stays a unit one), FlagrunHarder's cube
+    throw, and the physics kernel on HalfCheetah with a cylinder thigh
+    (the disk rows' regular branch, which no shipped model reaches);
+  * replays the CPU golden rollouts (four walkers, Reacher, the pendula)
+    and the TPU-recorded ones (the humanoid family, the arms);
   * drives each main path with the launch counts reset just before it and
-    read just after: the shipped policy on `BatchedEnv` (HalfCheetah's SAC
-    policy, Ant's, Hopper's, Walker2D's and the three humanoid-family
-    ones) followed by the physics entry point, and the PPO trainer
-    (`parallel.ppo.train`) on Ant at B=4096 resumed from the JAX
-    checkpoint, whose rollout launches the env-step kernel 32 times a train
-    step;
+    read just after: the shipped policy on `BatchedEnv` (17 of them, one
+    per ported env ID) followed, for the models held to the plain version,
+    by the physics entry point, and the PPO trainer (`parallel.ppo.train`)
+    on Ant at B=4096 resumed from the JAX checkpoint, whose rollout
+    launches the env-step kernel 32 times a train step;
   * times the kernels, the plain versions and the env-steps/s
-    (FlagrunHarder at B=4096 and 16384).
+    (FlagrunHarder and Pusher at B=4096 and 16384 too).
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
 last lines are the kernels' summary, the card's name and power limit as
@@ -45,14 +48,26 @@ WALKER = "Walker2DPyBulletEnv-v0"
 HUMANOID = "HumanoidPyBulletEnv-v0"
 FLAGRUN = "HumanoidFlagrunPyBulletEnv-v0"
 HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
+REACHER = "ReacherPyBulletEnv-v0"
+PUSHER = "PusherPyBulletEnv-v0"
+STRIKER = "StrikerPyBulletEnv-v0"
+THROWER = "ThrowerPyBulletEnv-v0"
+PENDULUM = "InvertedPendulumPyBulletEnv-v0"
+SWINGUP = "InvertedPendulumSwingupPyBulletEnv-v0"
+DOUBLE = "InvertedDoublePendulumPyBulletEnv-v0"
+FIXED = (REACHER, PUSHER, STRIKER, THROWER, PENDULUM, DOUBLE)  # held to plain, timed
+MIRRORS = ("PusherMuJoCoEnv-v0", "StrikerMuJoCoEnv-v0", "ThrowerMuJoCoEnv-v0")
 SOURCE = "pybulletgym_tpu_torch/csrc/engine.cu"
 REPLACES = {
     "physics_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:48",
     "env_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:123",
 }
-# shipped-policy floors, tests/test_frozen_policy.py:29-41 and :73-75
+# shipped-policy floors, tests/test_frozen_policy.py:29-43, :64-69 and :73-75
 POLICY_FLOOR = {CHEETAH: 3000.0, ANT: 2000.0, HOPPER: 2000.0, WALKER: 750.0,
-                HUMANOID: 220.0, FLAGRUN: 140.0, HARDER: 100.0}
+                HUMANOID: 220.0, FLAGRUN: 140.0, HARDER: 100.0,
+                PENDULUM: 950.0, DOUBLE: 9100.0, SWINGUP: 800.0, REACHER: 18.0,
+                PUSHER: -80.0, STRIKER: -300.0, THROWER: -80.0,
+                MIRRORS[0]: -60.0, MIRRORS[1]: -300.0, MIRRORS[2]: -80.0}
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -130,11 +145,10 @@ def main():
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc=ce.nvcc_path(), ptxas=ptxas)
 
-    def torques(task, a):  # (act, B) -> (nv, B), as WalkerTask.action_tau_scalar
-        tau = torch.zeros((task.model.nv, a.shape[1]), device=dev)
-        act_dofs = torch.as_tensor(task.act_dofs.astype(np.int64), device=dev)
-        tau[act_dofs] = torch.as_tensor(task.gains, device=dev) * torch.clamp(a, -1.0, 1.0)
-        return tau
+    def torques(task, a):  # (act, B) -> (nv, B): the task's action_tau_scalar
+        zero = torch.zeros(a.shape[1], device=dev)
+        tau = task.action_tau_scalar(list(torch.clamp(a, -1.0, 1.0)))
+        return torch.stack([zero if isinstance(x, float) else x for x in tau], 0)
 
     def uniform(rng, task, n):
         return torch.as_tensor(rng.uniform(-1, 1, (task.act_dim, n)).astype(np.float32), device=dev)
@@ -335,6 +349,127 @@ def main():
         require(rec["step_max_dq_cube"] < 1e-3 and rec["step_max_dv_cube"] < 1e-2,
                 "the thrown cube's flight differs from the plain version")
 
+    # ---- the fixed-base family: both kernels vs plain, B=4096, 2 steps -------
+    # Bounds: the walkers' (tests/test_pallas_equivalence.py:38-51).
+    def parity_fixed(env_id):
+        task = make_task(env_id)
+        rng = np.random.default_rng(0)
+        env = make_batched(env_id, B)
+        s0 = env.reset(seed=0)
+        tau = torques(task, uniform(rng, task, B))
+        phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+        qk, vk, dk = phys(s0.q, s0.v, tau)
+        (qp, vp, dp), plain_phys_ms = timed(lambda: phys.plain(s0.q, s0.v, tau))
+        dq = (qk - qp).abs()
+        flips = ((dk > 0) != (dp > 0)).float().mean().item() if dk.numel() else 0.0
+        phys_err = dq.max().item()
+        emit("physics_vs_plain", env=env_id, B=B, rows=dk.shape[0], mean_dq=dq.mean().item(),
+             max_dq=phys_err, max_dv=(vk - vp).abs().max().item(), depth_sign_flip_rate=flips,
+             touching_share=(dp > 0).any(0).float().mean().item() if dp.numel() else 0.0)
+        require(dq.mean().item() < 3e-4 and phys_err < 1e-2, f"{env_id} physics kernel q disagrees")
+        require(flips < 0.01, f"{env_id} physics kernel depth signs disagree")
+        require(torch.isfinite(qk).all().item() and torch.isfinite(vk).all().item(), "non-finite")
+
+        step_k = env.step_fn
+        sk = sp = s0
+        env_err, plain_env_ms = 0.0, None
+        for t in range(2):
+            a = uniform(rng, task, B)
+            if t == 1:  # force every 3rd env to reset on this step
+                forced = torch.zeros(B, dtype=torch.bool, device=dev)
+                forced[::3] = True
+                sk = sk._replace(terminated=sk.terminated | forced)
+                sp = sp._replace(terminated=sp.terminated | forced)
+                again = step_k(sk, a)
+                reset_k = ce.make_cuda_env_step(task, frame_skip=0)(sk, a)
+                reset_p = env_step_plain(task, sk, a, frame_skip=0)
+                require(torch.equal(reset_k.q[:, forced], reset_p.q[:, forced])
+                        and torch.equal(reset_k.v[:, forced], reset_p.v[:, forced]),
+                        f"{env_id} reset q, v differ from the plain version")
+                # the aux that the output hook leaves after a reset is computed
+                # from the pose (distances, the strike and hit flags), not
+                # drawn: the flags exact, the distances to float32 round-off
+                for k in reset_p.aux:
+                    dk_ = (reset_k.aux[k][forced] - reset_p.aux[k][forced]).abs().max().item()
+                    require(dk_ == 0.0 if k in ("striked", "hit") else dk_ < 1e-5,
+                            f"{env_id} reset aux {k} differs by {dk_}")
+                sk = step_k(sk, a)
+                for name in ("q", "v", "obs", "reward", "terminated", "truncated",
+                             "step_count", "epoch"):
+                    require(torch.equal(getattr(sk, name), getattr(again, name)),
+                            f"env kernel not repeatable in {name}")
+                sp = env_step_plain(task, sp, a)
+            else:
+                sk = step_k(sk, a)
+                sp, plain_env_ms = timed(lambda: env_step_plain(task, sp, a))
+            torch.cuda.synchronize()
+            dq = (sk.q - sp.q).abs()
+            rec = dict(step=t + 1, mean_dq=dq.mean().item(), max_dq=dq.max().item(),
+                       obs_mean=(sk.obs - sp.obs).abs().mean().item(),
+                       median_dreward=(sk.reward - sp.reward).abs().median().item(),
+                       term_flip_rate=(sk.terminated != sp.terminated).float().mean().item(),
+                       aux_median={k: (sk.aux[k] - sp.aux[k]).abs().median().item()
+                                   for k in sp.aux})
+            env_err = max(env_err, rec["max_dq"])
+            emit("env_vs_plain", env=env_id, B=B, **rec)
+            require(rec["mean_dq"] < 3e-4 and rec["max_dq"] < 1e-2, f"{env_id} env kernel q")
+            require(rec["obs_mean"] < 1e-3, f"{env_id} env kernel obs disagree")
+            require(rec["median_dreward"] < 5e-3, f"{env_id} env kernel reward disagrees")
+            require(rec["term_flip_rate"] < 0.01, f"{env_id} env kernel termination disagrees")
+            for name in ("epoch", "step_count", "truncated"):
+                require(torch.equal(getattr(sk, name), getattr(sp, name)), f"{name} differs")
+        emit("reset_and_repeat", env=env_id, reset_qv_bitwise=True, repeat_bitwise=True)
+        return dict(task=task, env=env, s0=s0, tau=tau, phys=phys, phys_err=phys_err,
+                    env_err=env_err, plain_ms={"physics_step_kernel": plain_phys_ms,
+                                               "env_step_kernel": plain_env_ms})
+
+    # ---- disk rows on the regular branch: HalfCheetah, bthigh a cylinder -----
+    def disk_regular():
+        """physics_step_kernel vs plain, B=4096, from reset states lowered so
+        that the slanted cylinder's deepest rim point is 3 mm into the floor
+        (as tests/test_torch_engine.py · disk_touch_state)."""
+        import dataclasses
+
+        from pybulletgym_tpu_torch.envs import locomotion as loco
+        from pybulletgym_tpu_torch.envs.base import reset_fn
+        from pybulletgym_tpu_torch.models.schema import GeomType
+        from pybulletgym_tpu_torch.ops import contacts as ct
+        from pybulletgym_tpu_torch.ops import dynamics as dyn
+        from pybulletgym_tpu_torch.ops.step import sc_rows
+
+        task = loco.WalkerTask(loco.HALF_CHEETAH)
+        m = task.model
+        g = m.geom_index("bthigh")
+        cyl = dataclasses.replace(m.geoms[g], gtype=GeomType.CYLINDER)
+        task.model = m.replace(geoms=m.geoms[:g] + (cyl,) + m.geoms[g + 1:])
+        plan = ct.build_contact_plan(task.model, task.physics.solver)
+        disk = [r for r, c in enumerate(sc_rows(plan)) if getattr(c, "kind", "") == "disk"]
+        s = reset_fn(task, torch.zeros(B, dtype=torch.uint32, device=dev),
+                     torch.arange(B, dtype=torch.int32, device=dev),
+                     torch.zeros(B, dtype=torch.uint32, device=dev))
+        fk = dyn.forward_kinematics(task.model, list(s.q), list(s.v), with_inertia=False)
+        d0 = torch.stack([ct.narrowphase_scalar(task.model, fk, plan).depth[r] for r in disk])
+        q = s.q.clone()
+        q[1] -= 3e-3 - d0.max(0).values  # rootz
+        tau = torques(task, uniform(np.random.default_rng(7), task, B))
+        phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+        qk, vk, dk = phys(q, s.v, tau)
+        qp, vp, dp = phys.plain(q, s.v, tau)
+        torch.cuda.synchronize()
+        dq = (qk - qp).abs()
+        flips = ((dk > 0) != (dp > 0)).float().mean().item()
+        rec = dict(env="HalfCheetah, bthigh a cylinder", B=B, disk_rows=len(disk),
+                   mean_dq=dq.mean().item(), max_dq=dq.max().item(),
+                   max_dv=(vk - vp).abs().max().item(), depth_sign_flip_rate=flips,
+                   max_ddepth_disk=(dk[disk] - dp[disk]).abs().max().item(),
+                   tilted_share=(d0[:4].max(0).values - d0[:4].min(0).values > 1e-3)
+                   .float().mean().item())
+        emit("disk_physics_vs_plain", **rec)
+        require(len(disk) == 8 and rec["tilted_share"] == 1.0, "the rim is not tilted")
+        require(rec["mean_dq"] < 3e-4 and rec["max_dq"] < 1e-2 and flips < 0.01,
+                "physics kernel disagrees on the disk rows")
+        return rec["max_dq"]
+
     # ---- golden rollouts through the env kernel ------------------------------
     def golden(env_id, tpu=False):
         """The CPU goldens, or the humanoid family's TPU-recorded ones: the
@@ -473,7 +608,7 @@ def main():
     def times(env_id, p):
         """The kernels' times (CUDA events) beside their bound. The plain
         versions' times come from the parity phase where it timed them (the
-        humanoid family: one call of several seconds each), else from two
+        humanoid and fixed-base families: one call each), else from two
         calls here."""
         task, tenv, st, at = throughput(env_id, B)
         a_t = at.T.contiguous()
@@ -529,15 +664,33 @@ def main():
     golden(FLAGRUN, tpu=True)
     policy_path(FLAGRUN)
 
+    # the fixed-base family: both kernels, the disk rows' regular branch,
+    # goldens, the ten policies
+    fixed = {env_id: parity_fixed(env_id) for env_id in FIXED}
+    disk_err = disk_regular()
+    for env_id in (REACHER, PENDULUM, SWINGUP, DOUBLE):
+        golden(env_id)
+    for env_id in (PUSHER, STRIKER, THROWER) + MIRRORS:
+        golden(env_id, tpu=True)
+    main_fixed = {}
+    for env_id in FIXED + (SWINGUP,) + MIRRORS:
+        p = fixed.get(env_id)
+        main_fixed[env_id] = policy_path(
+            env_id, None if p is None else (p["phys"], p["s0"].q, p["s0"].v, p["tau"]))
+
     t_c, t_a = times(CHEETAH, pc), times(ANT, pa)
     t_h, t_f = times(HUMANOID, ph), times(HARDER, pf)
     throughput(HARDER, 16384)
+    t_fixed = {env_id: times(env_id, p) for env_id, p in fixed.items()}
+    throughput(PUSHER, 16384)
     launches = {"env_step_kernel": main_t["env_step_kernel"],
                 "physics_step_kernel": main_a["physics_step_kernel"]}
     err_key = {"env_step_kernel": "env_err", "physics_step_kernel": "phys_err"}
     runs = {CHEETAH: (pc, t_c, main_c), ANT: (pa, t_a, main_a), HUMANOID: (ph, t_h, main_h),
             HARDER: (pf, t_f, main_f)}
+    runs.update({env_id: (p, t_fixed[env_id], main_fixed[env_id]) for env_id, p in fixed.items()})
     errs = {k: max(p[e] for p, _, _ in runs.values()) for k, e in err_key.items()}
+    errs["physics_step_kernel"] = max(errs["physics_step_kernel"], disk_err)
     kernels = []
     for name in ("physics_step_kernel", "env_step_kernel"):
         a = t_a[name]
@@ -549,8 +702,9 @@ def main():
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": None, "B": B, "timed_on": ANT,
-            "models": [CHEETAH, ANT, HUMANOID, HARDER] + (
-                [HOPPER, WALKER, FLAGRUN] if name == "env_step_kernel" else []),
+            "models": [CHEETAH, ANT, HUMANOID, HARDER] + list(FIXED) + (
+                [HOPPER, WALKER, FLAGRUN, SWINGUP] + list(MIRRORS)
+                if name == "env_step_kernel" else ["HalfCheetah, bthigh a cylinder"]),
             "per_model": per_model,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,9 @@ run on the CPU, and hand-written CUDA kernels for Hopper (`csrc/`) run the
 whole env step in one launch on the GPU. The JAX package is the frozen
 reference it is held against; this package never imports jax.
 
-So far: the MJCF walkers with point contacts (Hopper, Walker2D, HalfCheetah,
-Ant: free, hinge and slide joints) and the PPO learner (`parallel.ppo`).
+So far: 17 of the JAX package's 26 env IDs (the MJCF walkers, the humanoid
+family, the pendula and the manipulators; `api/registry.py`) and the PPO
+learner (`parallel.ppo`).
 Entry points run on the GPU unless the caller passes device="cpu".
 """
 

@@ -1,9 +1,12 @@
 """Env registry for the port: the reference env IDs that the torch package
 runs [ref: pybulletgym/envs/__init__.py — gym.envs.registration.register].
 
-The MJCF walkers are ported so far: Hopper, Walker2D, HalfCheetah, Ant and
-the humanoid family (Humanoid, HumanoidFlagrun, HumanoidFlagrunHarder);
-any other ID raises `KeyError` listing the known ones.
+Ported so far: the MJCF walkers (Hopper, Walker2D, HalfCheetah, Ant), the
+humanoid family (Humanoid, HumanoidFlagrun, HumanoidFlagrunHarder), the
+pendula (InvertedPendulum, its swing-up, InvertedDoublePendulum) and the
+manipulators (Reacher, Pusher, Striker, Thrower, and the MuJoCo mirrors of
+the last three, which reuse the same tasks at Gym's 100-step horizon); any
+other ID raises `KeyError` listing the known ones.
 Nothing is registered with gymnasium (the JAX package registers the same
 IDs for itself on import).
 """
@@ -31,11 +34,12 @@ def _walker(spec_name: str) -> Callable:
     return factory
 
 
-def _task(class_name: str) -> Callable:
+def _task(class_name: str, module: str = "locomotion", **kw) -> Callable:
     def factory():
-        from pybulletgym_tpu_torch.envs import locomotion as loco
+        import importlib
 
-        return getattr(loco, class_name)()
+        mod = importlib.import_module(f"pybulletgym_tpu_torch.envs.{module}")
+        return getattr(mod, class_name)(**kw)
 
     return factory
 
@@ -50,6 +54,19 @@ registry: Dict[str, EnvSpec] = {
         EnvSpec("HumanoidFlagrunPyBulletEnv-v0", _task("HumanoidFlagrunTask"), 1000, 2000.0),
         EnvSpec("HumanoidFlagrunHarderPyBulletEnv-v0", _task("HumanoidFlagrunHarderTask"),
                 1000, None),
+        EnvSpec("InvertedPendulumPyBulletEnv-v0",
+                _task("InvertedPendulumTask", "pendula", swingup=False), 1000, 950.0),
+        EnvSpec("InvertedPendulumSwingupPyBulletEnv-v0",
+                _task("InvertedPendulumTask", "pendula", swingup=True), 1000, 800.0),
+        EnvSpec("InvertedDoublePendulumPyBulletEnv-v0",
+                _task("InvertedDoublePendulumTask", "pendula"), 1000, 9100.0),
+        EnvSpec("ReacherPyBulletEnv-v0", _task("ReacherTask", "manipulation"), 150, 18.0),
+        EnvSpec("PusherPyBulletEnv-v0", _task("PusherTask", "manipulation"), 150, 18.0),
+        EnvSpec("StrikerPyBulletEnv-v0", _task("StrikerTask", "manipulation"), 100, 18.0),
+        EnvSpec("ThrowerPyBulletEnv-v0", _task("ThrowerTask", "manipulation"), 100, 18.0),
+        EnvSpec("PusherMuJoCoEnv-v0", _task("PusherTask", "manipulation"), 100, 0.0),
+        EnvSpec("StrikerMuJoCoEnv-v0", _task("StrikerTask", "manipulation"), 100, 0.0),
+        EnvSpec("ThrowerMuJoCoEnv-v0", _task("ThrowerTask", "manipulation"), 100, 0.0),
     )
 }
 

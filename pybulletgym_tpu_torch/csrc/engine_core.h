@@ -14,16 +14,18 @@
 // (up to FMA contraction on the GPU and the last bits of sinf/cosf).
 //
 // Scope: free, hinge and slide joints (any number of free roots), point
-// contacts against planes, capsule/sphere pairs (self-collision), joint
-// limits, and the walker task with the "cheetah", "hopper", "ant" and
+// and disk (cylinder end-cap) contacts against planes, capsule/sphere pairs
+// (self-collision), joint limits, models with no contact rows and any
+// gravity; the tasks: the walker with the "cheetah", "hopper", "ant" and
 // "humanoid" alive modes, Flagrun's flags and FlagrunHarder's lying reset,
-// cube throw and get-up machine. pack_tables refuses anything else (disk
-// rows, other pre-physics hooks, other tasks, models over the caps).
+// cube throw and get-up machine, Reacher, Pusher, Striker, Thrower and the
+// two pendula. pack_tables refuses anything else (other pre-physics hooks,
+// other tasks, models over the caps).
 //
 // The per-thread scratch is sized by a caps type (template parameter C),
 // not by the model: CUDA reserves a thread's whole stack frame for every
 // resident thread, so the walkers keep a small instantiation and the
-// humanoid family gets its own. The Tables struct is sized once, at the
+// models with pair rows (the humanoid family, the arms) get the large one. The Tables struct is sized once, at the
 // larger caps.
 
 #pragma once
@@ -42,7 +44,8 @@ namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
 // The Tables struct, and the scratch of the large instantiation (the
-// humanoid family: up to 32 dofs, so that a root-path mask is one uint32)
+// humanoid family and the arms: up to 32 dofs, so that a root-path mask is
+// one uint32)
 constexpr int MAX_BODIES = 20;
 constexpr int MAX_NV = 32;
 constexpr int MAX_NQ = 34;        // a free joint has 7 q entries and 6 dofs
@@ -50,7 +53,8 @@ constexpr int MAX_ROWS = 108;     // contact rows, point rows first
 constexpr int MAX_PAIRS = 80;     // of which capsule/sphere pair rows
 constexpr int MAX_LIMITS = 36;    // joint-limit rows
 constexpr int MAX_ACT = 20;
-// The scratch of the walker instantiation (Hopper ... Ant; no pair rows)
+// The scratch of the walker instantiation (Hopper ... Ant, Reacher, the
+// pendula; no pair rows)
 constexpr int WALKER_BODIES = 16;
 constexpr int WALKER_NV = 16;
 constexpr int WALKER_NQ = 17;
@@ -60,8 +64,8 @@ constexpr int WALKER_ACT = 16;
 constexpr int MAX_FEET = 8;
 constexpr int MAX_PARTS = 16;
 constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
-constexpr int NCOMP = 5;          // alive, electricity, feet_collision,
-                                  // joints_at_limit, progress
+constexpr int MAX_COMP = 5;       // reward components, in sorted key order
+constexpr int MAX_DRAWS = 20;     // reset draws into q, and into v
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
                                   // v: body-frame angular, then linear
 constexpr int JT_HINGE = 1;
@@ -73,6 +77,12 @@ constexpr int ALIVE_HUMANOID = 3;
 constexpr int TASK_WALKER = 0;    // the task class, as pack_tables codes it
 constexpr int TASK_FLAGRUN = 1;
 constexpr int TASK_FLAGRUN_HARDER = 2;
+constexpr int TASK_REACHER = 3;
+constexpr int TASK_PUSHER = 4;
+constexpr int TASK_STRIKER = 5;
+constexpr int TASK_THROWER = 6;
+constexpr int TASK_PENDULUM = 7;  // with or without the swing-up
+constexpr int TASK_DOUBLE_PENDULUM = 8;
 
 template <int BODIES_, int NV_, int NQ_, int ROWS_, int PAIRS_, int LIMITS_, int ACT_, int ID_>
 struct Caps {
@@ -141,13 +151,17 @@ using CapsLarge = Caps<MAX_BODIES, MAX_NV, MAX_NQ, MAX_ROWS, MAX_PAIRS, MAX_LIMI
   A(int32_t, dof_body, MAX_NV)                                                \
   A(int32_t, dof_qadr, MAX_NV) /* q entry of a hinge/slide dof */             \
   A(float, qpos0, MAX_NQ)                                                     \
-  /* contact rows: point candidates against planes (row r < nr - npair) */   \
+  /* contact rows: point and disk candidates against planes (r < nr -      \
+     npair); a disk row is a rim point of a cylinder's end cap */            \
   A(int32_t, row_body, MAX_ROWS)                                              \
-  A(float, row_local, MAX_ROWS * 3)                                           \
+  A(float, row_local, MAX_ROWS * 3) /* point, or the end cap's centre */      \
+  A(int32_t, row_disk, MAX_ROWS) /* 0 point; 1 or 2: the rim along e1, e2 */  \
+  A(float, row_axis, MAX_ROWS * 3) /* a disk row's cylinder axis */           \
+  A(float, row_rim, MAX_ROWS) /* a disk row's signed radius along e */        \
   A(float, row_n, MAX_ROWS * 3)                                               \
   A(float, row_t1, MAX_ROWS * 3)                                              \
   A(float, row_t2, MAX_ROWS * 3)                                              \
-  A(float, row_depth0, MAX_ROWS) /* plane_d + radius */                       \
+  A(float, row_depth0, MAX_ROWS) /* plane_d + radius (0 for a disk) */       \
   A(float, row_nrad, MAX_ROWS * 3) /* n * radius */                           \
   A(float, row_mu, MAX_ROWS) /* every row; a pair's is the product */       \
   /* pair rows (row nr - npair + k): segment ends in the bodies' frames */    \
@@ -165,27 +179,76 @@ using CapsLarge = Caps<MAX_BODIES, MAX_NV, MAX_NQ, MAX_ROWS, MAX_PAIRS, MAX_LIMI
   A(int32_t, lim_qadr, MAX_LIMITS)                                            \
   A(float, lim_sign, MAX_LIMITS)                                              \
   A(float, lim_bound, MAX_LIMITS)                                             \
-  /* walker task */                                                           \
+  /* task: actuated joints (torque = gain * clip(a)) */                      \
   A(int32_t, act_dof, MAX_ACT)                                                \
   A(int32_t, act_qadr, MAX_ACT)                                               \
   A(float, gain, MAX_ACT)                                                     \
   A(float, j_mid, MAX_ACT)                                                    \
   A(float, j_half, MAX_ACT)                                                   \
+  /* frames the outputs read: the walkers' parts; Reacher's fingertip and    \
+     target; the arms' tips, object and goal */                              \
   A(int32_t, part_host, MAX_PARTS)                                            \
   A(float, part_pos, MAX_PARTS * 3)                                           \
   A(int32_t, row_foot, MAX_ROWS) /* the foot whose geom row r is, or -1 */    \
+  /* other joints a task reads (q address, dof): Reacher's target x, y;     \
+     a pendulum's hinges */                                                  \
+  A(int32_t, jq, 2)                                                           \
+  A(int32_t, jv, 2)                                                           \
+  S(int32_t, swingup)                                                         \
+  /* reset: q = qpos0 (the task's fixed entries included), then draws      \
+     q[adr] = base + U[lo, lo + span) and v[dof] = U[vlo, vlo + vspan) */    \
+  S(int32_t, nqdraw)                                                          \
+  A(int32_t, qdraw_adr, MAX_DRAWS)                                            \
+  A(int32_t, qdraw_stream, MAX_DRAWS)                                         \
+  A(float, qdraw_base, MAX_DRAWS)                                             \
+  A(float, qdraw_lo, MAX_DRAWS)                                               \
+  A(float, qdraw_span, MAX_DRAWS)                                             \
+  S(int32_t, nvdraw)                                                          \
+  A(int32_t, vdraw_dof, MAX_DRAWS)                                            \
+  A(int32_t, vdraw_stream, MAX_DRAWS)                                         \
+  S(float, vdraw_lo)                                                          \
+  S(float, vdraw_span)                                                        \
+  /* Pusher's object, Striker's goal: a point drawn on two streams, pushed   \
+     out to >= 0.18 from a centre, less a base, into two q entries (x, y) */ \
+  A(int32_t, push_qadr, 2)                                                    \
+  A(int32_t, push_stream, 2)                                                  \
+  A(float, push_lo, 2)                                                        \
+  A(float, push_span, 2)                                                      \
+  A(float, push_centre, 2)                                                    \
+  A(float, push_base, 2)                                                      \
   /* aux: the slot of each key in sorted key order, -1 where absent */        \
   S(int32_t, naux)                                                            \
   S(int32_t, ax_flag_count)                                                   \
   S(int32_t, ax_flag_timeout)                                                 \
   S(int32_t, ax_frame)                                                        \
   S(int32_t, ax_ground_counter)                                               \
+  S(int32_t, ax_hit)                                                          \
+  S(int32_t, ax_hit_x)                                                        \
+  S(int32_t, ax_hit_y)                                                        \
   S(int32_t, ax_initial_z)                                                    \
+  S(int32_t, ax_min_dist)                                                     \
   S(int32_t, ax_potential)                                                    \
+  S(int32_t, ax_strike_x)                                                     \
+  S(int32_t, ax_strike_y)                                                     \
+  S(int32_t, ax_strike_z)                                                     \
+  S(int32_t, ax_striked)                                                      \
   S(int32_t, ax_target_x)                                                     \
   S(int32_t, ax_target_y)                                                     \
-  S(float, reset_lo)                                                          \
-  S(float, reset_span)                                                        \
+  /* reward components: likewise */                                           \
+  S(int32_t, ncomp)                                                           \
+  S(int32_t, cp_alive)                                                        \
+  S(int32_t, cp_ctrl)                                                         \
+  S(int32_t, cp_dist)                                                         \
+  S(int32_t, cp_dist_penalty)                                                 \
+  S(int32_t, cp_electricity)                                                  \
+  S(int32_t, cp_feet_collision)                                               \
+  S(int32_t, cp_joints_at_limit)                                              \
+  S(int32_t, cp_near)                                                         \
+  S(int32_t, cp_progress)                                                     \
+  S(int32_t, cp_reward)                                                       \
+  S(int32_t, cp_stuck_joint)                                                  \
+  S(int32_t, cp_vel_penalty)                                                  \
+  /* walkers */                                                               \
   S(float, initial_z)                                                         \
   S(float, target_x)                                                          \
   S(float, target_y)                                                          \
@@ -700,6 +763,21 @@ ENG_HD void pair_contact(const Tables& t, const FKOut<C>& fk, int k, float& dept
   dirs[2] = v3_cross(n, t1);
 }
 
+// A disk row's offset from its end cap's centre to its rim point: the cap's
+// in-plane direction e1 = (n x w)/|n x w| toward the plane, or R's first
+// column where the axis w stands on the plane (|n x w|^2 <= 1e-10, as
+// Pusher's upright cylinder always does), e2 = w x e1, times the signed
+// radius. contacts.py · narrowphase_scalar, disk branch.
+ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
+  const V3 w = m3_vec(R, v3_load(t.row_axis + 3 * r));
+  const V3 nxw = v3_cross(n, w);
+  const float deg = v3_dot(nxw, nxw);
+  const float inv = 1.f / sqrtf(deg + 1e-12f);
+  const V3 e1 = deg > 1e-10f ? v3_scale(nxw, inv) : v3(R.m[0], R.m[3], R.m[6]);
+  const V3 e = t.row_disk[r] == 1 ? e1 : v3_cross(w, e1);
+  return v3_scale(e, t.row_rim[r]);
+}
+
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
 // Advances q, v in place; writes the contact depths of this substep.
@@ -728,14 +806,16 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
   float y_dyn[C::NV];
   chol_fwd(nv, L, inv_diag, rhs, y_dyn);
 
-  // narrowphase (contacts.py · narrowphase_scalar): point candidates vs
-  // planes, then the pair rows, whose directions are per env
+  // narrowphase (contacts.py · narrowphase_scalar): point and disk
+  // candidates vs planes, then the pair rows, whose directions are per env
   V3 P[C::ROWS];
   V3 pair_dirs[C::PAIRS > 0 ? 3 * C::PAIRS : 1];
   for (int r = 0; r < nfloor; ++r) {
     const int b = t.row_body[r];
+    const V3 n = v3_load(t.row_n + 3 * r);
     V3 x = v3_add(fk.p[b], m3_vec(fk.R[b], v3_load(t.row_local + 3 * r)));
-    depth[r] = t.row_depth0[r] - v3_dot(v3_load(t.row_n + 3 * r), x);
+    if (t.row_disk[r]) x = v3_add(x, disk_rim(t, fk.R[b], n, r));
+    depth[r] = t.row_depth0[r] - v3_dot(n, x);
     P[r] = v3_sub(x, v3_load(t.row_nrad + 3 * r));
   }
   if constexpr (C::PAIRS > 0) {
@@ -917,17 +997,34 @@ ENG_HD void draw_flag(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t 
   ty = uniform(seed, (uint32_t)t.flag_streams[1], env_id, e2, t.flag_lo_y, t.flag_span_y);
 }
 
-// Fresh episode: initial_state_scalar of the task. aux in sorted key order.
 template <class C>
-ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
-                          float* q, float* v, float* aux) {
-  for (int j = 0; j < t.nq; ++j) q[j] = t.qpos0[j];
-  for (int k = 0; k < t.act; ++k) {
-    const int qa = t.act_qadr[k];
-    float u = uniform(seed, (uint32_t)k, env_id, epoch, t.reset_lo, t.reset_span);
-    q[qa] = add_rn(t.qpos0[qa], u);
-  }
-  for (int d = 0; d < t.nv; ++d) v[d] = 0.f;
+ENG_HD V3 frame_point(const Tables& t, const FKOut<C>& fk, int k) {
+  const int h = t.part_host[k];
+  return v3_add(fk.p[h], m3_vec(fk.R[h], v3_load(t.part_pos + 3 * k)));
+}
+
+// Pusher's object or Striker's goal: (ux, uy) on two streams, moved
+// radially from the centre c to at least 0.18 from it, less the slides'
+// base, into two q entries. Every product and sum rounds once, as the plain
+// version's tensor ops do (the reset is compared bitwise).
+ENG_HD void push_out_draw(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                          float* q) {
+  const float ux = uniform(seed, (uint32_t)t.push_stream[0], env_id, epoch, t.push_lo[0],
+                           t.push_span[0]);
+  const float uy = uniform(seed, (uint32_t)t.push_stream[1], env_id, epoch, t.push_lo[1],
+                           t.push_span[1]);
+  const float dx = add_rn(ux, -t.push_centre[0]), dy = add_rn(uy, -t.push_centre[1]);
+  const float d = add_rn(sqrtf(add_rn(mul_rn(dx, dx), mul_rn(dy, dy))), 1e-9f);
+  const float scale = jmax((float)0.18 / d, 1.f);
+  q[t.push_qadr[0]] = add_rn(add_rn(t.push_centre[0], mul_rn(dx, scale)), -t.push_base[0]);
+  q[t.push_qadr[1]] = add_rn(add_rn(t.push_centre[1], mul_rn(dy, scale)), -t.push_base[1]);
+}
+
+// The walker family's aux of a fresh episode (potential against the walk
+// target or the first flag; FlagrunHarder's lying pose after it).
+template <class C>
+ENG_HD void walker_initial_aux(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                               float* q, const float* v, float* aux) {
   float tx = t.target_x, ty = t.target_y;
   if (t.task_kind != TASK_WALKER) {  // the first flag; the potential is against it
     draw_flag(t, seed, env_id, epoch, 0.f, tx, ty);
@@ -958,6 +1055,44 @@ ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint3
       q[root + 3] = t.lie_c;
       q[root + 5] = mul_rn(sign, t.lie_c);
     }
+  }
+}
+
+// Reacher's potential, -100 |fingertip - target|, and the difference.
+template <class C>
+ENG_HD float reacher_potential(const Tables& t, const FKOut<C>& fk, V3& d) {
+  d = v3_sub(frame_point(t, fk, 0), frame_point(t, fk, 1));
+  return (float)-100.0 * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
+}
+
+// Fresh episode: initial_state_scalar of the task. aux in sorted key order.
+template <class C>
+ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
+                          float* q, float* v, float* aux) {
+  for (int j = 0; j < t.nq; ++j) q[j] = t.qpos0[j];
+  for (int k = 0; k < t.nqdraw; ++k) {
+    float u = uniform(seed, (uint32_t)t.qdraw_stream[k], env_id, epoch, t.qdraw_lo[k],
+                      t.qdraw_span[k]);
+    q[t.qdraw_adr[k]] = add_rn(t.qdraw_base[k], u);
+  }
+  if (t.task_kind == TASK_PUSHER || t.task_kind == TASK_STRIKER)
+    push_out_draw(t, seed, env_id, epoch, q);
+  for (int d = 0; d < t.nv; ++d) v[d] = 0.f;
+  for (int k = 0; k < t.nvdraw; ++k)
+    v[t.vdraw_dof[k]] = uniform(seed, (uint32_t)t.vdraw_stream[k], env_id, epoch, t.vdraw_lo,
+                                t.vdraw_span);
+  if (t.task_kind <= TASK_FLAGRUN_HARDER) {
+    walker_initial_aux<C>(t, seed, env_id, epoch, q, v, aux);
+  } else if (t.task_kind == TASK_REACHER) {
+    FKOut<C> fk;
+    forward_kinematics(t, q, v, fk, nullptr);
+    V3 d;
+    aux[t.ax_potential] = reacher_potential(t, fk, d);
+  } else if (t.task_kind == TASK_STRIKER) {
+    aux[t.ax_min_dist] = 1e3f;
+    aux[t.ax_striked] = aux[t.ax_strike_x] = aux[t.ax_strike_y] = aux[t.ax_strike_z] = 0.f;
+  } else if (t.task_kind == TASK_THROWER) {
+    aux[t.ax_hit] = aux[t.ax_hit_x] = aux[t.ax_hit_y] = 0.f;
   }
 }
 
@@ -1120,11 +1255,164 @@ ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint3
   aux2[t.ax_potential] = potential;
   aux2[t.ax_target_x] = tx;
   aux2[t.ax_target_y] = ty;
-  comps[0] = alive;
-  comps[1] = electricity;
-  comps[2] = feet_collision;
-  comps[3] = limit_cost;
-  comps[4] = progress;
+  comps[t.cp_alive] = alive;
+  comps[t.cp_electricity] = electricity;
+  comps[t.cp_feet_collision] = feet_collision;
+  comps[t.cp_joints_at_limit] = limit_cost;
+  comps[t.cp_progress] = progress;
+}
+
+// ---- manipulation.py · ReacherTask.output_scalar ----------------------------
+// act slots 0, 1: the central and elbow joints; jq 0, 1: the target's
+// slides; frames 0, 1: fingertip and target. Never terminates.
+template <class C>
+ENG_HD void reacher_output(const Tables& t, const float* q, const float* v, const float* a,
+                           const float* aux, float* obs, float& reward, bool& term,
+                           float* aux2, float* comps) {
+  FKOut<C> fk;
+  forward_kinematics(t, q, v, fk, nullptr);
+  const float theta = q[t.act_qadr[0]];
+  const float theta_dot = (float)0.1 * v[t.act_dof[0]];
+  const float gamma_rel = (q[t.act_qadr[1]] - t.j_mid[1]) / t.j_half[1];
+  const float gamma_dot = (float)0.1 * v[t.act_dof[1]];
+  V3 d;
+  const float potential = reacher_potential(t, fk, d);
+  obs[0] = q[t.jq[0]];
+  obs[1] = q[t.jq[1]];
+  obs[2] = d.x;
+  obs[3] = d.y;
+  obs[4] = cosf(theta);
+  obs[5] = sinf(theta);
+  obs[6] = theta_dot;
+  obs[7] = gamma_rel;
+  obs[8] = gamma_dot;
+  const float progress = potential - aux[t.ax_potential];
+  const float electricity = (float)-0.1 * (fabsf(a[0] * theta_dot) + fabsf(a[1] * gamma_dot)) -
+                            (float)0.01 * (fabsf(a[0]) + fabsf(a[1]));
+  const float stuck = fabsf(fabsf(gamma_rel) - 1.f) < (float)0.01 ? (float)-0.1 : 0.f;
+  reward = progress + electricity + stuck;
+  term = false;
+  aux2[t.ax_potential] = potential;
+  comps[t.cp_electricity] = electricity;
+  comps[t.cp_progress] = progress;
+  comps[t.cp_stuck_joint] = stuck;
+}
+
+ENG_HD float norm_eps(V3 d) {  // sqrt(|d|^2 + 1e-12), the sum in Python's order
+  return sqrtf(d.x * d.x + d.y * d.y + d.z * d.z + (float)1e-12);
+}
+
+// ---- manipulation.py · Pusher/Striker/ThrowerTask.output_scalar -------------
+// obs(23) = [arm q, arm q', tips, object, goal] (frames 0-2); never
+// terminates.
+template <class C>
+ENG_HD void arm_output(const Tables& t, const float* q, const float* v, const float* a,
+                       const float* aux, float* obs, float& reward, bool& term, float* aux2,
+                       float* comps) {
+  FKOut<C> fk;
+  forward_kinematics(t, q, v, fk, nullptr);
+  const V3 tips = frame_point(t, fk, 0), obj = frame_point(t, fk, 1), goal = frame_point(t, fk, 2);
+  const int na = t.act;
+  int o = 0;
+  for (int k = 0; k < na; ++k) obs[o++] = q[t.act_qadr[k]];
+  for (int k = 0; k < na; ++k) obs[o++] = v[t.act_dof[k]];
+  const V3 pts[3] = {tips, obj, goal};
+  for (int j = 0; j < 3; ++j) {
+    obs[o++] = pts[j].x;
+    obs[o++] = pts[j].y;
+    obs[o++] = pts[j].z;
+  }
+  float ctrl = 0.f;
+  for (int k = 0; k < na; ++k) ctrl = ctrl + a[k] * a[k];
+  ctrl = -ctrl;
+  for (int k = 0; k < t.naux; ++k) aux2[k] = aux[k];
+  term = false;
+  if (t.task_kind == TASK_PUSHER) {
+    const float dist = -norm_eps(v3_sub(obj, goal));
+    const float near = -norm_eps(v3_sub(tips, obj));
+    reward = dist + 0.5f * near + (float)0.1 * ctrl;
+    comps[t.cp_ctrl] = (float)0.1 * ctrl;
+    comps[t.cp_dist] = dist;
+    comps[t.cp_near] = 0.5f * near;
+  } else if (t.task_kind == TASK_STRIKER) {
+    // the episode's least ball-goal distance; the strike point, fixed when
+    // the arm first comes within 0.1 of the ball
+    const float d1 = norm_eps(v3_sub(obj, tips));
+    const float d2 = norm_eps(v3_sub(obj, goal));
+    const float min_dist = jmin(aux[t.ax_min_dist], d2);
+    const bool newly = d1 < (float)0.1 && aux[t.ax_striked] < 0.5f;
+    const float striked = jmax(aux[t.ax_striked], newly ? 1.f : 0.f);
+    const float sx = newly ? tips.x : aux[t.ax_strike_x];
+    const float sy = newly ? tips.y : aux[t.ax_strike_y];
+    const float sz = newly ? tips.z : aux[t.ax_strike_z];
+    const float d3 = norm_eps(v3(obj.x - sx, obj.y - sy, obj.z - sz));
+    const float near = striked > 0.5f ? -d3 : -d1;
+    const float dist = -min_dist;
+    reward = 3.f * dist + (float)0.1 * ctrl + 0.5f * near;
+    aux2[t.ax_min_dist] = min_dist;
+    aux2[t.ax_striked] = striked;
+    aux2[t.ax_strike_x] = sx;
+    aux2[t.ax_strike_y] = sy;
+    aux2[t.ax_strike_z] = sz;
+    comps[t.cp_ctrl] = (float)0.1 * ctrl;
+    comps[t.cp_dist] = 3.f * dist;
+    comps[t.cp_near] = 0.5f * near;
+  } else {  // TASK_THROWER: from where the ball first fell below -0.25
+    const bool newly = obj.z < (float)-0.25 && aux[t.ax_hit] < 0.5f;
+    const float hit = jmax(aux[t.ax_hit], newly ? 1.f : 0.f);
+    const float hx = newly ? obj.x : aux[t.ax_hit_x];
+    const float hy = newly ? obj.y : aux[t.ax_hit_y];
+    const float gx = (hit > 0.5f ? hx : obj.x) - goal.x;
+    const float gy = (hit > 0.5f ? hy : obj.y) - goal.y;
+    const float dist = -sqrtf(gx * gx + gy * gy + (float)1e-12);
+    reward = dist + (float)0.002 * ctrl;
+    aux2[t.ax_hit] = hit;
+    aux2[t.ax_hit_x] = hx;
+    aux2[t.ax_hit_y] = hy;
+    comps[t.cp_ctrl] = (float)0.002 * ctrl;
+    comps[t.cp_dist] = dist;
+  }
+}
+
+// ---- pendula.py · InvertedPendulumTask, InvertedDoublePendulumTask --------
+// act slot 0: the slider; jq/jv 0 (and 1): the hinge(s); base_body: pole2.
+template <class C>
+ENG_HD void pendulum_output(const Tables& t, const float* q, const float* v, float* obs,
+                            float& reward, bool& term, float* comps) {
+  const float theta = q[t.jq[0]], theta_dot = v[t.jv[0]];
+  obs[0] = q[t.act_qadr[0]];
+  obs[1] = v[t.act_dof[0]];
+  if (t.task_kind == TASK_PENDULUM) {
+    obs[2] = cosf(theta);
+    obs[3] = sinf(theta);
+    obs[4] = theta_dot;
+    reward = t.swingup ? cosf(theta) : 1.f;
+    term = !t.swingup && fabsf(theta) > (float)0.2;
+    comps[t.cp_reward] = reward;
+    return;
+  }
+  FKOut<C> fk;
+  forward_kinematics(t, q, v, fk, nullptr);
+  const V3 com2 = fk.com[t.base_body];
+  const float pos_x = com2.x, pos_y = com2.z;  // the reference's y is height
+  const float gamma = q[t.jq[1]], gamma_dot = v[t.jv[1]];
+  obs[2] = pos_x;
+  obs[3] = cosf(theta);
+  obs[4] = sinf(theta);
+  obs[5] = theta_dot;
+  obs[6] = cosf(gamma);
+  obs[7] = sinf(gamma);
+  obs[8] = gamma_dot;
+  const float h = pos_y + (float)0.3 - 2.f;
+  const float dist_penalty = (float)0.01 * (pos_x * pos_x) + h * h;
+  const float vel_penalty =
+      (float)1e-3 * (theta_dot * theta_dot) + (float)5e-3 * (gamma_dot * gamma_dot);
+  const float alive = 10.f;
+  reward = alive - dist_penalty - vel_penalty;
+  term = pos_y + (float)0.3 <= 1.f;
+  comps[t.cp_alive] = alive;
+  comps[t.cp_dist_penalty] = -dist_penalty;
+  comps[t.cp_vel_penalty] = -vel_penalty;
 }
 
 // ---- the two kernel bodies ---------------------------------------------------
@@ -1168,7 +1456,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   }
   // pre-physics hook (FlagrunHarder's cube)
   if (t.task_kind == TASK_FLAGRUN_HARDER) cube_throw(t, seed, env_id, epoch, q, v, aux);
-  // torques [ref: WalkerBase.apply_action]
+  // torques [ref: WalkerBase.apply_action; the other tasks' apply_action]
   float a[C::ACT], tau[C::NV], depth[C::ROWS];
   for (int k = 0; k < t.act; ++k) a[k] = jclip(io.act[k * B + i], -1.f, 1.f);
   for (int d = 0; d < t.nv; ++d) tau[d] = 0.f;
@@ -1176,9 +1464,16 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
   for (int s = 0; s < t.frame_skip; ++s) substep<C>(t, q, v, tau, depth);
 
-  float obs[8 + 2 * C::ACT + MAX_FEET], reward, aux2[MAX_AUX], comps[NCOMP];
+  float obs[8 + 2 * C::ACT + MAX_FEET], reward, aux2[MAX_AUX], comps[MAX_COMP];
   bool term;
-  walker_output<C>(t, seed, env_id, epoch, q, v, depth, a, aux, obs, reward, term, aux2, comps);
+  if (t.task_kind <= TASK_FLAGRUN_HARDER)
+    walker_output<C>(t, seed, env_id, epoch, q, v, depth, a, aux, obs, reward, term, aux2, comps);
+  else if (t.task_kind == TASK_REACHER)
+    reacher_output<C>(t, q, v, a, aux, obs, reward, term, aux2, comps);
+  else if (t.task_kind <= TASK_THROWER)
+    arm_output<C>(t, q, v, a, aux, obs, reward, term, aux2, comps);
+  else
+    pendulum_output<C>(t, q, v, obs, reward, term, comps);
 
   // NaN guard [ref: walker_base_env.py · step isfinite check]
   bool fin = finite(reward);
@@ -1200,7 +1495,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
   io.step_out[i] = step2;
   io.epoch_out[i] = epoch;
   for (int k = 0; k < t.naux; ++k) io.aux_out[k * B + i] = aux2[k];
-  for (int k = 0; k < NCOMP; ++k) io.comps[k * B + i] = comps[k];
+  for (int k = 0; k < t.ncomp; ++k) io.comps[k * B + i] = comps[k];
 }
 
 // Byte offset of every table field, in declaration order; the Python side

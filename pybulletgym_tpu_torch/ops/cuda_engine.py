@@ -15,8 +15,9 @@ The kernels' source is `csrc/engine_core.h` (the algorithm, table-driven,
 and their `extern "C"` launchers). `pack_tables` flattens the frozen
 `Model`, the contact and limit plans and the task constants into one
 fixed-size `Tables` struct, whose layout is parsed from the header, and
-picks the scratch instantiation (`caps_id`): the walkers' small one, or the
-large one of the humanoid family.
+picks the scratch instantiation (`caps_id`): the small one (the walkers,
+Reacher, the pendula), or the large one of the models with pair rows (the
+humanoid family, the arms).
 
 The library is built at first use with nvcc into `_build/` (keyed by the
 sources' content hash) and loaded with ctypes. Each wrapper checks its
@@ -51,11 +52,28 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# every aux key the kernels know; a task's aux is a sorted subset of them
-AUX_KEYS = ("flag_count", "flag_timeout", "frame", "ground_counter",
-            "initial_z", "potential", "target_x", "target_y")
-COMP_KEYS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
-NCOMP = len(COMP_KEYS)
+# The task kinds of engine_core.h (TASK_*), and for each the aux keys and
+# reward-component keys its routines write; the kernel keeps both in sorted
+# key order, one slot table each (ax_*, cp_*).
+_WALKER_AUX = ("initial_z", "potential", "target_x", "target_y")
+_WALKER_COMPS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
+_FLAG_AUX = ("flag_count", "flag_timeout")
+_ARM_COMPS = ("ctrl", "dist", "near")
+TASK_KINDS = {  # class name -> (kind, aux keys, reward keys)
+    "WalkerTask": (0, _WALKER_AUX, _WALKER_COMPS),
+    "HumanoidFlagrunTask": (1, _WALKER_AUX + _FLAG_AUX, _WALKER_COMPS),
+    "HumanoidFlagrunHarderTask": (2, _WALKER_AUX + _FLAG_AUX + ("frame", "ground_counter"),
+                                  _WALKER_COMPS),
+    "ReacherTask": (3, ("potential",), ("electricity", "progress", "stuck_joint")),
+    "PusherTask": (4, (), _ARM_COMPS),
+    "StrikerTask": (5, ("min_dist", "strike_x", "strike_y", "strike_z", "striked"), _ARM_COMPS),
+    "ThrowerTask": (6, ("hit", "hit_x", "hit_y"), ("ctrl", "dist")),
+    "InvertedPendulumTask": (7, (), ("reward",)),
+    "InvertedDoublePendulumTask": (8, (), ("alive", "dist_penalty", "vel_penalty")),
+}
+# every aux and reward key the kernels know
+AUX_KEYS = tuple(sorted({k for _, aux, _ in TASK_KINDS.values() for k in aux}))
+COMP_KEYS = tuple(sorted({k for _, _, comps in TASK_KINDS.values() for k in comps}))
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,14 +149,12 @@ def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
 
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0):
     """Physics part of the tables (model, plans, solver constants), and the
-    scratch instantiation that fits the model (`caps_id`). Raises for what
-    the kernels do not have yet: disk contact rows, models over the caps."""
+    scratch instantiation that fits the model (`caps_id`). Raises for a
+    model over the caps."""
     Tables, caps = tables_type()
     t = Tables()
     nb = len(model.bodies)
     floor, pairs = ct.build_contact_plan(model, cfg.solver)
-    if any(c.kind != "point" for c in floor):
-        raise NotImplementedError(f"{model.name}: disk contact rows are not in the CUDA kernels yet")
     rows = sc_rows((floor, pairs))
     lim = ct.build_limit_plan(model)
     nl = 0 if lim is None else int(lim.dof.shape[0])
@@ -203,17 +219,26 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
     for j in range(model.nq):
         t.qpos0[j] = _f32(model.qpos0[j])
 
-    for r, c in enumerate(floor):
+    # floor rows in plan order: a point candidate is one row, a disk (a
+    # cylinder's end cap) four rim rows, (e1, +r), (e1, -r), (e2, +r), (e2, -r)
+    r = 0
+    for c in floor:
         n = tuple(float(x) for x in c.plane_n)
         t1, t2 = ct._tangent_basis_static(c.plane_n)
-        t.row_body[r] = c.body
-        for k in range(3):
-            t.row_local[3 * r + k] = _f32(c.local[k])
-            t.row_n[3 * r + k] = _f32(n[k])
-            t.row_t1[3 * r + k] = _f32(t1[k])
-            t.row_t2[3 * r + k] = _f32(t2[k])
-            t.row_nrad[3 * r + k] = _f32(n[k] * c.radius)
-        t.row_depth0[r] = _f32(c.plane_d + c.radius)
+        rims = ((1, 1.0), (1, -1.0), (2, 1.0), (2, -1.0)) if c.kind == "disk" else ((0, 0.0),)
+        for disk, sgn in rims:
+            t.row_body[r] = c.body
+            t.row_disk[r] = disk
+            t.row_rim[r] = _f32(sgn * c.disk_r)
+            for k in range(3):
+                t.row_local[3 * r + k] = _f32(c.local[k])
+                t.row_axis[3 * r + k] = _f32(c.disk_axis[k]) if disk else 0.0
+                t.row_n[3 * r + k] = _f32(n[k])
+                t.row_t1[3 * r + k] = _f32(t1[k])
+                t.row_t2[3 * r + k] = _f32(t2[k])
+                t.row_nrad[3 * r + k] = _f32(n[k] * c.radius)
+            t.row_depth0[r] = _f32(c.plane_d + c.radius)
+            r += 1
     for r, c in enumerate(rows):
         t.row_mu[r] = _f32(c.mu)
     for k, c in enumerate(pairs):
@@ -239,65 +264,96 @@ ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2, "humanoid": 3}  # engine_cor
 
 def pack_tables(task, frame_skip: Optional[int] = None):
     """All tables of the env-step kernel for `task` (physics + task
-    constants). Raises for a task the kernel does not implement: anything
-    but the port's own `WalkerTask` (any alive mode of ALIVE_MODES),
-    `HumanoidFlagrunTask` and `HumanoidFlagrunHarderTask` (other task
-    families, subclasses, other pre-physics hooks)."""
-    from pybulletgym_tpu_torch.envs import locomotion as loco
+    constants). Raises for a task the kernel does not implement: any class
+    but those of TASK_KINDS (subclasses, other pre-physics hooks included)."""
+    from pybulletgym_tpu_torch.envs import locomotion, manipulation, pendula
 
-    # the task classes the kernels implement, by engine_core.h · TASK_*
-    kinds = {loco.WalkerTask: 0, loco.HumanoidFlagrunTask: 1, loco.HumanoidFlagrunHarderTask: 2}
-    if type(task) not in kinds:
+    name = type(task).__name__
+    kind = TASK_KINDS.get(name)
+    if kind is None or not any(getattr(mod, name, None) is type(task)
+                               for mod in (locomotion, manipulation, pendula)):
         raise NotImplementedError(
-            f"{type(task).__name__}: only {', '.join(k.__name__ for k in kinds)} are in the "
-            "CUDA kernels yet")
-    mode = task.spec.alive_mode
-    if mode not in ALIVE_MODES:
-        raise NotImplementedError(f"alive mode {mode!r} is not in the CUDA kernels yet")
+            f"{name}: only {', '.join(TASK_KINDS)} are in the CUDA kernels yet")
     t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
     _, caps = tables_type()
-    if mode == "cheetah" and len(task.foot_rows) < 6:
-        raise ValueError("the cheetah alive mode reads feet 1, 2, 4 and 5")
-    t.alive_mode = ALIVE_MODES[mode]
-    t.task_kind = kinds[type(task)]
-    keys = _check_keys(task)
-    want = {"initial_z", "potential", "target_x", "target_y"}
-    want |= {"flag_count", "flag_timeout"} if t.task_kind >= 1 else set()
-    want |= {"frame", "ground_counter"} if t.task_kind == 2 else set()
-    if set(keys) != want:
-        raise NotImplementedError(f"aux keys {keys} differ from the kernel's {sorted(want)}")
-    t.naux = len(keys)
+    t.task_kind, want_aux, want_comps = kind
+    aux_keys, comp_keys = _check_keys(task)
+    if aux_keys != tuple(sorted(want_aux)) or comp_keys != tuple(sorted(want_comps)):
+        raise NotImplementedError(f"{name}: keys {aux_keys}, {comp_keys} differ from the "
+                                  f"kernel's {want_aux}, {want_comps}")
+    t.naux, t.ncomp = len(aux_keys), len(comp_keys)
     for k in AUX_KEYS:
-        setattr(t, "ax_" + k, keys.index(k) if k in keys else -1)
+        setattr(t, "ax_" + k, aux_keys.index(k) if k in aux_keys else -1)
+    for k in COMP_KEYS:
+        setattr(t, "cp_" + k, comp_keys.index(k) if k in comp_keys else -1)
     t.act = task.act_dim
-    t.nfeet = len(task.foot_rows)
-    t.nparts = len(task.part_frames)
     t.obs_dim = task.obs_dim
     t.max_steps = int(task.max_episode_steps)
-    t.base_body = int(task.base_body)
-    if t.nfeet > caps["MAX_FEET"] or t.nparts > caps["MAX_PARTS"]:
-        raise ValueError(f"{task.spec.name}: feet/parts exceed the kernel caps")
-    for k in range(task.act_dim):
-        t.act_dof[k] = int(task.act_dofs[k])
-        t.act_qadr[k] = int(task.act_qadr[k])
-        t.gain[k] = _f32(task.gains[k, 0])
-        t.j_mid[k] = _f32(task.j_mid[k, 0])
-        t.j_half[k] = _f32(task.j_halfrange[k, 0])
-    for k, (host, pos, _quat) in enumerate(task.part_frames):
+    for r in range(t.nr):
+        t.row_foot[r] = -1
+    if t.task_kind <= 2:
+        _pack_walker(t, task, caps)
+    elif t.task_kind == 3:
+        _pack_reacher(t, task)
+    elif t.task_kind <= 6:
+        _pack_arm(t, task)
+    else:
+        _pack_pendulum(t, task)
+    return t
+
+
+def _draws(t, entries):
+    """q draws (q address, stream, base, lo, hi): q[adr] = base + U[lo, hi)."""
+    _, caps = tables_type()
+    if len(entries) > caps["MAX_DRAWS"]:
+        raise ValueError(f"{len(entries)} reset draws exceed the kernel cap")
+    t.nqdraw = len(entries)
+    for k, (adr, stream, base, lo, hi) in enumerate(entries):
+        t.qdraw_adr[k], t.qdraw_stream[k] = adr, stream
+        t.qdraw_base[k], t.qdraw_lo[k], t.qdraw_span[k] = _f32(base), _f32(lo), _f32(hi - lo)
+
+
+def _frames(t, frames):
+    t.nparts = len(frames)
+    for k, (host, pos) in enumerate(frames):
         t.part_host[k] = int(host)
         for j in range(3):
             t.part_pos[3 * k + j] = _f32(float(pos[j]))
+
+
+def _actuated(t, dofs, qadrs, gains):
+    for k, (d, qa, g) in enumerate(zip(dofs, qadrs, gains)):
+        t.act_dof[k], t.act_qadr[k], t.gain[k] = int(d), int(qa), _f32(g)
+
+
+def _pack_walker(t, task, caps):
+    """WalkerTask and the Flagrun tasks (locomotion.py)."""
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+
+    mode = task.spec.alive_mode
+    if mode not in ALIVE_MODES:
+        raise NotImplementedError(f"alive mode {mode!r} is not in the CUDA kernels yet")
+    if mode == "cheetah" and len(task.foot_rows) < 6:
+        raise ValueError("the cheetah alive mode reads feet 1, 2, 4 and 5")
+    t.alive_mode = ALIVE_MODES[mode]
+    t.nfeet = len(task.foot_rows)
+    t.base_body = int(task.base_body)
+    if t.nfeet > caps["MAX_FEET"] or len(task.part_frames) > caps["MAX_PARTS"]:
+        raise ValueError(f"{task.spec.name}: feet/parts exceed the kernel caps")
+    _actuated(t, task.act_dofs, task.act_qadr, task.gains[:, 0])
+    for k in range(task.act_dim):
+        t.j_mid[k] = _f32(task.j_mid[k, 0])
+        t.j_half[k] = _f32(task.j_halfrange[k, 0])
+    _frames(t, [(host, pos) for host, pos, _quat in task.part_frames])
     # row -> foot table (a row's primary geom is at most one foot's)
-    for r in range(t.nr):
-        t.row_foot[r] = -1
     for f, rows in enumerate(task.foot_rows):
         for r in rows:
             if t.row_foot[r] != -1:
                 raise ValueError(f"contact row {r} belongs to feet {t.row_foot[r]} and {f}")
             t.row_foot[r] = f
-    # reset draws: uniform(-0.1, 0.1) per actuated joint (WalkerTask)
-    t.reset_lo = _f32(-0.1)
-    t.reset_span = _f32(0.1 - (-0.1))
+    # reset draws: uniform(-0.1, 0.1) per actuated joint, on stream k
+    m = task.model
+    _draws(t, [(int(qa), k, float(m.qpos0[qa]), -0.1, 0.1) for k, qa in enumerate(task.act_qadr)])
     t.target_x = _f32(task.walk_target[0])
     t.target_y = _f32(task.walk_target[1])
     t.control_dt = _f32(task.physics.control_dt)
@@ -314,7 +370,75 @@ def pack_tables(task, frame_skip: Optional[int] = None):
         t.flag_timeout = _f32(loco.FLAG_TIMEOUT)
     if t.task_kind == 2:  # HumanoidFlagrunHarderTask
         _pack_harder(t, task)
-    return t
+
+
+def _pack_reacher(t, task):
+    """ReacherTask (manipulation.py): the central and elbow joints are act
+    slots 0 and 1, the target's slides jq 0 and 1."""
+    _actuated(t, (task.central_dof, task.elbow_dof), (task.central_qadr, task.elbow_qadr),
+              (task.torque_gain, task.torque_gain))
+    t.j_mid[1], t.j_half[1] = _f32(task.elbow_mid), _f32(task.elbow_halfrange)
+    t.jq[0], t.jq[1] = task.tx_qadr, task.ty_qadr
+    _frames(t, [task.fingertip, task.target_frame])
+    lim = task.TARG_LIMIT
+    _draws(t, [(task.central_qadr, 0, 0.0, -3.14, 3.14), (task.elbow_qadr, 1, 0.0, -3.14, 3.14),
+               (task.tx_qadr, 2, 0.0, -lim, lim), (task.ty_qadr, 3, 0.0, -lim, lim)])
+
+
+def _pack_arm(t, task):
+    """Pusher, Striker, Thrower (manipulation.py): the arm's joints, the
+    tips/object/goal frames, the velocity draws on streams 10 + dof (none
+    for the object's and goal's slides, which the task zeroes), and each
+    task's placement of the object and goal."""
+    from pybulletgym_tpu_torch.envs.locomotion import _qadr
+
+    m = task.model
+    _actuated(t, task.arm_dofs, task.arm_qadr, task.gains)
+    _frames(t, [task.tips[:2], task.obj_frame[:2], task.goal_frame[:2]])
+    if t.task_kind == 6:  # Thrower: the goal's slides ~ U(-0.3, 0.3) on streams 0, 1
+        still = (task.goal_x, task.goal_y)
+        _draws(t, [(_qadr(m, d), k, 0.0, -0.3, 0.3) for k, d in enumerate(still)])
+    else:
+        still = task._still()
+        t.push_stream[0], t.push_stream[1] = 0, 1
+        if t.task_kind == 4:  # Pusher: the object, out from the goal at the origin
+            t.qpos0[_qadr(m, task.goal_x)] = t.qpos0[_qadr(m, task.goal_y)] = 0.0
+            into, box, base = (task.obj_x, task.obj_y), ((-0.3, 0.0), (-0.2, 0.2)), (0.0, 0.0)
+            centre = (0.0, 0.0)
+        else:  # Striker: the ball fixed, the goal out from it
+            bx, by = task.BALL_WORLD
+            t.qpos0[_qadr(m, task.obj_x)] = _f32(by - task._obj_base[1])
+            t.qpos0[_qadr(m, task.obj_y)] = _f32(bx - task._obj_base[0])
+            # x lands in the goal's second slide, y in its first (document order)
+            into, box = (task.goal_y, task.goal_x), ((0.15, 0.7), (0.1, 1.0))
+            base, centre = task._goal_base, (bx, by)
+        for j in range(2):
+            t.push_qadr[j] = _qadr(m, into[j])
+            t.push_lo[j], t.push_span[j] = _f32(box[j][0]), _f32(box[j][1] - box[j][0])
+            t.push_centre[j], t.push_base[j] = _f32(centre[j]), _f32(base[j])
+    vdofs = [d for d in range(m.nv) if d not in still]
+    _, caps = tables_type()
+    if len(vdofs) > caps["MAX_DRAWS"]:
+        raise ValueError(f"{len(vdofs)} velocity draws exceed the kernel cap")
+    t.nvdraw = len(vdofs)
+    for k, d in enumerate(vdofs):
+        t.vdraw_dof[k], t.vdraw_stream[k] = d, 10 + d
+    t.vdraw_lo, t.vdraw_span = _f32(-0.005), _f32(0.005 - (-0.005))
+
+
+def _pack_pendulum(t, task):
+    """The pendula (pendula.py): the slider is act slot 0, the hinges jq/jv
+    0 and 1; the double pendulum reads pole2's COM (base_body)."""
+    _actuated(t, (task.slider_dof,), (task.slider_qadr,), (task.torque_gain,))
+    if t.task_kind == 7:
+        t.swingup = int(task.swingup)
+        t.jq[0], t.jv[0] = task.hinge_qadr, task.hinge_dof
+        _draws(t, [(task.hinge_qadr, 0, np.pi if task.swingup else 0.0, -0.1, 0.1)])
+    else:
+        t.jq[0], t.jv[0] = task.j1_qadr, task.j1_dof
+        t.jq[1], t.jv[1] = task.j2_qadr, task.j2_dof
+        t.base_body = task.pole2
+        _draws(t, [(task.j1_qadr, 0, 0.0, -0.1, 0.1), (task.j2_qadr, 1, 0.0, -0.1, 0.1)])
 
 
 def _pack_harder(t, task):
@@ -341,10 +465,10 @@ def _pack_harder(t, task):
     t.ground_limit = _f32(task.GROUND_LIMIT)
 
 
-def _check_keys(task) -> Tuple[str, ...]:
+def _check_keys(task) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     """The kernel writes aux and reward components in sorted key order;
     probe the task's hooks once on one env to confirm its keys. Returns the
-    aux keys."""
+    sorted (aux keys, reward keys)."""
     one = torch.zeros((1,), dtype=torch.uint32)
     ids = (one, torch.zeros((1,), dtype=torch.int32), one)
     q, v, aux = task.initial_state_scalar(*ids)
@@ -356,9 +480,7 @@ def _check_keys(task) -> Tuple[str, ...]:
     keys = tuple(sorted(aux))
     if tuple(sorted(aux2)) != keys:
         raise NotImplementedError(f"output aux keys {sorted(aux2)} differ from the reset's {keys}")
-    if tuple(sorted(comps)) != COMP_KEYS:
-        raise NotImplementedError(f"reward keys {sorted(comps)} differ from the kernel's {COMP_KEYS}")
-    return keys
+    return keys, tuple(sorted(comps))
 
 
 # ---------------------------------------------------------------------------
@@ -468,15 +590,17 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
 def _env_tensors(task, tables, state, action):
     """Check an env step's inputs; returns (inputs, outputs) tensor lists in
     the launchers' argument order, outputs freshly allocated. The aux rows
-    are the state's keys in sorted order, as many as the tables say."""
+    are the state's keys in sorted order, as many as the tables say (none:
+    a (0, B) tensor, which the kernel never reads)."""
     m = task.model
     B = state.q.shape[-1]
     dev = state.q.device
     f32, b8 = torch.float32, torch.bool
     keys = sorted(state.aux)
-    if len(keys) != tables.naux:
-        raise ValueError(f"aux keys {keys}: the kernel's tables have {tables.naux}")
-    aux = torch.stack([state.aux[k] for k in keys], 0)
+    if len(keys) != tables.naux or len(state.rewards) != tables.ncomp:
+        raise ValueError(f"aux keys {keys}, reward keys {sorted(state.rewards)}: the kernel's "
+                         f"tables have {tables.naux} and {tables.ncomp}")
+    aux = torch.stack([state.aux[k] for k in keys], 0) if keys else state.q.new_empty((0, B))
     ins = [
         (state.q, "q", f32, (m.nq, B)), (state.v, "v", f32, (m.nv, B)),
         (action, "action", f32, (task.act_dim, B)), (aux, "aux", f32, (len(keys), B)),
@@ -490,8 +614,7 @@ def _env_tensors(task, tables, state, action):
     e = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     outs = [
         e(m.nq, B), e(m.nv, B), e(task.obs_dim, B), e(B), e(B, dtype=b8), e(B, dtype=b8),
-        e(B, dtype=torch.int32), e(B, dtype=torch.uint32), e(len(keys), B),
-        e(len(COMP_KEYS), B),
+        e(B, dtype=torch.int32), e(B, dtype=torch.uint32), e(len(keys), B), e(tables.ncomp, B),
     ]
     return [x for x, *_ in ins], outs
 
@@ -504,7 +627,7 @@ def _env_state(state, outs):
         q=q2, v=v2, obs=obs, reward=rew, terminated=term, truncated=trunc,
         step_count=sc, epoch=ep, env_id=state.env_id, seed=state.seed,
         aux={k: aux[j] for j, k in enumerate(sorted(state.aux))},
-        rewards={k: comps[j] for j, k in enumerate(COMP_KEYS)},
+        rewards={k: comps[j] for j, k in enumerate(sorted(state.rewards))},
     )
 
 
@@ -628,6 +751,10 @@ _QUAT_INTEGRATE = 59
 # the closest points (less the branch that only parallel capsules skip), the
 # normal, depth, midpoint and tangent basis
 _PAIR_CONTACT = 194
+# a disk row's rim offset (engine_core.h · disk_rim): the axis, n x w, its
+# norm, e1 (or R's column), the scaled offset and its sum; an e2 row also
+# takes w x e1
+_DISK_RIM = _M3_VEC + _V_CROSS + _V_DOT + 3 + 3 + 3 + _V_ADD
 
 
 def _fk_flops(t, inert: bool) -> int:
@@ -668,6 +795,8 @@ def substep_flops(t) -> int:
              for d in range(nv))
     nfloor = nr - t.npair
     n += fact + solve + nfloor * (_M3_VEC + _V_ADD + _V_DOT + 4) + t.npair * _PAIR_CONTACT
+    disks = [t.row_disk[r] for r in range(nfloor) if t.row_disk[r]]
+    n += len(disks) * _DISK_RIM + sum(d == 2 for d in disks) * _V_CROSS
     if nr or nl:
         n += sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))  # z
         # the dofs a row's Jacobian touches: body a's root path, and for a
@@ -698,15 +827,27 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
     f32 = 4
     if not env_step:
         return n, f32 * (2 * t.nq + 2 * t.nv + t.nv + t.nr)
-    na = t.act
-    n += na + _fk_flops(t, inert=False) + 3 * na + 3 * _ATAN2 + 4 + _V_CROSS + _V_ADD
-    n += t.nparts * (_M3_VEC + _V_ADD + 2) + 2 + 2 + _ATAN2 + 1 + 4 + 2 + 6 + 5 * na + 20
-    if t.task_kind >= 1:  # the retarget test: the distance, the timer, dx and dy again
-        n += 4 + 1 + 2
-    if t.task_kind == 2:  # the cube's frame test, the get-up counter, leak and frame
-        n += 1 + 1 + 2 + 1
+    na, kind = t.act, t.task_kind
+    n += na  # the torques
+    frames = t.nparts * (_M3_VEC + _V_ADD)
+    if kind <= 2:  # walker_output
+        n += _fk_flops(t, inert=False) + 3 * na + 3 * _ATAN2 + 4 + _V_CROSS + _V_ADD
+        n += frames + 2 * t.nparts + 2 + 2 + _ATAN2 + 1 + 4 + 2 + 6 + 5 * na + 20
+        if kind >= 1:  # the retarget test: the distance, the timer, dx and dy again
+            n += 4 + 1 + 2
+        if kind == 2:  # the cube's frame test, the get-up counter, leak and frame
+            n += 1 + 1 + 2 + 1
+    elif kind == 3:  # reacher_output: the potential, obs, electricity, stuck joint
+        n += _fk_flops(t, inert=False) + frames + 3 + _V_DOT + 2 + 6 + 11 + 3 + 3
+    elif kind <= 6:  # arm_output: the control cost, then each task's distances
+        n += _fk_flops(t, inert=False) + frames + 2 * na + 1
+        n += {4: 2 * (3 + _V_DOT + 2) + 6, 5: 3 * (3 + _V_DOT + 2) + 12, 6: 10}[kind]
+    elif kind == 7:  # pendulum_output: cos, sin, the reward and the test
+        n += 4
+    else:  # the double pendulum: pole2's COM, four of cos/sin, the penalties
+        n += _fk_flops(t, inert=False) + 4 + 14
     ins = f32 * (t.nq + t.nv + na + t.naux) + 2 + 4 * 4   # term, trunc, step, epoch, seed, id
-    outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + t.naux + NCOMP) + 2 + 4 * 2
+    outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + t.naux + t.ncomp) + 2 + 4 * 2
     return n, ins + outs
 
 

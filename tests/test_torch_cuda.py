@@ -7,8 +7,9 @@ machine without the JAX package (tests/conftest.py imports jax, hence
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Without a GPU every test here skips. The bounds are the walker budget of
-test_pallas_equivalence.py:38-51 on HalfCheetah (hinge and slide joints)
-and Ant (a free root), and the humanoid-family budget of
+test_pallas_equivalence.py:38-51 on HalfCheetah (hinge and slide joints),
+Ant (a free root), Pusher (disk rows, empty aux) and Thrower (a free ball
+that is not body 0), and the humanoid-family budget of
 test_pallas_equivalence.py:80-86 on Humanoid and FlagrunHarder (self-
 collision pairs, the large scratch instantiation, the cube), as
 chip_smoke.py holds them.
@@ -26,6 +27,8 @@ ENV = "HalfCheetahPyBulletEnv-v0"
 ANT = "AntPyBulletEnv-v0"
 HUMANOID = "HumanoidPyBulletEnv-v0"
 HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
+PUSHER = "PusherPyBulletEnv-v0"
+THROWER = "ThrowerPyBulletEnv-v0"
 IDS = {"half_cheetah": ENV, "ant": ANT, "humanoid": HUMANOID, "humanoid_flagrun_harder": HARDER}
 B = 300  # two full blocks of 128 threads and a ragged third
 
@@ -42,6 +45,21 @@ def bounds_env(a, b, nf):
     assert (dob[-nf:] > 0.5).float().mean() < 0.01
     assert (a.reward - b.reward).abs().median() < 5e-3
     assert (a.terminated != b.terminated).float().mean() < 0.01
+    for name in ("epoch", "step_count", "truncated"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def bounds_fixed(a, b):
+    """The walkers' env-step parity for the fixed-base family (no foot
+    flags): q mean/max, obs mean, reward median, termination flips, aux
+    medians; epoch, step count and truncation exact."""
+    dq = (a.q - b.q).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert (a.obs - b.obs).abs().mean() < 1e-3
+    assert (a.reward - b.reward).abs().median() < 5e-3
+    assert (a.terminated != b.terminated).float().mean() < 0.01
+    for k in b.aux:
+        assert (a.aux[k] - b.aux[k]).abs().median() < 5e-3, k
     for name in ("epoch", "step_count", "truncated"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
@@ -162,6 +180,51 @@ def test_humanoid_physics_kernel_matches_plain(humanoid):
     dq = (qk - qp).abs()
     assert dq.median() < 1.5e-3 and dq.mean() < 5e-3 and dq.max() < 8e-2
     assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+    assert torch.isfinite(vk).all() and phys.launches == 1
+
+
+@pytest.fixture(scope="module", params=[PUSHER, THROWER])
+def arm(request):
+    _need_gpu()
+    return request.param, make_task(request.param)
+
+
+def test_arm_env_kernel_matches_plain(arm):
+    """Pusher's disk rows and empty aux, Thrower's free ball: one step with
+    every 3rd env forced to reset; the reset draws bitwise"""
+    env_id, task = arm
+    env = make_batched(env_id, B, device="cuda")
+    forced = torch.zeros(B, dtype=torch.bool, device="cuda")
+    forced[::3] = True
+    s = env.reset(seed=2)._replace(terminated=forced)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
+    out = env.step_fn(s, a)
+    assert env.step_fn.launches == 1 and sorted(out.aux) == sorted(s.aux)
+    bounds_fixed(out, env_step_plain(task, s, a))
+    reset_k = ce.make_cuda_env_step(task, frame_skip=0)(s, a)
+    reset_p = env_step_plain(task, s, a, frame_skip=0)
+    assert torch.equal(reset_k.q[:, forced], reset_p.q[:, forced])
+    assert torch.equal(reset_k.v[:, forced], reset_p.v[:, forced])
+    again = env.step_fn(s, a)
+    for name in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
+        assert torch.equal(getattr(out, name), getattr(again, name)), name
+
+
+def test_arm_physics_kernel_matches_plain(arm):
+    env_id, task = arm
+    s = make_batched(env_id, B, device="cuda").reset(seed=3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
+    zero = torch.zeros(B, device="cuda")
+    tau = torch.stack([zero if isinstance(x, float) else x
+                       for x in task.action_tau_scalar(list(a))], 0)
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    qk, vk, dk = phys(s.q, s.v, tau)
+    qp, vp, dp = phys.plain(s.q, s.v, tau)
+    dq = (qk - qp).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert dk.shape == dp.shape and ((dk > 0) != (dp > 0)).float().mean() < 0.01
     assert torch.isfinite(vk).all() and phys.launches == 1
 
 

@@ -13,7 +13,9 @@ against the plain version, on HalfCheetah (hinge and slide joints) and Ant
     equal; through the plain version for HalfCheetah and Ant, through the
     host twin for Hopper, Walker2D, HalfCheetah and Ant.
 (d) the host twin (csrc/engine_core.h built with g++) vs the plain version,
-    under the bounds chip_smoke.py holds the CUDA kernels to.
+    under the bounds chip_smoke.py holds the CUDA kernels to; and on
+    HalfCheetah with `bthigh` made a cylinder (disk rows on the regular
+    branch), mean |dq| < 1e-5 and depths to 1e-5 over one substep.
 (e) BatchedEnv on "cuda", the default device, raises when no GPU is present.
 test_torch_cuda.py holds the CUDA kernels against the plain version on a GPU.
 """
@@ -33,7 +35,7 @@ from pybulletgym_tpu.ops import smath as sm_j
 from pybulletgym_tpu.ops import step as step_j
 from pybulletgym_tpu_torch import make_batched, make_task
 from pybulletgym_tpu_torch.envs import locomotion as loco_t
-from pybulletgym_tpu_torch.envs.base import BatchedEnv, env_step_plain, reset_fn
+from pybulletgym_tpu_torch.envs.base import BatchedEnv, Task, env_step_plain, reset_fn
 from pybulletgym_tpu_torch.models.mjcf import load_mjcf
 from pybulletgym_tpu_torch.models.schema import GeomType
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
@@ -311,17 +313,60 @@ def test_work_per_env_step_counts_the_loops(tasks):
         assert ce.substep_flops(t) > ce.substep_flops(ce.pack_tables(make_task(ENV)))
 
 
-def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path):
-    _, tt = tasks
-    # disk rows: a cylinder against the floor plane
-    disked = loco_t.WalkerTask(loco_t.HALF_CHEETAH)
-    m = disked.model
+def disked_cheetah(task, cylinder):
+    """`task` (HalfCheetah, of either package) with the `bthigh` capsule made
+    a cylinder of the same size (`cylinder`: that package's
+    GeomType.CYLINDER): its two end caps are 8 disk rows, and the thigh's
+    axis is slanted, so the rim directions take the regular branch."""
+    m = task.model
     g = m.geom_index("bthigh")
-    cyl = dataclasses.replace(m.geoms[g], gtype=GeomType.CYLINDER)
-    disked.model = m.replace(geoms=m.geoms[:g] + (cyl,) + m.geoms[g + 1:])
-    with pytest.raises(NotImplementedError, match="disk contact rows"):
-        ce.pack_tables(disked)
+    cyl = dataclasses.replace(m.geoms[g], gtype=cylinder)
+    task.model = m.replace(geoms=m.geoms[:g] + (cyl,) + m.geoms[g + 1:])
+    return task
 
+
+def disk_touch_state(task, B, seed, depth=3e-3):
+    """A post-reset batch of the disked HalfCheetah with the root lowered so
+    that the cylinder's deepest rim point lies `depth` into the floor.
+    Returns (state, the disk rows)."""
+    from pybulletgym_tpu_torch.ops import contacts as ct_t
+    from pybulletgym_tpu_torch.ops import dynamics as dyn_t
+    from pybulletgym_tpu_torch.ops.step import sc_rows
+
+    s = reset_fn(task, torch.full((B,), seed, dtype=torch.uint32),
+                 torch.arange(B, dtype=torch.int32), torch.zeros(B, dtype=torch.uint32))
+    plan = ct_t.build_contact_plan(task.model, task.physics.solver)
+    disk = [r for r, c in enumerate(sc_rows(plan)) if getattr(c, "kind", "") == "disk"]
+    fk = dyn_t.forward_kinematics(task.model, list(s.q), list(s.v), with_inertia=False)
+    d = torch.stack([ct_t.narrowphase_scalar(task.model, fk, plan).depth[r] for r in disk])
+    q = s.q.clone()
+    q[1] -= depth - d.max(0).values  # rootz
+    return s._replace(q=q), disk
+
+
+def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
+    _, tt = tasks
+    # disk rows (a cylinder against the floor plane) pack, and the kernels'
+    # C++ steps them as the plain version does: one substep from a state in
+    # which the slanted cylinder's rim is 3 mm into the floor
+    disked = disked_cheetah(loco_t.WalkerTask(loco_t.HALF_CHEETAH), GeomType.CYLINDER)
+    tab = ce.pack_physics(disked.model, disked.physics, frame_skip=1)
+    s, disk = disk_touch_state(disked, 4, 6)
+    assert len(disk) == 8 and [tab.row_disk[r] for r in disk] == [1, 1, 2, 2] * 2
+    tau = torch.from_numpy(_rand_tau(disked, 4, 6))
+    cfg1 = dataclasses.replace(disked.physics, frame_skip=1)
+    qp, vp, dp = make_physics_step_plain(disked.model, cfg1)[0](s.q, s.v, tau)
+    qh, vh, dh = twin.physics_step(tab, s.q, s.v, tau)
+    assert (dp[disk] > 0).any(dim=0).all()  # a rim row touches in every env
+    assert (qp - qh).abs().mean() < 1e-5 and (qp - qh).abs().max() < 1e-2
+    assert (dp - dh).abs().max() < 1e-5
+
+    # a task class the kernels do not know
+    class Unknown(Task):
+        pass
+
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        ce.pack_tables(Unknown())
     # a pre-physics hook that is not FlagrunHarder's
     class Pushed(loco_t.WalkerTask):
         def pre_physics_scalar(self, q, v, aux, ids=None):

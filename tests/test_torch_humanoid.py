@@ -11,6 +11,11 @@ the port, against the JAX package, at small sizes (B = 2-4, frame_skip 0 or
     first substep. Reset q, epoch, step count and the flag draws are
     bitwise; so are the cube's Threefry draws.
 (e) full_self_collision_pairs equal to the JAX package's (66 and 75 pairs).
+(f) termination at the edges of the alive test: the JAX package's output
+    hook, the port's and the host twin agree exactly.
+
+`PYTHONPATH=. python tests/test_torch_humanoid.py [env id]` runs the shipped policy on
+the JAX package's jitted env step on the CPU (`jax_policy_rollout`).
 
 Bounds: the JAX package's humanoid-family budget
 (tests/test_pallas_equivalence.py:80-86): median |dq| < 1.5e-3, mean
@@ -20,6 +25,8 @@ the same order). test_torch_humanoid_twin.py holds the kernels' C++.
 """
 
 import dataclasses
+import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +40,8 @@ from pybulletgym_tpu.ops import step as step_j
 from pybulletgym_tpu_torch import make_task
 from pybulletgym_tpu_torch.envs.base import env_step_plain, reset_fn
 from pybulletgym_tpu_torch.ops import contacts as ct_t
+from pybulletgym_tpu_torch.ops import cuda_engine as ce
+from pybulletgym_tpu_torch.ops import dynamics as dyn_t
 from pybulletgym_tpu_torch.ops import rand as rand_t
 from pybulletgym_tpu_torch.ops.step import make_physics_step_plain
 from pybulletgym_tpu_torch.utils.interop import env_state_from_numpy, env_state_to_numpy
@@ -41,6 +50,7 @@ from test_torch_engine import _jax_kernel_body
 HUMANOID = "HumanoidPyBulletEnv-v0"
 FLAGRUN = "HumanoidFlagrunPyBulletEnv-v0"
 HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _reset(task, B, seed, epoch=0):
@@ -213,3 +223,100 @@ def test_full_self_collision_pairs_match_jax(env_id, n_pairs):
     _, pairs = ct_t.build_contact_plan(tt.model, tt.physics.solver)
     assert len(pairs) == n_pairs
     assert tt.foot_rows == tj.foot_rows
+
+
+def _at_height(task, B, seed, z):
+    """A post-reset batch (numpy) with the root shifted so that the base
+    body's COM sits at height z[i] in env i."""
+    s = env_state_to_numpy(_reset(task, B, seed))
+    fk = dyn_t.forward_kinematics(task.model, list(torch.from_numpy(s["q"])),
+                                  list(torch.from_numpy(s["v"])), with_inertia=False)
+    com_z = fk.com[task.base_body][2].numpy()
+    s["q"][2] += (np.asarray(z, np.float32) - com_z).astype(np.float32)
+    return s
+
+
+@pytest.mark.parametrize("env_id", [HUMANOID, HARDER])
+def test_termination_matches_jax_and_the_twin(env_id):
+    """(f) The alive test at its edges: Humanoid's base COM just below and
+    above 0.78; FlagrunHarder's get-up counter stepping onto and off its
+    limit of 170 (COM just below or above 0.8). The JAX package's output
+    hook, the port's and the host twin (the kernels' C++, frame_skip 0:
+    outputs on the given state) agree on termination exactly and on alive
+    and reward to float32 round-off."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the host twin")
+    tj, tt = pg.make_task(env_id), make_task(env_id)
+    B = 4
+    if env_id == HUMANOID:
+        z, counter, want = [0.77, 0.78 - 1e-5, 0.78 + 1e-5, 0.79], None, [1, 1, 0, 0]
+    else:  # (COM, counter before the step): 170 ends it, 169 or 168 does not
+        z, counter, want = [0.8 - 1e-5, 0.8 + 1e-5, 0.8 - 1e-5, 0.8 + 1e-5], \
+            [169.0, 169.0, 168.0, 171.0], [1, 0, 0, 1]
+    s = _at_height(tt, B, 31, z)
+    if counter is not None:
+        s["aux"]["ground_counter"] = np.array(counter, np.float32)
+        s["aux"]["frame"] = np.full(B, 7.0, np.float32)  # no cube throw
+    n_rows = len(step_j.sc_rows(ct_j.build_contact_plan(tj.model, tj.physics.solver)))
+    ids = (s["seed"], s["env_id"], s["epoch"])
+    oj = tj.output_scalar([jnp.asarray(x) for x in s["q"]], [jnp.asarray(x) for x in s["v"]],
+                          [jnp.zeros(B)] * n_rows, [jnp.zeros(B)] * tj.act_dim,
+                          {k: jnp.asarray(x) for k, x in s["aux"].items()},
+                          tuple(jnp.asarray(x) for x in ids))
+    zt = torch.zeros(B)
+    ot = tt.output_scalar(list(torch.from_numpy(s["q"])), list(torch.from_numpy(s["v"])),
+                          [zt] * n_rows, [zt] * tt.act_dim,
+                          {k: torch.from_numpy(x) for k, x in s["aux"].items()},
+                          tuple(torch.from_numpy(x.astype(np.int64)) for x in ids))
+    twin = ce.HostTwin()
+    oh = twin.env_step(ce.pack_tables(tt, frame_skip=0), tt, env_state_from_numpy(s), torch.zeros((tt.act_dim, B)))
+    term = {"jax": np.asarray(oj[2]), "port": ot[2].numpy(), "twin": oh.terminated.numpy()}
+    for k, x in term.items():
+        np.testing.assert_array_equal(x, np.array(want, bool), err_msg=k)
+    alive_j = np.asarray(oj[4]["alive"])
+    np.testing.assert_allclose(ot[4]["alive"].numpy(), alive_j, atol=1e-6)
+    np.testing.assert_allclose(oh.rewards["alive"].numpy(), alive_j, atol=1e-6)
+    np.testing.assert_allclose(ot[1].numpy(), np.asarray(oj[1]), atol=1e-3)
+    np.testing.assert_allclose(oh.reward.numpy(), np.asarray(oj[1]), atol=1e-3)
+
+
+def jax_policy_rollout(env_id, B=8, seed=123, log=print):
+    """The shipped policy's return on the JAX package's XLA env step on the
+    host CPU: one env step (policy included) jitted, looped from Python
+    over one episode; returns masked after the first done, as
+    tests/test_frozen_policy.py does. Logs the compile time and progress."""
+    import time
+
+    import jax
+
+    from pybulletgym_tpu.envs.base import make_env
+    from test_frozen_policy import _policy
+
+    tj = pg.make_task(env_id)
+    reset, step = make_env(tj)
+    act = _policy(os.path.join(ROOT, "examples", "weights", f"{env_id}.npz"))
+    one = jax.jit(lambda s: step(s, act(s.obs.T).T))
+    s = reset(jnp.full((B,), seed, jnp.uint32), jnp.arange(B, dtype=jnp.int32),
+              jnp.zeros((B,), jnp.uint32))
+    t0 = time.time()
+    rews, dones = [], []
+    for t in range(tj.max_episode_steps):
+        s = one(s)
+        rews.append(np.asarray(s.reward))
+        dones.append(np.asarray(s.done))
+        if t == 0 or (t + 1) % 100 == 0:
+            log(f"step {t + 1}: {time.time() - t0:.1f} s")
+    alive = np.cumprod(1.0 - np.stack(dones).astype(np.float32), 0)
+    prev = np.concatenate([np.ones((1, B), np.float32), alive[:-1]], 0)
+    returns = (np.stack(rews) * prev).sum(0)
+    lengths = prev.sum(0)
+    log(f"{env_id}: returns {returns.tolist()} mean {returns.mean()} lengths {lengths.tolist()}")
+    return returns, lengths
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_humanoid.py [env id]: the JAX CPU rollout above
+    import sys
+
+    jax_policy_rollout(sys.argv[1] if len(sys.argv) > 1 else HUMANOID,
+                       log=lambda m: print(m, flush=True))
