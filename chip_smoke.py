@@ -3,8 +3,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (built for sm_90a: an H100), nvcc, and this checkout. It
-builds the kernels from `pybulletgym_tpu_torch/csrc/` (each in two scratch
-instantiations: the walkers' and the large one) and, for HalfCheetah
+builds the kernels from `pybulletgym_tpu_torch/csrc/` (one library per lane
+group width G, the nvcc runs started together; ptxas must report no spills
+and stack frames under 1 KB), prints each model's launch configuration (G,
+envs a block, blocks, shared bytes, resident blocks per SM) and the local
+memory the first launches reserve, and, for HalfCheetah
 (hinge and slide joints), Ant (a free root joint), Humanoid (66
 self-collision pairs, nv=23), HumanoidFlagrunHarder (75 pairs, a second
 free joint: the cube, nv=29), and the fixed-base family: Reacher (no
@@ -13,8 +16,9 @@ ball) and the two pendula:
   * holds both kernels against their plain PyTorch versions on the card at
     B=4096 (forced resets, reset draws bitwise, bitwise repeatable
     launches; the quaternion stays a unit one), FlagrunHarder's cube
-    throw, and the physics kernel on HalfCheetah with a cylinder thigh
-    (the disk rows' regular branch, which no shipped model reaches);
+    throw, the physics kernel on HalfCheetah with a cylinder thigh (the
+    disk rows' regular branch, which no shipped model reaches), and both
+    kernels at ragged batches (B=1, 3E+1, 4097) on HalfCheetah and Humanoid;
   * replays the CPU golden rollouts (four walkers, Reacher, the pendula)
     and the TPU-recorded ones (the humanoid family, the arms);
   * drives each main path with the launch counts reset just before it and
@@ -23,8 +27,10 @@ ball) and the two pendula:
     by the physics entry point, and the PPO trainer (`parallel.ppo.train`)
     on Ant at B=4096 resumed from the JAX checkpoint, whose rollout
     launches the env-step kernel 32 times a train step;
-  * times the kernels, the plain versions and the env-steps/s
-    (FlagrunHarder and Pusher at B=4096 and 16384 too).
+  * times the kernels (a launch's device time: launches captured in a CUDA
+    graph and replayed; and back-to-back eager launches), the plain
+    versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
+    16384 too).
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
 last lines are the kernels' summary, the card's name and power limit as
@@ -105,6 +111,53 @@ def cuda_ms(fn, n):
     return start.elapsed_time(stop) / n
 
 
+def graph_ms(fn, n=20, reps=3):
+    """Mean device milliseconds per call of `fn` with no host time between
+    launches: n calls captured in one CUDA graph, replayed reps times."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (n * reps)
+
+
+def ptxas_report(log):
+    """Per library (G) and kernel: registers, stack frame and spill bytes,
+    from nvcc's -Xptxas -v output."""
+    import re
+
+    out, G, kernel = [], None, None
+    for ln in log.splitlines():
+        m = re.match(r"== G=(\d+)", ln)
+        if m:
+            G = int(m.group(1))
+        m = re.search(r"entry function '.*?(env_step_kernel|physics_step_kernel)", ln)
+        if m:
+            kernel = m.group(1)
+            out.append({"G": G, "kernel": kernel})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def host_ms(fn, n):
     """Mean wall milliseconds per call, synchronised on both ends."""
     import torch
@@ -140,10 +193,24 @@ def main():
 
     # ---- build ---------------------------------------------------------
     t0 = time.perf_counter()
-    _, log = ce.load_cuda_library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, nvcc=ce.nvcc_path(), ptxas=ptxas)
+    libs, log = ce.load_cuda_library()
+    ptxas = ptxas_report(log)
+    emit("build", seconds=time.perf_counter() - t0, nvcc=ce.nvcc_path(), lanes=sorted(libs),
+         ptxas=ptxas)
+    require(len(ptxas) == 2 * len(ce.LANE_WIDTHS), f"ptxas reported {len(ptxas)} kernels")
+    for k in ptxas:
+        require(k["spill_stores"] == 0 and k["spill_loads"] == 0 and k["stack_bytes"] < 1024,
+                f"ptxas: {k}")
+
+    # ---- each model's launch configuration at B=4096 -------------------------
+    configs = {}
+    for env_id in (CHEETAH, ANT, HUMANOID, HARDER) + FIXED:
+        task = make_task(env_id)
+        tabs = {"env_step_kernel": ce.pack_tables(task),
+                "physics_step_kernel": ce.pack_physics(task.model, task.physics)}
+        configs[env_id] = {k: ce.launch_config(t, k, B) for k, t in tabs.items()}
+        for k, cfg in configs[env_id].items():
+            emit("launch_config", env=env_id, kernel=k, B=B, nv=task.model.nv, **cfg)
 
     def torques(task, a):  # (act, B) -> (nv, B): the task's action_tau_scalar
         zero = torch.zeros(a.shape[1], device=dev)
@@ -161,7 +228,7 @@ def main():
         s0 = env.reset(seed=0)
         tau = torques(task, uniform(rng, task, B))
         phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
-        qk, vk, dk = phys(s0.q, s0.v, tau)
+        (qk, vk, dk), _ = lmem_delta(lambda: phys(s0.q, s0.v, tau), f"{env_id} physics")
         qp, vp, dp = phys.plain(s0.q, s0.v, tau)
         torch.cuda.synchronize()
         dq = (qk - qp).abs()
@@ -185,7 +252,7 @@ def main():
                 sp = sp._replace(terminated=sp.terminated | forced)
             a = uniform(rng, task, B)
             ins = sk
-            sk = step_k(ins, a)
+            sk, _ = lmem_delta(lambda: step_k(ins, a), f"{env_id} env" if t == 0 else None)
             if t == 1:  # bitwise repeatable: same inputs, same outputs
                 again = step_k(ins, a)
                 for name in ("q", "v", "obs", "reward", "terminated", "truncated",
@@ -235,15 +302,22 @@ def main():
         for k, m in (aux or {}).items():
             require(m < 5e-2, f"{what}: aux {k} disagrees")
 
-    def lmem_delta(fn):
+    lmem_log = []
+
+    def lmem_delta(fn, what=None):
         """Run fn; the device memory it took outside torch's allocator: the
-        local memory CUDA reserves at a kernel's first launch."""
+        local memory CUDA reserves at a kernel's first launch. Logged with
+        the free memory before and after."""
         torch.cuda.synchronize()
         free0, res0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
         out = fn()
         torch.cuda.synchronize()
         free1, res1 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
-        return out, (free0 - free1) - (res1 - res0)
+        delta = (free0 - free1) - (res1 - res0)
+        if what is not None:
+            lmem_log.append(dict(what=what, free_before=free0, free_after=free1,
+                                 torch_reserved_delta=res1 - res0, local_memory_bytes=delta))
+        return out, delta
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -259,7 +333,7 @@ def main():
         s0 = env.reset(seed=0)
         tau = torques(task, uniform(rng, task, B))
         phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
-        (qk, vk, dk), lmem_phys = lmem_delta(lambda: phys(s0.q, s0.v, tau))
+        (qk, vk, dk), lmem_phys = lmem_delta(lambda: phys(s0.q, s0.v, tau), f"{env_id} physics")
         (qp, vp, dp), plain_phys_ms = timed(lambda: phys.plain(s0.q, s0.v, tau))
         dq = (qk - qp).abs()
         flips = ((dk > 0) != (dp > 0)).float().mean().item()
@@ -290,7 +364,7 @@ def main():
                         require(torch.equal(reset_k.aux[k][forced], reset_p.aux[k][forced]),
                                 f"reset aux {k} differs")
             if t == 0:
-                sk, lmem_env = lmem_delta(lambda: step_k(sk, a))
+                sk, lmem_env = lmem_delta(lambda: step_k(sk, a), f"{env_id} env")
                 sp, plain_env_ms = timed(lambda: env_step_plain(task, sp, a))
             else:
                 sk = step_k(sk, a)
@@ -358,7 +432,7 @@ def main():
         s0 = env.reset(seed=0)
         tau = torques(task, uniform(rng, task, B))
         phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
-        qk, vk, dk = phys(s0.q, s0.v, tau)
+        (qk, vk, dk), _ = lmem_delta(lambda: phys(s0.q, s0.v, tau), f"{env_id} physics")
         (qp, vp, dp), plain_phys_ms = timed(lambda: phys.plain(s0.q, s0.v, tau))
         dq = (qk - qp).abs()
         flips = ((dk > 0) != (dp > 0)).float().mean().item() if dk.numel() else 0.0
@@ -400,7 +474,7 @@ def main():
                             f"env kernel not repeatable in {name}")
                 sp = env_step_plain(task, sp, a)
             else:
-                sk = step_k(sk, a)
+                sk, _ = lmem_delta(lambda: step_k(sk, a), f"{env_id} env")
                 sp, plain_env_ms = timed(lambda: env_step_plain(task, sp, a))
             torch.cuda.synchronize()
             dq = (sk.q - sp.q).abs()
@@ -422,6 +496,63 @@ def main():
         return dict(task=task, env=env, s0=s0, tau=tau, phys=phys, phys_err=phys_err,
                     env_err=env_err, plain_ms={"physics_step_kernel": plain_phys_ms,
                                                "env_step_kernel": plain_env_ms})
+
+    # ---- both kernels at ragged batches: B=1, 3E+1, 4097 ---------------------
+    def take(st, n):
+        """The first n envs of a batch-trailing state, each field contiguous."""
+        f = lambda x: x[..., :n].contiguous()  # noqa: E731
+        names = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count",
+                 "epoch", "env_id", "seed")
+        return st._replace(**{k: f(getattr(st, k)) for k in names},
+                           aux={k: f(x) for k, x in st.aux.items()},
+                           rewards={k: f(x) for k, x in st.rewards.items()})
+
+    def ragged(env_id):
+        """One plain env step and one plain physics step on 4097 envs (every
+        3rd due for an auto-reset); the kernels on the first n envs of the
+        same inputs are held to the first n columns (every env is
+        independent), for n = 1, 3E+1 (one env into a fourth block) and
+        4097. The bounds of the model's family."""
+        task = make_task(env_id)
+        humanoid = env_id in (HUMANOID, HARDER)
+        Br = 4097
+        env = make_batched(env_id, Br)
+        forced = torch.zeros(Br, dtype=torch.bool, device=dev)
+        forced[::3] = True
+        s = env.reset(seed=7)._replace(terminated=forced)
+        a = uniform(np.random.default_rng(7), task, Br)
+        tau = torques(task, a)
+        phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+        want_env, want_phys = env_step_plain(task, s, a), phys.plain(s.q, s.v, tau)
+        for kernel, tables in (("env_step_kernel", env.step_fn.tables),
+                               ("physics_step_kernel", phys.tables)):
+            E = ce.launch_config(tables, kernel)["E"]
+            for n in (1, 3 * E + 1, Br):
+                sn, an, taun = take(s, n), a[:, :n].contiguous(), tau[:, :n].contiguous()
+                if kernel == "env_step_kernel":
+                    out, want = env.step_fn(sn, an), take(want_env, n)
+                    dq = (out.q - want.q).abs()
+                    rec = dict(term_flip_rate=(out.terminated != want.terminated).float().mean().item(),
+                               median_dreward=(out.reward - want.reward).abs().median().item())
+                    for name in ("epoch", "step_count", "truncated"):
+                        require(torch.equal(getattr(out, name), getattr(want, name)),
+                                f"{env_id} ragged {n}: {name} differs")
+                else:
+                    qk, vk, dk = phys(sn.q, sn.v, taun)
+                    qp, vp, dp = (x[:, :n] for x in want_phys)
+                    dq = (qk - qp).abs()
+                    rec = dict(depth_sign_flip_rate=((dk > 0) != (dp > 0)).float().mean().item())
+                    require(torch.isfinite(qk).all().item(), f"{env_id} ragged {n}: non-finite")
+                torch.cuda.synchronize()
+                rec.update(median_dq=dq.median().item(), mean_dq=dq.mean().item(),
+                           max_dq=dq.max().item())
+                emit("ragged_vs_plain", env=env_id, kernel=kernel, B=n, E=E, **rec)
+                flips = rec.get("term_flip_rate", rec.get("depth_sign_flip_rate"))
+                if humanoid:
+                    fam_bounds(f"{env_id} ragged {kernel} B={n}", dq, flips)
+                else:
+                    require(rec["mean_dq"] < 3e-4 and rec["max_dq"] < 1e-2 and flips < 0.01,
+                            f"{env_id} ragged {kernel} B={n} disagrees")
 
     # ---- disk rows on the regular branch: HalfCheetah, bthigh a cylinder -----
     def disk_regular():
@@ -623,21 +754,25 @@ def main():
         out = {}
         tables = {"env_step_kernel": ce.pack_tables(task),
                   "physics_step_kernel": ce.pack_physics(task.model, task.physics)}
-        kms = {"env_step_kernel": cuda_ms(lambda: tenv.step_fn(st, a_t), 50),
-               "physics_step_kernel": cuda_ms(lambda: phys(s0.q, s0.v, tau), 50)}
+        fns = {"env_step_kernel": lambda: tenv.step_fn(st, a_t),
+               "physics_step_kernel": lambda: phys(s0.q, s0.v, tau)}
+        kms = {name: graph_ms(fn) for name, fn in fns.items()}
+        eager = {name: cuda_ms(fn, 50) for name, fn in fns.items()}
         for name in kms:
             flops, nbytes = ce.work_per_env_step(tables[name], env_step=name == "env_step_kernel")
             t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
             t_bytes = (nbytes * B + ctypes.sizeof(tables[name])) / PEAK_BYTES_PER_S * 1e3
-            out[name] = dict(ms=kms[name], plain_ms=pms[name], bound_ms=max(t_ops, t_bytes),
+            out[name] = dict(ms=kms[name], eager_ms=eager[name], plain_ms=pms[name],
+                             bound_ms=max(t_ops, t_bytes),
                              bound_by="operations" if t_ops >= t_bytes else "bytes",
                              flops_per_env_step=flops, bytes_per_env_step=nbytes,
-                             caps_id=tables[name].caps_id)
+                             launch=ce.launch_config(tables[name], name, B))
             emit("kernel_time", env=env_id, kernel=name, B=B, card=card, **out[name])
         return out
 
     # HalfCheetah: the phases of the first slice, and its main path
     pc = parity(CHEETAH)
+    ragged(CHEETAH)
     golden(CHEETAH)
     main_c = policy_path(CHEETAH, (pc["phys"], pc["s0"].q, pc["s0"].v, pc["tau"]))
     require(all(n > 0 for n in main_c.values()), f"a kernel was not launched: {main_c}")
@@ -655,6 +790,7 @@ def main():
 
     # the humanoid family: both kernels, the cube, goldens, the three policies
     ph = parity_humanoid(HUMANOID)
+    ragged(HUMANOID)
     golden(HUMANOID, tpu=True)
     main_h = policy_path(HUMANOID, (ph["phys"], ph["s0"].q, ph["s0"].v, ph["tau"]))
     pf = parity_humanoid(HARDER)
@@ -677,6 +813,11 @@ def main():
         p = fixed.get(env_id)
         main_fixed[env_id] = policy_path(
             env_id, None if p is None else (p["phys"], p["s0"].q, p["s0"].v, p["tau"]))
+
+    # the local memory that the first launch of each kernel on each model
+    # took outside torch's allocator (free memory before and after)
+    emit("local_memory", first_launches=lmem_log,
+         max_bytes=max(r["local_memory_bytes"] for r in lmem_log), card=card)
 
     t_c, t_a = times(CHEETAH, pc), times(ANT, pa)
     t_h, t_f = times(HUMANOID, ph), times(HARDER, pf)

@@ -9,88 +9,160 @@
 // (auto-reset with Threefry draws, torques, the substeps, obs/reward/
 // termination, NaN guard, step count and truncation).
 //
-// Design: one thread per env, 128 threads a block, any batch size (the
-// ragged edge is masked). The algorithm lives once in engine_core.h and
-// loops over the model's tables, which are the kernel's parameter (a
-// __grid_constant__ struct of ~19 KB, within Hopper's 32 KB of kernel
-// parameters): every thread reads the same table entry at the same time, a
-// broadcast from the constant cache. The kernels use no shared memory, so
-// the SM's unified L1/shared memory stays L1 for the local-memory scratch
-// (a copy of the tables into shared memory cost the walkers 5-11%). State
-// is batch-trailing (rows, B), so the loads and stores of one row are
-// coalesced across a warp.
+// What bounds it on this card: not bytes (a HalfCheetah env moves ~350
+// bytes a step) and not the float rate, but the latency of long chains of
+// dependent operations per env: the Cholesky columns, the forward solves
+// of every constraint row, and the PGS sweeps, which are Gauss-Seidel over
+// rows, each row a dot product over the dofs followed by an update. Those
+// chains need their scratch close (L is nv*nv floats, the forward-solved
+// rows Y (1 + 3 rows + limits)*nv; an env's whole scratch is 42 KB for the
+// humanoid, 56 KB for FlagrunHarder) and many envs in flight on every SM.
 //
-// What bounds it on this card: not bytes (a HalfCheetah env moves ~200
-// bytes a step) but the latency of a few thousand dependent scalar
-// float operations per substep and the traffic to local memory: the
-// per-thread scratch (M and L are nv*nv, the forward-solved constraint rows
-// y_rows are rows*3*nv floats: 432 for HalfCheetah, 1050 for Ant, 6555 for
-// the humanoid, 9135 for FlagrunHarder) does not fit in registers and lives
-// in local memory, cached in L1/L2. The stack frame is sized by the caps of
-// the instantiation, not by the model: each kernel is built twice, for the
-// walkers (CapsWalker, nv <= 16, 32 rows, a ~16 KB frame) and for the
-// humanoid family (CapsLarge, nv <= 32, 108 rows, a ~69 KB frame that CUDA
-// reserves for every resident thread), and the launcher picks one by the
-// tables' caps_id. A free root couples every dof to the root's six, so M
-// and L are dense and each contact row's forward solve runs over all dofs.
-// Making it fast (scratch in shared memory, warp-cooperative solves,
-// specialising the loops per model) is later work; this version is the
-// plain, correct one.
+// Design. A group of G lanes of one warp steps one env (G a power of two,
+// one library per G, built from this file with -DENG_LANES=G; pack_physics
+// picks G from the model's dofs). The lanes split the parallel phases of
+// engine_core.h: dofs (passive forces, CRBA rows, Jacobian entries, z),
+// rows (narrowphase, the PGS set-up), right-hand sides (the forward
+// solves, one lane each), bodies (the integration); the body-recursive
+// parts (FK, RNE, the composite inertias, reset, the task's outputs) run in
+// one lane. Each PGS dot product is lane products plus a fixed xor
+// butterfly (__shfl_xor_sync over the group), its update lane-parallel on
+// registers; __syncwarp of the group separates phases. No atomics and no
+// cross-group communication: a launch is bitwise repeatable.
 //
-// No atomics and no cross-thread reductions: a launch is bitwise repeatable.
+// The scratch of each env is a slice of dynamic shared memory laid out by
+// pack_physics from the model's sizes (Tables::sc), so nothing lives in
+// local memory: the stack frame is a few hundred bytes and the launch
+// reserves no per-thread local memory to speak of. A block holds E envs
+// (E*G threads, E*stride floats of shared memory); eng_launch_config picks
+// the E that keeps the most envs resident per SM (the occupancy API), so B
+// = 4096 spreads over all 132 SMs. The tables stay a __grid_constant__
+// kernel parameter (~22 KB, within Hopper's 32 KB): the hot PGS sweep reads
+// them at uniform indices (a constant-cache broadcast); the once-a-substep
+// phases read them at lane-divergent indices. State is batch-trailing
+// (rows, B); a group's lanes read and write an env's rows.
+//
+// Timing on a card: `python3 pybulletgym_tpu_torch/tools/kernel_ab.py ROOT_A
+// ROOT_B` times both kernels in two checkouts (P C C P, graph-replayed
+// launches; `--lanes` sweeps G), and `tools/kernel_phases.py` splits the env
+// kernel's time into the sweeps, the rest of the substeps and the rest.
 
 #include <cuda_runtime.h>
 
 #include "engine_core.h"
 
+#ifndef ENG_LANES
+#error "build with -DENG_LANES=G (G: 4, 8, 16 or 32)"
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int G = ENG_LANES;
+constexpr int kMaxThreads = 128;  // E * G
+constexpr int kMinBlocks = 4;     // of 128 threads an SM: at most 128 registers a thread
+constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
-template <class C>
-__global__ void __launch_bounds__(kThreads)
+// This thread's group: its lanes in the warp.
+__device__ __forceinline__ eng::Group<G> my_group() {
+  const int wl = threadIdx.x & 31;
+  const uint32_t ones = G == 32 ? 0xffffffffu : ((1u << G) - 1u);
+  eng::Group<G> g;
+  g.lane = wl & (G - 1);
+  g.mask = ones << (wl & ~(G - 1));
+  return g;
+}
+
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 physics_step_kernel(const __grid_constant__ eng::Tables t, const float* __restrict__ q,
                     const float* __restrict__ v, const float* __restrict__ tau,
                     float* __restrict__ q_out, float* __restrict__ v_out,
                     float* __restrict__ d_out, int B) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) eng::physics_step_one<C>(t, i, B, q, v, tau, q_out, v_out, d_out);
+  extern __shared__ float smem[];
+  const int E = blockDim.x / G, e = threadIdx.x / G;
+  const int i = blockIdx.x * E + e;
+  if (i >= B) return;  // the whole group: its lanes share i
+  eng::physics_step_one<G>(t, my_group(), smem + e * t.sc_stride, i, B, q, v, tau, q_out, v_out,
+                           d_out);
 }
 
-template <class C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 env_step_kernel(const __grid_constant__ eng::Tables t, eng::EnvIO io, int B) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) eng::env_step_one<C>(t, io, i, B);
+  extern __shared__ float smem[];
+  const int E = blockDim.x / G, e = threadIdx.x / G;
+  const int i = blockIdx.x * E + e;
+  if (i >= B) return;
+  eng::env_step_one<G>(t, io, my_group(), smem + e * t.sc_stride, i, B);
+}
+
+int launch_check(const eng::Tables& t, int E) {
+  if (t.lanes != G || E < 1 || E * G > kMaxThreads ||
+      (size_t)E * t.sc_stride * sizeof(float) > kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
+int eng_lanes() { return G; }
+
 int eng_tables_layout(int32_t* out, int cap) { return eng::tables_layout(out, cap); }
 
 int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 
+// The launch configuration for an env scratch of `stride` floats: out[0] =
+// E, the envs a block, out[1] = resident blocks per SM, out[2] = dynamic
+// shared bytes a block, out[3] = registers a thread, out[4] = local (stack)
+// bytes a thread. kernel 0 is physics_step_kernel, 1 env_step_kernel. E is
+// the power of two (E * G <= 128 threads, E * stride floats <= 227 KB)
+// that keeps the most envs resident per SM, the larger on a tie. Returns a
+// cudaError_t, or cudaErrorInvalidValue if one env's scratch does not fit.
+int eng_launch_config(int kernel, int stride, int32_t* out) {
+  const void* fn = kernel == 0 ? (const void*)physics_step_kernel : (const void*)env_step_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int best_e = 0, best_blocks = 0;
+  for (int E = 1; E * G <= kMaxThreads; E *= 2) {
+    const size_t bytes = (size_t)E * stride * sizeof(float);
+    if (bytes > kMaxShared) break;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, E * G, bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks * E >= best_blocks * best_e) {
+      best_e = E;
+      best_blocks = blocks;
+    }
+  }
+  if (best_e == 0 || best_blocks == 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = best_e;
+  out[1] = best_blocks;
+  out[2] = (int32_t)(best_e * stride * sizeof(float));
+  out[3] = attr.numRegs;
+  out[4] = (int32_t)attr.localSizeBytes;
+  return 0;
+}
+
 // `tables` is a host pointer (copied into the launch's parameters), every
-// other pointer a device pointer; caps_id is the tables' caps_id (0 the
-// walker instantiation, 1 the large one). Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for an unknown caps_id.
+// other pointer a device pointer; E is eng_launch_config's envs a block.
+// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for
+// tables of another G or an E that does not fit.
 int launch_physics_step(const void* tables, const float* q, const float* v,
                         const float* tau, float* q_out, float* v_out, float* d_out,
-                        int B, int caps_id, void* stream) {
+                        int B, int E, void* stream) {
   if (B <= 0) return 0;
-  const int blocks = (B + kThreads - 1) / kThreads;
   const eng::Tables& tg = *(const eng::Tables*)tables;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (caps_id == eng::CapsWalker::ID)
-    physics_step_kernel<eng::CapsWalker><<<blocks, kThreads, 0, st>>>(tg, q, v, tau, q_out,
-                                                                      v_out, d_out, B);
-  else if (caps_id == eng::CapsLarge::ID)
-    physics_step_kernel<eng::CapsLarge><<<blocks, kThreads, 0, st>>>(tg, q, v, tau, q_out,
-                                                                     v_out, d_out, B);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (int err = launch_check(tg, E)) return err;
+  const int blocks = (B + E - 1) / E;
+  physics_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
+      tg, q, v, tau, q_out, v_out, d_out, B);
   return (int)cudaGetLastError();
 }
 
@@ -99,21 +171,17 @@ int launch_env_step(const void* tables, const float* q, const float* v, const fl
                     const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,
                     const int32_t* env_id, float* q_out, float* v_out, float* obs,
                     float* reward, uint8_t* term_out, uint8_t* trunc_out, int32_t* step_out,
-                    uint32_t* epoch_out, float* aux_out, float* comps, int B, int caps_id,
+                    uint32_t* epoch_out, float* aux_out, float* comps, int B, int E,
                     void* stream) {
   if (B <= 0) return 0;
   eng::EnvIO io = {q, v, act, aux, term, trunc, step_count, epoch, seed, env_id,
                    q_out, v_out, obs, reward, term_out, trunc_out, step_out,
                    epoch_out, aux_out, comps};
-  const int blocks = (B + kThreads - 1) / kThreads;
   const eng::Tables& tg = *(const eng::Tables*)tables;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (caps_id == eng::CapsWalker::ID)
-    env_step_kernel<eng::CapsWalker><<<blocks, kThreads, 0, st>>>(tg, io, B);
-  else if (caps_id == eng::CapsLarge::ID)
-    env_step_kernel<eng::CapsLarge><<<blocks, kThreads, 0, st>>>(tg, io, B);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (int err = launch_check(tg, E)) return err;
+  const int blocks = (B + E - 1) / E;
+  env_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
+      tg, io, B);
   return (int)cudaGetLastError();
 }
 

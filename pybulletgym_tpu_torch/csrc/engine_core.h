@@ -1,9 +1,9 @@
-// Table-driven core of the env-step engine, one env per call.
+// Table-driven core of the env-step engine, one env per lane group.
 //
 // The same source is compiled twice: by nvcc into the CUDA kernels of
-// engine.cu (one thread per env) and by g++ into the host twin of
-// engine_host.cpp (a loop over envs, used only by the CPU tests). Every
-// function here is __host__ __device__.
+// engine.cu (a group of G lanes of one warp per env) and by g++ into the
+// host twin of engine_host.cpp (a loop over envs, used only by the CPU
+// tests). Every function here is __host__ __device__.
 //
 // The JAX package traces its kernel body once per model into straight-line
 // code with structural zeros pruned. Here the algorithm is written once and
@@ -11,7 +11,9 @@
 // bodies, dofs, contact rows, limit rows and task constants. Every sum is
 // taken in the order of the JAX package's unrolled sums; a structural zero
 // is a stored 0 that adds nothing, so the rounding follows the plain version
-// (up to FMA contraction on the GPU and the last bits of sinf/cosf).
+// (up to FMA contraction on the GPU and the last bits of sinf/cosf). The one
+// exception is the PGS sweep's dot products, which sum lane partials and
+// then a fixed xor butterfly over the group (group_sum).
 //
 // Scope: free, hinge and slide joints (any number of free roots), point
 // and disk (cylinder end-cap) contacts against planes, capsule/sphere pairs
@@ -22,11 +24,25 @@
 // two pendula. pack_tables refuses anything else (other pre-physics hooks,
 // other tasks, models over the caps).
 //
-// The per-thread scratch is sized by a caps type (template parameter C),
-// not by the model: CUDA reserves a thread's whole stack frame for every
-// resident thread, so the walkers keep a small instantiation and the
-// models with pair rows (the humanoid family, the arms) get the large one. The Tables struct is sized once, at the
-// larger caps.
+// Lane groups. A group of G lanes (G a power of two, at most 32, a template
+// parameter) steps one env. Code outside EACH_LANE is uniform: on the card
+// every lane of the group runs it and computes the same values (it reads
+// only what all lanes see alike); on the host it runs once. EACH_LANE(g, l)
+// { ... } is lane l's share of a parallel phase: on the card lane l runs it,
+// on the host a loop runs it for l = 0 .. G-1. Lanes stride over dofs, rows
+// or right-hand sides (for (d = l; d < nv; d += G)); no lane reads in a
+// phase what another lane writes in it, and g.sync() (__syncwarp of the
+// group) separates the phases. PerLane<T, G> is lane-private state that
+// lives across phases (a register on the card, an array over lanes on the
+// host), and group_sum is the butterfly, emulated on the host in the card's
+// order, so the host twin computes the kernels' bits up to FMA contraction.
+//
+// Scratch. Everything sized by the model (q, v, the FK frames, M, L, the
+// forward-solved constraint rows, the PGS multipliers, obs) lives in one
+// float array per env: dynamic shared memory on the card, a heap buffer on
+// the host. pack_physics lays it out from the model's sizes (Tables::sc,
+// the float offset of each ENG_SCRATCH array) so no array is sized by a
+// cap; the constants below bound only the tables.
 
 #pragma once
 
@@ -36,16 +52,20 @@
 
 #ifdef __CUDACC__
 #define ENG_HD __host__ __device__ __forceinline__
+#define ENG_UNROLL _Pragma("unroll")
+// unrolled by 4 so that a sum's loads issue ahead of its chain (the order of
+// the sum is unchanged)
+#define ENG_UNROLL4 _Pragma("unroll 4")
 #else
 #define ENG_HD inline
+#define ENG_UNROLL
+#define ENG_UNROLL4
 #endif
 
 namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
-// The Tables struct, and the scratch of the large instantiation (the
-// humanoid family and the arms: up to 32 dofs, so that a root-path mask is
-// one uint32)
+// The Tables struct (up to 32 dofs, so that a root-path mask is one uint32)
 constexpr int MAX_BODIES = 20;
 constexpr int MAX_NV = 32;
 constexpr int MAX_NQ = 34;        // a free joint has 7 q entries and 6 dofs
@@ -53,8 +73,8 @@ constexpr int MAX_ROWS = 108;     // contact rows, point rows first
 constexpr int MAX_PAIRS = 80;     // of which capsule/sphere pair rows
 constexpr int MAX_LIMITS = 36;    // joint-limit rows
 constexpr int MAX_ACT = 20;
-// The scratch of the walker instantiation (Hopper ... Ant, Reacher, the
-// pendula; no pair rows)
+// The size class of a model without pair rows within these (Hopper ... Ant,
+// Reacher, the pendula: caps_id 0; the others 1), kept as a model property
 constexpr int WALKER_BODIES = 16;
 constexpr int WALKER_NV = 16;
 constexpr int WALKER_NQ = 17;
@@ -66,6 +86,7 @@ constexpr int MAX_PARTS = 16;
 constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
 constexpr int MAX_COMP = 5;       // reward components, in sorted key order
 constexpr int MAX_DRAWS = 20;     // reset draws into q, and into v
+constexpr int MAX_SLOTS = 40;     // entries of Tables::sc
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
                                   // v: body-frame angular, then linear
 constexpr int JT_HINGE = 1;
@@ -84,15 +105,18 @@ constexpr int TASK_THROWER = 6;
 constexpr int TASK_PENDULUM = 7;  // with or without the swing-up
 constexpr int TASK_DOUBLE_PENDULUM = 8;
 
-template <int BODIES_, int NV_, int NQ_, int ROWS_, int PAIRS_, int LIMITS_, int ACT_, int ID_>
-struct Caps {
-  static constexpr int BODIES = BODIES_, NV = NV_, NQ = NQ_, ROWS = ROWS_, PAIRS = PAIRS_,
-                       LIMITS = LIMITS_, ACT = ACT_, ID = ID_;
-};
-// ID is Tables::caps_id, which pack_physics picks from the model
-using CapsWalker = Caps<WALKER_BODIES, WALKER_NV, WALKER_NQ, WALKER_ROWS, 0, WALKER_LIMITS,
-                        WALKER_ACT, 0>;
-using CapsLarge = Caps<MAX_BODIES, MAX_NV, MAX_NQ, MAX_ROWS, MAX_PAIRS, MAX_LIMITS, MAX_ACT, 1>;
+// The per-env scratch arrays, in layout order; ops/cuda_engine.py ·
+// scratch_layout sizes each from the model and parses this list.
+#define ENG_SCRATCH(X)                                                         \
+  X(q) X(v) X(tau) X(act) X(aux) X(obs)                                       \
+  X(R) X(p) X(vel) X(com) X(S) X(inert) X(avp) X(f)                           \
+  X(L) X(inv_diag) X(depth) X(P) X(dirs) X(z) X(zp) X(v3o) X(vp)        \
+  X(Y) X(dinv) X(b_vel) X(b_pos) X(dinv_l) X(b_l)                             \
+  X(lam_n) X(lam_t1) X(lam_t2) X(lam_p) X(lam_l)
+#define ENG_SLOT(name) SC_##name,
+enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
+#undef ENG_SLOT
+static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
 
 // The table layout, as one list. S(type, name) is a scalar, A(type, name,
 // count) a flat array. ops/cuda_engine.py parses this list to build the
@@ -105,7 +129,12 @@ using CapsLarge = Caps<MAX_BODIES, MAX_NV, MAX_NQ, MAX_ROWS, MAX_PAIRS, MAX_LIMI
   S(int32_t, nr)                                                              \
   S(int32_t, nl)                                                              \
   S(int32_t, npair) /* the last npair contact rows are pair rows */          \
-  S(int32_t, caps_id) /* the scratch instantiation: 0 walker, 1 large */     \
+  S(int32_t, caps_id) /* the size class: 0 walker-sized, 1 large */          \
+  S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
+  S(int32_t, sc_stride) /* floats of one env's scratch (odd) */              \
+  S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
+  S(int32_t, sc_ldm) /* row stride of M and L (nv, made odd) */               \
+  A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array */     \
   S(int32_t, frame_skip)                                                      \
   S(int32_t, iterations)                                                      \
   S(int32_t, e_comb_zero)                                                     \
@@ -316,6 +345,73 @@ struct EnvIO {
   float* comps;
 };
 
+// ---- lane groups ----------------------------------------------------------
+
+// G lanes of one warp that step one env together. On the card `lane` is
+// this thread's lane in the group and `mask` the group's lanes in its warp;
+// on the host both are 0 and EACH_LANE loops over the lanes.
+template <int G_>
+struct Group {
+  static constexpr int G = G_;
+  static_assert(G_ >= 1 && G_ <= 32 && (G_ & (G_ - 1)) == 0, "G: a power of two <= 32");
+  int lane;
+  uint32_t mask;
+  ENG_HD bool leader() const { return lane == 0; }
+  ENG_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp(mask);
+#endif
+  }
+};
+
+#ifdef __CUDA_ARCH__
+#define EACH_LANE(g, l) for (int l = (g).lane, l##_once = 1; l##_once; l##_once = 0)
+#else
+#define EACH_LANE(g, l) for (int l = 0; l < (g).G; ++l)
+#endif
+
+// Lane-private state that lives across phases: one T in each lane's
+// registers on the card, one T per lane on the host.
+template <class T, int G>
+struct PerLane {
+#ifdef __CUDA_ARCH__
+  T x;
+  __device__ __forceinline__ T& operator[](int) { return x; }
+#else
+  T x[G];
+  T& operator[](int l) { return x[l]; }
+#endif
+};
+
+// A vector over dofs held by the group: lane l keeps d = l + k*G in x[k].
+template <int G>
+struct LaneVec {
+  float x[(MAX_NV + G - 1) / G];
+};
+
+// The sum of the lanes' partials: the xor butterfly, offsets G/2 .. 1, each
+// lane adding its partner's value to its own. Every lane ends with the same
+// bits (a + b == b + a), and the host replays the card's order.
+template <int G>
+ENG_HD float group_sum(const Group<G>& g, PerLane<float, G>& part) {
+#ifdef __CUDA_ARCH__
+  float s = part.x;
+  ENG_UNROLL
+  for (int o = G / 2; o > 0; o >>= 1) s = s + __shfl_xor_sync(g.mask, s, o);
+  return s;
+#else
+  (void)g;
+  float s[G];
+  for (int l = 0; l < G; ++l) s[l] = part.x[l];
+  for (int o = G / 2; o > 0; o >>= 1) {
+    float n[G];
+    for (int l = 0; l < G; ++l) n[l] = s[l] + s[l ^ o];
+    for (int l = 0; l < G; ++l) s[l] = n[l];
+  }
+  return s[0];
+#endif
+}
+
 // ---- scalar helpers --------------------------------------------------------
 
 // Products and sums that must round exactly as the plain version's separate
@@ -518,16 +614,73 @@ ENG_HD uint32_t hash_epoch(uint32_t epoch, float count) {
   return epoch * 2654435761u + (uint32_t)(int32_t)count * 0x9E3779B9u;
 }
 
-// ---- forward kinematics ------------------------------------------------------
+// ---- the per-env scratch -----------------------------------------------------
 
-template <class C>
-struct FKOut {
-  M3 R[C::BODIES];
-  V3 p[C::BODIES];
-  SV vel[C::BODIES];
-  V3 com[C::BODIES];
-  SV S[C::NV];
+// Body frames, velocities, COMs and dof subspaces of one FK pass.
+struct FK {
+  M3* R;
+  V3* p;
+  SV* vel;
+  V3* com;
+  SV* S;
 };
+
+// Pointers into one env's scratch (Tables::sc gives each array's offset).
+// inert, avp, f and obs share the space of the constraint rows Y (rows 1..),
+// which are written only after the CRBA and read only before the outputs.
+struct Scr {
+  float *q, *v, *tau, *act, *aux, *obs;
+  FK fk;
+  Inertia* inert;
+  SV *avp, *f;
+  float *L, *inv_diag, *depth;
+  V3 *P, *dirs;
+  float *z, *zp, *v3o, *vp, *Y;
+  float *dinv, *b_vel, *b_pos, *dinv_l, *b_l;
+  float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
+};
+
+ENG_HD Scr scratch(const Tables& t, float* base) {
+  const int32_t* o = t.sc;
+  Scr s;
+  s.q = base + o[SC_q];
+  s.v = base + o[SC_v];
+  s.tau = base + o[SC_tau];
+  s.act = base + o[SC_act];
+  s.aux = base + o[SC_aux];
+  s.obs = base + o[SC_obs];
+  s.fk.R = (M3*)(base + o[SC_R]);
+  s.fk.p = (V3*)(base + o[SC_p]);
+  s.fk.vel = (SV*)(base + o[SC_vel]);
+  s.fk.com = (V3*)(base + o[SC_com]);
+  s.fk.S = (SV*)(base + o[SC_S]);
+  s.inert = (Inertia*)(base + o[SC_inert]);
+  s.avp = (SV*)(base + o[SC_avp]);
+  s.f = (SV*)(base + o[SC_f]);
+  s.L = base + o[SC_L];
+  s.inv_diag = base + o[SC_inv_diag];
+  s.depth = base + o[SC_depth];
+  s.P = (V3*)(base + o[SC_P]);
+  s.dirs = (V3*)(base + o[SC_dirs]);
+  s.z = base + o[SC_z];
+  s.zp = base + o[SC_zp];
+  s.v3o = base + o[SC_v3o];
+  s.vp = base + o[SC_vp];
+  s.Y = base + o[SC_Y];
+  s.dinv = base + o[SC_dinv];
+  s.b_vel = base + o[SC_b_vel];
+  s.b_pos = base + o[SC_b_pos];
+  s.dinv_l = base + o[SC_dinv_l];
+  s.b_l = base + o[SC_b_l];
+  s.lam_n = base + o[SC_lam_n];
+  s.lam_t1 = base + o[SC_lam_t1];
+  s.lam_t2 = base + o[SC_lam_t2];
+  s.lam_p = base + o[SC_lam_p];
+  s.lam_l = base + o[SC_lam_l];
+  return s;
+}
+
+// ---- forward kinematics ------------------------------------------------------
 
 ENG_HD M3 rodrigues(V3 u, float th) {
   float s = sinf(th);
@@ -548,9 +701,9 @@ ENG_HD M3 rodrigues(V3 u, float th) {
 
 // World-frame FK, motion subspaces, body velocities and (if `inert` is not
 // null) origin-frame spatial inertias. dynamics.py · forward_kinematics.
-template <class C>
-ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
-                               FKOut<C>& fk, Inertia* inert) {
+// Body-recursive: one lane runs it.
+ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v, const FK& fk,
+                               Inertia* inert) {
   for (int i = 0; i < t.nb; ++i) {
     const int par = t.parent[i];
     M3 Rp = par < 0 ? m3_identity() : fk.R[par];
@@ -638,14 +791,14 @@ ENG_HD void forward_kinematics(const Tables& t, const float* q, const float* v,
 
 // ---- dynamics: RNE bias, CRBA, Cholesky and its solves ---------------------
 
-// C(q, qd), world-frame RNE with the gravity trick. dynamics.py · bias_forces
-template <class C>
-ENG_HD void bias_forces(const Tables& t, const FKOut<C>& fk, const Inertia* inert, float* Cq) {
-  SV avp[C::BODIES], f[C::BODIES];
+// C(q, qd), world-frame RNE with the gravity trick, into Cq (nv).
+// dynamics.py · bias_forces. Body-recursive: one lane runs it.
+ENG_HD void bias_forces(const Tables& t, const FK& fk, const Inertia* inert, SV* avp, SV* f,
+                        float* Cq) {
   SV a0 = {v3_zero(), v3_load(t.gravity_neg)};
   for (int i = 0; i < t.nb; ++i) {
     const int par = t.parent[i];
-    const SV& ap = par < 0 ? a0 : avp[par];
+    const SV ap = par < 0 ? a0 : avp[par];
     SV parent_vel = par < 0 ? sv_zero() : fk.vel[par];
     SV vj = sv_sub(fk.vel[i], parent_vel);
     avp[i] = sv_add(ap, sv_cross_motion(fk.vel[i], vj));
@@ -657,12 +810,9 @@ ENG_HD void bias_forces(const Tables& t, const FKOut<C>& fk, const Inertia* iner
   for (int d = 0; d < t.nv; ++d) Cq[d] = sv_dot(fk.S[d], f[t.dof_body[d]]);
 }
 
-// CRBA lower triangle into M (nv*nv, row-major); composite inertias sum
-// leafwise, composite masses come from the tables. dynamics.py · mass_matrix
-template <class C>
-ENG_HD void mass_matrix(const Tables& t, const FKOut<C>& fk, Inertia* Ic, float* M) {
-  const int nv = t.nv;
-  for (int k = 0; k < nv * nv; ++k) M[k] = 0.f;
+// CRBA's composite inertias, summed leafwise in place (dynamics.py ·
+// mass_matrix); the composite masses come from the tables. One lane.
+ENG_HD void composite_inertias(const Tables& t, Inertia* Ic) {
   for (int i = t.nb - 1; i >= 0; --i) {
     const int par = t.parent[i];
     if (par >= 0) {
@@ -670,70 +820,152 @@ ENG_HD void mass_matrix(const Tables& t, const FKOut<C>& fk, Inertia* Ic, float*
       for (int k = 0; k < 9; ++k) Ic[par].I.m[k] = Ic[par].I.m[k] + Ic[i].I.m[k];
     }
   }
-  for (int d = 0; d < nv; ++d) {  // every dof of every body
-    const int i = t.dof_body[d];
-    Inertia I = Ic[i];
-    I.m = t.cmass[i];
-    SV F = inertia_mul(I, fk.S[d]);
-    for (int e = 0; e <= d; ++e)
-      if (t.anc_mask[i] & (1u << e)) M[d * nv + e] = sv_dot(fk.S[e], F);
-  }
-  for (int d = 0; d < nv; ++d)
-    if (t.armature[d] != 0.f) M[d * nv + d] = M[d * nv + d] + t.armature[d];
 }
 
-// Lower Cholesky M = L L^T; L (nv*nv) zero above the diagonal.
-ENG_HD void cholesky(int n, const float* M, float* L, float* inv_diag) {
-  for (int k = 0; k < n * n; ++k) L[k] = 0.f;
+// Row d of the lower triangle of M (entries e <= d), each entry as
+// mass_matrix computes it; one lane a row.
+ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, int d, float* Md) {
+  const int i = t.dof_body[d];
+  Inertia I = Ic[i];
+  I.m = t.cmass[i];
+  const SV F = inertia_mul(I, fk.S[d]);
+  for (int e = 0; e <= d; ++e)
+    Md[e] = (t.anc_mask[i] & (1u << e)) ? sv_dot(fk.S[e], F) : 0.f;
+  if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
+}
+
+// Lower Cholesky M = L L^T in place (row stride ldm; the upper triangle is
+// never read), column by column: the diagonal is uniform, the lanes split
+// the rows below it, each entry's k-sum in the order of the plain version.
+template <int G>
+ENG_HD void cholesky(const Group<G>& g, int n, float* L, int ldm, float* inv_diag) {
   for (int j = 0; j < n; ++j) {
-    float s = M[j * n + j];
-    for (int k = 0; k < j; ++k) s = s - L[j * n + k] * L[j * n + k];
-    float djj = sqrtf(jmax(s, (float)1e-9));
-    L[j * n + j] = djj;
-    inv_diag[j] = 1.f / djj;
-    for (int i = j + 1; i < n; ++i) {
-      float r = M[i * n + j];
-      for (int k = 0; k < j; ++k) r = r - L[i * n + k] * L[j * n + k];
-      L[i * n + j] = r * inv_diag[j];
+    const float* Lj = L + j * ldm;
+    float s = Lj[j];
+    ENG_UNROLL4
+    for (int k = 0; k < j; ++k) s = s - Lj[k] * Lj[k];
+    const float djj = sqrtf(jmax(s, (float)1e-9));
+    const float inv = 1.f / djj;
+    EACH_LANE(g, l) {
+      for (int i = j + 1 + l; i < n; i += G) {
+        float* Li = L + i * ldm;
+        float r = Li[j];
+        ENG_UNROLL4
+        for (int k = 0; k < j; ++k) r = r - Li[k] * Lj[k];
+        Li[j] = r * inv;
+      }
     }
+    L[j * ldm + j] = djj;  // uniform: every lane stores the same bits
+    inv_diag[j] = inv;
+    g.sync();
   }
 }
 
-// y = L^-1 b
-ENG_HD void chol_fwd(int n, const float* L, const float* inv_diag, const float* b, float* y) {
+// y = L^-1 y in place
+ENG_HD void chol_fwd(int n, const float* L, int ldm, const float* inv_diag, float* y) {
   for (int i = 0; i < n; ++i) {
-    float s = b[i];
-    for (int k = 0; k < i; ++k) s = s - L[i * n + k] * y[k];
+    float s = y[i];
+    ENG_UNROLL4
+    for (int k = 0; k < i; ++k) s = s - L[i * ldm + k] * y[k];
     y[i] = s * inv_diag[i];
   }
 }
 
 // x = L^-T y
-ENG_HD void chol_back(int n, const float* L, const float* inv_diag, const float* y, float* x) {
+ENG_HD void chol_back(int n, const float* L, int ldm, const float* inv_diag, const float* y,
+                      float* x) {
   for (int i = n - 1; i >= 0; --i) {
     float s = y[i];
-    for (int k = i + 1; k < n; ++k) s = s - L[k * n + i] * x[k];
+    ENG_UNROLL4
+    for (int k = i + 1; k < n; ++k) s = s - L[k * ldm + i] * x[k];
     x[i] = s * inv_diag[i];
   }
 }
 
 ENG_HD float dotn(int n, const float* a, const float* b) {
   float s = 0.f;
+  ENG_UNROLL4
   for (int d = 0; d < n; ++d) s = s + a[d] * b[d];
   return s;
 }
 
-ENG_HD void axpy(int n, float* v, const float* w, float s) {
-  for (int d = 0; d < n; ++d) v[d] = v[d] + w[d] * s;
+// Two independent group sums through one butterfly (each as group_sum
+// computes it alone), so that their shuffles overlap.
+template <int G>
+ENG_HD void group_sum2(const Group<G>& g, PerLane<float, G>& a, PerLane<float, G>& b,
+                       float& sa, float& sb) {
+#ifdef __CUDA_ARCH__
+  float x = a.x, y = b.x;
+  ENG_UNROLL
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float xo = __shfl_xor_sync(g.mask, x, o), yo = __shfl_xor_sync(g.mask, y, o);
+    x = x + xo;
+    y = y + yo;
+  }
+  sa = x;
+  sb = y;
+#else
+  sa = group_sum(g, a);
+  sb = group_sum(g, b);
+#endif
+}
+
+// The PGS sweep's dot of a constraint row with the group's vector: lane
+// products in dof order, then the butterfly.
+template <int G>
+ENG_HD float lane_dot(const Group<G>& g, int n, const float* y, PerLane<LaneVec<G>, G>& z) {
+  PerLane<float, G> part;
+  EACH_LANE(g, l) {
+    float s = 0.f;
+    ENG_UNROLL
+    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+      const int d = l + k * G;
+      if (d < n) s = s + y[d] * z[l].x[k];
+    }
+    part[l] = s;
+  }
+  return group_sum(g, part);
+}
+
+// lane_dot of one row with two vectors, their butterflies overlapped
+template <int G>
+ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<G>, G>& z,
+                      PerLane<LaneVec<G>, G>& zp, float& vz, float& vzp) {
+  PerLane<float, G> a, b;
+  EACH_LANE(g, l) {
+    float s = 0.f, sp = 0.f;
+    ENG_UNROLL
+    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+      const int d = l + k * G;
+      if (d < n) {
+        s = s + y[d] * z[l].x[k];
+        sp = sp + y[d] * zp[l].x[k];
+      }
+    }
+    a[l] = s;
+    b[l] = sp;
+  }
+  group_sum2(g, a, b, vz, vzp);
+}
+
+// z += y * a, each lane its own dofs
+template <int G>
+ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<G>, G>& z, const float* y,
+                      float a) {
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+      const int d = l + k * G;
+      if (d < n) z[l].x[k] = z[l].x[k] + y[d] * a;
+    }
+  }
 }
 
 // ---- narrowphase of one capsule/sphere pair: contacts.py · narrowphase_scalar
 
 // Closest points of the segments, the normal from b into a, the depth, the
 // midpoint of the two surface points and the per-env tangent basis.
-template <class C>
-ENG_HD void pair_contact(const Tables& t, const FKOut<C>& fk, int k, float& depth, V3& mid,
-                         V3* dirs) {
+ENG_HD void pair_contact(const Tables& t, const FK& fk, int k, float& depth, V3& mid, V3* dirs) {
   const int ba = t.pair_a[k], bb = t.pair_b[k];
   const V3 a0 = v3_add(fk.p[ba], m3_vec(fk.R[ba], v3_load(t.pair_a0 + 3 * k)));
   const V3 a1 = v3_add(fk.p[ba], m3_vec(fk.R[ba], v3_load(t.pair_a1 + 3 * k)));
@@ -780,68 +1012,59 @@ ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
 
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
-// Advances q, v in place; writes the contact depths of this substep.
-template <class C>
-ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float* depth) {
-  const int nv = t.nv, nr = t.nr, nl = t.nl;
+// Advances the scratch's q, v in place and writes the contact depths of this
+// substep. Every lane of the group calls it; it ends synchronised.
+template <int G>
+ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
+  const int nv = t.nv, nr = t.nr, nl = t.nl, ld = t.sc_ld, ldm = t.sc_ldm;
   const int nfloor = nr - t.npair;
-  FKOut<C> fk;
-  Inertia inert[C::BODIES];
-  forward_kinematics(t, q, v, fk, inert);
+  const FK& fk = s.fk;
+  float* const ydyn = s.Y;  // the dynamics right-hand side, then L^-1 of it
 
-  float Cq[C::NV], rhs[C::NV];
-  bias_forces(t, fk, inert, Cq);
-  for (int d = 0; d < nv; ++d) {
-    // passive forces (dynamics.py · passive_forces); pack_tables zeroes
-    // the stiffness of free dofs, so dof_qadr is read for hinge/slide only
-    float tp = 0.f;
-    if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * v[d];
-    if (t.neg_stiffness[d] != 0.f)
-      tp = tp + t.neg_stiffness[d] * (q[t.dof_qadr[d]] - t.springref[d]);
-    rhs[d] = (tau[d] + tp) - Cq[d];
+  // FK, RNE and the composite inertias recurse over the bodies: one lane
+  if (g.leader()) {
+    forward_kinematics(t, s.q, s.v, fk, s.inert);
+    bias_forces(t, fk, s.inert, s.avp, s.f, ydyn);
+    composite_inertias(t, s.inert);
   }
-  float M[C::NV * C::NV], L[C::NV * C::NV], inv_diag[C::NV];
-  mass_matrix(t, fk, inert, M);
-  cholesky(nv, M, L, inv_diag);
-  float y_dyn[C::NV];
-  chol_fwd(nv, L, inv_diag, rhs, y_dyn);
-
-  // narrowphase (contacts.py · narrowphase_scalar): point and disk
-  // candidates vs planes, then the pair rows, whose directions are per env
-  V3 P[C::ROWS];
-  V3 pair_dirs[C::PAIRS > 0 ? 3 * C::PAIRS : 1];
-  for (int r = 0; r < nfloor; ++r) {
-    const int b = t.row_body[r];
-    const V3 n = v3_load(t.row_n + 3 * r);
-    V3 x = v3_add(fk.p[b], m3_vec(fk.R[b], v3_load(t.row_local + 3 * r)));
-    if (t.row_disk[r]) x = v3_add(x, disk_rim(t, fk.R[b], n, r));
-    depth[r] = t.row_depth0[r] - v3_dot(n, x);
-    P[r] = v3_sub(x, v3_load(t.row_nrad + 3 * r));
-  }
-  if constexpr (C::PAIRS > 0) {
-    for (int k = 0; k < t.npair; ++k)
-      pair_contact(t, fk, k, depth[nfloor + k], P[nfloor + k], pair_dirs + 3 * k);
-  }
-
-  float v3o[C::NV], vp[C::NV];
-  if (nr > 0 || nl > 0) {
-    // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
-    float z[C::NV];
-    for (int i = 0; i < nv; ++i) {
-      float s = L[i * nv + i] * v[i];
-      for (int k = i + 1; k < nv; ++k) s = s + L[k * nv + i] * v[k];
-      z[i] = s + t.dt * y_dyn[i];
+  g.sync();
+  EACH_LANE(g, l) {
+    for (int d = l; d < nv; d += G) {
+      // passive forces (dynamics.py · passive_forces); pack_tables zeroes
+      // the stiffness of free dofs, so dof_qadr is read for hinge/slide only
+      float tp = 0.f;
+      if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * s.v[d];
+      if (t.neg_stiffness[d] != 0.f)
+        tp = tp + t.neg_stiffness[d] * (s.q[t.dof_qadr[d]] - t.springref[d]);
+      ydyn[d] = (s.tau[d] + tp) - ydyn[d];
+      mass_matrix_row(t, fk, s.inert, d, s.L + d * ldm);
     }
-    // forward-solved constraint rows y = L^-1 J^T (contacts.py ·
-    // scalar_jacobians, step.py): 3 directions per contact row, one per
-    // limit. A dof's weight is +1 on body a's root path only, -1 on body
-    // b's only (pair rows), 0 on both or neither.
-    float y_rows[C::ROWS * 3 * C::NV];
-    float y_lim[C::LIMITS * C::NV];
+    // narrowphase (contacts.py · narrowphase_scalar): point and disk
+    // candidates vs planes, then the pair rows, whose directions are per env
+    for (int r = l; r < nfloor; r += G) {
+      const int b = t.row_body[r];
+      const V3 n = v3_load(t.row_n + 3 * r);
+      V3 x = v3_add(fk.p[b], m3_vec(fk.R[b], v3_load(t.row_local + 3 * r)));
+      if (t.row_disk[r]) x = v3_add(x, disk_rim(t, fk.R[b], n, r));
+      s.depth[r] = t.row_depth0[r] - v3_dot(n, x);
+      s.P[r] = v3_sub(x, v3_load(t.row_nrad + 3 * r));
+    }
+    for (int k = l; k < t.npair; k += G)
+      pair_contact(t, fk, k, s.depth[nfloor + k], s.P[nfloor + k], s.dirs + 3 * k);
+  }
+  g.sync();
+  cholesky(g, nv, s.L, ldm, s.inv_diag);
+
+  const bool rows = nr > 0 || nl > 0;
+  if (rows) {
+    // constraint rows J^T (contacts.py · scalar_jacobians, step.py) into
+    // Y's rows 1 .. 3 nr, lanes over dofs: 3 directions per contact row. A
+    // dof's weight is +1 on body a's root path only, -1 on body b's only
+    // (pair rows), 0 on both or neither. Then one unit vector per limit.
     for (int r = 0; r < nr; ++r) {
       uint32_t plus, minus = 0u;
       V3 dirs[3];
-      if (C::PAIRS == 0 || r < nfloor) {
+      if (r < nfloor) {
         plus = t.anc_mask[t.row_body[r]];
         dirs[0] = v3_load(t.row_n + 3 * r);
         dirs[1] = v3_load(t.row_t1 + 3 * r);
@@ -851,133 +1074,187 @@ ENG_HD void substep(const Tables& t, float* q, float* v, const float* tau, float
         const uint32_t ma = t.anc_mask[t.pair_a[k]], mb = t.anc_mask[t.pair_b[k]];
         plus = ma & ~mb;
         minus = mb & ~ma;
-        for (int j = 0; j < 3; ++j) dirs[j] = pair_dirs[3 * k + j];
+        for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
       }
-      float J[3][C::NV];
-      for (int d = 0; d < nv; ++d) {
-        const uint32_t bit = 1u << d;
-        if ((plus | minus) & bit) {
-          V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, P[r]));
-          for (int k = 0; k < 3; ++k) {
-            const float jd = v3_dot(dirs[k], vel);
-            J[k][d] = (minus & bit) ? -jd : jd;
+      const V3 Pr = s.P[r];
+      float* const yr = s.Y + (1 + 3 * r) * ld;
+      EACH_LANE(g, l) {
+        for (int d = l; d < nv; d += G) {
+          const uint32_t bit = 1u << d;
+          if ((plus | minus) & bit) {
+            const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
+            for (int k = 0; k < 3; ++k) {
+              const float jd = v3_dot(dirs[k], vel);
+              yr[k * ld + d] = (minus & bit) ? -jd : jd;
+            }
+          } else {
+            for (int k = 0; k < 3; ++k) yr[k * ld + d] = 0.f;
           }
-        } else {
-          for (int k = 0; k < 3; ++k) J[k][d] = 0.f;
         }
       }
-      for (int k = 0; k < 3; ++k) chol_fwd(nv, L, inv_diag, J[k], y_rows + (3 * r + k) * nv);
     }
-    for (int l = 0; l < nl; ++l) {
-      float e[C::NV];
-      for (int d = 0; d < nv; ++d) e[d] = d == t.lim_dof[l] ? 1.f : 0.f;
-      chol_fwd(nv, L, inv_diag, e, y_lim + l * nv);
+    float* const ylim = s.Y + (1 + 3 * nr) * ld;
+    EACH_LANE(g, l) {
+      for (int d = l; d < nv; d += G)
+        for (int m = 0; m < nl; ++m) ylim[m * ld + d] = d == t.lim_dof[m] ? 1.f : 0.f;
     }
+    g.sync();
+  }
+  // the forward solves, one lane a right-hand side: L^-1 rhs, then y = L^-1 J^T
+  const int nrhs = rows ? 1 + 3 * nr + nl : 1;
+  EACH_LANE(g, l) {
+    for (int j = l; j < nrhs; j += G) chol_fwd(nv, s.L, ldm, s.inv_diag, s.Y + j * ld);
+  }
+  g.sync();
 
-    // PGS set-up (contacts.py · solve_scalar); pair rows as point rows
-    float dinv[C::ROWS * 3], b_vel[C::ROWS], b_pos[C::ROWS];
-    for (int r = 0; r < nr; ++r) {
-      const float* yn = y_rows + 3 * r * nv;
-      for (int k = 0; k < 3; ++k) {
-        const float* yk = y_rows + (3 * r + k) * nv;
-        dinv[3 * r + k] = 1.f / (dotn(nv, yk, yk) + t.reg);
+  if (rows) {
+    // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
+    EACH_LANE(g, l) {
+      for (int i = l; i < nv; i += G) {
+        float a = s.L[i * ldm + i] * s.v[i];
+        ENG_UNROLL4
+        for (int k = i + 1; k < nv; ++k) a = a + s.L[k * ldm + i] * s.v[k];
+        s.z[i] = a + t.dt * ydyn[i];
       }
-      const float dep = depth[r];
-      if (t.e_comb_zero) {
-        b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
-      } else {
-        float vn_pre = dotn(nv, yn, z);
-        float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
-        bool touching = dep >= vn_pre * t.dt;
-        b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
+    }
+    g.sync();
+    // PGS set-up (contacts.py · solve_scalar), lanes over rows; pair rows
+    // as point rows
+    EACH_LANE(g, l) {
+      for (int r = l; r < nr; r += G) {
+        const float* yn = s.Y + (1 + 3 * r) * ld;
+        for (int k = 0; k < 3; ++k) {
+          const float* yk = yn + k * ld;
+          s.dinv[3 * r + k] = 1.f / (dotn(nv, yk, yk) + t.reg);
+        }
+        const float dep = s.depth[r];
+        if (t.e_comb_zero) {
+          s.b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
+        } else {
+          float vn_pre = dotn(nv, yn, s.z);
+          float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
+          bool touching = dep >= vn_pre * t.dt;
+          s.b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
+        }
+        s.b_pos[r] = t.erp_over_dt * (dep - t.slop);
+        s.lam_n[r] = s.lam_t1[r] = s.lam_t2[r] = s.lam_p[r] = 0.f;
       }
-      b_pos[r] = t.erp_over_dt * (dep - t.slop);
+      for (int m = l; m < nl; m += G) {
+        const float* w = s.Y + (1 + 3 * nr + m) * ld;
+        s.dinv_l[m] = 1.f / (dotn(nv, w, w) + t.reg);
+        float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
+        s.b_l[m] = t.limit_erp_over_dt * viol;
+        s.lam_l[m] = 0.f;
+      }
     }
-    float dinv_l[C::LIMITS], b_l[C::LIMITS];
-    for (int l = 0; l < nl; ++l) {
-      const float* w = y_lim + l * nv;
-      dinv_l[l] = 1.f / (dotn(nv, w, w) + t.reg);
-      float viol = t.lim_sign[l] * (t.lim_bound[l] - q[t.lim_qadr[l]]);
-      b_l[l] = t.limit_erp_over_dt * viol;
+    g.sync();
+
+    // the sweeps: Gauss-Seidel over rows; z and zp live in the lanes'
+    // registers, the multipliers are uniform (every lane stores the same bits)
+    PerLane<LaneVec<G>, G> z, zp;
+    EACH_LANE(g, l) {
+      ENG_UNROLL
+      for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+        const int d = l + k * G;
+        z[l].x[k] = d < nv ? s.z[d] : 0.f;
+        zp[l].x[k] = 0.f;
+      }
     }
-
-    float lam_n[C::ROWS], lam_t1[C::ROWS], lam_t2[C::ROWS], lam_p[C::ROWS];
-    float lam_l[C::LIMITS];
-    for (int r = 0; r < nr; ++r) lam_n[r] = lam_t1[r] = lam_t2[r] = lam_p[r] = 0.f;
-    for (int l = 0; l < nl; ++l) lam_l[l] = 0.f;
-    float zp[C::NV];
-    for (int d = 0; d < nv; ++d) zp[d] = 0.f;
-
     for (int it = 0; it < t.iterations; ++it) {
       for (int r = 0; r < nr; ++r) {
-        const float* yn = y_rows + 3 * r * nv;
-        const float* yt1 = yn + nv;
-        const float* yt2 = yn + 2 * nv;
-        float vn = dotn(nv, yn, z);
-        float nw = jmax(lam_n[r] + (b_vel[r] - vn) * dinv[3 * r], 0.f);
-        axpy(nv, z, yn, nw - lam_n[r]);
-        lam_n[r] = nw;
+        const float* yn = s.Y + (1 + 3 * r) * ld;
+        const float* yt1 = yn + ld;
+        const float* yt2 = yn + 2 * ld;
+        // the split-impulse row reads and writes only zp, so its update
+        // goes first and its dot shares the normal dot's butterfly
+        float vn, vpn;
+        lane_dot2(g, nv, yn, z, zp, vn, vpn);
+        float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
+        lane_axpy(g, nv, zp, yn, nw - s.lam_p[r]);
+        s.lam_p[r] = nw;
+        nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
+        lane_axpy(g, nv, z, yn, nw - s.lam_n[r]);
+        s.lam_n[r] = nw;
         float hi = t.row_mu[r] * nw;
-        float vt = dotn(nv, yt1, z);
-        nw = jclip(lam_t1[r] - vt * dinv[3 * r + 1], -hi, hi);
-        axpy(nv, z, yt1, nw - lam_t1[r]);
-        lam_t1[r] = nw;
-        vt = dotn(nv, yt2, z);
-        nw = jclip(lam_t2[r] - vt * dinv[3 * r + 2], -hi, hi);
-        axpy(nv, z, yt2, nw - lam_t2[r]);
-        lam_t2[r] = nw;
-        // split-impulse position correction
-        float vpn = dotn(nv, yn, zp);
-        nw = jmax(lam_p[r] + (b_pos[r] - vpn) * dinv[3 * r], 0.f);
-        axpy(nv, zp, yn, nw - lam_p[r]);
-        lam_p[r] = nw;
+        float vt = lane_dot(g, nv, yt1, z);
+        nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
+        lane_axpy(g, nv, z, yt1, nw - s.lam_t1[r]);
+        s.lam_t1[r] = nw;
+        vt = lane_dot(g, nv, yt2, z);
+        nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
+        lane_axpy(g, nv, z, yt2, nw - s.lam_t2[r]);
+        s.lam_t2[r] = nw;
       }
-      for (int l = 0; l < nl; ++l) {
-        const float* w = y_lim + l * nv;
-        const float sign = t.lim_sign[l];
-        float vd = sign * dotn(nv, w, z);
-        float nw = jmax(lam_l[l] + (b_l[l] - vd) * dinv_l[l], 0.f);
-        axpy(nv, z, w, sign * (nw - lam_l[l]));
-        lam_l[l] = nw;
+      for (int m = 0; m < nl; ++m) {
+        const float* w = s.Y + (1 + 3 * nr + m) * ld;
+        const float sign = t.lim_sign[m];
+        float vd = sign * lane_dot(g, nv, w, z);
+        float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
+        lane_axpy(g, nv, z, w, sign * (nw - s.lam_l[m]));
+        s.lam_l[m] = nw;
       }
     }
-    chol_back(nv, L, inv_diag, z, v3o);
-    chol_back(nv, L, inv_diag, zp, vp);
-  } else {
-    float qdd[C::NV];
-    chol_back(nv, L, inv_diag, y_dyn, qdd);
+    EACH_LANE(g, l) {
+      ENG_UNROLL
+      for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+        const int d = l + k * G;
+        if (d < nv) {
+          s.z[d] = z[l].x[k];
+          s.zp[d] = zp[l].x[k];
+        }
+      }
+    }
+    g.sync();
+    // the two back substitutions, one lane each
+    EACH_LANE(g, l) {
+      if (l == 0) chol_back(nv, s.L, ldm, s.inv_diag, s.z, s.v3o);
+      if (l == (G > 1 ? 1 : 0)) chol_back(nv, s.L, ldm, s.inv_diag, s.zp, s.vp);
+    }
+  } else if (g.leader()) {
+    chol_back(nv, s.L, ldm, s.inv_diag, ydyn, s.v3o);  // qdd
     for (int d = 0; d < nv; ++d) {
-      v3o[d] = v[d] + t.dt * qdd[d];
-      vp[d] = 0.f;
+      s.v3o[d] = s.v[d] + t.dt * s.v3o[d];
+      s.vp[d] = 0.f;
     }
   }
+  g.sync();
   // velocity clamp, then semi-implicit Euler with the split-impulse velocity
-  for (int d = 0; d < nv; ++d) v3o[d] = jclip(v3o[d], -t.max_velocity, t.max_velocity);
-  // (dynamics.py · integrate): a free joint moves by R v_lin and turns by
-  // the exponential map of R v_ang, both read from the old quaternion
-  for (int i = 0; i < t.nb; ++i) {
-    const int qa = t.q_adr[i], va = t.v_adr[i];
-    if (t.jtype[i] == JT_FREE) {
-      float w[6];
-      for (int k = 0; k < 6; ++k) w[k] = v3o[va + k] + vp[va + k];
-      const M3 R = m3_from_quat(q + qa + 3);
-      const V3 omega = m3_vec(R, v3(w[0], w[1], w[2]));
-      const V3 lin = m3_vec(R, v3(w[3], w[4], w[5]));
-      q[qa] = q[qa] + t.dt * lin.x;
-      q[qa + 1] = q[qa + 1] + t.dt * lin.y;
-      q[qa + 2] = q[qa + 2] + t.dt * lin.z;
-      quat_integrate(q + qa + 3, omega, t.dt);
-    } else {
-      q[qa] = q[qa] + t.dt * (v3o[va] + vp[va]);
+  EACH_LANE(g, l) {
+    for (int d = l; d < nv; d += G) {
+      s.v3o[d] = jclip(s.v3o[d], -t.max_velocity, t.max_velocity);
+      s.v[d] = s.v3o[d];
     }
   }
-  for (int d = 0; d < nv; ++d) v[d] = v3o[d];
+  g.sync();
+  // (dynamics.py · integrate), lanes over bodies: a free joint moves by
+  // R v_lin and turns by the exponential map of R v_ang, both read from the
+  // old quaternion
+  EACH_LANE(g, l) {
+    for (int i = l; i < t.nb; i += G) {
+      const int qa = t.q_adr[i], va = t.v_adr[i];
+      float* q = s.q;
+      const float *v3o = s.v3o, *vp = s.vp;
+      if (t.jtype[i] == JT_FREE) {
+        float w[6];
+        for (int k = 0; k < 6; ++k) w[k] = v3o[va + k] + vp[va + k];
+        const M3 R = m3_from_quat(q + qa + 3);
+        const V3 omega = m3_vec(R, v3(w[0], w[1], w[2]));
+        const V3 lin = m3_vec(R, v3(w[3], w[4], w[5]));
+        q[qa] = q[qa] + t.dt * lin.x;
+        q[qa + 1] = q[qa + 1] + t.dt * lin.y;
+        q[qa + 2] = q[qa + 2] + t.dt * lin.z;
+        quat_integrate(q + qa + 3, omega, t.dt);
+      } else {
+        q[qa] = q[qa] + t.dt * (v3o[va] + vp[va]);
+      }
+    }
+  }
+  g.sync();
 }
 
 // ---- walker task: locomotion.py · WalkerTask and the Flagrun tasks ---------
 
-template <class C>
-ENG_HD void mean_parts_xy(const Tables& t, const FKOut<C>& fk, float& bx, float& by) {
+ENG_HD void mean_parts_xy(const Tables& t, const FK& fk, float& bx, float& by) {
   float sx = 0.f, sy = 0.f;
   for (int k = 0; k < t.nparts; ++k) {
     const int h = t.part_host[k];
@@ -997,8 +1274,7 @@ ENG_HD void draw_flag(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t 
   ty = uniform(seed, (uint32_t)t.flag_streams[1], env_id, e2, t.flag_lo_y, t.flag_span_y);
 }
 
-template <class C>
-ENG_HD V3 frame_point(const Tables& t, const FKOut<C>& fk, int k) {
+ENG_HD V3 frame_point(const Tables& t, const FK& fk, int k) {
   const int h = t.part_host[k];
   return v3_add(fk.p[h], m3_vec(fk.R[h], v3_load(t.part_pos + 3 * k)));
 }
@@ -1022,16 +1298,14 @@ ENG_HD void push_out_draw(const Tables& t, uint32_t seed, uint32_t env_id, uint3
 
 // The walker family's aux of a fresh episode (potential against the walk
 // target or the first flag; FlagrunHarder's lying pose after it).
-template <class C>
-ENG_HD void walker_initial_aux(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
-                               float* q, const float* v, float* aux) {
+ENG_HD void walker_initial_aux(const Tables& t, const FK& fk, uint32_t seed, uint32_t env_id,
+                               uint32_t epoch, float* q, const float* v, float* aux) {
   float tx = t.target_x, ty = t.target_y;
   if (t.task_kind != TASK_WALKER) {  // the first flag; the potential is against it
     draw_flag(t, seed, env_id, epoch, 0.f, tx, ty);
     aux[t.ax_flag_timeout] = t.flag_timeout;
     aux[t.ax_flag_count] = 0.f;
   }
-  FKOut<C> fk;
   forward_kinematics(t, q, v, fk, nullptr);
   float bx, by;
   mean_parts_xy(t, fk, bx, by);
@@ -1059,16 +1333,15 @@ ENG_HD void walker_initial_aux(const Tables& t, uint32_t seed, uint32_t env_id, 
 }
 
 // Reacher's potential, -100 |fingertip - target|, and the difference.
-template <class C>
-ENG_HD float reacher_potential(const Tables& t, const FKOut<C>& fk, V3& d) {
+ENG_HD float reacher_potential(const Tables& t, const FK& fk, V3& d) {
   d = v3_sub(frame_point(t, fk, 0), frame_point(t, fk, 1));
   return (float)-100.0 * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
 }
 
-// Fresh episode: initial_state_scalar of the task. aux in sorted key order.
-template <class C>
-ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
-                          float* q, float* v, float* aux) {
+// Fresh episode: initial_state_scalar of the task. aux in sorted key order;
+// fk is scratch for the potential. One lane.
+ENG_HD void initial_state(const Tables& t, const FK& fk, uint32_t seed, uint32_t env_id,
+                          uint32_t epoch, float* q, float* v, float* aux) {
   for (int j = 0; j < t.nq; ++j) q[j] = t.qpos0[j];
   for (int k = 0; k < t.nqdraw; ++k) {
     float u = uniform(seed, (uint32_t)t.qdraw_stream[k], env_id, epoch, t.qdraw_lo[k],
@@ -1082,9 +1355,8 @@ ENG_HD void initial_state(const Tables& t, uint32_t seed, uint32_t env_id, uint3
     v[t.vdraw_dof[k]] = uniform(seed, (uint32_t)t.vdraw_stream[k], env_id, epoch, t.vdraw_lo,
                                 t.vdraw_span);
   if (t.task_kind <= TASK_FLAGRUN_HARDER) {
-    walker_initial_aux<C>(t, seed, env_id, epoch, q, v, aux);
+    walker_initial_aux(t, fk, seed, env_id, epoch, q, v, aux);
   } else if (t.task_kind == TASK_REACHER) {
-    FKOut<C> fk;
     forward_kinematics(t, q, v, fk, nullptr);
     V3 d;
     aux[t.ax_potential] = reacher_potential(t, fk, d);
@@ -1141,26 +1413,29 @@ ENG_HD void cube_throw(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t
   v[va + 5] = speed * d2 / dn + jz;
 }
 
+// An actuated joint's position relative to its range, and its scaled speed
+ENG_HD float joint_rel(const Tables& t, const float* q, int k) {
+  return (q[t.act_qadr[k]] - t.j_mid[k]) / t.j_half[k];
+}
+ENG_HD float joint_speed(const Tables& t, const float* v, int k) {
+  return (float)0.1 * v[t.act_dof[k]];
+}
+
 // obs, reward, termination, new aux and reward components: output_scalar,
-// with the Flagrun retarget and the FlagrunHarder get-up machine.
-template <class C>
-ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint32_t epoch,
-                          const float* q, const float* v, const float* depth, const float* a,
-                          const float* aux, float* obs, float& reward, bool& term,
-                          float* aux2, float* comps) {
-  FKOut<C> fk;
+// with the Flagrun retarget and the FlagrunHarder get-up machine. One lane;
+// fk is scratch.
+ENG_HD void walker_output(const Tables& t, const FK& fk, uint32_t seed, uint32_t env_id,
+                          uint32_t epoch, const float* q, const float* v, const float* depth,
+                          const float* a, const float* aux, float* obs, float& reward,
+                          bool& term, float* aux2, float* comps) {
   forward_kinematics(t, q, v, fk, nullptr);
   const int na = t.act;
-  float rel[C::ACT], jspeed[C::ACT];
   float joints_at_limit = 0.f;
-  for (int k = 0; k < na; ++k) {
-    rel[k] = (q[t.act_qadr[k]] - t.j_mid[k]) / t.j_half[k];
-    jspeed[k] = (float)0.1 * v[t.act_dof[k]];
-  }
-  for (int k = 0; k < na; ++k) joints_at_limit = joints_at_limit + (fabsf(rel[k]) > (float)0.99 ? 1.f : 0.f);
+  for (int k = 0; k < na; ++k)
+    joints_at_limit = joints_at_limit + (fabsf(joint_rel(t, q, k)) > (float)0.99 ? 1.f : 0.f);
 
   const int bb = t.base_body;
-  const M3& Rb = fk.R[bb];
+  const M3 Rb = fk.R[bb];
   V3 com = fk.com[bb];
   float roll = s_atan2(Rb.m[7], Rb.m[8]);
   float pitch = s_atan2(-Rb.m[6], sqrtf(Rb.m[7] * Rb.m[7] + Rb.m[8] * Rb.m[8]));
@@ -1210,8 +1485,8 @@ ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint3
   obs[o++] = roll;
   obs[o++] = pitch;
   for (int k = 0; k < na; ++k) {
-    obs[o++] = rel[k];
-    obs[o++] = jspeed[k];
+    obs[o++] = joint_rel(t, q, k);
+    obs[o++] = joint_speed(t, v, k);
   }
   for (int f = 0; f < t.nfeet; ++f) obs[o++] = feet[f];
   for (int k = 0; k < o; ++k) obs[k] = jclip(obs[k], -5.f, 5.f);
@@ -1245,7 +1520,7 @@ ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint3
   float potential = -dist / t.control_dt;
   float progress = potential - aux[t.ax_potential];
   float s1 = 0.f, s2 = 0.f;
-  for (int k = 0; k < na; ++k) s1 = s1 + fabsf(a[k] * jspeed[k]);
+  for (int k = 0; k < na; ++k) s1 = s1 + fabsf(a[k] * joint_speed(t, v, k));
   for (int k = 0; k < na; ++k) s2 = s2 + a[k] * a[k];
   float electricity = t.elec_coef * s1 / t.n_act + t.stall_coef * s2 / t.n_act;
   float limit_cost = t.limit_coef * joints_at_limit;
@@ -1265,11 +1540,9 @@ ENG_HD void walker_output(const Tables& t, uint32_t seed, uint32_t env_id, uint3
 // ---- manipulation.py · ReacherTask.output_scalar ----------------------------
 // act slots 0, 1: the central and elbow joints; jq 0, 1: the target's
 // slides; frames 0, 1: fingertip and target. Never terminates.
-template <class C>
-ENG_HD void reacher_output(const Tables& t, const float* q, const float* v, const float* a,
-                           const float* aux, float* obs, float& reward, bool& term,
-                           float* aux2, float* comps) {
-  FKOut<C> fk;
+ENG_HD void reacher_output(const Tables& t, const FK& fk, const float* q, const float* v,
+                           const float* a, const float* aux, float* obs, float& reward,
+                           bool& term, float* aux2, float* comps) {
   forward_kinematics(t, q, v, fk, nullptr);
   const float theta = q[t.act_qadr[0]];
   const float theta_dot = (float)0.1 * v[t.act_dof[0]];
@@ -1305,11 +1578,9 @@ ENG_HD float norm_eps(V3 d) {  // sqrt(|d|^2 + 1e-12), the sum in Python's order
 // ---- manipulation.py · Pusher/Striker/ThrowerTask.output_scalar -------------
 // obs(23) = [arm q, arm q', tips, object, goal] (frames 0-2); never
 // terminates.
-template <class C>
-ENG_HD void arm_output(const Tables& t, const float* q, const float* v, const float* a,
-                       const float* aux, float* obs, float& reward, bool& term, float* aux2,
-                       float* comps) {
-  FKOut<C> fk;
+ENG_HD void arm_output(const Tables& t, const FK& fk, const float* q, const float* v,
+                       const float* a, const float* aux, float* obs, float& reward, bool& term,
+                       float* aux2, float* comps) {
   forward_kinematics(t, q, v, fk, nullptr);
   const V3 tips = frame_point(t, fk, 0), obj = frame_point(t, fk, 1), goal = frame_point(t, fk, 2);
   const int na = t.act;
@@ -1376,9 +1647,8 @@ ENG_HD void arm_output(const Tables& t, const float* q, const float* v, const fl
 
 // ---- pendula.py · InvertedPendulumTask, InvertedDoublePendulumTask --------
 // act slot 0: the slider; jq/jv 0 (and 1): the hinge(s); base_body: pole2.
-template <class C>
-ENG_HD void pendulum_output(const Tables& t, const float* q, const float* v, float* obs,
-                            float& reward, bool& term, float* comps) {
+ENG_HD void pendulum_output(const Tables& t, const FK& fk, const float* q, const float* v,
+                            float* obs, float& reward, bool& term, float* comps) {
   const float theta = q[t.jq[0]], theta_dot = v[t.jv[0]];
   obs[0] = q[t.act_qadr[0]];
   obs[1] = v[t.act_dof[0]];
@@ -1391,7 +1661,6 @@ ENG_HD void pendulum_output(const Tables& t, const float* q, const float* v, flo
     comps[t.cp_reward] = reward;
     return;
   }
-  FKOut<C> fk;
   forward_kinematics(t, q, v, fk, nullptr);
   const V3 com2 = fk.com[t.base_body];
   const float pos_x = com2.x, pos_y = com2.z;  // the reference's y is height
@@ -1416,86 +1685,107 @@ ENG_HD void pendulum_output(const Tables& t, const float* q, const float* v, flo
 }
 
 // ---- the two kernel bodies ---------------------------------------------------
+// Every lane of env i's group calls them with the env's scratch `base`.
 
 // `frame_skip` substeps with held torques; depths of the last substep.
 // pallas_engine.py · make_pallas_physics_step
-template <class C>
-ENG_HD void physics_step_one(const Tables& t, int i, int B, const float* q_in,
-                             const float* v_in, const float* tau_in, float* q_out,
-                             float* v_out, float* d_out) {
-  float q[C::NQ], v[C::NV], tau[C::NV], depth[C::ROWS];
-  for (int k = 0; k < t.nq; ++k) q[k] = q_in[k * B + i];
-  for (int k = 0; k < t.nv; ++k) {
-    v[k] = v_in[k * B + i];
-    tau[k] = tau_in[k * B + i];
+template <int G>
+ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, int i, int B,
+                             const float* q_in, const float* v_in, const float* tau_in,
+                             float* q_out, float* v_out, float* d_out) {
+  const Scr s = scratch(t, base);
+  EACH_LANE(g, l) {
+    for (int k = l; k < t.nq; k += G) s.q[k] = q_in[k * B + i];
+    for (int k = l; k < t.nv; k += G) {
+      s.v[k] = v_in[k * B + i];
+      s.tau[k] = tau_in[k * B + i];
+    }
+    for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
-  for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
-  for (int s = 0; s < t.frame_skip; ++s) substep<C>(t, q, v, tau, depth);
-  for (int k = 0; k < t.nq; ++k) q_out[k * B + i] = q[k];
-  for (int k = 0; k < t.nv; ++k) v_out[k * B + i] = v[k];
-  for (int r = 0; r < t.nr; ++r) d_out[r * B + i] = depth[r];
+  g.sync();
+  for (int st = 0; st < t.frame_skip; ++st) substep(t, g, s);
+  EACH_LANE(g, l) {
+    for (int k = l; k < t.nq; k += G) q_out[k * B + i] = s.q[k];
+    for (int k = l; k < t.nv; k += G) v_out[k * B + i] = s.v[k];
+    for (int r = l; r < t.nr; r += G) d_out[r * B + i] = s.depth[r];
+  }
 }
 
 // The whole env step. pallas_engine.py · make_pallas_env_step
-template <class C>
-ENG_HD void env_step_one(const Tables& t, const EnvIO& io, int i, int B) {
+template <int G>
+ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g, float* base, int i,
+                         int B) {
+  const Scr s = scratch(t, base);
   const bool done = io.term[i] != 0 || io.trunc[i] != 0;
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];
   const uint32_t env_id = (uint32_t)io.env_id[i];
-  float q[C::NQ], v[C::NV], aux[MAX_AUX];
-  int32_t step_count;
-  if (done) {  // auto-reset [ref: env_bases.py · BaseBulletEnv.reset]
-    initial_state<C>(t, seed, env_id, epoch, q, v, aux);
-    step_count = 0;
-  } else {
-    for (int k = 0; k < t.nq; ++k) q[k] = io.q[k * B + i];
-    for (int k = 0; k < t.nv; ++k) v[k] = io.v[k * B + i];
-    for (int k = 0; k < t.naux; ++k) aux[k] = io.aux[k * B + i];
-    step_count = io.step_count[i];
+  const int32_t step_count = done ? 0 : io.step_count[i];
+  // every input in one phase, whether or not the env resets (a reset
+  // overwrites q, v and every aux slot), so the loads share one round trip
+  EACH_LANE(g, l) {
+    for (int k = l; k < t.nq; k += G) s.q[k] = io.q[k * B + i];
+    for (int k = l; k < t.nv; k += G) {
+      s.v[k] = io.v[k * B + i];
+      s.tau[k] = 0.f;
+    }
+    for (int k = l; k < t.naux; k += G) s.aux[k] = io.aux[k * B + i];
+    for (int k = l; k < t.act; k += G) s.act[k] = jclip(io.act[k * B + i], -1.f, 1.f);
+    for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
-  // pre-physics hook (FlagrunHarder's cube)
-  if (t.task_kind == TASK_FLAGRUN_HARDER) cube_throw(t, seed, env_id, epoch, q, v, aux);
+  g.sync();
+  if (g.leader()) {
+    // auto-reset [ref: env_bases.py · BaseBulletEnv.reset], then the
+    // pre-physics hook (FlagrunHarder's cube)
+    if (done) initial_state(t, s.fk, seed, env_id, epoch, s.q, s.v, s.aux);
+    if (t.task_kind == TASK_FLAGRUN_HARDER) cube_throw(t, seed, env_id, epoch, s.q, s.v, s.aux);
+  }
   // torques [ref: WalkerBase.apply_action; the other tasks' apply_action]
-  float a[C::ACT], tau[C::NV], depth[C::ROWS];
-  for (int k = 0; k < t.act; ++k) a[k] = jclip(io.act[k * B + i], -1.f, 1.f);
-  for (int d = 0; d < t.nv; ++d) tau[d] = 0.f;
-  for (int k = 0; k < t.act; ++k) tau[t.act_dof[k]] = t.gain[k] * a[k];
-  for (int r = 0; r < t.nr; ++r) depth[r] = 0.f;
-  for (int s = 0; s < t.frame_skip; ++s) substep<C>(t, q, v, tau, depth);
+  EACH_LANE(g, l) {
+    for (int k = l; k < t.act; k += G) s.tau[t.act_dof[k]] = t.gain[k] * s.act[k];
+  }
+  g.sync();
+  for (int st = 0; st < t.frame_skip; ++st) substep(t, g, s);
 
-  float obs[8 + 2 * C::ACT + MAX_FEET], reward, aux2[MAX_AUX], comps[MAX_COMP];
-  bool term;
-  if (t.task_kind <= TASK_FLAGRUN_HARDER)
-    walker_output<C>(t, seed, env_id, epoch, q, v, depth, a, aux, obs, reward, term, aux2, comps);
-  else if (t.task_kind == TASK_REACHER)
-    reacher_output<C>(t, q, v, a, aux, obs, reward, term, aux2, comps);
-  else if (t.task_kind <= TASK_THROWER)
-    arm_output<C>(t, q, v, a, aux, obs, reward, term, aux2, comps);
-  else
-    pendulum_output<C>(t, q, v, obs, reward, term, comps);
+  // the task's outputs, the NaN guard and the scalars: one lane
+  if (g.leader()) {
+    float reward, aux2[MAX_AUX], comps[MAX_COMP];
+    bool term;
+    float* obs = s.obs;
+    if (t.task_kind <= TASK_FLAGRUN_HARDER)
+      walker_output(t, s.fk, seed, env_id, epoch, s.q, s.v, s.depth, s.act, s.aux, obs, reward,
+                    term, aux2, comps);
+    else if (t.task_kind == TASK_REACHER)
+      reacher_output(t, s.fk, s.q, s.v, s.act, s.aux, obs, reward, term, aux2, comps);
+    else if (t.task_kind <= TASK_THROWER)
+      arm_output(t, s.fk, s.q, s.v, s.act, s.aux, obs, reward, term, aux2, comps);
+    else
+      pendulum_output(t, s.fk, s.q, s.v, obs, reward, term, comps);
 
-  // NaN guard [ref: walker_base_env.py · step isfinite check]
-  bool fin = finite(reward);
-  for (int k = 0; k < t.obs_dim; ++k) fin = fin && finite(obs[k]);
-  for (int k = 0; k < t.nq; ++k) fin = fin && finite(q[k]);
-  for (int k = 0; k < t.nv; ++k) fin = fin && finite(v[k]);
-  term = term || !fin;
-  for (int k = 0; k < t.obs_dim; ++k) obs[k] = finite(obs[k]) ? obs[k] : 0.f;
-  reward = finite(reward) ? reward : 0.f;
-  const int32_t step2 = step_count + 1;
-  const bool trunc = (step2 >= t.max_steps) && !term;
-
-  for (int k = 0; k < t.nq; ++k) io.q_out[k * B + i] = q[k];
-  for (int k = 0; k < t.nv; ++k) io.v_out[k * B + i] = v[k];
-  for (int k = 0; k < t.obs_dim; ++k) io.obs[k * B + i] = obs[k];
-  io.reward[i] = reward;
-  io.term_out[i] = term ? 1 : 0;
-  io.trunc_out[i] = trunc ? 1 : 0;
-  io.step_out[i] = step2;
-  io.epoch_out[i] = epoch;
-  for (int k = 0; k < t.naux; ++k) io.aux_out[k * B + i] = aux2[k];
-  for (int k = 0; k < t.ncomp; ++k) io.comps[k * B + i] = comps[k];
+    // NaN guard [ref: walker_base_env.py · step isfinite check]
+    bool fin = finite(reward);
+    for (int k = 0; k < t.obs_dim; ++k) fin = fin && finite(obs[k]);
+    for (int k = 0; k < t.nq; ++k) fin = fin && finite(s.q[k]);
+    for (int k = 0; k < t.nv; ++k) fin = fin && finite(s.v[k]);
+    term = term || !fin;
+    for (int k = 0; k < t.obs_dim; ++k) obs[k] = finite(obs[k]) ? obs[k] : 0.f;
+    reward = finite(reward) ? reward : 0.f;
+    const int32_t step2 = step_count + 1;
+    const bool trunc = (step2 >= t.max_steps) && !term;
+    io.reward[i] = reward;
+    io.term_out[i] = term ? 1 : 0;
+    io.trunc_out[i] = trunc ? 1 : 0;
+    io.step_out[i] = step2;
+    io.epoch_out[i] = epoch;
+    for (int k = 0; k < t.naux; ++k) io.aux_out[k * B + i] = aux2[k];
+    for (int k = 0; k < t.ncomp; ++k) io.comps[k * B + i] = comps[k];
+  }
+  g.sync();
+  EACH_LANE(g, l) {
+    for (int k = l; k < t.nq; k += G) io.q_out[k * B + i] = s.q[k];
+    for (int k = l; k < t.nv; k += G) io.v_out[k * B + i] = s.v[k];
+    for (int k = l; k < t.obs_dim; k += G) io.obs[k * B + i] = s.obs[k];
+  }
 }
 
 // Byte offset of every table field, in declaration order; the Python side

@@ -4,7 +4,8 @@ Counterpart of the JAX package's `ops/pallas_engine.py`:
 
 * `make_cuda_physics_step(model, cfg)` replaces `make_pallas_physics_step`:
   frame_skip substeps of FK -> RNE/CRBA -> Cholesky -> narrowphase ->
-  square-root-space PGS -> semi-implicit Euler, one CUDA thread per env.
+  square-root-space PGS -> semi-implicit Euler, a group of G lanes of one
+  warp per env.
 * `make_cuda_env_step(task)` replaces `make_pallas_env_step`: the whole env
   step (auto-reset with Threefry draws, the pre-physics hook, torques,
   substeps, obs/reward/termination, NaN guard, step count, truncation) in
@@ -14,16 +15,17 @@ The kernels' source is `csrc/engine_core.h` (the algorithm, table-driven,
 `__host__ __device__`) and `csrc/engine.cu` (two thin `__global__` kernels
 and their `extern "C"` launchers). `pack_tables` flattens the frozen
 `Model`, the contact and limit plans and the task constants into one
-fixed-size `Tables` struct, whose layout is parsed from the header, and
-picks the scratch instantiation (`caps_id`): the small one (the walkers,
-Reacher, the pendula), or the large one of the models with pair rows (the
-humanoid family, the arms).
+fixed-size `Tables` struct, whose layout is parsed from the header; it
+picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
+scratch in shared memory from the model's sizes (`scratch_layout`).
 
-The library is built at first use with nvcc into `_build/` (keyed by the
-sources' content hash) and loaded with ctypes. Each wrapper checks its
-tensors, allocates outputs with `torch.empty` and launches on the current
-stream without synchronising. A CPU tensor goes to the plain PyTorch
-version; a CUDA tensor launches the kernel or raises. There is no fallback.
+One library per group width in `LANE_WIDTHS` is built at first use with
+nvcc into `_build/` (keyed by the sources' content hash; the builds run in
+parallel) and loaded with ctypes. Each wrapper checks its tensors,
+allocates outputs with `torch.empty` and launches on the current stream
+without synchronising, with the envs-per-block that `launch_config` picks
+from the occupancy API. A CPU tensor goes to the plain PyTorch version; a
+CUDA tensor launches the kernel or raises. There is no fallback.
 
 `HostTwin` builds the same core with g++ for the CPU tests only.
 """
@@ -134,9 +136,9 @@ def _composite_masses(model: Model):
 
 
 def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
-    """The scratch instantiation for these sizes: 0 (the walkers') when it
-    fits and there are no pair rows, else 1 (the large one); raises above
-    the large caps."""
+    """The size class of these sizes: 0 (walker-sized) when they fit the
+    WALKER_ caps and there are no pair rows, else 1 (large); raises above
+    the tables' caps."""
     sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
              "ACT": act}
     over = {k: n for k, n in sizes.items() if n > caps["MAX_" + k]}
@@ -147,10 +149,84 @@ def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
     return 0 if walker and npair == 0 else 1
 
 
+# The group widths G that the CUDA libraries (one each) and the host twin
+# are built for.
+LANE_WIDTHS = (4, 8, 16, 32)
+
+
+def pick_lanes(nv: int) -> int:
+    """The group width G for a model of nv dofs, as a width sweep on the
+    H100 ranked them (`tools/kernel_ab.py --lanes`, PERF.md §6)."""
+    if nv <= 4:
+        return 4
+    if nv <= 12:
+        return 8
+    if nv <= 16:
+        return 16
+    return 32
+
+
+# 227 KB: the dynamic shared memory one block may use on sm_90
+MAX_SHARED_BYTES = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_slots() -> Tuple[str, ...]:
+    """The per-env scratch arrays in layout order (engine_core.h ·
+    ENG_SCRATCH)."""
+    src = open(os.path.join(CSRC, "engine_core.h")).read()
+    block = src[src.index("#define ENG_SCRATCH(X)"):src.index("#define ENG_SLOT")]
+    return tuple(re.findall(r"X\((\w+)\)", block))
+
+
+def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
+    """Lay out one env's scratch for the tables `t` from the model's sizes:
+    sets t.sc (each array's float offset), t.sc_stride (odd, so that the
+    envs of a warp start in different banks), t.sc_ld and t.sc_ldm (the
+    row strides of Y and of M/L: nv made odd, so that lanes on different
+    rows hit different banks). inert, avp, f and obs live inside Y's rows
+    1.., which are dead whenever those are live. Returns {name: (offset,
+    floats)}. Raises if one env does not fit one block's shared memory."""
+    nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
+    ld = nv | 1
+    alias = {"inert": 13 * nb, "avp": 6 * nb, "f": 6 * nb}
+    rows_y = (1 + 3 * nr + nl) * ld
+    sizes = {
+        "q": t.nq, "v": nv, "tau": nv, "act": t.act, "aux": t.naux, "obs": 0,
+        "R": 9 * nb, "p": 3 * nb, "vel": 6 * nb, "com": 3 * nb, "S": 6 * nv,
+        "inert": 0, "avp": 0, "f": 0,
+        "L": nv * ld, "inv_diag": nv, "depth": nr, "P": 3 * nr, "dirs": 9 * t.npair,
+        "z": nv, "zp": nv, "v3o": nv, "vp": nv,
+        "Y": max(rows_y, ld + sum(alias.values()), ld + t.obs_dim),
+        "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
+        "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
+    }
+    slots = scratch_slots()
+    if set(slots) != set(sizes):
+        raise RuntimeError(f"engine_core.h's scratch slots {slots} differ from {sorted(sizes)}")
+    out, off = {}, 0
+    for name in slots:
+        out[name] = (off, sizes[name])
+        off += sizes[name]
+    y0 = out["Y"][0] + ld
+    out["obs"] = (y0, t.obs_dim)
+    for name, n in alias.items():
+        out[name] = (y0, n)
+        y0 += n
+    stride = off | 1
+    if stride * 4 > MAX_SHARED_BYTES:
+        raise NotImplementedError(f"one env's scratch ({stride * 4} bytes) exceeds a block's "
+                                  f"{MAX_SHARED_BYTES} bytes of shared memory")
+    for k, name in enumerate(slots):
+        t.sc[k] = out[name][0]
+    t.sc_stride, t.sc_ld, t.sc_ldm = stride, ld, ld
+    return out
+
+
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0):
-    """Physics part of the tables (model, plans, solver constants), and the
-    scratch instantiation that fits the model (`caps_id`). Raises for a
-    model over the caps."""
+    """Physics part of the tables (model, plans, solver constants), the
+    size class (`caps_id`), the group width (`lanes`) and the scratch
+    layout. Raises for a model over the caps."""
     Tables, caps = tables_type()
     t = Tables()
     nb = len(model.bodies)
@@ -256,6 +332,9 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_qadr[l] = int(lim.qadr[l])
         t.lim_sign[l] = _f32(lim.sign[l])
         t.lim_bound[l] = _f32(lim.bound[l])
+    t.act = act
+    t.lanes = pick_lanes(model.nv)
+    scratch_layout(t)
     return t
 
 
@@ -299,6 +378,7 @@ def pack_tables(task, frame_skip: Optional[int] = None):
         _pack_arm(t, task)
     else:
         _pack_pendulum(t, task)
+    scratch_layout(t)  # again, with the task's obs and aux
     return t
 
 
@@ -496,31 +576,41 @@ def _sources(names):
     return h
 
 
-def _compile(cmd_prefix, src: str, out_name: str, flags) -> Tuple[str, str]:
-    """Compile `src` into BUILD_DIR/out_name unless it is there; returns
-    (path, compiler output). Builds into a temp file, then renames it into
+def _compile(jobs) -> Dict[str, str]:
+    """Compile each (cmd_prefix, src, out_name, flags) job into
+    BUILD_DIR/out_name unless it is there, all at once in parallel; returns
+    {path: compiler output}. Builds into a temp file, then renames it into
     place, so concurrent processes never load a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, out_name)
-    log = so + ".log"
-    if os.path.exists(so):
-        return so, open(log).read() if os.path.exists(log) else ""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    out, running = {}, []
     try:
-        cmd = list(cmd_prefix) + list(flags) + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {src} failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-            )
-        with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        for cmd_prefix, src, out_name, flags in jobs:
+            so = os.path.join(BUILD_DIR, out_name)
+            if os.path.exists(so):
+                log = so + ".log"
+                out[so] = open(log).read() if os.path.exists(log) else ""
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = list(cmd_prefix) + list(flags) + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((proc, cmd, so, tmp))
+        for proc, cmd, so, tmp in running:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"building failed ({' '.join(cmd)}):\n{text}")
+            with open(so + ".log", "w") as f:
+                f.write(text)
+            os.replace(tmp, so)
+            out[so] = text
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, proc.stdout + proc.stderr
+        for proc, _, _, tmp in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
 
 
 def nvcc_path() -> str:
@@ -554,19 +644,60 @@ _ENV_ARGS = [_P] * 21 + [ctypes.c_int]
 
 @functools.lru_cache(maxsize=None)
 def load_cuda_library():
-    """Build (once per source hash) and load the CUDA library. Returns
-    (ctypes library, nvcc output including -Xptxas -v)."""
+    """Build (once per source hash, one nvcc per group width, all started
+    together) and load the CUDA libraries. Returns ({G: ctypes library},
+    nvcc output including -Xptxas -v, one section per G)."""
     h = _sources(["engine_core.h", "engine.cu"])
     h.update(" ".join(NVCC_FLAGS).encode())
-    so, log = _compile([nvcc_path()], "engine.cu", f"libengine_cuda_{h.hexdigest()[:16]}.so",
-                       NVCC_FLAGS)
-    lib = ctypes.CDLL(so)
-    _check_layout(lib)
-    lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int, _P]
-    lib.launch_physics_step.restype = ctypes.c_int
-    lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
-    lib.launch_env_step.restype = ctypes.c_int
-    return lib, log
+    names = {G: f"libengine_cuda_g{G}_{h.hexdigest()[:16]}.so" for G in LANE_WIDTHS}
+    built = _compile([([nvcc_path()], "engine.cu", names[G], NVCC_FLAGS + (f"-DENG_LANES={G}",))
+                      for G in LANE_WIDTHS])
+    libs, logs = {}, []
+    for G in LANE_WIDTHS:
+        so = os.path.join(BUILD_DIR, names[G])
+        lib = ctypes.CDLL(so)
+        _check_layout(lib)
+        lib.eng_lanes.restype = ctypes.c_int
+        if lib.eng_lanes() != G:
+            raise RuntimeError(f"{so} is built for {lib.eng_lanes()} lanes, not {G}")
+        lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
+        lib.eng_launch_config.restype = ctypes.c_int
+        lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int, _P]
+        lib.launch_physics_step.restype = ctypes.c_int
+        lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
+        lib.launch_env_step.restype = ctypes.c_int
+        libs[G] = lib
+        logs.append(f"== G={G}\n{built[so]}")
+    return libs, "\n".join(logs)
+
+
+KERNELS = ("physics_step_kernel", "env_step_kernel")  # eng_launch_config's kernel index
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_config(lanes: int, kernel: int, stride: int, device: int) -> Dict[str, int]:
+    libs, _ = load_cuda_library()
+    out = (ctypes.c_int32 * 5)()
+    with torch.cuda.device(device):
+        rc = libs[lanes].eng_launch_config(kernel, stride, _P(ctypes.addressof(out)))
+    if rc != 0:
+        raise RuntimeError(f"{KERNELS[kernel]}: no launch configuration for G={lanes} and a "
+                           f"{stride * 4}-byte env scratch (CUDA error {rc})")
+    E, per_sm, smem, regs, local = list(out)
+    return {"G": lanes, "E": E, "threads": E * lanes, "blocks_per_sm": per_sm,
+            "envs_per_sm": per_sm * E, "shared_bytes": smem, "env_scratch_bytes": stride * 4,
+            "registers": regs, "local_bytes": local}
+
+
+def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0) -> Dict[str, int]:
+    """The launch of `kernel` for `tables` on the card: the group width G,
+    the envs a block E, threads and dynamic shared bytes a block, resident
+    blocks (and envs) per SM from the occupancy API, the kernel's
+    registers and local bytes a thread, and for a batch B the blocks."""
+    cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device))
+    if B is not None:
+        cfg["blocks"] = -(-B // cfg["E"])
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -676,13 +807,14 @@ class CudaPhysicsStep:
         _check(q, "q", torch.float32, (m.nq, B), dev)
         _check(v, "v", torch.float32, (m.nv, B), dev)
         _check(tau, "tau", torch.float32, (m.nv, B), dev)
-        lib, _ = load_cuda_library()
+        libs, _ = load_cuda_library()
+        E = launch_config(self.tables, "physics_step_kernel", device=dev.index or 0)["E"]
         outs = [torch.empty((m.nq, B), device=dev), torch.empty((m.nv, B), device=dev),
                 torch.empty((self.n_rows, B), device=dev)]
         with torch.cuda.device(dev):
-            rc = lib.launch_physics_step(
-                _P(ctypes.addressof(self.tables)), *_ptrs([q, v, tau] + outs), B,
-                self.tables.caps_id, _P(torch.cuda.current_stream(dev).cuda_stream),
+            rc = libs[self.tables.lanes].launch_physics_step(
+                _P(ctypes.addressof(self.tables)), *_ptrs([q, v, tau] + outs), B, E,
+                _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "physics_step_kernel")
         self.launches += 1
@@ -711,12 +843,13 @@ class CudaEnvStep:
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         ins, outs = _env_tensors(self.task, self.tables, state, action)
-        lib, _ = load_cuda_library()
+        libs, _ = load_cuda_library()
+        E = launch_config(self.tables, "env_step_kernel", device=dev.index or 0)["E"]
         B = state.q.shape[-1]
         with torch.cuda.device(dev):
-            rc = lib.launch_env_step(
-                _P(ctypes.addressof(self.tables)), *_ptrs(ins + outs), B,
-                self.tables.caps_id, _P(torch.cuda.current_stream(dev).cuda_stream),
+            rc = libs[self.tables.lanes].launch_env_step(
+                _P(ctypes.addressof(self.tables)), *_ptrs(ins + outs), B, E,
+                _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "env_step_kernel")
         self.launches += 1
@@ -858,7 +991,9 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
 
 class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
-    arithmetic on CPU tensors. Used only by tests; no wrapper routes here."""
+    arithmetic on CPU tensors, each env's lane group emulated at the tables'
+    width (`tables.lanes`, any of LANE_WIDTHS). Used only by tests; no
+    wrapper routes here."""
 
     def __init__(self):
         gxx = shutil.which("g++")
@@ -866,13 +1001,13 @@ class HostTwin:
             raise RuntimeError("g++ not found")
         h = _sources(["engine_core.h", "engine_host.cpp"])
         h.update(" ".join(GXX_FLAGS).encode())
-        so, _ = _compile([gxx], "engine_host.cpp", f"libengine_host_{h.hexdigest()[:16]}.so",
-                         GXX_FLAGS)
-        self.lib = ctypes.CDLL(so)
+        name = f"libengine_host_{h.hexdigest()[:16]}.so"
+        _compile([([gxx], "engine_host.cpp", name, GXX_FLAGS)])
+        self.lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
         _check_layout(self.lib)
-        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int]
+        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
         self.lib.host_physics_step.restype = ctypes.c_int
-        self.lib.host_env_step.argtypes = _ENV_ARGS + [ctypes.c_int]
+        self.lib.host_env_step.argtypes = _ENV_ARGS
         self.lib.host_env_step.restype = ctypes.c_int
 
     def physics_step(self, tables, q, v, tau):
@@ -881,14 +1016,13 @@ class HostTwin:
         outs = [torch.empty_like(q), torch.empty_like(v), torch.empty((n_rows, B))]
         for x, name in ((q, "q"), (v, "v"), (tau, "tau")):
             _check(x, name, torch.float32, x.shape, torch.device("cpu"))
-        rc = self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B,
-                                        tables.caps_id)
+        rc = self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B)
         _launch_checked(rc, "host physics step")
         return tuple(outs)
 
     def env_step(self, tables, task, state, action):
         ins, outs = _env_tensors(task, tables, state, action)
         rc = self.lib.host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs),
-                                    state.q.shape[-1], tables.caps_id)
+                                    state.q.shape[-1])
         _launch_checked(rc, "host env step")
         return _env_state(state, outs)

@@ -2,7 +2,7 @@
 
     python3 pybulletgym_tpu_torch/tools/kernel_ab.py ROOT_A ROOT_B [ROOT ...]
         [--envs HalfCheetahPyBulletEnv-v0,AntPyBulletEnv-v0] [--batch 4096]
-        [--rounds 2]
+        [--rounds 2] [--lanes 2,4,8,16,32]
 
 Each round runs every root once, forwards then backwards (A B B A for two
 roots and two rounds), so that drift of the card over the call shows up
@@ -10,10 +10,17 @@ as a symmetric pattern. For each root a fresh process imports that
 checkout's `pybulletgym_tpu_torch` (PYTHONPATH=ROOT), builds its kernels,
 and times `env_step_kernel` (`BatchedEnv.step_fn`) and
 `physics_step_kernel` (`make_cuda_physics_step`) per env id with CUDA
-events: 50 launches after 5 warm-ups, on a post-reset state and random
-actions in [-1, 1]. It prints one JSON line per (root, env, kernel), then
+events: 50 launches after 5 warm-ups ("ms": host time between launches
+included, which bounds the small models), and 20 launches captured in a
+CUDA graph and replayed 3 times ("graph_ms": the device's time a launch),
+on a post-reset state and random actions in [-1, 1]. It prints one JSON line per (root, env, kernel), then
 the card's name and power limit. Needs one CUDA GPU; uses only entry points
 that every slice of the port has.
+
+--lanes times a checkout with lane-group kernels (`cuda_engine.LANE_WIDTHS`)
+once per listed group width G, overriding the width that `pick_lanes`
+chooses (the line's "lanes"; "lanes": null is the checkout's own choice);
+checkouts without lane groups are timed once.
 """
 
 from __future__ import annotations
@@ -41,7 +48,30 @@ def ms(fn, n=50, warm=5):
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
 
+def graph_ms(fn, n=20, reps=3):
+    # device ms a call with no host time between launches: n calls
+    # captured in one CUDA graph, replayed reps times
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (n * reps)
+
 root, B, envs = sys.argv[1], int(sys.argv[2]), sys.argv[3].split(",")
+widths = [int(x) for x in sys.argv[4].split(",")] if sys.argv[4] else []
+if not hasattr(ce, "LANE_WIDTHS"):
+    widths = []
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
 for env_id in envs:
@@ -50,13 +80,20 @@ for env_id in envs:
     s = env.reset(seed=0)
     a = torch.rand((task.act_dim, B), device=dev, generator=g) * 2 - 1
     phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
-    tau = torch.zeros((task.model.nv, B), device=dev)
-    act = torch.as_tensor(task.act_dofs, dtype=torch.int64, device=dev)
-    tau[act] = torch.as_tensor(task.gains, device=dev) * a
-    for name, fn in (("env_step_kernel", lambda: env.step_fn(s, a)),
-                     ("physics_step_kernel", lambda: phys(s.q, s.v, tau))):
-        print(json.dumps({"root": root, "env": env_id, "kernel": name, "B": B,
-                          "ms": ms(fn)}), flush=True)
+    zero = torch.zeros(B, device=dev)  # the task's torques (action_tau_scalar)
+    tau = torch.stack([zero if isinstance(x, float) else x
+                       for x in task.action_tau_scalar(list(torch.clamp(a, -1.0, 1.0)))], 0)
+    for lanes in widths or [None]:
+        if lanes is not None:
+            env.step_fn.tables.lanes = phys.tables.lanes = lanes
+        for name, fn in (("env_step_kernel", lambda: env.step_fn(s, a)),
+                         ("physics_step_kernel", lambda: phys(s.q, s.v, tau))):
+            rec = {"root": root, "env": env_id, "kernel": name, "B": B, "lanes": lanes,
+                   "ms": ms(fn), "graph_ms": graph_ms(fn)}
+            if lanes is not None:
+                t = env.step_fn.tables if name == "env_step_kernel" else phys.tables
+                rec["launch"] = ce.launch_config(t, name, B)
+            print(json.dumps(rec), flush=True)
 """
 
 
@@ -66,6 +103,7 @@ def main(argv=None):
     p.add_argument("--envs", default="HalfCheetahPyBulletEnv-v0,AntPyBulletEnv-v0")
     p.add_argument("--batch", type=int, default=4096)
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--lanes", default="", help="group widths to time, e.g. 2,4,8,16,32")
     args = p.parse_args(argv)
     roots = [os.path.abspath(r) for r in args.roots]
     order = []
@@ -73,7 +111,8 @@ def main(argv=None):
         order += roots if k % 2 == 0 else roots[::-1]
     for root in order:
         env = dict(os.environ, PYTHONPATH=root)
-        subprocess.run([sys.executable, "-c", _CHILD, root, str(args.batch), args.envs],
+        subprocess.run([sys.executable, "-c", _CHILD, root, str(args.batch), args.envs,
+                        args.lanes],
                        cwd=root, env=env, check=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

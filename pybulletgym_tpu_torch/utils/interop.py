@@ -26,8 +26,10 @@ _DTYPES = {
 }
 
 
-def env_state_from_numpy(d: Dict, device="cpu") -> EnvState:
-    """numpy dict (JAX `EnvState` field names) -> the port's `EnvState`."""
+def env_state_from_numpy(d: Dict, device="cuda") -> EnvState:
+    """numpy dict (JAX `EnvState` field names) -> the port's `EnvState` on
+    `device` (the GPU unless the caller asks for the CPU, as every entry
+    point of the port)."""
     def t(x, dtype):
         return torch.as_tensor(np.array(x, copy=True)).to(dtype).to(device)
 

@@ -6,7 +6,9 @@ machine without the JAX package (tests/conftest.py imports jax, hence
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Without a GPU every test here skips. The bounds are the walker budget of
+Without a GPU every test here skips. Ragged batches (B=1, 3E+1 for the
+launch's E envs a block, 4097) are held on HalfCheetah and Humanoid. The
+bounds are the walker budget of
 test_pallas_equivalence.py:38-51 on HalfCheetah (hinge and slide joints),
 Ant (a free root), Pusher (disk rows, empty aux) and Thrower (a free ball
 that is not body 0), and the humanoid-family budget of
@@ -30,7 +32,7 @@ HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
 PUSHER = "PusherPyBulletEnv-v0"
 THROWER = "ThrowerPyBulletEnv-v0"
 IDS = {"half_cheetah": ENV, "ant": ANT, "humanoid": HUMANOID, "humanoid_flagrun_harder": HARDER}
-B = 300  # two full blocks of 128 threads and a ragged third
+B = 300  # not a multiple of any launch's envs a block: a ragged last block
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +261,68 @@ def test_ppo_train_step_launches_the_env_kernel():
     assert env.step_fn.launches == ce.LAUNCHES["env_step_kernel"] == 4
     assert int(ts.opt_count) == 4
     assert torch.isfinite(metrics["loss"]) and es.q.is_cuda
+
+
+def _take(s, n):
+    """The first n envs of a batch-trailing state, each field contiguous."""
+    f = lambda x: x[..., :n].contiguous()  # noqa: E731
+    names = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch",
+             "env_id", "seed")
+    return s._replace(**{k: f(getattr(s, k)) for k in names},
+                      aux={k: f(x) for k, x in s.aux.items()},
+                      rewards={k: f(x) for k, x in s.rewards.items()})
+
+
+RAGGED = 4097
+
+
+@pytest.fixture(scope="module", params=[ENV, HUMANOID])
+def ragged(request):
+    """A batch of 4097 (every 3rd env due for an auto-reset), its actions
+    and torques, and the plain version's env step and physics step on it;
+    every env is independent, so the first n envs of these are the plain
+    outputs of a batch of n."""
+    _need_gpu()
+    env_id = request.param
+    task = make_task(env_id)
+    env = make_batched(env_id, RAGGED, device="cuda")
+    forced = torch.zeros(RAGGED, dtype=torch.bool, device="cuda")
+    forced[::3] = True
+    s = env.reset(seed=7)._replace(terminated=forced)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.rand((task.act_dim, RAGGED), device="cuda", generator=g) * 2 - 1
+    tau = torch.zeros((task.model.nv, RAGGED), device="cuda")
+    act = torch.as_tensor(task.act_dofs, dtype=torch.int64, device="cuda")
+    tau[act] = torch.as_tensor(task.gains, device="cuda") * a
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    return dict(env_id=env_id, task=task, env=env, s=s, a=a, tau=tau, phys=phys,
+                env_plain=env_step_plain(task, s, a), phys_plain=phys.plain(s.q, s.v, tau))
+
+
+@pytest.mark.parametrize("size", ["1", "3E+1", "4097"])
+def test_ragged_batches_match_plain(ragged, size):
+    """Both kernels at B=1, one env past 3 full blocks, and 4097"""
+    task, env, phys = ragged["task"], ragged["env"], ragged["phys"]
+    humanoid = ragged["env_id"] == HUMANOID
+    for kernel, tables in (("env_step_kernel", env.step_fn.tables),
+                           ("physics_step_kernel", phys.tables)):
+        E = ce.launch_config(tables, kernel)["E"]
+        n = {"1": 1, "3E+1": 3 * E + 1, "4097": RAGGED}[size]
+        s, a, tau = _take(ragged["s"], n), ragged["a"][:, :n].contiguous(), ragged["tau"][:, :n].contiguous()
+        if kernel == "env_step_kernel":
+            out = env.step_fn(s, a)
+            want = _take(ragged["env_plain"], n)
+            if humanoid:
+                bounds_humanoid(out, want)
+            else:
+                bounds_env(out, want, len(task.foot_rows))
+        else:
+            qk, vk, dk = phys(s.q, s.v, tau)
+            qp, vp, dp = (x[:, :n] for x in ragged["phys_plain"])
+            dq = (qk - qp).abs()
+            if humanoid:
+                assert dq.median() < 1.5e-3 and dq.mean() < 5e-3 and dq.max() < 8e-2
+            else:
+                assert dq.mean() < 3e-4 and dq.max() < 1e-2
+            assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+            assert torch.isfinite(vk).all()

@@ -148,7 +148,7 @@ def test_env_step_plain_matches_jax_kernel_body(tasks):
     sj["terminated"] = np.array([True, False, False])
     sj["epoch"] = np.array([2**32 - 1, 4, 0], np.uint32)  # epoch wraps like uint32
     sj["step_count"] = np.array([17, 999, 3], np.int32)  # env 1 truncates
-    st = env_state_from_numpy(sj)
+    st = env_state_from_numpy(sj, device="cpu")
     a = np.random.default_rng(21).uniform(-1.5, 1.5, (tt.act_dim, B)).astype(np.float32)
 
     rj0 = _jax_kernel_body(tj, sj, a, frame_skip=0)

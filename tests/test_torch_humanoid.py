@@ -165,7 +165,7 @@ def test_env_step_plain_matches_jax_kernel_body(env_id):
     sj = _adversity_state(tt, B, 21)
     a = np.random.default_rng(21).uniform(-1.5, 1.5, (tt.act_dim, B)).astype(np.float32)
     rj = _jax_kernel_body(tj, sj, a, frame_skip=0)
-    rt = env_step_plain(tt, env_state_from_numpy(sj), torch.from_numpy(a), frame_skip=0)
+    rt = env_step_plain(tt, env_state_from_numpy(sj, device="cpu"), torch.from_numpy(a), frame_skip=0)
     cube = []
     if env_id == HARDER:
         cube = list(range(tt.cube_qadr, tt.cube_qadr + 7))
@@ -200,7 +200,7 @@ def test_cube_throw_substep_matches_jax():
     sj = _adversity_state(tt, B, 21)
     a = np.random.default_rng(22).uniform(-1, 1, (tt.act_dim, B)).astype(np.float32)
     rj = _jax_kernel_body(tj, sj, a, frame_skip=1)
-    rt = env_step_plain(tt, env_state_from_numpy(sj), torch.from_numpy(a), frame_skip=1)
+    rt = env_step_plain(tt, env_state_from_numpy(sj, device="cpu"), torch.from_numpy(a), frame_skip=1)
     dq = np.abs(rj["q"] - rt.q.numpy())
     _q_bounds(dq, 1e-5)
     cq = slice(tt.cube_qadr, tt.cube_qadr + 3)
@@ -269,7 +269,7 @@ def test_termination_matches_jax_and_the_twin(env_id):
                           {k: torch.from_numpy(x) for k, x in s["aux"].items()},
                           tuple(torch.from_numpy(x.astype(np.int64)) for x in ids))
     twin = ce.HostTwin()
-    oh = twin.env_step(ce.pack_tables(tt, frame_skip=0), tt, env_state_from_numpy(s), torch.zeros((tt.act_dim, B)))
+    oh = twin.env_step(ce.pack_tables(tt, frame_skip=0), tt, env_state_from_numpy(s, device="cpu"), torch.zeros((tt.act_dim, B)))
     term = {"jax": np.asarray(oj[2]), "port": ot[2].numpy(), "twin": oh.terminated.numpy()}
     for k, x in term.items():
         np.testing.assert_array_equal(x, np.array(want, bool), err_msg=k)

@@ -27,7 +27,7 @@ def test_env_state_round_trip():
     sj = reset(jnp.full((3,), 2**32 - 1, jnp.uint32), jnp.arange(3, dtype=jnp.int32),
                jnp.full((3,), 7, jnp.uint32))
     d = env_state_to_numpy(sj)
-    st = env_state_from_numpy(d)
+    st = env_state_from_numpy(d, device="cpu")
     assert st.seed.dtype == torch.uint32 and st.epoch.dtype == torch.uint32
     assert st.step_count.dtype == torch.int32 and st.terminated.dtype == torch.bool
     back = env_state_to_numpy(st)

@@ -58,7 +58,7 @@ def _state(env_id, task, B):
     if "hit" in s["aux"]:
         ball = next(b.q_adr for b in task.model.bodies if b.jtype == JointType.FREE)
         s["q"][ball + 2, 1] = -0.5
-    return env_state_from_numpy(s)
+    return env_state_from_numpy(s, device="cpu")
 
 
 @pytest.mark.parametrize("env_id", KINDS)

@@ -50,7 +50,7 @@ def test_env_step_plain_matches_jax_kernel_body(env_id):
     """(b)"""
     tj, tt = pg.make_task(env_id), make_task(env_id)
     sj = env_step_state(tt)
-    st = env_state_from_numpy(sj)
+    st = env_state_from_numpy(sj, device="cpu")
     a = np.random.default_rng(21).uniform(-1.5, 1.5, (tt.act_dim, 3)).astype(np.float32)
     for fs in (0, 1):
         rj = _jax_kernel_body(tj, sj, a, frame_skip=fs)

@@ -151,7 +151,7 @@ def test_train_step_matches_jax():
                     for k in jax.random.split(k_roll, cfg_j.rollout_length)])
 
     tst, _ = train_state_from_npz(TRAINSTATE, device="cpu")
-    est = env_state_from_numpy(env_state_to_numpy(esj))
+    est = env_state_from_numpy(env_state_to_numpy(esj), device="cpu")
     step_t = ppo_t.make_train_step(make_task(ENV), cfg_t)  # CPU tensors: the plain env step
     tst2, est2, mt = step_t(tst, est, eps=torch.from_numpy(eps))
 
