@@ -12,21 +12,31 @@ memory the first launches reserve, and, for HalfCheetah
 self-collision pairs, nv=23), HumanoidFlagrunHarder (75 pairs, a second
 free joint: the cube, nv=29), and the fixed-base family: Reacher (no
 contact rows, no gravity), Pusher (disk rows), Striker, Thrower (a free
-ball) and the two pendula:
+ball), the two pendula, and the eight Gym-MuJoCo mirrors (`*MuJoCoEnv-v0`:
+Hopper, Walker2D, HalfCheetah, Ant, Humanoid, Reacher, InvertedPendulum,
+InvertedDoublePendulum):
   * holds both kernels against their plain PyTorch versions on the card at
     B=4096 (forced resets, reset draws bitwise, bitwise repeatable
     launches; the quaternion stays a unit one), FlagrunHarder's cube
     throw, the physics kernel on HalfCheetah with a cylinder thigh (the
     disk rows' regular branch, which no shipped model reaches), and both
-    kernels at ragged batches (B=1, 3E+1, 4097) on HalfCheetah and Humanoid;
-  * replays the CPU golden rollouts (four walkers, Reacher, the pendula)
-    and the TPU-recorded ones (the humanoid family, the arms);
+    kernels at ragged batches (B=1, 3E+1, 4097) on HalfCheetah, Humanoid and
+    HumanoidMuJoCo; ReacherMuJoCo's disk-drawn target is held to 1 ulp and
+    whether it is bitwise is printed;
+  * replays the CPU golden rollouts (four walkers, Reacher, the pendula, 7
+    MuJoCo mirrors) and the TPU-recorded ones (the humanoid family, the
+    arms, HumanoidMuJoCo);
   * drives each main path with the launch counts reset just before it and
-    read just after: the shipped policy on `BatchedEnv` (17 of them, one
+    read just after: the shipped policy on `BatchedEnv` (25 of them, one
     per ported env ID) followed, for the models held to the plain version,
-    by the physics entry point, and the PPO trainer (`parallel.ppo.train`)
-    on Ant at B=4096 resumed from the JAX checkpoint, whose rollout
-    launches the env-step kernel 32 times a train step;
+    by the physics entry point; the PPO trainer (`parallel.ppo.train`) on
+    Ant at B=4096 resumed from the JAX checkpoint, whose rollout launches
+    the env-step kernel 32 times a train step; and the SAC learner
+    (`parallel.sac`) on HopperMuJoCo at B=4096 resumed from the shipped
+    learner, `SACConfig` defaults, through its warm-up and 3 learning
+    iterations (4 env-kernel launches each), then one under torch.profiler,
+    and held on 64 envs to the same iteration on the CPU (plain env step,
+    same draws);
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -40,6 +50,7 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -63,17 +74,24 @@ SWINGUP = "InvertedPendulumSwingupPyBulletEnv-v0"
 DOUBLE = "InvertedDoublePendulumPyBulletEnv-v0"
 FIXED = (REACHER, PUSHER, STRIKER, THROWER, PENDULUM, DOUBLE)  # held to plain, timed
 MIRRORS = ("PusherMuJoCoEnv-v0", "StrikerMuJoCoEnv-v0", "ThrowerMuJoCoEnv-v0")
+MJ_HOPPER = "HopperMuJoCoEnv-v0"
+MJ_HUMANOID = "HumanoidMuJoCoEnv-v0"
+MJ = (MJ_HOPPER, "Walker2DMuJoCoEnv-v0", "HalfCheetahMuJoCoEnv-v0", "AntMuJoCoEnv-v0",
+      MJ_HUMANOID, "ReacherMuJoCoEnv-v0", "InvertedPendulumMuJoCoEnv-v0",
+      "InvertedDoublePendulumMuJoCoEnv-v0")  # the Gym-MuJoCo mirrors, all held to plain
 SOURCE = "pybulletgym_tpu_torch/csrc/engine.cu"
 REPLACES = {
     "physics_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:48",
     "env_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:123",
 }
-# shipped-policy floors, tests/test_frozen_policy.py:29-43, :64-69 and :73-75
+# shipped-policy floors, tests/test_frozen_policy.py:29-43 and :44-77
 POLICY_FLOOR = {CHEETAH: 3000.0, ANT: 2000.0, HOPPER: 2000.0, WALKER: 750.0,
                 HUMANOID: 220.0, FLAGRUN: 140.0, HARDER: 100.0,
                 PENDULUM: 950.0, DOUBLE: 9100.0, SWINGUP: 800.0, REACHER: 18.0,
                 PUSHER: -80.0, STRIKER: -300.0, THROWER: -80.0,
-                MIRRORS[0]: -60.0, MIRRORS[1]: -300.0, MIRRORS[2]: -80.0}
+                MIRRORS[0]: -60.0, MIRRORS[1]: -300.0, MIRRORS[2]: -80.0,
+                MJ[0]: 1000.0, MJ[1]: 900.0, MJ[2]: 1100.0, MJ[3]: 1700.0, MJ[4]: 430.0,
+                MJ[5]: -14.0, MJ[6]: 950.0, MJ[7]: 9100.0}
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -204,7 +222,7 @@ def main():
 
     # ---- each model's launch configuration at B=4096 -------------------------
     configs = {}
-    for env_id in (CHEETAH, ANT, HUMANOID, HARDER) + FIXED:
+    for env_id in (CHEETAH, ANT, HUMANOID, HARDER) + FIXED + MJ:
         task = make_task(env_id)
         tabs = {"env_step_kernel": ce.pack_tables(task),
                 "physics_step_kernel": ce.pack_physics(task.model, task.physics)}
@@ -457,9 +475,17 @@ def main():
                 again = step_k(sk, a)
                 reset_k = ce.make_cuda_env_step(task, frame_skip=0)(sk, a)
                 reset_p = env_step_plain(task, sk, a, frame_skip=0)
-                require(torch.equal(reset_k.q[:, forced], reset_p.q[:, forced])
+                # ReacherMuJoCo's target, r cos and r sin of a disk draw: 1 ulp
+                disk = [task.tx, task.ty] if hasattr(task, "tx") else []
+                rest = [j for j in range(task.model.nq) if j not in disk]
+                require(torch.equal(reset_k.q[rest][:, forced], reset_p.q[rest][:, forced])
                         and torch.equal(reset_k.v[:, forced], reset_p.v[:, forced]),
                         f"{env_id} reset q, v differ from the plain version")
+                if disk:
+                    qk_, qp_ = reset_k.q[disk][:, forced], reset_p.q[disk][:, forced]
+                    target_ulps = (qk_.view(torch.int32).long() - qp_.view(torch.int32).long()
+                                   ).abs().max().item()
+                    require(target_ulps <= 1, f"{env_id} reset target {target_ulps} ulp apart")
                 # the aux that the output hook leaves after a reset is computed
                 # from the pose (distances, the strike and hit flags), not
                 # drawn: the flags exact, the distances to float32 round-off
@@ -492,7 +518,11 @@ def main():
             require(rec["term_flip_rate"] < 0.01, f"{env_id} env kernel termination disagrees")
             for name in ("epoch", "step_count", "truncated"):
                 require(torch.equal(getattr(sk, name), getattr(sp, name)), f"{name} differs")
-        emit("reset_and_repeat", env=env_id, reset_qv_bitwise=True, repeat_bitwise=True)
+        rec = dict(reset_qv_bitwise=True, repeat_bitwise=True)
+        if disk:
+            rec.update(reset_qv_bitwise="all but the disk target", target_max_ulps=target_ulps,
+                       target_bitwise=target_ulps == 0)
+        emit("reset_and_repeat", env=env_id, **rec)
         return dict(task=task, env=env, s0=s0, tau=tau, phys=phys, phys_err=phys_err,
                     env_err=env_err, plain_ms={"physics_step_kernel": plain_phys_ms,
                                                "env_step_kernel": plain_env_ms})
@@ -603,10 +633,14 @@ def main():
 
     # ---- golden rollouts through the env kernel ------------------------------
     def golden(env_id, tpu=False):
-        """The CPU goldens, or the humanoid family's TPU-recorded ones: the
-        TPU's float32 products round otherwise and the stiff rest-pose
-        pair overlaps amplify that from the first step, so those are held
-        to median |dobs| < 1e-2 at step 5 (as tests/test_torch_humanoid_twin.py)."""
+        """The CPU goldens, or the TPU-recorded ones: the TPU's XLA path
+        takes its products in bf16 (tools/bf16_probe.py) and the stiff
+        rest-pose pair overlaps amplify that from the first step, so those
+        are held to median |dobs| < 1e-2 at step 5 (as
+        tests/test_torch_humanoid_twin.py). AntMuJoCo's and
+        HumanoidMuJoCo's medians over all their obs are their zero blocks',
+        so the entries the tasks compute are held too: to the CPU budget,
+        and HumanoidMuJoCo's to 3e-2 (tests/test_torch_mujoco_family_twin.py)."""
         task = make_task(env_id)
         g = np.load(os.path.join(HERE, "tests", "goldens",
                                  f"{env_id}.npz" if tpu else f"{env_id}.cpu.npz"))
@@ -614,17 +648,23 @@ def main():
         genv = make_batched(env_id, Bg)
         s = genv.reset(seed=seed)
         acts = np.random.default_rng(seed).uniform(-1, 1, (n_steps, Bg, task.act_dim)).astype(np.float32)
-        meds = []
+        live = task.obs_dim - getattr(task, "n_zero", 0)  # HumanoidMuJoCo: 45 of 376
+        meds, live_meds = [], []
         for t in range(n_steps):
             s = genv.step(s, acts[t])
             d = np.abs(s.obs.cpu().numpy() - g["obs"][t])
             meds.append(float(np.median(d)))
+            live_meds.append(float(np.median(d[:live])))
             require(np.array_equal(s.terminated.cpu().numpy(), g["terminated"][t]),
                     f"{env_id} golden termination differs at step {t}")
         emit("golden", env=env_id, recorded_on="tpu" if tpu else "cpu",
-             median_dobs_step5=meds[4], median_dobs_step20=meds[-1])
+             median_dobs_step5=meds[4], median_dobs_step20=meds[-1],
+             computed_obs=live, computed_median_dobs_step5=live_meds[4],
+             computed_median_dobs_step20=live_meds[-1])
         require(meds[4] < (1e-2 if tpu else 1e-3) and meds[-1] < 3e-2,
                 f"{env_id} golden rollout drifted")
+        require(live_meds[4] < (3e-2 if tpu else 1e-3) and live_meds[-1] < 3e-2,
+                f"{env_id} golden rollout's computed obs drifted")
         require(genv.step_fn.launches == n_steps, "golden replay did not use the env kernel")
 
     # ---- main path: a shipped policy on BatchedEnv, then the physics entry ----
@@ -697,11 +737,24 @@ def main():
 
         # where one more train step's time goes, by kernel (torch.profiler)
         step = ppo.make_train_step(make_task(ANT), cfg)
+        wall_ms, dev_us = profile_ms(lambda: step(ts, es))
+        busy_ms = sum(dev_us.values()) / 1e3
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        emit("ppo_profile", env=ANT, B=B, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_busy_share=busy_ms / wall_ms, card=card,
+             env_kernel_ms=sum(us for k, us in dev_us.items() if "env_step_kernel" in k) / 1e3,
+             top=[(k[:80], us / 1e3) for k, us in top])
+        return launches
+
+    # ---- main path: the SAC learner on HopperMuJoCo, B=4096 -------------------
+    def profile_ms(fn):
+        """Wall ms of fn() and the device time it gave each kernel
+        (torch.profiler): (wall ms, {kernel name: device us})."""
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            step(ts, es)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         dev_us = {}
@@ -710,13 +763,97 @@ def main():
             us = e.self_cuda_time_total if us is None else us
             if us > 0:
                 dev_us[e.key] = us
+        return wall_ms, dev_us
+
+    def sac_learner():
+        """SACConfig defaults, resumed from the shipped learner with an empty
+        ring: the collect-only iterations (the ring below warmup_steps after
+        their collect), then 3 iterations that learn, timed; then one more
+        under torch.profiler."""
+        from pybulletgym_tpu_torch.parallel import sac
+        from pybulletgym_tpu_torch.utils.interop import sac_state_from_npz
+
+        cfg = sac.SACConfig()
+        path = os.path.join(HERE, "examples", "weights", f"{MJ_HOPPER}.saclearner.npz")
+        senv = make_batched(MJ_HOPPER, B)
+        ss = sac_state_from_npz(path, B, cfg)
+        count0 = int(ss.opt_critic[2])
+        iterate = sac.make_sac_iteration(senv.task, cfg, step_fn=senv.step_fn)
+        n_warm = -(-cfg.warmup_steps // cfg.steps_per_iter) - 1
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        es = senv.reset(seed=0)
+        stamps, counts, metrics = [time.perf_counter()], [0], []
+        for _ in range(n_warm + 3):
+            ss, es, m = iterate(ss, es)
+            metrics.append({k: float(x) for k, x in m.items()})  # synchronises
+            stamps.append(time.perf_counter())
+            counts.append(ce.LAUNCHES["env_step_kernel"])
+        launches = dict(ce.LAUNCHES)
+        ms = np.diff(stamps) * 1e3
+        learn_ms = ms[n_warm:].tolist()
+        steady = float(np.mean(learn_ms[1:]))
+        wall_ms, dev_us = profile_ms(lambda: iterate(ss, es))
         busy_ms = sum(dev_us.values()) / 1e3
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        emit("ppo_profile", env=ANT, B=B, wall_ms=wall_ms, device_busy_ms=busy_ms,
-             device_busy_share=busy_ms / wall_ms, card=card,
-             env_kernel_ms=sum(us for k, us in dev_us.items() if "env_step_kernel" in k) / 1e3,
-             top=[(k[:80], us / 1e3) for k, us in top])
+        env_us = sum(us for k, us in dev_us.items() if "env_step_kernel" in k)
+        rec = dict(env=MJ_HOPPER, B=B, config=dataclasses.asdict(cfg), warmup_iterations=n_warm,
+                   learning_iterations=3, launches=launches, launch_counts=counts,
+                   ms_per_iteration=ms.tolist(), learning_ms_per_iteration=learn_ms,
+                   steady_ms_per_iteration=steady,
+                   trained_env_steps_per_s=B * cfg.steps_per_iter * 1e3 / steady,
+                   opt_count=int(ss.opt_critic[2]), metrics=metrics[n_warm:], card=card)
+        emit("sac_train", **rec)
+        emit("sac_profile", env=MJ_HOPPER, B=B, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_busy_share=busy_ms / wall_ms, env_kernel_ms=env_us / 1e3,
+             env_kernel_share_of_device=env_us / 1e3 / busy_ms, card=card,
+             top=[(k[:80], us / 1e3) for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]])
+        require(all(np.diff(counts) == cfg.steps_per_iter),
+                f"env_step_kernel launches did not rise by {cfg.steps_per_iter} an iteration: {counts}")
+        require(launches["env_step_kernel"] == (n_warm + 3) * cfg.steps_per_iter, f"{launches}")
+        require(int(ss.opt_critic[2]) == int(ss.opt_actor[2]) == count0 + 3 * cfg.updates_per_iter,
+                "the learner did not take updates_per_iter updates a learning iteration")
+        require(ss.buf_ptr == (n_warm + 3) * cfg.steps_per_iter and es.q.is_cuda, "SAC ring")
+        for m in metrics:
+            require(all(np.isfinite(list(m.values()))), f"non-finite SAC metrics {m}")
+        require(all(m["critic_loss"] > 0.0 for m in metrics[n_warm:]), "no SAC update ran")
         return launches
+
+    def sac_vs_cpu():
+        """One learning iteration on 64 envs from the shipped learner, on the
+        card (the env kernel) and on the CPU (the plain env step), fed the
+        same draws: losses and alpha rtol 1e-3, the actor's weights atol 1e-4
+        (the env kernel and the plain version round apart)."""
+        from pybulletgym_tpu_torch.parallel import sac
+        from pybulletgym_tpu_torch.utils.interop import sac_state_from_npz
+
+        Bs = 64
+        cfg = sac.SACConfig(steps_per_iter=2, updates_per_iter=2, batch_size=128, warmup_steps=0)
+        path = os.path.join(HERE, "examples", "weights", f"{MJ_HOPPER}.saclearner.npz")
+        rng = np.random.default_rng(9)
+        act = make_task(MJ_HOPPER).act_dim
+        draws = {"pi_eps": rng.normal(size=(2, Bs, act)), "a_rand": rng.uniform(-1, 1, (2, Bs, act)),
+                 "slots": rng.integers(0, 2, (2, 128)), "envs": rng.integers(0, Bs, (2, 128)),
+                 "next_eps": rng.normal(size=(2, 128, act)),
+                 "pi_eps_upd": rng.normal(size=(2, 128, act))}
+        out = {}
+        for device in ("cuda", "cpu"):
+            senv = make_batched(MJ_HOPPER, Bs, device=device)
+            ss = sac_state_from_npz(path, Bs, cfg, device=device)
+            d = {k: torch.as_tensor(x, dtype=torch.int64 if k in ("slots", "envs") else torch.float32,
+                                    device=device) for k, x in draws.items()}
+            iterate = sac.make_sac_iteration(senv.task, cfg, step_fn=senv.step_fn)
+            ss, es, m = iterate(ss, senv.reset(seed=3), draws=d)
+            out[device] = (ss, {k: float(x) for k, x in m.items()})
+            if device == "cuda":
+                require(senv.step_fn.launches == cfg.steps_per_iter, "SAC on 64 envs: launches")
+        (sk, mk), (sp, mp) = out["cuda"], out["cpu"]
+        dw = max((a.cpu() - b).abs().max().item()
+                 for a, b in zip(sk.actor.leaves(), sp.actor.leaves()))
+        rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mk}
+        emit("sac_vs_cpu", env=MJ_HOPPER, B=Bs, metrics_card=mk, metrics_cpu=mp, rel_diff=rel,
+             max_actor_dw=dw)
+        require(all(r < 1e-3 for r in rel.values()) and dw < 1e-4,
+                "the SAC iteration on the card differs from the CPU's")
 
     # ---- env-steps/s of BatchedEnv.step -------------------------------------
     def throughput(env_id, Bt, steps=200):
@@ -814,6 +951,18 @@ def main():
         main_fixed[env_id] = policy_path(
             env_id, None if p is None else (p["phys"], p["s0"].q, p["s0"].v, p["tau"]))
 
+    # the Gym-MuJoCo mirrors: both kernels, HumanoidMuJoCo's ragged batches,
+    # goldens (HumanoidMuJoCo's recorded on a TPU only), the eight policies,
+    # and the SAC learner on HopperMuJoCo
+    mj = {env_id: parity_fixed(env_id) for env_id in MJ}
+    ragged(MJ_HUMANOID)
+    for env_id in MJ:
+        golden(env_id, tpu=env_id == MJ_HUMANOID)
+    main_mj = {env_id: policy_path(env_id, (p["phys"], p["s0"].q, p["s0"].v, p["tau"]))
+               for env_id, p in mj.items()}
+    sac_vs_cpu()
+    main_s = sac_learner()
+
     # the local memory that the first launch of each kernel on each model
     # took outside torch's allocator (free memory before and after)
     emit("local_memory", first_launches=lmem_log,
@@ -824,12 +973,14 @@ def main():
     throughput(HARDER, 16384)
     t_fixed = {env_id: times(env_id, p) for env_id, p in fixed.items()}
     throughput(PUSHER, 16384)
+    t_mj = {env_id: times(env_id, p) for env_id, p in mj.items()}
     launches = {"env_step_kernel": main_t["env_step_kernel"],
                 "physics_step_kernel": main_a["physics_step_kernel"]}
     err_key = {"env_step_kernel": "env_err", "physics_step_kernel": "phys_err"}
     runs = {CHEETAH: (pc, t_c, main_c), ANT: (pa, t_a, main_a), HUMANOID: (ph, t_h, main_h),
             HARDER: (pf, t_f, main_f)}
     runs.update({env_id: (p, t_fixed[env_id], main_fixed[env_id]) for env_id, p in fixed.items()})
+    runs.update({env_id: (p, t_mj[env_id], main_mj[env_id]) for env_id, p in mj.items()})
     errs = {k: max(p[e] for p, _, _ in runs.values()) for k, e in err_key.items()}
     errs["physics_step_kernel"] = max(errs["physics_step_kernel"], disk_err)
     kernels = []
@@ -843,10 +994,10 @@ def main():
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": None, "B": B, "timed_on": ANT,
-            "models": [CHEETAH, ANT, HUMANOID, HARDER] + list(FIXED) + (
+            "models": [CHEETAH, ANT, HUMANOID, HARDER] + list(FIXED) + list(MJ) + (
                 [HOPPER, WALKER, FLAGRUN, SWINGUP] + list(MIRRORS)
                 if name == "env_step_kernel" else ["HalfCheetah, bthigh a cylinder"]),
-            "per_model": per_model,
+            "per_model": per_model, "sac_launches": main_s[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

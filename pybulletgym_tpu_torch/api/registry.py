@@ -5,8 +5,12 @@ Ported so far: the MJCF walkers (Hopper, Walker2D, HalfCheetah, Ant), the
 humanoid family (Humanoid, HumanoidFlagrun, HumanoidFlagrunHarder), the
 pendula (InvertedPendulum, its swing-up, InvertedDoublePendulum) and the
 manipulators (Reacher, Pusher, Striker, Thrower, and the MuJoCo mirrors of
-the last three, which reuse the same tasks at Gym's 100-step horizon); any
-other ID raises `KeyError` listing the known ones.
+the last three, which reuse the same tasks at Gym's 100-step horizon), and
+the Gym-MuJoCo mirror family (`envs/mujoco_family.py`: Hopper, Walker2D,
+HalfCheetah, Ant, Humanoid, Reacher, InvertedPendulum and
+InvertedDoublePendulum `*MuJoCoEnv-v0`): 25 IDs. Any other ID (Atlas)
+raises `KeyError` listing the known ones. The registry's horizon overrides
+the task's own (ReacherMuJoCoEnv-v0: 150 steps).
 Nothing is registered with gymnasium (the JAX package registers the same
 IDs for itself on import).
 """
@@ -44,6 +48,10 @@ def _task(class_name: str, module: str = "locomotion", **kw) -> Callable:
     return factory
 
 
+def _mj(class_name: str) -> Callable:
+    return _task(class_name, "mujoco_family")
+
+
 registry: Dict[str, EnvSpec] = {
     s.id: s for s in (
         EnvSpec("HopperPyBulletEnv-v0", _walker("HOPPER"), 1000, 2500.0),
@@ -67,6 +75,15 @@ registry: Dict[str, EnvSpec] = {
         EnvSpec("PusherMuJoCoEnv-v0", _task("PusherTask", "manipulation"), 100, 0.0),
         EnvSpec("StrikerMuJoCoEnv-v0", _task("StrikerTask", "manipulation"), 100, 0.0),
         EnvSpec("ThrowerMuJoCoEnv-v0", _task("ThrowerTask", "manipulation"), 100, 0.0),
+        EnvSpec("InvertedPendulumMuJoCoEnv-v0", _mj("InvertedPendulumMuJoCoTask"), 1000, 950.0),
+        EnvSpec("InvertedDoublePendulumMuJoCoEnv-v0", _mj("InvertedDoublePendulumMuJoCoTask"),
+                1000, 9100.0),
+        EnvSpec("HopperMuJoCoEnv-v0", _mj("HopperMuJoCoTask"), 1000, 3800.0),
+        EnvSpec("Walker2DMuJoCoEnv-v0", _mj("Walker2DMuJoCoTask"), 1000, None),
+        EnvSpec("HalfCheetahMuJoCoEnv-v0", _mj("HalfCheetahMuJoCoTask"), 1000, 4800.0),
+        EnvSpec("AntMuJoCoEnv-v0", _mj("AntMuJoCoTask"), 1000, 6000.0),
+        EnvSpec("ReacherMuJoCoEnv-v0", _mj("ReacherMuJoCoTask"), 150, 18.0),
+        EnvSpec("HumanoidMuJoCoEnv-v0", _mj("HumanoidMuJoCoTask"), 1000, None),
     )
 }
 

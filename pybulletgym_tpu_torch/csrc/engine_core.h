@@ -20,9 +20,10 @@
 // (self-collision), joint limits, models with no contact rows and any
 // gravity; the tasks: the walker with the "cheetah", "hopper", "ant" and
 // "humanoid" alive modes, Flagrun's flags and FlagrunHarder's lying reset,
-// cube throw and get-up machine, Reacher, Pusher, Striker, Thrower and the
-// two pendula. pack_tables refuses anything else (other pre-physics hooks,
-// other tasks, models over the caps).
+// cube throw and get-up machine, Reacher, Pusher, Striker, Thrower, the
+// two pendula, and the Gym-MuJoCo mirrors (the five walkers, Reacher and the
+// two pendula of mujoco_family.py). pack_tables refuses anything else (other
+// pre-physics hooks, other tasks, models over the caps).
 //
 // Lane groups. A group of G lanes (G a power of two, at most 32, a template
 // parameter) steps one env. Code outside EACH_LANE is uniform: on the card
@@ -49,6 +50,17 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+// ENG_BF16_PROBE (host twin only; off by default): round to bf16 the
+// operands of the products that the JAX package's XLA path takes as
+// precision-less einsums, which a TPU feeds bf16 operands (dynamics.py:310,
+// :327; contacts.py:596, :660-661): the bias and CRBA dots (sv_dot), the
+// contact Jacobian's entries (jd) and the PGS set-up's dots (dotn).
+// tools/bf16_probe.py builds the twin with it; the card's libraries never.
+#if defined(ENG_BF16_PROBE) && defined(__CUDACC__)
+#error "ENG_BF16_PROBE is a host-twin probe; the CUDA libraries are never built with it"
+#endif
 
 #ifdef __CUDACC__
 #define ENG_HD __host__ __device__ __forceinline__
@@ -85,7 +97,7 @@ constexpr int MAX_FEET = 8;
 constexpr int MAX_PARTS = 16;
 constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
 constexpr int MAX_COMP = 5;       // reward components, in sorted key order
-constexpr int MAX_DRAWS = 20;     // reset draws into q, and into v
+constexpr int MAX_DRAWS = 34;     // reset draws into q (up to MAX_NQ), and into v
 constexpr int MAX_SLOTS = 40;     // entries of Tables::sc
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
                                   // v: body-frame angular, then linear
@@ -104,6 +116,15 @@ constexpr int TASK_STRIKER = 5;
 constexpr int TASK_THROWER = 6;
 constexpr int TASK_PENDULUM = 7;  // with or without the swing-up
 constexpr int TASK_DOUBLE_PENDULUM = 8;
+constexpr int TASK_MJ_WALKER = 9;  // mujoco_family.py: Hopper ... Humanoid
+constexpr int TASK_MJ_REACHER = 10;
+constexpr int TASK_MJ_PENDULUM = 11;
+constexpr int TASK_MJ_DOUBLE_PENDULUM = 12;
+constexpr int MJ_DONE_NEVER = 0;  // the MuJoCo walkers' done rule (mj_done)
+constexpr int MJ_DONE_HOPPER = 1;
+constexpr int MJ_DONE_WALKER = 2;
+constexpr int MJ_DONE_ANT = 3;
+constexpr int MJ_DONE_HUMANOID = 4;
 
 // The per-env scratch arrays, in layout order; ops/cuda_engine.py ·
 // scratch_layout sizes each from the model and parses this list.
@@ -142,6 +163,8 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   S(int32_t, nfeet)                                                           \
   S(int32_t, nparts)                                                          \
   S(int32_t, obs_dim)                                                         \
+  S(int32_t, obs_live) /* obs entries the task writes; the rest repeat the  \
+                          value it leaves in obs[obs_live] (zero blocks) */ \
   S(int32_t, max_steps)                                                       \
   S(int32_t, base_body)                                                       \
   S(int32_t, alive_mode)                                                      \
@@ -220,9 +243,9 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   A(float, part_pos, MAX_PARTS * 3)                                           \
   A(int32_t, row_foot, MAX_ROWS) /* the foot whose geom row r is, or -1 */    \
   /* other joints a task reads (q address, dof): Reacher's target x, y;     \
-     a pendulum's hinges */                                                  \
-  A(int32_t, jq, 2)                                                           \
-  A(int32_t, jv, 2)                                                           \
+     a pendulum's hinges; the MuJoCo Reacher's joints, then target x, y */   \
+  A(int32_t, jq, 4)                                                           \
+  A(int32_t, jv, 4)                                                           \
   S(int32_t, swingup)                                                         \
   /* reset: q = qpos0 (the task's fixed entries included), then draws      \
      q[adr] = base + U[lo, lo + span) and v[dof] = U[vlo, vlo + vspan) */    \
@@ -245,6 +268,13 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   A(float, push_span, 2)                                                      \
   A(float, push_centre, 2)                                                    \
   A(float, push_base, 2)                                                      \
+  /* the MuJoCo Reacher's target: r = disk_r sqrt(U[0, 1)) on stream        \
+     disk_streams[0], angle U[lo, lo + span) on disk_streams[1], into jq[2], \
+     jq[3] as r cos, r sin */                                                \
+  A(int32_t, disk_streams, 2)                                                 \
+  S(float, disk_r)                                                            \
+  S(float, disk_ang_lo)                                                       \
+  S(float, disk_ang_span)                                                     \
   /* aux: the slot of each key in sorted key order, -1 where absent */        \
   S(int32_t, naux)                                                            \
   S(int32_t, ax_flag_count)                                                   \
@@ -263,14 +293,17 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   S(int32_t, ax_striked)                                                      \
   S(int32_t, ax_target_x)                                                     \
   S(int32_t, ax_target_y)                                                     \
+  S(int32_t, ax_x)                                                            \
   /* reward components: likewise */                                           \
   S(int32_t, ncomp)                                                           \
   S(int32_t, cp_alive)                                                        \
   S(int32_t, cp_ctrl)                                                         \
+  S(int32_t, cp_ctrl_cost)                                                    \
   S(int32_t, cp_dist)                                                         \
   S(int32_t, cp_dist_penalty)                                                 \
   S(int32_t, cp_electricity)                                                  \
   S(int32_t, cp_feet_collision)                                               \
+  S(int32_t, cp_forward)                                                      \
   S(int32_t, cp_joints_at_limit)                                              \
   S(int32_t, cp_near)                                                         \
   S(int32_t, cp_progress)                                                     \
@@ -311,7 +344,16 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   S(float, speed_span)                                                        \
   S(float, jitter_lo)                                                         \
   S(float, jitter_span)                                                       \
-  S(float, ground_limit)
+  S(float, ground_limit)                                                      \
+  /* the MuJoCo walkers: reward = (alive + fwd vx) - ctrl sum(a^2); obs    \
+     [q[2:], MuJoCo's qvel] (mj_free) or [q[1:], clip(v, +-10) if          \
+     mj_clip_qvel]; done by mj_done */                                        \
+  S(int32_t, mj_free)                                                         \
+  S(int32_t, mj_clip_qvel)                                                    \
+  S(int32_t, mj_done)                                                         \
+  S(float, mj_alive)                                                          \
+  S(float, mj_fwd)                                                            \
+  S(float, mj_ctrl)
 
 #define ENG_DECL_S(T, name) T name;
 #define ENG_DECL_A(T, name, n) T name[n];
@@ -552,6 +594,24 @@ ENG_HD SV inertia_mul(const Inertia& I, const SV& v) {
           v3_sub(v3_scale(v.lin, I.m), v3_cross(I.h, v.ang))};
   return r;
 }
+
+// A product operand as the probe sees it: x rounded to bf16 (to nearest,
+// ties to even) under ENG_BF16_PROBE, else x.
+ENG_HD float mm_operand(float x) {
+#ifdef ENG_BF16_PROBE
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  memcpy(&x, &u, 4);
+#endif
+  return x;
+}
+ENG_HD SV mm_operand(const SV& a) {
+  SV r = {v3(mm_operand(a.ang.x), mm_operand(a.ang.y), mm_operand(a.ang.z)),
+          v3(mm_operand(a.lin.x), mm_operand(a.lin.y), mm_operand(a.lin.z))};
+  return r;
+}
+ENG_HD V3 mm_operand(V3 a) { return v3(mm_operand(a.x), mm_operand(a.y), mm_operand(a.z)); }
 
 // ---- Cephes atan/atan2, exactly as ops/smath.py ----------------------------
 
@@ -807,7 +867,8 @@ ENG_HD void bias_forces(const Tables& t, const FK& fk, const Inertia* inert, SV*
   }
   for (int i = t.nb - 1; i >= 0; --i)
     if (t.parent[i] >= 0) f[t.parent[i]] = sv_add(f[t.parent[i]], f[i]);
-  for (int d = 0; d < t.nv; ++d) Cq[d] = sv_dot(fk.S[d], f[t.dof_body[d]]);
+  for (int d = 0; d < t.nv; ++d)
+    Cq[d] = sv_dot(mm_operand(fk.S[d]), mm_operand(f[t.dof_body[d]]));
 }
 
 // CRBA's composite inertias, summed leafwise in place (dynamics.py ·
@@ -830,7 +891,7 @@ ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, in
   I.m = t.cmass[i];
   const SV F = inertia_mul(I, fk.S[d]);
   for (int e = 0; e <= d; ++e)
-    Md[e] = (t.anc_mask[i] & (1u << e)) ? sv_dot(fk.S[e], F) : 0.f;
+    Md[e] = (t.anc_mask[i] & (1u << e)) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
   if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
 }
 
@@ -882,10 +943,11 @@ ENG_HD void chol_back(int n, const float* L, int ldm, const float* inv_diag, con
   }
 }
 
+// sum of a[d] * b[d] in dof order (the probe's operands)
 ENG_HD float dotn(int n, const float* a, const float* b) {
   float s = 0.f;
   ENG_UNROLL4
-  for (int d = 0; d < n; ++d) s = s + a[d] * b[d];
+  for (int d = 0; d < n; ++d) s = s + mm_operand(a[d]) * mm_operand(b[d]);
   return s;
 }
 
@@ -1084,7 +1146,7 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
           if ((plus | minus) & bit) {
             const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
             for (int k = 0; k < 3; ++k) {
-              const float jd = v3_dot(dirs[k], vel);
+              const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
               yr[k * ld + d] = (minus & bit) ? -jd : jd;
             }
           } else {
@@ -1350,6 +1412,14 @@ ENG_HD void initial_state(const Tables& t, const FK& fk, uint32_t seed, uint32_t
   }
   if (t.task_kind == TASK_PUSHER || t.task_kind == TASK_STRIKER)
     push_out_draw(t, seed, env_id, epoch, q);
+  if (t.task_kind == TASK_MJ_REACHER) {  // the target, uniform in a disk
+    const float u = uniform(seed, (uint32_t)t.disk_streams[0], env_id, epoch, 0.f, 1.f);
+    const float ang = uniform(seed, (uint32_t)t.disk_streams[1], env_id, epoch, t.disk_ang_lo,
+                              t.disk_ang_span);
+    const float r = mul_rn(t.disk_r, sqrtf(u));
+    q[t.jq[2]] = mul_rn(r, cosf(ang));
+    q[t.jq[3]] = mul_rn(r, sinf(ang));
+  }
   for (int d = 0; d < t.nv; ++d) v[d] = 0.f;
   for (int k = 0; k < t.nvdraw; ++k)
     v[t.vdraw_dof[k]] = uniform(seed, (uint32_t)t.vdraw_stream[k], env_id, epoch, t.vdraw_lo,
@@ -1365,6 +1435,8 @@ ENG_HD void initial_state(const Tables& t, const FK& fk, uint32_t seed, uint32_t
     aux[t.ax_striked] = aux[t.ax_strike_x] = aux[t.ax_strike_y] = aux[t.ax_strike_z] = 0.f;
   } else if (t.task_kind == TASK_THROWER) {
     aux[t.ax_hit] = aux[t.ax_hit_x] = aux[t.ax_hit_y] = 0.f;
+  } else if (t.task_kind == TASK_MJ_WALKER) {
+    aux[t.ax_x] = q[0];
   }
 }
 
@@ -1684,6 +1756,123 @@ ENG_HD void pendulum_output(const Tables& t, const FK& fk, const float* q, const
   comps[t.cp_vel_penalty] = -vel_penalty;
 }
 
+// ---- mujoco_family.py · the Gym-MuJoCo mirrors --------------------------------
+
+ENG_HD float sum_sq(int n, const float* a) {  // Python's sum(x * x for x in a)
+  float s = 0.f;
+  for (int k = 0; k < n; ++k) s = s + a[k] * a[k];
+  return s;
+}
+
+// Hopper, Walker2D, HalfCheetah (planar root: rootx, rootz, rooty) and Ant,
+// Humanoid (a free root): vx is the root x's position difference over the
+// control step, divided (not multiplied by a reciprocal) as the plain
+// version does. The free roots' zero blocks are not written here: obs[o]
+// holds their value, 0 * x, which the caller repeats (obs_live = o).
+ENG_HD void mj_walker_output(const Tables& t, const float* q, const float* v, const float* a,
+                             const float* aux, float* obs, float& reward, bool& term,
+                             float* aux2, float* comps) {
+  const float x = q[0];
+  const float vx = (x - aux[t.ax_x]) / t.control_dt;
+  int o = 0;
+  if (t.mj_free) {
+    for (int j = 2; j < t.nq; ++j) obs[o++] = q[j];
+    const V3 lin = m3_vec(m3_from_quat(q + 3), v3(v[3], v[4], v[5]));
+    obs[o++] = lin.x;
+    obs[o++] = lin.y;
+    obs[o++] = lin.z;
+    for (int d = 0; d < 3; ++d) obs[o++] = v[d];
+    for (int d = 6; d < t.nv; ++d) obs[o++] = v[d];
+    obs[o] = 0.f * x;
+  } else {
+    for (int j = 1; j < t.nq; ++j) obs[o++] = q[j];
+    for (int d = 0; d < t.nv; ++d) obs[o++] = t.mj_clip_qvel ? jclip(v[d], -10.f, 10.f) : v[d];
+  }
+  const float ctrl = t.mj_ctrl * sum_sq(t.act, a);
+  const float fwd = t.mj_fwd * vx;
+  reward = t.mj_alive + fwd - ctrl;
+  bool ok = true;
+  if (t.mj_done == MJ_DONE_HOPPER) {
+    ok = q[1] > (float)0.7 && fabsf(q[2]) < (float)0.2;
+    for (int j = 2; j < t.nq; ++j) ok = ok && fabsf(q[j]) < 100.f;
+    for (int d = 0; d < t.nv; ++d) ok = ok && fabsf(v[d]) < 100.f;
+  } else if (t.mj_done == MJ_DONE_WALKER) {
+    ok = q[1] > (float)0.8 && q[1] < 2.f && fabsf(q[2]) < 1.f;
+  } else if (t.mj_done == MJ_DONE_ANT) {
+    // the task's isfinite test on q and v is the caller's NaN guard's,
+    // which ends every episode whose state is not finite
+    ok = q[2] >= (float)0.2 && q[2] <= 1.f;
+  } else if (t.mj_done == MJ_DONE_HUMANOID) {
+    ok = q[2] > 1.f && q[2] < 2.f;
+  }
+  term = !ok;
+  aux2[t.ax_x] = x;
+  comps[t.cp_alive] = t.mj_alive + 0.f * (t.mj_free ? x : vx);
+  comps[t.cp_ctrl_cost] = -ctrl;
+  comps[t.cp_forward] = fwd;
+}
+
+// Reacher: act slots 0, 1 and jq/jv 0, 1 the joints, jq 2, 3 the target's
+// slides; frames 0, 1: fingertip and target. Never terminates.
+ENG_HD void mj_reacher_output(const Tables& t, const FK& fk, const float* q, const float* v,
+                              const float* a, float* obs, float& reward, bool& term,
+                              float* comps) {
+  forward_kinematics(t, q, v, fk, nullptr);
+  const V3 d = v3_sub(frame_point(t, fk, 0), frame_point(t, fk, 1));
+  const float th0 = q[t.jq[0]], th1 = q[t.jq[1]];
+  obs[0] = cosf(th0);
+  obs[1] = cosf(th1);
+  obs[2] = sinf(th0);
+  obs[3] = sinf(th1);
+  obs[4] = q[t.jq[2]];
+  obs[5] = q[t.jq[3]];
+  obs[6] = v[t.jv[0]];
+  obs[7] = v[t.jv[1]];
+  obs[8] = d.x;
+  obs[9] = d.y;
+  obs[10] = d.z;
+  const float dist = -norm_eps(d), ctrl = -sum_sq(t.act, a);
+  reward = dist + ctrl;
+  term = false;
+  comps[t.cp_dist] = dist;
+  comps[t.cp_ctrl] = ctrl;
+}
+
+// InvertedPendulum (obs [q, v], reward 1, done |q1| > 0.2) and
+// InvertedDoublePendulum (frame 0: the tip on pole2).
+ENG_HD void mj_pendulum_output(const Tables& t, const FK& fk, const float* q, const float* v,
+                               float* obs, float& reward, bool& term, float* comps) {
+  if (t.task_kind == TASK_MJ_PENDULUM) {
+    int o = 0;
+    for (int j = 0; j < t.nq; ++j) obs[o++] = q[j];
+    for (int d = 0; d < t.nv; ++d) obs[o++] = v[d];
+    reward = 1.f;
+    term = fabsf(q[1]) > (float)0.2;
+    comps[t.cp_reward] = reward;
+    return;
+  }
+  forward_kinematics(t, q, v, fk, nullptr);
+  const V3 tip = frame_point(t, fk, 0);
+  const float zero = 0.f * q[0];
+  obs[0] = q[0];
+  obs[1] = sinf(q[1]);
+  obs[2] = sinf(q[2]);
+  obs[3] = cosf(q[1]);
+  obs[4] = cosf(q[2]);
+  obs[5] = v[0];
+  obs[6] = v[1];
+  obs[7] = v[2];
+  obs[8] = obs[9] = obs[10] = zero;
+  const float h = tip.z - 2.f;
+  const float dist_penalty = (float)0.01 * (tip.x * tip.x) + h * h;
+  const float vel_penalty = (float)1e-3 * (v[1] * v[1]) + (float)5e-3 * (v[2] * v[2]);
+  reward = 10.f - dist_penalty - vel_penalty;
+  term = tip.z <= 1.f;
+  comps[t.cp_alive] = 10.f + zero;
+  comps[t.cp_dist_penalty] = -dist_penalty;
+  comps[t.cp_vel_penalty] = -vel_penalty;
+}
+
 // ---- the two kernel bodies ---------------------------------------------------
 // Every lane of env i's group calls them with the env's scratch `base`.
 
@@ -1759,16 +1948,24 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g, fl
       reacher_output(t, s.fk, s.q, s.v, s.act, s.aux, obs, reward, term, aux2, comps);
     else if (t.task_kind <= TASK_THROWER)
       arm_output(t, s.fk, s.q, s.v, s.act, s.aux, obs, reward, term, aux2, comps);
-    else
+    else if (t.task_kind <= TASK_DOUBLE_PENDULUM)
       pendulum_output(t, s.fk, s.q, s.v, obs, reward, term, comps);
+    else if (t.task_kind == TASK_MJ_WALKER)
+      mj_walker_output(t, s.q, s.v, s.act, s.aux, obs, reward, term, aux2, comps);
+    else if (t.task_kind == TASK_MJ_REACHER)
+      mj_reacher_output(t, s.fk, s.q, s.v, s.act, obs, reward, term, comps);
+    else
+      mj_pendulum_output(t, s.fk, s.q, s.v, obs, reward, term, comps);
 
-    // NaN guard [ref: walker_base_env.py · step isfinite check]
+    // NaN guard [ref: walker_base_env.py · step isfinite check]; obs[obs_live]
+    // stands for the zero blocks where there are any
+    const int nobs = t.obs_live < t.obs_dim ? t.obs_live + 1 : t.obs_dim;
     bool fin = finite(reward);
-    for (int k = 0; k < t.obs_dim; ++k) fin = fin && finite(obs[k]);
+    for (int k = 0; k < nobs; ++k) fin = fin && finite(obs[k]);
     for (int k = 0; k < t.nq; ++k) fin = fin && finite(s.q[k]);
     for (int k = 0; k < t.nv; ++k) fin = fin && finite(s.v[k]);
     term = term || !fin;
-    for (int k = 0; k < t.obs_dim; ++k) obs[k] = finite(obs[k]) ? obs[k] : 0.f;
+    for (int k = 0; k < nobs; ++k) obs[k] = finite(obs[k]) ? obs[k] : 0.f;
     reward = finite(reward) ? reward : 0.f;
     const int32_t step2 = step_count + 1;
     const bool trunc = (step2 >= t.max_steps) && !term;
@@ -1784,7 +1981,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g, fl
   EACH_LANE(g, l) {
     for (int k = l; k < t.nq; k += G) io.q_out[k * B + i] = s.q[k];
     for (int k = l; k < t.nv; k += G) io.v_out[k * B + i] = s.v[k];
-    for (int k = l; k < t.obs_dim; k += G) io.obs[k * B + i] = s.obs[k];
+    for (int k = l; k < t.obs_dim; k += G) io.obs[k * B + i] = s.obs[k < t.obs_live ? k : t.obs_live];
   }
 }
 

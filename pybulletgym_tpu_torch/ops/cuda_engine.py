@@ -61,6 +61,7 @@ _WALKER_AUX = ("initial_z", "potential", "target_x", "target_y")
 _WALKER_COMPS = ("alive", "electricity", "feet_collision", "joints_at_limit", "progress")
 _FLAG_AUX = ("flag_count", "flag_timeout")
 _ARM_COMPS = ("ctrl", "dist", "near")
+_MJ_COMPS = ("alive", "ctrl_cost", "forward")
 TASK_KINDS = {  # class name -> (kind, aux keys, reward keys)
     "WalkerTask": (0, _WALKER_AUX, _WALKER_COMPS),
     "HumanoidFlagrunTask": (1, _WALKER_AUX + _FLAG_AUX, _WALKER_COMPS),
@@ -72,6 +73,15 @@ TASK_KINDS = {  # class name -> (kind, aux keys, reward keys)
     "ThrowerTask": (6, ("hit", "hit_x", "hit_y"), ("ctrl", "dist")),
     "InvertedPendulumTask": (7, (), ("reward",)),
     "InvertedDoublePendulumTask": (8, (), ("alive", "dist_penalty", "vel_penalty")),
+    # mujoco_family.py: the walkers share one kind, their differences in tables
+    "HopperMuJoCoTask": (9, ("x",), _MJ_COMPS),
+    "Walker2DMuJoCoTask": (9, ("x",), _MJ_COMPS),
+    "HalfCheetahMuJoCoTask": (9, ("x",), _MJ_COMPS),
+    "AntMuJoCoTask": (9, ("x",), _MJ_COMPS),
+    "HumanoidMuJoCoTask": (9, ("x",), _MJ_COMPS),
+    "ReacherMuJoCoTask": (10, (), ("ctrl", "dist")),
+    "InvertedPendulumMuJoCoTask": (11, (), ("reward",)),
+    "InvertedDoublePendulumMuJoCoTask": (12, (), ("alive", "dist_penalty", "vel_penalty")),
 }
 # every aux and reward key the kernels know
 AUX_KEYS = tuple(sorted({k for _, aux, _ in TASK_KINDS.values() for k in aux}))
@@ -345,12 +355,12 @@ def pack_tables(task, frame_skip: Optional[int] = None):
     """All tables of the env-step kernel for `task` (physics + task
     constants). Raises for a task the kernel does not implement: any class
     but those of TASK_KINDS (subclasses, other pre-physics hooks included)."""
-    from pybulletgym_tpu_torch.envs import locomotion, manipulation, pendula
+    from pybulletgym_tpu_torch.envs import locomotion, manipulation, mujoco_family, pendula
 
     name = type(task).__name__
     kind = TASK_KINDS.get(name)
     if kind is None or not any(getattr(mod, name, None) is type(task)
-                               for mod in (locomotion, manipulation, pendula)):
+                               for mod in (locomotion, manipulation, pendula, mujoco_family)):
         raise NotImplementedError(
             f"{name}: only {', '.join(TASK_KINDS)} are in the CUDA kernels yet")
     t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
@@ -366,7 +376,7 @@ def pack_tables(task, frame_skip: Optional[int] = None):
     for k in COMP_KEYS:
         setattr(t, "cp_" + k, comp_keys.index(k) if k in comp_keys else -1)
     t.act = task.act_dim
-    t.obs_dim = task.obs_dim
+    t.obs_dim = t.obs_live = task.obs_dim
     t.max_steps = int(task.max_episode_steps)
     for r in range(t.nr):
         t.row_foot[r] = -1
@@ -376,8 +386,10 @@ def pack_tables(task, frame_skip: Optional[int] = None):
         _pack_reacher(t, task)
     elif t.task_kind <= 6:
         _pack_arm(t, task)
-    else:
+    elif t.task_kind <= 8:
         _pack_pendulum(t, task)
+    else:
+        _pack_mujoco(t, task)
     scratch_layout(t)  # again, with the task's obs and aux
     return t
 
@@ -519,6 +531,61 @@ def _pack_pendulum(t, task):
         t.jq[1], t.jv[1] = task.j2_qadr, task.j2_dof
         t.base_body = task.pole2
         _draws(t, [(task.j1_qadr, 0, 0.0, -0.1, 0.1), (task.j2_qadr, 1, 0.0, -0.1, 0.1)])
+
+
+# mujoco_family.py's termination rules, as engine_core.h codes them (MJ_DONE_*)
+MJ_DONE = {"HopperMuJoCoTask": 1, "Walker2DMuJoCoTask": 2, "HalfCheetahMuJoCoTask": 0,
+           "AntMuJoCoTask": 3, "HumanoidMuJoCoTask": 4}
+
+
+def _pack_mujoco(t, task):
+    """The Gym-MuJoCo mirrors (mujoco_family.py). Reset: q = qpos0 + U(±noise)
+    on stream i and v = U(±noise) on stream nq + i (Reacher: the joints
+    U(±0.1) on streams 0, 1, the target in a disk on streams 2, 3, the arm's
+    velocities U(±0.005) on streams 4 + dof); the walkers' constants."""
+    from pybulletgym_tpu_torch.envs import mujoco_family as mjf
+
+    m = task.model
+    _actuated(t, task.act_dofs, [0] * task.act_dim, task.torque_gain)
+    _, caps = tables_type()
+    if t.task_kind == 10:  # ReacherMuJoCoTask: q, v indexed by dof, as there
+        t.jq[0], t.jq[1], t.jq[2], t.jq[3] = task.j0, task.j1, task.tx, task.ty
+        t.jv[0], t.jv[1] = task.j0, task.j1
+        _frames(t, [task.fingertip[:2], task.target[:2]])
+        _draws(t, [(task.j0, 0, 0.0, -0.1, 0.1), (task.j1, 1, 0.0, -0.1, 0.1)])
+        t.disk_streams[0], t.disk_streams[1] = 2, 3
+        t.disk_r = _f32(0.2)
+        t.disk_ang_lo, t.disk_ang_span = _f32(-3.14159), _f32(3.14159 - (-3.14159))
+        vdraws = [(d, 4 + d) for d in range(m.nv) if d not in (task.tx, task.ty)]
+        noise = 0.005
+    else:
+        noise = task.reset_noise
+        _draws(t, [(j, j, float(m.qpos0[j]), -noise, noise) for j in range(m.nq)])
+        vdraws = [(d, m.nq + d) for d in range(m.nv)]
+    if len(vdraws) > caps["MAX_DRAWS"]:
+        raise ValueError(f"{len(vdraws)} velocity draws exceed the kernel cap")
+    t.nvdraw = len(vdraws)
+    for k, (d, stream) in enumerate(vdraws):
+        t.vdraw_dof[k], t.vdraw_stream[k] = d, stream
+    t.vdraw_lo, t.vdraw_span = _f32(-noise), _f32(noise - (-noise))
+    if t.task_kind == 12:  # the double pendulum's tip
+        _frames(t, [(task.pole2, task.TIP)])
+    if t.task_kind != 9:
+        return
+    name = type(task).__name__
+    t.control_dt = _f32(task.physics.control_dt)
+    t.mj_done = MJ_DONE[name]
+    t.mj_free = int(isinstance(task, mjf._MjFreeWalker))
+    if t.mj_free:
+        root = m.bodies[0]
+        if root.jtype != JointType.FREE or root.q_adr != 0 or root.v_adr != 0:
+            raise NotImplementedError(f"{name}: the obs read the root free joint at q[0:7]")
+        t.mj_fwd = _f32(task.fwd_coef)
+        t.obs_live = task.obs_dim - task.n_zero
+    else:
+        t.mj_clip_qvel = int(task.clip_qvel)
+        t.mj_fwd = 1.0
+    t.mj_alive, t.mj_ctrl = _f32(task.alive_bonus), _f32(task.ctrl_coef)
 
 
 def _pack_harder(t, task):
@@ -977,8 +1044,21 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
         n += {4: 2 * (3 + _V_DOT + 2) + 6, 5: 3 * (3 + _V_DOT + 2) + 12, 6: 10}[kind]
     elif kind == 7:  # pendulum_output: cos, sin, the reward and the test
         n += 4
-    else:  # the double pendulum: pole2's COM, four of cos/sin, the penalties
+    elif kind == 8:  # the double pendulum: pole2's COM, four of cos/sin, the penalties
         n += _fk_flops(t, inert=False) + 4 + 14
+    elif kind == 9:  # mj_walker_output: vx, the control cost, reward, comps, done
+        n += 2 + 2 * na + 1 + 1 + 2 + 2 + 1
+        if t.mj_free:  # MuJoCo's qvel: the root's rotation of the linear velocity
+            n += _M3_FROM_QUAT + _M3_VEC + 1
+        elif t.mj_clip_qvel:
+            n += 2 * t.nv
+        n += {0: 0, 1: 2 + (t.nq - 2 + t.nv), 2: 4, 3: 2, 4: 2}[t.mj_done]
+    elif kind == 10:  # mj_reacher_output: tip - target, cos/sin, |d|, control cost
+        n += _fk_flops(t, inert=False) + frames + 3 + 4 + _V_DOT + 2 + 2 * na + 1
+    elif kind == 11:  # mj_pendulum_output: the test
+        n += 2
+    else:  # the double pendulum's tip: four of sin/cos, the penalties
+        n += _fk_flops(t, inert=False) + frames + 4 + 1 + 14
     ins = f32 * (t.nq + t.nv + na + t.naux) + 2 + 4 * 4   # term, trunc, step, epoch, seed, id
     outs = f32 * (t.nq + t.nv + t.obs_dim + 1 + t.naux + t.ncomp) + 2 + 4 * 2
     return n, ins + outs
@@ -992,17 +1072,19 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
 class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
     arithmetic on CPU tensors, each env's lane group emulated at the tables'
-    width (`tables.lanes`, any of LANE_WIDTHS). Used only by tests; no
-    wrapper routes here."""
+    width (`tables.lanes`, any of LANE_WIDTHS). Used only by tests and by
+    tools/bf16_probe.py (`bf16_probe=True` builds it with ENG_BF16_PROBE);
+    no wrapper routes here."""
 
-    def __init__(self):
+    def __init__(self, bf16_probe: bool = False):
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found")
+        flags = GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
         h = _sources(["engine_core.h", "engine_host.cpp"])
-        h.update(" ".join(GXX_FLAGS).encode())
+        h.update(" ".join(flags).encode())
         name = f"libengine_host_{h.hexdigest()[:16]}.so"
-        _compile([([gxx], "engine_host.cpp", name, GXX_FLAGS)])
+        _compile([([gxx], "engine_host.cpp", name, flags)])
         self.lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
         _check_layout(self.lib)
         self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]

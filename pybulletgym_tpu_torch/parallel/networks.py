@@ -4,7 +4,9 @@
 The reference ships `SmallReactivePolicy` — a two-hidden-layer MLP with
 frozen numpy weights [ref: examples/roboschool-weights/enjoy_TF_*.py] — as
 its only "model". `MLPPolicy` runs such shipped weights; `ActorCritic` is
-the trainable Gaussian actor-critic of the PPO learner. Weights keep the
+the trainable Gaussian actor-critic of the PPO learner; `MLPParams` (built
+by `init_mlp`) is the plain parameter pair of SAC's actor and twin critics
+(`parallel/sac.py`). Weights keep the
 JAX layout (in, out), so checkpoints cross without transposes. Matrix
 products go to `torch.matmul`, as the JAX package leaves them to XLA.
 """
@@ -12,7 +14,7 @@ products go to `torch.matmul`, as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,10 +60,26 @@ def mlp_apply(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
     return h
 
 
-def _init_mlp(sizes: Sequence[int], final_scale: float, generator, device):
+class MLPParams(NamedTuple):
+    """An MLP's weights (in, out) and biases, in layer order: networks.py ·
+    MLPParams, whose pytree flattens to the weights, then the biases."""
+
+    weights: Tuple[torch.Tensor, ...]
+    biases: Tuple[torch.Tensor, ...]
+
+    def leaves(self) -> List[torch.Tensor]:
+        return [*self.weights, *self.biases]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self.weights, self.biases, x)
+
+
+def init_mlp(sizes: Sequence[int], final_scale: float = 0.01,
+             generator: Optional[torch.Generator] = None, device="cuda") -> MLPParams:
     """N(0, 1) * scale / sqrt(fan_in) weights (scale 1, the last layer
     `final_scale`), zero biases: networks.py · init_mlp, drawn from a
-    torch.Generator instead of a JAX key."""
+    seeded torch.Generator instead of a JAX key. On the GPU unless the
+    caller asks for another device."""
     ws, bs = [], []
     n = len(sizes) - 1
     for i in range(n):
@@ -69,7 +87,7 @@ def _init_mlp(sizes: Sequence[int], final_scale: float, generator, device):
         w = torch.randn((sizes[i], sizes[i + 1]), generator=generator, device=device)
         ws.append(w * (scale / math.sqrt(sizes[i])))
         bs.append(torch.zeros((sizes[i + 1],), device=device))
-    return ws, bs
+    return MLPParams(tuple(ws), tuple(bs))
 
 
 class ActorCritic(nn.Module):
@@ -90,8 +108,8 @@ class ActorCritic(nn.Module):
              generator: Optional[torch.Generator] = None, device="cpu") -> "ActorCritic":
         """networks.py · init_actor_critic: policy head scaled by 0.01,
         value head by 1, log_std zeros."""
-        pw, pb = _init_mlp((obs_dim, *hidden, act_dim), 0.01, generator, device)
-        vw, vb = _init_mlp((obs_dim, *hidden, 1), 1.0, generator, device)
+        pw, pb = init_mlp((obs_dim, *hidden, act_dim), 0.01, generator, device)
+        vw, vb = init_mlp((obs_dim, *hidden, 1), 1.0, generator, device)
         return cls(pw, pb, vw, vb, torch.zeros((act_dim,), device=device))
 
     def leaves(self) -> List[nn.Parameter]:

@@ -4,8 +4,8 @@ States cross as plain numpy: a dict with the `EnvState` field names, whose
 `aux` and `rewards` entries are dicts of (B,) arrays. Weights cross as the
 npz files that `examples/weights/` ships (keys `n_layers`, `w{i}`, `b{i}`,
 optional `normalized`/`obs_mean`/`obs_var` and `squash`). A PPO learner's
-state crosses as the JAX package's `utils/checkpoint.py` npz (`leaf_{i}`,
-read with numpy alone).
+state, and a SAC learner's (`*.saclearner.npz`), cross as the JAX package's
+`utils/checkpoint.py` npz (`leaf_{i}`, read with numpy alone).
 """
 
 from __future__ import annotations
@@ -107,3 +107,60 @@ def train_state_from_npz(path: str, device="cuda", seed: int = 0) -> Tuple[objec
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     ts = TrainState(ac, opt_m, opt_v, torch.as_tensor(count, dtype=torch.int32).to(dev), gen, stats)
     return ts, np.asarray(key, np.uint32)
+
+
+def _leaves(path):
+    with np.load(path) as d:
+        leaves = []
+        while f"leaf_{len(leaves)}" in d:
+            leaves.append(np.array(d[f"leaf_{len(leaves)}"]))
+    return leaves
+
+
+def sac_state_from_npz(path: str, num_envs: int, cfg=None, device="cuda"):
+    """A shipped SAC learner (`*.saclearner.npz`: the JAX tuple (actor,
+    critics, targets, log_alpha, opt_actor, opt_critic, opt_alpha, key),
+    tools/train_campaign.py · learner_of) -> the port's `sac.SACState` on
+    `device` for `num_envs` envs, with an empty replay ring of
+    `cfg.buffer_slots` slots.
+
+    The leaves are in `jax.tree.flatten` order: the actor's weights then
+    biases; each critic's (q1, q2), then the targets' likewise; log_alpha;
+    the actor's Adam moments m, v and count; the critics' likewise; the
+    temperature's (m, v, count); the key. The layer count follows from the
+    number of leaves (73 for two hidden layers). The port's draws come from
+    a torch.Generator seeded with the key's two words, (k0 << 32) | k1."""
+    from pybulletgym_tpu_torch.parallel import sac
+
+    cfg = cfg or sac.SACConfig()
+    dev = torch.device(device)
+    leaves = _leaves(path)
+    # L layers: actor 2L, critics 4L, targets 4L, log_alpha, actor moments
+    # 2 x 2L + count, critic moments 2 x 4L + count, (m, v, count), key
+    L = (len(leaves) - 7) // 22
+    if len(leaves) != 22 * L + 7 or L < 1:
+        raise ValueError(f"{path}: {len(leaves)} leaves do not form a SAC learner")
+    t = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
+    xs = [t(x) for x in leaves]
+    cut = iter(np.cumsum([2 * L, 4 * L, 4 * L, 1, 2 * L, 2 * L, 1, 4 * L, 4 * L, 1, 1, 1, 1]))
+    parts, start = [], 0
+    for end in cut:
+        parts.append(xs[start:end])
+        start = end
+    actor_l, crit_l, targ_l, (log_alpha,), am, av, (ac,), cm, cv, (cc,), (lm,), (lv,), (lc,) = \
+        parts[:13]
+    key = np.asarray(leaves[-1], np.uint32)
+    if key.shape != (2,):
+        raise ValueError(f"{path}: the last leaf is not a JAX key")
+    actor, critics = sac.unflatten_mlp(actor_l), sac.unflatten_q(crit_l)
+    obs_dim, act_dim = actor.weights[0].shape[0], actor.weights[-1].shape[1] // 2
+    if [tuple(x.shape) for x in am] != [tuple(x.shape) for x in actor_l] or \
+            [tuple(x.shape) for x in cm] != [tuple(x.shape) for x in crit_l]:
+        raise ValueError(f"{path}: Adam moments do not match the parameters' shapes")
+    if tuple(cfg.hidden) != tuple(w.shape[1] for w in actor.weights[:-1]):
+        raise ValueError(f"{path}: hidden sizes differ from the config's {cfg.hidden}")
+    i32 = lambda x: x.to(torch.int32)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed((int(key[0]) << 32) | int(key[1]))
+    return sac.empty_ring(actor, critics, sac.unflatten_q(targ_l), log_alpha,
+                          (am, av, i32(ac)), (cm, cv, i32(cc)), ([lm], [lv], i32(lc)), gen,
+                          obs_dim, act_dim, int(num_envs), cfg)

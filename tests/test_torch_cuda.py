@@ -14,7 +14,11 @@ Ant (a free root), Pusher (disk rows, empty aux) and Thrower (a free ball
 that is not body 0), and the humanoid-family budget of
 test_pallas_equivalence.py:80-86 on Humanoid and FlagrunHarder (self-
 collision pairs, the large scratch instantiation, the cube), as
-chip_smoke.py holds them.
+chip_smoke.py holds them. The Gym-MuJoCo mirrors HopperMuJoCo (a planar
+root), AntMuJoCo (a free root, obs with a zero block), HumanoidMuJoCo (obs
+376, 331 of them zeros) and ReacherMuJoCo (the disk-drawn target, held to 1
+ulp) at the walker budget, and one SAC iteration, whose collect launches
+the env kernel.
 """
 
 import pytest
@@ -23,7 +27,7 @@ import torch
 from pybulletgym_tpu_torch import make_batched, make_task
 from pybulletgym_tpu_torch.envs.base import env_step_plain
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
-from pybulletgym_tpu_torch.parallel import ppo
+from pybulletgym_tpu_torch.parallel import ppo, sac
 
 ENV = "HalfCheetahPyBulletEnv-v0"
 ANT = "AntPyBulletEnv-v0"
@@ -326,3 +330,82 @@ def test_ragged_batches_match_plain(ragged, size):
                 assert dq.mean() < 3e-4 and dq.max() < 1e-2
             assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
             assert torch.isfinite(vk).all()
+
+
+MUJOCO = ("HopperMuJoCoEnv-v0", "AntMuJoCoEnv-v0", "HumanoidMuJoCoEnv-v0", "ReacherMuJoCoEnv-v0")
+
+
+def ulps(a, b):
+    """|a - b| in float32 spacings (same-signed finite values)."""
+    return (a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs()
+
+
+@pytest.fixture(scope="module", params=MUJOCO)
+def mujoco(request):
+    _need_gpu()
+    return request.param, make_task(request.param)
+
+
+def test_mujoco_env_kernel_matches_plain(mujoco):
+    """One step with every 3rd env forced to reset: the reset draws bitwise
+    (Reacher's disk-drawn target to 1 ulp), the step at the walker budget,
+    bitwise repeatable"""
+    env_id, task = mujoco
+    env = make_batched(env_id, B, device="cuda")
+    forced = torch.zeros(B, dtype=torch.bool, device="cuda")
+    forced[::3] = True
+    s = env.reset(seed=2)._replace(terminated=forced)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
+    out = env.step_fn(s, a)
+    assert env.step_fn.launches == 1 and sorted(out.aux) == sorted(s.aux)
+    bounds_fixed(out, env_step_plain(task, s, a))
+    reset_k = ce.make_cuda_env_step(task, frame_skip=0)(s, a)
+    reset_p = env_step_plain(task, s, a, frame_skip=0)
+    disk = [task.tx, task.ty] if hasattr(task, "tx") else []
+    rest = [j for j in range(task.model.nq) if j not in disk]
+    assert torch.equal(reset_k.q[rest][:, forced], reset_p.q[rest][:, forced])
+    assert torch.equal(reset_k.v[:, forced], reset_p.v[:, forced])
+    if disk:
+        assert ulps(reset_k.q[disk][:, forced], reset_p.q[disk][:, forced]).max() <= 1
+    for k in reset_p.aux:
+        assert torch.equal(reset_k.aux[k][forced], reset_p.aux[k][forced]), k
+    again = env.step_fn(s, a)
+    for name in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
+        assert torch.equal(getattr(out, name), getattr(again, name)), name
+
+
+def test_mujoco_physics_kernel_matches_plain(mujoco):
+    env_id, task = mujoco
+    s = make_batched(env_id, B, device="cuda").reset(seed=3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1
+    zero = torch.zeros(B, device="cuda")
+    tau = torch.stack([zero if isinstance(x, float) else x
+                       for x in task.action_tau_scalar(list(a))], 0)
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    qk, vk, dk = phys(s.q, s.v, tau)
+    qp, vp, dp = phys.plain(s.q, s.v, tau)
+    dq = (qk - qp).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert dk.shape == dp.shape
+    if dk.numel():  # ReacherMuJoCo has no contact rows
+        assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+    assert torch.isfinite(vk).all() and phys.launches == 1
+
+
+def test_sac_iteration_launches_the_env_kernel():
+    """One SAC iteration on HopperMuJoCo on the GPU: steps_per_iter launches
+    of env_step_kernel, finite losses, updates_per_iter Adam updates."""
+    _need_gpu()
+    cfg = sac.SACConfig(hidden=(64, 64), steps_per_iter=2, updates_per_iter=2, batch_size=64,
+                        warmup_steps=0)
+    env = make_batched("HopperMuJoCoEnv-v0", 256)
+    ss = sac.init_sac_state(0, env.observation_size, env.action_size, 256, cfg)
+    it = sac.make_sac_iteration(env.task, cfg, step_fn=env.step_fn)
+    ce.reset_launch_counts()
+    ss, es, metrics = it(ss, env.reset(seed=0))
+    torch.cuda.synchronize()
+    assert env.step_fn.launches == ce.LAUNCHES["env_step_kernel"] == 2
+    assert int(ss.opt_critic[2]) == int(ss.opt_actor[2]) == 2 and ss.buf_ptr == 2
+    assert all(torch.isfinite(x) for x in metrics.values()) and es.q.is_cuda

@@ -19,7 +19,7 @@ own arithmetic, reduction order included, at each width:
     post-reset q and v (frame_skip=0) are bitwise the plain version's at
     every width, and two twin calls on the same inputs agree bitwise.
 (b) the scratch layout that the wrapper computes from each model's sizes
-    fits one block's 227 KB of shared memory for all 17 ported IDs, its
+    fits one block's 227 KB of shared memory for all 25 ported IDs, its
     arrays are disjoint where they are live together, and a model over the
     tables' caps raises.
 """
