@@ -1,16 +1,17 @@
 """Env registry for the port: the reference env IDs that the torch package
 runs [ref: pybulletgym/envs/__init__.py — gym.envs.registration.register].
 
-Ported so far: the MJCF walkers (Hopper, Walker2D, HalfCheetah, Ant), the
-humanoid family (Humanoid, HumanoidFlagrun, HumanoidFlagrunHarder), the
-pendula (InvertedPendulum, its swing-up, InvertedDoublePendulum) and the
+All 26 IDs of the JAX package's registry: the MJCF walkers (Hopper,
+Walker2D, HalfCheetah, Ant), the humanoid family (Humanoid,
+HumanoidFlagrun, HumanoidFlagrunHarder), Atlas (a URDF robot), the pendula
+(InvertedPendulum, its swing-up, InvertedDoublePendulum) and the
 manipulators (Reacher, Pusher, Striker, Thrower, and the MuJoCo mirrors of
 the last three, which reuse the same tasks at Gym's 100-step horizon), and
 the Gym-MuJoCo mirror family (`envs/mujoco_family.py`: Hopper, Walker2D,
 HalfCheetah, Ant, Humanoid, Reacher, InvertedPendulum and
-InvertedDoublePendulum `*MuJoCoEnv-v0`): 25 IDs. Any other ID (Atlas)
-raises `KeyError` listing the known ones. The registry's horizon overrides
-the task's own (ReacherMuJoCoEnv-v0: 150 steps).
+InvertedDoublePendulum `*MuJoCoEnv-v0`). Any other ID raises `KeyError`
+listing the known ones. The registry's horizon overrides the task's own
+(ReacherMuJoCoEnv-v0: 150 steps).
 Nothing is registered with gymnasium (the JAX package registers the same
 IDs for itself on import).
 """
@@ -62,6 +63,7 @@ registry: Dict[str, EnvSpec] = {
         EnvSpec("HumanoidFlagrunPyBulletEnv-v0", _task("HumanoidFlagrunTask"), 1000, 2000.0),
         EnvSpec("HumanoidFlagrunHarderPyBulletEnv-v0", _task("HumanoidFlagrunHarderTask"),
                 1000, None),
+        EnvSpec("AtlasPyBulletEnv-v0", _walker("ATLAS"), 1000, None),
         EnvSpec("InvertedPendulumPyBulletEnv-v0",
                 _task("InvertedPendulumTask", "pendula", swingup=False), 1000, 950.0),
         EnvSpec("InvertedPendulumSwingupPyBulletEnv-v0",

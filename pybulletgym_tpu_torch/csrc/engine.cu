@@ -37,7 +37,7 @@
 // (E*G threads, E*stride floats of shared memory); eng_launch_config picks
 // the E that keeps the most envs resident per SM (the occupancy API), so B
 // = 4096 spreads over all 132 SMs. The tables stay a __grid_constant__
-// kernel parameter (~22 KB, within Hopper's 32 KB): the hot PGS sweep reads
+// kernel parameter (~26 KB, within Hopper's 32 KB): the hot PGS sweep reads
 // them at uniform indices (a constant-cache broadcast); the once-a-substep
 // phases read them at lane-divergent indices. State is batch-trailing
 // (rows, B); a group's lanes read and write an env's rows.
@@ -95,7 +95,7 @@ env_step_kernel(const __grid_constant__ eng::Tables t, eng::EnvIO io, int B) {
 }
 
 int launch_check(const eng::Tables& t, int E) {
-  if (t.lanes != G || E < 1 || E * G > kMaxThreads ||
+  if (t.lanes != G || t.nv > eng::lane_nv<G>() || E < 1 || E * G > kMaxThreads ||
       (size_t)E * t.sc_stride * sizeof(float) > kMaxShared)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -153,7 +153,8 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 // `tables` is a host pointer (copied into the launch's parameters), every
 // other pointer a device pointer; E is eng_launch_config's envs a block.
 // Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for
-// tables of another G or an E that does not fit.
+// tables of another G, more dofs than this library's lanes hold
+// (eng::lane_nv) or an E that does not fit.
 int launch_physics_step(const void* tables, const float* q, const float* v,
                         const float* tau, float* q_out, float* v_out, float* d_out,
                         int B, int E, void* stream) {

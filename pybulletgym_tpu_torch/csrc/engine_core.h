@@ -77,14 +77,16 @@
 namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
-// The Tables struct (up to 32 dofs, so that a root-path mask is one uint32)
-constexpr int MAX_BODIES = 20;
-constexpr int MAX_NV = 32;
-constexpr int MAX_NQ = 34;        // a free joint has 7 q entries and 6 dofs
+// The Tables struct. A root-path mask is two uint32 words (anc_mask,
+// anc_mask_hi), so up to 64 dofs; Atlas (31 bodies, nq 37, nv 36, 60 limit
+// rows, 30 actuators, 31 part frames) is the largest model.
+constexpr int MAX_BODIES = 32;
+constexpr int MAX_NV = 40;
+constexpr int MAX_NQ = 41;        // a free joint has 7 q entries and 6 dofs
 constexpr int MAX_ROWS = 108;     // contact rows, point rows first
 constexpr int MAX_PAIRS = 80;     // of which capsule/sphere pair rows
-constexpr int MAX_LIMITS = 36;    // joint-limit rows
-constexpr int MAX_ACT = 20;
+constexpr int MAX_LIMITS = 64;    // joint-limit rows (two a limited joint)
+constexpr int MAX_ACT = 32;
 // The size class of a model without pair rows within these (Hopper ... Ant,
 // Reacher, the pendula: caps_id 0; the others 1), kept as a model property
 constexpr int WALKER_BODIES = 16;
@@ -94,10 +96,10 @@ constexpr int WALKER_ROWS = 32;
 constexpr int WALKER_LIMITS = 32;
 constexpr int WALKER_ACT = 16;
 constexpr int MAX_FEET = 8;
-constexpr int MAX_PARTS = 16;
+constexpr int MAX_PARTS = 32;
 constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
 constexpr int MAX_COMP = 5;       // reward components, in sorted key order
-constexpr int MAX_DRAWS = 34;     // reset draws into q (up to MAX_NQ), and into v
+constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into v
 constexpr int MAX_SLOTS = 40;     // entries of Tables::sc
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
                                   // v: body-frame angular, then linear
@@ -138,6 +140,20 @@ constexpr int MJ_DONE_HUMANOID = 4;
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
 static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
+static_assert(MAX_NV <= 64, "a root-path mask is two 32-bit words");
+static_assert(MAX_DRAWS >= MAX_NQ && MAX_DRAWS >= MAX_NV, "a draw for every q and every dof");
+
+// The most dofs a library of G lanes steps: pick_lanes (ops/cuda_engine.py)
+// gives a model the narrowest G whose bound holds it, and the lanes' dof
+// vectors (LaneVec) are sized by it, so the narrow libraries keep one or
+// two registers a vector; at G = 32 a model over 32 dofs (Atlas) takes two.
+constexpr int LANE_NV_4 = 4;
+constexpr int LANE_NV_8 = 12;
+constexpr int LANE_NV_16 = 16;
+template <int G>
+constexpr int lane_nv() {
+  return G == 4 ? LANE_NV_4 : G == 8 ? LANE_NV_8 : G == 16 ? LANE_NV_16 : MAX_NV;
+}
 
 // The table layout, as one list. S(type, name) is a scalar, A(type, name,
 // count) a flat array. ops/cuda_engine.py parses this list to build the
@@ -186,6 +202,7 @@ static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
   A(int32_t, v_adr, MAX_BODIES)                                               \
   A(int32_t, has_mass, MAX_BODIES)                                            \
   A(uint32_t, anc_mask, MAX_BODIES) /* bit d: dof d on the root path */       \
+  A(uint32_t, anc_mask_hi, MAX_BODIES) /* bit d: dof 32 + d on it */          \
   A(float, off_r, MAX_BODIES * 9)                                             \
   A(float, off_p, MAX_BODIES * 3)                                             \
   A(float, jpos, MAX_BODIES * 3)                                              \
@@ -362,6 +379,20 @@ struct Tables {
 };
 #undef ENG_DECL_S
 #undef ENG_DECL_A
+// a __grid_constant__ kernel parameter: at most 32,764 bytes of parameters
+static_assert(sizeof(Tables) + 256 <= 32764, "the tables outgrow the kernel parameters");
+
+// A set of dofs in two words: bit d of lo is dof d (0-31), bit d - 32 of hi
+// is dof d (32-63). Every "is dof d on body i's root path" test goes
+// through on_path, which reads the word that holds d.
+struct DofSet {
+  uint32_t lo, hi;
+};
+ENG_HD DofSet anc_path(const Tables& t, int i) {
+  DofSet p = {t.anc_mask[i], t.anc_mask_hi[i]};
+  return p;
+}
+ENG_HD bool on_path(DofSet p, int d) { return (((d < 32 ? p.lo : p.hi) >> (d & 31)) & 1u) != 0; }
 
 // Pointers of one env-step launch; every array is (rows, B) batch-trailing.
 struct EnvIO {
@@ -425,10 +456,21 @@ struct PerLane {
 #endif
 };
 
-// A vector over dofs held by the group: lane l keeps d = l + k*G in x[k].
+// A vector over dofs held by the group in K chunks: lane l keeps d = l + k*G
+// in x[k]. At most lane_chunks<G>() chunks: on the card for the library's
+// lane_nv<G>() dofs (the launch refuses more); the host twin emulates any
+// model at any G.
 template <int G>
+constexpr int lane_chunks() {
+#ifdef __CUDACC__
+  return (lane_nv<G>() + G - 1) / G;
+#else
+  return (MAX_NV + G - 1) / G;
+#endif
+}
+template <int K>
 struct LaneVec {
-  float x[(MAX_NV + G - 1) / G];
+  float x[K];
 };
 
 // The sum of the lanes' partials: the xor butterfly, offsets G/2 .. 1, each
@@ -890,8 +932,9 @@ ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, in
   Inertia I = Ic[i];
   I.m = t.cmass[i];
   const SV F = inertia_mul(I, fk.S[d]);
+  const DofSet path = anc_path(t, i);
   for (int e = 0; e <= d; ++e)
-    Md[e] = (t.anc_mask[i] & (1u << e)) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
+    Md[e] = on_path(path, e) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
   if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
 }
 
@@ -974,13 +1017,13 @@ ENG_HD void group_sum2(const Group<G>& g, PerLane<float, G>& a, PerLane<float, G
 
 // The PGS sweep's dot of a constraint row with the group's vector: lane
 // products in dof order, then the butterfly.
-template <int G>
-ENG_HD float lane_dot(const Group<G>& g, int n, const float* y, PerLane<LaneVec<G>, G>& z) {
+template <int G, int K>
+ENG_HD float lane_dot(const Group<G>& g, int n, const float* y, PerLane<LaneVec<K>, G>& z) {
   PerLane<float, G> part;
   EACH_LANE(g, l) {
     float s = 0.f;
     ENG_UNROLL
-    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+    for (int k = 0; k < K; ++k) {
       const int d = l + k * G;
       if (d < n) s = s + y[d] * z[l].x[k];
     }
@@ -990,14 +1033,14 @@ ENG_HD float lane_dot(const Group<G>& g, int n, const float* y, PerLane<LaneVec<
 }
 
 // lane_dot of one row with two vectors, their butterflies overlapped
-template <int G>
-ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<G>, G>& z,
-                      PerLane<LaneVec<G>, G>& zp, float& vz, float& vzp) {
+template <int G, int K>
+ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<K>, G>& z,
+                      PerLane<LaneVec<K>, G>& zp, float& vz, float& vzp) {
   PerLane<float, G> a, b;
   EACH_LANE(g, l) {
     float s = 0.f, sp = 0.f;
     ENG_UNROLL
-    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+    for (int k = 0; k < K; ++k) {
       const int d = l + k * G;
       if (d < n) {
         s = s + y[d] * z[l].x[k];
@@ -1011,12 +1054,12 @@ ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<
 }
 
 // z += y * a, each lane its own dofs
-template <int G>
-ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<G>, G>& z, const float* y,
+template <int G, int K>
+ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<K>, G>& z, const float* y,
                       float a) {
   EACH_LANE(g, l) {
     ENG_UNROLL
-    for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
+    for (int k = 0; k < K; ++k) {
       const int d = l + k * G;
       if (d < n) z[l].x[k] = z[l].x[k] + y[d] * a;
     }
@@ -1072,6 +1115,67 @@ ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
   return v3_scale(e, t.row_rim[r]);
 }
 
+// The PGS sweeps (contacts.py · solve_scalar): Gauss-Seidel over rows; z and
+// zp (the scratch's, on entry and exit) live in the lanes' registers in K
+// chunks, the multipliers are uniform (every lane stores the same bits).
+template <int G, int K>
+ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
+  const int nv = t.nv, nr = t.nr, nl = t.nl, ld = t.sc_ld;
+  PerLane<LaneVec<K>, G> z, zp;
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      const int d = l + k * G;
+      z[l].x[k] = d < nv ? s.z[d] : 0.f;
+      zp[l].x[k] = 0.f;
+    }
+  }
+  for (int it = 0; it < t.iterations; ++it) {
+    for (int r = 0; r < nr; ++r) {
+      const float* yn = s.Y + (1 + 3 * r) * ld;
+      const float* yt1 = yn + ld;
+      const float* yt2 = yn + 2 * ld;
+      // the split-impulse row reads and writes only zp, so its update
+      // goes first and its dot shares the normal dot's butterfly
+      float vn, vpn;
+      lane_dot2(g, nv, yn, z, zp, vn, vpn);
+      float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
+      lane_axpy(g, nv, zp, yn, nw - s.lam_p[r]);
+      s.lam_p[r] = nw;
+      nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
+      lane_axpy(g, nv, z, yn, nw - s.lam_n[r]);
+      s.lam_n[r] = nw;
+      float hi = t.row_mu[r] * nw;
+      float vt = lane_dot(g, nv, yt1, z);
+      nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
+      lane_axpy(g, nv, z, yt1, nw - s.lam_t1[r]);
+      s.lam_t1[r] = nw;
+      vt = lane_dot(g, nv, yt2, z);
+      nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
+      lane_axpy(g, nv, z, yt2, nw - s.lam_t2[r]);
+      s.lam_t2[r] = nw;
+    }
+    for (int m = 0; m < nl; ++m) {
+      const float* w = s.Y + (1 + 3 * nr + m) * ld;
+      const float sign = t.lim_sign[m];
+      float vd = sign * lane_dot(g, nv, w, z);
+      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
+      lane_axpy(g, nv, z, w, sign * (nw - s.lam_l[m]));
+      s.lam_l[m] = nw;
+    }
+  }
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      const int d = l + k * G;
+      if (d < nv) {
+        s.z[d] = z[l].x[k];
+        s.zp[d] = zp[l].x[k];
+      }
+    }
+  }
+}
+
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
 // Advances the scratch's q, v in place and writes the contact depths of this
@@ -1124,30 +1228,32 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     // dof's weight is +1 on body a's root path only, -1 on body b's only
     // (pair rows), 0 on both or neither. Then one unit vector per limit.
     for (int r = 0; r < nr; ++r) {
-      uint32_t plus, minus = 0u;
+      DofSet plus, minus = {0u, 0u};
       V3 dirs[3];
       if (r < nfloor) {
-        plus = t.anc_mask[t.row_body[r]];
+        plus = anc_path(t, t.row_body[r]);
         dirs[0] = v3_load(t.row_n + 3 * r);
         dirs[1] = v3_load(t.row_t1 + 3 * r);
         dirs[2] = v3_load(t.row_t2 + 3 * r);
       } else {
         const int k = r - nfloor;
-        const uint32_t ma = t.anc_mask[t.pair_a[k]], mb = t.anc_mask[t.pair_b[k]];
-        plus = ma & ~mb;
-        minus = mb & ~ma;
+        const DofSet ma = anc_path(t, t.pair_a[k]), mb = anc_path(t, t.pair_b[k]);
+        plus.lo = ma.lo & ~mb.lo;
+        plus.hi = ma.hi & ~mb.hi;
+        minus.lo = mb.lo & ~ma.lo;
+        minus.hi = mb.hi & ~ma.hi;
         for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
       }
+      const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
       const V3 Pr = s.P[r];
       float* const yr = s.Y + (1 + 3 * r) * ld;
       EACH_LANE(g, l) {
         for (int d = l; d < nv; d += G) {
-          const uint32_t bit = 1u << d;
-          if ((plus | minus) & bit) {
+          if (on_path(either, d)) {
             const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
             for (int k = 0; k < 3; ++k) {
               const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
-              yr[k * ld + d] = (minus & bit) ? -jd : jd;
+              yr[k * ld + d] = on_path(minus, d) ? -jd : jd;
             }
           } else {
             for (int k = 0; k < 3; ++k) yr[k * ld + d] = 0.f;
@@ -1211,61 +1317,13 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     }
     g.sync();
 
-    // the sweeps: Gauss-Seidel over rows; z and zp live in the lanes'
-    // registers, the multipliers are uniform (every lane stores the same bits)
-    PerLane<LaneVec<G>, G> z, zp;
-    EACH_LANE(g, l) {
-      ENG_UNROLL
-      for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
-        const int d = l + k * G;
-        z[l].x[k] = d < nv ? s.z[d] : 0.f;
-        zp[l].x[k] = 0.f;
-      }
-    }
-    for (int it = 0; it < t.iterations; ++it) {
-      for (int r = 0; r < nr; ++r) {
-        const float* yn = s.Y + (1 + 3 * r) * ld;
-        const float* yt1 = yn + ld;
-        const float* yt2 = yn + 2 * ld;
-        // the split-impulse row reads and writes only zp, so its update
-        // goes first and its dot shares the normal dot's butterfly
-        float vn, vpn;
-        lane_dot2(g, nv, yn, z, zp, vn, vpn);
-        float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
-        lane_axpy(g, nv, zp, yn, nw - s.lam_p[r]);
-        s.lam_p[r] = nw;
-        nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
-        lane_axpy(g, nv, z, yn, nw - s.lam_n[r]);
-        s.lam_n[r] = nw;
-        float hi = t.row_mu[r] * nw;
-        float vt = lane_dot(g, nv, yt1, z);
-        nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
-        lane_axpy(g, nv, z, yt1, nw - s.lam_t1[r]);
-        s.lam_t1[r] = nw;
-        vt = lane_dot(g, nv, yt2, z);
-        nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
-        lane_axpy(g, nv, z, yt2, nw - s.lam_t2[r]);
-        s.lam_t2[r] = nw;
-      }
-      for (int m = 0; m < nl; ++m) {
-        const float* w = s.Y + (1 + 3 * nr + m) * ld;
-        const float sign = t.lim_sign[m];
-        float vd = sign * lane_dot(g, nv, w, z);
-        float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
-        lane_axpy(g, nv, z, w, sign * (nw - s.lam_l[m]));
-        s.lam_l[m] = nw;
-      }
-    }
-    EACH_LANE(g, l) {
-      ENG_UNROLL
-      for (int k = 0; k < (MAX_NV + G - 1) / G; ++k) {
-        const int d = l + k * G;
-        if (d < nv) {
-          s.z[d] = z[l].x[k];
-          s.zp[d] = zp[l].x[k];
-        }
-      }
-    }
+    // the sweeps in one chunk a lane where the group has a lane for every
+    // dof, so that only a model with more dofs than lanes (9-12 at G=8,
+    // Atlas at G=32) carries the later chunks' registers and predicated steps
+    if (lane_chunks<G>() > 1 && nv > G)
+      pgs_sweeps<G, lane_chunks<G>()>(t, g, s);
+    else
+      pgs_sweeps<G, 1>(t, g, s);
     g.sync();
     // the two back substitutions, one lane each
     EACH_LANE(g, l) {

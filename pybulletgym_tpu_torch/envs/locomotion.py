@@ -1,9 +1,9 @@
 """Locomotion tasks: the Roboschool walker contract (torch port).
 
-Counterpart of the JAX package's `envs/locomotion.py` for the MJCF walkers
-(WalkerSpec, WalkerTask), the Hopper, Walker2D, HalfCheetah, Ant and
-Humanoid specs, and the Flagrun tasks (HumanoidFlagrunTask,
-HumanoidFlagrunHarderTask):
+Counterpart of the JAX package's `envs/locomotion.py`: WalkerSpec and
+WalkerTask (MJCF walkers, and URDF robots on the added stadium floor), the
+Hopper, Walker2D, HalfCheetah, Ant, Humanoid and Atlas specs, and the
+Flagrun tasks (HumanoidFlagrunTask, HumanoidFlagrunHarderTask):
 
 * obs  = clip(concat(more(8), joints(2n), feet_contact(nf)), -5, 5)
   [ref: …/robots/locomotors/walker_base.py · WalkerBase.calc_state]
@@ -30,7 +30,7 @@ import torch
 from pybulletgym_tpu_torch.envs.base import Task
 from pybulletgym_tpu_torch.models.assets import asset_path
 from pybulletgym_tpu_torch.models.mjcf import load_mjcf
-from pybulletgym_tpu_torch.models.schema import GeomType, Model
+from pybulletgym_tpu_torch.models.schema import Geom, GeomType, Model
 from pybulletgym_tpu_torch.ops import dynamics as dyn
 from pybulletgym_tpu_torch.ops import rand
 from pybulletgym_tpu_torch.ops import smath as sm
@@ -62,6 +62,8 @@ class WalkerSpec:
     exclude_parts: Tuple[str, ...] = ()
     # robot_body link (MJCF walkers: "torso"; Atlas URDF: "pelvis")
     base_body_name: str = "torso"
+    # URDF models: spawn height of the root link (loadURDF basePosition)
+    root_height: float = 0.0
 
 
 class WalkerTask(Task):
@@ -72,12 +74,29 @@ class WalkerTask(Task):
 
     def __init__(self, spec: WalkerSpec):
         self.spec = spec
-        self.model = load_mjcf(asset_path(spec.xml))
+        if spec.xml.endswith(".urdf"):
+            from pybulletgym_tpu_torch.models.urdf import load_urdf
+
+            self.model = load_urdf(
+                asset_path(spec.xml), root_free=True,
+                root_pos=(0.0, 0.0, spec.root_height),
+            )
+        else:
+            self.model = load_mjcf(asset_path(spec.xml))
+        # URDF files carry no world geometry; give them the stadium ground
+        # the reference loads separately via loadSDF (analytic half-space,
+        # friction 0.8 [ref: scene_stadium.py · StadiumScene])
         if not any(
             g.gtype == GeomType.PLANE and g.body == -1
             for g in self.model.geoms
         ):
-            raise NotImplementedError(f"{spec.name}: models without a floor plane are not ported yet")
+            floor = Geom(
+                "floor", -1, GeomType.PLANE, np.zeros(3), np.zeros(3),
+                np.array([1.0, 0.0, 0.0, 0.0]), 0.8, 1, 1,
+            )
+            self.model = dataclasses.replace(
+                self.model, geoms=self.model.geoms + (floor,)
+            )
         m = self.model
         sc = spec.self_collision
         if sc and sc[0] == "full":
@@ -383,6 +402,23 @@ HUMANOID = WalkerSpec(
         "right_shoulder1": 75.0, "right_shoulder2": 75.0, "right_elbow": 75.0,
         "left_shoulder1": 75.0, "left_shoulder2": 75.0, "left_elbow": 75.0,
     },
+)
+
+
+# Atlas [ref: SURVEY §2.4 row AtlasPyBulletEnv-v0 — URDF robot, 1000
+# steps]. The asset is an authored stand-in (tools/gen_atlas_urdf.py):
+# the real atlas_v4 URDF is absent offline. Deviations (PARITY.md):
+# power=1.0 with gear = URDF <limit effort> (torque saturates at the
+# joint's rated effort), humanoid-style alive bonus on the pelvis.
+ATLAS = WalkerSpec(
+    name="atlas",
+    xml="atlas.urdf",
+    power=1.0,
+    alive_mode="humanoid",
+    foot_geoms=("r_foot_box", "l_foot_box"),
+    cost_scale=4.25,
+    base_body_name="pelvis",
+    root_height=0.95,
 )
 
 

@@ -131,6 +131,22 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _root_path_words(dofs) -> Tuple[int, int]:
+    """A body's root path (its ancestor dofs) as the tables' two 32-bit mask
+    words (anc_mask: dofs 0-31, anc_mask_hi: dofs 32-63). Raises rather
+    than drop a dof the two words cannot hold."""
+    mask = sum(1 << int(d) for d in dofs)
+    if mask >> 64:
+        raise ValueError(f"dofs {sorted(int(d) for d in dofs if d >= 64)} do not fit the "
+                         f"root-path mask (dofs 0-63)")
+    return mask & 0xFFFFFFFF, mask >> 32
+
+
+def root_path(t, i: int) -> int:
+    """Body i's root-path mask from the tables' two words (bit d: dof d)."""
+    return t.anc_mask[i] | t.anc_mask_hi[i] << 32
+
+
 def _composite_masses(model: Model):
     """CRBA composite masses with the plain version's arithmetic: a body's
     mass enters as a Python float (double sums) when positive and as a
@@ -164,16 +180,23 @@ def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
 LANE_WIDTHS = (4, 8, 16, 32)
 
 
+def lane_nv(G: int) -> int:
+    """The most dofs the CUDA library of G lanes steps (engine_core.h ·
+    lane_nv): its lanes' dof vectors are sized by it, and its launch
+    refuses tables with more."""
+    _, caps = tables_type()
+    return caps.get(f"LANE_NV_{G}", caps["MAX_NV"])
+
+
 def pick_lanes(nv: int) -> int:
-    """The group width G for a model of nv dofs, as a width sweep on the
-    H100 ranked them (`tools/kernel_ab.py --lanes`, PERF.md §6)."""
-    if nv <= 4:
-        return 4
-    if nv <= 12:
-        return 8
-    if nv <= 16:
-        return 16
-    return 32
+    """The group width G for a model of nv dofs: the narrowest whose
+    library holds nv dofs (4 up to 4, 8 up to 12, 16 up to 16, else 32), as
+    a width sweep on the H100 ranked them (`tools/kernel_ab.py --lanes`,
+    PERF.md §6). Raises above the tables' MAX_NV."""
+    for G in LANE_WIDTHS:
+        if nv <= lane_nv(G):
+            return G
+    raise NotImplementedError(f"{nv} dofs exceed the kernels' cap {lane_nv(LANE_WIDTHS[-1])}")
 
 
 # 227 KB: the dynamic shared memory one block may use on sm_90
@@ -275,7 +298,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.q_adr[i] = b.q_adr
         t.v_adr[i] = b.v_adr
         t.has_mass[i] = int(b.mass > 0.0)
-        t.anc_mask[i] = sum(1 << d for d in model.ancestor_dofs[i])
+        t.anc_mask[i], t.anc_mask_hi[i] = _root_path_words(model.ancestor_dofs[i])
         off_r += f3(_quat_np_to_mat(b.quat))
         off_p += f3(b.pos)
         jpos += f3(b.jpos)
@@ -760,7 +783,11 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     """The launch of `kernel` for `tables` on the card: the group width G,
     the envs a block E, threads and dynamic shared bytes a block, resident
     blocks (and envs) per SM from the occupancy API, the kernel's
-    registers and local bytes a thread, and for a batch B the blocks."""
+    registers and local bytes a thread, and for a batch B the blocks.
+    Raises for tables with more dofs than the library of their G holds."""
+    if tables.nv > lane_nv(tables.lanes):
+        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes)} that the "
+                         f"library of G={tables.lanes} lanes holds")
     cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device))
     if B is not None:
         cfg["blocks"] = -(-B // cfg["E"])
@@ -991,7 +1018,7 @@ def substep_flops(t) -> int:
     n += nv * _SV_DOT  # C
     n += sum(2 * (t.neg_damping[d] != 0) + 3 * (t.neg_stiffness[d] != 0) + 2 for d in range(nv))
     n += nchild * 12 + sum(t.armature[d] != 0 for d in range(nv))
-    n += sum(_INERTIA_MUL + _SV_DOT * sum(1 for e in range(d + 1) if t.anc_mask[t.dof_body[d]] >> e & 1)
+    n += sum(_INERTIA_MUL + _SV_DOT * sum(1 for e in range(d + 1) if root_path(t, t.dof_body[d]) >> e & 1)
              for d in range(nv))
     nfloor = nr - t.npair
     n += fact + solve + nfloor * (_M3_VEC + _V_ADD + _V_DOT + 4) + t.npair * _PAIR_CONTACT
@@ -1001,8 +1028,8 @@ def substep_flops(t) -> int:
         n += sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))  # z
         # the dofs a row's Jacobian touches: body a's root path, and for a
         # pair row body b's, less the dofs the two share
-        masks = [t.anc_mask[t.row_body[r]] for r in range(nfloor)]
-        masks += [t.anc_mask[t.pair_a[k]] ^ t.anc_mask[t.pair_b[k]] for k in range(t.npair)]
+        masks = [root_path(t, t.row_body[r]) for r in range(nfloor)]
+        masks += [root_path(t, t.pair_a[k]) ^ root_path(t, t.pair_b[k]) for k in range(t.npair)]
         ndofs = [bin(mask).count("1") for mask in masks]
         n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * solve for k in ndofs)
         n += nl * solve

@@ -105,9 +105,10 @@ class ActorCritic(nn.Module):
 
     @classmethod
     def init(cls, obs_dim: int, act_dim: int, hidden: Sequence[int] = (64, 64),
-             generator: Optional[torch.Generator] = None, device="cpu") -> "ActorCritic":
+             generator: Optional[torch.Generator] = None, device="cuda") -> "ActorCritic":
         """networks.py · init_actor_critic: policy head scaled by 0.01,
-        value head by 1, log_std zeros."""
+        value head by 1, log_std zeros. On the GPU unless the caller asks
+        for another device."""
         pw, pb = init_mlp((obs_dim, *hidden, act_dim), 0.01, generator, device)
         vw, vb = init_mlp((obs_dim, *hidden, 1), 1.0, generator, device)
         return cls(pw, pb, vw, vb, torch.zeros((act_dim,), device=device))

@@ -3,7 +3,7 @@ figure? A probe on the host twin (CPU only).
 
     python3 pybulletgym_tpu_torch/tools/bf16_probe.py
         [--envs HumanoidPyBulletEnv-v0,HumanoidMuJoCoEnv-v0] [--batch 8]
-        [--seed 123] [--steps 1000]
+        [--seed 123] [--steps 1000] [--plain]
 
 The JAX package's XLA path computes its bias, CRBA, contact-Jacobian and
 PGS set-up products as einsums with no `precision=`; on a TPU those take
@@ -19,6 +19,10 @@ one JSON line with:
     seed `--seed` (up to `--steps` steps), and each env's episode length;
   * the median |obs - golden| at steps 1, 5 and 20 of the TPU-recorded
     golden, where there is one, over the obs entries the task computes.
+
+With --plain, both are also taken on the plain PyTorch env step on the
+CPU (build "plain"; seconds a step on the large models: the episode stops
+once every env's first one has ended).
 
 The probe changes nothing in the kernels; no bound, golden or floor reads it.
 """
@@ -36,14 +40,27 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 from pybulletgym_tpu_torch import make_batched, make_task  # noqa: E402
+from pybulletgym_tpu_torch.envs.base import env_step_plain  # noqa: E402
 from pybulletgym_tpu_torch.ops import cuda_engine as ce  # noqa: E402
 from pybulletgym_tpu_torch.utils.interop import policy_from_npz  # noqa: E402
 
 
-def episode(twin, env_id, batch, seed, steps):
-    """The shipped policy's returns and episode lengths on the twin."""
+def twin_step(twin):
+    """A build's env step for a task: the host twin on its tables."""
+    def make(task):
+        tab = ce.pack_tables(task)
+        return lambda s, a: twin.env_step(tab, task, s, a)
+    return make
+
+
+def plain_step(task):
+    return lambda s, a: env_step_plain(task, s, a)
+
+
+def episode(make_step, env_id, batch, seed, steps):
+    """The shipped policy's returns and episode lengths on one build."""
     task = make_task(env_id)
-    tab = ce.pack_tables(task)
+    step = make_step(task)
     policy = policy_from_npz(os.path.join(ROOT, "examples", "weights", f"{env_id}.npz"),
                              device="cpu")
     s = make_batched(env_id, batch, device="cpu").reset(seed=seed)
@@ -53,7 +70,7 @@ def episode(twin, env_id, batch, seed, steps):
     with torch.no_grad():
         for _ in range(min(steps, task.max_episode_steps)):
             a = policy(s.obs.T).T.contiguous()
-            s = twin.env_step(tab, task, s, a)
+            s = step(s, a)
             ret += np.where(alive, s.reward.numpy(), 0.0)
             length += alive
             alive &= ~s.done.numpy()
@@ -62,7 +79,7 @@ def episode(twin, env_id, batch, seed, steps):
     return ret, length
 
 
-def golden_drift(twin, env_id):
+def golden_drift(make_step, env_id):
     """Median |obs - golden| at each step of the TPU-recorded golden, over
     the obs entries the task computes (the zero blocks of the MuJoCo free
     walkers left out: HumanoidMuJoCo's 331 zeros would make it 0)."""
@@ -72,13 +89,13 @@ def golden_drift(twin, env_id):
     g = np.load(path)
     B, n, seed = int(g["batch"]), int(g["n_steps"]), int(g["seed"])
     task = make_task(env_id)
-    tab = ce.pack_tables(task)
+    step = make_step(task)
     s = make_batched(env_id, B, device="cpu").reset(seed=seed)
     acts = np.random.default_rng(seed).uniform(-1, 1, (n, B, task.act_dim)).astype(np.float32)
     live = task.obs_dim - getattr(task, "n_zero", 0)
     meds = []
     for t in range(n):
-        s = twin.env_step(tab, task, s, torch.from_numpy(acts[t].T.copy()))
+        s = step(s, torch.from_numpy(acts[t].T.copy()))
         meds.append(float(np.median(np.abs(s.obs.numpy() - g["obs"][t])[:live])))
     return meds
 
@@ -89,12 +106,16 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=123)
     ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--plain", action="store_true", help="also run the plain env step")
     args = ap.parse_args()
-    twins = {"f32": ce.HostTwin(), "bf16_operands": ce.HostTwin(bf16_probe=True)}
+    builds = {"f32": twin_step(ce.HostTwin()),
+              "bf16_operands": twin_step(ce.HostTwin(bf16_probe=True))}
+    if args.plain:
+        builds["plain"] = plain_step
     for env_id in args.envs.split(","):
-        for build, twin in twins.items():
-            ret, length = episode(twin, env_id, args.batch, args.seed, args.steps)
-            meds = golden_drift(twin, env_id)
+        for build, make_step in builds.items():
+            ret, length = episode(make_step, env_id, args.batch, args.seed, args.steps)
+            meds = golden_drift(make_step, env_id)
             print(json.dumps({
                 "env": env_id, "build": build, "batch": args.batch, "seed": args.seed,
                 "returns": ret.tolist(), "mean_return": float(ret.mean()),

@@ -20,7 +20,8 @@ that every slice of the port has.
 --lanes times a checkout with lane-group kernels (`cuda_engine.LANE_WIDTHS`)
 once per listed group width G, overriding the width that `pick_lanes`
 chooses (the line's "lanes"; "lanes": null is the checkout's own choice);
-checkouts without lane groups are timed once.
+a width whose library holds fewer dofs than the model (`cuda_engine.lane_nv`)
+prints a "skipped" line; checkouts without lane groups are timed once.
 """
 
 from __future__ import annotations
@@ -84,6 +85,10 @@ for env_id in envs:
     tau = torch.stack([zero if isinstance(x, float) else x
                        for x in task.action_tau_scalar(list(torch.clamp(a, -1.0, 1.0)))], 0)
     for lanes in widths or [None]:
+        if lanes is not None and hasattr(ce, "lane_nv") and task.model.nv > ce.lane_nv(lanes):
+            print(json.dumps({"root": root, "env": env_id, "B": B, "lanes": lanes,
+                              "skipped": f"{task.model.nv} dofs exceed lane_nv({lanes})"}), flush=True)
+            continue
         if lanes is not None:
             env.step_fn.tables.lanes = phys.tables.lanes = lanes
         for name, fn in (("env_step_kernel", lambda: env.step_fn(s, a)),

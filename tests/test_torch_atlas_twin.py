@@ -1,0 +1,164 @@
+"""The CUDA kernels' C++ (csrc/engine_core.h built with g++, the host twin)
+on Atlas (nv 36: more dofs than the 32 lanes of its group, and root paths
+past bit 31), against the plain version and the TPU golden.
+
+(a) the host twin at G=32 vs env_step_plain: one full step with every 3rd
+    env forced to reset (reset q and v bitwise through frame_skip=0,
+    bitwise repeatable).
+(b) the right foot's contact rows (50-57) see the leg's dofs 32-35 in the
+    contact Jacobian: the tables carry them in the second mask word; with
+    the foot pressed into the floor the contact moves those dofs and the
+    twin agrees with the plain version (whose Jacobian reads the model's
+    ancestor dofs, no mask), and the same twin with the second word
+    cleared does not; a dof the two words cannot hold raises rather than
+    being dropped.
+(c) the TPU-recorded 20-step golden replayed on the host twin, beside the
+    JAX package's float32 rollout of the same inputs (see the test).
+
+Bounds: the walkers' budget (tests/test_pallas_equivalence.py:38-40): mean
+|dq| < 3e-4, max < 1e-2, mean |dobs| < 1e-3, median |dreward| < 5e-3,
+termination flips < 1%; epoch, step count and truncation exact.
+"""
+
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from pybulletgym_tpu_torch import make_task
+from pybulletgym_tpu_torch.envs.base import BatchedEnv, env_step_plain
+from pybulletgym_tpu_torch.ops import contacts as ct
+from pybulletgym_tpu_torch.ops import cuda_engine as ce
+from pybulletgym_tpu_torch.ops import dynamics as dyn
+from pybulletgym_tpu_torch.ops.step import make_physics_step_plain
+
+ATLAS = "AtlasPyBulletEnv-v0"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RIGHT_FOOT = tuple(range(50, 58))
+HIGH_DOFS = slice(32, 36)
+
+
+@pytest.fixture(scope="module")
+def twin():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the host twin")
+    return ce.HostTwin()
+
+
+@pytest.fixture(scope="module")
+def task():
+    return make_task(ATLAS)
+
+
+def test_host_twin_env_step(task, twin):
+    """(a) one full step at G=32, every 3rd env forced to reset"""
+    B = 6
+    tab, tab0 = ce.pack_tables(task), ce.pack_tables(task, frame_skip=0)
+    assert (tab.lanes, tab.nv, tab.caps_id, tab.npair, tab.nr, tab.nl) == (32, 36, 1, 0, 58, 60)
+    s = BatchedEnv(task, B, device="cpu").reset(seed=4)
+    forced = torch.zeros(B, dtype=torch.bool)
+    forced[::3] = True
+    s = s._replace(terminated=forced)
+    a = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (task.act_dim, B)).astype(np.float32))
+    r0h, r0p = twin.env_step(tab0, task, s, a), env_step_plain(task, s, a, frame_skip=0)
+    assert torch.equal(r0h.q, r0p.q) and torch.equal(r0h.v, r0p.v)  # reset draws bitwise
+    sh = twin.env_step(tab, task, s, a)
+    again = twin.env_step(tab, task, s, a)
+    for name in ("q", "v", "obs", "reward", "terminated"):
+        assert torch.equal(getattr(sh, name), getattr(again, name)), name
+    sp = env_step_plain(task, s, a)
+    dq = (sh.q - sp.q).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2, dq.max()
+    assert (sh.obs - sp.obs).abs().mean() < 1e-3
+    assert (sh.reward - sp.reward).abs().median() < 5e-3
+    assert (sh.terminated != sp.terminated).float().mean() < 0.01
+    for name in ("epoch", "step_count", "truncated"):
+        assert torch.equal(getattr(sh, name), getattr(sp, name)), name
+    assert (1 - sh.q[3:7].norm(dim=0)).abs().max() < 1e-5  # the root quaternion
+
+
+def _right_foot_pressed(task, B, depth=3e-3):
+    """A post-reset batch lowered so that the right foot's deepest corner is
+    `depth` into the floor."""
+    s = BatchedEnv(task, B, device="cpu").reset(seed=8)
+    plan = ct.build_contact_plan(task.model, task.physics.solver)
+    fk = dyn.forward_kinematics(task.model, list(s.q), list(s.v), with_inertia=False)
+    d0 = torch.stack([ct.narrowphase_scalar(task.model, fk, plan).depth[r] for r in RIGHT_FOOT])
+    q = s.q.clone()
+    q[2] -= depth - d0.max(0).values  # the root's height
+    return q, s.v
+
+
+def test_right_foot_rows_see_dofs_32_to_35(task, twin):
+    """(b) the second root-path word, in the tables and in the Jacobian"""
+    tab = ce.pack_physics(task.model, task.physics, frame_skip=1)
+    assert task.foot_rows[0] == RIGHT_FOOT
+    for r in RIGHT_FOOT:
+        body = tab.row_body[r]
+        want = set(task.model.ancestor_dofs[body])
+        assert {d for d in range(64) if ce.root_path(tab, body) >> d & 1} == want
+        assert set(range(32, 36)) <= want and tab.anc_mask_hi[body] == 0b1111
+    for r in task.foot_rows[1]:  # the left leg ends below bit 32
+        assert tab.anc_mask_hi[tab.row_body[r]] == 0
+    assert ce._root_path_words([0, 31, 32, 63]) == (0x80000001, 0x80000001)
+    with pytest.raises(ValueError, match="root-path mask"):
+        ce._root_path_words([3, 64])
+
+    B = 4
+    q, v = _right_foot_pressed(task, B)
+    tau = torch.zeros((task.model.nv, B))
+    plain = make_physics_step_plain(task.model, dataclasses.replace(task.physics, frame_skip=1))[0]
+    _, vp, dp = plain(q, v, tau)
+    assert (dp[list(RIGHT_FOOT)] > 0).any(0).all()  # the foot touches in every env
+    _, vh, dh = twin.physics_step(tab, q, v, tau)
+    assert torch.equal(dh > 0, dp > 0)
+    err = (vh[HIGH_DOFS] - vp[HIGH_DOFS]).abs().max().item()
+    # what the foot's contact impulse does to dofs 32-35: the same step with
+    # the robot 5 cm higher, the foot clear of the floor
+    lifted = q.clone()
+    lifted[2] += 0.05
+    _, vl, dl = twin.physics_step(tab, lifted, v, tau)
+    assert not (dl[list(RIGHT_FOOT)] > 0).any()
+    push = (vh[HIGH_DOFS] - vl[HIGH_DOFS]).abs().max().item()
+    assert err < 1e-3 and push > 100 * max(err, 1e-5), (err, push)
+    probe = type(tab).from_buffer_copy(tab)
+    for i in range(probe.nb):
+        probe.anc_mask_hi[i] = 0
+    _, vx, _ = twin.physics_step(probe, q, v, tau)
+    assert not torch.allclose(vx[HIGH_DOFS], vp[HIGH_DOFS], atol=1e-3)
+
+
+def test_golden_rollout_on_host_twin(task, twin):
+    """(c) The golden was recorded on a TPU, whose XLA path takes some
+    products' operands in bf16 (tools/bf16_probe.py). Atlas's misses the
+    1e-2 at step 5 that the other TPU goldens meet
+    (test_torch_humanoid_twin.py), and so does the JAX package's own
+    float32 rollout of the same inputs (tests/goldens_f32/, recorded by
+    test_torch_atlas.py · golden_witness: the eager kernel body on the
+    CPU), which is 2.5e-2 from it at step 5. So the twin is held to that
+    float32 rollout at the CPU goldens' budget (median |dobs| 1e-3 at step
+    5, 3e-2 at step 20; it stays within 1e-4 at every step) and to the TPU
+    golden's termination at every step, and its drift from the TPU golden
+    is the float32 rollout's own to 10%."""
+    g = np.load(os.path.join(ROOT, "tests", "goldens", f"{ATLAS}.npz"))
+    ref = np.load(os.path.join(ROOT, "tests", "goldens_f32", f"{ATLAS}.npz"))
+    B, n, seed = int(g["batch"]), int(g["n_steps"]), int(g["seed"])
+    assert (int(ref["batch"]), int(ref["n_steps"]), int(ref["seed"])) == (B, n, seed)
+    tab = ce.pack_tables(task)
+    s = BatchedEnv(task, B, device="cpu").reset(seed=seed)
+    acts = np.random.default_rng(seed).uniform(-1, 1, (n, B, task.act_dim)).astype(np.float32)
+    meds, tpu, ref_tpu = [], [], []
+    for t in range(n):
+        s = twin.env_step(tab, task, s, torch.from_numpy(acts[t].T.copy()))
+        o = s.obs.numpy()
+        meds.append(np.median(np.abs(o - ref["obs"][t])))
+        tpu.append(np.median(np.abs(o - g["obs"][t])))
+        ref_tpu.append(np.median(np.abs(ref["obs"][t] - g["obs"][t])))
+        np.testing.assert_array_equal(s.terminated.numpy(), g["terminated"][t])
+        np.testing.assert_array_equal(s.terminated.numpy(), ref["terminated"][t])
+    assert meds[4] < 1e-3 and meds[-1] < 3e-2 and max(meds) < 1e-4, meds
+    assert ref_tpu[4] > 1e-2  # the float32 rollout misses the TPU bound itself
+    np.testing.assert_allclose(tpu, ref_tpu, rtol=0.1)

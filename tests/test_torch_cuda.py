@@ -10,8 +10,9 @@ Without a GPU every test here skips. Ragged batches (B=1, 3E+1 for the
 launch's E envs a block, 4097) are held on HalfCheetah and Humanoid. The
 bounds are the walker budget of
 test_pallas_equivalence.py:38-51 on HalfCheetah (hinge and slide joints),
-Ant (a free root), Pusher (disk rows, empty aux) and Thrower (a free ball
-that is not body 0), and the humanoid-family budget of
+Ant (a free root), Atlas (nv 36 over a group of 32 lanes, root paths past
+bit 31), Pusher (disk rows, empty aux) and Thrower (a free ball that is not
+body 0), and the humanoid-family budget of
 test_pallas_equivalence.py:80-86 on Humanoid and FlagrunHarder (self-
 collision pairs, the large scratch instantiation, the cube), as
 chip_smoke.py holds them. The Gym-MuJoCo mirrors HopperMuJoCo (a planar
@@ -35,7 +36,9 @@ HUMANOID = "HumanoidPyBulletEnv-v0"
 HARDER = "HumanoidFlagrunHarderPyBulletEnv-v0"
 PUSHER = "PusherPyBulletEnv-v0"
 THROWER = "ThrowerPyBulletEnv-v0"
-IDS = {"half_cheetah": ENV, "ant": ANT, "humanoid": HUMANOID, "humanoid_flagrun_harder": HARDER}
+ATLAS = "AtlasPyBulletEnv-v0"
+IDS = {"half_cheetah": ENV, "ant": ANT, "humanoid": HUMANOID, "humanoid_flagrun_harder": HARDER,
+       "atlas": ATLAS}
 B = 300  # not a multiple of any launch's envs a block: a ragged last block
 
 pytestmark = pytest.mark.cuda
@@ -88,7 +91,7 @@ def _need_gpu():
         pytest.skip("needs a CUDA GPU")
 
 
-@pytest.fixture(scope="module", params=[ENV, ANT])
+@pytest.fixture(scope="module", params=[ENV, ANT, ATLAS])
 def task(request):
     _need_gpu()
     return make_task(request.param)

@@ -102,7 +102,8 @@ def _jax_kernel_body(task, st, action, frame_skip):
     obs = [jnp.where(sm_j.isfinite(o), o, 0.0) for o in obs]
     step2 = step_count + 1
     return dict(
-        q=np.stack([np.asarray(x) for x in q]), obs=np.stack([np.asarray(x) for x in obs]),
+        q=np.stack([np.asarray(x) for x in q]), v=np.stack([np.asarray(x) for x in v]),
+        obs=np.stack([np.asarray(x) for x in obs]),
         reward=np.asarray(jnp.where(sm_j.isfinite(reward), reward, 0.0)),
         terminated=np.asarray(term), truncated=np.asarray((step2 >= task.max_episode_steps) & ~term),
         step_count=np.asarray(step2), epoch=np.asarray(epoch),
@@ -374,16 +375,16 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
 
     with pytest.raises(NotImplementedError, match="Pushed"):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
-    # a model above 32 dofs (six free balls: 36), over the large caps
+    # a model above 40 dofs (seven free balls: 42), over the large caps
     balls = "".join(
         f'<body name="b{i}" pos="{i} 0 1"><joint name="j{i}" type="free"/>'
-        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(6))
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(7))
     xml = tmp_path / "balls.xml"
     xml.write_text('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
                    f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
     model = load_mjcf(str(xml))
-    assert model.nv == 36
-    with pytest.raises(NotImplementedError, match="exceed the kernels' caps"):
+    assert model.nv == 42
+    with pytest.raises(NotImplementedError, match="'NV': 42"):
         ce.pack_physics(model, tt.physics)
     env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):

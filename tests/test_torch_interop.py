@@ -70,6 +70,7 @@ def _jax_policy(path):
     "InvertedPendulumPyBulletEnv-v0",       # clip head, raw observations
     "HopperPyBulletEnv-v0",                 # clip head, normalized observations
     "AntPyBulletEnv-v0",                    # clip head, normalized observations
+    "AtlasPyBulletEnv-v0",                  # obs 70, act 30
 ])
 def test_policy_from_npz_matches_jax(name):
     path = os.path.join(WEIGHTS, f"{name}.npz")

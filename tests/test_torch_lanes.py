@@ -19,9 +19,14 @@ own arithmetic, reduction order included, at each width:
     post-reset q and v (frame_skip=0) are bitwise the plain version's at
     every width, and two twin calls on the same inputs agree bitwise.
 (b) the scratch layout that the wrapper computes from each model's sizes
-    fits one block's 227 KB of shared memory for all 25 ported IDs, its
-    arrays are disjoint where they are live together, and a model over the
-    tables' caps raises.
+    fits one block's 227 KB of shared memory for all 26 IDs, its arrays are
+    disjoint where they are live together, and a model over the tables'
+    caps raises.
+(c) the dofs each width's library holds (engine_core.h · lane_nv: its
+    lanes' dof vectors are sized by it): pick_lanes gives every model the
+    narrowest width that holds it, Atlas's 36 dofs two chunks at G=32, and
+    the launch refuses tables of more dofs than their width holds.
+    test_torch_atlas_twin.py runs the twin at G=32 on Atlas.
 """
 
 import shutil
@@ -157,3 +162,20 @@ def test_scratch_layout_refuses_what_does_not_fit():
     t.nr = 700  # a model whose constraint rows would not fit one block
     with pytest.raises(NotImplementedError, match="shared memory"):
         ce.scratch_layout(t)
+
+
+def test_lane_bound_per_width():
+    """(c)"""
+    _, caps = ce.tables_type()
+    assert [ce.lane_nv(G) for G in ce.LANE_WIDTHS] == [4, 12, 16, caps["MAX_NV"]]
+    for nv in range(1, caps["MAX_NV"] + 1):
+        G = ce.pick_lanes(nv)
+        assert nv <= ce.lane_nv(G) and all(nv > ce.lane_nv(w) for w in ce.LANE_WIDTHS if w < G)
+    with pytest.raises(NotImplementedError, match="exceed"):
+        ce.pick_lanes(caps["MAX_NV"] + 1)
+    atlas = ce.pack_tables(make_task("AtlasPyBulletEnv-v0"))
+    assert (atlas.nv, atlas.lanes) == (36, 32) and -(-atlas.nv // 32) == 2 <= -(-caps["MAX_NV"] // 32)
+    humanoid = ce.pack_tables(make_task("HumanoidPyBulletEnv-v0"))
+    humanoid.lanes = 16  # 23 dofs: the library of 16 lanes holds 16
+    with pytest.raises(ValueError, match="23 dofs exceed"):
+        ce.launch_config(humanoid, "env_step_kernel")

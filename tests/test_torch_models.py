@@ -97,7 +97,7 @@ def test_task_constants_equal(tasks):
 
 def test_unknown_id_lists_known():
     with pytest.raises(KeyError, match="HumanoidPyBulletEnv-v0"):
-        make_task("AtlasPyBulletEnv-v0")  # not ported yet
+        make_task("NoSuchEnv-v0")
 
 
 def test_import_never_loads_jax():
@@ -110,6 +110,7 @@ def test_import_never_loads_jax():
         "pybulletgym_tpu_torch.make_task('HalfCheetahPyBulletEnv-v0')\n"
         "pybulletgym_tpu_torch.make_task('AntPyBulletEnv-v0')\n"
         "pybulletgym_tpu_torch.make_task('HumanoidFlagrunHarderPyBulletEnv-v0')\n"
+        "pybulletgym_tpu_torch.make_task('AtlasPyBulletEnv-v0')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pybulletgym_tpu' or m.startswith('pybulletgym_tpu.')]\n"
         "assert not bad, bad\n"

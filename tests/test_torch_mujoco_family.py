@@ -15,7 +15,7 @@
     test_torch_humanoid.py; obs to 1e-4 absolute or relative, since
     ReacherMuJoCo's gear of 200 spins the arm at tens of rad/s in one
     substep; reward to 1e-3), and the registry:
-    25 IDs, Reacher's horizon 150 over the task's own 1000.
+    26 IDs, Reacher's horizon 150 over the task's own 1000.
 test_torch_mujoco_family_twin.py holds the kernels' C++ to the plain version.
 """
 
@@ -137,10 +137,10 @@ def test_env_step_plain_matches_jax_kernel_body(env_id):
 
 
 def test_registry_has_the_family():
-    assert len(registry) == 25
+    assert len(registry) == 26 and sorted(registry) == sorted(pg.registry)
     assert all(k in registry for k in MJ)
     for env_id in MJ:  # the JAX registry's horizons
         assert make_task(env_id).max_episode_steps == pg.make_task(env_id).max_episode_steps
     assert make_task(REACHER).max_episode_steps == 150
     with pytest.raises(KeyError, match="known"):
-        make_task("AtlasPyBulletEnv-v0")
+        make_task("NoSuchEnv-v0")

@@ -72,7 +72,7 @@ def test_actor_critic_matches_jax():
     np.testing.assert_allclose(_np(at), np.asarray(aj), atol=1e-5)
     np.testing.assert_allclose(_np(spt), np.asarray(spj), atol=1e-5)
     # the init draws from a torch.Generator: same shapes and scales, other numbers
-    fresh = ActorCritic.init(28, 8, (64, 64), torch.Generator().manual_seed(0))
+    fresh = ActorCritic.init(28, 8, (64, 64), torch.Generator().manual_seed(0), device="cpu")
     assert [tuple(p.shape) for p in fresh.leaves()] == [x.shape for x in jax.tree.leaves(pj)]
     assert float(fresh.policy_w[-1].detach().abs().max()) < 0.01 and not fresh.log_std.any()
 
