@@ -38,6 +38,21 @@ dofs than a group's 32 lanes, root paths past bit 31):
     iterations (4 env-kernel launches each), then one under torch.profiler,
     and held on 64 envs to the same iteration on the CPU (plain env step,
     same draws);
+  * drives the gymnasium API and the utils, each with the launch counts
+    reset just before it and read just after: `pt.make(HalfCheetah)` (B=1;
+    its spaces, an episode of the shipped policy through reset and step to
+    truncation at a return of 3000 or more, the epoch-1 state of a reset
+    without a seed bitwise, steps/s); `pt.make_vec(HalfCheetah, 4096)`
+    (200 steps bitwise equal to `BatchedEnv.step` on the same seeded
+    actions, env-steps/s of both, a profiled split of an adapter step);
+    `EpisodeStats` over 1000 steps at B=4096 (4096 episodes or more, sums
+    within rtol 1e-5 of a float64 fold); an Ant checkpoint at B=4096 saved
+    after 5 steps and loaded into a fresh reset, both stepped 5 more times
+    bitwise, and the shipped PPO `TrainState` round trip (every leaf and
+    the generator; ms to save and load); and `render_state_native` of a
+    card state (a (240, 320, 3) frame with the robot in it, equal to the
+    CPU state's frame; ms a frame). gymnasium is optional: its absence is
+    printed, not skipped over;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -56,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -198,6 +214,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
     sys.path.insert(0, HERE)
+    import pybulletgym_tpu_torch as pt
     from pybulletgym_tpu_torch import make_batched, make_task
     from pybulletgym_tpu_torch.envs.base import env_step_plain
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
@@ -1015,6 +1032,255 @@ def main():
     golden(ATLAS, tpu=True)
     main_at = policy_path(ATLAS, (pat["phys"], pat["s0"].q, pat["s0"].v, pat["tau"]))
 
+    # ---- main path: the gymnasium API (make, make_vec), EpisodeStats,
+    # checkpoints and rendering, each through the env-step kernel -------------
+    def leaves(st):  # an EnvState's tensors, its dicts by sorted key
+        return [x for f in st for x in ([f[k] for k in sorted(f)] if isinstance(f, dict) else [f])]
+
+    def gym_adapter_path():
+        """`pt.make(HalfCheetah)` on the card: its spaces, one episode of the
+        shipped policy (on the CPU, as a gym user would run it) through
+        reset and step until truncation, and the epoch rule of a reset
+        without a seed."""
+        from pybulletgym_tpu_torch.api import gym_adapter as ga
+
+        task = make_task(CHEETAH)
+        policy = policy_from_npz(os.path.join(HERE, "examples", "weights", f"{CHEETAH}.npz"),
+                                 device="cpu")
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        env = pt.make(CHEETAH)
+        act_sp, obs_sp = env.action_space, env.observation_space
+        require(tuple(act_sp.shape) == (task.act_dim,) and (act_sp.low == -1).all()
+                and (act_sp.high == 1).all() and act_sp.dtype == np.float32, "action space")
+        require(tuple(obs_sp.shape) == (task.obs_dim,) and np.isinf(obs_sp.high).all()
+                and obs_sp.dtype == np.float32, "observation space")
+        obs, _ = env.reset(seed=123)
+        ret, n, term, trunc = 0.0, 0, False, False
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            while not (term or trunc):
+                a = policy(torch.from_numpy(obs)[None])[0].numpy()
+                obs, r, term, trunc, info = env.step(a)
+                ret += r
+                n += 1
+        episode_s = time.perf_counter() - t0
+        launches = dict(ce.LAUNCHES)
+        a0 = np.zeros(task.act_dim, np.float32)
+        step_ms = host_ms(lambda: env.step(a0), 200)
+        env.reset()  # no seed: epoch 1 of seed 123
+        want = make_batched(CHEETAH, 1).reset(seed=123, epoch=1)
+        same = all(torch.equal(x, y) for x, y in zip(leaves(env._state), leaves(want)))
+        emit("gym_adapter", env=CHEETAH, B=1, device=str(env._env.device),
+             gymnasium=None if ga.gymnasium is None else ga.gymnasium.__version__,
+             action_shape=list(act_sp.shape), observation_shape=list(obs_sp.shape), episode_steps=n,
+             episode_return=ret, floor=POLICY_FLOOR[CHEETAH], terminated=term, truncated=trunc,
+             episode_steps_per_s=n / episode_s, step_ms=step_ms, steps_per_s=1e3 / step_ms,
+             info_keys=sorted(info), launches=launches, reset_epoch1_bitwise=same, card=card)
+        require(np.isfinite(ret) and ret >= POLICY_FLOOR[CHEETAH],
+                f"adapter episode return {ret} below {POLICY_FLOOR[CHEETAH]}")
+        require(trunc and n == task.max_episode_steps, f"the episode ended at step {n}")
+        require(launches["env_step_kernel"] == n, f"adapter launches: {launches}")
+        require(same, "reset() without a seed is not epoch 1's state")
+        return launches
+
+    def vector_adapter_path(steps=200, warm=10):
+        """`pt.make_vec(HalfCheetah, 4096)` against `BatchedEnv.step` on the
+        same seeded actions: every step's obs, rewards, flags and reward
+        components bitwise; env-steps/s of each."""
+        task = make_task(CHEETAH)
+        rng = np.random.default_rng(5)
+        acts = rng.uniform(-1, 1, (warm + steps, B, task.act_dim)).astype(np.float32)
+        acts_dev = torch.from_numpy(acts).to(dev)
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        vec = pt.make_vec(CHEETAH, B)
+        obs0, _ = vec.reset(seed=2)
+        outs = []
+        for a in acts[:warm]:
+            outs.append(vec.step(a))
+        t0 = time.perf_counter()
+        for a in acts[warm:]:
+            outs.append(vec.step(a))
+        vec_ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = dict(ce.LAUNCHES)
+        benv = make_batched(CHEETAH, B)
+        st = benv.reset(seed=2)
+        states = []
+        for t in range(warm):
+            st = benv.step(st, acts_dev[t])
+            states.append(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(warm, warm + steps):
+            st = benv.step(st, acts_dev[t])
+            states.append(st)
+        torch.cuda.synchronize()
+        env_ms = (time.perf_counter() - t0) * 1e3 / steps
+        # where an adapter step's time goes: 20 steps under torch.profiler
+        wall_ms, dev_us = profile_ms(lambda: [vec.step(a) for a in acts[:20]])
+        busy_ms = sum(dev_us.values()) / 1e3
+        same = bool((obs0 == benv.reset(seed=2).obs.T.cpu().numpy()).all())
+        for (obs, r, term, trunc, info), s in zip(outs, states):
+            same &= bool((obs == s.obs.T.cpu().numpy()).all() and (r == s.reward.cpu().numpy()).all()
+                         and (term == s.terminated.cpu().numpy()).all()
+                         and (trunc == s.truncated.cpu().numpy()).all()
+                         and sorted(info) == sorted(s.rewards)
+                         and all((info[k] == s.rewards[k].cpu().numpy()).all() for k in info))
+        emit("vector_adapter", env=CHEETAH, B=B, steps=steps, warmup=warm, bitwise=same,
+             ms_per_step=vec_ms, env_steps_per_s=B * 1e3 / vec_ms,
+             batched_env_ms_per_step=env_ms, batched_env_steps_per_s=B * 1e3 / env_ms,
+             host_bytes_in=acts[0].nbytes, host_bytes_out=sum(
+                 x.nbytes for x in outs[0][:4]) + sum(x.nbytes for x in outs[0][4].values()),
+             launches=launches, profiled_ms_per_step=wall_ms / 20,
+             device_busy_share=busy_ms / wall_ms,
+             device_ms_per_step=[(k[:60], us / 1e3 / 20) for k, us in
+                                 sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]], card=card)
+        require(same, "VectorAdapter differs from BatchedEnv.step")
+        require(launches["env_step_kernel"] == warm + steps, f"vector launches: {launches}")
+        return launches
+
+    def episode_stats_path(steps=1000):
+        """`EpisodeStats` folded through 1000 steps of HalfCheetah at B=4096
+        (random actions): every env truncates at step 1000; the sums held to
+        a float64 numpy fold of the same rewards and dones (rtol 1e-5)."""
+        from pybulletgym_tpu_torch.utils.metrics import EpisodeStats
+
+        task = make_task(CHEETAH)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        senv = make_batched(CHEETAH, B)
+        s = senv.reset(seed=4)
+        stats = EpisodeStats.init(B)
+        rews, dones = [], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            a = torch.rand((B, task.act_dim), generator=gen, device=dev) * 2 - 1
+            s = senv.step(s, a)
+            stats = stats.update(s.reward, s.done)
+            rews.append(s.reward)
+            dones.append(s.done)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = dict(ce.LAUNCHES)
+        update_ms = cuda_ms(lambda: stats.update(s.reward, s.done), 100)
+        R = torch.stack(rews).cpu().numpy().astype(np.float64)  # one copy each, at the end
+        D = torch.stack(dones).cpu().numpy()
+        run_r, run_l = np.zeros(B), np.zeros(B)
+        sum_r = sum_l = 0.0
+        for r, d in zip(R, D):
+            run_r, run_l = run_r + r, run_l + 1.0
+            sum_r += run_r[d].sum()
+            sum_l += run_l[d].sum()
+            run_r[d], run_l[d] = 0.0, 0.0
+        n_ep = int(stats.n_episodes)
+        rel = {"sum_returns": abs(float(stats.sum_returns) - sum_r) / max(abs(sum_r), 1e-12),
+               "sum_lengths": abs(float(stats.sum_lengths) - sum_l) / max(abs(sum_l), 1e-12)}
+        emit("episode_stats", env=CHEETAH, B=B, steps=steps, n_episodes=n_ep,
+             n_episodes_float64_fold=int(D.sum()), sum_returns=float(stats.sum_returns),
+             sum_returns_float64=sum_r, sum_lengths=float(stats.sum_lengths),
+             sum_lengths_float64=sum_l, rel_diff=rel, mean_return=float(stats.mean_return()),
+             mean_length=float(stats.mean_length()), update_ms=update_ms,
+             ms_per_step_with_update=loop_ms, launches=launches, card=card)
+        require(n_ep == int(D.sum()) and n_ep >= B, f"{n_ep} episodes")
+        require(all(x < 1e-5 for x in rel.values()), f"EpisodeStats sums differ: {rel}")
+        require(launches["env_step_kernel"] == steps, f"episode-stats launches: {launches}")
+        return launches
+
+    def checkpoint_path(tmp):
+        """Ant at B=4096 saved after 5 steps, loaded into a fresh reset on the
+        card, both stepped 5 more times: bitwise. The PPO TrainState of the
+        shipped checkpoint saved and loaded: every leaf and the generator."""
+        from pybulletgym_tpu_torch.utils import checkpoint
+        from pybulletgym_tpu_torch.utils.interop import train_state_from_npz
+
+        task = make_task(ANT)
+        acts = torch.from_numpy(np.random.default_rng(6).uniform(
+            -1, 1, (10, B, task.act_dim)).astype(np.float32)).to(dev)
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        cenv = make_batched(ANT, B)
+        s = cenv.reset(seed=6)
+        for a in acts[:5]:
+            s = cenv.step(s, a)
+        path = os.path.join(tmp, "ant.npz")
+        _, save_ms = timed(lambda: checkpoint.save(path, s))
+        template = cenv.reset(seed=0)
+        s2, load_ms = timed(lambda: checkpoint.load(path, template))
+        require(all(x.is_cuda for x in leaves(s2)), "the loaded state is not on the card")
+        same_load = all(torch.equal(x, y) for x, y in zip(leaves(s), leaves(s2)))
+        for a in acts[5:]:
+            s, s2 = cenv.step(s, a), cenv.step(s2, a)
+        same = all(torch.equal(x, y) for x, y in zip(leaves(s), leaves(s2)))
+        torch.cuda.synchronize()
+        launches = dict(ce.LAUNCHES)
+        ts_path = os.path.join(HERE, "examples", "weights", f"{ANT}.trainstate.npz")
+        ts, _ = train_state_from_npz(ts_path, seed=0)
+        torch.randn(8, generator=ts.generator, device=dev)  # the stream has moved
+        tpath = os.path.join(tmp, "ts.npz")
+        _, ts_save_ms = timed(lambda: checkpoint.save(tpath, ts))
+        like = train_state_from_npz(ts_path, seed=1)[0]
+        ts2, ts_load_ms = timed(lambda: checkpoint.load(tpath, like))
+        differ = [i for i, (x, y) in enumerate(zip(checkpoint._flatten(ts)[0],
+                                                   checkpoint._flatten(ts2)[0]))
+                  if not (torch.equal(x.get_state(), y.get_state())
+                          and x.device == y.device if isinstance(x, torch.Generator)
+                          else torch.equal(x, y) and x.device == y.device)]
+        ts_same = not differ and ts2.generator.device.type == "cuda"
+        emit("checkpoint", env=ANT, B=B, file_bytes=os.path.getsize(path), save_ms=save_ms,
+             load_ms=load_ms, loaded_bitwise=same_load, resumed_bitwise=same,
+             train_state_leaves=len(checkpoint._flatten(ts)[0]),
+             train_state_file_bytes=os.path.getsize(tpath), train_state_save_ms=ts_save_ms,
+             train_state_load_ms=ts_load_ms, train_state_bitwise=ts_same,
+             train_state_leaves_differ=differ, launches=launches,
+             card=card)
+        require(same_load and same, "the Ant checkpoint did not resume bitwise")
+        require(ts_same, "the TrainState did not round-trip")
+        require(launches["env_step_kernel"] == 15, f"checkpoint launches: {launches}")
+        return launches
+
+    def render_path():
+        """`render_state_native` of a HalfCheetah state on the card (env 0):
+        a frame that is not the empty scene's, equal to the frame of the same
+        state moved to the CPU."""
+        from pybulletgym_tpu_torch.native import load_render_lib
+        from pybulletgym_tpu_torch.utils import render
+
+        task = make_task(CHEETAH)
+        renv = make_batched(CHEETAH, 4)
+        s = renv.reset(seed=0)
+        for _ in range(3):
+            s = renv.step(s, torch.zeros((4, task.act_dim), device=dev))
+        frame, first_ms = timed(lambda: render.render_state_native(task, s))
+        require(frame is not None, "no g++ to build the native renderer")
+        host = type(s)(*[{k: x.cpu() for k, x in f.items()} if isinstance(f, dict) else f.cpu()
+                         for f in s])
+        same = bool((frame == render.render_state_native(task, host)).all())
+        fk = render._fk(task, s, 0)
+        target = np.array([float(x) for x in fk.p[task.model.body_index("torso")]], np.float32)
+        empty = np.empty_like(frame)
+        fp = ctypes.POINTER(ctypes.c_float)
+        load_render_lib().render_rgb(
+            np.zeros((1, 24), np.float32).ctypes.data_as(fp), 0, target.ctypes.data_as(fp),
+            ctypes.c_float(3.0), ctypes.c_float(0.0), ctypes.c_float(-30.0),
+            empty.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), 320, 240)
+        robot = float((frame != empty).any(-1).mean())
+        ms = host_ms(lambda: render.render_state_native(task, s), 20)
+        emit("render", env=CHEETAH, shape=list(frame.shape), dtype=str(frame.dtype),
+             geoms=len(render._geom_rows(task, s, 0)), robot_pixel_share=robot,
+             equal_to_cpu_state=same, first_call_ms=first_ms, ms_per_frame=ms, card=card)
+        require(frame.shape == (240, 320, 3) and frame.dtype == np.uint8, "frame shape")
+        require(robot > 0.001, "the frame shows no robot")
+        require(same, "the card state's frame differs from the CPU state's")
+
+    # the gymnasium API, EpisodeStats, checkpoints and rendering
+    main_api = {"gym_adapter": gym_adapter_path(), "vector_adapter": vector_adapter_path(),
+                "episode_stats": episode_stats_path()}
+    with tempfile.TemporaryDirectory() as tmp:
+        main_api["checkpoint"] = checkpoint_path(tmp)
+    render_path()
+
     # the local memory that the first launch of each kernel on each model
     # took outside torch's allocator (free memory before and after)
     emit("local_memory", first_launches=lmem_log,
@@ -1052,6 +1318,7 @@ def main():
                 [HOPPER, WALKER, FLAGRUN, SWINGUP] + list(MIRRORS)
                 if name == "env_step_kernel" else ["HalfCheetah, bthigh a cylinder"]),
             "per_model": per_model, "sac_launches": main_s[name],
+            "api_launches": {path: m[name] for path, m in main_api.items()},
         })
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

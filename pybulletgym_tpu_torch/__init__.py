@@ -7,12 +7,21 @@ run on the CPU, and hand-written CUDA kernels for Hopper (`csrc/`) run the
 whole env step in one launch on the GPU. The JAX package is the frozen
 reference it is held against; this package never imports jax.
 
-So far: 17 of the JAX package's 26 env IDs (the MJCF walkers, the humanoid
-family, the pendula and the manipulators; `api/registry.py`) and the PPO
-learner (`parallel.ppo`).
+All 26 env IDs of the JAX package (`api/registry.py`), the PPO and SAC
+learners (`parallel.ppo`, `parallel.sac`), the gymnasium API (`make`,
+`make_vec`, `api/gym_adapter.py`; every ID registered with gymnasium as
+``pybulletgym_tpu_torch/<id>`` on import, where gymnasium is installed),
+and the utils: episode statistics (`utils.metrics`), checkpoints
+(`utils.checkpoint`), rendering (`utils.render`) and the SDF importer
+(`models.sdf`).
 Entry points run on the GPU unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"
 
-from pybulletgym_tpu_torch.api.registry import make_batched, make_task  # noqa: F401
+from pybulletgym_tpu_torch.api.registry import (  # noqa: F401
+    make, make_batched, make_task, register_with_gymnasium, registry,
+)
+from pybulletgym_tpu_torch.api.gym_adapter import make_vec  # noqa: F401
+
+register_with_gymnasium()

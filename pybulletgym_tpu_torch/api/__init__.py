@@ -1,1 +1,1 @@
-"""Env registry."""
+"""Env registry and gymnasium adapters."""

@@ -12,8 +12,14 @@ HalfCheetah, Ant, Humanoid, Reacher, InvertedPendulum and
 InvertedDoublePendulum `*MuJoCoEnv-v0`). Any other ID raises `KeyError`
 listing the known ones. The registry's horizon overrides the task's own
 (ReacherMuJoCoEnv-v0: 150 steps).
-Nothing is registered with gymnasium (the JAX package registers the same
-IDs for itself on import).
+
+Three entry points: ``make(id)``, a single-env adapter (`api/gym_adapter.py`);
+``make_batched(id, batch_size)``, the native batched env; ``make_task(id)``.
+`register_with_gymnasium` (run when the package is imported) registers
+every ID with gymnasium under the namespace ``pybulletgym_tpu_torch/``, so
+``gymnasium.make("pybulletgym_tpu_torch/HopperPyBulletEnv-v0")`` builds the
+port's adapter. The bare IDs stay the JAX package's: the port never
+registers or displaces them, whichever package is imported first.
 """
 
 from __future__ import annotations
@@ -106,3 +112,37 @@ def make_batched(id: str, batch_size: int, device="cuda"):
     from pybulletgym_tpu_torch.envs.base import BatchedEnv
 
     return BatchedEnv(make_task(id), batch_size, device=device)
+
+
+def make(id: str, device="cuda", render_mode: Optional[str] = None):
+    """A single-env gymnasium adapter (`api/gym_adapter.py · GymAdapter`)
+    on `device`: the GPU unless the caller asks for "cpu"."""
+    from pybulletgym_tpu_torch.api.gym_adapter import GymAdapter
+
+    return GymAdapter(make_task(id), registry[id], render_mode=render_mode, device=device)
+
+
+NAMESPACE = "pybulletgym_tpu_torch"
+
+
+def register_with_gymnasium() -> None:
+    """Register every ID with gymnasium as ``pybulletgym_tpu_torch/<id>``;
+    does nothing where gymnasium is not installed. Keyword arguments of
+    ``gymnasium.make`` (``device``, ``render_mode``) reach the adapter."""
+    try:
+        import gymnasium
+        from gymnasium.envs.registration import register as gym_register
+    except ImportError:
+        return
+    for spec in registry.values():
+        gym_id = f"{NAMESPACE}/{spec.id}"
+        if gym_id in gymnasium.registry:
+            continue
+        gym_register(
+            id=gym_id,
+            entry_point=f"{NAMESPACE}.api.gym_adapter:make_adapter",
+            max_episode_steps=None,  # the env truncates by itself
+            reward_threshold=spec.reward_threshold,
+            kwargs={"env_id": spec.id},
+            disable_env_checker=True,
+        )
