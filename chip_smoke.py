@@ -53,6 +53,28 @@ dofs than a group's 32 lanes, root paths past bit 31):
     card state (a (240, 320, 3) frame with the robot in it, equal to the
     CPU state's frame; ms a frame). gymnasium is optional: its absence is
     printed, not skipped over;
+  * drives data parallelism over the env axis (`parallel.mesh`) in a world
+    of D ranks, one process each (`mesh.launch`; the kernels are built
+    once, here, before the ranks start): D is the number of cards when
+    there are two or more (NCCL, a card a rank), else 2 ranks sharing the
+    one card over gloo. Each rank's paths run with its launch counts reset
+    just before them and read just after (both kernels: the physics kernel
+    must launch no time there). `mesh_env`: HalfCheetah and Ant,
+    B=4096, 50 steps of seeded actions with forced resets, the gathered
+    state bitwise equal to the unsharded `BatchedEnv.step`, and the block
+    at the largest env_id offset held to the plain version (reset bitwise);
+    `mesh_ppo`: one sharded train step on Ant (config 4) against one
+    unsharded step from the same TrainState (final state within 1e-4, obs
+    stats 1e-5, each parameter and moment leaf 1e-5 on 98% of it and within
+    16 Adam steps everywhere, parameters bitwise equal across ranks), which
+    products round alike at a shard's rows, then 3 timed steps; `mesh_sac`:
+    HopperMuJoCo, `SACConfig` defaults, the warm-up and two learning
+    iterations (the second collects with the actor, on a rank's rows)
+    against the unsharded ones (metrics rtol 1e-4, leaves as
+    tests/test_torch_sac.py holds them, one Adam step an update; learners
+    bitwise across ranks),
+    then 3 timed iterations; `dryrun_multichip`: `entry.dryrun_multichip(D)`.
+    Each prints its backend, D and devices;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -204,6 +226,149 @@ def host_ms(fn, n):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+# ---- the mesh phases' ranks: one process each (parallel.mesh.launch) -------
+MESH_STEPS = 50
+MESH_FORCED_AT = (10, 30)  # steps before which every third env is forced to reset
+SAC_WARM = 7  # SACConfig defaults: iterations that only collect, then ones that learn
+SAC_LEARN = 2  # learning iterations held to the unsharded ones: the second's collect is the actor's
+
+
+def mesh_actions(act_dim):
+    """mesh_env's seeded actions (steps, B, act) and its forced-reset mask (B,)."""
+    import numpy as np
+
+    acts = np.random.default_rng(11).uniform(-1, 1, (MESH_STEPS, B, act_dim)).astype(np.float32)
+    forced = np.zeros(B, bool)
+    forced[1::3] = True
+    return acts, forced
+
+
+def ppo_leaves(ts):
+    return [x.detach().cpu().numpy().copy() for x in
+            [*ts.params.leaves(), *ts.opt_m, *ts.opt_v, ts.opt_count, *ts.obs_stats]]
+
+
+def sac_leaves(ss):
+    return [x.detach().cpu().numpy().copy() for x in
+            [*ss.actor.leaves(), *ss.critics.leaves(), *ss.targets.leaves(), ss.log_alpha,
+             *ss.opt_actor[0], *ss.opt_actor[1], ss.opt_actor[2], *ss.opt_critic[0],
+             *ss.opt_critic[1], ss.opt_critic[2], *ss.opt_alpha[0], *ss.opt_alpha[1],
+             ss.opt_alpha[2]]]
+
+
+def mesh_rank():
+    """One rank of mesh_env, mesh_ppo and mesh_sac, each path with the launch
+    counts reset just before it and read just after. Returns numpy records;
+    the global results (gathered states) from rank 0 only."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pybulletgym_tpu_torch import make_batched, make_task
+    from pybulletgym_tpu_torch.envs.base import env_step_plain
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.parallel import mesh as pmesh
+    from pybulletgym_tpu_torch.parallel import ppo, sac
+    from pybulletgym_tpu_torch.utils.interop import (
+        env_state_to_numpy, sac_state_from_npz, train_state_from_npz,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.make_mesh()
+    lo, hi = mesh.block(B)
+    b, dev, last = hi - lo, mesh.device, mesh.rank == mesh.world - 1
+    out = dict(rank=mesh.rank, backend=dist.get_backend(), device=str(dev), envs=[lo, hi])
+
+    def start():  # the counts to 0 with every rank at the start line
+        torch.cuda.synchronize()
+        dist.barrier()
+        ce.reset_launch_counts()
+        return time.perf_counter()
+
+    # mesh_env: 50 steps of each model on this rank's block of B=4096
+    for env_id in (CHEETAH, ANT):
+        task = make_task(env_id)
+        env = make_batched(env_id, b, device=dev)
+        acts, forced = mesh_actions(task.act_dim)
+        a = torch.as_tensor(acts[:, lo:hi], device=dev)
+        f = torch.as_tensor(forced[lo:hi], device=dev)
+        env.step(env.reset(seed=1, first_env=lo), a[0])  # warm-up: a first launch loads the kernel
+        s = env.reset(seed=0, first_env=lo)
+        t0 = start()
+        for t in range(MESH_STEPS):
+            if t in MESH_FORCED_AT:
+                s = s._replace(terminated=s.terminated | f)
+            s = env.step(s, a[t])
+        torch.cuda.synchronize()
+        rec = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / MESH_STEPS,
+                   launches=dict(ce.LAUNCHES))
+        g = pmesh.gather_env_state(s, mesh)
+        if mesh.rank == 0:
+            rec["state"] = env_state_to_numpy(g)
+        if last:  # the block at the largest env_id offset against the plain version
+            ins = s._replace(terminated=s.terminated | f)
+            at = a[0].T.contiguous()
+            rk = ce.make_cuda_env_step(task, frame_skip=0)(ins, at)
+            rp = env_step_plain(task, ins, at, frame_skip=0)
+            sk, sp = env.step_fn(ins, at), env_step_plain(task, ins, at)
+            torch.cuda.synchronize()
+            dq = (sk.q - sp.q).abs()
+            rec["offset_check"] = dict(
+                first_env=lo, reset_q_bitwise=bool(torch.equal(rk.q, rp.q)),
+                reset_v_bitwise=bool(torch.equal(rk.v, rp.v)),
+                counters_bitwise=all(torch.equal(getattr(sk, k), getattr(sp, k))
+                                     for k in ("epoch", "step_count", "truncated", "env_id")),
+                mean_dq=dq.mean().item(), max_dq=dq.max().item())
+        out[env_id] = rec
+
+    # mesh_ppo: Ant, PPOConfig defaults + normalize_obs, from the JAX checkpoint
+    cfg = ppo.PPOConfig(normalize_obs=True)
+    env = make_batched(ANT, b, device=dev)
+    path = os.path.join(HERE, "examples", "weights", f"{ANT}.trainstate.npz")
+    ts = pmesh.replicated(train_state_from_npz(path, device=dev, seed=0)[0], mesh)
+    es = env.reset(seed=0, first_env=lo)
+    step = ppo.make_train_step(env.task, cfg, step_fn=env.step_fn, mesh=mesh)
+    start()
+    ts, es, m = step(ts, es)
+    rec = dict(metrics={k: float(x) for k, x in m.items()}, leaves=ppo_leaves(ts))
+    g = pmesh.gather_env_state(es, mesh)
+    if mesh.rank == 0:
+        rec["state"] = env_state_to_numpy(g)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, es, m = step(ts, es)
+        float(m["loss"])  # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec.update(ms_per_train_step=ms, launches=dict(ce.LAUNCHES))
+    out["ppo"] = rec
+
+    # mesh_sac: HopperMuJoCo, SACConfig defaults, from the shipped learner
+    cfg = sac.SACConfig()
+    env = make_batched(MJ_HOPPER, b, device=dev)
+    path = os.path.join(HERE, "examples", "weights", f"{MJ_HOPPER}.saclearner.npz")
+    ss = sac_state_from_npz(path, b, cfg, device=dev)
+    pmesh.replicated(ss[:8], mesh)  # the learner and its generator; the ring is this rank's
+    es = env.reset(seed=0, first_env=lo)
+    it = sac.make_sac_iteration(env.task, cfg, step_fn=env.step_fn, mesh=mesh)
+    start()
+    for _ in range(SAC_WARM + SAC_LEARN):
+        ss, es, m = it(ss, es)
+    rec = dict(metrics={k: float(x) for k, x in m.items()}, leaves=sac_leaves(ss))
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss, es, m = it(ss, es)
+        float(m["critic_loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec.update(ms_per_iteration=ms, launches=dict(ce.LAUNCHES),
+               ring_envs=int(ss.buf_obs.shape[-1]), buf_ptr=ss.buf_ptr)
+    out["sac"] = rec
+    return out
 
 
 def main():
@@ -969,6 +1134,197 @@ def main():
             emit("kernel_time", env=env_id, kernel=name, B=B, card=card, **out[name])
         return out
 
+    # ---- main path: data parallelism over the env axis (parallel.mesh) --------
+    def share_off(got, ref, step_bound):
+        """The share of a leaf off by more than rtol/atol 1e-5, and whether
+        every entry lies within `step_bound` (Adam's steps) of the reference."""
+        off = ~np.isclose(got, ref, rtol=1e-5, atol=1e-5)
+        return float(off.mean()), bool(np.abs(got.astype(np.float64) - ref).max() < step_bound)
+
+    def mesh_phases():
+        """mesh_env, mesh_ppo, mesh_sac (one world of D ranks, `mesh_rank`),
+        each against the unsharded port run here; then dryrun_multichip.
+        D is the number of cards when there are two or more (NCCL, a card a
+        rank), else 2 ranks sharing the one card over gloo."""
+        from pybulletgym_tpu_torch import entry
+        from pybulletgym_tpu_torch.parallel import mesh as pmesh
+        from pybulletgym_tpu_torch.parallel import sac
+        from pybulletgym_tpu_torch.utils.interop import (
+            env_state_to_numpy, sac_state_from_npz, train_state_from_npz,
+        )
+
+        n_cards = torch.cuda.device_count()
+        D, backend = (n_cards, "nccl") if n_cards >= 2 else (2, "gloo")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = pmesh.launch(mesh_rank, D, device="cuda", backend=backend)
+        common = dict(backend=backend, D=D, devices=[r["device"] for r in ranks], card=card)
+        emit("mesh_world", seconds=time.perf_counter() - t0, envs=[r["envs"] for r in ranks],
+             **common)
+        require(all(r["backend"] == backend for r in ranks), "a rank runs another backend")
+        mesh_launches = {"env_step_kernel": {}, "physics_step_kernel": {}}
+
+        def record(path, counts):
+            """Each rank's launches of each kernel on `path` (its counts, read
+            just after the path); the physics kernel must not run there.
+            Returns the env-step kernel's."""
+            for name in mesh_launches:
+                mesh_launches[name][path] = [c[name] for c in counts]
+            require(mesh_launches["physics_step_kernel"][path] == [0] * D,
+                    f"{path}: physics_step_kernel launched {mesh_launches['physics_step_kernel']}")
+            return mesh_launches["env_step_kernel"][path]
+
+        # mesh_env: the gathered sharded state, bitwise the unsharded BatchedEnv.step's
+        for env_id in (CHEETAH, ANT):
+            task = make_task(env_id)
+            uenv = make_batched(env_id, B)
+            acts, forced = mesh_actions(task.act_dim)
+            a, f = torch.as_tensor(acts, device=dev), torch.as_tensor(forced, device=dev)
+            uenv.step(uenv.reset(seed=1), a[0])  # warm-up, as in the ranks
+            s = uenv.reset(seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(MESH_STEPS):
+                if t in MESH_FORCED_AT:
+                    s = s._replace(terminated=s.terminated | f)
+                s = uenv.step(s, a[t])
+            torch.cuda.synchronize()
+            ms_u = (time.perf_counter() - t0) * 1e3 / MESH_STEPS
+            ref, got = env_state_to_numpy(s), ranks[0][env_id]["state"]
+            same = all(np.array_equal(got[k][n], ref[k][n]) for k in ref if isinstance(ref[k], dict)
+                       for n in ref[k]) and all(
+                got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k])
+                for k in ref if not isinstance(ref[k], dict))
+            ms = [r[env_id]["ms_per_step"] for r in ranks]
+            launches = record(f"mesh_env:{env_id}", [r[env_id]["launches"] for r in ranks])
+            off = ranks[-1][env_id]["offset_check"]
+            emit("mesh_env", env=env_id, B=B, steps=MESH_STEPS, forced_reset_at=MESH_FORCED_AT,
+                 bitwise=same, sharded_ms_per_step=ms,
+                 sharded_env_steps_per_s=B * 1e3 / max(ms), unsharded_ms_per_step=ms_u,
+                 unsharded_env_steps_per_s=B * 1e3 / ms_u, launches_per_rank=launches,
+                 offset_shard_vs_plain=off, **common)
+            require(same, f"{env_id}: the gathered sharded state differs from the unsharded one")
+            require(launches == [MESH_STEPS] * D, f"mesh_env launches {launches}")
+            require(off["reset_q_bitwise"] and off["reset_v_bitwise"] and off["counters_bitwise"],
+                    f"the offset shard's reset differs from the plain version: {off}")
+            require(off["mean_dq"] < 3e-4 and off["max_dq"] < 1e-2,
+                    f"the offset shard's step differs from the plain version: {off}")
+            require((got["env_id"] == np.arange(B)).all(), "gathered env_ids")
+
+        # mesh_ppo: one sharded train step against one unsharded one, same TrainState
+        cfg = ppo.PPOConfig(normalize_obs=True)
+        path = os.path.join(HERE, "examples", "weights", f"{ANT}.trainstate.npz")
+        ts0, _ = train_state_from_npz(path, device=dev, seed=0)
+        uenv = make_batched(ANT, B)
+        es0 = uenv.reset(seed=0)
+        obs0 = ts0.obs_stats.normalize(es0.obs.T)
+        b = B // D
+        products_bitwise = {}
+        with torch.no_grad():  # a shard's rows alone, and at the global shape (the path's)
+            for name, fn in (("policy_mean", ts0.params.policy_mean),
+                             ("value", ts0.params.value_apply)):
+                whole = fn(obs0)
+                for r in (0, D - 1):
+                    rows = obs0[r * b:(r + 1) * b]
+                    m_r = pmesh.Mesh(D, r, ("env",), (D,), dev)
+                    products_bitwise[f"{name}, rank {r}, shard rows"] = bool(
+                        torch.equal(fn(rows), whole[r * b:(r + 1) * b]))
+                    products_bitwise[f"{name}, rank {r}, global shape"] = bool(torch.equal(
+                        fn(pmesh.global_rows(rows, m_r))[r * b:(r + 1) * b],
+                        whole[r * b:(r + 1) * b]))
+        ustep = ppo.make_train_step(uenv.task, cfg, step_fn=uenv.step_fn)
+        ts, es, m = ustep(ts0, es0)
+        um = {k: float(x) for k, x in m.items()}
+        ref, r0 = ppo_leaves(ts), ranks[0]["ppo"]
+        state = env_state_to_numpy(es)
+        dobs = float(np.abs(r0["state"]["obs"] - state["obs"]).max())
+        dq = float(np.abs(r0["state"]["q"] - state["q"]).max())
+        n_upd = cfg.num_epochs * cfg.num_minibatches
+        leaves_off = [share_off(g, x, cfg.learning_rate * n_upd)
+                      for g, x in zip(r0["leaves"][:-4], ref[:-4])]
+        stats_err = max(float(np.abs(g - x).max()) for g, x in zip(r0["leaves"][-3:], ref[-3:]))
+        replicated_ok = all(np.array_equal(x, y) for r in ranks[1:]
+                            for x, y in zip(r["ppo"]["leaves"], r0["leaves"]))
+        ums = []
+        for _ in range(3):
+            ums.append(timed(lambda: float(ustep(ts, es)[2]["loss"]))[1])
+        launches = record("mesh_ppo", [r["ppo"]["launches"] for r in ranks])
+        sms = [max(r["ppo"]["ms_per_train_step"][i] for r in ranks) for i in range(3)]
+        emit("mesh_ppo", env=ANT, B=B, config="PPOConfig defaults + normalize_obs",
+             metrics_sharded=r0["metrics"], metrics_unsharded=um,
+             final_state_max_dobs=dobs, final_state_max_dq=dq,
+             final_state_bitwise=dobs == 0.0 and dq == 0.0, products_bitwise=products_bitwise,
+             leaf_share_off=[x[0] for x in leaves_off], obs_stats_max_err=stats_err,
+             params_bitwise_across_ranks=replicated_ok, sharded_ms_per_train_step=sms,
+             sharded_train_env_steps_per_s=B * cfg.rollout_length * 1e3 / np.mean(sms),
+             unsharded_ms_per_train_step=ums,
+             unsharded_train_env_steps_per_s=B * cfg.rollout_length * 1e3 / np.mean(ums),
+             launches_per_rank=launches, **common)
+        require(dobs < 1e-4, f"mesh_ppo: the rollout's final obs differ by {dobs}")
+        require(stats_err < 1e-5, f"mesh_ppo: obs stats differ by {stats_err}")
+        require(all(s <= 0.02 and within for s, within in leaves_off),
+                f"mesh_ppo: params or moments off: {leaves_off}")
+        require(replicated_ok, "mesh_ppo: the ranks' parameters differ")
+        require(int(r0["leaves"][-4]) == 22080 + n_upd, "mesh_ppo: Adam count")
+        require(launches == [4 * cfg.rollout_length] * D, f"mesh_ppo launches {launches}")
+
+        # mesh_sac: the warm-up and two learning iterations against the unsharded ones
+        scfg = sac.SACConfig()
+        path = os.path.join(HERE, "examples", "weights", f"{MJ_HOPPER}.saclearner.npz")
+        uenv = make_batched(MJ_HOPPER, B)
+        ss = sac_state_from_npz(path, B, scfg)
+        it = sac.make_sac_iteration(uenv.task, scfg, step_fn=uenv.step_fn)
+        es = uenv.reset(seed=0)
+        for _ in range(SAC_WARM + SAC_LEARN):
+            ss, es, m = it(ss, es)
+        um = {k: float(x) for k, x in m.items()}
+        ref, r0 = sac_leaves(ss), ranks[0]["sac"]
+        n_actor = len(ss.actor.leaves())
+        checks = []
+        for k, (g, x) in enumerate(zip(r0["leaves"], ref)):
+            if x.dtype == np.int32:
+                checks.append((0.0, int(g) == int(x)))
+            else:
+                checks.append(share_off(  # one Adam step an update
+                    g, x, scfg.learning_rate * scfg.updates_per_iter * SAC_LEARN))
+        rel = {k: abs(r0["metrics"][k] - um[k]) / max(abs(um[k]), 1e-12) for k in um}
+        bitwise = all(np.array_equal(g, x) for g, x in zip(r0["leaves"], ref))
+        replicated_ok = all(np.array_equal(x, y) for r in ranks[1:]
+                            for x, y in zip(r["sac"]["leaves"], r0["leaves"]))
+        ums = []
+        for _ in range(3):
+            ums.append(timed(lambda: float(it(ss, es)[2]["critic_loss"]))[1])
+        launches = record("mesh_sac", [r["sac"]["launches"] for r in ranks])
+        sms = [max(r["sac"]["ms_per_iteration"][i] for r in ranks) for i in range(3)]
+        emit("mesh_sac", env=MJ_HOPPER, B=B, config=dataclasses.asdict(scfg),
+             warmup_iterations=SAC_WARM, learning_iterations=SAC_LEARN,
+             metrics_sharded=r0["metrics"], metrics_unsharded=um,
+             metrics_rel_diff=rel, learner_bitwise_to_unsharded=bitwise,
+             leaf_share_off=[c[0] for c in checks], params_bitwise_across_ranks=replicated_ok,
+             ring_envs_per_rank=[r["sac"]["ring_envs"] for r in ranks],
+             sharded_ms_per_iteration=sms,
+             sharded_trained_env_steps_per_s=B * scfg.steps_per_iter * 1e3 / np.mean(sms),
+             unsharded_ms_per_iteration=ums,
+             unsharded_trained_env_steps_per_s=B * scfg.steps_per_iter * 1e3 / np.mean(ums),
+             launches_per_rank=launches, actor_leaves=n_actor, **common)
+        require(all(r < 1e-4 for r in rel.values()), f"mesh_sac metrics differ: {rel}")
+        require(all(s <= 0.02 and within for s, within in checks),
+                f"mesh_sac: learner leaves off: {checks}")
+        require(replicated_ok, "mesh_sac: the ranks' learners differ")
+        require(all(r["sac"]["ring_envs"] == B // D for r in ranks), "mesh_sac: ring not sharded")
+        require(launches == [(SAC_WARM + SAC_LEARN + 3) * scfg.steps_per_iter] * D,
+                f"mesh_sac launches {launches}")
+
+        # dryrun_multichip: the port's entry point, over the same D ranks
+        rec = entry.dryrun_multichip(D)
+        record("dryrun_multichip", [
+            {"env_step_kernel": e, "physics_step_kernel": p}
+            for e, p in zip(rec["env_step_launches"], rec["physics_step_launches"])])
+        emit("dryrun_multichip", **{**rec, **common, "devices": rec["devices"]})
+        require(rec["backend"] == backend and rec["env_step_launches"] == [4] * D,
+                f"dryrun_multichip: {rec}")
+        return mesh_launches
+
     # HalfCheetah: the phases of the first slice, and its main path
     pc = parity(CHEETAH)
     ragged(CHEETAH)
@@ -1280,6 +1636,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         main_api["checkpoint"] = checkpoint_path(tmp)
     render_path()
+    main_mesh = mesh_phases()
 
     # the local memory that the first launch of each kernel on each model
     # took outside torch's allocator (free memory before and after)
@@ -1319,6 +1676,7 @@ def main():
                 if name == "env_step_kernel" else ["HalfCheetah, bthigh a cylinder"]),
             "per_model": per_model, "sac_launches": main_s[name],
             "api_launches": {path: m[name] for path, m in main_api.items()},
+            "mesh_launches": main_mesh[name],
         })
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

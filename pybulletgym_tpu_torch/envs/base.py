@@ -219,12 +219,16 @@ class BatchedEnv:
     def action_size(self) -> int:
         return self.task.act_dim
 
-    def reset(self, seed: int = 0, epoch: int = 0) -> EnvState:
+    def reset(self, seed: int = 0, epoch: int = 0, first_env: int = 0) -> EnvState:
+        """Fresh episodes for the batch. `first_env` is the global index of
+        its first env when the batch is one shard of a larger one
+        (`parallel.mesh`): the envs' `env_id`s, which key their reset and
+        auto-reset draws, are first_env ... first_env + B - 1."""
         B, dev = self.batch_size, self.device
         return reset_fn(
             self.task,
             torch.full((B,), int(seed) & 0xFFFFFFFF, dtype=torch.uint32, device=dev),
-            torch.arange(B, dtype=torch.int32, device=dev),
+            torch.arange(first_env, first_env + B, dtype=torch.int32, device=dev),
             torch.full((B,), int(epoch) & 0xFFFFFFFF, dtype=torch.uint32, device=dev),
         )
 

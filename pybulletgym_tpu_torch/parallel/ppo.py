@@ -17,6 +17,36 @@ as in the JAX package.
 The sampling noise comes from a `torch.Generator`, so the port does not
 draw the JAX package's numbers; `train_step(..., eps=...)` takes given
 noise instead, which is how a test feeds both the same draws.
+
+Over a mesh (`parallel.mesh`, data parallelism over the env axis) each
+rank steps its block of the envs and replicates everything else:
+  * the rollout is sharded: the env-step kernel is launched on the rank's
+    envs. The policy runs on the rank's rows placed among zeros at the
+    global batch's row count (`mesh.global_rows`): the library picks its
+    GEMM by shape, and at a shard's row count it rounds the policy's first
+    product differently (measured on the H100 at 2048 against 4096 rows),
+    an ulp that 32 steps of contacts grow to 0.2 in the observations. At
+    the global shape each row rounds as it does unsharded, and the sharded
+    rollout is bitwise the unsharded one. The noise is drawn for the whole
+    batch from the replicated generator, so a sharded run draws the numbers
+    an unsharded one draws;
+  * one all_gather of the trajectory, the raw observations and the last
+    values; GAE, the minibatch membership (contiguous env slices of the
+    global batch), the advantage normalisation and the observation
+    statistics are then computed on every rank by the unsharded formulas;
+  * each rank takes a 1/D share of a minibatch's env columns; its losses
+    are its rows' means times 1/D (so that the ranks' sum is the
+    minibatch's mean), the entropy term, which depends on `log_std` alone,
+    is added on rank 0 only, and the gradients (with the loss) are summed
+    over the ranks in one all_reduce of a flat buffer, which hands every
+    rank the same bits (ring and tree reductions reduce each chunk once and
+    send it on). Adam then runs alike on every rank, and the parameters
+    stay bitwise replicated (held by the tests and `chip_smoke.py`).
+The gradient's products run on a share of a minibatch's rows, which the
+library may round differently for another shape, and the ranks' partial
+sums add in another order: the parameters agree with the unsharded step's
+within rounding, not bitwise. A world of one rank is bitwise the unsharded
+step.
 """
 
 from __future__ import annotations
@@ -25,8 +55,10 @@ import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pybulletgym_tpu_torch.envs.base import EnvState, Task
+from pybulletgym_tpu_torch.parallel import mesh as pmesh
 from pybulletgym_tpu_torch.parallel.networks import ActorCritic
 
 
@@ -126,26 +158,44 @@ def _adam(params, grads, m, v, count, lr, b1=0.9, b2=0.999, eps=1e-8, max_norm=0
     return params, m, v, count
 
 
-def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = None):
+def _normalized(advs):
+    return (advs - torch.mean(advs)) / (torch.std(advs, unbiased=False) + 1e-8)
+
+
+def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = None,
+                    mesh: Optional[pmesh.Mesh] = None):
     """train_step(ts, es, eps=None) -> (ts, es, metrics).
 
     One call = `rollout_length` env steps + num_epochs x num_minibatches
     PPO updates. `step_fn(state, action (act, B))` is the env step; by
     default the CUDA env-step wrapper for `task` (the plain version on CPU
-    tensors). `eps` (T, B, act), if given, replaces the sampling noise."""
+    tensors). `eps` (T, B, act), if given, replaces the sampling noise.
+    With a `mesh`, `es` is this rank's shard (`mesh.shard_env_state`, or a
+    reset with `first_env`), `ts` is replicated, `eps` spans the global
+    batch, and the metrics are the global batch's (module docstring)."""
     if step_fn is None:
         from pybulletgym_tpu_torch.ops.cuda_engine import make_cuda_env_step
 
         step_fn = make_cuda_env_step(task)
     T = cfg.rollout_length
+    D, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+
+    def rows_of(obs):
+        """(the policy's input, this rank's rows of its output): over a mesh
+        the rank's rows at their place among zeros (`mesh.global_rows`)."""
+        b = obs.shape[0]
+        return (obs if mesh is None else pmesh.global_rows(obs, mesh),
+                slice(rank * b, (rank + 1) * b))
 
     @torch.no_grad()
     def rollout(params: ActorCritic, norm, es: EnvState, gen, eps):
         steps, raw = [], []
         for t in range(T):
             obs = norm(es.obs.T)  # (B, obs_dim)
-            a, logp = params.policy_sample(obs, gen, None if eps is None else eps[t])
-            val = params.value_apply(obs)
+            full, rows = rows_of(obs)
+            # the noise is drawn for all of `full`'s rows: the global batch's
+            a, logp = params.policy_sample(full, gen, None if eps is None else eps[t])
+            a, logp, val = a[rows], logp[rows], params.value_apply(full)[rows]
             es2 = step_fn(es, torch.clamp(a, -1.0, 1.0).T.contiguous())
             steps.append(Transition(
                 obs=obs, action=a, logp=logp, value=val, reward=es2.reward,
@@ -174,23 +224,30 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
         advs = torch.stack(advs, 0)
         return advs, advs + traj.value
 
-    def loss_fn(params: ActorCritic, batch: Transition, advs, returns):
+    def loss_fn(params: ActorCritic, batch: Transition, adv_n, returns):
+        """This rank's share of the minibatch loss: its rows' means times
+        1/D (exactly 1 unsharded), the entropy term on rank 0 only."""
         logp, entropy = params.policy_logp_entropy(batch.obs, batch.action)
         ratio = torch.exp(logp - batch.logp)
-        adv_n = (advs - torch.mean(advs)) / (torch.std(advs, unbiased=False) + 1e-8)
         unclipped = ratio * adv_n
         clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
-        pg_loss = -torch.mean(torch.minimum(unclipped, clipped))
+        pg_loss = -torch.mean(torch.minimum(unclipped, clipped)) * (1.0 / D)
         value = params.value_apply(batch.obs)
-        v_loss = 0.5 * torch.mean((value - returns) ** 2)
-        return pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
+        v_loss = 0.5 * torch.mean((value - returns) ** 2) * (1.0 / D)
+        loss = pg_loss + cfg.value_coef * v_loss
+        return loss - cfg.entropy_coef * entropy if rank == 0 else loss
 
     def train_step(ts: TrainState, es: EnvState, eps: Optional[torch.Tensor] = None):
         params = ts.params
         norm = ts.obs_stats.normalize if cfg.normalize_obs else (lambda x: x)
         es, traj, raw_obs = rollout(params, norm, es, ts.generator, eps)
         with torch.no_grad():
-            last_value = params.value_apply(norm(es.obs.T))
+            full, rows = rows_of(norm(es.obs.T))
+            last_value = params.value_apply(full)[rows]
+        if mesh is not None:  # the global batch on every rank
+            *fields, raw_obs, last_value = pmesh.all_gather_env(
+                [*traj, raw_obs, last_value], mesh, [1] * (len(traj) + 1) + [0])
+            traj = Transition(*fields)
         advs, returns = gae(traj, last_value)
         obs_stats = (ts.obs_stats.update(raw_obs.reshape(-1, raw_obs.shape[-1]))
                      if cfg.normalize_obs else ts.obs_stats)
@@ -201,15 +258,27 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
         if B % mb:
             raise ValueError(f"batch {B} must divide num_minibatches {mb}")
         n = B // mb
+        if n % D:
+            raise ValueError(f"a minibatch's {n} envs do not split over {D} ranks")
+        s = n // D  # this rank's share of a minibatch's envs
         leaves = params.leaves()
         m, v, count = ts.opt_m, ts.opt_v, ts.opt_count
         losses = []
         for _ in range(cfg.num_epochs):
             for i in range(mb):
-                sl = lambda x: x[:, i * n:(i + 1) * n].reshape(T * n, *x.shape[2:])  # noqa: E731
+                lo = i * n + rank * s
+                sl = lambda x: x[:, lo:lo + s].reshape(T * s, *x.shape[2:])  # noqa: E731
                 batch = Transition(*[sl(x) for x in traj])
-                loss = loss_fn(params, batch, sl(advs), sl(returns))
+                adv_n = _normalized(advs[:, i * n:(i + 1) * n].reshape(T * n))
+                adv_n = adv_n.view(T, n)[:, rank * s:(rank + 1) * s].reshape(T * s)
+                loss = loss_fn(params, batch, adv_n, sl(returns))
                 grads = torch.autograd.grad(loss, leaves)
+                if mesh is not None:  # the sum over ranks, loss included
+                    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+                    dist.all_reduce(flat, group=mesh.group)
+                    *grads, loss = flat.split([g.numel() for g in grads] + [1])
+                    grads = [g.view(p.shape) for g, p in zip(grads, leaves)]
+                    loss = loss[0]
                 lr = cfg.learning_rate
                 if cfg.total_updates:
                     frac = 1.0 - count.to(torch.float32) / cfg.total_updates
@@ -233,22 +302,31 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
 
 def train(env_id: str, batch_size: int, num_iterations: int,
           cfg: Optional[PPOConfig] = None, seed: int = 0, device="cuda",
-          progress: Optional[Callable] = None, resume_from: Optional[str] = None):
+          progress: Optional[Callable] = None, resume_from: Optional[str] = None,
+          mesh: Optional[pmesh.Mesh] = None):
     """Training driver: build the env batch and the train step, loop.
     `resume_from`: a TrainState checkpoint of the JAX package
     (`utils/checkpoint.py` npz) to continue from instead of a fresh init.
-    Returns (ts, es, metrics of the last step)."""
+    With a `mesh` (every rank calls train), `batch_size` is the global
+    batch, `device` is the mesh's, each rank resets and steps its block of
+    the envs, and the learner state is broadcast from rank 0. Returns (ts,
+    es: this rank's shard under a mesh, metrics of the last step)."""
     from pybulletgym_tpu_torch.api.registry import make_batched
     from pybulletgym_tpu_torch.utils.interop import train_state_from_npz
 
     cfg = cfg or PPOConfig()
-    env = make_batched(env_id, batch_size, device=device)
-    train_step = make_train_step(env.task, cfg, step_fn=env.step_fn)
+    lo, hi = (0, batch_size) if mesh is None else mesh.block(batch_size)
+    if mesh is not None:
+        device = mesh.device
+    env = make_batched(env_id, hi - lo, device=device)
+    train_step = make_train_step(env.task, cfg, step_fn=env.step_fn, mesh=mesh)
     if resume_from is not None:
         ts, _ = train_state_from_npz(resume_from, device=device, seed=seed)
     else:
         ts = init_train_state(seed, env.observation_size, env.action_size, cfg, device)
-    es = env.reset(seed=seed)
+    if mesh is not None:
+        pmesh.shard_params(ts, mesh)
+    es = env.reset(seed=seed, first_env=lo)
     metrics = None
     for it in range(num_iterations):
         ts, es, metrics = train_step(ts, es)

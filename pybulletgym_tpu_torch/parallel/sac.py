@@ -21,6 +21,28 @@ package leaves them to XLA. No gradient flows through the env step.
 The random draws come from the state's `torch.Generator`, so the port does
 not draw the JAX package's numbers; `iteration(ss, es, draws=...)` takes
 given draws instead, which is how a test feeds both the same numbers.
+
+Over a mesh (`parallel.mesh`, data parallelism over the env axis) the
+iteration computes what the JAX iteration computes under its global
+sharding semantics (a minibatch drawn from the whole batch's replay):
+  * collect and replay are sharded: each rank steps its block of the envs
+    (one env-step kernel launch a collect step) and its ring holds only
+    those envs; the collect's and the warm-up's noise is drawn for the
+    whole batch from the replicated generator and sliced, and the actor
+    runs on the rank's rows alone. The library may round a row apart at
+    that shape (PPO's rollout avoids this with `mesh.global_rows`, for
+    its 32 steps of contacts); a collect's 4 steps stay within the
+    learner's bounds (tests/test_torch_mesh.py, `chip_smoke.py`), and
+    the actor's forward at the global row count would cost a rank more
+    than its env step at 16384 envs a rank
+    (`tools/mesh_forward_cost.py`);
+  * every rank draws the same global (slot, env) indices; each fills the
+    rows of the envs it holds, and one all_gather gives every rank the
+    minibatch's `batch_size` rows, bit for bit;
+  * the update then runs alike on every rank, with no gradient collective:
+    at batch_size 1024 and 256x256 MLPs, three gradient reductions an
+    update would cost more than the repeated compute, and the ranks'
+    parameters stay bitwise equal.
 """
 
 from __future__ import annotations
@@ -32,6 +54,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from pybulletgym_tpu_torch.envs.base import EnvState, Task
+from pybulletgym_tpu_torch.parallel import mesh as pmesh
 from pybulletgym_tpu_torch.parallel.networks import MLPParams, init_mlp
 from pybulletgym_tpu_torch.parallel.ppo import _adam
 
@@ -162,7 +185,8 @@ def empty_ring(actor, critics, targets, log_alpha, opt_actor, opt_critic, opt_al
                     torch.ones((S, B), dtype=torch.float32, device=dev), 0, False)
 
 
-def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] = None):
+def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] = None,
+                       mesh: Optional[pmesh.Mesh] = None):
     """iteration(ss, es, draws=None) -> (ss, es, metrics).
 
     `step_fn(state, action (act, B))` is the env step; by default the CUDA
@@ -171,7 +195,10 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
     per collect step (the policy noise, the warm-up's uniform actions);
     "slots" and "envs" (U, batch) int64, "next_eps" and "pi_eps_upd" (U,
     batch, act) per update (the minibatch, the next action's noise, the
-    actor's noise)."""
+    actor's noise). With a `mesh`, `es` and the ring are this rank's shard
+    (`sac_state_from_npz(path, B // mesh.world, ...)`), the learner is
+    replicated, the draws span the global batch and the metrics are the
+    global batch's (module docstring)."""
     if step_fn is None:
         from pybulletgym_tpu_torch.ops.cuda_engine import make_cuda_env_step
 
@@ -180,6 +207,7 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
     target_entropy = -float(act_dim)
     S, T, U, N = cfg.buffer_slots, cfg.steps_per_iter, cfg.updates_per_iter, cfg.batch_size
     log_alpha_min = math.log(cfg.alpha_min)
+    D, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
 
     def normal(gen, shape, dev):
         return torch.randn(shape, generator=gen, device=dev)
@@ -187,15 +215,17 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
     @torch.no_grad()
     def collect(ss: SACState, es: EnvState, draws, random_policy: bool):
         B, dev = es.obs.shape[-1], es.obs.device
+        rows = slice(rank * B, (rank + 1) * B)  # this rank's block of the global batch
         rews = []
         for t in range(T):
             obs = es.obs.T
             if random_policy:
                 a = (draws["a_rand"][t] if draws else
-                     torch.rand((B, act_dim), generator=ss.generator, device=dev) * 2 - 1)
+                     torch.rand((B * D, act_dim), generator=ss.generator, device=dev) * 2 - 1)
+                a = a[rows]
             else:
-                eps = draws["pi_eps"][t] if draws else normal(ss.generator, (B, act_dim), dev)
-                a, _ = sample_action(ss.actor, obs, eps)
+                eps = draws["pi_eps"][t] if draws else normal(ss.generator, (B * D, act_dim), dev)
+                a, _ = sample_action(ss.actor, obs, eps[rows])
             es2 = step_fn(es, a.T.contiguous())
             # next-step autoreset: es2.obs at done IS the terminal obs
             ptr = ss.buf_ptr % S
@@ -216,9 +246,23 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
         else:
             hi = S if ss.buf_full else max(ss.buf_ptr, 1)
             slots = torch.randint(0, hi, (N,), generator=ss.generator, device=dev)
-            envs = torch.randint(0, B, (N,), generator=ss.generator, device=dev)
-        return (ss.buf_obs[slots, :, envs], ss.buf_act[slots, :, envs], ss.buf_rew[slots, envs],
-                ss.buf_next_obs[slots, :, envs], ss.buf_nonterm[slots, envs])
+            envs = torch.randint(0, B * D, (N,), generator=ss.generator, device=dev)
+        if mesh is None:
+            return (ss.buf_obs[slots, :, envs], ss.buf_act[slots, :, envs],
+                    ss.buf_rew[slots, envs], ss.buf_next_obs[slots, :, envs],
+                    ss.buf_nonterm[slots, envs])
+        # every rank fills every row from its own ring (a row of an env it does
+        # not hold reads its env 0), and each row is then taken from its owner
+        owner = torch.div(envs, B, rounding_mode="floor")
+        local = torch.where(owner == rank, envs - rank * B, torch.zeros_like(envs))
+        mine = torch.cat([ss.buf_obs[slots, :, local], ss.buf_act[slots, :, local],
+                          ss.buf_rew[slots, local][:, None], ss.buf_next_obs[slots, :, local],
+                          ss.buf_nonterm[slots, local][:, None]], 1)
+        parts = pmesh.all_gather_env([mine], mesh, [0])[0].view(D, N, -1)
+        full = parts[owner, torch.arange(N, device=dev)]
+        obs_dim = ss.buf_obs.shape[1]
+        obs, act, rew, next_obs, nonterm = full.split([obs_dim, act_dim, 1, obs_dim, 1], 1)
+        return obs, act, rew[:, 0], next_obs, nonterm[:, 0]
 
     def update(ss: SACState, u, draws):
         obs, act, rew, next_obs, nonterm = sample_batch(ss, u, draws)
@@ -277,6 +321,8 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
             for u in range(U):
                 ss, metrics = update(ss, u, draws)
         closs, aloss, alpha = metrics
+        if mesh is not None:
+            rews = pmesh.all_gather_env([rews], mesh, [1])[0]
         return ss, es, {"reward_mean": rews.mean(), "critic_loss": closs,
                         "actor_loss": aloss, "alpha": alpha}
 
