@@ -75,6 +75,23 @@ dofs than a group's 32 lanes, root paths past bit 31):
     bitwise across ranks),
     then 3 timed iterations; `dryrun_multichip`: `entry.dryrun_multichip(D)`.
     Each prints its backend, D and devices;
+  * drives any task's env step (`user_task_paths`), each path with the
+    launch counts reset just before it and read just after: builds
+    `task_step_kernel` (the task's hooks translated into CUDA C++ by
+    ops/task_kernel.py, compiled with the substeps; one nvcc a task, all
+    started together) for HalfCheetah, Ant, Humanoid, Pusher and
+    InvertedPendulum (their shipped classes, translated as a user's would
+    be) and for BackwardCheetah (a user's task, defined here); steps each
+    model 20 times at B=4096 with forced resets through it (20 launches of
+    it, none of the others), each step held to `env_step_kernel`'s from the
+    same input within the model's bounds, resets bitwise; steps the same
+    models through the composed backend (the hooks in torch around one
+    `physics_step_kernel` launch, replayed from a CUDA graph: 20 physics
+    launches), bitwise to the eager composed step and within bounds of the
+    task kernel's; registers BackwardCheetah and makes it by ID, 50 steps
+    (50 task-kernel launches), the first 5 held to the plain version and to
+    the composed step; 3 `ppo.train` steps on its ID (96 launches); times
+    of every backend and of the capture;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -123,6 +140,7 @@ SOURCE = "pybulletgym_tpu_torch/csrc/engine.cu"
 REPLACES = {
     "physics_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:48",
     "env_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:123",
+    "task_step_kernel": "pybulletgym_tpu/ops/pallas_engine.py:123",  # for any other task
 }
 # shipped-policy floors, tests/test_frozen_policy.py:29-43 and :44-77
 POLICY_FLOOR = {CHEETAH: 3000.0, ANT: 2000.0, HOPPER: 2000.0, WALKER: 750.0,
@@ -202,7 +220,8 @@ def ptxas_report(log):
         m = re.match(r"== G=(\d+)", ln)
         if m:
             G = int(m.group(1))
-        m = re.search(r"entry function '.*?(env_step_kernel|physics_step_kernel)", ln)
+        m = re.search(r"entry function '.*?(env_step_kernel|physics_step_kernel|task_step_kernel)",
+                      ln)
         if m:
             kernel = m.group(1)
             out.append({"G": G, "kernel": kernel})
@@ -369,6 +388,276 @@ def mesh_rank():
                ring_envs=int(ss.buf_obs.shape[-1]), buf_ptr=ss.buf_ptr)
     out["sac"] = rec
     return out
+
+
+# ---- user tasks on the card: task_step_kernel and the composed backend -------
+USER_MODELS = (CHEETAH, ANT, HUMANOID, PUSHER, PENDULUM)  # point, pair, disk rows and none
+USER_MODEL_STEPS = 20
+USER_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
+USER_ID = "BackwardCheetah-v0"
+USER_STEPS = 50
+USER_PLAIN_STEPS = 5  # of them held to the plain version (about 2 s a step at B=4096)
+TASK_SOURCE = "pybulletgym_tpu_torch/csrc/task_step.cu"
+
+
+def backward_cheetah_task():
+    """A user's task: HalfCheetah paid for running backwards (the progress
+    component negated), with an aux key the env kernel does not know (steps
+    with a negative root x-velocity) and a pre-physics push on the back
+    thigh (tests/test_torch_custom_task.py holds the same task against the
+    JAX package)."""
+    import torch
+
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+
+    class BackwardCheetah(loco.WalkerTask):
+        PUSH = 0.5
+
+        def __init__(self):
+            super().__init__(loco.HALF_CHEETAH)
+            self.push_dof = self.model.dof_index("bthigh")
+
+        def initial_state_scalar(self, seed, env_id, epoch):
+            q, v, aux = super().initial_state_scalar(seed, env_id, epoch)
+            return q, v, dict(aux, backward_steps=torch.zeros_like(aux["potential"]))
+
+        def pre_physics_scalar(self, q, v, aux, ids=None):
+            v = list(v)
+            v[self.push_dof] = v[self.push_dof] + self.PUSH
+            return q, v, aux
+
+        def output_scalar(self, q, v, depths, a, aux, ids=None):
+            obs, reward, term, aux2, comps = super().output_scalar(q, v, depths, a, aux, ids)
+            progress = comps["progress"]
+            back = aux["backward_steps"] + torch.where(v[0] < 0.0, 1.0, 0.0)
+            return (obs, reward - 2.0 * progress, term, dict(aux2, backward_steps=back),
+                    dict(comps, progress=-progress))
+
+    return BackwardCheetah()
+
+
+def user_task_paths(card):
+    """Any task's env step on the card at B=4096, each path with the launch
+    counts reset just before it and read just after. Returns ({path:
+    launches}, the task kernel's entry of the kernels line less its
+    launches).
+
+    * Build: `task_step_kernel` (csrc/task_step.cu with the task's hooks
+      translated by ops/task_kernel.py) for HalfCheetah, Ant, Humanoid,
+      Pusher, InvertedPendulum (their shipped classes, translated as a
+      user's would be) and BackwardCheetah, one nvcc each, all together.
+    * `task_kernel:<id>`, the five models: 20 steps of seeded actions, every
+      third env forced to reset before steps 0 and 10: task_step_kernel 20
+      launches, nothing else. From each step's input, the hand-written
+      env_step_kernel's step within the model's bounds, and at the forced
+      steps the reset (no physics) bitwise the env kernel's.
+    * `composed:<id>`, the same models through `backend="composed"` (the
+      hooks in torch around physics_step_kernel, replayed from a CUDA
+      graph): physics_step_kernel 20, nothing else; each step bitwise the
+      eager composed step and within the model's bounds of the task
+      kernel's. Times of every backend, the capture's ms.
+    * `user_task`: BackwardCheetah registered and made by ID (the default
+      backend): 50 steps, task_step_kernel 50; the first 5 held to the plain
+      version on the card (env_step_plain) and to the composed step.
+    * `ppo:BackwardCheetah-v0`: 3 `ppo.train` steps on its ID
+      (PPOConfig(normalize_obs=True)): finite, task_step_kernel 96."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import bounds_env, bounds_fixed, bounds_humanoid
+
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.envs.base import env_step_plain
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+    from pybulletgym_tpu_torch.parallel import ppo
+
+    dev = torch.device("cuda", 0)
+    fields = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
+    launches = {}
+    none = dict.fromkeys(ce.LAUNCHES, 0)
+
+    def bitwise(a, b):
+        return (all(torch.equal(getattr(a, k), getattr(b, k)) for k in fields)
+                and all(torch.equal(a.aux[k], b.aux[k]) for k in b.aux)
+                and all(torch.equal(a.rewards[k], b.rewards[k]) for k in b.rewards))
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ce.LAUNCHES)
+
+    def max_dq(a, b):
+        return (a.q - b.q).abs().max().item()
+
+    def holder(env_id, task):
+        return {HUMANOID: bounds_humanoid, PUSHER: bounds_fixed, PENDULUM: bounds_fixed}.get(
+            env_id, lambda a, b: bounds_env(a, b, len(task.foot_rows)))
+
+    # ---- build every task kernel at once ----------------------------------
+    pt.register(USER_ID, backward_cheetah_task, 1000)
+    tasks = {env_id: pt.make_task(env_id) for env_id in USER_MODELS + (USER_ID,)}
+    t0 = time.perf_counter()
+    steps = {env_id: tk.CudaTaskStep(task) for env_id, task in tasks.items()}
+    for st in steps.values():
+        st.prepare()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logs = tk.build_task_libraries(steps.values())
+    build_s = time.perf_counter() - t0
+    libs = []
+    for env_id, st in steps.items():
+        path = os.path.join(ce.BUILD_DIR, tk._cuda_job(st.program.source, st.tables.lanes)[1])
+        rep = [dict(k, G=st.tables.lanes) for k in ptxas_report(logs[path])]
+        cfg = st.launch_config(dev, B)
+        libs.append({"env": env_id, "hook_statements": st.program.ops,
+                     "hook_flops": st.program.flops, "ptxas": rep, "launch": cfg})
+    emit("task_build", trace_seconds=trace_s, nvcc_seconds=build_s, kernels=libs, card=card)
+
+    # ---- the five models: task_step_kernel, then the composed backend -------
+    def rollout(env_id, step_fn, fresh):
+        acts = torch.as_tensor(np.random.default_rng(12).uniform(
+            -1, 1, (USER_MODEL_STEPS, tasks[env_id].act_dim, B)).astype(np.float32), device=dev)
+        forced = torch.zeros(B, dtype=torch.bool, device=dev)
+        forced[::3] = True
+        s, out = fresh, []
+        for t in range(USER_MODEL_STEPS):
+            if t in USER_FORCED_AT:
+                s = s._replace(terminated=s.terminated | forced)
+            out.append((s, acts[t], step_fn(s, acts[t])))
+            s = out[-1][2]
+        return out, forced
+
+    timing = {}
+    for env_id in USER_MODELS:
+        task, tstep = tasks[env_id], steps[env_id]
+        fused = pt.make_batched(env_id, B)
+        require(fused.step_fn.kernel == "env_step_kernel", f"{env_id}: {fused.step_fn.kernel}")
+        hold = holder(env_id, task)
+        (ksteps, forced), n = counted(lambda: rollout(env_id, tstep, fused.reset(seed=3)))
+        launches["task_kernel:" + env_id] = n
+        require(n == dict(none, task_step_kernel=USER_MODEL_STEPS), f"{env_id} task kernel: {n}")
+        worst_fused = dict.fromkeys(("q", "obs", "reward"), 0.0)
+        reset_k = tk.CudaTaskStep(task, frame_skip=0)
+        reset_f = ce.make_cuda_env_step(task, frame_skip=0)
+        for t, (s, a, out) in enumerate(ksteps):
+            f = fused.step_fn(s, a)
+            hold(out, f)
+            for k in worst_fused:
+                worst_fused[k] = max(worst_fused[k],
+                                     (getattr(out, k) - getattr(f, k)).abs().max().item())
+            if t in USER_FORCED_AT:
+                rk, rf = reset_k(s, a), reset_f(s, a)
+                require(torch.equal(rk.q[:, forced], rf.q[:, forced])
+                        and torch.equal(rk.v[:, forced], rf.v[:, forced])
+                        and torch.equal(rk.epoch, rf.epoch),
+                        f"{env_id} step {t}: the task kernel's reset differs from the env kernel's")
+        require(bool(torch.isfinite(ksteps[-1][2].q).all()), f"{env_id}: non-finite")
+
+        comp = pt.make_batched(env_id, B, backend="composed")
+        eager = pt.make_batched(env_id, B, backend="composed", graph=False)
+        (csteps, _), n = counted(lambda: rollout(env_id, comp.step_fn, fused.reset(seed=3)))
+        launches["composed:" + env_id] = n
+        require(n == dict(none, physics_step_kernel=USER_MODEL_STEPS), f"{env_id} composed: {n}")
+        worst_comp = 0.0
+        for (s, a, out), (_, _, k) in zip(csteps, ksteps):
+            require(bitwise(out, eager.step_fn(s, a)),
+                    f"{env_id}: the graph replay differs from the eager composed step")
+            hold(out, tstep(s, a))
+            worst_comp = max(worst_comp, max_dq(out, tstep(s, a)))
+        s, a = ksteps[5][0], ksteps[5][1]
+        g = next(iter(comp.step_fn._graphs.values()))
+        flops, nbytes = tk.work_per_task_step(
+            tstep.tables, tstep.program, (s.terminated | s.truncated).float().mean().item())
+        t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
+        t_bytes = (nbytes * B + ctypes.sizeof(tstep.tables)) / PEAK_BYTES_PER_S * 1e3
+        rec = dict(
+            task_kernel_ms=graph_ms(lambda: tstep(s, a)),
+            task_kernel_host_ms=host_ms(lambda: tstep(s, a), 20),
+            fused_ms=graph_ms(lambda: fused.step_fn(s, a)),
+            composed_graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 20),
+            composed_replay_ms=cuda_ms(g.graph.replay, 10),
+            composed_eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+            capture_ms=comp.step_fn.capture_ms)
+        rec.update({k.replace("_ms", "_env_steps_per_s"): B * 1e3 / v
+                    for k, v in list(rec.items()) if k != "capture_ms"})
+        rec.update(task_kernel_bound_ms=max(t_ops, t_bytes),
+                   task_kernel_bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops_per_env_step=flops, bytes_per_env_step=nbytes)
+        timing[env_id] = rec
+        emit("user_task_model", env=env_id, B=B, steps=USER_MODEL_STEPS,
+             forced_reset_at=USER_FORCED_AT,
+             launches={"task_kernel": launches["task_kernel:" + env_id],
+                       "composed": launches["composed:" + env_id]},
+             max_abs_diff_task_vs_env_kernel=worst_fused, max_dq_composed_vs_task=worst_comp,
+             resets_bitwise=True, graph_vs_eager_bitwise=True, card=card, **rec)
+
+    # ---- a user's task by its registered ID, then PPO on it ----------------
+    task = tasks[USER_ID]
+    acts = torch.as_tensor(np.random.default_rng(13).uniform(
+        -1, 1, (USER_STEPS, B, task.act_dim)).astype(np.float32), device=dev)
+
+    def user_rollout():  # no forced resets: step t's output is t+1's input
+        env = pt.make_batched(USER_ID, B)
+        states = [env.reset(seed=4)]
+        for t in range(USER_STEPS):
+            states.append(env.step(states[-1], acts[t]))
+        return env, states
+
+    (uenv, states), n = counted(user_rollout)
+    launches["user_task"] = n
+    require(uenv.backend == "fused" and uenv.step_fn.kernel == "task_step_kernel"
+            and n == dict(none, task_step_kernel=USER_STEPS), f"{USER_ID}: {n}")
+    comp = pt.make_batched(USER_ID, B, backend="composed")
+    plain, vs_comp, plain_ms = {}, {}, []
+    for t in range(USER_PLAIN_STEPS):
+        a = acts[t].T.contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = env_step_plain(task, states[t], a)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        bounds_env(states[t + 1], p, len(task.foot_rows))
+        c = comp.step_fn(states[t], a)
+        bounds_env(states[t + 1], c, len(task.foot_rows))
+        plain[t], vs_comp[t] = max_dq(states[t + 1], p), max_dq(states[t + 1], c)
+    last = states[-1]
+    require(bool(torch.isfinite(last.q).all()) and "backward_steps" in last.aux
+            and bool((last.aux["backward_steps"] >= 0).all()), f"{USER_ID}: final state")
+    s, a = states[5], acts[5].T.contiguous()
+    ustep = uenv.step_fn
+    flops, nbytes = tk.work_per_task_step(
+        ustep.tables, ustep.program, (s.terminated | s.truncated).float().mean().item())
+    t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (nbytes * B + ctypes.sizeof(ustep.tables)) / PEAK_BYTES_PER_S * 1e3
+    entry = {
+        "name": "task_step_kernel", "route": "cuda", "source": TASK_SOURCE,
+        "replaces": REPLACES["task_step_kernel"], "max_abs_err": max(plain.values()),
+        "ms": graph_ms(lambda: ustep(s, a)), "eager_ms": cuda_ms(lambda: ustep(s, a), 50),
+        "plain_ms": min(plain_ms), "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "B": B, "timed_on": USER_ID, "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
+        "models": [USER_ID] + list(USER_MODELS), "per_model": timing}
+    emit("user_task", env=USER_ID, task=type(task).__name__, B=B, steps=USER_STEPS,
+         launches=n, held_to_plain_steps=USER_PLAIN_STEPS, max_dq_vs_plain=plain,
+         max_dq_vs_composed=vs_comp, aux_keys=sorted(last.aux),
+         backward_steps_mean=last.aux["backward_steps"].mean().item(),
+         ms=entry["ms"], eager_ms=entry["eager_ms"], plain_ms=entry["plain_ms"],
+         bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+         env_steps_per_s=B * 1e3 / entry["ms"], card=card)
+
+    cfg = ppo.PPOConfig(normalize_obs=True)
+    (ts, es, m), n = counted(lambda: ppo.train(USER_ID, B, 3, cfg, seed=0))
+    launches["ppo:" + USER_ID] = n
+    metrics = {k: float(x) for k, x in m.items()}
+    emit("user_task_ppo", env=USER_ID, B=B, train_steps=3, launches=n, metrics=metrics,
+         card=card)
+    require(all(np.isfinite(list(metrics.values()))), f"non-finite PPO metrics {metrics}")
+    require(n == dict(none, task_step_kernel=3 * cfg.rollout_length), f"user-task PPO: {n}")
+    return launches, entry
 
 
 def main():
@@ -1166,12 +1455,15 @@ def main():
 
         def record(path, counts):
             """Each rank's launches of each kernel on `path` (its counts, read
-            just after the path); the physics kernel must not run there.
-            Returns the env-step kernel's."""
+            just after the path); the physics and task kernels must not run
+            there (the dry run reports no task-kernel count). Returns the
+            env-step kernel's."""
             for name in mesh_launches:
                 mesh_launches[name][path] = [c[name] for c in counts]
             require(mesh_launches["physics_step_kernel"][path] == [0] * D,
                     f"{path}: physics_step_kernel launched {mesh_launches['physics_step_kernel']}")
+            require([c.get("task_step_kernel", 0) for c in counts] == [0] * D,
+                    f"{path}: task_step_kernel launched {counts}")
             return mesh_launches["env_step_kernel"][path]
 
         # mesh_env: the gathered sharded state, bitwise the unsharded BatchedEnv.step's
@@ -1330,7 +1622,8 @@ def main():
     ragged(CHEETAH)
     golden(CHEETAH)
     main_c = policy_path(CHEETAH, (pc["phys"], pc["s0"].q, pc["s0"].v, pc["tau"]))
-    require(all(n > 0 for n in main_c.values()), f"a kernel was not launched: {main_c}")
+    require(main_c["physics_step_kernel"] > 0 and main_c["env_step_kernel"] > 0
+            and main_c["task_step_kernel"] == 0, f"the policy path's launches: {main_c}")
     throughput(CHEETAH, 16384)  # B=4096 is timed below, with the kernel times
 
     # Ant: both kernels, its golden, its policy path, the trainer
@@ -1636,6 +1929,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         main_api["checkpoint"] = checkpoint_path(tmp)
     render_path()
+    main_user, task_entry = user_task_paths(card)
     main_mesh = mesh_phases()
 
     # the local memory that the first launch of each kernel on each model
@@ -1678,6 +1972,11 @@ def main():
             "api_launches": {path: m[name] for path, m in main_api.items()},
             "mesh_launches": main_mesh[name],
         })
+    kernels[0]["composed_launches"] = {
+        path: n["physics_step_kernel"] for path, n in main_user.items() if "composed" in path}
+    kernels.append(dict(task_entry, launches=main_user["user_task"]["task_step_kernel"],
+                        path_launches={path: n["task_step_kernel"]
+                                       for path, n in main_user.items()}))
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

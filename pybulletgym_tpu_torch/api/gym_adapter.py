@@ -84,14 +84,15 @@ class _Epochs:
 
 class GymAdapter(gymnasium.Env if gymnasium is not None else object):
     """One env (a `BatchedEnv` of B=1) on `device`: the GPU unless the
-    caller asks for "cpu"."""
+    caller asks for "cpu"; `backend` and `graph` go to the `BatchedEnv`."""
 
     metadata = {"render_modes": ["rgb_array", "human"]}
 
-    def __init__(self, task, spec, render_mode: Optional[str] = None, device="cuda"):
+    def __init__(self, task, spec, render_mode: Optional[str] = None, device="cuda",
+                 backend: str = "fused", graph: bool = True):
         from pybulletgym_tpu_torch.envs.base import BatchedEnv
 
-        self._env = BatchedEnv(task, 1, device=device)
+        self._env = BatchedEnv(task, 1, device=device, backend=backend, graph=graph)
         self._spec = spec
         self._state = None
         self._epochs = _Epochs()
@@ -207,7 +208,8 @@ class VectorAdapter(gymnasium.vector.VectorEnv if gymnasium is not None else _Pl
 
 def make_adapter(env_id: str, **kwargs) -> GymAdapter:
     """gymnasium's entry point for ``pybulletgym_tpu_torch/<env_id>``;
-    `kwargs` (``device``, ``render_mode``) go to `GymAdapter`."""
+    `kwargs` (``device``, ``render_mode``, ``backend``, ``graph``) go to
+    `GymAdapter`."""
     from pybulletgym_tpu_torch.api import registry as reg
 
     return GymAdapter(reg.make_task(env_id), reg.registry[env_id], **kwargs)

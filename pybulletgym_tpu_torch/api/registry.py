@@ -11,7 +11,9 @@ the Gym-MuJoCo mirror family (`envs/mujoco_family.py`: Hopper, Walker2D,
 HalfCheetah, Ant, Humanoid, Reacher, InvertedPendulum and
 InvertedDoublePendulum `*MuJoCoEnv-v0`). Any other ID raises `KeyError`
 listing the known ones. The registry's horizon overrides the task's own
-(ReacherMuJoCoEnv-v0: 150 steps).
+(ReacherMuJoCoEnv-v0: 150 steps). ``register(id, task_factory,
+max_episode_steps)`` adds a user's ID (any `Task`) or replaces one; the
+entry points below then take it, and so does `parallel.ppo.train`.
 
 Three entry points: ``make(id)``, a single-env adapter (`api/gym_adapter.py`);
 ``make_batched(id, batch_size)``, the native batched env; ``make_task(id)``.
@@ -96,6 +98,16 @@ registry: Dict[str, EnvSpec] = {
 }
 
 
+def register(id: str, task_factory: Callable, max_episode_steps: int,
+             reward_threshold: Optional[float] = None) -> None:
+    """Add env `id` (or replace it): `task_factory()` returns a fresh `Task`,
+    whose horizon becomes `max_episode_steps`. On the card its env step is
+    one launch of `task_step_kernel`, its hooks translated into it
+    (`ops.task_kernel`). Call `register_with_gymnasium()` again to make it known
+    to gymnasium as ``pybulletgym_tpu_torch/<id>``."""
+    registry[id] = EnvSpec(id, task_factory, max_episode_steps, reward_threshold)
+
+
 def make_task(id: str):
     """The Task (model + scalar hooks) behind an env id; a fresh instance."""
     if id not in registry:
@@ -106,28 +118,34 @@ def make_task(id: str):
     return task
 
 
-def make_batched(id: str, batch_size: int, device="cuda"):
+def make_batched(id: str, batch_size: int, device="cuda", backend: str = "fused",
+                 graph: bool = True):
     """A `BatchedEnv` of `batch_size` envs on `device`: the GPU unless the
-    caller asks for "cpu" (without a GPU, "cuda" raises)."""
+    caller asks for "cpu" (without a GPU, "cuda" raises). `backend` and
+    `graph` go to `BatchedEnv` (by default one kernel launch a step)."""
     from pybulletgym_tpu_torch.envs.base import BatchedEnv
 
-    return BatchedEnv(make_task(id), batch_size, device=device)
+    return BatchedEnv(make_task(id), batch_size, device=device, backend=backend, graph=graph)
 
 
-def make(id: str, device="cuda", render_mode: Optional[str] = None):
+def make(id: str, device="cuda", render_mode: Optional[str] = None,
+         backend: str = "fused", graph: bool = True):
     """A single-env gymnasium adapter (`api/gym_adapter.py · GymAdapter`)
-    on `device`: the GPU unless the caller asks for "cpu"."""
+    on `device`: the GPU unless the caller asks for "cpu". `backend` and
+    `graph` go to its `BatchedEnv`."""
     from pybulletgym_tpu_torch.api.gym_adapter import GymAdapter
 
-    return GymAdapter(make_task(id), registry[id], render_mode=render_mode, device=device)
+    return GymAdapter(make_task(id), registry[id], render_mode=render_mode, device=device,
+                      backend=backend, graph=graph)
 
 
 NAMESPACE = "pybulletgym_tpu_torch"
 
 
 def register_with_gymnasium() -> None:
-    """Register every ID with gymnasium as ``pybulletgym_tpu_torch/<id>``;
-    does nothing where gymnasium is not installed. Keyword arguments of
+    """Register every ID with gymnasium as ``pybulletgym_tpu_torch/<id>``
+    (called again, the IDs added by `register` since); does nothing where
+    gymnasium is not installed. Keyword arguments of
     ``gymnasium.make`` (``device``, ``render_mode``) reach the adapter."""
     try:
         import gymnasium

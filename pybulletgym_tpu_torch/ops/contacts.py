@@ -12,8 +12,9 @@ Torch counterpart of the scalar (kernel-body) path of the JAX package's
   with a velocity threshold, and Bullet-style *split impulse*.
 * **Joint limits** as unilateral velocity constraints with position feedback.
 
-The JAX module's reach-pruning analysis (`prune_pairs_by_reach`,
-`reach_bound_balls`) is not ported: it is an offline study, not on the step.
+* **Reachability pruning** of self-collision pairs (`prune_pairs_by_reach`,
+  `reach_bound_balls`, with `plan_row_bodies`): an offline numpy analysis,
+  as in the JAX module. No plan calls it, and no step runs it.
 """
 
 from __future__ import annotations
@@ -128,6 +129,165 @@ def full_self_collision_pairs(model: Model, exclude_geoms: Tuple[str, ...] = ())
     return tuple(pairs)
 
 
+# ---------------------------------------------------------------------------
+# compile-time reachability pruning of self-collision pairs
+# ---------------------------------------------------------------------------
+#
+# The static pair plan pays every candidate every substep (every env runs
+# the same rows, so no per-env branch saves work): the only real lever is removing pairs
+# that can NEVER touch. This is the compile-time analog of the dynamic DBVT
+# broadphase culling Bullet does per step [ref: SURVEY §2.2 collision row]:
+# instead of testing AABBs at runtime, we bound each geom's reachable volume
+# over the WHOLE joint-limit box once, offline (no plan calls it).
+#
+# Method: express both geoms of a pair in their lowest-common-ancestor body
+# frame (the free root joint is at/above every LCA, so base pose drops out).
+# Each geom is covered by a few balls; walking a ball up one kinematic level
+# applies the body's joint over its full limit interval: a rotation about
+# axis u by theta in [mid-d, mid+d] maps ball (c, r) into the ball centered
+# at the mid-angle position with radius r + 2*|c_perp|*sin(min(d, pi)/2)
+# (the chord bound — exact for the arc's extremes), then the static
+# pos/quat offset into the parent frame. The result is a rigorous outer
+# bound of the geom's reachable set in the LCA frame; if the bounds of the
+# two geoms stay farther apart than `clearance`, the pair's contact row can
+# never produce an impulse and is dropped from the plan.
+#
+# Joint limits here are enforced softly (velocity-level rows, limit_erp),
+# so ranges are widened by `limit_slack_frac`/`limit_slack_abs` before
+# bounding; tests/test_reach_prune.py checks the slack against measured
+# overshoot and samples the widened box to confirm pruned pairs never touch.
+
+
+def _ball_cover_of_geom(g, k: int = 3):
+    """Cover a sphere/capsule/cylinder geom with <=k balls (body frame)."""
+    if g.gtype == GeomType.SPHERE:
+        return [(np.asarray(g.pos, np.float64), float(g.size[0]))]
+    axis = _quat_np_to_mat(g.quat) @ np.array([0.0, 0.0, 1.0])
+    hl, r = float(g.size[1]), float(g.size[0])
+    sub = hl / k
+    return [
+        (np.asarray(g.pos, np.float64) + (-hl + (2 * i + 1) * sub) * axis,
+         sub + r)
+        for i in range(k)
+    ]
+
+
+def _reach_ball_up(model, body_idx: int, ball, slack_frac: float,
+                   slack_abs: float):
+    """Map ball=(c, r) from body_idx's frame into its parent's frame,
+    over the body's whole (widened) joint interval. None = unboundable."""
+    b = model.bodies[body_idx]
+    c, r = ball
+    if b.jtype == JointType.FREE:
+        return None
+    d = b.v_adr
+    if model.jnt_limited[d]:
+        lo, hi = float(model.jnt_range[d, 0]), float(model.jnt_range[d, 1])
+        half = (hi - lo) / 2.0
+        pad = slack_frac * (hi - lo) + slack_abs
+        mid = (lo + hi) / 2.0 - b.jref
+        half = half + pad
+    else:
+        mid, half = 0.0, np.inf
+    u = np.asarray(b.jaxis, np.float64)
+    u = u / np.linalg.norm(u)
+    if b.jtype == JointType.HINGE:
+        jp = np.asarray(b.jpos, np.float64)
+        rel = c - jp
+        axial = (rel @ u) * u
+        perp = rel - axial
+        pn = float(np.linalg.norm(perp))
+        # rotate rel by the mid angle (Rodrigues)
+        ct, st = np.cos(mid), np.sin(mid)
+        rot = rel * ct + np.cross(u, rel) * st + u * (rel @ u) * (1.0 - ct)
+        c = jp + rot
+        r = r + 2.0 * pn * np.sin(min(half, np.pi) / 2.0)
+    else:  # SLIDE
+        if not np.isfinite(half):
+            return None
+        c = c + u * mid
+        r = r + half
+    c = np.asarray(b.pos, np.float64) + _quat_np_to_mat(b.quat) @ c
+    return c, r
+
+
+def _lca(model, a: int, b: int):
+    anc_a = []
+    i = a
+    while i >= 0:
+        anc_a.append(i)
+        i = model.bodies[i].parent
+    seen = set(anc_a)
+    i = b
+    while i >= 0:
+        if i in seen:
+            return i
+        i = model.bodies[i].parent
+    return None
+
+
+def reach_bound_balls(model, geom, lca: int, *, slack_frac: float = 0.2,
+                      slack_abs: float = 0.15, cover: int = 3):
+    """Outer ball bounds of `geom`'s reachable set in the `lca` body frame
+    over the widened joint-limit box, or None if unboundable."""
+    balls = _ball_cover_of_geom(geom, cover)
+    i = geom.body
+    while i != lca:
+        nxt = []
+        for ball in balls:
+            up = _reach_ball_up(model, i, ball, slack_frac, slack_abs)
+            if up is None:
+                return None
+            nxt.append(up)
+        balls = nxt
+        i = model.bodies[i].parent
+    return balls
+
+
+def prune_pairs_by_reach(
+    model,
+    pairs: Tuple[Tuple[str, str], ...],
+    *,
+    clearance: float = 0.03,
+    slack_frac: float = 0.2,
+    slack_abs: float = 0.15,
+    cover: int = 3,
+) -> Tuple[Tuple[Tuple[str, str], ...], Tuple[Tuple[str, str], ...]]:
+    """Split `pairs` into (kept, pruned): pruned pairs provably stay
+    > clearance apart for every configuration in the widened joint-limit
+    box, so their PGS rows would clamp to zero impulse forever."""
+    byname = {g.name: g for g in model.geoms}
+    kept, pruned = [], []
+    cache = {}
+    for na, nb in pairs:
+        ga, gb = byname[na], byname[nb]
+        lca = _lca(model, ga.body, gb.body)
+        if lca is None:
+            kept.append((na, nb))
+            continue
+
+        def bound(g):
+            key = (g.name, lca)
+            if key not in cache:
+                cache[key] = reach_bound_balls(
+                    model, g, lca, slack_frac=slack_frac,
+                    slack_abs=slack_abs, cover=cover,
+                )
+            return cache[key]
+
+        ba, bb = bound(ga), bound(gb)
+        if ba is None or bb is None:
+            kept.append((na, nb))
+            continue
+        dmin = min(
+            float(np.linalg.norm(ca - cb)) - ra - rb
+            for ca, ra in ba
+            for cb, rb in bb
+        )
+        (pruned if dmin > clearance else kept).append((na, nb))
+    return tuple(kept), tuple(pruned)
+
+
 def build_contact_plan(model: Model, cfg: SolverConfig):
     """Static candidate list: the compile-time analog of Bullet's DBVT broadphase,
     run once at model-build time (SURVEY §2.2 'compile-time broadphase')."""
@@ -228,6 +388,17 @@ def plan_rows(plan) -> int:
     for c in floor_cands:
         n += 4 if c.kind == "disk" else 1
     return n + len(pair_cands)
+
+
+def plan_row_bodies(plan) -> Tuple[int, ...]:
+    """Primary body index per contact row (for contact-flag reporting, the
+    `p.getContactPoints` replacement)."""
+    floor_cands, pair_cands = plan
+    out = []
+    for c in floor_cands:
+        out.extend([c.body] * (4 if c.kind == "disk" else 1))
+    out.extend([c.body_a for c in pair_cands])
+    return tuple(out)
 
 
 def plan_row_geoms(plan) -> Tuple[str, ...]:

@@ -9,7 +9,9 @@ Counterpart of the JAX package's `ops/pallas_engine.py`:
 * `make_cuda_env_step(task)` replaces `make_pallas_env_step`: the whole env
   step (auto-reset with Threefry draws, the pre-physics hook, torques,
   substeps, obs/reward/termination, NaN guard, step count, truncation) in
-  one launch.
+  one launch, for the task classes of TASK_KINDS (`env_kernel_supports`);
+  any other task's hooks are translated into `task_step_kernel`
+  (`ops/task_kernel.py`), also one launch a step.
 
 The kernels' source is `csrc/engine_core.h` (the algorithm, table-driven,
 `__host__ __device__`) and `csrc/engine.cu` (two thin `__global__` kernels
@@ -374,25 +376,47 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
 ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2, "humanoid": 3}  # engine_core.h · ALIVE_*
 
 
-def pack_tables(task, frame_skip: Optional[int] = None):
-    """All tables of the env-step kernel for `task` (physics + task
-    constants). Raises for a task the kernel does not implement: any class
-    but those of TASK_KINDS (subclasses, other pre-physics hooks included)."""
+def _kernel_match(task):
+    """((kind, aux keys, reward keys), "") when `env_step_kernel` implements
+    `task`, else (None, why): its class must be one of TASK_KINDS (not a
+    subclass, whose hooks are its own) and its hooks, probed once on one
+    env, must write that kind's aux and reward keys."""
     from pybulletgym_tpu_torch.envs import locomotion, manipulation, mujoco_family, pendula
 
     name = type(task).__name__
     kind = TASK_KINDS.get(name)
     if kind is None or not any(getattr(mod, name, None) is type(task)
                                for mod in (locomotion, manipulation, pendula, mujoco_family)):
-        raise NotImplementedError(
-            f"{name}: only {', '.join(TASK_KINDS)} are in the CUDA kernels yet")
+        return None, f"{name}: only {', '.join(TASK_KINDS)} are in the env-step kernel"
+    aux_keys, out_aux, comp_keys = _probe_keys(task)
+    if out_aux != aux_keys:
+        return None, f"{name}: output aux keys {out_aux} differ from the reset's {aux_keys}"
+    if aux_keys != tuple(sorted(kind[1])) or comp_keys != tuple(sorted(kind[2])):
+        return None, (f"{name}: keys {aux_keys}, {comp_keys} differ from the kernel's "
+                      f"{kind[1]}, {kind[2]}")
+    return (kind[0], aux_keys, comp_keys), ""
+
+
+def env_kernel_supports(task) -> bool:
+    """Whether `env_step_kernel` implements `task` (`_kernel_match`); any
+    other task's env step is `task_step_kernel` (`ops.task_kernel`)."""
+    return _kernel_match(task)[0] is not None
+
+
+def pack_tables(task, frame_skip: Optional[int] = None):
+    """All tables of the env-step kernel for `task` (physics + task
+    constants). Raises for a task the kernel does not implement: any class
+    but those of TASK_KINDS (subclasses, other pre-physics hooks included)."""
+    match, why = _kernel_match(task)
+    if match is None:
+        raise NotImplementedError(why)
+    return _pack_tables(task, match, frame_skip)
+
+
+def _pack_tables(task, match, frame_skip):
     t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
     _, caps = tables_type()
-    t.task_kind, want_aux, want_comps = kind
-    aux_keys, comp_keys = _check_keys(task)
-    if aux_keys != tuple(sorted(want_aux)) or comp_keys != tuple(sorted(want_comps)):
-        raise NotImplementedError(f"{name}: keys {aux_keys}, {comp_keys} differ from the "
-                                  f"kernel's {want_aux}, {want_comps}")
+    t.task_kind, aux_keys, comp_keys = match
     t.naux, t.ncomp = len(aux_keys), len(comp_keys)
     for k in AUX_KEYS:
         setattr(t, "ax_" + k, aux_keys.index(k) if k in aux_keys else -1)
@@ -635,10 +659,10 @@ def _pack_harder(t, task):
     t.ground_limit = _f32(task.GROUND_LIMIT)
 
 
-def _check_keys(task) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+def _probe_keys(task) -> Tuple[Tuple[str, ...], Tuple[str, ...], Tuple[str, ...]]:
     """The kernel writes aux and reward components in sorted key order;
-    probe the task's hooks once on one env to confirm its keys. Returns the
-    sorted (aux keys, reward keys)."""
+    probe the task's hooks once on one env for its keys. Returns the sorted
+    (reset aux keys, output aux keys, reward keys)."""
     one = torch.zeros((1,), dtype=torch.uint32)
     ids = (one, torch.zeros((1,), dtype=torch.int32), one)
     q, v, aux = task.initial_state_scalar(*ids)
@@ -647,10 +671,7 @@ def _check_keys(task) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     _, _, _, aux2, comps = task.output_scalar(
         list(q), list(v), [z] * n_rows, [z] * task.act_dim, aux, ids
     )
-    keys = tuple(sorted(aux))
-    if tuple(sorted(aux2)) != keys:
-        raise NotImplementedError(f"output aux keys {sorted(aux2)} differ from the reset's {keys}")
-    return keys, tuple(sorted(comps))
+    return tuple(sorted(aux)), tuple(sorted(aux2)), tuple(sorted(comps))
 
 
 # ---------------------------------------------------------------------------
@@ -866,13 +887,27 @@ def _launch_checked(rc: int, what: str):
 
 
 # Launches of each kernel by every wrapper instance since the last reset;
-# each wrapper also keeps its own `launches`.
-LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0}
+# each wrapper also keeps its own `launches`. A launch recorded into a CUDA
+# graph counts in CAPTURED instead, and in LAUNCHES each time the graph's
+# owner replays it (`envs.base._StepGraph`).
+LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0,
+                            "task_step_kernel": 0}
+CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(kernel: str, wrapper) -> None:
+    """Count one launch of `kernel` by `wrapper` (or its recording, while
+    the current stream captures a CUDA graph)."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[kernel] += 1
+    else:
+        wrapper.launches += 1
+        LAUNCHES[kernel] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -884,13 +919,20 @@ class CudaPhysicsStep:
     """step(q (nq,B), v (nv,B), tau (nv,B)) -> (q', v', depths (R,B)).
 
     CUDA tensors launch `physics_step_kernel`; CPU tensors run
-    `make_physics_step_plain`. `launches` counts kernel launches."""
+    `make_physics_step_plain`. `launches` counts kernel launches (a launch
+    recorded into a CUDA graph: at each replay, `count_launch`)."""
 
     def __init__(self, model: Model, cfg: PhysicsConfig):
         self.model, self.cfg = model, cfg
         self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
         self.tables = pack_physics(model, cfg)
         self.launches = 0
+
+    def prepare(self, device: torch.device):
+        """Build the library and pick the launch configuration on `device`
+        (the occupancy API, cudaFuncSetAttribute): ahead of a graph capture,
+        which these calls would break."""
+        launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
 
     def __call__(self, q, v, tau):
         if q.device.type == "cpu":
@@ -911,8 +953,7 @@ class CudaPhysicsStep:
                 _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "physics_step_kernel")
-        self.launches += 1
-        LAUNCHES["physics_step_kernel"] += 1
+        count_launch("physics_step_kernel", self)
         return tuple(outs)
 
 
@@ -920,12 +961,16 @@ class CudaEnvStep:
     """step(state: EnvState, action (act, B)) -> EnvState.
 
     CUDA tensors launch `env_step_kernel`; CPU tensors run
-    `envs.base.env_step_plain`. `launches` counts kernel launches."""
+    `envs.base.env_step_plain`. `launches` counts kernel launches (none
+    while a CUDA graph is captured)."""
 
-    def __init__(self, task, frame_skip: Optional[int] = None):
+    backend = "fused"
+    kernel = "env_step_kernel"
+
+    def __init__(self, task, frame_skip: Optional[int] = None, tables=None):
         self.task = task
         self.frame_skip = frame_skip
-        self.tables = pack_tables(task, frame_skip)
+        self.tables = pack_tables(task, frame_skip) if tables is None else tables
         self.launches = 0
 
     def __call__(self, state, action):
@@ -946,8 +991,7 @@ class CudaEnvStep:
                 _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, "env_step_kernel")
-        self.launches += 1
-        LAUNCHES["env_step_kernel"] += 1
+        count_launch("env_step_kernel", self)
         return _env_state(state, outs)
 
 
@@ -957,10 +1001,18 @@ def make_cuda_physics_step(model: Model, cfg: PhysicsConfig):
     return step, step.plan, step.n_rows
 
 
-def make_cuda_env_step(task, frame_skip: Optional[int] = None) -> CudaEnvStep:
-    """The env-step wrapper for `task`; `frame_skip` overrides the task's
-    number of physics substeps (0 returns the post-reset state)."""
-    return CudaEnvStep(task, frame_skip)
+def make_cuda_env_step(task, frame_skip: Optional[int] = None):
+    """The one-launch env-step wrapper for `task`: `CudaEnvStep`
+    (`env_step_kernel`) for the task classes it implements, else
+    `ops.task_kernel.CudaTaskStep` (`task_step_kernel`, the task's hooks
+    translated into the kernel). `frame_skip` overrides the task's number
+    of physics substeps (0 returns the post-reset state)."""
+    match, _ = _kernel_match(task)
+    if match is None:
+        from pybulletgym_tpu_torch.ops.task_kernel import CudaTaskStep
+
+        return CudaTaskStep(task, frame_skip)
+    return CudaEnvStep(task, frame_skip, _pack_tables(task, match, frame_skip))
 
 
 # ---------------------------------------------------------------------------

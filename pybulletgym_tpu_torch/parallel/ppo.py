@@ -57,7 +57,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from pybulletgym_tpu_torch.envs.base import EnvState, Task
+from pybulletgym_tpu_torch.envs.base import EnvState, Task, make_env_step
 from pybulletgym_tpu_torch.parallel import mesh as pmesh
 from pybulletgym_tpu_torch.parallel.networks import ActorCritic
 
@@ -168,15 +168,14 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
 
     One call = `rollout_length` env steps + num_epochs x num_minibatches
     PPO updates. `step_fn(state, action (act, B))` is the env step; by
-    default the CUDA env-step wrapper for `task` (the plain version on CPU
-    tensors). `eps` (T, B, act), if given, replaces the sampling noise.
+    default `make_env_step(task)`: one kernel launch a step for any task
+    (the plain version on CPU tensors). `eps` (T, B, act), if given,
+    replaces the sampling noise.
     With a `mesh`, `es` is this rank's shard (`mesh.shard_env_state`, or a
     reset with `first_env`), `ts` is replicated, `eps` spans the global
     batch, and the metrics are the global batch's (module docstring)."""
     if step_fn is None:
-        from pybulletgym_tpu_torch.ops.cuda_engine import make_cuda_env_step
-
-        step_fn = make_cuda_env_step(task)
+        step_fn = make_env_step(task)
     T = cfg.rollout_length
     D, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
 

@@ -53,7 +53,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from pybulletgym_tpu_torch.envs.base import EnvState, Task
+from pybulletgym_tpu_torch.envs.base import EnvState, Task, make_env_step
 from pybulletgym_tpu_torch.parallel import mesh as pmesh
 from pybulletgym_tpu_torch.parallel.networks import MLPParams, init_mlp
 from pybulletgym_tpu_torch.parallel.ppo import _adam
@@ -189,8 +189,9 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
                        mesh: Optional[pmesh.Mesh] = None):
     """iteration(ss, es, draws=None) -> (ss, es, metrics).
 
-    `step_fn(state, action (act, B))` is the env step; by default the CUDA
-    env-step wrapper for `task` (the plain version on CPU tensors). `draws`,
+    `step_fn(state, action (act, B))` is the env step; by default
+    `make_env_step(task)`: one kernel launch a step for any task (the plain
+    version on CPU tensors). `draws`,
     if given, replaces every random draw: "pi_eps" and "a_rand" (T, B, act)
     per collect step (the policy noise, the warm-up's uniform actions);
     "slots" and "envs" (U, batch) int64, "next_eps" and "pi_eps_upd" (U,
@@ -200,9 +201,7 @@ def make_sac_iteration(task: Task, cfg: SACConfig, step_fn: Optional[Callable] =
     replicated, the draws span the global batch and the metrics are the
     global batch's (module docstring)."""
     if step_fn is None:
-        from pybulletgym_tpu_torch.ops.cuda_engine import make_cuda_env_step
-
-        step_fn = make_cuda_env_step(task)
+        step_fn = make_env_step(task)
     act_dim = task.act_dim
     target_entropy = -float(act_dim)
     S, T, U, N = cfg.buffer_slots, cfg.steps_per_iter, cfg.updates_per_iter, cfg.batch_size

@@ -19,7 +19,10 @@ chip_smoke.py holds them. The Gym-MuJoCo mirrors HopperMuJoCo (a planar
 root), AntMuJoCo (a free root, obs with a zero block), HumanoidMuJoCo (obs
 376, 331 of them zeros) and ReacherMuJoCo (the disk-drawn target, held to 1
 ulp) at the walker budget, and one SAC iteration, whose collect launches
-the env kernel.
+the env kernel. A user's task (a HalfCheetah subclass with its own reward
+and aux key) through task_step_kernel, its hooks translated, at the walker
+budget, and through the composed backend's CUDA graph (one physics launch
+a replay).
 """
 
 import pytest
@@ -252,6 +255,57 @@ def test_wrappers_refuse_bad_cuda_inputs(task):
     with pytest.raises(ValueError, match="tau: shape"):
         phys(s.q, s.v, torch.zeros((task.model.nv, B + 1), device="cuda"))
     assert env.step_fn.launches == 0 and phys.launches == 0
+
+
+def _user_task():
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+
+    class Sprinter(loco.WalkerTask):  # double progress, and a count of fast steps
+        def __init__(self):
+            super().__init__(loco.HALF_CHEETAH)
+
+        def initial_state_scalar(self, seed, env_id, epoch):
+            q, v, aux = super().initial_state_scalar(seed, env_id, epoch)
+            return q, v, dict(aux, fast=torch.zeros_like(aux["potential"]))
+
+        def output_scalar(self, q, v, depths, a, aux, ids=None):
+            obs, reward, term, aux2, comps = super().output_scalar(q, v, depths, a, aux, ids)
+            fast = aux["fast"] + torch.where(v[0] > 1.0, 1.0, 0.0)
+            return obs, reward + comps["progress"], term, dict(aux2, fast=fast), comps
+
+    return Sprinter()
+
+
+def test_user_task_kernel_matches_plain():
+    """A user's task: 3 steps of task_step_kernel (3 launches, no other
+    kernel) against the plain version from the same inputs, every 3rd env
+    reset; then 2 composed steps replayed from a CUDA graph (one physics
+    launch a replay) against the task kernel's."""
+    _need_gpu()
+    from pybulletgym_tpu_torch.envs.base import BatchedEnv
+
+    task = _user_task()
+    env = BatchedEnv(task, B, device="cuda")
+    assert env.step_fn.kernel == "task_step_kernel"
+    s = env.reset(seed=5)
+    s = s._replace(terminated=torch.arange(B, device="cuda") % 3 == 0)
+    ce.reset_launch_counts()
+    for t in range(3):
+        a = torch.rand((task.act_dim, B), device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(t)) * 2 - 1
+        k = env.step_fn(s, a)
+        bounds_env(k, env_step_plain(task, s, a), len(task.foot_rows))
+        assert sorted(k.aux) == sorted(s.aux) and "fast" in k.aux
+        s = k
+    assert dict(ce.LAUNCHES) == {"physics_step_kernel": 0, "env_step_kernel": 0,
+                                 "task_step_kernel": 3}
+    comp = BatchedEnv(task, B, device="cuda", backend="composed")
+    ce.reset_launch_counts()
+    for _ in range(2):
+        c, k = comp.step_fn(s, a), env.step_fn(s, a)
+        bounds_env(c, k, len(task.foot_rows))
+        s = k
+    assert ce.LAUNCHES["physics_step_kernel"] == 2 and comp.step_fn.launches == 2
 
 
 def test_ppo_train_step_launches_the_env_kernel():
