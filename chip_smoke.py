@@ -92,6 +92,19 @@ dofs than a group's 32 lanes, root paths past bit 31):
     (50 task-kernel launches), the first 5 held to the plain version and to
     the composed step; 3 `ppo.train` steps on its ID (96 launches); times
     of every backend and of the capture;
+  * drives models over the default tables' caps (`big_model_paths`, each
+    path with the launch counts reset just before it and read just after):
+    builds the large class of the tables (-DENG_BIG_TABLES: engine.cu, one
+    nvcc a width, and task_step.cu with a user's task's hooks, all started
+    together); registers TwoHumanoids-v0 (two copies of humanoid.xml in one
+    worldbody: 36 bodies, nv 46) and makes it by ID at B=4096: 20 steps with
+    forced resets through task_step_kernel's large build (20 launches,
+    nothing else), and through the composed backend around
+    physics_step_kernel's large build (20 launches, nothing else; each step
+    bitwise the eager composed step's); holds both against the plain
+    version on the card within the humanoid budget, resets bitwise; holds
+    seven free balls (nv 42) through the large physics build to the plain
+    physics; times both large kernels beside their bounds;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -658,6 +671,361 @@ def user_task_paths(card):
     require(all(np.isfinite(list(metrics.values()))), f"non-finite PPO metrics {metrics}")
     require(n == dict(none, task_step_kernel=3 * cfg.rollout_length), f"user-task PPO: {n}")
     return launches, entry
+
+
+BIG_ID = "TwoHumanoids-v0"
+BIG_STEPS = 20
+BIG_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
+BIG_PLAIN_AT = (0, 10)  # steps held to the plain version (~11 s a step at B=4096 on an H100)
+BALLS = 7  # free balls: nv 42, over the default caps' 40
+
+
+def two_humanoids_xml() -> str:
+    """Two copies of the repository's humanoid.xml in one worldbody: the
+    second's body, joint, geom and actuator names prefixed with "h2_", its
+    torso 1.5 m along y (tests/test_torch_big_models.py builds the same)."""
+    import copy
+    import xml.etree.ElementTree as ET
+
+    from pybulletgym_tpu_torch.models.assets import asset_path
+
+    root = ET.parse(asset_path("humanoid.xml")).getroot()
+    world, motors = root.find("worldbody"), root.find("actuator")
+    torso = copy.deepcopy(world.find("body"))
+    for el in torso.iter():
+        if "name" in el.attrib:
+            el.set("name", "h2_" + el.get("name"))
+    torso.set("pos", "0 1.5 1.4")
+    world.append(torso)
+    for m in list(motors):
+        m2 = copy.deepcopy(m)
+        m2.set("name", "h2_" + m.get("name"))
+        m2.set("joint", "h2_" + m.get("joint"))
+        motors.append(m2)
+    return ET.tostring(root, encoding="unicode")
+
+
+def two_humanoid_task(xml: str):
+    """A user's task over the two-Humanoid scene (tests/test_torch_big_models.py
+    holds the same task against the JAX package). Reset: qpos0 plus U(±0.01)
+    on every q and v; torque: each actuator's gear times the clipped action;
+    obs: both humanoids' q less each root's x and y, and 0.1 v; reward: both
+    torsos' world x-velocities plus 1 alive each; done: either torso below z
+    0.8."""
+    import torch
+
+    from pybulletgym_tpu_torch.envs.base import Task
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops import rand
+    from pybulletgym_tpu_torch.ops.contacts import SolverConfig
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    class TwoHumanoidTask(Task):
+        NOISE = 0.01
+
+        def __init__(self):
+            self.model = m = parse_mjcf(xml, "two_humanoids")
+            self.physics = PhysicsConfig(solver=SolverConfig())
+            self.act_dofs = [a.v_adr for a in m.actuators]
+            self.gears = [float(a.gear) for a in m.actuators]
+            roots = [m.bodies[m.body_index(n)] for n in ("torso", "h2_torso")]
+            self.root_q = [b.q_adr for b in roots]
+            self.root_v = [b.v_adr for b in roots]
+            drop = {r + k for r in self.root_q for k in (0, 1)}
+            self.obs_q = [j for j in range(m.nq) if j not in drop]
+            self.obs_dim = len(self.obs_q) + m.nv
+            self.act_dim = len(self.act_dofs)
+            self.max_episode_steps = 1000
+
+        def initial_state_scalar(self, seed, env_id, epoch):
+            m, n = self.model, self.NOISE
+            q = [float(m.qpos0[j]) + rand.uniform(seed, j, env_id, epoch, -n, n)
+                 for j in range(m.nq)]
+            v = [rand.uniform(seed, m.nq + d, env_id, epoch, -n, n) for d in range(m.nv)]
+            return q, v, {}
+
+        def action_tau_scalar(self, a):
+            tau = [0.0] * self.model.nv
+            for d, g, ai in zip(self.act_dofs, self.gears, a):
+                tau[d] = g * ai
+            return tau
+
+        def _vx(self, q, v, r, d):
+            w, x, y, z = q[r + 3], q[r + 4], q[r + 5], q[r + 6]
+            return ((1.0 - 2.0 * (y * y + z * z)) * v[d + 3] + 2.0 * (x * y - w * z) * v[d + 4]
+                    + 2.0 * (x * z + w * y) * v[d + 5])
+
+        def output_scalar(self, q, v, depths, a, aux, ids=None):
+            obs = [q[j] for j in self.obs_q] + [0.1 * x for x in v]
+            progress = sum(self._vx(q, v, r, d) for r, d in zip(self.root_q, self.root_v))
+            alive = torch.full_like(q[0], 2.0)
+            fallen = q[self.root_q[0] + 2] < 0.8
+            fallen = fallen | (q[self.root_q[1] + 2] < 0.8)
+            return obs, progress + 2.0, fallen, dict(aux), {"alive": alive, "progress": progress}
+
+    return TwoHumanoidTask()
+
+
+def balls_xml(n: int, z: float) -> str:
+    """n free spheres of radius 0.1 at height z above a floor plane (6n dofs)."""
+    balls = "".join(
+        f'<body name="b{i}" pos="{0.3 * i} 0 {z}"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(n))
+    return ('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+            f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
+
+
+def big_model_paths(card):
+    """Models over the default tables' caps on the card: engine_core.h's
+    large class (-DENG_BIG_TABLES, the tables in global memory), at B=4096,
+    each path with the launch counts reset just before it and read just
+    after. Returns ({path: launches}, the large builds' entries of the
+    kernels line less their launches).
+
+    * Build: engine.cu's large libraries (one nvcc a group width) and
+      task_step.cu's large build with TwoHumanoidTask's translated hooks,
+      all started together.
+    * `big_fused`: TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
+      48, nv 46, 34 actuators, 58 floor rows, 68 limit rows) registered and
+      made by ID, the default backend: 20 steps of seeded actions, every
+      third env forced to reset before steps 0 and 10: task_step_kernel's
+      large build 20 launches, nothing else.
+    * `big_composed`: the same ID with backend "composed" (the hooks in
+      torch around physics_step_kernel's large build, replayed from a CUDA
+      graph): its 20 launches, nothing else; each step bitwise the eager
+      composed step's and within the humanoid budget of the task kernel's
+      from the same input.
+    * Held to the plain version on the card (the step of BIG_PLAIN_AT, from
+      the fused rollout's input): both kernels within the humanoid budget,
+      the forced resets (frame_skip 0) bitwise.
+    * The seven free balls (nv 42): physics_step_kernel's large build
+      against the plain physics, 3 steps, the walkers' bounds.
+    * Each large kernel's time (CUDA-graph-timed) beside its bound, the
+      plain version's, its launch configuration, ptxas report, nvcc seconds
+      and the tables' bytes."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import bounds_humanoid
+
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.envs.base import compose_env_step, env_step_plain
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig, make_physics_step_plain
+
+    dev = torch.device("cuda", 0)
+    fields = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
+    none = dict.fromkeys(ce.LAUNCHES, 0)
+    launches = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ce.LAUNCHES)
+
+    def bitwise(a, b):
+        return (all(torch.equal(getattr(a, k), getattr(b, k)) for k in fields)
+                and all(torch.equal(a.rewards[k], b.rewards[k]) for k in b.rewards))
+
+    def hold(a, b, what):
+        try:
+            bounds_humanoid(a, b)
+            require(bool((a.reward - b.reward).abs().median() < 5e-2), "reward median")
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}; max |dq| {(a.q - b.q).abs().max().item()}")
+        return (a.q - b.q).abs().max().item()
+
+    # ---- build the large libraries at once -----------------------------------
+    xml = two_humanoids_xml()
+    pt.register(BIG_ID, lambda: two_humanoid_task(xml), 1000)
+    task = pt.make_task(BIG_ID)
+    m = task.model
+    builder = tk.CudaTaskStep(task)
+    builder.prepare()
+    require(builder.big and builder.kernel == "task_step_kernel_large",
+            f"{BIG_ID}: tables of caps_id {builder.tables.caps_id}")
+    jobs, names = ce._engine_jobs(True)
+    tjob, tname = builder.cuda_job()
+    t0 = time.perf_counter()
+    logs = ce._compile(jobs + [tjob])
+    nvcc_s = time.perf_counter() - t0
+    _, elog = ce.load_cuda_library(True)
+    ptx = {"physics_step_kernel_large": ptxas_report(elog),
+           "task_step_kernel_large": [dict(k, G=builder.tables.lanes) for k in ptxas_report(
+               logs[os.path.join(ce.BUILD_DIR, tname)])]}
+    phys = ce.make_cuda_physics_step(m, task.physics)[0]
+    require(phys.big and phys.kernel == "physics_step_kernel_large", "the physics tables' class")
+    config = {"physics_step_kernel_large": ce.launch_config(phys.tables, "physics_step_kernel", B),
+              "task_step_kernel_large": builder.launch_config(dev, B)}
+    sizes = dict(bodies=len(m.bodies), nq=m.nq, nv=m.nv, act=task.act_dim, rows=phys.tables.nr,
+                 pair_rows=phys.tables.npair, limit_rows=phys.tables.nl, obs=task.obs_dim)
+    emit("big_build", env=BIG_ID, model=sizes, nvcc_seconds=nvcc_s, nvcc_jobs=len(jobs) + 1,
+         table_bytes=ctypes.sizeof(phys.tables), hook_statements=builder.program.ops,
+         ptxas=ptx, launch=config, card=card)
+
+    # ---- the scene by ID: fused, then composed ---------------------------------
+    acts = torch.as_tensor(np.random.default_rng(14).uniform(
+        -1, 1, (BIG_STEPS, task.act_dim, B)).astype(np.float32), device=dev)
+    forced = torch.zeros(B, dtype=torch.bool, device=dev)
+    forced[::3] = True
+
+    def rollout(step_fn, fresh):
+        s, out = fresh, []
+        for t in range(BIG_STEPS):
+            if t in BIG_FORCED_AT:
+                s = s._replace(terminated=s.terminated | forced)
+            out.append((s, acts[t], step_fn(s, acts[t])))
+            s = out[-1][2]
+        return out
+
+    fused = pt.make_batched(BIG_ID, B)
+    require(fused.backend == "fused" and fused.step_fn.kernel == "task_step_kernel_large",
+            f"{BIG_ID}: {fused.step_fn.kernel}")
+    fresh = fused.reset(seed=3)
+    ksteps, n = counted(lambda: rollout(fused.step_fn, fresh))
+    launches["big_fused"] = n
+    require(n == dict(none, task_step_kernel_large=BIG_STEPS), f"{BIG_ID} fused: {n}")
+    require(all(bool(torch.isfinite(o.q).all()) for _, _, o in ksteps), f"{BIG_ID}: non-finite")
+
+    comp = pt.make_batched(BIG_ID, B, backend="composed")
+    eager = pt.make_batched(BIG_ID, B, backend="composed", graph=False)
+    csteps, n = counted(lambda: rollout(comp.step_fn, fresh))
+    launches["big_composed"] = n
+    require(n == dict(none, physics_step_kernel_large=BIG_STEPS), f"{BIG_ID} composed: {n}")
+    worst_comp = 0.0
+    for t, ((s, a, out), (ks, ka, kout)) in enumerate(zip(csteps, ksteps)):
+        require(bitwise(out, eager.step_fn(s, a)),
+                f"{BIG_ID} step {t}: the graph replay differs from the eager composed step")
+        worst_comp = max(worst_comp, hold(comp.step_fn(ks, ka), kout, f"composed step {t}"))
+
+    # ---- both kernels against the plain version ---------------------------------
+    plain_phys = make_physics_step_plain(m, task.physics)[0]
+    phys_ms = []
+
+    def timed_plain_phys(q, v, tau):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_phys(q, v, tau)
+        torch.cuda.synchronize()
+        phys_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    reset_k = tk.CudaTaskStep(task, frame_skip=0)
+    vs_plain, plain_ms = {}, []
+    for t in BIG_PLAIN_AT:
+        s, a, k = ksteps[t]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = compose_env_step(task, timed_plain_phys, s, a)  # env_step_plain, its physics timed
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        c = comp.step_fn(s, a)
+        vs_plain[t] = {"task_step_kernel_large": hold(k, p, f"task kernel step {t}"),
+                       "physics_step_kernel_large": hold(c, p, f"composed step {t}")}
+        if t in BIG_FORCED_AT:
+            rk, rp = reset_k(s, a), env_step_plain(task, s, a, 0)
+            require(torch.equal(rk.q[:, forced], rp.q[:, forced])
+                    and torch.equal(rk.v[:, forced], rp.v[:, forced])
+                    and torch.equal(rk.epoch, rp.epoch) and torch.equal(rk.step_count, rp.step_count),
+                    f"{BIG_ID} step {t}: the reset differs from the plain version's")
+
+    # ---- the seven free balls: the large physics build against plain ------------
+    bm = parse_mjcf(balls_xml(BALLS, 0.09), "balls")
+    bcfg = PhysicsConfig()
+    bphys = ce.make_cuda_physics_step(bm, bcfg)[0]
+    require(bphys.big and bm.nv == 6 * BALLS, "the balls' tables' class")
+    bplain = make_physics_step_plain(bm, bcfg)[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.as_tensor(np.repeat(bm.qpos0[:, None], B, 1), dtype=torch.float32, device=dev)
+    v = torch.rand((bm.nv, B), device=dev, generator=g) - 0.5
+    balls = []
+    for _ in range(3):
+        tau = torch.rand((bm.nv, B), device=dev, generator=g) * 2 - 1
+        (qk, vk, dk), (qp, vp, dp) = bphys(q, v, tau), bplain(q, v, tau)
+        dq = (qk - qp).abs()
+        balls.append({"mean_dq": dq.mean().item(), "max_dq": dq.max().item(),
+                      "max_d_depth": (dk - dp).abs().max().item()})
+        require(balls[-1]["mean_dq"] < 3e-4 and balls[-1]["max_dq"] < 1e-2, f"balls: {balls}")
+        q, v = qp, vp
+    bs, bt = q.contiguous(), (torch.rand((bm.nv, B), device=dev, generator=g) * 2 - 1)
+    balls_ms = graph_ms(lambda: bphys(bs, v, bt))
+
+    # ---- what the tables in global memory cost: Humanoid's physics kernel
+    # with its default tables (a kernel parameter) and with the same tables
+    # in the large class (read from global memory), from the same inputs
+    ht = pt.make_task(HUMANOID)
+    hs = pt.make_batched(HUMANOID, B).reset(seed=3)
+    htau = torch.stack([torch.zeros(B, device=dev) if isinstance(x, float) else x for x in
+                        ht.action_tau_scalar(list(acts[0][:ht.act_dim].clamp(-1.0, 1.0)))], 0)
+    h_default = ce.make_cuda_physics_step(ht.model, ht.physics)[0]
+    h_large = ce.make_cuda_physics_step(ht.model, ht.physics)[0]
+    Big = ce.tables_type(True)[0]
+    h_large.tables = Big()
+    for name, _ in type(h_default.tables)._fields_:  # every default array fits the large one
+        x = getattr(h_default.tables, name)
+        if isinstance(x, ctypes.Array):
+            ctypes.memmove(getattr(h_large.tables, name), x, ctypes.sizeof(x))
+        else:
+            setattr(h_large.tables, name, x)
+    h_large.big, h_large.kernel = True, "physics_step_kernel_large"
+    h_large.prepare(dev)
+    ho = [f(hs.q, hs.v, htau) for f in (h_default, h_large)]
+    tables_ab = {"env": HUMANOID, "bitwise": all(torch.equal(x, y) for x, y in zip(*ho)),
+                 "default_ms": graph_ms(lambda: h_default(hs.q, hs.v, htau)),
+                 "large_ms": graph_ms(lambda: h_large(hs.q, hs.v, htau)),
+                 "large_launch": ce.launch_config(h_large.tables, "physics_step_kernel", B)}
+    tables_ab["large_again_ms"] = graph_ms(lambda: h_large(hs.q, hs.v, htau))
+    tables_ab["default_again_ms"] = graph_ms(lambda: h_default(hs.q, hs.v, htau))
+
+    # ---- times ------------------------------------------------------------------
+    s, a = ksteps[5][0], ksteps[5][1]
+    share = (s.terminated | s.truncated).float().mean().item()
+    tstep = fused.step_fn
+    tau = torch.zeros((m.nv, B), device=dev)
+    tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a.clamp(-1.0, 1.0)
+    work = {"task_step_kernel_large": tk.work_per_task_step(tstep.tables, tstep.program, share),
+            "physics_step_kernel_large": ce.work_per_env_step(phys.tables, env_step=False)}
+    timed = {"task_step_kernel_large": (lambda: tstep(s, a), min(plain_ms)),
+             "physics_step_kernel_large": (lambda: phys(s.q, s.v, tau), min(phys_ms))}
+    g = next(iter(comp.step_fn._graphs.values()))
+    composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 10),
+                    replay_ms=cuda_ms(g.graph.replay, 10),
+                    eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+                    capture_ms=comp.step_fn.capture_ms)
+    entries = []
+    for name, (fn, p_ms) in timed.items():
+        flops, nbytes = work[name]
+        t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
+        t_bytes = (nbytes * B + ctypes.sizeof(phys.tables)) / PEAK_BYTES_PER_S * 1e3
+        ms = graph_ms(fn)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": TASK_SOURCE if name.startswith("task") else SOURCE,
+            "build": "-DENG_BIG_TABLES", "replaces": REPLACES[name[:-len("_large")]],
+            "max_abs_err": max(r[name] for r in vs_plain.values()),
+            "ms": ms, "eager_ms": cuda_ms(fn, 20), "plain_ms": p_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "B": B, "timed_on": BIG_ID, "env_steps_per_s": B * 1e3 / ms,
+            "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
+            "table_bytes": ctypes.sizeof(phys.tables), "launch": config[name], "ptxas": ptx[name],
+            "nvcc_seconds": nvcc_s, "models": [BIG_ID] + (
+                [f"{BALLS} free balls"] if name.startswith("physics") else [])})
+    entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls}
+    emit("big_model_paths", env=BIG_ID, B=B, steps=BIG_STEPS, forced_reset_at=BIG_FORCED_AT,
+         launches=launches, held_to_plain_at=BIG_PLAIN_AT, max_dq_vs_plain=vs_plain,
+         resets_bitwise=True, graph_vs_eager_bitwise=True,
+         max_dq_composed_vs_task=worst_comp, composed=composed,
+         kernels={e["name"]: {k: e[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "env_steps_per_s")}
+                  for e in entries},
+         plain_env_step_ms=min(plain_ms), plain_physics_ms=min(phys_ms), balls=balls,
+         balls_ms=balls_ms, tables_in_global_memory=tables_ab, card=card)
+    return launches, entries
 
 
 def main():
@@ -1930,6 +2298,7 @@ def main():
         main_api["checkpoint"] = checkpoint_path(tmp)
     render_path()
     main_user, task_entry = user_task_paths(card)
+    main_big, big_entries = big_model_paths(card)
     main_mesh = mesh_phases()
 
     # the local memory that the first launch of each kernel on each model
@@ -1977,6 +2346,9 @@ def main():
     kernels.append(dict(task_entry, launches=main_user["user_task"]["task_step_kernel"],
                         path_launches={path: n["task_step_kernel"]
                                        for path, n in main_user.items()}))
+    path = {"task_step_kernel_large": "big_fused", "physics_step_kernel_large": "big_composed"}
+    for e in big_entries:  # the large builds, launched on their own main paths only
+        kernels.append(dict(e, launches=main_big[path[e["name"]]][e["name"]]))
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -172,14 +172,16 @@ class _PlainVectorEnv:
 
 class VectorAdapter(gymnasium.vector.VectorEnv if gymnasium is not None else _PlainVectorEnv):
     """`num_envs` envs on `device` behind gymnasium's vector API: numpy in
-    and out, (B, dim) batch-leading."""
+    and out, (B, dim) batch-leading; `backend` and `graph` go to the
+    `BatchedEnv`."""
 
     metadata = {"render_modes": []}
 
-    def __init__(self, env_id: str, num_envs: int, device="cuda"):
+    def __init__(self, env_id: str, num_envs: int, device="cuda", backend: str = "fused",
+                 graph: bool = True):
         from pybulletgym_tpu_torch.api.registry import make_batched, registry
 
-        self._env = make_batched(env_id, num_envs, device=device)
+        self._env = make_batched(env_id, num_envs, device=device, backend=backend, graph=graph)
         task = self._env.task
         self.spec = registry[env_id]
         self.num_envs = num_envs
@@ -215,7 +217,10 @@ def make_adapter(env_id: str, **kwargs) -> GymAdapter:
     return GymAdapter(reg.make_task(env_id), reg.registry[env_id], **kwargs)
 
 
-def make_vec(env_id: str, num_envs: int, device="cuda") -> VectorAdapter:
+def make_vec(env_id: str, num_envs: int, device="cuda", backend: str = "fused",
+             graph: bool = True) -> VectorAdapter:
     """`num_envs` envs of `env_id` behind the vector API, on `device`: the
-    GPU unless the caller asks for "cpu"."""
-    return VectorAdapter(env_id, num_envs, device=device)
+    GPU unless the caller asks for "cpu". `backend` and `graph` go to its
+    `BatchedEnv` ("composed" runs a task whose hooks "fused" cannot
+    translate)."""
+    return VectorAdapter(env_id, num_envs, device=device, backend=backend, graph=graph)

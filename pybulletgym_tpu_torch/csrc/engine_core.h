@@ -74,12 +74,35 @@
 #define ENG_UNROLL4
 #endif
 
+// How the kernels of engine.cu and task_step.cu take the tables. The default
+// class: a __grid_constant__ parameter, passed by value from the host copy.
+// The large class (ENG_BIG_TABLES, below): a pointer to a copy in global
+// memory (dev_tables, a leading argument of each launcher) that the wrapper
+// uploads once when the env is made; the kernel binds it to the `t` that the
+// core reads. In the hot PGS sweep every lane of a warp reads the same entry,
+// a broadcast through L1. The launchers check the host copy.
+#ifdef ENG_BIG_TABLES
+#define ENG_TABLES_PARAM const eng::Tables* __restrict__ tp
+#define ENG_TABLES_BIND const eng::Tables& t = *tp;
+#define ENG_DEV_TABLES const void* dev_tables,
+#define ENG_KERNEL_TABLES(host) ((const eng::Tables*)dev_tables)
+#else
+#define ENG_TABLES_PARAM const __grid_constant__ eng::Tables t
+#define ENG_TABLES_BIND
+#define ENG_DEV_TABLES
+#define ENG_KERNEL_TABLES(host) (host)
+#endif
+
 namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
-// The Tables struct. A root-path mask is two uint32 words (anc_mask,
-// anc_mask_hi), so up to 64 dofs; Atlas (31 bodies, nq 37, nv 36, 60 limit
-// rows, 30 actuators, 31 part frames) is the largest model.
+// The Tables struct, in one of two size classes chosen at compile time. A
+// root-path mask is two uint32 words (anc_mask, anc_mask_hi), so up to 64
+// dofs in either. The default class keeps the tables a __grid_constant__
+// kernel parameter (at most 32,764 bytes); Atlas (31 bodies, nq 37, nv 36,
+// 60 limit rows, 30 actuators, 31 part frames) is its largest shipped
+// model.
+#ifndef ENG_BIG_TABLES
 constexpr int MAX_BODIES = 32;
 constexpr int MAX_NV = 40;
 constexpr int MAX_NQ = 41;        // a free joint has 7 q entries and 6 dofs
@@ -87,8 +110,36 @@ constexpr int MAX_ROWS = 108;     // contact rows, point rows first
 constexpr int MAX_PAIRS = 80;     // of which capsule/sphere pair rows
 constexpr int MAX_LIMITS = 64;    // joint-limit rows (two a limited joint)
 constexpr int MAX_ACT = 32;
+constexpr int MAX_PARTS = 32;
+constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into v
+#else
+// The large class (-DENG_BIG_TABLES): models over the default caps, such as
+// two humanoids in one scene (36 bodies, nq 48, nv 46, 68 limit rows, 34
+// actuators). Its tables (~52 KB) outgrow the kernel parameters, so the
+// kernels read a copy in global memory (engine.cu). ops/cuda_engine.py
+// reads these caps by their BIG_ names.
+constexpr int BIG_MAX_BODIES = 64;   // one body a dof at nv 64
+constexpr int BIG_MAX_NV = 64;       // the two-word root-path mask's limit
+constexpr int BIG_MAX_NQ = 80;       // nq <= 7/6 nv: 74 at nv 64 (ten free joints)
+constexpr int BIG_MAX_ROWS = 256;    // about where one env's scratch outgrows shared memory at nv 64
+constexpr int BIG_MAX_PAIRS = 128;   // half of them
+constexpr int BIG_MAX_LIMITS = 128;  // two a limited dof at nv 64
+constexpr int BIG_MAX_ACT = 64;      // one a dof
+constexpr int BIG_MAX_PARTS = 64;    // one a body
+constexpr int BIG_MAX_DRAWS = 80;    // a draw for every q (BIG_MAX_NQ) and every dof
+constexpr int MAX_BODIES = BIG_MAX_BODIES;
+constexpr int MAX_NV = BIG_MAX_NV;
+constexpr int MAX_NQ = BIG_MAX_NQ;
+constexpr int MAX_ROWS = BIG_MAX_ROWS;
+constexpr int MAX_PAIRS = BIG_MAX_PAIRS;
+constexpr int MAX_LIMITS = BIG_MAX_LIMITS;
+constexpr int MAX_ACT = BIG_MAX_ACT;
+constexpr int MAX_PARTS = BIG_MAX_PARTS;
+constexpr int MAX_DRAWS = BIG_MAX_DRAWS;
+#endif
 // The size class of a model without pair rows within these (Hopper ... Ant,
-// Reacher, the pendula: caps_id 0; the others 1), kept as a model property
+// Reacher, the pendula: caps_id 0; the others 1; a model of the large
+// class's tables 2), kept as a model property
 constexpr int WALKER_BODIES = 16;
 constexpr int WALKER_NV = 16;
 constexpr int WALKER_NQ = 17;
@@ -96,10 +147,8 @@ constexpr int WALKER_ROWS = 32;
 constexpr int WALKER_LIMITS = 32;
 constexpr int WALKER_ACT = 16;
 constexpr int MAX_FEET = 8;
-constexpr int MAX_PARTS = 32;
 constexpr int MAX_AUX = 8;        // per-env task state, in sorted key order
 constexpr int MAX_COMP = 5;       // reward components, in sorted key order
-constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into v
 constexpr int MAX_SLOTS = 40;     // entries of Tables::sc
 constexpr int JT_FREE = 0;        // q: position, then quaternion (w, x, y, z);
                                   // v: body-frame angular, then linear
@@ -166,7 +215,7 @@ constexpr int lane_nv() {
   S(int32_t, nr)                                                              \
   S(int32_t, nl)                                                              \
   S(int32_t, npair) /* the last npair contact rows are pair rows */          \
-  S(int32_t, caps_id) /* the size class: 0 walker-sized, 1 large */          \
+  S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 the large class's */   \
   S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
   S(int32_t, sc_stride) /* floats of one env's scratch (odd) */              \
   S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
@@ -379,8 +428,10 @@ struct Tables {
 };
 #undef ENG_DECL_S
 #undef ENG_DECL_A
+#ifndef ENG_BIG_TABLES
 // a __grid_constant__ kernel parameter: at most 32,764 bytes of parameters
 static_assert(sizeof(Tables) + 256 <= 32764, "the tables outgrow the kernel parameters");
+#endif
 
 // A set of dofs in two words: bit d of lo is dof d (0-31), bit d - 32 of hi
 // is dof d (32-63). Every "is dof d on body i's root path" test goes

@@ -3,7 +3,9 @@
 // loops over the lanes, group_sum replays the card's butterfly), built with
 // g++ -O2 -ffp-contract=off and loaded through ctypes. It lets a machine
 // without a GPU run the kernels' own C++ against the plain PyTorch version,
-// at every group width. No env path routes to it.
+// at every group width, and in either size class of the tables (built with
+// -DENG_BIG_TABLES for the large one, as the card's large libraries are).
+// No env path routes to it.
 
 #include <vector>
 

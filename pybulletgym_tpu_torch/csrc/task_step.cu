@@ -5,7 +5,9 @@
 // -DENG_LANES=G -include <the task's generated hooks header> task_step.cu.
 // The hooks run in the leader lane of each env's group (task_core.h), the
 // substeps of engine_core.h on the whole group, with the scratch in
-// dynamic shared memory as in engine.cu.
+// dynamic shared memory as in engine.cu. Built with -DENG_BIG_TABLES for a
+// model over the default caps (engine_core.h's large class): the kernel
+// then reads the tables from a copy in global memory (ENG_TABLES_PARAM).
 
 #include <cuda_runtime.h>
 
@@ -31,7 +33,8 @@ __device__ __forceinline__ eng::Group<G> my_group() {
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-task_step_kernel(const __grid_constant__ eng::Tables t, eng::EnvIO io, int B) {
+task_step_kernel(ENG_TABLES_PARAM, eng::EnvIO io, int B) {
+  ENG_TABLES_BIND
   extern __shared__ float smem[];
   const int E = blockDim.x / G, e = threadIdx.x / G;
   const int i = blockIdx.x * E + e;
@@ -85,9 +88,10 @@ int task_launch_config(int stride, int32_t* out) {
   return 0;
 }
 
-// The arguments of engine.cu · launch_env_step.
-int launch_task_step(const void* tables, const float* q, const float* v, const float* act,
-                     const float* aux, const uint8_t* term, const uint8_t* trunc,
+// The arguments of engine.cu · launch_env_step (in the large build, the
+// device copy of the tables after the host one, as launch_physics_step).
+int launch_task_step(const void* tables, ENG_DEV_TABLES const float* q, const float* v,
+                     const float* act, const float* aux, const uint8_t* term, const uint8_t* trunc,
                      const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,
                      const int32_t* env_id, float* q_out, float* v_out, float* obs,
                      float* reward, uint8_t* term_out, uint8_t* trunc_out, int32_t* step_out,
@@ -103,7 +107,7 @@ int launch_task_step(const void* tables, const float* q, const float* v, const f
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + E - 1) / E;
   task_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
-      tg, io, B);
+      ENG_KERNEL_TABLES(tg), io, B);
   return (int)cudaGetLastError();
 }
 

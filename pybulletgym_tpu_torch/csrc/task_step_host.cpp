@@ -1,7 +1,8 @@
 // Host twin of task_step.cu, for the CPU tests only: task_core.h in a loop
 // over envs (each env's lane group emulated as in engine_host.cpp), built
 // per task by ops/task_kernel.py with g++ -O1 -ffp-contract=off -include
-// <the task's generated hooks header>. No env path routes to it.
+// <the task's generated hooks header>, and -DENG_BIG_TABLES for a model of
+// the large class, as task_step.cu is. No env path routes to it.
 
 #include <vector>
 

@@ -266,9 +266,9 @@ class _StepGraph:
                 "eagerly") from e
         # the kernel launches the graph recorded, which each replay repeats
         self.recorded = {k: ce.CAPTURED[k] - before[k] for k in before}
-        if self.recorded != dict(dict.fromkeys(before, 0), physics_step_kernel=1):
+        if self.recorded != dict(dict.fromkeys(before, 0), **{physics.kernel: 1}):
             raise RuntimeError(f"the captured composed step recorded the kernel launches "
-                               f"{self.recorded}, expected physics_step_kernel once")
+                               f"{self.recorded}, expected {physics.kernel} once")
 
     def __call__(self, state: EnvState, action) -> EnvState:
         pairs = [(self.action, action, "action")] + [
@@ -287,7 +287,7 @@ class _StepGraph:
         self.graph.replay()
         for k, n in self.recorded.items():
             ce.LAUNCHES[k] += n
-        self.physics.launches += self.recorded["physics_step_kernel"]
+        self.physics.launches += self.recorded[self.physics.kernel]
         o = self.out
         return o._replace(
             env_id=state.env_id, seed=state.seed,
@@ -304,13 +304,14 @@ class ComposedEnvStep:
 
     CPU tensors take the plain physics. CUDA tensors take
     `physics_step_kernel` (`ops.cuda_engine.CudaPhysicsStep`, one launch an
-    env step for all `frame_skip` substeps), built at the first CUDA call: a
-    model over the kernel's caps raises there. With `graph=True` the first
-    CUDA call for a batch shape warms the hooks up on a side stream (no
-    physics launch) and captures the whole step in a `torch.cuda.CUDAGraph`;
-    every call then copies the state and action into the graph's inputs,
-    replays it and returns fresh copies of its outputs. A capture that fails
-    raises; nothing falls back to eager steps. The task's
+    env step for all `frame_skip` substeps; its large build for a model over
+    the default tables' caps), built at the first CUDA call: a model over
+    the large class's caps raises there, naming the cap. With `graph=True`
+    the first CUDA call for a batch shape warms the hooks up on a side
+    stream (no physics launch) and captures the whole step in a
+    `torch.cuda.CUDAGraph`; every call then copies the state and action into
+    the graph's inputs, replays it and returns fresh copies of its outputs.
+    A capture that fails raises; nothing falls back to eager steps. The task's
     `max_episode_steps`, `frame_skip` and constants are frozen into the
     graph: after changing one, build a new step. `graph=False` steps eagerly
     (thousands of launches a step). `launches` counts physics-kernel
@@ -389,8 +390,8 @@ class BatchedEnv:
     replayed from a CUDA graph unless graph=False. On the CPU either runs
     the plain version. The device is the GPU unless the caller asks for
     "cpu". A CUDA device without a GPU, hooks that "fused" cannot translate
-    (on any device) and a model over the physics kernel's caps raise here,
-    at construction.
+    (on any device) and a model over the kernels' large caps (64 bodies, nv
+    64: `ops.cuda_engine.caps_class`) raise here, at construction.
     """
 
     def __init__(self, task: Task, batch_size: int, device="cuda",

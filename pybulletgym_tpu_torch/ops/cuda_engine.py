@@ -21,11 +21,19 @@ fixed-size `Tables` struct, whose layout is parsed from the header; it
 picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
 scratch in shared memory from the model's sizes (`scratch_layout`).
 
-One library per group width in `LANE_WIDTHS` is built at first use with
-nvcc into `_build/` (keyed by the sources' content hash; the builds run in
-parallel) and loaded with ctypes. Each wrapper checks its tensors,
-allocates outputs with `torch.empty` and launches on the current stream
-without synchronising, with the envs-per-block that `launch_config` picks
+The tables come in two size classes (`tables_type`): the default, a
+`__grid_constant__` kernel parameter, and the large class for models over
+its caps (up to 64 bodies and nv 64; `CAPS_BIG`), built with
+`-DENG_BIG_TABLES`, whose kernels read a copy of the tables in global
+memory that the wrapper uploads once (`_tables_args`). The large class
+builds `physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s
+task classes all fit the default one.
+
+One library per group width in `LANE_WIDTHS` and class is built at first
+use with nvcc into `_build/` (keyed by the sources' content hash and the
+flags; the builds run in parallel) and loaded with ctypes. Each wrapper
+checks its tensors, allocates outputs with `torch.empty` and launches on
+the current stream without synchronising, with the envs-per-block that `launch_config` picks
 from the occupancy API. A CPU tensor goes to the plain PyTorch version; a
 CUDA tensor launches the kernel or raises. There is no fallback.
 
@@ -94,6 +102,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
+BIG_FLAG = "-DENG_BIG_TABLES"  # the large class of the tables (engine_core.h)
+CAPS_BIG = 2  # the caps_id of a model that only the large class holds
 
 _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
 
@@ -103,12 +113,21 @@ _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctyp
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def tables_type():
+def tables_type(big: bool = False):
     """ctypes mirror of `eng::Tables` and the header's caps, parsed from
-    engine_core.h (the single source of the layout)."""
+    engine_core.h (the single source of the layout): the default class, or
+    with `big` the large class (-DENG_BIG_TABLES), whose caps the header
+    names BIG_MAX_*. One class object for each."""
+    return _tables_type(bool(big))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_type(big: bool):
     src = open(os.path.join(CSRC, "engine_core.h")).read()
-    caps = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    found = re.findall(r"constexpr int (\w+) = (\d+);", src)
+    caps = {k: int(v) for k, v in found if not k.startswith("BIG_")}
+    if big:
+        caps.update({k[len("BIG_"):]: int(v) for k, v in found if k.startswith("BIG_")})
     block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("#define ENG_DECL_S")]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
@@ -117,8 +136,13 @@ def tables_type():
         if kind == "A":
             t = t * int(eval(count, {"__builtins__": {}}, caps))
         fields.append((name, t))
-    cls = type("Tables", (ctypes.Structure,), {"_fields_": fields})
+    cls = type("BigTables" if big else "Tables", (ctypes.Structure,), {"_fields_": fields})
     return cls, caps
+
+
+def big_tables(t) -> bool:
+    """Whether the tables `t` are of the large class."""
+    return type(t) is tables_type(True)[0]
 
 
 def _set(arr, values, cap, what):
@@ -163,18 +187,42 @@ def _composite_masses(model: Model):
     return [_f32(v) for _, v in vals]
 
 
-def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
+def _pick_caps(nb, nq, nv, nr, npair, nl, act=0) -> int:
     """The size class of these sizes: 0 (walker-sized) when they fit the
-    WALKER_ caps and there are no pair rows, else 1 (large); raises above
-    the tables' caps."""
+    WALKER_ caps and there are no pair rows, 1 within the default tables'
+    caps, CAPS_BIG within the large class's; raises above those, naming
+    each cap."""
     sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
              "ACT": act}
-    over = {k: n for k, n in sizes.items() if n > caps["MAX_" + k]}
+    _, caps = tables_type()
+    if all(n <= caps["MAX_" + k] for k, n in sizes.items()):
+        walker = all(n <= caps["WALKER_" + k] for k, n in sizes.items() if k != "PAIRS")
+        return 0 if walker and npair == 0 else 1
+    _, big = tables_type(True)
+    over = {k: n for k, n in sizes.items() if n > big["MAX_" + k]}
     if over:
         raise NotImplementedError(f"sizes {over} exceed the kernels' caps "
-                                  f"{ {k: caps['MAX_' + k] for k in over} }")
-    walker = all(n <= caps["WALKER_" + k] for k, n in sizes.items() if k != "PAIRS")
-    return 0 if walker and npair == 0 else 1
+                                  f"{ {k: big['MAX_' + k] for k in over} }")
+    return CAPS_BIG
+
+
+def _plans(model: Model, cfg: PhysicsConfig):
+    """(floor candidates, pair candidates, contact rows, limit plan, limit
+    rows) of the model, as the tables lay them out."""
+    floor, pairs = ct.build_contact_plan(model, cfg.solver)
+    lim = ct.build_limit_plan(model)
+    return floor, pairs, sc_rows((floor, pairs)), lim, 0 if lim is None else int(lim.dof.shape[0])
+
+
+def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None) -> int:
+    """The size class of a model's tables (`_pick_caps`; `plans`: its
+    `_plans`, if at hand); raises for a model over the large class's
+    caps."""
+    _, pairs, rows, _, nl = plans or _plans(model, cfg)
+    try:
+        return _pick_caps(len(model.bodies), model.nq, model.nv, len(rows), len(pairs), nl, act)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{model.name}: {e}") from None
 
 
 # The group widths G that the CUDA libraries (one each) and the host twin
@@ -182,23 +230,24 @@ def _pick_caps(caps, nb, nq, nv, nr, npair, nl, act=0) -> int:
 LANE_WIDTHS = (4, 8, 16, 32)
 
 
-def lane_nv(G: int) -> int:
+def lane_nv(G: int, big: bool = False) -> int:
     """The most dofs the CUDA library of G lanes steps (engine_core.h ·
-    lane_nv): its lanes' dof vectors are sized by it, and its launch
-    refuses tables with more."""
-    _, caps = tables_type()
+    lane_nv), in the default or (`big`) the large class: its lanes' dof
+    vectors are sized by it, and its launch refuses tables with more."""
+    _, caps = tables_type(big)
     return caps.get(f"LANE_NV_{G}", caps["MAX_NV"])
 
 
-def pick_lanes(nv: int) -> int:
+def pick_lanes(nv: int, big: bool = False) -> int:
     """The group width G for a model of nv dofs: the narrowest whose
     library holds nv dofs (4 up to 4, 8 up to 12, 16 up to 16, else 32), as
     a width sweep on the H100 ranked them (`tools/kernel_ab.py --lanes`,
-    PERF.md §6). Raises above the tables' MAX_NV."""
+    PERF.md §6). Raises above the class's MAX_NV."""
     for G in LANE_WIDTHS:
-        if nv <= lane_nv(G):
+        if nv <= lane_nv(G, big):
             return G
-    raise NotImplementedError(f"{nv} dofs exceed the kernels' cap {lane_nv(LANE_WIDTHS[-1])}")
+    raise NotImplementedError(f"{nv} dofs exceed the kernels' cap "
+                              f"{lane_nv(LANE_WIDTHS[-1], big)}")
 
 
 # 227 KB: the dynamic shared memory one block may use on sm_90
@@ -260,19 +309,16 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
 
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0):
     """Physics part of the tables (model, plans, solver constants), the
-    size class (`caps_id`), the group width (`lanes`) and the scratch
-    layout. Raises for a model over the caps."""
-    Tables, caps = tables_type()
+    size class (`caps_id`: a model over the default caps gets the large
+    class's tables), the group width (`lanes`) and the scratch layout.
+    Raises for a model over the large class's caps."""
+    plans = _plans(model, cfg)
+    floor, pairs, rows, lim, nl = plans
+    caps_id = caps_class(model, cfg, act, plans)
+    Tables, caps = tables_type(caps_id == CAPS_BIG)
     t = Tables()
+    t.caps_id = caps_id
     nb = len(model.bodies)
-    floor, pairs = ct.build_contact_plan(model, cfg.solver)
-    rows = sc_rows((floor, pairs))
-    lim = ct.build_limit_plan(model)
-    nl = 0 if lim is None else int(lim.dof.shape[0])
-    try:
-        t.caps_id = _pick_caps(caps, nb, model.nq, model.nv, len(rows), len(pairs), nl, act)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{model.name}: {e}") from None
     t.nb, t.nq, t.nv, t.nr, t.nl = nb, model.nq, model.nv, len(rows), nl
     t.npair = len(pairs)
     t.frame_skip = cfg.frame_skip if frame_skip is None else int(frame_skip)
@@ -368,7 +414,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_sign[l] = _f32(lim.sign[l])
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
-    t.lanes = pick_lanes(model.nv)
+    t.lanes = pick_lanes(model.nv, caps_id == CAPS_BIG)
     scratch_layout(t)
     return t
 
@@ -379,8 +425,9 @@ ALIVE_MODES = {"cheetah": 0, "hopper": 1, "ant": 2, "humanoid": 3}  # engine_cor
 def _kernel_match(task):
     """((kind, aux keys, reward keys), "") when `env_step_kernel` implements
     `task`, else (None, why): its class must be one of TASK_KINDS (not a
-    subclass, whose hooks are its own) and its hooks, probed once on one
-    env, must write that kind's aux and reward keys."""
+    subclass, whose hooks are its own), its model within the default
+    tables' caps (the kernel has no large build), and its hooks, probed
+    once on one env, must write that kind's aux and reward keys."""
     from pybulletgym_tpu_torch.envs import locomotion, manipulation, mujoco_family, pendula
 
     name = type(task).__name__
@@ -388,6 +435,13 @@ def _kernel_match(task):
     if kind is None or not any(getattr(mod, name, None) is type(task)
                                for mod in (locomotion, manipulation, pendula, mujoco_family)):
         return None, f"{name}: only {', '.join(TASK_KINDS)} are in the env-step kernel"
+    try:
+        big = caps_class(task.model, task.physics, task.act_dim) == CAPS_BIG
+    except NotImplementedError as e:
+        return None, str(e)
+    if big:
+        return None, (f"{name}: its model is over the env-step kernel's caps "
+                      f"(task_step_kernel's large build runs it)")
     aux_keys, out_aux, comp_keys = _probe_keys(task)
     if out_aux != aux_keys:
         return None, f"{name}: output aux keys {out_aux} differ from the reset's {aux_keys}"
@@ -736,8 +790,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _check_layout(lib):
-    Tables, caps = tables_type()
+def _check_layout(lib, big: bool = False):
+    Tables, caps = tables_type(big)
     lib.eng_tables_bytes.restype = ctypes.c_int
     lib.eng_tables_layout.restype = ctypes.c_int
     lib.eng_tables_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -753,30 +807,47 @@ _P = ctypes.c_void_p
 _ENV_ARGS = [_P] * 21 + [ctypes.c_int]
 
 
-@functools.lru_cache(maxsize=None)
-def load_cuda_library():
-    """Build (once per source hash, one nvcc per group width, all started
-    together) and load the CUDA libraries. Returns ({G: ctypes library},
-    nvcc output including -Xptxas -v, one section per G)."""
+def _engine_jobs(big: bool):
+    """The nvcc jobs of engine.cu, one per group width, for the default or
+    (`big`) the large class, and their libraries' names: {G: name}."""
+    flags = NVCC_FLAGS + ((BIG_FLAG,) if big else ())
     h = _sources(["engine_core.h", "engine.cu"])
-    h.update(" ".join(NVCC_FLAGS).encode())
-    names = {G: f"libengine_cuda_g{G}_{h.hexdigest()[:16]}.so" for G in LANE_WIDTHS}
-    built = _compile([([nvcc_path()], "engine.cu", names[G], NVCC_FLAGS + (f"-DENG_LANES={G}",))
-                      for G in LANE_WIDTHS])
+    h.update(" ".join(flags).encode())
+    names = {G: f"libengine_cuda{'_big' if big else ''}_g{G}_{h.hexdigest()[:16]}.so"
+             for G in LANE_WIDTHS}
+    return [([nvcc_path()], "engine.cu", names[G], flags + (f"-DENG_LANES={G}",))
+            for G in LANE_WIDTHS], names
+
+
+def load_cuda_library(big: bool = False):
+    """Build (once per source hash, one nvcc per group width, all started
+    together) and load the CUDA libraries of the default or (`big`) the
+    large class. Returns ({G: ctypes library}, nvcc output including
+    -Xptxas -v, one section per G)."""
+    return _load_cuda_library(bool(big))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_cuda_library(big: bool):
+    jobs, names = _engine_jobs(big)
+    built = _compile(jobs)
     libs, logs = {}, []
     for G in LANE_WIDTHS:
         so = os.path.join(BUILD_DIR, names[G])
         lib = ctypes.CDLL(so)
-        _check_layout(lib)
+        _check_layout(lib, big)
         lib.eng_lanes.restype = ctypes.c_int
         if lib.eng_lanes() != G:
             raise RuntimeError(f"{so} is built for {lib.eng_lanes()} lanes, not {G}")
         lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
         lib.eng_launch_config.restype = ctypes.c_int
-        lib.launch_physics_step.argtypes = [_P] * 7 + [ctypes.c_int, ctypes.c_int, _P]
+        # the large build takes the tables' device copy after the host copy,
+        # and has no env_step_kernel
+        lib.launch_physics_step.argtypes = [_P] * (8 if big else 7) + [ctypes.c_int] * 2 + [_P]
         lib.launch_physics_step.restype = ctypes.c_int
-        lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
-        lib.launch_env_step.restype = ctypes.c_int
+        if not big:
+            lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
+            lib.launch_env_step.restype = ctypes.c_int
         libs[G] = lib
         logs.append(f"== G={G}\n{built[so]}")
     return libs, "\n".join(logs)
@@ -786,8 +857,9 @@ KERNELS = ("physics_step_kernel", "env_step_kernel")  # eng_launch_config's kern
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_config(lanes: int, kernel: int, stride: int, device: int) -> Dict[str, int]:
-    libs, _ = load_cuda_library()
+def _launch_config(lanes: int, kernel: int, stride: int, device: int,
+                   big: bool = False) -> Dict[str, int]:
+    libs, _ = load_cuda_library(big)
     out = (ctypes.c_int32 * 5)()
     with torch.cuda.device(device):
         rc = libs[lanes].eng_launch_config(kernel, stride, _P(ctypes.addressof(out)))
@@ -805,11 +877,16 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     the envs a block E, threads and dynamic shared bytes a block, resident
     blocks (and envs) per SM from the occupancy API, the kernel's
     registers and local bytes a thread, and for a batch B the blocks.
-    Raises for tables with more dofs than the library of their G holds."""
-    if tables.nv > lane_nv(tables.lanes):
-        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes)} that the "
+    Raises for tables with more dofs than the library of their G holds, and
+    for env_step_kernel on the large class's tables."""
+    big = big_tables(tables)
+    if tables.nv > lane_nv(tables.lanes, big):
+        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes, big)} that the "
                          f"library of G={tables.lanes} lanes holds")
-    cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device))
+    if big and kernel != "physics_step_kernel":
+        raise ValueError(f"{kernel} has no build for the large class's tables")
+    cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device,
+                              big))
     if B is not None:
         cfg["blocks"] = -(-B // cfg["E"])
     return cfg
@@ -886,12 +963,29 @@ def _launch_checked(rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
+def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device):
+    """The launchers' leading arguments for `tables`: the host copy and, for
+    the large class, the device copy that its kernels read, uploaded to
+    `device` at the first call and kept in `uploaded` (by device index).
+    The wrappers call this before a CUDA graph captures a launch."""
+    args = [_P(ctypes.addressof(tables))]
+    if big_tables(tables):
+        key = device.index or 0
+        if key not in uploaded:
+            host = torch.frombuffer(bytearray(bytes(tables)), dtype=torch.uint8)
+            uploaded[key] = host.to(device)
+        args.append(_P(uploaded[key].data_ptr()))
+    return args
+
+
 # Launches of each kernel by every wrapper instance since the last reset;
 # each wrapper also keeps its own `launches`. A launch recorded into a CUDA
 # graph counts in CAPTURED instead, and in LAUNCHES each time the graph's
-# owner replays it (`envs.base._StepGraph`).
+# owner replays it (`envs.base._StepGraph`). The large class's builds count
+# apart, as *_large.
 LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0,
-                            "task_step_kernel": 0}
+                            "task_step_kernel": 0, "physics_step_kernel_large": 0,
+                            "task_step_kernel_large": 0}
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -918,21 +1012,26 @@ def count_launch(kernel: str, wrapper) -> None:
 class CudaPhysicsStep:
     """step(q (nq,B), v (nv,B), tau (nv,B)) -> (q', v', depths (R,B)).
 
-    CUDA tensors launch `physics_step_kernel`; CPU tensors run
-    `make_physics_step_plain`. `launches` counts kernel launches (a launch
-    recorded into a CUDA graph: at each replay, `count_launch`)."""
+    CUDA tensors launch `physics_step_kernel` (its large build for a model
+    over the default caps, the tables uploaded to the card once); CPU
+    tensors run `make_physics_step_plain`. `launches` counts kernel launches
+    (a launch recorded into a CUDA graph: at each replay, `count_launch`)."""
 
     def __init__(self, model: Model, cfg: PhysicsConfig):
         self.model, self.cfg = model, cfg
         self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
         self.tables = pack_physics(model, cfg)
+        self.big = big_tables(self.tables)
+        self.kernel = "physics_step_kernel_large" if self.big else "physics_step_kernel"
+        self.device_tables: Dict[int, torch.Tensor] = {}
         self.launches = 0
 
     def prepare(self, device: torch.device):
-        """Build the library and pick the launch configuration on `device`
-        (the occupancy API, cudaFuncSetAttribute): ahead of a graph capture,
-        which these calls would break."""
+        """Build the library, pick the launch configuration on `device` (the
+        occupancy API, cudaFuncSetAttribute) and upload the large class's
+        tables: ahead of a graph capture, which these calls would break."""
         launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
+        _tables_args(self.tables, self.device_tables, device)
 
     def __call__(self, q, v, tau):
         if q.device.type == "cpu":
@@ -943,17 +1042,17 @@ class CudaPhysicsStep:
         _check(q, "q", torch.float32, (m.nq, B), dev)
         _check(v, "v", torch.float32, (m.nv, B), dev)
         _check(tau, "tau", torch.float32, (m.nv, B), dev)
-        libs, _ = load_cuda_library()
+        libs, _ = load_cuda_library(self.big)
         E = launch_config(self.tables, "physics_step_kernel", device=dev.index or 0)["E"]
         outs = [torch.empty((m.nq, B), device=dev), torch.empty((m.nv, B), device=dev),
                 torch.empty((self.n_rows, B), device=dev)]
         with torch.cuda.device(dev):
             rc = libs[self.tables.lanes].launch_physics_step(
-                _P(ctypes.addressof(self.tables)), *_ptrs([q, v, tau] + outs), B, E,
-                _P(torch.cuda.current_stream(dev).cuda_stream),
+                *_tables_args(self.tables, self.device_tables, dev),
+                *_ptrs([q, v, tau] + outs), B, E, _P(torch.cuda.current_stream(dev).cuda_stream),
             )
-        _launch_checked(rc, "physics_step_kernel")
-        count_launch("physics_step_kernel", self)
+        _launch_checked(rc, self.kernel)
+        count_launch(self.kernel, self)
         return tuple(outs)
 
 
@@ -1148,28 +1247,43 @@ def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def gxx_path() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    return gxx
+
+
+@functools.lru_cache(maxsize=None)
+def _host_library(bf16_probe: bool, big: bool):
+    flags = (GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
+             + ((BIG_FLAG,) if big else ()))
+    h = _sources(["engine_core.h", "engine_host.cpp"])
+    h.update(" ".join(flags).encode())
+    name = f"libengine_host_{h.hexdigest()[:16]}.so"
+    _compile([([gxx_path()], "engine_host.cpp", name, flags)])
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
+    _check_layout(lib, big)
+    lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
+    lib.host_physics_step.restype = ctypes.c_int
+    lib.host_env_step.argtypes = _ENV_ARGS
+    lib.host_env_step.restype = ctypes.c_int
+    return lib
+
+
 class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
     arithmetic on CPU tensors, each env's lane group emulated at the tables'
-    width (`tables.lanes`, any of LANE_WIDTHS). Used only by tests and by
+    width (`tables.lanes`, any of LANE_WIDTHS), built with the tables' class
+    (the large one at its first use). Used only by tests and by
     tools/bf16_probe.py (`bf16_probe=True` builds it with ENG_BF16_PROBE);
     no wrapper routes here."""
 
     def __init__(self, bf16_probe: bool = False):
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found")
-        flags = GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
-        h = _sources(["engine_core.h", "engine_host.cpp"])
-        h.update(" ".join(flags).encode())
-        name = f"libengine_host_{h.hexdigest()[:16]}.so"
-        _compile([([gxx], "engine_host.cpp", name, flags)])
-        self.lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
-        _check_layout(self.lib)
-        self.lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
-        self.lib.host_physics_step.restype = ctypes.c_int
-        self.lib.host_env_step.argtypes = _ENV_ARGS
-        self.lib.host_env_step.restype = ctypes.c_int
+        self.bf16_probe = bf16_probe
+
+    def _lib(self, tables):
+        return _host_library(self.bf16_probe, big_tables(tables))
 
     def physics_step(self, tables, q, v, tau):
         nq, B = q.shape
@@ -1177,13 +1291,14 @@ class HostTwin:
         outs = [torch.empty_like(q), torch.empty_like(v), torch.empty((n_rows, B))]
         for x, name in ((q, "q"), (v, "v"), (tau, "tau")):
             _check(x, name, torch.float32, x.shape, torch.device("cpu"))
-        rc = self.lib.host_physics_step(ctypes.addressof(tables), *_ptrs([q, v, tau] + outs), B)
+        rc = self._lib(tables).host_physics_step(ctypes.addressof(tables),
+                                                 *_ptrs([q, v, tau] + outs), B)
         _launch_checked(rc, "host physics step")
         return tuple(outs)
 
     def env_step(self, tables, task, state, action):
         ins, outs = _env_tensors(task, tables, state, action)
-        rc = self.lib.host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs),
-                                    state.q.shape[-1])
+        rc = self._lib(tables).host_env_step(ctypes.addressof(tables), *_ptrs(ins + outs),
+                                             state.q.shape[-1])
         _launch_checked(rc, "host env step")
         return _env_state(state, outs)

@@ -11,7 +11,9 @@ statements (`trace_hooks`): one function per hook, in namespace `hooks`.
 `csrc/task_step.cu` compiles them with engine_core.h's substeps into
 `task_step_kernel` (`csrc/task_core.h · task_step_one`), built with nvcc
 per task into `_build/` (keyed by the content hash) and launched once per
-env step by `CudaTaskStep`.
+env step by `CudaTaskStep`. A model over the default tables' caps takes
+the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
+`ops.cuda_engine`).
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments), one rounding per float op
@@ -33,7 +35,6 @@ import dataclasses
 import functools
 import math
 import os
-import shutil
 import tempfile
 from typing import Dict, List, Optional, Tuple
 
@@ -578,13 +579,14 @@ def _tag(source: str, names, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _cuda_job(source: str, lanes: int):
+def _cuda_job(source: str, lanes: int, big: bool = False):
     """The nvcc job of task_step.cu with the hooks `source` for group width
-    `lanes` (the generated header written), and its library's name."""
-    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",)
+    `lanes` and the default or (`big`) the large class of the tables (the
+    generated header written), and its library's name."""
+    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",) + ((ce.BIG_FLAG,) if big else ())
     tag = _tag(source, _CORE + ["task_step.cu"], flags)
     header = _write_header(source, tag)
-    name = f"libtask_cuda_g{lanes}_{tag}.so"
+    name = f"libtask_cuda{'_big' if big else ''}_g{lanes}_{tag}.so"
     return ([ce.nvcc_path()], "task_step.cu", name, flags + ("-include", header)), name
 
 
@@ -594,21 +596,27 @@ def build_task_libraries(steps) -> Dict[str, str]:
     jobs = []
     for st in steps:
         st.prepare()
-        jobs.append(_cuda_job(st.program.source, st.tables.lanes)[0])
+        jobs.append(st.cuda_job()[0])
     return ce._compile(jobs)
 
 
-@functools.lru_cache(maxsize=None)
-def load_task_library(source: str, lanes: int):
+def load_task_library(source: str, lanes: int, big: bool = False):
     """Build (once per content hash) and load task_step.cu with the hooks
-    `source` for group width `lanes`. Returns (ctypes library, nvcc log)."""
-    job, name = _cuda_job(source, lanes)
+    `source` for group width `lanes` and the tables' class (`big`: the
+    large one). Returns (ctypes library, nvcc log)."""
+    return _load_task_library(source, int(lanes), bool(big))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_task_library(source: str, lanes: int, big: bool):
+    job, name = _cuda_job(source, lanes, big)
     built = ce._compile([job])
     lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-    ce._check_layout(lib)
+    ce._check_layout(lib, big)
     lib.task_launch_config.argtypes = [ctypes.c_int, ce._P]
     lib.task_launch_config.restype = ctypes.c_int
-    lib.launch_task_step.argtypes = ce._ENV_ARGS + [ctypes.c_int, ce._P]
+    # the large build takes the tables' device copy after the host copy
+    lib.launch_task_step.argtypes = ([ce._P] if big else []) + ce._ENV_ARGS + [ctypes.c_int, ce._P]
     lib.launch_task_step.restype = ctypes.c_int
     return lib, built[os.path.join(ce.BUILD_DIR, name)]
 
@@ -643,25 +651,38 @@ class CudaTaskStep:
         self.task, self.frame_skip = task, frame_skip
         self.program = None
         self.tables = None
+        self.big = False
+        self.device_tables: Dict[int, torch.Tensor] = {}
         self.launches = 0
 
     def prepare(self, device: Optional[torch.device] = None):
         """Translate the hooks and pack the tables; with a CUDA `device`,
-        also build the library and pick the launch configuration."""
+        also build the library, pick the launch configuration and upload the
+        large class's tables."""
         if self.program is None:
             self.program = trace_hooks(self.task)
             self.tables = task_tables(self.task, self.program, self.frame_skip)
+            self.big = ce.big_tables(self.tables)
+            if self.big:
+                self.kernel = "task_step_kernel_large"
         if device is not None and torch.device(device).type == "cuda":
-            return self.launch_config(torch.device(device))
+            cfg = self.launch_config(torch.device(device))
+            ce._tables_args(self.tables, self.device_tables, torch.device(device))
+            return cfg
         return None
 
+    def cuda_job(self):
+        """The nvcc job of this task's library, and the library's name."""
+        return _cuda_job(self.program.source, self.tables.lanes, self.big)
+
     def library(self):
-        return load_task_library(self.program.source, self.tables.lanes)
+        return load_task_library(self.program.source, self.tables.lanes, self.big)
 
     def launch_config(self, device: torch.device, B: Optional[int] = None) -> Dict[str, int]:
         self.prepare()
-        if self.tables.nv > ce.lane_nv(self.tables.lanes):
-            raise ValueError(f"{self.tables.nv} dofs exceed the {ce.lane_nv(self.tables.lanes)} "
+        lanes = ce.lane_nv(self.tables.lanes, self.big)
+        if self.tables.nv > lanes:
+            raise ValueError(f"{self.tables.nv} dofs exceed the {lanes} "
                              f"that G={self.tables.lanes} lanes hold")
         cfg = dict(_task_launch_config(self.library()[0], self.tables.sc_stride,
                                        device.index or 0))
@@ -683,12 +704,10 @@ class CudaTaskStep:
         B = state.q.shape[-1]
         with torch.cuda.device(dev):
             rc = self.library()[0].launch_task_step(
-                ce._P(ctypes.addressof(self.tables)), *ce._ptrs(ins + outs), B, E,
-                ce._P(torch.cuda.current_stream(dev).cuda_stream))
-        ce._launch_checked(rc, "task_step_kernel")
-        if not torch.cuda.is_current_stream_capturing():
-            self.launches += 1
-            ce.LAUNCHES["task_step_kernel"] += 1
+                *ce._tables_args(self.tables, self.device_tables, dev), *ce._ptrs(ins + outs),
+                B, E, ce._P(torch.cuda.current_stream(dev).cuda_stream))
+        ce._launch_checked(rc, self.kernel)
+        ce.count_launch(self.kernel, self)
         return ce._env_state(state, outs)
 
 
@@ -700,18 +719,18 @@ class HostTaskTwin:
     FLAGS = ("-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
     def __init__(self, task, frame_skip: Optional[int] = None):
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found")
+        gxx = ce.gxx_path()
         self.task = task
         self.program = trace_hooks(task)
         self.tables = task_tables(task, self.program, frame_skip)
-        tag = _tag(self.program.source, _CORE + ["task_step_host.cpp"], self.FLAGS)
+        big = ce.big_tables(self.tables)
+        flags = self.FLAGS + ((ce.BIG_FLAG,) if big else ())
+        tag = _tag(self.program.source, _CORE + ["task_step_host.cpp"], flags)
         header = _write_header(self.program.source, tag)
         name = f"libtask_host_{tag}.so"
-        ce._compile([([gxx], "task_step_host.cpp", name, self.FLAGS + ("-include", header))])
+        ce._compile([([gxx], "task_step_host.cpp", name, flags + ("-include", header))])
         self.lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-        ce._check_layout(self.lib)
+        ce._check_layout(self.lib, big)
         self.lib.host_task_step.argtypes = ce._ENV_ARGS
         self.lib.host_task_step.restype = ctypes.c_int
 

@@ -302,14 +302,17 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
 def train(env_id: str, batch_size: int, num_iterations: int,
           cfg: Optional[PPOConfig] = None, seed: int = 0, device="cuda",
           progress: Optional[Callable] = None, resume_from: Optional[str] = None,
-          mesh: Optional[pmesh.Mesh] = None):
+          mesh: Optional[pmesh.Mesh] = None, backend: str = "fused", graph: bool = True):
     """Training driver: build the env batch and the train step, loop.
     `resume_from`: a TrainState checkpoint of the JAX package
     (`utils/checkpoint.py` npz) to continue from instead of a fresh init.
     With a `mesh` (every rank calls train), `batch_size` is the global
     batch, `device` is the mesh's, each rank resets and steps its block of
-    the envs, and the learner state is broadcast from rank 0. Returns (ts,
-    es: this rank's shard under a mesh, metrics of the last step)."""
+    the envs, and the learner state is broadcast from rank 0 (every rank
+    passes the same `backend` and `graph`, which go to the env batch's
+    `make_batched`: "composed" trains a task whose hooks "fused" cannot
+    translate). Returns (ts, es: this rank's shard under a mesh, metrics of
+    the last step)."""
     from pybulletgym_tpu_torch.api.registry import make_batched
     from pybulletgym_tpu_torch.utils.interop import train_state_from_npz
 
@@ -317,7 +320,7 @@ def train(env_id: str, batch_size: int, num_iterations: int,
     lo, hi = (0, batch_size) if mesh is None else mesh.block(batch_size)
     if mesh is not None:
         device = mesh.device
-    env = make_batched(env_id, hi - lo, device=device)
+    env = make_batched(env_id, hi - lo, device=device, backend=backend, graph=graph)
     train_step = make_train_step(env.task, cfg, step_fn=env.step_fn, mesh=mesh)
     if resume_from is not None:
         ts, _ = train_state_from_npz(resume_from, device=device, seed=seed)

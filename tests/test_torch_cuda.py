@@ -22,7 +22,8 @@ ulp) at the walker budget, and one SAC iteration, whose collect launches
 the env kernel. A user's task (a HalfCheetah subclass with its own reward
 and aux key) through task_step_kernel, its hooks translated, at the walker
 budget, and through the composed backend's CUDA graph (one physics launch
-a replay).
+a replay). Seven free balls (nv 42) through physics_step_kernel's large
+build (engine_core.h's large tables' class), at the walker budget.
 """
 
 import pytest
@@ -298,7 +299,8 @@ def test_user_task_kernel_matches_plain():
         assert sorted(k.aux) == sorted(s.aux) and "fast" in k.aux
         s = k
     assert dict(ce.LAUNCHES) == {"physics_step_kernel": 0, "env_step_kernel": 0,
-                                 "task_step_kernel": 3}
+                                 "task_step_kernel": 3, "physics_step_kernel_large": 0,
+                                 "task_step_kernel_large": 0}
     comp = BatchedEnv(task, B, device="cuda", backend="composed")
     ce.reset_launch_counts()
     for _ in range(2):
@@ -466,3 +468,33 @@ def test_sac_iteration_launches_the_env_kernel():
     assert env.step_fn.launches == ce.LAUNCHES["env_step_kernel"] == 2
     assert int(ss.opt_critic[2]) == int(ss.opt_actor[2]) == 2 and ss.buf_ptr == 2
     assert all(torch.isfinite(x) for x in metrics.values()) and es.q.is_cuda
+
+
+def test_large_tables_physics_kernel_matches_plain():
+    """Seven free balls (nv 42, over the default tables' 40 dofs) through
+    physics_step_kernel's large build (the tables in global memory), at the
+    walker budget, counted apart."""
+    _need_gpu()
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    balls = "".join(
+        f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(7))
+    model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                       f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
+    phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
+    assert phys.big and phys.kernel == "physics_step_kernel_large"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
+    v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
+    tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
+    ce.reset_launch_counts()
+    qk, vk, dk = phys(q, v, tau)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES["physics_step_kernel_large"] == phys.launches == 1
+    assert ce.LAUNCHES["physics_step_kernel"] == 0
+    qp, vp, dp = phys.plain(q, v, tau)
+    dq = (qk - qp).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert ((dk > 0) != (dp > 0)).float().mean() < 0.01

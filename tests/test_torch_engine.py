@@ -375,16 +375,17 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
 
     with pytest.raises(NotImplementedError, match="Pushed"):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
-    # a model above 40 dofs (seven free balls: 42), over the large caps
+    # a model above 64 dofs (eleven free balls: 66), over the large class's
+    # caps (seven balls, nv 42, are in it: test_torch_big_models.py)
     balls = "".join(
         f'<body name="b{i}" pos="{i} 0 1"><joint name="j{i}" type="free"/>'
-        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(7))
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(11))
     xml = tmp_path / "balls.xml"
     xml.write_text('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
                    f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
     model = load_mjcf(str(xml))
-    assert model.nv == 42
-    with pytest.raises(NotImplementedError, match="'NV': 42"):
+    assert model.nv == 66
+    with pytest.raises(NotImplementedError, match="'NV': 66"):
         ce.pack_physics(model, tt.physics)
     env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):
