@@ -105,6 +105,16 @@ dofs than a group's 32 lanes, root paths past bit 31):
     version on the card within the humanoid budget, resets bitwise; holds
     seven free balls (nv 42) through the large physics build to the plain
     physics; times both large kernels beside their bounds;
+  * drives models over the large tables' caps (`huge_model_paths`, the same
+    paths through `scene_paths`): builds the huge class (-DENG_HUGE_TABLES:
+    the tables and the forward-solved rows Y in global memory, Y a device
+    buffer of B envs' slices allocated when the env is made) and registers
+    FourHumanoids-v0 (four copies of humanoid.xml: 72 bodies, nv 92, one
+    env's scratch over a block's shared memory): 20 steps through
+    task_step_kernel's huge build (20 launches, nothing else) and composed
+    around physics_step_kernel's huge build (20, graph = eager bitwise),
+    both held to the plain version at step 0 (resets bitwise), eleven free
+    balls (nv 66) through the huge physics build, both huge kernels timed;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -117,6 +127,7 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import json
@@ -674,16 +685,20 @@ def user_task_paths(card):
 
 
 BIG_ID = "TwoHumanoids-v0"
-BIG_STEPS = 20
-BIG_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
-BIG_PLAIN_AT = (0, 10)  # steps held to the plain version (~11 s a step at B=4096 on an H100)
+HUGE_ID = "FourHumanoids-v0"
+SCENE_STEPS = 20
+SCENE_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
+BIG_PLAIN_AT = (0, 10)  # steps held to the plain version (~15 s a step at B=4096 on an H100)
+HUGE_PLAIN_AT = (0,)  # the four-Humanoid scene's plain step takes ~3x the two's
 BALLS = 7  # free balls: nv 42, over the default caps' 40
+HUGE_BALLS = 11  # nv 66, over the large caps' 64
 
 
-def two_humanoids_xml() -> str:
-    """Two copies of the repository's humanoid.xml in one worldbody: the
-    second's body, joint, geom and actuator names prefixed with "h2_", its
-    torso 1.5 m along y (tests/test_torch_big_models.py builds the same)."""
+def humanoids_xml(n: int) -> str:
+    """n copies of the repository's humanoid.xml in one worldbody: copy k's
+    (k >= 2) body, joint, geom and actuator names prefixed with "h{k}_", its
+    torso 1.5 (k - 1) m along y (tests/test_torch_big_models.py builds the
+    same)."""
     import copy
     import xml.etree.ElementTree as ET
 
@@ -691,27 +706,29 @@ def two_humanoids_xml() -> str:
 
     root = ET.parse(asset_path("humanoid.xml")).getroot()
     world, motors = root.find("worldbody"), root.find("actuator")
-    torso = copy.deepcopy(world.find("body"))
-    for el in torso.iter():
-        if "name" in el.attrib:
-            el.set("name", "h2_" + el.get("name"))
-    torso.set("pos", "0 1.5 1.4")
-    world.append(torso)
-    for m in list(motors):
-        m2 = copy.deepcopy(m)
-        m2.set("name", "h2_" + m.get("name"))
-        m2.set("joint", "h2_" + m.get("joint"))
-        motors.append(m2)
+    body, motor_list = world.find("body"), list(motors)
+    for k in range(2, n + 1):
+        torso = copy.deepcopy(body)
+        for el in torso.iter():
+            if "name" in el.attrib:
+                el.set("name", f"h{k}_" + el.get("name"))
+        torso.set("pos", f"0 {1.5 * (k - 1)} 1.4")
+        world.append(torso)
+        for m in motor_list:
+            m2 = copy.deepcopy(m)
+            m2.set("name", f"h{k}_" + m.get("name"))
+            m2.set("joint", f"h{k}_" + m.get("joint"))
+            motors.append(m2)
     return ET.tostring(root, encoding="unicode")
 
 
-def two_humanoid_task(xml: str):
-    """A user's task over the two-Humanoid scene (tests/test_torch_big_models.py
-    holds the same task against the JAX package). Reset: qpos0 plus U(±0.01)
-    on every q and v; torque: each actuator's gear times the clipped action;
-    obs: both humanoids' q less each root's x and y, and 0.1 v; reward: both
-    torsos' world x-velocities plus 1 alive each; done: either torso below z
-    0.8."""
+def humanoids_task(xml: str, n: int):
+    """A user's task over `humanoids_xml(n)` (tests/test_torch_big_models.py
+    and test_torch_huge_models.py hold the same task against the JAX
+    package). Reset: qpos0 plus U(±0.01) on every q and v; torque: each
+    actuator's gear times the clipped action; obs: every humanoid's q less
+    each root's x and y, and 0.1 v; reward: the torsos' world x-velocities
+    plus 1 alive each; done: any torso below z 0.8."""
     import torch
 
     from pybulletgym_tpu_torch.envs.base import Task
@@ -720,15 +737,16 @@ def two_humanoid_task(xml: str):
     from pybulletgym_tpu_torch.ops.contacts import SolverConfig
     from pybulletgym_tpu_torch.ops.step import PhysicsConfig
 
-    class TwoHumanoidTask(Task):
+    class HumanoidsTask(Task):
         NOISE = 0.01
 
         def __init__(self):
-            self.model = m = parse_mjcf(xml, "two_humanoids")
+            self.model = m = parse_mjcf(xml, f"humanoids{n}")
             self.physics = PhysicsConfig(solver=SolverConfig())
             self.act_dofs = [a.v_adr for a in m.actuators]
             self.gears = [float(a.gear) for a in m.actuators]
-            roots = [m.bodies[m.body_index(n)] for n in ("torso", "h2_torso")]
+            names = ["torso"] + [f"h{k}_torso" for k in range(2, n + 1)]
+            roots = [m.bodies[m.body_index(name)] for name in names]
             self.root_q = [b.q_adr for b in roots]
             self.root_v = [b.v_adr for b in roots]
             drop = {r + k for r in self.root_q for k in (0, 1)}
@@ -738,10 +756,10 @@ def two_humanoid_task(xml: str):
             self.max_episode_steps = 1000
 
         def initial_state_scalar(self, seed, env_id, epoch):
-            m, n = self.model, self.NOISE
-            q = [float(m.qpos0[j]) + rand.uniform(seed, j, env_id, epoch, -n, n)
+            m, noise = self.model, self.NOISE
+            q = [float(m.qpos0[j]) + rand.uniform(seed, j, env_id, epoch, -noise, noise)
                  for j in range(m.nq)]
-            v = [rand.uniform(seed, m.nq + d, env_id, epoch, -n, n) for d in range(m.nv)]
+            v = [rand.uniform(seed, m.nq + d, env_id, epoch, -noise, noise) for d in range(m.nv)]
             return q, v, {}
 
         def action_tau_scalar(self, a):
@@ -758,12 +776,13 @@ def two_humanoid_task(xml: str):
         def output_scalar(self, q, v, depths, a, aux, ids=None):
             obs = [q[j] for j in self.obs_q] + [0.1 * x for x in v]
             progress = sum(self._vx(q, v, r, d) for r, d in zip(self.root_q, self.root_v))
-            alive = torch.full_like(q[0], 2.0)
+            alive = torch.full_like(q[0], float(n))
             fallen = q[self.root_q[0] + 2] < 0.8
-            fallen = fallen | (q[self.root_q[1] + 2] < 0.8)
-            return obs, progress + 2.0, fallen, dict(aux), {"alive": alive, "progress": progress}
+            for r in self.root_q[1:]:
+                fallen = fallen | (q[r + 2] < 0.8)
+            return obs, progress + float(n), fallen, dict(aux), {"alive": alive, "progress": progress}
 
-    return TwoHumanoidTask()
+    return HumanoidsTask()
 
 
 def balls_xml(n: int, z: float) -> str:
@@ -775,34 +794,58 @@ def balls_xml(n: int, z: float) -> str:
             f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
 
 
-def big_model_paths(card):
-    """Models over the default tables' caps on the card: engine_core.h's
-    large class (-DENG_BIG_TABLES, the tables in global memory), at B=4096,
-    each path with the launch counts reset just before it and read just
-    after. Returns ({path: launches}, the large builds' entries of the
-    kernels line less their launches).
+def step_as(step, size):
+    """A CudaPhysicsStep like `step` whose tables are the same model's in
+    the larger size class `size` (every array of a smaller class fits the
+    larger one's, a root path's words included), laid out again: the same
+    arithmetic, with the tables (and in the huge class Y) in global
+    memory."""
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
-    * Build: engine.cu's large libraries (one nvcc a group width) and
-      task_step.cu's large build with TwoHumanoidTask's translated hooks,
-      all started together.
-    * `big_fused`: TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
-      48, nv 46, 34 actuators, 58 floor rows, 68 limit rows) registered and
+    other = copy.copy(step)
+    src, t = step.tables, ce.tables_type(size)[0]()
+    for name, _ in type(src)._fields_:
+        x = getattr(src, name)
+        if isinstance(x, ctypes.Array):
+            ctypes.memmove(getattr(t, name), x, ctypes.sizeof(x))
+        else:
+            setattr(t, name, x)
+    ce.scratch_layout(t)
+    other.tables, other.size = t, size
+    other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[size]
+    other.device_tables, other.y_buffers = {}, {}
+    return other
+
+
+def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
+    """A humanoids scene over a size class's caps on the card, at B=4096,
+    each path with the launch counts reset just before it and read just
+    after. `size`: the tables' class (ops.cuda_engine.LARGE or HUGE), whose
+    builds' kernels count apart (`*_large`, `*_huge`). Returns ({path:
+    launches}, the class's entries of the kernels line less their launches,
+    the record of the `{tag}_model_paths` phase, the scene's task and its
+    fused env).
+
+    * Build: engine.cu's libraries of the class (one nvcc a group width)
+      and task_step.cu's build with the scene task's translated hooks, all
+      started together (`{tag}_build`).
+    * `{tag}_fused`: `scene_id` (`humanoids_xml(humanoids)`) registered and
       made by ID, the default backend: 20 steps of seeded actions, every
-      third env forced to reset before steps 0 and 10: task_step_kernel's
-      large build 20 launches, nothing else.
-    * `big_composed`: the same ID with backend "composed" (the hooks in
-      torch around physics_step_kernel's large build, replayed from a CUDA
-      graph): its 20 launches, nothing else; each step bitwise the eager
-      composed step's and within the humanoid budget of the task kernel's
-      from the same input.
-    * Held to the plain version on the card (the step of BIG_PLAIN_AT, from
+      third env forced to reset before steps 0 and 10: the class's
+      task_step_kernel build 20 launches, nothing else.
+    * `{tag}_composed`: the same ID with backend "composed" (the hooks in
+      torch around the class's physics_step_kernel build, replayed from a
+      CUDA graph): its 20 launches, nothing else; each step bitwise the
+      eager composed step's and within the humanoid budget of the task
+      kernel's from the same input.
+    * Held to the plain version on the card (the steps of `plain_at`, from
       the fused rollout's input): both kernels within the humanoid budget,
       the forced resets (frame_skip 0) bitwise.
-    * The seven free balls (nv 42): physics_step_kernel's large build
-      against the plain physics, 3 steps, the walkers' bounds.
-    * Each large kernel's time (CUDA-graph-timed) beside its bound, the
-      plain version's, its launch configuration, ptxas report, nvcc seconds
-      and the tables' bytes."""
+    * `n_balls` free balls: the class's physics_step_kernel build against
+      the plain physics, 3 steps, the walkers' bounds.
+    * Each kernel's time (CUDA-graph-timed) beside its bound, the plain
+      version's, its launch configuration, ptxas report, nvcc seconds and
+      the tables' (and Y's) bytes."""
     import numpy as np
     import torch
 
@@ -819,6 +862,8 @@ def big_model_paths(card):
     dev = torch.device("cuda", 0)
     fields = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
     none = dict.fromkeys(ce.LAUNCHES, 0)
+    suffix = ce.KERNEL_SUFFIX[size]
+    names = {"task": "task_step_kernel" + suffix, "physics": "physics_step_kernel" + suffix}
     launches = {}
 
     def counted(fn):
@@ -840,68 +885,74 @@ def big_model_paths(card):
             raise AssertionError(f"{what}: {e}; max |dq| {(a.q - b.q).abs().max().item()}")
         return (a.q - b.q).abs().max().item()
 
-    # ---- build the large libraries at once -----------------------------------
-    xml = two_humanoids_xml()
-    pt.register(BIG_ID, lambda: two_humanoid_task(xml), 1000)
-    task = pt.make_task(BIG_ID)
+    # ---- build the class's libraries at once -----------------------------------
+    xml = humanoids_xml(humanoids)
+    pt.register(scene_id, lambda: humanoids_task(xml, humanoids), 1000)
+    task = pt.make_task(scene_id)
     m = task.model
-    builder = tk.CudaTaskStep(task)
-    builder.prepare()
-    require(builder.big and builder.kernel == "task_step_kernel_large",
-            f"{BIG_ID}: tables of caps_id {builder.tables.caps_id}")
-    jobs, names = ce._engine_jobs(True)
-    tjob, tname = builder.cuda_job()
+    task_build = tk.CudaTaskStep(task)
+    t0 = time.perf_counter()
+    task_build.prepare()
+    trace_s = time.perf_counter() - t0
+    require(task_build.size == size and task_build.kernel == names["task"],
+            f"{scene_id}: tables of caps_id {task_build.tables.caps_id}")
+    jobs, _ = ce._engine_jobs(size)
+    tjob, tname = task_build.cuda_job()
     t0 = time.perf_counter()
     logs = ce._compile(jobs + [tjob])
     nvcc_s = time.perf_counter() - t0
-    _, elog = ce.load_cuda_library(True)
-    ptx = {"physics_step_kernel_large": ptxas_report(elog),
-           "task_step_kernel_large": [dict(k, G=builder.tables.lanes) for k in ptxas_report(
+    _, elog = ce.load_cuda_library(size)
+    ptx = {names["physics"]: ptxas_report(elog),
+           names["task"]: [dict(k, G=task_build.tables.lanes) for k in ptxas_report(
                logs[os.path.join(ce.BUILD_DIR, tname)])]}
     phys = ce.make_cuda_physics_step(m, task.physics)[0]
-    require(phys.big and phys.kernel == "physics_step_kernel_large", "the physics tables' class")
-    config = {"physics_step_kernel_large": ce.launch_config(phys.tables, "physics_step_kernel", B),
-              "task_step_kernel_large": builder.launch_config(dev, B)}
+    require(phys.size == size and phys.kernel == names["physics"], "the physics tables' class")
+    config = {names["physics"]: ce.launch_config(phys.tables, "physics_step_kernel", B),
+              names["task"]: task_build.launch_config(dev, B)}
     sizes = dict(bodies=len(m.bodies), nq=m.nq, nv=m.nv, act=task.act_dim, rows=phys.tables.nr,
                  pair_rows=phys.tables.npair, limit_rows=phys.tables.nl, obs=task.obs_dim)
-    emit("big_build", env=BIG_ID, model=sizes, nvcc_seconds=nvcc_s, nvcc_jobs=len(jobs) + 1,
-         table_bytes=ctypes.sizeof(phys.tables), hook_statements=builder.program.ops,
-         ptxas=ptx, launch=config, card=card)
+    y_bytes = 4 * ce.y_stride(task_build.tables)
+    emit(f"{tag}_build", env=scene_id, model=sizes, trace_seconds=trace_s, nvcc_seconds=nvcc_s,
+         nvcc_jobs=len(jobs) + 1, table_bytes=ctypes.sizeof(phys.tables),
+         y_bytes_per_env=y_bytes, y_buffer_bytes=y_bytes * B,
+         hook_statements=task_build.program.ops, ptxas=ptx, launch=config, card=card)
 
     # ---- the scene by ID: fused, then composed ---------------------------------
     acts = torch.as_tensor(np.random.default_rng(14).uniform(
-        -1, 1, (BIG_STEPS, task.act_dim, B)).astype(np.float32), device=dev)
+        -1, 1, (SCENE_STEPS, task.act_dim, B)).astype(np.float32), device=dev)
     forced = torch.zeros(B, dtype=torch.bool, device=dev)
     forced[::3] = True
 
     def rollout(step_fn, fresh):
         s, out = fresh, []
-        for t in range(BIG_STEPS):
-            if t in BIG_FORCED_AT:
+        for t in range(SCENE_STEPS):
+            if t in SCENE_FORCED_AT:
                 s = s._replace(terminated=s.terminated | forced)
             out.append((s, acts[t], step_fn(s, acts[t])))
             s = out[-1][2]
         return out
 
-    fused = pt.make_batched(BIG_ID, B)
-    require(fused.backend == "fused" and fused.step_fn.kernel == "task_step_kernel_large",
-            f"{BIG_ID}: {fused.step_fn.kernel}")
+    fused = pt.make_batched(scene_id, B)
+    require(fused.backend == "fused" and fused.step_fn.kernel == names["task"],
+            f"{scene_id}: {fused.step_fn.kernel}")
     fresh = fused.reset(seed=3)
     ksteps, n = counted(lambda: rollout(fused.step_fn, fresh))
-    launches["big_fused"] = n
-    require(n == dict(none, task_step_kernel_large=BIG_STEPS), f"{BIG_ID} fused: {n}")
-    require(all(bool(torch.isfinite(o.q).all()) for _, _, o in ksteps), f"{BIG_ID}: non-finite")
+    launches[f"{tag}_fused"] = n
+    require(n == dict(none, **{names["task"]: SCENE_STEPS}), f"{scene_id} fused: {n}")
+    require(all(bool(torch.isfinite(o.q).all()) for _, _, o in ksteps), f"{scene_id}: non-finite")
 
-    comp = pt.make_batched(BIG_ID, B, backend="composed")
-    eager = pt.make_batched(BIG_ID, B, backend="composed", graph=False)
+    comp = pt.make_batched(scene_id, B, backend="composed")
+    eager = pt.make_batched(scene_id, B, backend="composed", graph=False)
     csteps, n = counted(lambda: rollout(comp.step_fn, fresh))
-    launches["big_composed"] = n
-    require(n == dict(none, physics_step_kernel_large=BIG_STEPS), f"{BIG_ID} composed: {n}")
-    worst_comp = 0.0
+    launches[f"{tag}_composed"] = n
+    require(n == dict(none, **{names["physics"]: SCENE_STEPS}), f"{scene_id} composed: {n}")
+    worst_comp, comp_q_bitwise = 0.0, True
     for t, ((s, a, out), (ks, ka, kout)) in enumerate(zip(csteps, ksteps)):
         require(bitwise(out, eager.step_fn(s, a)),
-                f"{BIG_ID} step {t}: the graph replay differs from the eager composed step")
-        worst_comp = max(worst_comp, hold(comp.step_fn(ks, ka), kout, f"composed step {t}"))
+                f"{scene_id} step {t}: the graph replay differs from the eager composed step")
+        c = comp.step_fn(ks, ka)
+        worst_comp = max(worst_comp, hold(c, kout, f"composed step {t}"))
+        comp_q_bitwise = comp_q_bitwise and torch.equal(c.q, kout.q)
 
     # ---- both kernels against the plain version ---------------------------------
     plain_phys = make_physics_step_plain(m, task.physics)[0]
@@ -915,9 +966,14 @@ def big_model_paths(card):
         phys_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    reset_k = tk.CudaTaskStep(task, frame_skip=0)
+    # the fused step's library and Y buffers, its tables at frame_skip 0
+    # (uploaded apart): the reset alone, without tracing the hooks again
+    reset_k = copy.copy(fused.step_fn)
+    reset_k.tables = type(reset_k.tables).from_buffer_copy(reset_k.tables)
+    reset_k.tables.frame_skip = 0
+    reset_k.device_tables = {}
     vs_plain, plain_ms = {}, []
-    for t in BIG_PLAIN_AT:
+    for t in plain_at:
         s, a, k = ksteps[t]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -925,20 +981,20 @@ def big_model_paths(card):
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         c = comp.step_fn(s, a)
-        vs_plain[t] = {"task_step_kernel_large": hold(k, p, f"task kernel step {t}"),
-                       "physics_step_kernel_large": hold(c, p, f"composed step {t}")}
-        if t in BIG_FORCED_AT:
+        vs_plain[t] = {names["task"]: hold(k, p, f"task kernel step {t}"),
+                       names["physics"]: hold(c, p, f"composed step {t}")}
+        if t in SCENE_FORCED_AT:
             rk, rp = reset_k(s, a), env_step_plain(task, s, a, 0)
             require(torch.equal(rk.q[:, forced], rp.q[:, forced])
                     and torch.equal(rk.v[:, forced], rp.v[:, forced])
                     and torch.equal(rk.epoch, rp.epoch) and torch.equal(rk.step_count, rp.step_count),
-                    f"{BIG_ID} step {t}: the reset differs from the plain version's")
+                    f"{scene_id} step {t}: the reset differs from the plain version's")
 
-    # ---- the seven free balls: the large physics build against plain ------------
-    bm = parse_mjcf(balls_xml(BALLS, 0.09), "balls")
+    # ---- free balls: the class's physics build against plain --------------------
+    bm = parse_mjcf(balls_xml(n_balls, 0.09), "balls")
     bcfg = PhysicsConfig()
     bphys = ce.make_cuda_physics_step(bm, bcfg)[0]
-    require(bphys.big and bm.nv == 6 * BALLS, "the balls' tables' class")
+    require(bphys.size == size and bm.nv == 6 * n_balls, "the balls' tables' class")
     bplain = make_physics_step_plain(bm, bcfg)[0]
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.as_tensor(np.repeat(bm.qpos0[:, None], B, 1), dtype=torch.float32, device=dev)
@@ -955,24 +1011,80 @@ def big_model_paths(card):
     bs, bt = q.contiguous(), (torch.rand((bm.nv, B), device=dev, generator=g) * 2 - 1)
     balls_ms = graph_ms(lambda: bphys(bs, v, bt))
 
-    # ---- what the tables in global memory cost: Humanoid's physics kernel
-    # with its default tables (a kernel parameter) and with the same tables
-    # in the large class (read from global memory), from the same inputs
+    # ---- times ------------------------------------------------------------------
+    s, a = ksteps[5][0], ksteps[5][1]
+    share = (s.terminated | s.truncated).float().mean().item()
+    tstep = fused.step_fn
+    tau = torch.zeros((m.nv, B), device=dev)
+    tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a.clamp(-1.0, 1.0)
+    work = {names["task"]: tk.work_per_task_step(tstep.tables, tstep.program, share),
+            names["physics"]: ce.work_per_env_step(phys.tables, env_step=False)}
+    timed = {names["task"]: (lambda: tstep(s, a), min(plain_ms)),
+             names["physics"]: (lambda: phys(s.q, s.v, tau), min(phys_ms))}
+    gr = next(iter(comp.step_fn._graphs.values()))
+    composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 10),
+                    replay_ms=cuda_ms(gr.graph.replay, 10),
+                    eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+                    capture_ms=comp.step_fn.capture_ms)
+    entries = []
+    for name, (fn, p_ms) in timed.items():
+        flops, nbytes = work[name]
+        t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
+        t_bytes = (nbytes * B + ctypes.sizeof(phys.tables)) / PEAK_BYTES_PER_S * 1e3
+        ms = graph_ms(fn, n=5, reps=2)  # 10-170 ms a launch
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": TASK_SOURCE if name.startswith("task") else SOURCE,
+            "build": ce.CLASS_FLAGS[size][0], "replaces": REPLACES[name[:-len(suffix)]],
+            "max_abs_err": max(r[name] for r in vs_plain.values()),
+            "ms": ms, "eager_ms": cuda_ms(fn, 5), "plain_ms": p_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "B": B, "timed_on": scene_id, "env_steps_per_s": B * 1e3 / ms,
+            "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
+            "table_bytes": ctypes.sizeof(phys.tables), "launch": config[name], "ptxas": ptx[name],
+            "nvcc_seconds": nvcc_s, "models": [scene_id] + (
+                [f"{n_balls} free balls"] if name.startswith("physics") else [])})
+    entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls}
+    record = dict(env=scene_id, B=B, steps=SCENE_STEPS, forced_reset_at=SCENE_FORCED_AT,
+                  launches=launches, held_to_plain_at=plain_at, max_dq_vs_plain=vs_plain,
+                  resets_bitwise=True, graph_vs_eager_bitwise=True,
+                  max_dq_composed_vs_task=worst_comp, composed_q_bitwise_to_task=comp_q_bitwise,
+                  composed=composed,
+                  kernels={e["name"]: {k: e[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "env_steps_per_s")}
+                           for e in entries},
+                  plain_env_step_ms=min(plain_ms), plain_physics_ms=min(phys_ms), balls=balls,
+                  balls_ms=balls_ms, card=card)
+    return launches, entries, record
+
+
+def big_model_paths(card):
+    """Models over the default tables' caps on the card: engine_core.h's
+    large class (-DENG_BIG_TABLES, the tables in global memory), through
+    `scene_paths` on TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
+    48, nv 46, 34 actuators, 58 floor rows, 68 limit rows; paths
+    `big_fused`, `big_composed`) held to plain at BIG_PLAIN_AT, and seven
+    free balls (nv 42); then what the tables in global memory cost:
+    Humanoid's physics kernel with its default tables (a kernel parameter)
+    and with the same tables in the large class, from the same inputs.
+    Returns ({path: launches}, the large builds' entries of the kernels line
+    less their launches)."""
+    import numpy as np
+    import torch
+
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+
+    launches, entries, record = scene_paths(card, "big", BIG_ID, 2, BALLS, BIG_PLAIN_AT, ce.LARGE)
+    dev = torch.device("cuda", 0)
     ht = pt.make_task(HUMANOID)
     hs = pt.make_batched(HUMANOID, B).reset(seed=3)
+    a0 = torch.as_tensor(np.random.default_rng(14).uniform(-1, 1, (ht.act_dim, B)).astype(
+        np.float32), device=dev)
     htau = torch.stack([torch.zeros(B, device=dev) if isinstance(x, float) else x for x in
-                        ht.action_tau_scalar(list(acts[0][:ht.act_dim].clamp(-1.0, 1.0)))], 0)
+                        ht.action_tau_scalar(list(a0.clamp(-1.0, 1.0)))], 0)
     h_default = ce.make_cuda_physics_step(ht.model, ht.physics)[0]
-    h_large = ce.make_cuda_physics_step(ht.model, ht.physics)[0]
-    Big = ce.tables_type(True)[0]
-    h_large.tables = Big()
-    for name, _ in type(h_default.tables)._fields_:  # every default array fits the large one
-        x = getattr(h_default.tables, name)
-        if isinstance(x, ctypes.Array):
-            ctypes.memmove(getattr(h_large.tables, name), x, ctypes.sizeof(x))
-        else:
-            setattr(h_large.tables, name, x)
-    h_large.big, h_large.kernel = True, "physics_step_kernel_large"
+    h_large = step_as(h_default, ce.LARGE)
     h_large.prepare(dev)
     ho = [f(hs.q, hs.v, htau) for f in (h_default, h_large)]
     tables_ab = {"env": HUMANOID, "bitwise": all(torch.equal(x, y) for x, y in zip(*ho)),
@@ -981,50 +1093,71 @@ def big_model_paths(card):
                  "large_launch": ce.launch_config(h_large.tables, "physics_step_kernel", B)}
     tables_ab["large_again_ms"] = graph_ms(lambda: h_large(hs.q, hs.v, htau))
     tables_ab["default_again_ms"] = graph_ms(lambda: h_default(hs.q, hs.v, htau))
+    emit("big_model_paths", **record, tables_in_global_memory=tables_ab)
+    return launches, entries
 
-    # ---- times ------------------------------------------------------------------
-    s, a = ksteps[5][0], ksteps[5][1]
-    share = (s.terminated | s.truncated).float().mean().item()
-    tstep = fused.step_fn
-    tau = torch.zeros((m.nv, B), device=dev)
-    tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a.clamp(-1.0, 1.0)
-    work = {"task_step_kernel_large": tk.work_per_task_step(tstep.tables, tstep.program, share),
-            "physics_step_kernel_large": ce.work_per_env_step(phys.tables, env_step=False)}
-    timed = {"task_step_kernel_large": (lambda: tstep(s, a), min(plain_ms)),
-             "physics_step_kernel_large": (lambda: phys(s.q, s.v, tau), min(phys_ms))}
-    g = next(iter(comp.step_fn._graphs.values()))
-    composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 10),
-                    replay_ms=cuda_ms(g.graph.replay, 10),
-                    eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
-                    capture_ms=comp.step_fn.capture_ms)
-    entries = []
-    for name, (fn, p_ms) in timed.items():
-        flops, nbytes = work[name]
-        t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
-        t_bytes = (nbytes * B + ctypes.sizeof(phys.tables)) / PEAK_BYTES_PER_S * 1e3
-        ms = graph_ms(fn)
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": TASK_SOURCE if name.startswith("task") else SOURCE,
-            "build": "-DENG_BIG_TABLES", "replaces": REPLACES[name[:-len("_large")]],
-            "max_abs_err": max(r[name] for r in vs_plain.values()),
-            "ms": ms, "eager_ms": cuda_ms(fn, 20), "plain_ms": p_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "B": B, "timed_on": BIG_ID, "env_steps_per_s": B * 1e3 / ms,
-            "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
-            "table_bytes": ctypes.sizeof(phys.tables), "launch": config[name], "ptxas": ptx[name],
-            "nvcc_seconds": nvcc_s, "models": [BIG_ID] + (
-                [f"{BALLS} free balls"] if name.startswith("physics") else [])})
-    entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls}
-    emit("big_model_paths", env=BIG_ID, B=B, steps=BIG_STEPS, forced_reset_at=BIG_FORCED_AT,
-         launches=launches, held_to_plain_at=BIG_PLAIN_AT, max_dq_vs_plain=vs_plain,
-         resets_bitwise=True, graph_vs_eager_bitwise=True,
-         max_dq_composed_vs_task=worst_comp, composed=composed,
-         kernels={e["name"]: {k: e[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "env_steps_per_s")}
-                  for e in entries},
-         plain_env_step_ms=min(plain_ms), plain_physics_ms=min(phys_ms), balls=balls,
-         balls_ms=balls_ms, tables_in_global_memory=tables_ab, card=card)
+
+def huge_model_paths(card):
+    """Models over the large tables' caps, or whose one-env scratch outgrows
+    a block's shared memory, on the card: engine_core.h's huge class
+    (-DENG_HUGE_TABLES: the tables in global memory, the forward-solved
+    rows Y in a device buffer of B envs' slices, the rest of the scratch in
+    shared memory), through `scene_paths` on FourHumanoids-v0 (four copies
+    of humanoid.xml: 72 bodies, nq 96, nv 92, 68 actuators, 116 floor rows,
+    136 limit rows; one env's scratch 233,796 B, over a block's 232,448;
+    paths `huge_fused`, `huge_composed`) held to plain at HUGE_PLAIN_AT,
+    and eleven free balls (nv 66, root paths past dof 63). Returns ({path:
+    launches}, the huge builds' entries of the kernels line less their
+    launches)."""
+    import numpy as np
+    import torch
+
+    from pybulletgym_tpu_torch.envs.base import reset_fn
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, entries, record = scene_paths(card, "huge", HUGE_ID, 4, HUGE_BALLS, HUGE_PLAIN_AT,
+                                            ce.HUGE)
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- where the huge kernels' time goes: the physics kernel of the two-
+    # and four-Humanoid scenes from a seeded reset and seeded torques, each
+    # with and without its PGS sweeps (iterations 0); the two-Humanoid
+    # scene's also in the huge class (Y in global memory) against its large
+    # tables (Y in shared memory), in turns L H H L
+    dev = torch.device("cuda", 0)
+    ids = (torch.full((B,), 3, dtype=torch.uint32, device=dev),
+           torch.arange(B, dtype=torch.int32, device=dev), torch.zeros(B, dtype=torch.uint32, device=dev))
+    split = {}
+    for n in (2, 4):
+        task = humanoids_task(humanoids_xml(n), n)
+        s0 = reset_fn(task, *ids)
+        a = torch.as_tensor(np.random.default_rng(15).uniform(-1, 1, (task.act_dim, B)).astype(
+            np.float32), device=dev)
+        tau = torch.zeros((task.model.nv, B), device=dev)
+        tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a
+        steps = {"large" if n == 2 else "huge": ce.make_cuda_physics_step(task.model, task.physics)[0]}
+        if n == 2:
+            steps["huge"] = step_as(steps["large"], ce.HUGE)
+        for cls, st in list(steps.items()):
+            st0 = copy.copy(st)
+            st0.tables = type(st.tables).from_buffer_copy(st.tables)
+            st0.tables.iterations = 0
+            st0.device_tables, st0.y_buffers = {}, {}
+            steps[cls + "_no_sweeps"] = st0
+        for st in steps.values():
+            st.prepare(dev, B)
+        outs = {k: st(s0.q, s0.v, tau) for k, st in steps.items()}
+        order = ["large", "huge", "huge", "large"] if n == 2 else ["huge", "huge"]
+        times = {}
+        for k in order + [k for k in steps if k.endswith("_no_sweeps")]:
+            times.setdefault(k, []).append(graph_ms(lambda: steps[k](s0.q, s0.v, tau), n=5, reps=2))
+        split[f"humanoids{n}"] = {
+            "ms": times, "launch": {k: ce.launch_config(st.tables, "physics_step_kernel", B)
+                                    for k, st in steps.items() if not k.endswith("_no_sweeps")},
+            "huge_bitwise_to_large": (all(torch.equal(x, y) for x, y in zip(outs["large"], outs["huge"]))
+                                      if n == 2 else None)}
+    emit("huge_model_paths", **record, peak_memory_bytes=peak, time_split=split)
     return launches, entries
 
 
@@ -2299,6 +2432,7 @@ def main():
     render_path()
     main_user, task_entry = user_task_paths(card)
     main_big, big_entries = big_model_paths(card)
+    main_huge, huge_entries = huge_model_paths(card)
     main_mesh = mesh_phases()
 
     # the local memory that the first launch of each kernel on each model
@@ -2346,9 +2480,11 @@ def main():
     kernels.append(dict(task_entry, launches=main_user["user_task"]["task_step_kernel"],
                         path_launches={path: n["task_step_kernel"]
                                        for path, n in main_user.items()}))
-    path = {"task_step_kernel_large": "big_fused", "physics_step_kernel_large": "big_composed"}
-    for e in big_entries:  # the large builds, launched on their own main paths only
-        kernels.append(dict(e, launches=main_big[path[e["name"]]][e["name"]]))
+    for tag, main_scene, entries in (("big", main_big, big_entries),
+                                     ("huge", main_huge, huge_entries)):
+        for e in entries:  # the large and huge builds, launched on their own main paths only
+            path = f"{tag}_fused" if e["name"].startswith("task") else f"{tag}_composed"
+            kernels.append(dict(e, launches=main_scene[path][e["name"]]))
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

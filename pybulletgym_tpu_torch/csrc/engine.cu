@@ -45,9 +45,13 @@
 // The large size class (-DENG_BIG_TABLES, engine_core.h: up to 64 bodies and
 // nv 64) builds physics_step_kernel only, with the tables (~52 KB) in global
 // memory: a pointer parameter (ENG_TABLES_PARAM), its launcher taking the
-// device copy beside the host one. env_step_kernel's task classes all fit
-// the default class; any other task over its caps runs task_step_kernel's
-// large build (task_step.cu).
+// device copy beside the host one. The huge class (-DENG_HUGE_TABLES: up to
+// 128 bodies and nv 128) does the same with its tables (~105 KB), and keeps
+// the forward-solved rows Y in a device buffer of B envs' slices (ybuf, an
+// argument after the tables): the shared memory a block asks for, which
+// launch_check and eng_launch_config bound, is the rest of the scratch.
+// env_step_kernel's task classes all fit the default class; any other task
+// over its caps runs task_step_kernel's large or huge build (task_step.cu).
 //
 // Timing on a card: `python3 pybulletgym_tpu_torch/tools/kernel_ab.py ROOT_A
 // ROOT_B` times both kernels in two checkouts (P C C P, graph-replayed
@@ -80,7 +84,7 @@ __device__ __forceinline__ eng::Group<G> my_group() {
 }
 
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-physics_step_kernel(ENG_TABLES_PARAM, const float* __restrict__ q,
+physics_step_kernel(ENG_TABLES_PARAM, ENG_YBUF_PARAM const float* __restrict__ q,
                     const float* __restrict__ v, const float* __restrict__ tau,
                     float* __restrict__ q_out, float* __restrict__ v_out,
                     float* __restrict__ d_out, int B) {
@@ -89,11 +93,11 @@ physics_step_kernel(ENG_TABLES_PARAM, const float* __restrict__ q,
   const int E = blockDim.x / G, e = threadIdx.x / G;
   const int i = blockIdx.x * E + e;
   if (i >= B) return;  // the whole group: its lanes share i
-  eng::physics_step_one<G>(t, my_group(), smem + e * t.sc_stride, i, B, q, v, tau, q_out, v_out,
-                           d_out);
+  eng::physics_step_one<G>(t, my_group(), smem + e * t.sc_stride ENG_ENV_Y(i), i, B, q, v, tau,
+                           q_out, v_out, d_out);
 }
 
-#ifndef ENG_BIG_TABLES
+#ifndef ENG_GLOBAL_TABLES
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 env_step_kernel(const __grid_constant__ eng::Tables t, eng::EnvIO io, int B) {
   extern __shared__ float smem[];
@@ -125,12 +129,12 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // E, the envs a block, out[1] = resident blocks per SM, out[2] = dynamic
 // shared bytes a block, out[3] = registers a thread, out[4] = local (stack)
 // bytes a thread. kernel 0 is physics_step_kernel, 1 env_step_kernel (not
-// in the large build). E is the power of two (E * G <= 128 threads, E *
+// in the large and huge builds). E is the power of two (E * G <= 128 threads, E *
 // stride floats <= 227 KB) that keeps the most envs resident per SM, the
 // larger on a tie. Returns a cudaError_t, or cudaErrorInvalidValue if one
 // env's scratch does not fit.
 int eng_launch_config(int kernel, int stride, int32_t* out) {
-#ifdef ENG_BIG_TABLES
+#ifdef ENG_GLOBAL_TABLES
   if (kernel != 0) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)physics_step_kernel;
 #else
@@ -167,24 +171,26 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 }
 
 // `tables` is a host pointer (copied into the launch's parameters; in the
-// large build the device copy `dev_tables` is the kernel's and `tables` is
-// only checked), every other pointer a device pointer; E is
+// large and huge builds the device copy `dev_tables` is the kernel's and
+// `tables` is only checked), every other pointer a device pointer (in the
+// huge build `ybuf`, B x tables.sc[SC_YSTRIDE] floats, follows
+// `dev_tables`); E is
 // eng_launch_config's envs a block. Returns cudaGetLastError() of the
 // launch, or cudaErrorInvalidValue for tables of another G, more dofs than
 // this library's lanes hold (eng::lane_nv) or an E that does not fit.
-int launch_physics_step(const void* tables, ENG_DEV_TABLES const float* q, const float* v,
-                        const float* tau, float* q_out, float* v_out, float* d_out,
-                        int B, int E, void* stream) {
+int launch_physics_step(const void* tables, ENG_DEV_TABLES ENG_YBUF_PARAM const float* q,
+                        const float* v, const float* tau, float* q_out, float* v_out,
+                        float* d_out, int B, int E, void* stream) {
   if (B <= 0) return 0;
   const eng::Tables& tg = *(const eng::Tables*)tables;
   if (int err = launch_check(tg, E)) return err;
   const int blocks = (B + E - 1) / E;
   physics_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
-      ENG_KERNEL_TABLES(tg), q, v, tau, q_out, v_out, d_out, B);
+      ENG_KERNEL_TABLES(tg), ENG_KERNEL_Y q, v, tau, q_out, v_out, d_out, B);
   return (int)cudaGetLastError();
 }
 
-#ifndef ENG_BIG_TABLES
+#ifndef ENG_GLOBAL_TABLES
 int launch_env_step(const void* tables, const float* q, const float* v, const float* act,
                     const float* aux, const uint8_t* term, const uint8_t* trunc,
                     const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,

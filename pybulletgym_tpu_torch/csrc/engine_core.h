@@ -43,7 +43,9 @@
 // float array per env: dynamic shared memory on the card, a heap buffer on
 // the host. pack_physics lays it out from the model's sizes (Tables::sc,
 // the float offset of each ENG_SCRATCH array) so no array is sized by a
-// cap; the constants below bound only the tables.
+// cap; the constants below bound only the tables. The huge class keeps Y,
+// most of a large model's scratch, in a second array per env (a device
+// buffer on the card, a second heap buffer on the host).
 
 #pragma once
 
@@ -76,12 +78,19 @@
 
 // How the kernels of engine.cu and task_step.cu take the tables. The default
 // class: a __grid_constant__ parameter, passed by value from the host copy.
-// The large class (ENG_BIG_TABLES, below): a pointer to a copy in global
-// memory (dev_tables, a leading argument of each launcher) that the wrapper
-// uploads once when the env is made; the kernel binds it to the `t` that the
-// core reads. In the hot PGS sweep every lane of a warp reads the same entry,
-// a broadcast through L1. The launchers check the host copy.
-#ifdef ENG_BIG_TABLES
+// The large and huge classes (ENG_BIG_TABLES, ENG_HUGE_TABLES, below): a
+// pointer to a copy in global memory (dev_tables, a leading argument of each
+// launcher) that the wrapper uploads once when the env is made; the kernel
+// binds it to the `t` that the core reads. In the hot PGS sweep every lane of
+// a warp reads the same entry, a broadcast through L1. The launchers check
+// the host copy.
+#if defined(ENG_BIG_TABLES) && defined(ENG_HUGE_TABLES)
+#error "ENG_BIG_TABLES and ENG_HUGE_TABLES name two size classes: build one"
+#endif
+#if defined(ENG_BIG_TABLES) || defined(ENG_HUGE_TABLES)
+#define ENG_GLOBAL_TABLES
+#endif
+#ifdef ENG_GLOBAL_TABLES
 #define ENG_TABLES_PARAM const eng::Tables* __restrict__ tp
 #define ENG_TABLES_BIND const eng::Tables& t = *tp;
 #define ENG_DEV_TABLES const void* dev_tables,
@@ -93,16 +102,36 @@
 #define ENG_KERNEL_TABLES(host) (host)
 #endif
 
+// Where the forward-solved constraint rows Y (and the arrays that share
+// their space) live. The default and large classes: in the env's slice of
+// shared memory with the rest of its scratch. The huge class: in the env's
+// slice of a device buffer of B x Tables::sc[SC_YSTRIDE] floats (ybuf, an
+// argument of its kernels and launchers after the tables), which the core's
+// functions take as a second base (ybase) beside the shared one.
+#ifdef ENG_HUGE_TABLES
+#define ENG_Y_PARAM , float* ybase
+#define ENG_Y_ARG , ybase
+#define ENG_YBUF_PARAM float* __restrict__ ybuf,
+#define ENG_KERNEL_Y ybuf,
+#define ENG_ENV_Y(i) , ybuf + (size_t)(i) * t.sc[eng::SC_YSTRIDE]
+#else
+#define ENG_Y_PARAM
+#define ENG_Y_ARG
+#define ENG_YBUF_PARAM
+#define ENG_KERNEL_Y
+#define ENG_ENV_Y(i)
+#endif
+
 namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
-// The Tables struct, in one of two size classes chosen at compile time. A
-// root-path mask is two uint32 words (anc_mask, anc_mask_hi), so up to 64
-// dofs in either. The default class keeps the tables a __grid_constant__
-// kernel parameter (at most 32,764 bytes); Atlas (31 bodies, nq 37, nv 36,
-// 60 limit rows, 30 actuators, 31 part frames) is its largest shipped
-// model.
-#ifndef ENG_BIG_TABLES
+// The Tables struct, in one of three size classes chosen at compile time. A
+// root-path mask is MASK_WORDS uint32 words (anc_mask, anc_mask_hi): two,
+// up to 64 dofs, in the default and large classes; four in the huge one.
+// The default class keeps the tables a __grid_constant__ kernel parameter
+// (at most 32,764 bytes); Atlas (31 bodies, nq 37, nv 36, 60 limit rows, 30
+// actuators, 31 part frames) is its largest shipped model.
+#if !defined(ENG_BIG_TABLES) && !defined(ENG_HUGE_TABLES)
 constexpr int MAX_BODIES = 32;
 constexpr int MAX_NV = 40;
 constexpr int MAX_NQ = 41;        // a free joint has 7 q entries and 6 dofs
@@ -112,7 +141,7 @@ constexpr int MAX_LIMITS = 64;    // joint-limit rows (two a limited joint)
 constexpr int MAX_ACT = 32;
 constexpr int MAX_PARTS = 32;
 constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into v
-#else
+#elif defined(ENG_BIG_TABLES)
 // The large class (-DENG_BIG_TABLES): models over the default caps, such as
 // two humanoids in one scene (36 bodies, nq 48, nv 46, 68 limit rows, 34
 // actuators). Its tables (~52 KB) outgrow the kernel parameters, so the
@@ -136,10 +165,43 @@ constexpr int MAX_LIMITS = BIG_MAX_LIMITS;
 constexpr int MAX_ACT = BIG_MAX_ACT;
 constexpr int MAX_PARTS = BIG_MAX_PARTS;
 constexpr int MAX_DRAWS = BIG_MAX_DRAWS;
+#else
+// The huge class (-DENG_HUGE_TABLES): models over the large class's caps,
+// or whose one-env scratch outgrows a block's shared memory, such as four
+// humanoids in one scene (72 bodies, nq 96, nv 92, 116 floor rows, 136
+// limit rows, 68 actuators). Its tables (~105 KB) live in global memory as
+// the large class's do, and so does Y (ENG_Y_PARAM above), which is most of
+// such a model's scratch. ops/cuda_engine.py reads these caps by their
+// HUGE_ names. Within them the scratch left in shared memory is at most
+// ~124 KB an env.
+constexpr int HUGE_MAX_BODIES = 128;  // one body a dof at nv 128
+constexpr int HUGE_MAX_NV = 128;      // the four-word root-path mask's limit
+constexpr int HUGE_MAX_NQ = 160;      // nq <= 7/6 nv: 149 at nv 128
+constexpr int HUGE_MAX_ROWS = 512;    // twice the large class's
+constexpr int HUGE_MAX_PAIRS = 256;   // half of them
+constexpr int HUGE_MAX_LIMITS = 256;  // two a limited dof at nv 128
+constexpr int HUGE_MAX_ACT = 128;     // one a dof
+constexpr int HUGE_MAX_PARTS = 128;   // one a body
+constexpr int HUGE_MAX_DRAWS = 160;   // a draw for every q (HUGE_MAX_NQ) and every dof
+constexpr int HUGE_MASK_WORDS = 4;
+constexpr int MAX_BODIES = HUGE_MAX_BODIES;
+constexpr int MAX_NV = HUGE_MAX_NV;
+constexpr int MAX_NQ = HUGE_MAX_NQ;
+constexpr int MAX_ROWS = HUGE_MAX_ROWS;
+constexpr int MAX_PAIRS = HUGE_MAX_PAIRS;
+constexpr int MAX_LIMITS = HUGE_MAX_LIMITS;
+constexpr int MAX_ACT = HUGE_MAX_ACT;
+constexpr int MAX_PARTS = HUGE_MAX_PARTS;
+constexpr int MAX_DRAWS = HUGE_MAX_DRAWS;
+#endif
+#ifdef ENG_HUGE_TABLES
+constexpr int MASK_WORDS = HUGE_MASK_WORDS;
+#else
+constexpr int MASK_WORDS = 2;
 #endif
 // The size class of a model without pair rows within these (Hopper ... Ant,
 // Reacher, the pendula: caps_id 0; the others 1; a model of the large
-// class's tables 2), kept as a model property
+// class's tables 2, of the huge class's 3), kept as a model property
 constexpr int WALKER_BODIES = 16;
 constexpr int WALKER_NV = 16;
 constexpr int WALKER_NQ = 17;
@@ -188,8 +250,11 @@ constexpr int MJ_DONE_HUMANOID = 4;
 #define ENG_SLOT(name) SC_##name,
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
-static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
-static_assert(MAX_NV <= 64, "a root-path mask is two 32-bit words");
+// Tables::sc[SC_YSTRIDE]: in the huge class, the floats of one env's slice
+// of the Y buffer (0 in the others)
+constexpr int SC_YSTRIDE = SC_COUNT;
+static_assert(SC_COUNT < MAX_SLOTS, "Tables::sc is too short");
+static_assert(MAX_NV <= 32 * MASK_WORDS, "a root-path mask is MASK_WORDS 32-bit words");
 static_assert(MAX_DRAWS >= MAX_NQ && MAX_DRAWS >= MAX_NV, "a draw for every q and every dof");
 
 // The most dofs a library of G lanes steps: pick_lanes (ops/cuda_engine.py)
@@ -215,12 +280,13 @@ constexpr int lane_nv() {
   S(int32_t, nr)                                                              \
   S(int32_t, nl)                                                              \
   S(int32_t, npair) /* the last npair contact rows are pair rows */          \
-  S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 the large class's */   \
+  S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 large class, 3 huge */ \
   S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
   S(int32_t, sc_stride) /* floats of one env's scratch (odd) */              \
   S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
   S(int32_t, sc_ldm) /* row stride of M and L (nv, made odd) */               \
-  A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array */     \
+  A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array; then \
+                               SC_YSTRIDE */                                 \
   S(int32_t, frame_skip)                                                      \
   S(int32_t, iterations)                                                      \
   S(int32_t, e_comb_zero)                                                     \
@@ -251,7 +317,9 @@ constexpr int lane_nv() {
   A(int32_t, v_adr, MAX_BODIES)                                               \
   A(int32_t, has_mass, MAX_BODIES)                                            \
   A(uint32_t, anc_mask, MAX_BODIES) /* bit d: dof d on the root path */       \
-  A(uint32_t, anc_mask_hi, MAX_BODIES) /* bit d: dof 32 + d on it */          \
+  /* word w >= 1 of body i's mask at (w - 1) MAX_BODIES + i: bit d is dof   \
+     32 w + d */                                                              \
+  A(uint32_t, anc_mask_hi, MAX_BODIES * MASK_WORDS - MAX_BODIES)              \
   A(float, off_r, MAX_BODIES * 9)                                             \
   A(float, off_p, MAX_BODIES * 3)                                             \
   A(float, jpos, MAX_BODIES * 3)                                              \
@@ -428,14 +496,15 @@ struct Tables {
 };
 #undef ENG_DECL_S
 #undef ENG_DECL_A
-#ifndef ENG_BIG_TABLES
+#ifndef ENG_GLOBAL_TABLES
 // a __grid_constant__ kernel parameter: at most 32,764 bytes of parameters
 static_assert(sizeof(Tables) + 256 <= 32764, "the tables outgrow the kernel parameters");
 #endif
 
-// A set of dofs in two words: bit d of lo is dof d (0-31), bit d - 32 of hi
-// is dof d (32-63). Every "is dof d on body i's root path" test goes
-// through on_path, which reads the word that holds d.
+// A set of dofs in MASK_WORDS words. Every "is dof d on body i's root path"
+// test goes through on_path, which reads the word that holds d.
+#ifndef ENG_HUGE_TABLES
+// two words: bit d of lo is dof d (0-31), bit d - 32 of hi is dof d (32-63)
 struct DofSet {
   uint32_t lo, hi;
 };
@@ -444,6 +513,31 @@ ENG_HD DofSet anc_path(const Tables& t, int i) {
   return p;
 }
 ENG_HD bool on_path(DofSet p, int d) { return (((d < 32 ? p.lo : p.hi) >> (d & 31)) & 1u) != 0; }
+#else
+// four words: bit d - 32 w of w[w] is dof d; every index a constant, so a
+// set stays in registers
+static_assert(MASK_WORDS == 4, "the huge class's DofSet is four words");
+struct DofSet {
+  uint32_t w[4];
+};
+ENG_HD DofSet anc_path(const Tables& t, int i) {
+  DofSet p = {{t.anc_mask[i], t.anc_mask_hi[i], t.anc_mask_hi[MAX_BODIES + i],
+               t.anc_mask_hi[2 * MAX_BODIES + i]}};
+  return p;
+}
+ENG_HD bool on_path(DofSet p, int d) {
+  const uint32_t w = d < 64 ? (d < 32 ? p.w[0] : p.w[1]) : (d < 96 ? p.w[2] : p.w[3]);
+  return ((w >> (d & 31)) & 1u) != 0;
+}
+ENG_HD DofSet dofs_minus(DofSet a, DofSet b) {  // a and not b
+  DofSet r = {{a.w[0] & ~b.w[0], a.w[1] & ~b.w[1], a.w[2] & ~b.w[2], a.w[3] & ~b.w[3]}};
+  return r;
+}
+ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
+  DofSet r = {{a.w[0] | b.w[0], a.w[1] | b.w[1], a.w[2] | b.w[2], a.w[3] | b.w[3]}};
+  return r;
+}
+#endif
 
 // Pointers of one env-step launch; every array is (rows, B) batch-trailing.
 struct EnvIO {
@@ -780,7 +874,9 @@ struct FK {
 
 // Pointers into one env's scratch (Tables::sc gives each array's offset).
 // inert, avp, f and obs share the space of the constraint rows Y (rows 1..),
-// which are written only after the CRBA and read only before the outputs.
+// which are written only after the CRBA and read only before the outputs;
+// in the huge class Y and those four are offsets into the env's slice of
+// the Y buffer (ybase), the rest into its shared slice (base).
 struct Scr {
   float *q, *v, *tau, *act, *aux, *obs;
   FK fk;
@@ -793,23 +889,28 @@ struct Scr {
   float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
 };
 
-ENG_HD Scr scratch(const Tables& t, float* base) {
+ENG_HD Scr scratch(const Tables& t, float* base ENG_Y_PARAM) {
   const int32_t* o = t.sc;
+#ifdef ENG_HUGE_TABLES
+  float* const yb = ybase;
+#else
+  float* const yb = base;
+#endif
   Scr s;
   s.q = base + o[SC_q];
   s.v = base + o[SC_v];
   s.tau = base + o[SC_tau];
   s.act = base + o[SC_act];
   s.aux = base + o[SC_aux];
-  s.obs = base + o[SC_obs];
+  s.obs = yb + o[SC_obs];
   s.fk.R = (M3*)(base + o[SC_R]);
   s.fk.p = (V3*)(base + o[SC_p]);
   s.fk.vel = (SV*)(base + o[SC_vel]);
   s.fk.com = (V3*)(base + o[SC_com]);
   s.fk.S = (SV*)(base + o[SC_S]);
-  s.inert = (Inertia*)(base + o[SC_inert]);
-  s.avp = (SV*)(base + o[SC_avp]);
-  s.f = (SV*)(base + o[SC_f]);
+  s.inert = (Inertia*)(yb + o[SC_inert]);
+  s.avp = (SV*)(yb + o[SC_avp]);
+  s.f = (SV*)(yb + o[SC_f]);
   s.L = base + o[SC_L];
   s.inv_diag = base + o[SC_inv_diag];
   s.depth = base + o[SC_depth];
@@ -819,7 +920,7 @@ ENG_HD Scr scratch(const Tables& t, float* base) {
   s.zp = base + o[SC_zp];
   s.v3o = base + o[SC_v3o];
   s.vp = base + o[SC_vp];
-  s.Y = base + o[SC_Y];
+  s.Y = yb + o[SC_Y];
   s.dinv = base + o[SC_dinv];
   s.b_vel = base + o[SC_b_vel];
   s.b_pos = base + o[SC_b_pos];
@@ -1289,13 +1390,22 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       } else {
         const int k = r - nfloor;
         const DofSet ma = anc_path(t, t.pair_a[k]), mb = anc_path(t, t.pair_b[k]);
+#ifdef ENG_HUGE_TABLES
+        plus = dofs_minus(ma, mb);
+        minus = dofs_minus(mb, ma);
+#else  // two words, written out
         plus.lo = ma.lo & ~mb.lo;
         plus.hi = ma.hi & ~mb.hi;
         minus.lo = mb.lo & ~ma.lo;
         minus.hi = mb.hi & ~ma.hi;
+#endif
         for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
       }
+#ifdef ENG_HUGE_TABLES
+      const DofSet either = dofs_union(plus, minus);
+#else
       const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
+#endif
       const V3 Pr = s.P[r];
       float* const yr = s.Y + (1 + 3 * r) * ld;
       EACH_LANE(g, l) {
@@ -1983,15 +2093,16 @@ ENG_HD void mj_pendulum_output(const Tables& t, const FK& fk, const float* q, co
 }
 
 // ---- the two kernel bodies ---------------------------------------------------
-// Every lane of env i's group calls them with the env's scratch `base`.
+// Every lane of env i's group calls them with the env's scratch `base` (and
+// in the huge class its slice of the Y buffer, `ybase`).
 
 // `frame_skip` substeps with held torques; depths of the last substep.
 // pallas_engine.py · make_pallas_physics_step
 template <int G>
-ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, int i, int B,
-                             const float* q_in, const float* v_in, const float* tau_in,
+ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base ENG_Y_PARAM, int i,
+                             int B, const float* q_in, const float* v_in, const float* tau_in,
                              float* q_out, float* v_out, float* d_out) {
-  const Scr s = scratch(t, base);
+  const Scr s = scratch(t, base ENG_Y_ARG);
   EACH_LANE(g, l) {
     for (int k = l; k < t.nq; k += G) s.q[k] = q_in[k * B + i];
     for (int k = l; k < t.nv; k += G) {
@@ -2011,9 +2122,9 @@ ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, in
 
 // The whole env step. pallas_engine.py · make_pallas_env_step
 template <int G>
-ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g, float* base, int i,
-                         int B) {
-  const Scr s = scratch(t, base);
+ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
+                         float* base ENG_Y_PARAM, int i, int B) {
+  const Scr s = scratch(t, base ENG_Y_ARG);
   const bool done = io.term[i] != 0 || io.trunc[i] != 0;
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];

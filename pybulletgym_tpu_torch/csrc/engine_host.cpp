@@ -3,9 +3,10 @@
 // loops over the lanes, group_sum replays the card's butterfly), built with
 // g++ -O2 -ffp-contract=off and loaded through ctypes. It lets a machine
 // without a GPU run the kernels' own C++ against the plain PyTorch version,
-// at every group width, and in either size class of the tables (built with
-// -DENG_BIG_TABLES for the large one, as the card's large libraries are).
-// No env path routes to it.
+// at every group width, and in each size class of the tables (built with
+// -DENG_BIG_TABLES or -DENG_HUGE_TABLES, as the card's large and huge
+// libraries are; the huge class's Y in a second heap buffer, as the card
+// keeps it apart from the shared scratch). No env path routes to it.
 
 #include <vector>
 
@@ -16,17 +17,19 @@ namespace {
 template <int G>
 void physics(const eng::Tables& t, const float* q, const float* v, const float* tau,
              float* q_out, float* v_out, float* d_out, int B) {
-  std::vector<float> scratch(t.sc_stride);
+  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
+  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
   const eng::Group<G> g = {0, 0u};
   for (int i = 0; i < B; ++i)
-    eng::physics_step_one<G>(t, g, scratch.data(), i, B, q, v, tau, q_out, v_out, d_out);
+    eng::physics_step_one<G>(t, g, scratch.data() ENG_Y_ARG, i, B, q, v, tau, q_out, v_out, d_out);
 }
 
 template <int G>
 void env(const eng::Tables& t, const eng::EnvIO& io, int B) {
-  std::vector<float> scratch(t.sc_stride);
+  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
+  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
   const eng::Group<G> g = {0, 0u};
-  for (int i = 0; i < B; ++i) eng::env_step_one<G>(t, io, g, scratch.data(), i, B);
+  for (int i = 0; i < B; ++i) eng::env_step_one<G>(t, io, g, scratch.data() ENG_Y_ARG, i, B);
 }
 
 // The group widths the libraries are built for (ops/cuda_engine.py ·

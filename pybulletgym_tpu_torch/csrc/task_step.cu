@@ -8,6 +8,10 @@
 // dynamic shared memory as in engine.cu. Built with -DENG_BIG_TABLES for a
 // model over the default caps (engine_core.h's large class): the kernel
 // then reads the tables from a copy in global memory (ENG_TABLES_PARAM).
+// Built with -DENG_HUGE_TABLES for a model over the large caps or whose
+// scratch outgrows shared memory (the huge class): the tables as the large
+// class's, and Y in a device buffer of B envs' slices (ybuf, after the
+// tables), as engine.cu's huge build.
 
 #include <cuda_runtime.h>
 
@@ -33,13 +37,13 @@ __device__ __forceinline__ eng::Group<G> my_group() {
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-task_step_kernel(ENG_TABLES_PARAM, eng::EnvIO io, int B) {
+task_step_kernel(ENG_TABLES_PARAM, ENG_YBUF_PARAM eng::EnvIO io, int B) {
   ENG_TABLES_BIND
   extern __shared__ float smem[];
   const int E = blockDim.x / G, e = threadIdx.x / G;
   const int i = blockIdx.x * E + e;
   if (i >= B) return;
-  eng::task_step_one<G>(t, io, my_group(), smem + e * t.sc_stride, i, B);
+  eng::task_step_one<G>(t, io, my_group(), smem + e * t.sc_stride ENG_ENV_Y(i), i, B);
 }
 
 }  // namespace
@@ -89,8 +93,9 @@ int task_launch_config(int stride, int32_t* out) {
 }
 
 // The arguments of engine.cu · launch_env_step (in the large build, the
-// device copy of the tables after the host one, as launch_physics_step).
-int launch_task_step(const void* tables, ENG_DEV_TABLES const float* q, const float* v,
+// device copy of the tables after the host one, as launch_physics_step; in
+// the huge build, then the Y buffer).
+int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_YBUF_PARAM const float* q, const float* v,
                      const float* act, const float* aux, const uint8_t* term, const uint8_t* trunc,
                      const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,
                      const int32_t* env_id, float* q_out, float* v_out, float* obs,
@@ -107,7 +112,7 @@ int launch_task_step(const void* tables, ENG_DEV_TABLES const float* q, const fl
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + E - 1) / E;
   task_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
-      ENG_KERNEL_TABLES(tg), io, B);
+      ENG_KERNEL_TABLES(tg), ENG_KERNEL_Y io, B);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // Host twin of task_step.cu, for the CPU tests only: task_core.h in a loop
 // over envs (each env's lane group emulated as in engine_host.cpp), built
 // per task by ops/task_kernel.py with g++ -O1 -ffp-contract=off -include
-// <the task's generated hooks header>, and -DENG_BIG_TABLES for a model of
-// the large class, as task_step.cu is. No env path routes to it.
+// <the task's generated hooks header>, and -DENG_BIG_TABLES or
+// -DENG_HUGE_TABLES for a model of the large or huge class, as task_step.cu
+// is (the huge class's Y in a second heap buffer). No env path routes to it.
 
 #include <vector>
 
@@ -12,9 +13,10 @@ namespace {
 
 template <int G>
 void run(const eng::Tables& t, const eng::EnvIO& io, int B) {
-  std::vector<float> scratch(t.sc_stride);
+  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
+  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
   const eng::Group<G> g = {0, 0u};
-  for (int i = 0; i < B; ++i) eng::task_step_one<G>(t, io, g, scratch.data(), i, B);
+  for (int i = 0; i < B; ++i) eng::task_step_one<G>(t, io, g, scratch.data() ENG_Y_ARG, i, B);
 }
 
 }  // namespace

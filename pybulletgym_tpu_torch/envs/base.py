@@ -237,7 +237,8 @@ class _StepGraph:
 
     def __init__(self, task: Task, physics, state: EnvState, action):
         dev = state.q.device
-        physics.prepare(dev)  # the library and the launch configuration: not capturable
+        # the library, the launch configuration and the huge class's Y buffer: not capturable
+        physics.prepare(dev, state.q.shape[-1])
         self.physics = physics
         self.state = state._replace(
             obs=None, reward=None, rewards=None,
@@ -305,8 +306,10 @@ class ComposedEnvStep:
     CPU tensors take the plain physics. CUDA tensors take
     `physics_step_kernel` (`ops.cuda_engine.CudaPhysicsStep`, one launch an
     env step for all `frame_skip` substeps; its large build for a model over
-    the default tables' caps), built at the first CUDA call: a model over
-    the large class's caps raises there, naming the cap. With `graph=True`
+    the default tables' caps, its huge build for one over the large caps or
+    whose scratch outgrows shared memory), built at the first CUDA call or
+    by `prepare`: a model over the huge class's caps (128 bodies, nv 128)
+    raises there, naming the cap. With `graph=True`
     the first CUDA call for a batch shape warms the hooks up on a side
     stream (no physics launch) and captures the whole step in a
     `torch.cuda.CUDAGraph`; every call then copies the state and action into
@@ -339,7 +342,14 @@ class ComposedEnvStep:
             self._cuda = ce.make_cuda_physics_step(self.task.model, self.task.physics)[0]
         return self._cuda
 
-    prepare = physics
+    def prepare(self, device: torch.device, B: Optional[int] = None):
+        """The physics step for `device`; on a CUDA device with a batch of B
+        envs also its library, launch configuration, tables on the card and
+        (huge class) Y buffer, ahead of any capture."""
+        phys = self.physics(device)
+        if device.type == "cuda" and B is not None:
+            phys.prepare(device, B)
+        return phys
 
     def eager(self, state: EnvState, action) -> EnvState:
         return compose_env_step(self.task, self.physics(state.q.device), state, action)
@@ -390,8 +400,10 @@ class BatchedEnv:
     replayed from a CUDA graph unless graph=False. On the CPU either runs
     the plain version. The device is the GPU unless the caller asks for
     "cpu". A CUDA device without a GPU, hooks that "fused" cannot translate
-    (on any device) and a model over the kernels' large caps (64 bodies, nv
-    64: `ops.cuda_engine.caps_class`) raise here, at construction.
+    (on any device) and a model over the kernels' huge caps (128 bodies, nv
+    128: `ops.cuda_engine.caps_class`) raise here, at construction. On a
+    CUDA device the step's buffers (the huge class's Y: B slices of one
+    env's forward-solved rows) are allocated here too, once.
     """
 
     def __init__(self, task: Task, batch_size: int, device="cuda",
@@ -409,7 +421,7 @@ class BatchedEnv:
         self.backend = self.step_fn.backend
         prepare = getattr(self.step_fn, "prepare", None)  # the wrappers built per task
         if prepare is not None:
-            prepare(self.device)
+            prepare(self.device, self.batch_size)
 
     @property
     def observation_size(self) -> int:

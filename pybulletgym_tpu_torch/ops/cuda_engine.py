@@ -21,13 +21,18 @@ fixed-size `Tables` struct, whose layout is parsed from the header; it
 picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
 scratch in shared memory from the model's sizes (`scratch_layout`).
 
-The tables come in two size classes (`tables_type`): the default, a
-`__grid_constant__` kernel parameter, and the large class for models over
-its caps (up to 64 bodies and nv 64; `CAPS_BIG`), built with
+The tables come in three size classes (`tables_type`, `tables_class`):
+the default, a `__grid_constant__` kernel parameter; the large class for
+models over its caps (up to 64 bodies and nv 64; `CAPS_BIG`), built with
 `-DENG_BIG_TABLES`, whose kernels read a copy of the tables in global
-memory that the wrapper uploads once (`_tables_args`). The large class
-builds `physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s
-task classes all fit the default one.
+memory that the wrapper uploads once (`_tables_args`); and the huge class
+(up to 128 bodies and nv 128; `CAPS_HUGE`), built with `-DENG_HUGE_TABLES`,
+for models over the large caps or whose one-env scratch outgrows a block's
+shared memory: its tables in global memory too, and the forward-solved
+constraint rows Y in a device buffer of B envs' slices (`_y_args`), the
+rest of the scratch in shared memory. The large and huge classes build
+`physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s task
+classes all fit the default one.
 
 One library per group width in `LANE_WIDTHS` and class is built at first
 use with nvcc into `_build/` (keyed by the sources' content hash and the
@@ -102,8 +107,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
-BIG_FLAG = "-DENG_BIG_TABLES"  # the large class of the tables (engine_core.h)
-CAPS_BIG = 2  # the caps_id of a model that only the large class holds
+# The size classes of the tables (engine_core.h): their build flags, the
+# suffix of their kernels' names in LAUNCHES and of their libraries' names
+DEFAULT, LARGE, HUGE = 0, 1, 2
+BIG_FLAG = "-DENG_BIG_TABLES"
+HUGE_FLAG = "-DENG_HUGE_TABLES"
+CLASS_FLAGS = ((), (BIG_FLAG,), (HUGE_FLAG,))
+KERNEL_SUFFIX = ("", "_large", "_huge")
+_LIB_SUFFIX = ("", "_big", "_huge")
+CAPS_BIG = 2  # the caps_id of a model that the large class holds, and not the default one
+CAPS_HUGE = 3  # ... that only the huge class holds
 
 _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
 
@@ -113,21 +126,27 @@ _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctyp
 # ---------------------------------------------------------------------------
 
 
-def tables_type(big: bool = False):
+def tables_type(size: int = DEFAULT):
     """ctypes mirror of `eng::Tables` and the header's caps, parsed from
-    engine_core.h (the single source of the layout): the default class, or
-    with `big` the large class (-DENG_BIG_TABLES), whose caps the header
-    names BIG_MAX_*. One class object for each."""
-    return _tables_type(bool(big))
+    engine_core.h (the single source of the layout), for the size class
+    `size`: DEFAULT, LARGE (or True; -DENG_BIG_TABLES, whose caps the header
+    names BIG_MAX_*) or HUGE (-DENG_HUGE_TABLES, HUGE_MAX_*). One class
+    object for each."""
+    size = int(size)
+    if size not in (DEFAULT, LARGE, HUGE):
+        raise ValueError(f"size class {size}: DEFAULT, LARGE or HUGE")
+    return _tables_type(size)
 
 
 @functools.lru_cache(maxsize=None)
-def _tables_type(big: bool):
+def _tables_type(size: int):
     src = open(os.path.join(CSRC, "engine_core.h")).read()
     found = re.findall(r"constexpr int (\w+) = (\d+);", src)
-    caps = {k: int(v) for k, v in found if not k.startswith("BIG_")}
-    if big:
-        caps.update({k[len("BIG_"):]: int(v) for k, v in found if k.startswith("BIG_")})
+    prefixes = ("BIG_", "HUGE_")
+    caps = {k: int(v) for k, v in found if not k.startswith(prefixes)}
+    if size != DEFAULT:
+        pre = prefixes[size - 1]
+        caps.update({k[len(pre):]: int(v) for k, v in found if k.startswith(pre)})
     block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("#define ENG_DECL_S")]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
@@ -136,13 +155,16 @@ def _tables_type(big: bool):
         if kind == "A":
             t = t * int(eval(count, {"__builtins__": {}}, caps))
         fields.append((name, t))
-    cls = type("BigTables" if big else "Tables", (ctypes.Structure,), {"_fields_": fields})
-    return cls, caps
+    name = ("Tables", "BigTables", "HugeTables")[size]
+    return type(name, (ctypes.Structure,), {"_fields_": fields}), caps
 
 
-def big_tables(t) -> bool:
-    """Whether the tables `t` are of the large class."""
-    return type(t) is tables_type(True)[0]
+def tables_class(t) -> int:
+    """The size class of the tables `t`: DEFAULT, LARGE or HUGE."""
+    for size in (DEFAULT, LARGE, HUGE):
+        if type(t) is tables_type(size)[0]:
+            return size
+    raise TypeError(f"{type(t).__name__} is no class of the engine's tables")
 
 
 def _set(arr, values, cap, what):
@@ -157,20 +179,32 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _root_path_words(dofs) -> Tuple[int, int]:
-    """A body's root path (its ancestor dofs) as the tables' two 32-bit mask
-    words (anc_mask: dofs 0-31, anc_mask_hi: dofs 32-63). Raises rather
-    than drop a dof the two words cannot hold."""
+def _root_path_words(dofs, words: int = 2) -> Tuple[int, ...]:
+    """A body's root path (its ancestor dofs) as `words` 32-bit mask words
+    (the class's MASK_WORDS; word w holds dofs 32 w .. 32 w + 31: anc_mask
+    word 0, anc_mask_hi the others). Raises rather than drop a dof the
+    words cannot hold."""
     mask = sum(1 << int(d) for d in dofs)
-    if mask >> 64:
-        raise ValueError(f"dofs {sorted(int(d) for d in dofs if d >= 64)} do not fit the "
-                         f"root-path mask (dofs 0-63)")
-    return mask & 0xFFFFFFFF, mask >> 32
+    if mask >> (32 * words):
+        raise ValueError(f"dofs {sorted(int(d) for d in dofs if d >= 32 * words)} do not fit "
+                         f"the root-path mask (dofs 0-{32 * words - 1})")
+    return tuple(mask >> (32 * w) & 0xFFFFFFFF for w in range(words))
+
+
+def _set_root_path(t, i: int, words) -> None:
+    """Store body i's mask words: word w >= 1 at anc_mask_hi[(w - 1) MAX_BODIES + i]."""
+    t.anc_mask[i] = words[0]
+    for w in range(1, len(words)):
+        t.anc_mask_hi[(w - 1) * len(t.anc_mask) + i] = words[w]
 
 
 def root_path(t, i: int) -> int:
-    """Body i's root-path mask from the tables' two words (bit d: dof d)."""
-    return t.anc_mask[i] | t.anc_mask_hi[i] << 32
+    """Body i's root-path mask from the tables' words (bit d: dof d)."""
+    nb = len(t.anc_mask)
+    mask = t.anc_mask[i]
+    for w in range(1, len(t.anc_mask_hi) // nb + 1):
+        mask |= t.anc_mask_hi[(w - 1) * nb + i] << (32 * w)
+    return mask
 
 
 def _composite_masses(model: Model):
@@ -187,23 +221,34 @@ def _composite_masses(model: Model):
     return [_f32(v) for _, v in vals]
 
 
-def _pick_caps(nb, nq, nv, nr, npair, nl, act=0) -> int:
+def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0) -> int:
     """The size class of these sizes: 0 (walker-sized) when they fit the
     WALKER_ caps and there are no pair rows, 1 within the default tables'
-    caps, CAPS_BIG within the large class's; raises above those, naming
-    each cap."""
+    caps, CAPS_BIG within the large class's, CAPS_HUGE within the huge
+    class's; and CAPS_HUGE for any sizes whose one-env scratch
+    (`scratch_bytes`, all of it) outgrows a block's MAX_SHARED_BYTES. Raises
+    above the huge caps, naming each cap."""
     sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
              "ACT": act}
+    fits = scratch_bytes <= MAX_SHARED_BYTES
     _, caps = tables_type()
-    if all(n <= caps["MAX_" + k] for k, n in sizes.items()):
+    if fits and all(n <= caps["MAX_" + k] for k, n in sizes.items()):
         walker = all(n <= caps["WALKER_" + k] for k, n in sizes.items() if k != "PAIRS")
         return 0 if walker and npair == 0 else 1
-    _, big = tables_type(True)
-    over = {k: n for k, n in sizes.items() if n > big["MAX_" + k]}
+    _, big = tables_type(LARGE)
+    if fits and all(n <= big["MAX_" + k] for k, n in sizes.items()):
+        return CAPS_BIG
+    _, huge = tables_type(HUGE)
+    over = {k: n for k, n in sizes.items() if n > huge["MAX_" + k]}
     if over:
         raise NotImplementedError(f"sizes {over} exceed the kernels' caps "
-                                  f"{ {k: big['MAX_' + k] for k in over} }")
-    return CAPS_BIG
+                                  f"{ {k: huge['MAX_' + k] for k in over} }")
+    return CAPS_HUGE
+
+
+def size_class(caps_id: int) -> int:
+    """The tables' size class of a caps_id: DEFAULT, LARGE or HUGE."""
+    return {CAPS_BIG: LARGE, CAPS_HUGE: HUGE}.get(caps_id, DEFAULT)
 
 
 def _plans(model: Model, cfg: PhysicsConfig):
@@ -214,13 +259,17 @@ def _plans(model: Model, cfg: PhysicsConfig):
     return floor, pairs, sc_rows((floor, pairs)), lim, 0 if lim is None else int(lim.dof.shape[0])
 
 
-def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None) -> int:
-    """The size class of a model's tables (`_pick_caps`; `plans`: its
-    `_plans`, if at hand); raises for a model over the large class's
-    caps."""
+def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_dim=0) -> int:
+    """The caps_id of a model's tables (`_pick_caps`, with the one-env
+    scratch of a kernel with `act` actions, `naux` aux slots and `obs_dim`
+    observations; `plans`: the model's `_plans`, if at hand); raises for a
+    model over the huge class's caps, naming them."""
     _, pairs, rows, _, nl = plans or _plans(model, cfg)
+    nb, nr = len(model.bodies), len(rows)
+    shared, y = _scratch_sizes(nb, model.nq, model.nv, nr, len(pairs), nl, act, naux, obs_dim)
+    whole = (sum(shared.values()) + y["Y"]) | 1
     try:
-        return _pick_caps(len(model.bodies), model.nq, model.nv, len(rows), len(pairs), nl, act)
+        return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole)
     except NotImplementedError as e:
         raise NotImplementedError(f"{model.name}: {e}") from None
 
@@ -230,24 +279,25 @@ def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None) -> int:
 LANE_WIDTHS = (4, 8, 16, 32)
 
 
-def lane_nv(G: int, big: bool = False) -> int:
+def lane_nv(G: int, size: int = DEFAULT) -> int:
     """The most dofs the CUDA library of G lanes steps (engine_core.h ·
-    lane_nv), in the default or (`big`) the large class: its lanes' dof
-    vectors are sized by it, and its launch refuses tables with more."""
-    _, caps = tables_type(big)
+    lane_nv) in the size class `size` (at G=32 the class's MAX_NV: 40, 64 or
+    128): its lanes' dof vectors are sized by it, and its launch refuses
+    tables with more."""
+    _, caps = tables_type(size)
     return caps.get(f"LANE_NV_{G}", caps["MAX_NV"])
 
 
-def pick_lanes(nv: int, big: bool = False) -> int:
+def pick_lanes(nv: int, size: int = DEFAULT) -> int:
     """The group width G for a model of nv dofs: the narrowest whose
     library holds nv dofs (4 up to 4, 8 up to 12, 16 up to 16, else 32), as
     a width sweep on the H100 ranked them (`tools/kernel_ab.py --lanes`,
     PERF.md §6). Raises above the class's MAX_NV."""
     for G in LANE_WIDTHS:
-        if nv <= lane_nv(G, big):
+        if nv <= lane_nv(G, size):
             return G
     raise NotImplementedError(f"{nv} dofs exceed the kernels' cap "
-                              f"{lane_nv(LANE_WIDTHS[-1], big)}")
+                              f"{lane_nv(LANE_WIDTHS[-1], size)}")
 
 
 # 227 KB: the dynamic shared memory one block may use on sm_90
@@ -263,28 +313,47 @@ def scratch_slots() -> Tuple[str, ...]:
     return tuple(re.findall(r"X\((\w+)\)", block))
 
 
+# the arrays that live inside Y's rows 1.., in this order, and their floats a body
+_Y_ALIAS = (("inert", 13), ("avp", 6), ("f", 6))
+# a huge-class env's slice of the Y buffer is a multiple of this many floats (128 bytes)
+Y_ALIGN = 32
+
+
+def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0):
+    """The floats of each array of one env's scratch, as two dicts: those
+    that live in shared memory in every class, and {"Y": floats} (the
+    forward-solved rows and, in their rows 1.., inert, avp, f and obs)."""
+    ld = nv | 1
+    rows_y = (1 + 3 * nr + nl) * ld
+    shared = {
+        "q": nq, "v": nv, "tau": nv, "act": act, "aux": naux, "obs": 0,
+        "R": 9 * nb, "p": 3 * nb, "vel": 6 * nb, "com": 3 * nb, "S": 6 * nv,
+        "inert": 0, "avp": 0, "f": 0,
+        "L": nv * ld, "inv_diag": nv, "depth": nr, "P": 3 * nr, "dirs": 9 * npair,
+        "z": nv, "zp": nv, "v3o": nv, "vp": nv, "Y": 0,
+        "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
+        "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
+    }
+    alias = sum(n * nb for _, n in _Y_ALIAS)
+    return shared, {"Y": max(rows_y, ld + alias, ld + obs_dim)}
+
+
 def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     """Lay out one env's scratch for the tables `t` from the model's sizes:
     sets t.sc (each array's float offset), t.sc_stride (odd, so that the
     envs of a warp start in different banks), t.sc_ld and t.sc_ldm (the
     row strides of Y and of M/L: nv made odd, so that lanes on different
     rows hit different banks). inert, avp, f and obs live inside Y's rows
-    1.., which are dead whenever those are live. Returns {name: (offset,
-    floats)}. Raises if one env does not fit one block's shared memory."""
-    nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
-    ld = nv | 1
-    alias = {"inert": 13 * nb, "avp": 6 * nb, "f": 6 * nb}
-    rows_y = (1 + 3 * nr + nl) * ld
-    sizes = {
-        "q": t.nq, "v": nv, "tau": nv, "act": t.act, "aux": t.naux, "obs": 0,
-        "R": 9 * nb, "p": 3 * nb, "vel": 6 * nb, "com": 3 * nb, "S": 6 * nv,
-        "inert": 0, "avp": 0, "f": 0,
-        "L": nv * ld, "inv_diag": nv, "depth": nr, "P": 3 * nr, "dirs": 9 * t.npair,
-        "z": nv, "zp": nv, "v3o": nv, "vp": nv,
-        "Y": max(rows_y, ld + sum(alias.values()), ld + t.obs_dim),
-        "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
-        "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
-    }
+    1.., which are dead whenever those are live. In the huge class Y (with
+    those four) is laid out apart, at offset 0 of the env's slice of the Y
+    buffer, whose floats (a multiple of Y_ALIGN) go to
+    t.sc[SC_YSTRIDE]; t.sc_stride is then the rest, in shared memory.
+    Returns {name: (offset, floats)}. Raises if what lives in shared memory
+    does not fit one block's."""
+    nv, ld = t.nv, t.nv | 1
+    shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim)
+    huge = tables_class(t) == HUGE
+    sizes = dict(shared) if huge else dict(shared, **y)
     slots = scratch_slots()
     if set(slots) != set(sizes):
         raise RuntimeError(f"engine_core.h's scratch slots {slots} differ from {sorted(sizes)}")
@@ -292,32 +361,47 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     for name in slots:
         out[name] = (off, sizes[name])
         off += sizes[name]
+    if huge:
+        out["Y"] = (0, y["Y"])
     y0 = out["Y"][0] + ld
     out["obs"] = (y0, t.obs_dim)
-    for name, n in alias.items():
-        out[name] = (y0, n)
-        y0 += n
+    for name, n in _Y_ALIAS:
+        out[name] = (y0, n * t.nb)
+        y0 += n * t.nb
     stride = off | 1
     if stride * 4 > MAX_SHARED_BYTES:
-        raise NotImplementedError(f"one env's scratch ({stride * 4} bytes) exceeds a block's "
+        what = "scratch outside Y" if huge else "scratch"
+        raise NotImplementedError(f"one env's {what} ({stride * 4} bytes) exceeds a block's "
                                   f"{MAX_SHARED_BYTES} bytes of shared memory")
     for k, name in enumerate(slots):
         t.sc[k] = out[name][0]
+    t.sc[len(slots)] = -(-y["Y"] // Y_ALIGN) * Y_ALIGN if huge else 0  # SC_YSTRIDE
     t.sc_stride, t.sc_ld, t.sc_ldm = stride, ld, ld
     return out
 
 
-def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0):
+def y_stride(t) -> int:
+    """The floats of one env's slice of the huge class's Y buffer (0 in the
+    other classes)."""
+    return int(t.sc[len(scratch_slots())])
+
+
+def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0,
+                 naux=0, obs_dim=0):
     """Physics part of the tables (model, plans, solver constants), the
     size class (`caps_id`: a model over the default caps gets the large
-    class's tables), the group width (`lanes`) and the scratch layout.
-    Raises for a model over the large class's caps."""
+    class's tables, one over the large caps or whose scratch with `act`
+    actions, `naux` aux slots and `obs_dim` observations outgrows shared
+    memory the huge class's), the group width (`lanes`) and the scratch
+    layout. Raises for a model over the huge class's caps."""
     plans = _plans(model, cfg)
     floor, pairs, rows, lim, nl = plans
-    caps_id = caps_class(model, cfg, act, plans)
-    Tables, caps = tables_type(caps_id == CAPS_BIG)
+    caps_id = caps_class(model, cfg, act, plans, naux, obs_dim)
+    size = size_class(caps_id)
+    Tables, caps = tables_type(size)
     t = Tables()
     t.caps_id = caps_id
+    t.naux, t.obs_dim = naux, obs_dim
     nb = len(model.bodies)
     t.nb, t.nq, t.nv, t.nr, t.nl = nb, model.nq, model.nv, len(rows), nl
     t.npair = len(pairs)
@@ -346,7 +430,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.q_adr[i] = b.q_adr
         t.v_adr[i] = b.v_adr
         t.has_mass[i] = int(b.mass > 0.0)
-        t.anc_mask[i], t.anc_mask_hi[i] = _root_path_words(model.ancestor_dofs[i])
+        _set_root_path(t, i, _root_path_words(model.ancestor_dofs[i], caps["MASK_WORDS"]))
         off_r += f3(_quat_np_to_mat(b.quat))
         off_p += f3(b.pos)
         jpos += f3(b.jpos)
@@ -414,7 +498,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_sign[l] = _f32(lim.sign[l])
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
-    t.lanes = pick_lanes(model.nv, caps_id == CAPS_BIG)
+    t.lanes = pick_lanes(model.nv, size)
     scratch_layout(t)
     return t
 
@@ -426,7 +510,7 @@ def _kernel_match(task):
     """((kind, aux keys, reward keys), "") when `env_step_kernel` implements
     `task`, else (None, why): its class must be one of TASK_KINDS (not a
     subclass, whose hooks are its own), its model within the default
-    tables' caps (the kernel has no large build), and its hooks, probed
+    tables' caps (the kernel has no large or huge build), and its hooks, probed
     once on one env, must write that kind's aux and reward keys."""
     from pybulletgym_tpu_torch.envs import locomotion, manipulation, mujoco_family, pendula
 
@@ -436,12 +520,12 @@ def _kernel_match(task):
                                for mod in (locomotion, manipulation, pendula, mujoco_family)):
         return None, f"{name}: only {', '.join(TASK_KINDS)} are in the env-step kernel"
     try:
-        big = caps_class(task.model, task.physics, task.act_dim) == CAPS_BIG
+        size = size_class(caps_class(task.model, task.physics, task.act_dim))
     except NotImplementedError as e:
         return None, str(e)
-    if big:
+    if size != DEFAULT:
         return None, (f"{name}: its model is over the env-step kernel's caps "
-                      f"(task_step_kernel's large build runs it)")
+                      f"(task_step_kernel's {KERNEL_SUFFIX[size][1:]} build runs it)")
     aux_keys, out_aux, comp_keys = _probe_keys(task)
     if out_aux != aux_keys:
         return None, f"{name}: output aux keys {out_aux} differ from the reset's {aux_keys}"
@@ -468,7 +552,8 @@ def pack_tables(task, frame_skip: Optional[int] = None):
 
 
 def _pack_tables(task, match, frame_skip):
-    t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
+    t = pack_physics(task.model, task.physics, frame_skip, act=task.act_dim,
+                     naux=len(match[1]), obs_dim=task.obs_dim)
     _, caps = tables_type()
     t.task_kind, aux_keys, comp_keys = match
     t.naux, t.ncomp = len(aux_keys), len(comp_keys)
@@ -790,8 +875,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _check_layout(lib, big: bool = False):
-    Tables, caps = tables_type(big)
+def _check_layout(lib, size: int = DEFAULT):
+    Tables, caps = tables_type(size)
     lib.eng_tables_bytes.restype = ctypes.c_int
     lib.eng_tables_layout.restype = ctypes.c_int
     lib.eng_tables_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -807,45 +892,54 @@ _P = ctypes.c_void_p
 _ENV_ARGS = [_P] * 21 + [ctypes.c_int]
 
 
-def _engine_jobs(big: bool):
-    """The nvcc jobs of engine.cu, one per group width, for the default or
-    (`big`) the large class, and their libraries' names: {G: name}."""
-    flags = NVCC_FLAGS + ((BIG_FLAG,) if big else ())
+def _engine_jobs(size: int):
+    """The nvcc jobs of engine.cu, one per group width, for the size class
+    `size` (its flag in the content hash), and their libraries' names: {G:
+    name}."""
+    flags = NVCC_FLAGS + CLASS_FLAGS[size]
     h = _sources(["engine_core.h", "engine.cu"])
     h.update(" ".join(flags).encode())
-    names = {G: f"libengine_cuda{'_big' if big else ''}_g{G}_{h.hexdigest()[:16]}.so"
+    names = {G: f"libengine_cuda{_LIB_SUFFIX[size]}_g{G}_{h.hexdigest()[:16]}.so"
              for G in LANE_WIDTHS}
     return [([nvcc_path()], "engine.cu", names[G], flags + (f"-DENG_LANES={G}",))
             for G in LANE_WIDTHS], names
 
 
-def load_cuda_library(big: bool = False):
+def _extra_args(size: int) -> int:
+    """The pointers a launcher of the size class takes after the host
+    tables: the tables' device copy (large and huge), then the Y buffer
+    (huge)."""
+    return (0, 1, 2)[size]
+
+
+def load_cuda_library(size: int = DEFAULT):
     """Build (once per source hash, one nvcc per group width, all started
-    together) and load the CUDA libraries of the default or (`big`) the
-    large class. Returns ({G: ctypes library}, nvcc output including
-    -Xptxas -v, one section per G)."""
-    return _load_cuda_library(bool(big))
+    together) and load the CUDA libraries of the size class `size`
+    (DEFAULT, LARGE or True, HUGE). Returns ({G: ctypes library}, nvcc
+    output including -Xptxas -v, one section per G)."""
+    return _load_cuda_library(int(size))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_cuda_library(big: bool):
-    jobs, names = _engine_jobs(big)
+def _load_cuda_library(size: int):
+    jobs, names = _engine_jobs(size)
     built = _compile(jobs)
     libs, logs = {}, []
     for G in LANE_WIDTHS:
         so = os.path.join(BUILD_DIR, names[G])
         lib = ctypes.CDLL(so)
-        _check_layout(lib, big)
+        _check_layout(lib, size)
         lib.eng_lanes.restype = ctypes.c_int
         if lib.eng_lanes() != G:
             raise RuntimeError(f"{so} is built for {lib.eng_lanes()} lanes, not {G}")
         lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
         lib.eng_launch_config.restype = ctypes.c_int
-        # the large build takes the tables' device copy after the host copy,
-        # and has no env_step_kernel
-        lib.launch_physics_step.argtypes = [_P] * (8 if big else 7) + [ctypes.c_int] * 2 + [_P]
+        # the large and huge builds take the tables' device copy after the
+        # host copy (the huge one then the Y buffer), and have no env_step_kernel
+        lib.launch_physics_step.argtypes = ([_P] * (7 + _extra_args(size)) + [ctypes.c_int] * 2
+                                            + [_P])
         lib.launch_physics_step.restype = ctypes.c_int
-        if not big:
+        if size == DEFAULT:
             lib.launch_env_step.argtypes = _ENV_ARGS + [ctypes.c_int, _P]
             lib.launch_env_step.restype = ctypes.c_int
         libs[G] = lib
@@ -858,8 +952,8 @@ KERNELS = ("physics_step_kernel", "env_step_kernel")  # eng_launch_config's kern
 
 @functools.lru_cache(maxsize=None)
 def _launch_config(lanes: int, kernel: int, stride: int, device: int,
-                   big: bool = False) -> Dict[str, int]:
-    libs, _ = load_cuda_library(big)
+                   size: int = DEFAULT) -> Dict[str, int]:
+    libs, _ = load_cuda_library(size)
     out = (ctypes.c_int32 * 5)()
     with torch.cuda.device(device):
         rc = libs[lanes].eng_launch_config(kernel, stride, _P(ctypes.addressof(out)))
@@ -876,17 +970,19 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     """The launch of `kernel` for `tables` on the card: the group width G,
     the envs a block E, threads and dynamic shared bytes a block, resident
     blocks (and envs) per SM from the occupancy API, the kernel's
-    registers and local bytes a thread, and for a batch B the blocks.
-    Raises for tables with more dofs than the library of their G holds, and
-    for env_step_kernel on the large class's tables."""
-    big = big_tables(tables)
-    if tables.nv > lane_nv(tables.lanes, big):
-        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes, big)} that the "
+    registers and local bytes a thread, and for a batch B the blocks. The
+    shared bytes are those of the scratch outside Y in the huge class
+    (`y_bytes`: one env's slice of the Y buffer there, else 0). Raises for
+    tables with more dofs than the library of their G holds, and for
+    env_step_kernel on the large and huge classes' tables."""
+    size = tables_class(tables)
+    if tables.nv > lane_nv(tables.lanes, size):
+        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes, size)} that the "
                          f"library of G={tables.lanes} lanes holds")
-    if big and kernel != "physics_step_kernel":
-        raise ValueError(f"{kernel} has no build for the large class's tables")
+    if size != DEFAULT and kernel != "physics_step_kernel":
+        raise ValueError(f"{kernel} has no build for the {KERNEL_SUFFIX[size][1:]} class's tables")
     cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device,
-                              big))
+                              size), y_bytes=4 * y_stride(tables))
     if B is not None:
         cfg["blocks"] = -(-B // cfg["E"])
     return cfg
@@ -965,11 +1061,11 @@ def _launch_checked(rc: int, what: str):
 
 def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device):
     """The launchers' leading arguments for `tables`: the host copy and, for
-    the large class, the device copy that its kernels read, uploaded to
-    `device` at the first call and kept in `uploaded` (by device index).
-    The wrappers call this before a CUDA graph captures a launch."""
+    the large and huge classes, the device copy that their kernels read,
+    uploaded to `device` at the first call and kept in `uploaded` (by device
+    index). The wrappers call this before a CUDA graph captures a launch."""
     args = [_P(ctypes.addressof(tables))]
-    if big_tables(tables):
+    if tables_class(tables) != DEFAULT:
         key = device.index or 0
         if key not in uploaded:
             host = torch.frombuffer(bytearray(bytes(tables)), dtype=torch.uint8)
@@ -978,14 +1074,34 @@ def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device
     return args
 
 
+def _y_args(tables, buffers: Dict[tuple, torch.Tensor], device: torch.device, B: int):
+    """The huge class's Y buffer argument for a launch of B envs on
+    `device` (none in the other classes): B slices of `y_stride(tables)`
+    floats, allocated at the first call for each (device, B) and kept in
+    `buffers`, so that a CUDA graph replays its launch on the buffer it
+    captured. Raises if a capture would allocate it: the wrappers'
+    `prepare(device, B)` does that before any capture."""
+    if tables_class(tables) != HUGE:
+        return []
+    key = (device.index or 0, int(B))
+    if key not in buffers:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the Y buffer of B={B} envs is not allocated: call "
+                               "prepare(device, B) before capturing a CUDA graph")
+        buffers[key] = torch.empty((int(B), y_stride(tables)), dtype=torch.float32,
+                                   device=device)
+    return [_P(buffers[key].data_ptr())]
+
+
 # Launches of each kernel by every wrapper instance since the last reset;
 # each wrapper also keeps its own `launches`. A launch recorded into a CUDA
 # graph counts in CAPTURED instead, and in LAUNCHES each time the graph's
-# owner replays it (`envs.base._StepGraph`). The large class's builds count
-# apart, as *_large.
+# owner replays it (`envs.base._StepGraph`). The large and huge classes'
+# builds count apart, as *_large and *_huge.
 LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0,
                             "task_step_kernel": 0, "physics_step_kernel_large": 0,
-                            "task_step_kernel_large": 0}
+                            "task_step_kernel_large": 0, "physics_step_kernel_huge": 0,
+                            "task_step_kernel_huge": 0}
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -1012,26 +1128,34 @@ def count_launch(kernel: str, wrapper) -> None:
 class CudaPhysicsStep:
     """step(q (nq,B), v (nv,B), tau (nv,B)) -> (q', v', depths (R,B)).
 
-    CUDA tensors launch `physics_step_kernel` (its large build for a model
-    over the default caps, the tables uploaded to the card once); CPU
-    tensors run `make_physics_step_plain`. `launches` counts kernel launches
-    (a launch recorded into a CUDA graph: at each replay, `count_launch`)."""
+    CUDA tensors launch `physics_step_kernel` (its large or huge build for a
+    model over the default or large caps, the tables uploaded to the card
+    once; the huge build's Y buffer allocated once for each batch size);
+    CPU tensors run `make_physics_step_plain`. `launches` counts kernel
+    launches (a launch recorded into a CUDA graph: at each replay,
+    `count_launch`). One step at a time: the Y buffer of a batch size is
+    shared by its launches."""
 
     def __init__(self, model: Model, cfg: PhysicsConfig):
         self.model, self.cfg = model, cfg
         self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
         self.tables = pack_physics(model, cfg)
-        self.big = big_tables(self.tables)
-        self.kernel = "physics_step_kernel_large" if self.big else "physics_step_kernel"
+        self.size = tables_class(self.tables)
+        self.kernel = "physics_step_kernel" + KERNEL_SUFFIX[self.size]
         self.device_tables: Dict[int, torch.Tensor] = {}
+        self.y_buffers: Dict[tuple, torch.Tensor] = {}
         self.launches = 0
 
-    def prepare(self, device: torch.device):
+    def prepare(self, device: torch.device, B: Optional[int] = None):
         """Build the library, pick the launch configuration on `device` (the
-        occupancy API, cudaFuncSetAttribute) and upload the large class's
-        tables: ahead of a graph capture, which these calls would break."""
+        occupancy API, cudaFuncSetAttribute), upload the large and huge
+        classes' tables and, for a batch of B envs, allocate the huge
+        class's Y buffer: ahead of a graph capture, which these calls would
+        break."""
         launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
         _tables_args(self.tables, self.device_tables, device)
+        if B is not None:
+            _y_args(self.tables, self.y_buffers, device, B)
 
     def __call__(self, q, v, tau):
         if q.device.type == "cpu":
@@ -1042,13 +1166,14 @@ class CudaPhysicsStep:
         _check(q, "q", torch.float32, (m.nq, B), dev)
         _check(v, "v", torch.float32, (m.nv, B), dev)
         _check(tau, "tau", torch.float32, (m.nv, B), dev)
-        libs, _ = load_cuda_library(self.big)
+        libs, _ = load_cuda_library(self.size)
         E = launch_config(self.tables, "physics_step_kernel", device=dev.index or 0)["E"]
         outs = [torch.empty((m.nq, B), device=dev), torch.empty((m.nv, B), device=dev),
                 torch.empty((self.n_rows, B), device=dev)]
         with torch.cuda.device(dev):
             rc = libs[self.tables.lanes].launch_physics_step(
                 *_tables_args(self.tables, self.device_tables, dev),
+                *_y_args(self.tables, self.y_buffers, dev, B),
                 *_ptrs([q, v, tau] + outs), B, E, _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, self.kernel)
@@ -1255,15 +1380,14 @@ def gxx_path() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _host_library(bf16_probe: bool, big: bool):
-    flags = (GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
-             + ((BIG_FLAG,) if big else ()))
+def _host_library(bf16_probe: bool, size: int):
+    flags = GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ()) + CLASS_FLAGS[size]
     h = _sources(["engine_core.h", "engine_host.cpp"])
     h.update(" ".join(flags).encode())
     name = f"libengine_host_{h.hexdigest()[:16]}.so"
     _compile([([gxx_path()], "engine_host.cpp", name, flags)])
     lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
-    _check_layout(lib, big)
+    _check_layout(lib, size)
     lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
     lib.host_physics_step.restype = ctypes.c_int
     lib.host_env_step.argtypes = _ENV_ARGS
@@ -1275,7 +1399,8 @@ class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
     arithmetic on CPU tensors, each env's lane group emulated at the tables'
     width (`tables.lanes`, any of LANE_WIDTHS), built with the tables' class
-    (the large one at its first use). Used only by tests and by
+    (the large and huge ones at their first use; the huge one's Y in a
+    second heap buffer). Used only by tests and by
     tools/bf16_probe.py (`bf16_probe=True` builds it with ENG_BF16_PROBE);
     no wrapper routes here."""
 
@@ -1283,7 +1408,7 @@ class HostTwin:
         self.bf16_probe = bf16_probe
 
     def _lib(self, tables):
-        return _host_library(self.bf16_probe, big_tables(tables))
+        return _host_library(self.bf16_probe, tables_class(tables))
 
     def physics_step(self, tables, q, v, tau):
         nq, B = q.shape

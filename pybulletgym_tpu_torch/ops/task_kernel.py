@@ -13,7 +13,9 @@ statements (`trace_hooks`): one function per hook, in namespace `hooks`.
 per task into `_build/` (keyed by the content hash) and launched once per
 env step by `CudaTaskStep`. A model over the default tables' caps takes
 the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
-`ops.cuda_engine`).
+`ops.cuda_engine`), one over the large caps or whose scratch outgrows a
+block's shared memory the huge class's (`-DENG_HUGE_TABLES`: Y in a device
+buffer too).
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments), one rounding per float op
@@ -531,7 +533,8 @@ def trace_hooks(task) -> HookProgram:
 def task_tables(task, program: HookProgram, frame_skip: Optional[int] = None):
     """The physics tables of `task`, with its obs, aux and reward sizes and
     its horizon (which the kernel freezes, as the JAX package's does)."""
-    t = ce.pack_physics(task.model, task.physics, frame_skip, act=task.act_dim)
+    t = ce.pack_physics(task.model, task.physics, frame_skip, act=task.act_dim,
+                        naux=len(program.aux_keys), obs_dim=task.obs_dim)
     t.naux, t.ncomp = len(program.aux_keys), len(program.comp_keys)
     t.obs_dim = t.obs_live = task.obs_dim
     t.max_steps = int(task.max_episode_steps)
@@ -579,14 +582,14 @@ def _tag(source: str, names, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _cuda_job(source: str, lanes: int, big: bool = False):
+def _cuda_job(source: str, lanes: int, size: int = ce.DEFAULT):
     """The nvcc job of task_step.cu with the hooks `source` for group width
-    `lanes` and the default or (`big`) the large class of the tables (the
-    generated header written), and its library's name."""
-    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",) + ((ce.BIG_FLAG,) if big else ())
+    `lanes` and the tables' size class `size` (the generated header
+    written), and its library's name."""
+    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",) + ce.CLASS_FLAGS[size]
     tag = _tag(source, _CORE + ["task_step.cu"], flags)
     header = _write_header(source, tag)
-    name = f"libtask_cuda{'_big' if big else ''}_g{lanes}_{tag}.so"
+    name = f"libtask_cuda{ce._LIB_SUFFIX[size]}_g{lanes}_{tag}.so"
     return ([ce.nvcc_path()], "task_step.cu", name, flags + ("-include", header)), name
 
 
@@ -600,23 +603,25 @@ def build_task_libraries(steps) -> Dict[str, str]:
     return ce._compile(jobs)
 
 
-def load_task_library(source: str, lanes: int, big: bool = False):
+def load_task_library(source: str, lanes: int, size: int = ce.DEFAULT):
     """Build (once per content hash) and load task_step.cu with the hooks
-    `source` for group width `lanes` and the tables' class (`big`: the
-    large one). Returns (ctypes library, nvcc log)."""
-    return _load_task_library(source, int(lanes), bool(big))
+    `source` for group width `lanes` and the tables' size class `size`.
+    Returns (ctypes library, nvcc log)."""
+    return _load_task_library(source, int(lanes), int(size))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_task_library(source: str, lanes: int, big: bool):
-    job, name = _cuda_job(source, lanes, big)
+def _load_task_library(source: str, lanes: int, size: int):
+    job, name = _cuda_job(source, lanes, size)
     built = ce._compile([job])
     lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-    ce._check_layout(lib, big)
+    ce._check_layout(lib, size)
     lib.task_launch_config.argtypes = [ctypes.c_int, ce._P]
     lib.task_launch_config.restype = ctypes.c_int
-    # the large build takes the tables' device copy after the host copy
-    lib.launch_task_step.argtypes = ([ce._P] if big else []) + ce._ENV_ARGS + [ctypes.c_int, ce._P]
+    # the large and huge builds take the tables' device copy after the host
+    # copy, the huge one then the Y buffer
+    lib.launch_task_step.argtypes = ([ce._P] * ce._extra_args(size) + ce._ENV_ARGS
+                                     + [ctypes.c_int, ce._P])
     lib.launch_task_step.restype = ctypes.c_int
     return lib, built[os.path.join(ce.BUILD_DIR, name)]
 
@@ -642,7 +647,8 @@ class CudaTaskStep:
     `envs.base.env_step_plain`. The task's horizon and constants are
     frozen into the kernel: after changing one, build a new step.
     `launches` counts kernel launches (none while a CUDA graph is
-    captured)."""
+    captured). The huge class's Y buffer is allocated once for each batch
+    size (by `prepare(device, B)` or the first step), so one step at a time."""
 
     backend = "fused"
     kernel = "task_step_kernel"
@@ -651,42 +657,47 @@ class CudaTaskStep:
         self.task, self.frame_skip = task, frame_skip
         self.program = None
         self.tables = None
-        self.big = False
+        self.size = ce.DEFAULT
         self.device_tables: Dict[int, torch.Tensor] = {}
+        self.y_buffers: Dict[tuple, torch.Tensor] = {}
         self.launches = 0
 
-    def prepare(self, device: Optional[torch.device] = None):
+    def prepare(self, device: Optional[torch.device] = None, B: Optional[int] = None):
         """Translate the hooks and pack the tables; with a CUDA `device`,
-        also build the library, pick the launch configuration and upload the
-        large class's tables."""
+        also build the library, pick the launch configuration, upload the
+        large and huge classes' tables and, for a batch of B envs, allocate
+        the huge class's Y buffer."""
         if self.program is None:
             self.program = trace_hooks(self.task)
             self.tables = task_tables(self.task, self.program, self.frame_skip)
-            self.big = ce.big_tables(self.tables)
-            if self.big:
-                self.kernel = "task_step_kernel_large"
+            self.size = ce.tables_class(self.tables)
+            self.kernel = "task_step_kernel" + ce.KERNEL_SUFFIX[self.size]
         if device is not None and torch.device(device).type == "cuda":
-            cfg = self.launch_config(torch.device(device))
-            ce._tables_args(self.tables, self.device_tables, torch.device(device))
+            device = torch.device(device)
+            cfg = self.launch_config(device)
+            ce._tables_args(self.tables, self.device_tables, device)
+            if B is not None:
+                ce._y_args(self.tables, self.y_buffers, device, B)
             return cfg
         return None
 
     def cuda_job(self):
         """The nvcc job of this task's library, and the library's name."""
-        return _cuda_job(self.program.source, self.tables.lanes, self.big)
+        return _cuda_job(self.program.source, self.tables.lanes, self.size)
 
     def library(self):
-        return load_task_library(self.program.source, self.tables.lanes, self.big)
+        return load_task_library(self.program.source, self.tables.lanes, self.size)
 
     def launch_config(self, device: torch.device, B: Optional[int] = None) -> Dict[str, int]:
         self.prepare()
-        lanes = ce.lane_nv(self.tables.lanes, self.big)
+        lanes = ce.lane_nv(self.tables.lanes, self.size)
         if self.tables.nv > lanes:
             raise ValueError(f"{self.tables.nv} dofs exceed the {lanes} "
                              f"that G={self.tables.lanes} lanes hold")
         cfg = dict(_task_launch_config(self.library()[0], self.tables.sc_stride,
                                        device.index or 0))
         cfg["G"], cfg["threads"] = self.tables.lanes, cfg["E"] * self.tables.lanes
+        cfg["y_bytes"] = 4 * ce.y_stride(self.tables)
         if B is not None:
             cfg["blocks"] = -(-B // cfg["E"])
         return cfg
@@ -704,7 +715,8 @@ class CudaTaskStep:
         B = state.q.shape[-1]
         with torch.cuda.device(dev):
             rc = self.library()[0].launch_task_step(
-                *ce._tables_args(self.tables, self.device_tables, dev), *ce._ptrs(ins + outs),
+                *ce._tables_args(self.tables, self.device_tables, dev),
+                *ce._y_args(self.tables, self.y_buffers, dev, B), *ce._ptrs(ins + outs),
                 B, E, ce._P(torch.cuda.current_stream(dev).cuda_stream))
         ce._launch_checked(rc, self.kernel)
         ce.count_launch(self.kernel, self)
@@ -714,7 +726,8 @@ class CudaTaskStep:
 class HostTaskTwin:
     """task_step.cu's body built with g++ for the host, for the CPU tests:
     the kernel's own C++, the task's translated hooks included, on CPU
-    tensors. No wrapper routes here."""
+    tensors (the huge class's Y in a second heap buffer). No wrapper routes
+    here."""
 
     FLAGS = ("-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
@@ -723,14 +736,14 @@ class HostTaskTwin:
         self.task = task
         self.program = trace_hooks(task)
         self.tables = task_tables(task, self.program, frame_skip)
-        big = ce.big_tables(self.tables)
-        flags = self.FLAGS + ((ce.BIG_FLAG,) if big else ())
+        size = ce.tables_class(self.tables)
+        flags = self.FLAGS + ce.CLASS_FLAGS[size]
         tag = _tag(self.program.source, _CORE + ["task_step_host.cpp"], flags)
         header = _write_header(self.program.source, tag)
         name = f"libtask_host_{tag}.so"
         ce._compile([([gxx], "task_step_host.cpp", name, flags + ("-include", header))])
         self.lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-        ce._check_layout(self.lib, big)
+        ce._check_layout(self.lib, size)
         self.lib.host_task_step.argtypes = ce._ENV_ARGS
         self.lib.host_task_step.restype = ctypes.c_int
 

@@ -1,18 +1,22 @@
-"""Whether two checkouts build the same CUDA libraries of the default class.
+"""Whether two checkouts build the same CUDA libraries of the default and large classes.
 
     python3 pybulletgym_tpu_torch/tools/build_identity.py ROOT_A ROOT_B
         [--tasks HalfCheetahPyBulletEnv-v0,HumanoidPyBulletEnv-v0]
 
 For each root, a fresh process (PYTHONPATH=ROOT) builds engine.cu's
-libraries (`cuda_engine.load_cuda_library()`, one per group width G) and,
-for each listed env ID, task_step.cu with that task's hooks translated
-(`ops.task_kernel.CudaTaskStep`, its shipped class taken as a user's
-task), and prints one JSON line per library: each kernel's ptxas report
+libraries of the default and the large class (`cuda_engine.
+load_cuda_library(False)` and `(True)`, one per group width G; the huge
+class's too where the root has it), for each listed env ID task_step.cu
+with that task's hooks translated (`ops.task_kernel.CudaTaskStep`, its
+shipped class taken as a user's task), and task_step.cu's large build with
+the two-Humanoid scene's task (the root's `chip_smoke.py`), and prints one
+JSON line per library: each kernel's ptxas report
 (registers, stack frame, spill stores and loads) and the SHA-256 of the
 library's SASS (`cuobjdump -sass`: the instructions and their encodings,
 each function's name; no addresses, and no anonymous namespace's id,
-which nvcc derives from the file's path). The last line says, per
-library, whether the two roots' ptxas reports and SASS are equal. Needs
+which nvcc derives from the file's path). The last line says, for each of
+ROOT_A's libraries, whether the two roots' ptxas reports and SASS are
+equal. Needs
 nvcc and cuobjdump (the CUDA toolkit, `cuda_engine.nvcc_path`'s
 directory); nothing is launched.
 """
@@ -57,20 +61,28 @@ def sass(path):
             for ln in text.splitlines() if re.match(r"\s*(/\*[0-9a-f]{4,}\*/|Function :)", ln)]
     return hashlib.sha256("\n".join(keep).encode()).hexdigest(), len(keep)
 
-libs, log = ce.load_cuda_library()
-sections = log.split("== G=")[1:]
-for G, lib in sorted(libs.items()):
-    text = next(s for s in sections if s.startswith(f"{G}\n"))
+def report(label, lib, text):
     digest, n = sass(lib._name)
-    print(json.dumps({"root": root, "lib": f"engine G={G}", "ptxas": ptxas(text),
-                      "sass_sha256": digest, "sass_lines": n}), flush=True)
-for env_id in tasks:
-    st = tk.CudaTaskStep(make_task(env_id))
+    print(json.dumps({"root": root, "lib": label, "ptxas": ptxas(text), "sass_sha256": digest,
+                      "sass_lines": n}), flush=True)
+
+# the classes by the argument both roots' load_cuda_library take
+classes = [("engine", False), ("engine_large", True)] + (
+    [("engine_huge", ce.HUGE)] if hasattr(ce, "HUGE") else [])
+for kind, size in classes:
+    libs, log = ce.load_cuda_library(size)
+    sections = log.split("== G=")[1:]
+    for G, lib in sorted(libs.items()):
+        report(f"{kind} G={G}", lib, next(s for s in sections if s.startswith(f"{G}\n")))
+sys.path.insert(0, root)
+import chip_smoke as cs
+scene = (cs.humanoids_task(cs.humanoids_xml(2), 2) if hasattr(cs, "humanoids_task")
+         else cs.two_humanoid_task(cs.two_humanoids_xml()))
+for env_id, task in [(e, make_task(e)) for e in tasks] + [("TwoHumanoids-v0", scene)]:
+    st = tk.CudaTaskStep(task)
     st.prepare()
     lib, text = st.library()
-    digest, n = sass(lib._name)
-    print(json.dumps({"root": root, "lib": f"task {env_id} G={st.tables.lanes}",
-                      "ptxas": ptxas(text), "sass_sha256": digest, "sass_lines": n}), flush=True)
+    report(f"task {env_id} G={st.tables.lanes}", lib, text)
 """
 
 

@@ -16,7 +16,8 @@ the scene on a CPU):
     plain step at B=8 for 3 steps of one substep, resets bitwise;
 (e) the seven balls through the large physics twin against plain;
 (f) the size class of every shipped ID is the default (its tables 26,096
-    bytes), that of the scene and the balls the large one;
+    bytes), that of the scene and the balls the large one, and eleven balls
+    (nv 66) go on to the huge one (tests/test_torch_huge_models.py);
 (g) the scene registered by ID runs through `make_batched(device="cpu")`
     with both backends, and its state through `utils.interop` both ways.
 
@@ -60,44 +61,51 @@ from test_torch_models import _same
 SCENE_ID = "TwoHumanoids-v0"
 
 
-def two_humanoids_xml() -> str:
-    """Two copies of the repository's humanoid.xml in one worldbody: the
-    second's body, joint, geom and actuator names prefixed with "h2_", its
-    torso 1.5 m along y."""
+def humanoids_xml(n: int = 2) -> str:
+    """n copies of the repository's humanoid.xml in one worldbody: copy k's
+    (k >= 2) body, joint, geom and actuator names prefixed with "h{k}_", its
+    torso 1.5 (k - 1) m along y."""
     root = ET.parse(asset_path("humanoid.xml")).getroot()
     world, motors = root.find("worldbody"), root.find("actuator")
-    torso = copy.deepcopy(world.find("body"))
-    for el in torso.iter():
-        if "name" in el.attrib:
-            el.set("name", "h2_" + el.get("name"))
-    torso.set("pos", "0 1.5 1.4")
-    world.append(torso)
-    for m in list(motors):
-        m2 = copy.deepcopy(m)
-        m2.set("name", "h2_" + m.get("name"))
-        m2.set("joint", "h2_" + m.get("joint"))
-        motors.append(m2)
+    body, motor_list = world.find("body"), list(motors)
+    for k in range(2, n + 1):
+        torso = copy.deepcopy(body)
+        for el in torso.iter():
+            if "name" in el.attrib:
+                el.set("name", f"h{k}_" + el.get("name"))
+        torso.set("pos", f"0 {1.5 * (k - 1)} 1.4")
+        world.append(torso)
+        for m in motor_list:
+            m2 = copy.deepcopy(m)
+            m2.set("name", f"h{k}_" + m.get("name"))
+            m2.set("joint", f"h{k}_" + m.get("joint"))
+            motors.append(m2)
     return ET.tostring(root, encoding="unicode")
 
 
-def two_humanoid_task(pkg, xp):
-    """TwoHumanoidTask for the package `pkg` (a namespace of its Task,
-    parse_mjcf, rand, PhysicsConfig and SolverConfig), with `xp` its array
-    namespace. Reset: qpos0 plus U(±0.01) on every q (stream j) and U(±0.01)
-    on every v (stream nq + d); torque: each actuator's gear times the
-    clipped action; obs: both humanoids' q less each root's x and y, and
-    0.1 v; reward: both torsos' world x-velocities plus 1 alive each; done:
-    either torso below z 0.8."""
+def two_humanoids_xml() -> str:
+    return humanoids_xml(2)
+
+
+def humanoids_task(pkg, xp, n: int = 2):
+    """The task over `humanoids_xml(n)` for the package `pkg` (a namespace
+    of its Task, parse_mjcf, rand, PhysicsConfig and SolverConfig), with
+    `xp` its array namespace. Reset: qpos0 plus U(±0.01) on every q (stream
+    j) and U(±0.01) on every v (stream nq + d); torque: each actuator's gear
+    times the clipped action; obs: every humanoid's q less each root's x and
+    y, and 0.1 v; reward: the torsos' world x-velocities plus 1 alive each;
+    done: any torso below z 0.8."""
 
     class TwoHumanoidTask(pkg.Task):
         NOISE = 0.01
 
         def __init__(self, xml: str):
-            self.model = m = pkg.parse_mjcf(xml, "two_humanoids")
+            self.model = m = pkg.parse_mjcf(xml, "two_humanoids" if n == 2 else f"humanoids{n}")
             self.physics = pkg.PhysicsConfig(solver=pkg.SolverConfig())
             self.act_dofs = [a.v_adr for a in m.actuators]
             self.gears = [float(a.gear) for a in m.actuators]
-            roots = [m.bodies[m.body_index(n)] for n in ("torso", "h2_torso")]
+            names = ["torso"] + [f"h{k}_torso" for k in range(2, n + 1)]
+            roots = [m.bodies[m.body_index(name)] for name in names]
             self.root_q = [b.q_adr for b in roots]
             self.root_v = [b.v_adr for b in roots]
             drop = {r + k for r in self.root_q for k in (0, 1)}
@@ -129,11 +137,14 @@ def two_humanoid_task(pkg, xp):
         def output_scalar(self, q, v, depths, a, aux, ids=None):
             obs = [q[j] for j in self.obs_q] + [0.1 * x for x in v]
             progress = sum(self._vx(q, v, r, d) for r, d in zip(self.root_q, self.root_v))
-            alive = xp.full_like(q[0], 2.0)
+            alive = xp.full_like(q[0], float(n))
             fallen = q[self.root_q[0] + 2] < 0.8
-            fallen = fallen | (q[self.root_q[1] + 2] < 0.8)
-            return obs, progress + 2.0, fallen, dict(aux), {"alive": alive, "progress": progress}
+            for r in self.root_q[1:]:
+                fallen = fallen | (q[r + 2] < 0.8)
+            return obs, progress + float(n), fallen, dict(aux), {"alive": alive, "progress": progress}
 
+    if n != 2:
+        TwoHumanoidTask.__name__ = TwoHumanoidTask.__qualname__ = f"Humanoids{n}Task"
     return TwoHumanoidTask
 
 
@@ -143,7 +154,7 @@ _PKG_J = type("pkg", (), dict(
 _PKG_T = type("pkg", (), dict(
     Task=base_t.Task, parse_mjcf=staticmethod(mjcf_t.parse_mjcf), rand=rand_t,
     PhysicsConfig=step_t.PhysicsConfig, SolverConfig=ct_t.SolverConfig))
-TwoHumanoidJ, TwoHumanoidT = two_humanoid_task(_PKG_J, jnp), two_humanoid_task(_PKG_T, torch)
+TwoHumanoidJ, TwoHumanoidT = humanoids_task(_PKG_J, jnp), humanoids_task(_PKG_T, torch)
 
 
 def balls_xml(n: int, z: float = 1.0) -> str:
@@ -260,7 +271,7 @@ def test_large_twins_match_plain(scene):
     acts = [torch.from_numpy(_torques(tt, B, 20 + t)[0]) for t in range(3)]
     plain = _rollout(lambda s, a: env_step_plain(tt, s, a, 1), s0, acts)
     twin = tk.HostTaskTwin(tt, frame_skip=1)
-    assert ce.big_tables(twin.tables) and twin.tables.caps_id == ce.CAPS_BIG
+    assert ce.tables_class(twin.tables) == ce.LARGE and twin.tables.caps_id == ce.CAPS_BIG
     assert (twin.tables.lanes, twin.tables.nv, twin.tables.nl, twin.tables.nr) == (32, 46, 68, 58)
     got = _rollout(twin, s0, acts)
     for t, (p, h) in enumerate(zip(plain, got)):
@@ -277,7 +288,7 @@ def test_large_twins_match_plain(scene):
     # the physics twin from the plain rollout's states and torques (the
     # task has no pre-physics hook): its envs not reset in the step
     tab = ce.pack_physics(tt.model, dataclasses.replace(tt.physics, frame_skip=1))
-    assert ce.big_tables(tab) and ctypes.sizeof(tab) == 52688
+    assert ce.tables_class(tab) == ce.LARGE and ctypes.sizeof(tab) == 52688
     hw = ce.HostTwin()
     for t, (s, p) in enumerate(zip([s0] + plain[:2], plain)):
         tau = torch.zeros((tt.model.nv, B))
@@ -294,7 +305,7 @@ def test_free_balls_through_the_large_twin(tmp_path):
     model = mjcf_t.parse_mjcf(balls_xml(7, 0.09), "balls")
     cfg = step_t.PhysicsConfig()
     tab = ce.pack_physics(model, cfg)
-    assert model.nv == 42 and ce.big_tables(tab) and tab.lanes == 32
+    assert model.nv == 42 and ce.tables_class(tab) == ce.LARGE and tab.lanes == 32
     B = 8
     rng = np.random.default_rng(2)
     q = torch.from_numpy(np.repeat(model.qpos0[:, None], B, 1).astype(np.float32))
@@ -326,7 +337,7 @@ def test_size_classes():
         task = pt.make_task(env_id)
         assert ce.caps_class(task.model, task.physics, task.act_dim) in (0, 1), env_id
         t = ce.pack_physics(task.model, task.physics, act=task.act_dim)
-        assert type(t) is Tables and not ce.big_tables(t), env_id
+        assert type(t) is Tables and ce.tables_class(t) == ce.DEFAULT, env_id
     scene = mjcf_t.parse_mjcf(two_humanoids_xml(), "two_humanoids")
     balls = mjcf_t.parse_mjcf(balls_xml(7), "balls")
     cfg = step_t.PhysicsConfig()
@@ -335,8 +346,9 @@ def test_size_classes():
         t = ce.pack_physics(m, cfg)
         assert type(t) is BigTables and t.caps_id == ce.CAPS_BIG and t.lanes == 32
         assert t.nv <= ce.lane_nv(32, True) == 64 and ce.lane_nv(32) == 40
-    with pytest.raises(NotImplementedError, match="'NV': 66"):
-        ce.pack_physics(mjcf_t.parse_mjcf(balls_xml(11), "balls"), cfg)
+    # eleven balls (nv 66) pass the large caps: the huge class takes them
+    t = ce.pack_physics(mjcf_t.parse_mjcf(balls_xml(11), "balls"), cfg)
+    assert ce.tables_class(t) == ce.HUGE and t.caps_id == ce.CAPS_HUGE and t.nv == 66 > big["MAX_NV"]
 
 
 def test_scene_by_id_with_both_backends(scene):
@@ -353,7 +365,7 @@ def test_scene_by_id_with_both_backends(scene):
     envs = {b: pt.make_batched(SCENE_ID, B, device="cpu", backend=b)
             for b in ("fused", "composed")}
     assert envs["fused"].step_fn.kernel == "task_step_kernel_large"
-    assert envs["fused"].step_fn.big and envs["composed"].backend == "composed"
+    assert envs["fused"].step_fn.size == ce.LARGE and envs["composed"].backend == "composed"
     a = np.random.default_rng(1).uniform(-1, 1, (B, 34)).astype(np.float32)
     out = {b: e.step(e.reset(seed=2), a) for b, e in envs.items()}
     for k in ("q", "v", "obs", "reward", "terminated", "epoch"):

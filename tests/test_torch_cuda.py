@@ -298,9 +298,7 @@ def test_user_task_kernel_matches_plain():
         bounds_env(k, env_step_plain(task, s, a), len(task.foot_rows))
         assert sorted(k.aux) == sorted(s.aux) and "fast" in k.aux
         s = k
-    assert dict(ce.LAUNCHES) == {"physics_step_kernel": 0, "env_step_kernel": 0,
-                                 "task_step_kernel": 3, "physics_step_kernel_large": 0,
-                                 "task_step_kernel_large": 0}
+    assert dict(ce.LAUNCHES) == dict(dict.fromkeys(ce.LAUNCHES, 0), task_step_kernel=3)
     comp = BatchedEnv(task, B, device="cuda", backend="composed")
     ce.reset_launch_counts()
     for _ in range(2):
@@ -484,7 +482,7 @@ def test_large_tables_physics_kernel_matches_plain():
     model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
                        f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
     phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
-    assert phys.big and phys.kernel == "physics_step_kernel_large"
+    assert phys.size == ce.LARGE and phys.kernel == "physics_step_kernel_large"
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
     v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
@@ -498,3 +496,41 @@ def test_large_tables_physics_kernel_matches_plain():
     dq = (qk - qp).abs()
     assert dq.mean() < 3e-4 and dq.max() < 1e-2
     assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+
+
+def test_huge_tables_physics_kernel_matches_plain():
+    """Eleven free balls (nv 66, over the large class's 64 dofs) through
+    physics_step_kernel's huge build (the tables and the rows Y in global
+    memory), at the walker budget, counted apart; a CUDA graph of the
+    launch replays on the Y buffer that prepare allocated, bitwise."""
+    _need_gpu()
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    balls = "".join(
+        f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(11))
+    model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                       f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
+    phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
+    assert phys.size == ce.HUGE and phys.kernel == "physics_step_kernel_huge"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
+    v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
+    tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
+    phys.prepare(torch.device("cuda"), B)
+    ce.reset_launch_counts()
+    qk, vk, dk = phys(q, v, tau)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES["physics_step_kernel_huge"] == phys.launches == 1
+    assert ce.LAUNCHES["physics_step_kernel"] == ce.LAUNCHES["physics_step_kernel_large"] == 0
+    qp, vp, dp = phys.plain(q, v, tau)
+    dq = (qk - qp).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = phys(q, v, tau)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(out, (qk, vk, dk)))

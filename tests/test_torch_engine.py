@@ -375,17 +375,19 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
 
     with pytest.raises(NotImplementedError, match="Pushed"):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
-    # a model above 64 dofs (eleven free balls: 66), over the large class's
-    # caps (seven balls, nv 42, are in it: test_torch_big_models.py)
+    # a model above 128 dofs (22 free balls: 132), over the huge class's
+    # caps (seven balls, nv 42, are in the large class:
+    # test_torch_big_models.py; eleven, nv 66, in the huge one:
+    # test_torch_huge_models.py)
     balls = "".join(
         f'<body name="b{i}" pos="{i} 0 1"><joint name="j{i}" type="free"/>'
-        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(11))
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(22))
     xml = tmp_path / "balls.xml"
     xml.write_text('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
                    f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
     model = load_mjcf(str(xml))
-    assert model.nv == 66
-    with pytest.raises(NotImplementedError, match="'NV': 66"):
+    assert model.nv == 132
+    with pytest.raises(NotImplementedError, match="'NV': 132"):
         ce.pack_physics(model, tt.physics)
     env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):
