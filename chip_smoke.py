@@ -73,7 +73,10 @@ dofs than a group's 32 lanes, root paths past bit 31):
     against the unsharded ones (metrics rtol 1e-4, leaves as
     tests/test_torch_sac.py holds them, one Adam step an update; learners
     bitwise across ranks),
-    then 3 timed iterations; `dryrun_multichip`: `entry.dryrun_multichip(D)`.
+    then 3 timed iterations; `mesh_task`: a user's task by its registered ID
+    (ShapedAnt, tests/torch_user_tasks.py), 20 steps, the gathered state
+    bitwise the unsharded one's, task_step_kernel 20 launches a rank and
+    nothing else; `dryrun_multichip`: `entry.dryrun_multichip(D)`.
     Each prints its backend, D and devices;
   * drives any task's env step (`user_task_paths`), each path with the
     launch counts reset just before it and read just after: builds
@@ -92,6 +95,19 @@ dofs than a group's 32 lanes, root paths past bit 31):
     (50 task-kernel launches), the first 5 held to the plain version and to
     the composed step; 3 `ppo.train` steps on its ID (96 launches); times
     of every backend and of the capture;
+  * drives the hook translation's ops (`task_ops_paths`, each path with the
+    launch counts reset just before it and read just after): builds
+    task_step_kernel with the hooks of OpProbe (an op of torch an obs entry,
+    on InvertedPendulum's model) and ShapedAnt (Ant with a shaped reward of
+    softplus, sigmoid, relu and a tensor power, per-env vectors, rounding
+    and integer division of env_id, lerp before the physics;
+    tests/torch_user_tasks.py), registered by ID; ptxas no spills; 20 steps
+    each at B=4096 by ID (20 launches of it, nothing else), the probe's
+    every op bitwise to torch's CUDA ops on the same inputs (the plain step
+    on the card), ShapedAnt within the walker bounds of the plain version
+    at steps 0 and 10, resets bitwise; ShapedAnt composed (20 physics
+    launches, graph = eager bitwise) and the task kernel's step bitwise to
+    it; ms a step of both beside env_step_kernel's on Ant;
   * drives models over the default tables' caps (`big_model_paths`, each
     path with the launch counts reset just before it and read just after):
     builds the large class of the tables (-DENG_BIG_TABLES: engine.cu, one
@@ -276,6 +292,7 @@ MESH_STEPS = 50
 MESH_FORCED_AT = (10, 30)  # steps before which every third env is forced to reset
 SAC_WARM = 7  # SACConfig defaults: iterations that only collect, then ones that learn
 SAC_LEARN = 2  # learning iterations held to the unsharded ones: the second's collect is the actor's
+MESH_TASK_STEPS = 20  # mesh_task: a user's task by ID, its steps (forced resets at MESH_FORCED_AT)
 
 
 def mesh_actions(act_dim):
@@ -365,6 +382,33 @@ def mesh_rank():
                                      for k in ("epoch", "step_count", "truncated", "env_id")),
                 mean_dq=dq.mean().item(), max_dq=dq.max().item())
         out[env_id] = rec
+
+    # mesh_task: a user's task by its ID (ShapedAnt, registered in the rank,
+    # its hooks translated there; task_step_kernel from the build made before
+    # the ranks started), MESH_TASK_STEPS steps on this rank's block
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+    import torch_user_tasks as ut
+
+    pt.register(ut.SHAPED_ANT_ID, ut.shaped_ant(loco, torch, ut.NN_TORCH), ut.SHAPED_ANT_STEPS)
+    env = make_batched(ut.SHAPED_ANT_ID, b, device=dev)
+    acts, forced = mesh_actions(env.task.act_dim)
+    a = torch.as_tensor(acts[:MESH_TASK_STEPS, lo:hi], device=dev)
+    f = torch.as_tensor(forced[lo:hi], device=dev)
+    env.step(env.reset(seed=1, first_env=lo), a[0])  # warm-up
+    s = env.reset(seed=0, first_env=lo)
+    t0 = start()
+    for t in range(MESH_TASK_STEPS):
+        if t in MESH_FORCED_AT:
+            s = s._replace(terminated=s.terminated | f)
+        s = env.step(s, a[t])
+    torch.cuda.synchronize()
+    rec = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / MESH_TASK_STEPS,
+               launches=dict(ce.LAUNCHES), kernel=env.step_fn.kernel)
+    g = pmesh.gather_env_state(s, mesh)
+    if mesh.rank == 0:
+        rec["state"] = env_state_to_numpy(g)
+    out["mesh_task"] = rec
 
     # mesh_ppo: Ant, PPOConfig defaults + normalize_obs, from the JAX checkpoint
     cfg = ppo.PPOConfig(normalize_obs=True)
@@ -482,7 +526,8 @@ def user_task_paths(card):
       kernel's. Times of every backend, the capture's ms.
     * `user_task`: BackwardCheetah registered and made by ID (the default
       backend): 50 steps, task_step_kernel 50; the first 5 held to the plain
-      version on the card (env_step_plain) and to the composed step.
+      version on the card (env_step_plain) and to the composed step; the
+      composed step's times (graph, replay, eager, capture).
     * `ppo:BackwardCheetah-v0`: 3 `ppo.train` steps on its ID
       (PPOConfig(normalize_obs=True)): finite, task_step_kernel 96."""
     import numpy as np
@@ -652,6 +697,12 @@ def user_task_paths(card):
     require(bool(torch.isfinite(last.q).all()) and "backward_steps" in last.aux
             and bool((last.aux["backward_steps"] >= 0).all()), f"{USER_ID}: final state")
     s, a = states[5], acts[5].T.contiguous()
+    eager = pt.make_batched(USER_ID, B, backend="composed", graph=False)
+    g = next(iter(comp.step_fn._graphs.values()))
+    composed = dict(composed_graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 20),
+                    composed_replay_ms=cuda_ms(g.graph.replay, 10),
+                    composed_eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+                    capture_ms=comp.step_fn.capture_ms)
     ustep = uenv.step_fn
     flops, nbytes = tk.work_per_task_step(
         ustep.tables, ustep.program, (s.terminated | s.truncated).float().mean().item())
@@ -664,14 +715,14 @@ def user_task_paths(card):
         "plain_ms": min(plain_ms), "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
         "B": B, "timed_on": USER_ID, "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
-        "models": [USER_ID] + list(USER_MODELS), "per_model": timing}
+        "models": [USER_ID] + list(USER_MODELS), "per_model": timing, **composed}
     emit("user_task", env=USER_ID, task=type(task).__name__, B=B, steps=USER_STEPS,
          launches=n, held_to_plain_steps=USER_PLAIN_STEPS, max_dq_vs_plain=plain,
          max_dq_vs_composed=vs_comp, aux_keys=sorted(last.aux),
          backward_steps_mean=last.aux["backward_steps"].mean().item(),
          ms=entry["ms"], eager_ms=entry["eager_ms"], plain_ms=entry["plain_ms"],
          bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
-         env_steps_per_s=B * 1e3 / entry["ms"], card=card)
+         env_steps_per_s=B * 1e3 / entry["ms"], card=card, **composed)
 
     cfg = ppo.PPOConfig(normalize_obs=True)
     (ts, es, m), n = counted(lambda: ppo.train(USER_ID, B, 3, cfg, seed=0))
@@ -682,6 +733,208 @@ def user_task_paths(card):
     require(all(np.isfinite(list(metrics.values()))), f"non-finite PPO metrics {metrics}")
     require(n == dict(none, task_step_kernel=3 * cfg.rollout_length), f"user-task PPO: {n}")
     return launches, entry
+
+
+# ---- the translation's ops and a shaped-reward user task (task_ops_paths) ---
+OPS_STEPS = 20
+OPS_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
+SHAPED_PLAIN_AT = (0, 10)  # ShapedAnt's steps held to the plain version (seconds a step)
+
+
+def task_ops_paths(card):
+    """The translation's ops on the card at B=4096, each path with the
+    launch counts reset just before it and read just after. Returns
+    ({path: launches}, {env ID: the task kernel's record}).
+
+    * Build: `task_step_kernel` with the hooks of OpProbe (an op an obs
+      entry, tests/torch_user_tasks.py) and of ShapedAnt, both registered by
+      ID, one nvcc each, together; ptxas: no spills, stack frames under 1 KB.
+    * `task_ops:<id>`: 20 steps by ID (`make_batched`, the default fused
+      backend), every third env forced to reset before steps 0 and 10:
+      task_step_kernel 20 launches, nothing else. The probe's steps each
+      held to the plain version on the card (torch's CUDA ops on the same
+      inputs): every op's entry bitwise (its largest ulp distance printed),
+      the physics within the walkers' bounds of the fixed-base family;
+      ShapedAnt's steps 0 and 10 within the walker bounds; the forced envs'
+      reset bitwise.
+    * `composed:ShapedAnt-v0`: the same ID composed (graph, 20 physics
+      launches, nothing else), each step bitwise the eager composed step's,
+      and the task kernel's step from the same input: q, obs and reward
+      bitwise (each obs entry's largest ulp distance printed).
+    * Times: ms a step fused and composed, beside env_step_kernel's on Ant
+      in the same run; the plain step's; the bound."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import bounds_env, bounds_fixed
+    import torch_user_tasks as ut
+
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+    from pybulletgym_tpu_torch.envs import pendula
+    from pybulletgym_tpu_torch.envs.base import env_step_plain
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+
+    dev = torch.device("cuda", 0)
+    fields = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
+    none = dict.fromkeys(ce.LAUNCHES, 0)
+    launches, timing = {}, {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ce.LAUNCHES)
+
+    def bitwise(a, b):
+        return (all(torch.equal(getattr(a, k), getattr(b, k)) for k in fields)
+                and all(torch.equal(a.aux[k], b.aux[k]) for k in b.aux)
+                and all(torch.equal(a.rewards[k], b.rewards[k]) for k in b.rewards))
+
+    # ---- build both task kernels at once -----------------------------------
+    pt.register(ut.OP_PROBE_ID, ut.op_probe(pendula, torch), 1000)
+    pt.register(ut.SHAPED_ANT_ID, ut.shaped_ant(loco, torch, ut.NN_TORCH), ut.SHAPED_ANT_STEPS)
+    ids = (ut.OP_PROBE_ID, ut.SHAPED_ANT_ID)
+    tasks = {env_id: pt.make_task(env_id) for env_id in ids}
+    t0 = time.perf_counter()
+    steps = {env_id: tk.CudaTaskStep(task) for env_id, task in tasks.items()}
+    for st in steps.values():
+        st.prepare()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logs = tk.build_task_libraries(steps.values())
+    build_s = time.perf_counter() - t0
+    libs = []
+    for env_id, st in steps.items():
+        rep = [dict(k, G=st.tables.lanes) for k in
+               ptxas_report(logs[os.path.join(ce.BUILD_DIR, st.cuda_job()[1])])]
+        libs.append({"env": env_id, "hook_statements": st.program.ops,
+                     "hook_flops": st.program.flops, "ptxas": rep,
+                     "launch": st.launch_config(dev, B)})
+    emit("task_ops_build", trace_seconds=trace_s, nvcc_seconds=build_s, kernels=libs, card=card)
+    for lib in libs:
+        for k in lib["ptxas"]:
+            require(k["spill_stores"] == 0 and k["spill_loads"] == 0 and k["stack_bytes"] < 1024,
+                    f"ptxas, {lib['env']}: {k}")
+
+    forced = torch.zeros(B, dtype=torch.bool, device=dev)
+    forced[::3] = True
+
+    def actions(env_id):
+        if env_id == ut.OP_PROBE_ID:
+            a = [ut.probe_actions(B, 100 + t) for t in range(OPS_STEPS)]
+        else:
+            a = np.random.default_rng(14).uniform(-1, 1, (OPS_STEPS, tasks[env_id].act_dim, B))
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def rollout(step_fn, fresh, acts):
+        s, out = fresh, []
+        for t in range(OPS_STEPS):
+            if t in OPS_FORCED_AT:
+                s = s._replace(terminated=s.terminated | forced)
+            out.append((s, acts[t], step_fn(s, acts[t])))
+            s = out[-1][2]
+        return out
+
+    # env_step_kernel on Ant, the yardstick of this run
+    ant = pt.make_batched(ANT, B)
+    sa = ant.reset(seed=3)
+    aa = actions(ut.SHAPED_ANT_ID)[0]
+    ant_ms = graph_ms(lambda: ant.step_fn(sa, aa))
+
+    for env_id in ids:
+        task = tasks[env_id]
+        probe = env_id == ut.OP_PROBE_ID
+        fused = pt.make_batched(env_id, B)
+        require(fused.backend == "fused" and fused.step_fn.kernel == "task_step_kernel",
+                f"{env_id}: {fused.backend}, {fused.step_fn.kernel}")
+        acts = actions(env_id)
+        fresh = fused.reset(seed=3)
+        ksteps, n = counted(lambda: rollout(fused.step_fn, fresh, acts))
+        launches["task_ops:" + env_id] = n
+        require(n == dict(none, task_step_kernel=OPS_STEPS), f"{env_id} task kernel: {n}")
+        reset_k = tk.CudaTaskStep(task, frame_skip=0)
+        plain_ms, max_dq, ops = [], 0.0, {}
+        for t, (s, a, out) in enumerate(ksteps):
+            if probe or t in SHAPED_PLAIN_AT:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p = env_step_plain(task, s, a)
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                (bounds_fixed if probe else
+                 lambda x, y: bounds_env(x, y, len(task.foot_rows)))(out, p)
+                max_dq = max(max_dq, (out.q - p.q).abs().max().item())
+                if probe:  # each op against torch's CUDA kernel, on the same inputs
+                    h, g = out.obs.cpu().numpy(), p.obs.cpu().numpy()
+                    for k, (name, _) in enumerate(ut.OP_ENTRIES):
+                        was = ops.get(name, (True, 0))
+                        ops[name] = (was[0] and np.array_equal(h[k].view(np.int32),
+                                                               g[k].view(np.int32)),
+                                     max(was[1], int(ut.ulps(h[k], g[k]).max())))
+            if t in OPS_FORCED_AT:
+                rk, rp = reset_k(s, a), env_step_plain(task, s, a, frame_skip=0)
+                require(torch.equal(rk.q[:, forced], rp.q[:, forced])
+                        and torch.equal(rk.v[:, forced], rp.v[:, forced])
+                        and torch.equal(rk.epoch, rp.epoch),
+                        f"{env_id} step {t}: the task kernel's reset differs from the plain one")
+        last = ksteps[-1][2]
+        require(bool(torch.isfinite(last.q).all()) and sorted(last.aux) == sorted(fresh.aux),
+                f"{env_id}: the final state")
+        if probe:
+            emit("task_ops_probe", env=env_id, B=B, steps=OPS_STEPS,
+                 entries={k: {"bitwise": v[0], "max_ulp": v[1]} for k, v in ops.items()},
+                 card=card)
+            require(all(ok for ok, _ in ops.values()),
+                    f"ops off torch's CUDA kernels: {[k for k, v in ops.items() if not v[0]]}")
+        st = fused.step_fn
+        s, a = ksteps[5][0], ksteps[5][1]
+        flops, nbytes = tk.work_per_task_step(
+            st.tables, st.program, (s.terminated | s.truncated).float().mean().item())
+        t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
+        t_bytes = (nbytes * B + ctypes.sizeof(st.tables)) / PEAK_BYTES_PER_S * 1e3
+        rec = dict(ms=graph_ms(lambda: st(s, a)), host_ms=host_ms(lambda: st(s, a), 20),
+                   plain_ms=min(plain_ms), max_abs_err=max_dq,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops_per_env_step=flops, bytes_per_env_step=nbytes,
+                   env_step_kernel_ant_ms=ant_ms)
+        if not probe:
+            comp = pt.make_batched(env_id, B, backend="composed")
+            eager = pt.make_batched(env_id, B, backend="composed", graph=False)
+            csteps, n = counted(lambda: rollout(comp.step_fn, fresh, acts))
+            launches["composed:" + env_id] = n
+            require(n == dict(none, physics_step_kernel=OPS_STEPS), f"{env_id} composed: {n}")
+            obs_ulp = np.zeros(task.obs_dim, np.int64)
+            q_bitwise, reward_off = True, 0.0
+            for s_c, a_c, out in csteps:
+                require(bitwise(out, eager.step_fn(s_c, a_c)),
+                        f"{env_id}: the graph replay differs from the eager composed step")
+                k = fused.step_fn(s_c, a_c)
+                q_bitwise = q_bitwise and bool(torch.equal(k.q, out.q))
+                obs_ulp = np.maximum(obs_ulp, ut.ulps(k.obs.cpu().numpy(),
+                                                      out.obs.cpu().numpy()).max(1))
+                reward_off = max(reward_off, (k.reward - out.reward).abs().max().item())
+                bounds_env(k, out, len(task.foot_rows))
+            g = next(iter(comp.step_fn._graphs.values()))
+            rec.update(composed_graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 20),
+                       composed_replay_ms=cuda_ms(g.graph.replay, 10),
+                       composed_eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+                       capture_ms=comp.step_fn.capture_ms, composed_q_bitwise=q_bitwise,
+                       composed_obs_max_ulp=obs_ulp.tolist(), composed_reward_max_diff=reward_off)
+            require(q_bitwise and int(obs_ulp.max()) == 0 and reward_off == 0.0,
+                    f"{env_id}: the task kernel's step differs from the composed one: q bitwise "
+                    f"{q_bitwise}, obs ulps {obs_ulp.tolist()}, reward {reward_off}")
+        rec["env_steps_per_s"] = B * 1e3 / rec["ms"]
+        timing[env_id] = rec
+        emit("task_ops", env=env_id, B=B, steps=OPS_STEPS, forced_reset_at=OPS_FORCED_AT,
+             launches={p: n for p, n in launches.items() if p.endswith(env_id)},
+             held_to_plain_steps=OPS_STEPS if probe else SHAPED_PLAIN_AT,
+             resets_bitwise=True, graph_vs_eager_bitwise=not probe or None, card=card, **rec)
+    return launches, timing
 
 
 BIG_ID = "TwoHumanoids-v0"
@@ -1952,7 +2205,7 @@ def main():
         emit("mesh_world", seconds=time.perf_counter() - t0, envs=[r["envs"] for r in ranks],
              **common)
         require(all(r["backend"] == backend for r in ranks), "a rank runs another backend")
-        mesh_launches = {"env_step_kernel": {}, "physics_step_kernel": {}}
+        mesh_launches = {"env_step_kernel": {}, "physics_step_kernel": {}, "task_step_kernel": {}}
 
         def record(path, counts):
             """Each rank's launches of each kernel on `path` (its counts, read
@@ -1960,7 +2213,7 @@ def main():
             there (the dry run reports no task-kernel count). Returns the
             env-step kernel's."""
             for name in mesh_launches:
-                mesh_launches[name][path] = [c[name] for c in counts]
+                mesh_launches[name][path] = [c.get(name, 0) for c in counts]
             require(mesh_launches["physics_step_kernel"][path] == [0] * D,
                     f"{path}: physics_step_kernel launched {mesh_launches['physics_step_kernel']}")
             require([c.get("task_step_kernel", 0) for c in counts] == [0] * D,
@@ -2107,6 +2360,41 @@ def main():
         require(all(r["sac"]["ring_envs"] == B // D for r in ranks), "mesh_sac: ring not sharded")
         require(launches == [(SAC_WARM + SAC_LEARN + 3) * scfg.steps_per_iter] * D,
                 f"mesh_sac launches {launches}")
+
+        # mesh_task: a user's task by ID, the gathered state bitwise the unsharded one's
+        import torch_user_tasks as ut
+
+        uenv = make_batched(ut.SHAPED_ANT_ID, B)
+        acts, forced = mesh_actions(uenv.task.act_dim)
+        a, f = torch.as_tensor(acts, device=dev), torch.as_tensor(forced, device=dev)
+        uenv.step(uenv.reset(seed=1), a[0])
+        s = uenv.reset(seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MESH_TASK_STEPS):
+            if t in MESH_FORCED_AT:
+                s = s._replace(terminated=s.terminated | f)
+            s = uenv.step(s, a[t])
+        torch.cuda.synchronize()
+        ms_u = (time.perf_counter() - t0) * 1e3 / MESH_TASK_STEPS
+        ref, got = env_state_to_numpy(s), ranks[0]["mesh_task"]["state"]
+        same = all(np.array_equal(got[k][n], ref[k][n]) for k in ref if isinstance(ref[k], dict)
+                   for n in ref[k]) and all(
+            got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k])
+            for k in ref if not isinstance(ref[k], dict))
+        counts = [r["mesh_task"]["launches"] for r in ranks]
+        for name in mesh_launches:
+            mesh_launches[name]["mesh_task"] = [c.get(name, 0) for c in counts]
+        ms = [r["mesh_task"]["ms_per_step"] for r in ranks]
+        emit("mesh_task", env=ut.SHAPED_ANT_ID, B=B, steps=MESH_TASK_STEPS,
+             forced_reset_at=[t for t in MESH_FORCED_AT if t < MESH_TASK_STEPS], bitwise=same,
+             kernels=[r["mesh_task"]["kernel"] for r in ranks],
+             task_step_kernel_launches_per_rank=mesh_launches["task_step_kernel"]["mesh_task"],
+             sharded_ms_per_step=ms, sharded_env_steps_per_s=B * 1e3 / max(ms),
+             unsharded_ms_per_step=ms_u, unsharded_env_steps_per_s=B * 1e3 / ms_u, **common)
+        require(same, "mesh_task: the gathered sharded state differs from the unsharded one")
+        require(all(c == dict(dict.fromkeys(c, 0), task_step_kernel=MESH_TASK_STEPS)
+                    for c in counts), f"mesh_task launches {counts}")
 
         # dryrun_multichip: the port's entry point, over the same D ranks
         rec = entry.dryrun_multichip(D)
@@ -2431,6 +2719,7 @@ def main():
         main_api["checkpoint"] = checkpoint_path(tmp)
     render_path()
     main_user, task_entry = user_task_paths(card)
+    main_ops, ops_timing = task_ops_paths(card)
     main_big, big_entries = big_model_paths(card)
     main_huge, huge_entries = huge_model_paths(card)
     main_mesh = mesh_phases()
@@ -2476,10 +2765,15 @@ def main():
             "mesh_launches": main_mesh[name],
         })
     kernels[0]["composed_launches"] = {
-        path: n["physics_step_kernel"] for path, n in main_user.items() if "composed" in path}
+        path: n["physics_step_kernel"] for path, n in {**main_user, **main_ops}.items()
+        if "composed" in path}
+    task_entry["per_model"].update({env_id: dict(rec, launches=main_ops[f"task_ops:{env_id}"][
+        "task_step_kernel"]) for env_id, rec in ops_timing.items()})
     kernels.append(dict(task_entry, launches=main_user["user_task"]["task_step_kernel"],
                         path_launches={path: n["task_step_kernel"]
-                                       for path, n in main_user.items()}))
+                                       for path, n in {**main_user, **main_ops}.items()},
+                        mesh_launches=main_mesh["task_step_kernel"],
+                        models=task_entry["models"] + list(ops_timing)))
     for tag, main_scene, entries in (("big", main_big, big_entries),
                                      ("huge", main_huge, huge_entries)):
         for e in entries:  # the large and huge builds, launched on their own main paths only

@@ -5,9 +5,10 @@ make_pallas_env_step` for a task that `env_step_kernel` does not implement
 (a user's `Task`, a subclass of a shipped one): Pallas traces the task's
 scalar hooks into the kernel body, and so does this module. It runs each
 hook once on the CPU at a small batch under a `TorchDispatchMode` that
-records every aten op, checks that every value is per env (a (B,) tensor,
-elementwise in the batch) or a constant, and writes the ops out as C++
-statements (`trace_hooks`): one function per hook, in namespace `hooks`.
+records every aten op, checks that every value is per env (a tensor of a
+small static leading shape and the batch last, elementwise in the batch)
+or a constant, and writes the ops out as C++ statements (`trace_hooks`):
+one function per hook, in namespace `hooks`.
 `csrc/task_step.cu` compiles them with engine_core.h's substeps into
 `task_step_kernel` (`csrc/task_core.h · task_step_one`), built with nvcc
 per task into `_build/` (keyed by the content hash) and launched once per
@@ -18,14 +19,39 @@ block's shared memory the huge class's (`-DENG_HUGE_TABLES`: Y in a device
 buffer too).
 
 What the translation keeps from torch: each op's dtype and type promotion
-(`torch.result_type` of the traced arguments), one rounding per float op
-(no FMA contraction, `csrc/task_ops.h`), the division by a scalar as a
-product with its float32 reciprocal (what torch's CUDA kernel computes),
-wrapping integer arithmetic, NaN-propagating clamp, maximum and minimum.
-Values that do not depend on the env (the task's constants, factories such
-as `zeros_like`) are folded at trace time. A hook that branches in Python
-on a tensor's value (`.item()`, `bool(t)`), reduces over the batch or uses
-an op without a translation is refused with the op named.
+(`torch.result_type` of the traced arguments) in float32, float64 and the
+integer types of `_CTYPE`; each op's formula as torch's CUDA kernel
+computes it, every operation rounded on its own (no FMA contraction,
+`csrc/task_ops.h`) but where that kernel fuses one (addcmul, lerp, gelu's
+tanh form); the division by a Python scalar as a product with its
+reciprocal; wrapping integer arithmetic; NaN-propagating clamp, maximum,
+minimum and reductions. The ops: arithmetic, comparisons, bitwise and
+logical ops, shifts, where and masked_fill, casts; the math functions of
+`_UNARY_F`; the activations (relu, sigmoid, softplus, logsigmoid, silu,
+elu, leaky_relu, hardtanh, gelu, mish, logit, logaddexp); div with a
+rounding mode, floor_divide, fmod, remainder, round (and decimals), frac,
+copysign, signbit, sign and sgn; pow of any operands; hypot, lerp,
+addcmul, addcdiv, xlogy, deg2rad, rad2deg, sinc; erfc, erfinv, asinh,
+acosh, atanh; isnan, isinf, isposinf, isneginf, isfinite, nan_to_num,
+fmax, fmin, heaviside. A per-env value may hold up to `_MAX_ELEMENTS`
+elements before its batch axis (`torch.stack([x, y, z])` is (3, B)): each
+element is a C expression, ops broadcast over them, stack, cat,
+unsqueeze, squeeze, select, slice, unbind, split, flip, permute and
+indexing with constant indices move them, and sum, prod, mean, amax,
+amin, max/min over a dim, all, any, linalg.vector_norm, logsumexp, cumsum
+and cumprod over a leading axis are written out in index order. Values
+that do not depend on the env (the task's constants, factories such as
+`zeros_like`) are folded at trace time, by torch itself.
+
+Refused, with the hook and the op named (NotImplementedError, so that
+`BatchedEnv`'s default "fused" backend raises at construction and
+"composed" is taken only when asked for): a reduction, scan, stack or
+index over the batch axis (it couples the envs); torch's random draws
+(hooks draw with `ops/rand.py`'s Threefry); matrix products (write a sum
+of products); a gather or index with a per-env index; a Python branch on
+a value (`.item()`, `bool(t)`, `torch.equal`); a write into a view; a
+dtype outside `_CTYPE`; a per-env value of more than `_MAX_ELEMENTS`
+elements; any other op (lgamma, digamma, the Bessel functions, ...).
 
 `HostTaskTwin` builds the same source with g++ for the CPU tests.
 """
@@ -47,6 +73,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
 _TRACE_B = 5  # the trace's batch: >1, so that a value that varies over envs shows
+_MAX_ELEMENTS = 64  # the most elements of a per-env value (its leading shape's size)
 
 _CTYPE = {torch.float32: "float", torch.float64: "double", torch.int64: "int64_t",
           torch.int32: "int32_t", torch.uint32: "uint32_t", torch.bool: "bool"}
@@ -54,31 +81,83 @@ _FLOAT = (torch.float32, torch.float64)
 
 # ops whose output depends on their inputs' shape and dtype only
 _FACTORIES = {"zeros_like", "ones_like", "full_like", "zeros", "ones", "full",
-              "scalar_tensor", "new_zeros", "new_ones", "new_full"}
+              "scalar_tensor", "new_zeros", "new_ones", "new_full", "fill", "zero"}
 # ops that return their input
 _IDENTITY = {"clone", "alias", "detach", "lift_fresh", "lift_fresh_copy", "contiguous",
-             "expand", "view", "reshape", "_unsafe_view", "positive"}
+             "positive"}
 _COMPARE = {"gt": ">", "ge": ">=", "lt": "<", "le": "<=", "eq": "==", "ne": "!="}
 _BITWISE = {"bitwise_and": "&", "bitwise_or": "|", "bitwise_xor": "^"}
 _LOGICAL = {"logical_and": "&&", "logical_or": "||", "logical_xor": "!="}
 _ARITH = {"add": "tk::add", "sub": "tk::sub", "mul": "tk::mul"}
 _SHIFT = {"__lshift__": "tk::shl", "__rshift__": "tk::shr", "bitwise_left_shift": "tk::shl",
           "bitwise_right_shift": "tk::shr"}
+# the float32 C function of each unary op; float64's drops the "f"
 _UNARY_F = {"sin": "sinf", "cos": "cosf", "tan": "tanf", "exp": "expf", "log": "logf",
             "tanh": "tanhf", "asin": "asinf", "acos": "acosf", "atan": "atanf",
             "sinh": "sinhf", "cosh": "coshf", "expm1": "expm1f", "log1p": "log1pf",
             "log2": "log2f", "log10": "log10f", "floor": "floorf", "ceil": "ceilf",
-            "trunc": "truncf", "sqrt": "sqrtf", "erf": "erff", "exp2": "exp2f"}
+            "trunc": "truncf", "sqrt": "sqrtf", "erf": "erff", "exp2": "exp2f",
+            "erfc": "erfcf", "asinh": "asinhf", "acosh": "acoshf", "atanh": "atanhf"}
+# unary ops computed by the tk:: function of the same name (csrc/task_ops.h),
+# with their float operations (a math function counts one)
+_UNARY_TK = {"sigmoid": 3, "silu": 3, "mish": 4, "sinc": 3, "frac": 2, "erfinv": 1,
+             "log_sigmoid_forward": 4}
+# binary float ops computed by a tk:: function, with their float operations
+_BINARY_TK = {"hypot": ("tk::hypot_", 1), "logaddexp": ("tk::logaddexp", 6),
+              "copysign": ("tk::copysign_", 0), "heaviside": ("tk::heaviside", 0),
+              "fmax": ("tk::fmax_", 0), "fmin": ("tk::fmin_", 0), "fmod": ("tk::fmod_", 1),
+              "xlogy": ("tk::xlogy", 2)}
+# reductions and scans over the leading axes (each written out in index order)
+_REDUCE = {"sum", "prod", "mean", "amax", "amin", "max", "min", "all", "any",
+           "linalg_vector_norm", "logsumexp"}
+_SCAN = {"cumsum", "cumprod"}
+# ops that only move elements around
+_SHAPE = {"expand", "view", "reshape", "_unsafe_view", "unsqueeze", "squeeze", "select",
+          "slice", "permute", "transpose", "t", "stack", "cat", "unbind", "split",
+          "split_with_sizes", "index", "index_select", "flip"}
+# what stays refused, by name
+_DRAWS = {"rand", "randn", "rand_like", "randn_like", "randint", "randint_like", "randperm",
+          "uniform", "normal", "bernoulli", "multinomial", "exponential", "geometric",
+          "log_normal", "cauchy", "random", "poisson"}
+_PRODUCTS = {"mm", "mv", "bmm", "matmul", "dot", "vdot", "addmm", "addmv", "addbmm",
+             "baddbmm", "outer", "ger", "inner", "tensordot", "einsum", "linear"}
+_GATHERS = {"gather", "take", "take_along_dim", "index_select", "index"}
 
 
 class _Val:
-    """A traced value: a C expression of one env (a name or a literal) and
-    its dtype; `const` is the Python value of a constant, else None."""
+    """A traced value of one element: a C expression of one env (a name or
+    a literal) and its dtype; `const` is the Python value of a constant,
+    else None."""
 
     __slots__ = ("expr", "dtype", "const")
 
     def __init__(self, expr, dtype, const=None):
         self.expr, self.dtype, self.const = expr, dtype, const
+
+
+class _Arr:
+    """A per-env tensor: a `_Val` for each element of its leading shape
+    (`els`, a numpy object array); the batch axis trails, as in the JAX
+    package's (rows, B)."""
+
+    __slots__ = ("els", "dtype")
+
+    def __init__(self, els, dtype):
+        self.els, self.dtype = els, dtype
+
+
+def _one(v: _Val) -> _Arr:
+    return _Arr(_nd(v), v.dtype)
+
+
+def _nd(x) -> np.ndarray:
+    """numpy's result of indexing an object array: an array, or (all the
+    axes indexed) the element itself, made a 0-d array."""
+    if isinstance(x, np.ndarray):
+        return x
+    els = np.empty((), object)
+    els[()] = x
+    return els
 
 
 def _literal(value, dtype) -> str:
@@ -110,46 +189,85 @@ def _scalar_dtype(x):
     return torch.float64
 
 
+def _flat(xs):
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            yield from _flat(x)
+        else:
+            yield x
+
+
+def _params(args, kwargs, names, defaults):
+    """An op's parameters after its first argument: positional, else by
+    keyword, else the default."""
+    got = list(args[1:1 + len(names)])
+    return [got[i] if i < len(got) else kwargs.get(n, d)
+            for i, (n, d) in enumerate(zip(names, defaults))]
+
+
+def _in_dtype(x, dtype):
+    """The Python number `x` rounded as a value of `dtype` (a float32 op's
+    parameter, for example), as a float."""
+    return float(np.float32(x)) if dtype == torch.float32 else float(x)
+
+
 class _Recorder(TorchDispatchMode):
     """Records the aten ops of one hook as C statements over per-env values."""
 
     def __init__(self, where: str):
         super().__init__()
         self.where = where
-        self.vals: Dict[int, _Val] = {}
+        self.vals: Dict[int, _Arr] = {}
         self.keep: List[torch.Tensor] = []  # every traced tensor stays alive: ids stay unique
+        self.viewed = set()  # ids of views and of the tensors they view
         # (name, statement, deps, float operations)
         self.lines: List[Tuple[str, str, Tuple[str, ...], int]] = []
         self.n = 0
 
     # -- values --------------------------------------------------------------
-    def bind(self, t: torch.Tensor, val: _Val):
+    def bind(self, t: torch.Tensor, arr: _Arr, func=None):
+        if tuple(t.shape) != arr.els.shape + (_TRACE_B,):
+            raise NotImplementedError(f"{self.where}: {func} gives shape {tuple(t.shape)} "
+                                      "from per-env values: the hooks must be elementwise in "
+                                      "the batch, which stays the last axis")
+        if arr.els.size > _MAX_ELEMENTS:
+            raise NotImplementedError(
+                f"{self.where}: {func} gives a per-env value of {arr.els.size} elements "
+                f"(leading shape {arr.els.shape}): the kernel takes at most {_MAX_ELEMENTS}")
         self.keep.append(t)
-        self.vals[id(t)] = val
+        self.vals[id(t)] = arr
 
-    def val(self, x) -> _Val:
-        if isinstance(x, torch.Tensor):
-            v = self.vals.get(id(x))
-            if v is not None:
-                return v
-            return self._const_tensor(x, "a tensor from outside the hook")
-        if isinstance(x, (bool, int, float)):
-            return _Val(None, _scalar_dtype(x), x)
-        raise NotImplementedError(f"{self.where}: an argument of type {type(x).__name__}")
+    def live(self, x) -> bool:
+        return isinstance(x, torch.Tensor) and id(x) in self.vals
 
-    def _const_tensor(self, t: torch.Tensor, what: str) -> _Val:
+    def const_els(self, t: torch.Tensor, what: str) -> np.ndarray:
+        """The elements of a constant tensor over its leading shape: its last
+        axis lines up with the batch, so it is 1 or B long and the same in
+        every env."""
         if t.dtype not in _CTYPE:
             raise NotImplementedError(f"{self.where}: {what} of dtype {t.dtype}")
-        if t.dim() > 1 or (t.dim() == 1 and t.shape[0] != _TRACE_B):
-            raise NotImplementedError(f"{self.where}: {what} of shape {tuple(t.shape)}: the "
-                                      "hooks work on (B,) tensors")
-        xs = t.detach().reshape(-1).tolist()
-        if any(x != xs[0] and not (x != x and xs[0] != xs[0]) for x in xs):
-            raise NotImplementedError(f"{self.where}: {what} differs between envs")
-        v = _Val(None, t.dtype, xs[0])
-        self.keep.append(t)
-        self.vals[id(t)] = v
-        return v
+        a = t.detach()
+        if a.dim() >= 1:
+            if a.shape[-1] not in (1, _TRACE_B):
+                raise NotImplementedError(f"{self.where}: {what} of shape {tuple(t.shape)}: "
+                                          "its last axis lines up with the batch")
+            first = a[..., :1]
+            if not bool(((a == first) | ((a != a) & (first != first))).all()):
+                raise NotImplementedError(f"{self.where}: {what} differs between envs")
+            a = a[..., 0]
+        els = np.empty(tuple(a.shape), object)
+        for idx, x in zip(np.ndindex(els.shape), a.reshape(-1).tolist()):
+            els[idx] = _Val(None, t.dtype, x)
+        return els
+
+    def arr(self, x) -> _Arr:
+        if isinstance(x, torch.Tensor):
+            a = self.vals.get(id(x))
+            return a if a is not None else _Arr(
+                self.const_els(x, "a tensor from outside the hook"), x.dtype)
+        if isinstance(x, (bool, int, float)):
+            return _one(_Val(None, _scalar_dtype(x), x))
+        raise NotImplementedError(f"{self.where}: an argument of type {type(x).__name__}")
 
     def expr(self, v: _Val, dtype) -> str:
         """`v` as a C expression of `dtype` (torch's casts)."""
@@ -161,15 +279,14 @@ class _Recorder(TorchDispatchMode):
             return f"({v.expr} != 0)"
         return f"(({_CTYPE[dtype]}){v.expr})"
 
-    def emit(self, out: torch.Tensor, statement: str, deps, flops: int = 0) -> _Val:
-        if out.dtype not in _CTYPE:
-            raise NotImplementedError(f"{self.where}: a result of dtype {out.dtype}")
+    def emit(self, dtype, statement: str, deps, flops: int = 0) -> _Val:
+        if dtype not in _CTYPE:
+            raise NotImplementedError(f"{self.where}: a result of dtype {dtype}")
         name = f"t{self.n}"
         self.n += 1
-        c = _CTYPE[out.dtype]
-        self.lines.append((name, f"const {c} {name} = {statement};",
+        self.lines.append((name, f"const {_CTYPE[dtype]} {name} = {statement};",
                            tuple(d.expr for d in deps if d.const is None), flops))
-        return _Val(name, out.dtype)
+        return _Val(name, dtype)
 
     # -- dispatch ------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -183,49 +300,131 @@ class _Recorder(TorchDispatchMode):
                 "on a value at trace time; write the branch with torch.where")
         if inplace:
             base = base[:-1]
+        if base in _DRAWS:
+            raise NotImplementedError(
+                f"{self.where}: {func} draws from torch's generator: a hook draws with "
+                "ops/rand.py's Threefry (rand.uniform(seed, stream, env_id, epoch, lo, hi))")
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for o in outs:
+            if isinstance(o, torch.Tensor) and o._is_view():
+                self.keep += [o, o._base]  # alive, so that their ids stay theirs
+                self.viewed.update((id(o), id(o._base)))
+        live = any(self.live(t) for t in _flat(list(args) + list(kwargs.values())))
+        if not live:  # nothing per env: a constant (a factory, the task's constants)
+            return out
+        if (inplace or base == "copy") and (args[0]._is_view() or id(args[0]) in self.viewed):
+            raise NotImplementedError(
+                f"{self.where}: {func} writes into a view of a tensor (indexed, sliced or "
+                "reshaped): build the value with torch.stack, torch.cat or torch.where")
         if base == "copy":
             dst, src = args[0], args[1]
-            v = self.val(src)
-            if v.const is not None:
-                self.bind(dst, _Val(None, dst.dtype, v.const))
-            else:
-                self.bind(dst, v if v.dtype == dst.dtype else
-                          self.emit(dst, self.expr(v, dst.dtype), [v]))
+            if not self.live(src):  # a constant written over dst
+                self.vals.pop(id(dst), None)
+                return out
+            if dst.dim() == 0:
+                raise NotImplementedError(f"{self.where}: {func} into a tensor of shape ()")
+            els = self._broadcast(func, self.arr(src), tuple(dst.shape[:-1]))
+            new = np.empty(els.shape, object)
+            for idx in np.ndindex(els.shape):
+                v = els[idx]
+                new[idx] = (_Val(None, dst.dtype, v.const) if v.const is not None else
+                            v if v.dtype == dst.dtype else
+                            self.emit(dst.dtype, self.expr(v, dst.dtype), [v]))
+            self.bind(dst, _Arr(new, dst.dtype), func)
             return out
-        if not isinstance(out, torch.Tensor):
-            raise NotImplementedError(f"{self.where}: {func} returns {type(out).__name__}")
-        if base in _FACTORIES:
-            self._const_tensor(out, str(func))
+        if base in _FACTORIES:  # zeros_like(x), x.zero_(): a constant
+            if inplace:
+                self.vals.pop(id(args[0]), None)
             return out
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        vals = [self.val(a) for a in tensors]
-        if all(v.const is not None for v in vals):  # nothing per env: fold it
-            self._const_tensor(out, f"the constant result of {func}")
-            return out
-        if tuple(out.shape) != (_TRACE_B,):
-            raise NotImplementedError(f"{self.where}: {func} gives shape {tuple(out.shape)} "
-                                      "from per-env (B,) values: the hooks must be elementwise "
-                                      "in the batch")
-        self.bind(out, self._translate(func, base, args, kwargs, out))
+        if base in _PRODUCTS:
+            raise NotImplementedError(
+                f"{self.where}: {func} is a matrix product, which the kernel does not "
+                "take: write it as a sum of products, (u * w).sum(0) over a leading axis")
+        if base in _GATHERS and any(self.live(t) for t in _flat(args[1:])):
+            raise NotImplementedError(
+                f"{self.where}: {func} gathers or indexes with a per-env index, which the "
+                "kernel does not take: select with torch.where")
+        if base in _SHAPE:
+            new = self._shape(func, base, args, out)
+        elif base in _REDUCE and func._overloadname != "other":
+            new = self._reduce(func, base, args, kwargs, outs)
+        elif base in _SCAN:
+            new = [self._scan(func, base, args, out)]
+        elif base == "log_sigmoid_forward":  # (output, a buffer for the backward pass)
+            new = [self._elementwise(func, base, args, kwargs, outs[0])]
+            outs = outs[:1]
+        else:
+            if not isinstance(out, torch.Tensor):
+                raise NotImplementedError(f"{self.where}: {func} returns {type(out).__name__}")
+            new = [self._elementwise(func, base, args, kwargs, out)]
+        for o, a in zip(outs, new):
+            self.bind(o, a, func)
         return out
 
-    def _translate(self, func, base, args, kwargs, out) -> _Val:
-        R = out.dtype
-        vals = [self.val(a) if isinstance(a, (torch.Tensor, bool, int, float)) else None
-                for a in args]
+    def _batch_refused(self, func, what="reduces or scans over"):
+        return NotImplementedError(
+            f"{self.where}: {func} {what} the batch axis, which couples the envs: no CUDA "
+            "translation; the hooks must be elementwise in the batch")
+
+    def _broadcast(self, func, a: _Arr, shape) -> np.ndarray:
+        try:
+            return np.broadcast_to(a.els, shape)
+        except ValueError:
+            raise NotImplementedError(
+                f"{self.where}: {func} broadcasts a per-env value of leading shape "
+                f"{a.els.shape} to {shape}: the hooks must be elementwise in the batch, "
+                "which stays the last axis") from None
+
+    def _elementwise(self, func, base, args, kwargs, out) -> _Arr:
+        if out.dim() == 0 or out.shape[-1] != _TRACE_B:
+            raise NotImplementedError(f"{self.where}: {func} gives shape {tuple(out.shape)} "
+                                      "from per-env values: the hooks must be elementwise "
+                                      "in the batch")
+        if out.dtype not in _CTYPE:
+            raise NotImplementedError(f"{self.where}: {func} gives a result of dtype {out.dtype}")
+        S = tuple(out.shape[:-1])
+        if math.prod(S) > _MAX_ELEMENTS:
+            raise NotImplementedError(
+                f"{self.where}: {func} gives a per-env value of {math.prod(S)} elements "
+                f"(leading shape {S}): the kernel takes at most {_MAX_ELEMENTS}")
+        value = (torch.Tensor, bool, int, float)
+
+        def spread(x):
+            a = self.arr(x)
+            return a.els if a.els.shape == S else self._broadcast(func, a, S)
+
+        pos = [spread(a) if isinstance(a, value) else None for a in args]
+        kw = {k: spread(a) for k, a in kwargs.items() if isinstance(a, value)}
+        tensors = ([i for i, a in enumerate(args) if isinstance(a, torch.Tensor)],
+                   [k for k, a in kwargs.items() if isinstance(a, torch.Tensor)])
+        els = np.empty(S, object)
+        for idx in np.ndindex(S) if S else [()]:
+            vals = [None if p is None else p[idx] for p in pos]
+            kws = {k: p[idx] for k, p in kw.items()}
+            if all(vals[i].const is not None for i in tensors[0]) and \
+                    all(kws[k].const is not None for k in tensors[1]):
+                els[idx] = _Val(None, out.dtype, out[idx + (0,)].item())  # folded by torch
+            else:
+                els[idx] = self._translate(func, base, args, kwargs, out.dtype, vals, kws)
+        return _Arr(els, out.dtype)
+
+    def _translate(self, func, base, args, kwargs, R, vals, kws) -> _Val:
+        """One element of an elementwise op: `vals` and `kws` are the
+        elements of its positional and keyword arguments."""
         x = vals[0]
+        F = R in _FLOAT
 
         def binary():
             C = torch.result_type(args[0], args[1])
             return C, self.expr(vals[0], C), self.expr(vals[1], C)
 
+        def lit(v, dtype=R):
+            return _literal(v, dtype)
+
         if base in _IDENTITY:
-            if base in ("expand", "view", "reshape", "_unsafe_view") and \
-                    tuple(out.shape) != tuple(args[0].shape):
-                raise NotImplementedError(f"{self.where}: {func} changes the shape")
             return x
         if base == "_to_copy":
-            return self.emit(out, self.expr(x, R), [x])
+            return self.emit(R, self.expr(x, R), [x])
         if base in _ARITH or base == "rsub":
             C, a, b = binary()
             alpha = kwargs.get("alpha", args[2] if len(args) > 2 else 1)
@@ -234,11 +433,9 @@ class _Recorder(TorchDispatchMode):
             if alpha != 1:
                 b = f"tk::mul({_literal(alpha, C)}, {b})"
             op = "tk::sub" if base == "rsub" else _ARITH[base]
-            return self.emit(out, self._cast(f"{op}({a}, {b})", C, R), vals[:2],
+            return self.emit(R, self._cast(f"{op}({a}, {b})", C, R), vals[:2],
                              int(C in _FLOAT) * (1 + (alpha != 1)))
-        if base == "div":
-            if kwargs.get("rounding_mode") is not None:
-                raise NotImplementedError(f"{self.where}: {func} with a rounding mode")
+        if base == "div" and kwargs.get("rounding_mode") is None:
             C = torch.result_type(args[0], args[1])
             if C not in _FLOAT:
                 C = R
@@ -246,84 +443,430 @@ class _Recorder(TorchDispatchMode):
             if y.const is not None and C == torch.float32:
                 # torch's CUDA division by a scalar: the product with its reciprocal
                 inv = np.float32(1.0) / np.float32(y.const)
-                return self.emit(out, f"tk::mul({self.expr(x, C)}, {_literal(inv, C)})", [x], 1)
-            return self.emit(out, f"tk::div({self.expr(x, C)}, {self.expr(y, C)})", vals[:2], 1)
+                return self.emit(R, f"tk::mul({self.expr(x, C)}, {_literal(inv, C)})", [x], 1)
+            return self.emit(R, f"tk::div({self.expr(x, C)}, {self.expr(y, C)})", vals[:2], 1)
+        if base in ("div", "floor_divide"):
+            return self._div(args, R, vals, kwargs.get("rounding_mode", "floor"))
         if base in _COMPARE:
             C, a, b = binary()
-            return self.emit(out, f"({a} {_COMPARE[base]} {b})", vals[:2])
+            return self.emit(R, f"({a} {_COMPARE[base]} {b})", vals[:2])
         if base in _BITWISE:
             C, a, b = binary()
-            return self.emit(out, self._cast(f"({a} {_BITWISE[base]} {b})", C, R,
-                                             force=True), vals[:2])
+            return self.emit(R, self._cast(f"({a} {_BITWISE[base]} {b})", C, R,
+                                           force=True), vals[:2])
         if base in _LOGICAL:
             a, b = self.expr(vals[0], torch.bool), self.expr(vals[1], torch.bool)
-            return self.emit(out, f"({a} {_LOGICAL[base]} {b})", vals[:2])
+            return self.emit(R, f"({a} {_LOGICAL[base]} {b})", vals[:2])
         if base == "logical_not":
-            return self.emit(out, f"(!{self.expr(x, torch.bool)})", [x])
+            return self.emit(R, f"(!{self.expr(x, torch.bool)})", [x])
         if base == "bitwise_not":
             if R == torch.bool:
-                return self.emit(out, f"(!{self.expr(x, R)})", [x])
-            return self.emit(out, f"(({_CTYPE[R]})~{self.expr(x, R)})", [x])
+                return self.emit(R, f"(!{self.expr(x, R)})", [x])
+            return self.emit(R, f"(({_CTYPE[R]})~{self.expr(x, R)})", [x])
         if base in _SHIFT:
             C = torch.result_type(args[0], args[1])
-            return self.emit(out, self._cast(
+            return self.emit(R, self._cast(
                 f"{_SHIFT[base]}({self.expr(vals[0], C)}, {self.expr(vals[1], C)})", C, R),
                 vals[:2])
         if base == "remainder":
             C, a, b = binary()
-            return self.emit(out, self._cast(f"tk::rem({a}, {b})", C, R), vals[:2])
-        if base in ("maximum", "minimum", "atan2"):
+            return self.emit(R, self._cast(f"tk::rem({a}, {b})", C, R), vals[:2])
+        if base in ("maximum", "minimum", "atan2", "max", "min"):
             C, a, b = binary()
-            fn = f"tk::{base}" if base != "atan2" else "atan2f"
-            return self.emit(out, self._cast(f"{fn}({a}, {b})", C, R), vals[:2])
+            fn = {"atan2": "atan2f" if C != torch.float64 else "atan2",
+                  "max": "tk::maximum", "min": "tk::minimum"}.get(base, f"tk::{base}")
+            return self.emit(R, self._cast(f"{fn}({a}, {b})", C, R), vals[:2])
         if base == "where":
             c = self.expr(vals[0], torch.bool)
-            return self.emit(out, f"({c} ? {self.expr(vals[1], R)} : {self.expr(vals[2], R)})",
+            return self.emit(R, f"({c} ? {self.expr(vals[1], R)} : {self.expr(vals[2], R)})",
                              vals[:3])
-        if base in ("clamp", "clamp_min", "clamp_max"):
-            lo = kwargs.get("min", args[1] if len(args) > 1 and base != "clamp_max" else None)
-            hi = kwargs.get("max", args[2] if len(args) > 2 else
-                            (args[1] if base == "clamp_max" else None))
-            deps = [x] + [self.val(b) for b in (lo, hi) if b is not None]
+        if base == "masked_fill":
+            c = self.expr(vals[1], torch.bool)
+            return self.emit(R, f"({c} ? {self.expr(vals[2], R)} : {self.expr(x, R)})",
+                             vals[:3])
+        if base in ("clamp", "clamp_min", "clamp_max", "hardtanh"):
+            lo = kws.get("min", vals[1] if len(args) > 1 and base != "clamp_max" else None)
+            hi = kws.get("max", vals[2] if len(args) > 2 else
+                         (vals[1] if base == "clamp_max" else None))
+            if base == "hardtanh":
+                lo, hi = (_Val(None, R, a) for a in _params(args, kwargs, ("min_val", "max_val"),
+                                                            (-1.0, 1.0)))
+            deps = [x] + [b for b in (lo, hi) if b is not None]
             s = self.expr(x, R)
             if lo is not None and hi is not None:
-                e = f"tk::clamp({s}, {self.expr(self.val(lo), R)}, {self.expr(self.val(hi), R)})"
+                e = f"tk::clamp({s}, {self.expr(lo, R)}, {self.expr(hi, R)})"
             elif lo is not None:
-                e = f"tk::clamp_min({s}, {self.expr(self.val(lo), R)})"
+                e = f"tk::clamp_min({s}, {self.expr(lo, R)})"
             elif hi is not None:
-                e = f"tk::clamp_max({s}, {self.expr(self.val(hi), R)})"
+                e = f"tk::clamp_max({s}, {self.expr(hi, R)})"
             else:
                 return x
-            return self.emit(out, e, deps)
+            return self.emit(R, e, deps)
+        if base == "relu":
+            fn = "tk::relu" if F else "tk::clamp_min"
+            return self.emit(R, f"{fn}({self.expr(x, R)}{'' if F else ', ' + lit(0)})", [x])
         if base == "neg":
-            return self.emit(out, f"(({_CTYPE[R]})(-{self.expr(x, R)}))", [x])
+            return self.emit(R, f"(({_CTYPE[R]})(-{self.expr(x, R)}))", [x])
         if base == "abs":
             fn = "fabsf" if R == torch.float32 else ("fabs" if R == torch.float64 else "llabs")
-            return self.emit(out, self._cast(f"{fn}({self.expr(x, R)})", R, R), [x])
-        if base == "sign" and R in (torch.float32, torch.int64):
-            return self.emit(out, f"tk::sign({self.expr(x, R)})", [x])
-        if base == "reciprocal" and R == torch.float32:
-            return self.emit(out, f"tk::div(1.f, {self.expr(x, R)})", [x], 1)
-        if base == "rsqrt" and R == torch.float32:
-            return self.emit(out, f"tk::rsqrt({self.expr(x, R)})", [x], 1)
-        if base == "pow" and R == torch.float32 and not isinstance(args[1], torch.Tensor):
-            return self._pow(out, x, float(args[1]))
-        if base in _UNARY_F and R == torch.float32:
-            return self.emit(out, f"{_UNARY_F[base]}({self.expr(x, R)})", [x], 1)
+            return self.emit(R, self._cast(f"{fn}({self.expr(x, R)})", R, R), [x])
+        if base in ("sign", "sgn"):
+            return x if R == torch.bool else self.emit(R, f"tk::sign({self.expr(x, R)})", [x])
+        if base == "reciprocal" and F:
+            one = "1.f" if R == torch.float32 else lit(1)
+            return self.emit(R, f"tk::div({one}, {self.expr(x, R)})", [x], 1)
+        if base == "rsqrt" and F:
+            return self.emit(R, f"tk::rsqrt({self.expr(x, R)})", [x], 1)
+        if base == "pow":
+            return self._pow_op(func, args, R, vals)
+        if base in _UNARY_F and F:
+            fn = _UNARY_F[base] if R == torch.float32 else _UNARY_F[base][:-1]
+            return self.emit(R, f"{fn}({self.expr(x, R)})", [x], 1)
+        if base in _UNARY_TK and F:
+            fn = "log_sigmoid" if base == "log_sigmoid_forward" else base
+            return self.emit(R, f"tk::{fn}({self.expr(x, R)})", [x], _UNARY_TK[base])
+        if base in _BINARY_TK:
+            C = R if F else torch.result_type(args[0], args[1])
+            fn, n = _BINARY_TK[base]
+            if C not in _FLOAT and base in ("fmax", "fmin"):
+                fn = "tk::maximum" if base == "fmax" else "tk::minimum"
+            elif C not in _FLOAT and base not in ("fmod", "heaviside"):
+                fn = None
+            if fn is not None:
+                return self.emit(R, self._cast(
+                    f"{fn}({self.expr(vals[0], C)}, {self.expr(vals[1], C)})", C, R),
+                    vals[:2], n if C in _FLOAT else 0)
+        if base == "round" and R != torch.bool:
+            d = int(kwargs.get("decimals", 0))
+            if not F:
+                return x
+            if d == 0:
+                return self.emit(R, f"tk::round_({self.expr(x, R)})", [x], 1)
+            # torch: nearbyint(x * 10^d) / 10^d, or for d < 0 nearbyint(x / 10^-d) * 10^-d
+            p = _in_dtype(10.0 ** abs(d), R)
+            return self.emit(R, f"tk::round_dec({self.expr(x, R)}, {lit(p)}, {str(d < 0).lower()})",
+                             [x], 3)
+        if base == "signbit":
+            T = args[0].dtype
+            if T in _FLOAT:
+                return self.emit(R, f"(signbit({self.expr(x, T)}) != 0)", [x])
+            return self.emit(R, f"({self.expr(x, T)} < 0)" if T != torch.bool else "false", [x])
+        if base in ("isnan", "isinf", "isposinf", "isneginf", "isfinite"):
+            T = args[0].dtype
+            if T not in _FLOAT:
+                return self.emit(R, "true" if base == "isfinite" else "false", [])
+            return self.emit(R, f"tk::{base}_({self.expr(x, T)})", [x])
+        if base == "nan_to_num":
+            if not F:
+                return x
+            fin = torch.finfo(R)
+            rep = [d if v is None else v for v, d in zip(
+                _params(args, kwargs, ("nan", "posinf", "neginf"), (None,) * 3),
+                (0.0, fin.max, fin.min))]
+            return self.emit(R, f"tk::nan_to_num({self.expr(x, R)}, "
+                             f"{', '.join(lit(v) for v in rep)})", [x])
+        if base in ("deg2rad", "rad2deg") and F:
+            k = math.pi / 180.0 if base == "deg2rad" else 180.0 / math.pi
+            return self.emit(R, f"tk::mul({self.expr(x, R)}, {lit(k)})", [x], 1)
+        if base == "softplus" and F:
+            beta, thr = _params(args, kwargs, ("beta", "threshold"), (1.0, 20.0))
+            return self.emit(R, f"tk::softplus({self.expr(x, R)}, {lit(beta)}, {lit(thr)})",
+                             [x], 4)
+        if base == "elu" and F:
+            alpha, scale, iscale = _params(args, kwargs, ("alpha", "scale", "input_scale"),
+                                           (1.0, 1.0, 1.0))
+            neg = _in_dtype(_in_dtype(alpha, R) * _in_dtype(scale, R), R)
+            return self.emit(R, f"tk::elu({self.expr(x, R)}, {lit(neg)}, {lit(scale)}, "
+                             f"{lit(iscale)})", [x], 3)
+        if base == "leaky_relu" and F:
+            slope, = _params(args, kwargs, ("negative_slope",), (0.01,))
+            return self.emit(R, f"tk::leaky_relu({self.expr(x, R)}, {lit(slope)})", [x], 1)
+        if base == "gelu" and F:
+            fn = "tk::gelu_tanh" if kwargs.get("approximate", "none") == "tanh" else "tk::gelu"
+            return self.emit(R, f"{fn}({self.expr(x, R)})", [x], 5)
+        if base == "logit" and F:
+            eps, = _params(args, kwargs, ("eps",), (None,))
+            if eps is None:
+                return self.emit(R, f"tk::logit({self.expr(x, R)})", [x], 3)
+            lo = _in_dtype(eps, R)
+            hi = _in_dtype(1.0 - lo, R) if R == torch.float64 else float(
+                np.float32(1.0) - np.float32(lo))
+            return self.emit(R, f"tk::logit_eps({self.expr(x, R)}, {lit(lo)}, {lit(hi)})",
+                             [x], 3)
+        if base == "lerp" and F:
+            w = vals[2]
+            return self.emit(R, f"tk::lerp({self.expr(x, R)}, {self.expr(vals[1], R)}, "
+                             f"{self.expr(w, R)})", vals[:3], 3)
+        if base in ("addcmul", "addcdiv"):
+            value = kwargs.get("value", args[3] if len(args) > 3 else 1)
+            a, b, c = (self.expr(v, R) for v in vals[:3])
+            op = f"tk::mul({b}, {c})" if base == "addcmul" else f"tk::div({b}, {c})"
+            if F and value == 1:
+                e = f"tk::fma_({b}, {c}, {a})" if base == "addcmul" else f"tk::add({a}, {op})"
+            elif F:  # torch: one fma with the value
+                e = f"tk::fma_({lit(value)}, {op}, {a})"
+            else:  # addcmul of integers (torch refuses addcdiv's)
+                e = f"tk::add({a}, tk::mul({lit(value)}, {op}))"
+            return self.emit(R, e, vals[:3], 2 if F else 0)
         raise NotImplementedError(f"{self.where}: {func} has no CUDA translation")
 
-    def _pow(self, out, x, e: float) -> _Val:
-        s = self.expr(x, torch.float32)
+    def _div(self, args, R, vals, mode) -> _Val:
+        """div with a rounding mode, and floor_divide, as torch's CUDA kernels
+        compute them: by a Python scalar, a product with its reciprocal."""
+        if mode not in ("floor", "trunc"):
+            raise NotImplementedError(f"{self.where}: div with rounding mode {mode!r}")
+        C = torch.result_type(args[0], args[1])
+        a, b = self.expr(vals[0], C), self.expr(vals[1], C)
+        if C in _FLOAT and not isinstance(args[1], torch.Tensor):
+            y = _in_dtype(args[1], C)
+            if y == 0:  # torch: the true division
+                return self.emit(R, self._cast(f"tk::div({a}, {b})", C, R), vals[:1], 1)
+            inv = (float(np.float32(1.0) / np.float32(y)) if C == torch.float32 else 1.0 / y)
+            e = (f"tk::div_floor_inv({a}, {b}, {_literal(inv, C)})" if mode == "floor" else
+                 f"tk::trunc_(tk::mul({a}, {_literal(inv, C)}))")
+            return self.emit(R, self._cast(e, C, R), vals[:1], 5 if mode == "floor" else 2)
+        fn = "tk::div_floor" if mode == "floor" else "tk::div_trunc"
+        return self.emit(R, self._cast(f"{fn}({a}, {b})", C, R), vals[:2],
+                         (5 if mode == "floor" else 2) if C in _FLOAT else 0)
+
+    def _pow_op(self, func, args, R, vals) -> _Val:
+        """pow of any operands: by a float scalar exponent torch's special
+        forms (`_pow`), else powf/pow, or integer powers by squaring."""
+        if func._overloadname == "Tensor_Scalar" and R in _FLOAT:
+            return self._pow(R, vals[0], float(args[1]))
+        a, b = self.expr(vals[0], R), self.expr(vals[1], R)
+        if R in _FLOAT:
+            return self.emit(R, f"tk::pow_({a}, {b})", vals[:2], 1)
+        return self.emit(R, f"tk::powi({a}, {b})", vals[:2])
+
+    def _pow(self, R, x, e: float) -> _Val:
+        s = self.expr(x, R)
+        one = _literal(1, R) if R == torch.float64 else "1.f"
         # torch's pow by a scalar exponent special-cases these (pow_tensor_scalar)
         forms = {2.0: f"tk::mul({s}, {s})", 3.0: f"tk::mul(tk::mul({s}, {s}), {s})",
-                 0.5: f"sqrtf({s})", -0.5: f"tk::rsqrt({s})", -1.0: f"tk::div(1.f, {s})",
-                 -2.0: f"tk::div(1.f, tk::mul({s}, {s}))", 1.0: s}
-        return self.emit(out, forms.get(e, f"powf({s}, {_literal(e, torch.float32)})"), [x],
+                 0.5: f"{'sqrtf' if R == torch.float32 else 'sqrt'}({s})",
+                 -0.5: f"tk::rsqrt({s})", -1.0: f"tk::div({one}, {s})",
+                 -2.0: f"tk::div({one}, tk::mul({s}, {s}))", 1.0: s}
+        default = (f"powf({s}, {_literal(e, R)})" if R == torch.float32 else
+                   f"tk::pow_({s}, {_literal(e, R)})")
+        return self.emit(R, forms.get(e, default), [x],
                          {2.0: 1, 3.0: 2, -2.0: 2, 1.0: 0}.get(e, 1))
 
     @staticmethod
     def _cast(e: str, C, R, force=False) -> str:
         return e if C == R and not force else f"(({_CTYPE[R]}){e})"
+
+    # -- per-env vectors -----------------------------------------------------
+    def _axis(self, func, d: int, rank: int, what="indexes") -> int:
+        """`d` as an axis of a tensor of `rank` (the batch's is rank - 1),
+        refused where it is the batch's."""
+        d = d % rank
+        if d == rank - 1:
+            raise self._batch_refused(func, what)
+        return d
+
+    def _shape(self, func, base, args, out) -> List[_Arr]:
+        """Ops that move elements (stack, cat, indexing, views): the batch
+        axis stays the last."""
+        if base in ("stack", "cat"):
+            xs = [t for t in args[0] if not (base == "cat" and tuple(t.shape) == (0,))]
+            els = [self.arr(t).els if self.live(t) else
+                   self.const_els(t, f"a constant in {func}") for t in xs]
+            rank = max(e.ndim for e in els) + 1 + (base == "stack")
+            d = self._axis(func, args[1] if len(args) > 1 else 0, rank, "stacks or joins along")
+            new = np.stack(els, d) if base == "stack" else np.concatenate(els, d)
+            return [_Arr(new, out.dtype)]
+        a = self.arr(args[0])
+        rank = a.els.ndim + 1
+        if base in ("expand", "view", "reshape", "_unsafe_view", "squeeze"):
+            if out.dim() == 0 or out.shape[-1] != _TRACE_B or \
+                    (base == "expand" and out.dim() < rank):
+                raise NotImplementedError(f"{self.where}: {func} changes the shape across "
+                                          "the batch axis, which stays the last")
+            lead = tuple(out.shape[:-1])
+            return [_Arr(np.broadcast_to(a.els, lead) if base == "expand" else
+                         a.els.reshape(lead), out.dtype)]
+        if base == "unsqueeze":
+            d = args[1] % (rank + 1)
+            if d == rank:
+                raise self._batch_refused(func, "puts an axis after")
+            return [_Arr(np.expand_dims(a.els, d), out.dtype)]
+        if base == "select":
+            d = self._axis(func, args[1], rank)
+            return [_Arr(_nd(np.take(a.els, args[2], axis=d)), out.dtype)]
+        if base == "slice":
+            d = args[1] % rank if len(args) > 1 else 0
+            if d == rank - 1:
+                if tuple(out.shape) != tuple(args[0].shape):
+                    raise self._batch_refused(func, "slices")
+                return [a]
+            sl = slice(*(list(args[2:5]) + [None] * 3)[:3])
+            return [_Arr(a.els[(slice(None),) * d + (sl,)], out.dtype)]
+        if base in ("permute", "transpose", "t"):
+            if base == "t":
+                order = list(range(rank))[::-1]
+            elif base == "transpose":
+                order = list(range(rank))
+                i, j = args[1] % rank, args[2] % rank
+                order[i], order[j] = order[j], order[i]
+            else:
+                order = [d % rank for d in args[1]]
+            if order[-1] != rank - 1:
+                raise self._batch_refused(func, "moves")
+            return [_Arr(np.transpose(a.els, order[:-1]), out.dtype)]
+        if base in ("unbind", "split", "split_with_sizes"):
+            d = self._axis(func, args[2] if base != "unbind" and len(args) > 2 else
+                           (args[1] if base == "unbind" and len(args) > 1 else 0), rank)
+            if base == "unbind":
+                return [_Arr(_nd(np.take(a.els, k, axis=d)), out[0].dtype)
+                        for k in range(a.els.shape[d])]
+            parts, lo = [], 0
+            for o in out:
+                n = o.shape[d]
+                parts.append(_Arr(np.take(a.els, range(lo, lo + n), axis=d), o.dtype))
+                lo += n
+            return parts
+        if base == "flip":
+            dims = [self._axis(func, d, rank, "flips") for d in args[1]]
+            return [_Arr(np.flip(a.els, dims), out.dtype)]
+        if base == "index_select":
+            d = self._axis(func, args[1], rank)
+            return [_Arr(np.take(a.els, args[2].tolist(), axis=d), out.dtype)]
+        # index.Tensor: constant indices over the leading axes
+        idx = list(args[1])
+        if len(idx) >= rank and idx[rank - 1] is not None:
+            raise self._batch_refused(func, "indexes")
+        key = tuple(slice(None) if i is None else i.numpy() for i in idx)
+        return [_Arr(_nd(a.els[key]), out.dtype)]
+
+    def _reduce(self, func, base, args, kwargs, outs) -> List[_Arr]:
+        """Reductions over leading axes, in index order (sums from 0, as
+        torch's kernels start them)."""
+        a = self.arr(args[0])
+        rank = a.els.ndim + 1
+        if base == "linalg_vector_norm":
+            dims, keep = _params(args[1:], kwargs, ("dim", "keepdim"), (None, False))
+        else:
+            dims, keep = _params(args, kwargs, ("dim", "keepdim"), (None, False))
+            if func._overloadname == "default" and base not in ("amax", "amin", "logsumexp"):
+                dims = None  # sum(), mean(), max(), all(): every axis
+        if isinstance(dims, int):
+            dims = [dims]
+        if not dims:  # over every axis, the batch's too
+            raise self._batch_refused(func)
+        dims = sorted({self._axis(func, d, rank, "reduces over") for d in dims})
+        rest = [d for d in range(rank - 1) if d not in dims]
+        moved = np.transpose(a.els, rest + dims)
+        lead = moved.shape[:len(rest)]
+        shape = tuple(1 if d in dims else a.els.shape[d] for d in range(rank - 1)) if keep \
+            else lead
+        out = outs[0]
+        R = out.dtype
+        vals = np.empty(lead, object)
+        idxs = np.empty(lead, object)
+        for k in np.ndindex(lead):
+            xs = list(moved[k].reshape(-1))
+            at = k if not keep else tuple(
+                0 if d in dims else k[rest.index(d)] for d in range(rank - 1))
+            if all(v.const is not None for v in xs):
+                vals[k] = _Val(None, R, out[at + (0,)].item())
+                if len(outs) > 1:
+                    idxs[k] = _Val(None, outs[1].dtype, outs[1][at + (0,)].item())
+                continue
+            if base in ("max", "min"):
+                vals[k], idxs[k] = self._arg_extreme(base, R, xs)
+            else:
+                vals[k] = self._fold(base, args, kwargs, R, xs)
+        res = [_Arr(vals.reshape(shape), R)]
+        if len(outs) > 1:
+            res.append(_Arr(idxs.reshape(shape), outs[1].dtype))
+        return res
+
+    def _fold(self, base, args, kwargs, R, xs) -> _Val:
+        """One output element of a reduction over the elements `xs`."""
+        e = [self.expr(v, R) for v in xs]
+        n = len(e)
+        T = "float" if R == torch.float32 else "double"
+        if base in ("all", "any"):
+            op = " && " if base == "all" else " || "
+            return self.emit(R, "(" + op.join(self.expr(v, torch.bool) for v in xs) + ")", xs)
+        if base in ("amax", "amin"):
+            fn = "tk::maximum" if base == "amax" else "tk::minimum"
+            return self.emit(R, functools.reduce(lambda s, y: f"{fn}({s}, {y})", e), xs)
+        if base == "prod":
+            return self.emit(R, functools.reduce(lambda s, y: f"tk::mul({s}, {y})", e), xs,
+                             (n - 1) * (R in _FLOAT))
+        if base == "logsumexp":
+            m = self.emit(R, functools.reduce(lambda s, y: f"tk::maximum({s}, {y})", e), xs)
+            # torch: the maximum, 0 where it is infinite, taken out of the exponentials
+            mm = self.emit(R, f"(tk::isinf_({m.expr}) ? {_literal(0, R)} : {m.expr})", [m])
+            fn = "expf" if T == "float" else "exp"
+            s = functools.reduce(lambda s, y: f"tk::add({s}, {fn}(tk::sub({y}, {mm.expr})))",
+                                 e, _literal(0, R))
+            log = "logf" if T == "float" else "log"
+            return self.emit(R, f"tk::add({log}({s}), {mm.expr})", xs + [mm], 3 * n + 2)
+        if base == "linalg_vector_norm":
+            p = float(kwargs.get("ord", args[1] if len(args) > 1 else 2))
+            ab = [f"{'fabsf' if T == 'float' else 'fabs'}({y})" for y in e]
+            if p == math.inf or p == -math.inf:
+                fn = "tk::maximum" if p > 0 else "tk::minimum"
+                return self.emit(R, functools.reduce(lambda s, y: f"{fn}({s}, {y})", ab), xs)
+            zero = _literal(0, R)
+            if p == 0:
+                terms = [f"(({T})({y} != {zero}))" for y in e]
+            elif p == 1:
+                terms = ab
+            elif p == 2:
+                terms = [f"tk::mul({y}, {y})" for y in e]
+            else:
+                terms = [f"tk::pow_({y}, {_literal(p, R)})" for y in ab]
+            s = functools.reduce(lambda s, y: f"tk::add({s}, {y})", terms, zero)
+            if p == 2:
+                s = f"{'sqrtf' if T == 'float' else 'sqrt'}({s})"
+            elif p not in (0, 1):
+                s = f"tk::pow_({s}, {_literal(_in_dtype(1.0 / _in_dtype(p, R), R), R)})"
+            return self.emit(R, s, xs, 2 * n + 1)
+        # sum and mean: from 0 in index order; mean times the float reciprocal
+        # of the count (torch's CUDA MeanOps)
+        s = functools.reduce(lambda s, y: f"tk::add({s}, {y})", e, _literal(0, R))
+        if base == "mean":
+            s = f"tk::mul({s}, {_literal(_in_dtype(1.0 / n, R), R)})"
+        return self.emit(R, s, xs, (n + (base == "mean")) * (R in _FLOAT))
+
+    def _arg_extreme(self, base, R, xs) -> Tuple[_Val, _Val]:
+        """max.dim and min.dim: the value and the index torch's CPU kernel
+        takes (the first extreme, or the first NaN)."""
+        keep = "<=" if base == "max" else ">="
+        m, i = xs[0], _Val(None, torch.int64, 0)
+        for k, v in enumerate(xs[1:], 1):
+            y, M = self.expr(v, R), self.expr(m, R)
+            c = self.emit(torch.bool, f"(({M} == {M}) && !({y} {keep} {M}))", [m, v])
+            m = self.emit(R, f"({c.expr} ? {y} : {M})", [c, v, m])
+            i = self.emit(torch.int64, f"({c.expr} ? {_literal(k, torch.int64)} : "
+                          f"{self.expr(i, torch.int64)})", [c, i])
+        return m, i
+
+    def _scan(self, func, base, args, out) -> _Arr:
+        """cumsum and cumprod over a leading axis, in order (cumsum from 0)."""
+        a = self.arr(args[0])
+        rank = a.els.ndim + 1
+        d = self._axis(func, args[1], rank, "scans over")
+        R = out.dtype
+        moved = np.moveaxis(a.els, d, -1)
+        new = np.empty(moved.shape, object)
+        for k in np.ndindex(moved.shape[:-1]):
+            acc = None
+            for j, v in enumerate(moved[k]):
+                if acc is None:
+                    acc = (self.emit(R, f"tk::add({_literal(0, R)}, {self.expr(v, R)})", [v],
+                                     int(R in _FLOAT)) if base == "cumsum" else
+                           v if v.dtype == R else self.emit(R, self.expr(v, R), [v]))
+                else:
+                    op = "tk::add" if base == "cumsum" else "tk::mul"
+                    acc = self.emit(R, f"{op}({self.expr(acc, R)}, {self.expr(v, R)})",
+                                    [acc, v], int(R in _FLOAT))
+                new[k + (j,)] = acc
+        return _Arr(np.moveaxis(new, -1, d), R)
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +893,7 @@ def _trace(where: str, fn, inputs: List[Tuple[str, torch.Tensor]]):
     Returns (recorder, fn's result)."""
     rec = _Recorder(where)
     for expr, t in inputs:
-        rec.bind(t, _Val(expr, t.dtype))
+        rec.bind(t, _one(_Val(expr, t.dtype)))
     with rec:
         res = fn(*[t for _, t in inputs])
     return rec, res
@@ -360,10 +903,11 @@ def _out(rec: _Recorder, x, dtype, what: str) -> _Val:
     """An output of a hook as a value of `dtype` (floats as torch would
     stack them)."""
     if isinstance(x, torch.Tensor):
-        if tuple(x.shape) not in ((_TRACE_B,), ()):
+        a = rec.vals.get(id(x))
+        if tuple(x.shape) not in ((_TRACE_B,), ()) or (a is not None and a.els.shape != ()):
             raise NotImplementedError(f"{rec.where}: {what} has shape {tuple(x.shape)}, "
                                       f"expected ({_TRACE_B},)")
-        return rec.val(x)
+        return a.els[()] if a is not None else rec.const_els(x, what)[()]
     if isinstance(x, (bool, int, float)):
         return _Val(None, _scalar_dtype(x), x)
     raise NotImplementedError(f"{rec.where}: {what} is a {type(x).__name__}")

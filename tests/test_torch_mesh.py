@@ -28,6 +28,12 @@ ranks are processes started by `mesh.launch`; their code is in
     InvertedPendulum, B=16, finite and within atol 1e-5 of the unsharded
     `ppo.train`'s.
 (f) `entry.dryrun_multichip(2, device="cpu")` prints ok with a finite loss.
+(g) 2 ranks: a user's task by its registered ID (ShapedAnt,
+    tests/torch_user_tasks.py; each rank registers it and translates its
+    hooks for the fused step, `task_step_kernel`'s wrapper, whose plain
+    version steps CPU tensors): 3 sharded steps at B=4, every third env
+    forced to reset before step 1, the gathered state bitwise the unsharded
+    port's after every step.
 """
 
 import os
@@ -48,6 +54,7 @@ from pybulletgym_tpu_torch.utils.interop import env_state_to_numpy
 from test_torch_ppo import TRAINSTATE, _jax_template
 from test_torch_sac import LEARNER, _jax_draws, _jax_state, _learner_of
 from torch_mesh_workers import ppo_leaves, run_jobs
+import torch_user_tasks as ut
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOPPER = "HopperPyBulletEnv-v0"
@@ -149,10 +156,17 @@ def world2():
     sac_job = dict(env=MJ_HOPPER, cfg=SAC_KW, learner=LEARNER, state=env_state_to_numpy(esj_s),
                    draws={k: x.numpy() for k, x in draws.items()})
 
+    user_forced = np.zeros(4, bool)
+    user_forced[::3] = True
+    user = dict(env=ut.SHAPED_ANT_ID, seed=5, forced=user_forced, forced_step=1,
+                actions=np.random.default_rng(9).uniform(-1, 1, (3, 4, 8)).astype(np.float32))
+
     ranks = pmesh.launch(run_jobs, 2, {"steps": ("env_steps", steps), "ppo": ("ppo", ppo_job),
-                                       "sac": ("sac", sac_job)}, device="cpu", timeout=300)
+                                       "sac": ("sac", sac_job),
+                                       "user": ("user_env_steps", user)},
+                         device="cpu", timeout=300)
     return dict(ranks=ranks, steps=steps, gold=gold, ppo=(env_p, tsj, esj_p),
-                sac=(env_s, ssj, esj_s))
+                sac=(env_s, ssj, esj_s), user=user)
 
 
 def test_sharded_env_steps_are_the_unsharded_steps(world2):
@@ -256,3 +270,31 @@ def test_dryrun_multichip_on_cpu(capsys):
     assert np.isfinite(rec["loss"]) and rec["devices"] == ["cpu", "cpu"]
     assert rec["env_step_launches"] == [0, 0]  # the plain step on the CPU
     assert rec["physics_step_launches"] == [0, 0]
+
+
+def test_sharded_user_task_steps_are_the_unsharded_steps(world2):
+    """(g)"""
+    from pybulletgym_tpu_torch.api import registry as reg
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+    import pybulletgym_tpu_torch as pt
+
+    job = world2["user"]
+    saved = dict(reg.registry)
+    pt.register(job["env"], ut.shaped_ant(loco, torch, ut.NN_TORCH), ut.SHAPED_ANT_STEPS)
+    try:
+        env = make_batched(job["env"], 4, device="cpu")
+    finally:
+        reg.registry.clear()
+        reg.registry.update(saved)
+    assert env.backend == "fused" and env.step_fn.kernel == "task_step_kernel"
+    s = env.reset(seed=job["seed"])
+    for t, a in enumerate(job["actions"]):
+        if t == job["forced_step"]:
+            s = s._replace(terminated=s.terminated | torch.from_numpy(job["forced"]))
+        s = env.step(s, torch.from_numpy(a))
+        ref = env_state_to_numpy(s)
+        for r in world2["ranks"]:
+            _assert_states_equal(r["user"]["states"][t], ref)
+    assert (ref["epoch"] == job["forced"]).all() and "speed_avg" in ref["aux"]
+    for r in world2["ranks"]:
+        assert r["user"]["kernel"] == "task_step_kernel" and r["user"]["launches"] == 0

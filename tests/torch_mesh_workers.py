@@ -38,6 +38,7 @@ def _env_steps(mesh, job):
     B = job["actions"].shape[1]
     lo, hi = mesh.block(B)
     env = make_batched(job["env"], hi - lo, device="cpu")
+    assert env.backend == "fused"
     s = env.reset(seed=job["seed"], first_env=lo)
     out = []
     for t, a in enumerate(job["actions"]):
@@ -45,7 +46,18 @@ def _env_steps(mesh, job):
             s = s._replace(terminated=s.terminated | torch.from_numpy(job["forced"][lo:hi]))
         s = env.step(s, torch.from_numpy(a[lo:hi]))
         out.append(env_state_to_numpy(pmesh.gather_env_state(s, mesh)))
-    return dict(states=out, launches=env.step_fn.launches)
+    return dict(states=out, launches=env.step_fn.launches, kernel=env.step_fn.kernel)
+
+
+def _user_env_steps(mesh, job):
+    """(g) a user's task by its ID (ShapedAnt, registered in the rank, its
+    hooks translated there): as (b)."""
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.envs import locomotion as loco
+    import torch_user_tasks as ut
+
+    pt.register(job["env"], ut.shaped_ant(loco, torch, ut.NN_TORCH), ut.SHAPED_ANT_STEPS)
+    return _env_steps(mesh, job)
 
 
 def _ppo_step(mesh, job):
@@ -83,8 +95,8 @@ def _ppo_train(mesh, job):
                 state=env_state_to_numpy(pmesh.gather_env_state(es, mesh)))
 
 
-JOBS = {"env_steps": _env_steps, "ppo": _ppo_step, "sac": _sac_iteration,
-        "ppo_train": _ppo_train}
+JOBS = {"env_steps": _env_steps, "user_env_steps": _user_env_steps, "ppo": _ppo_step,
+        "sac": _sac_iteration, "ppo_train": _ppo_train}
 
 
 def run_jobs(jobs, hosts=None):
