@@ -53,6 +53,17 @@ dofs than a group's 32 lanes, root paths past bit 31):
     card state (a (240, 320, 3) frame with the robot in it, equal to the
     CPU state's frame; ms a frame). gymnasium is optional: its absence is
     printed, not skipped over;
+  * runs the three example scripts of `pybulletgym_tpu_torch/examples/`
+    (`examples_paths`) as a user runs them, `python -m` in a process of its
+    own, with the launch counts reset just before each and read just after:
+    `train_ppo` on HalfCheetah at B=4096 for 3 iterations (96 env-kernel
+    launches, the JAX script's policy file); `train_loop` on Ant at B=4096
+    for 2 iterations, twice (64 launches each), the second resuming, its
+    TrainState bitwise the first run's files continued in this process;
+    `enjoy` with the shipped HalfCheetah weights (one episode at the
+    policy's floor, a launch a step), with `--render` (100 frames of the
+    native renderer) and on the file `train_ppo` wrote. Each run's seconds
+    and its share in the env kernel;
   * drives data parallelism over the env axis (`parallel.mesh`) in a world
     of D ranks, one process each (`mesh.launch`; the kernels are built
     once, here, before the ranks start): D is the number of cards when
@@ -1414,6 +1425,177 @@ def huge_model_paths(card):
     return launches, entries
 
 
+# ---- the examples' scripts, as a user runs them -----------------------------
+EXAMPLES = "pybulletgym_tpu_torch.examples"
+# runs one example module as `python -m` does, with the launch counts set to
+# 0 just before it and printed, with its seconds, on a JSON line after its own
+EXAMPLE_RUNNER = """
+import json, runpy, sys, time
+from pybulletgym_tpu_torch.ops import cuda_engine as ce
+sys.argv = sys.argv[1:]
+ce.reset_launch_counts()
+t0 = time.perf_counter()
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print(json.dumps({"launches": dict(ce.LAUNCHES), "seconds": time.perf_counter() - t0}))
+"""
+EXAMPLE_TIMEOUT = 300  # seconds a script run may take before it is killed
+
+
+def examples_paths(card):
+    """The three scripts of `pybulletgym_tpu_torch/examples/`, each run as a
+    user runs it (`python -m`, in a process of its own, on the card), its
+    launch counts set to 0 just before it and read just after. Returns
+    ({run: launches}, {run: record}).
+
+    * `train_ppo`: HalfCheetah, B=4096, 3 iterations: env_step_kernel 96
+      launches and nothing else; the policy file has the JAX script's keys
+      and shapes, finite.
+    * `train_loop`, twice: Ant, B=4096, 2 iterations a run, into a fresh
+      folder: the first starts fresh, the second prints "resuming from";
+      64 launches each. Both checkpoints loaded: Adam's count 64, then 128,
+      and the first run's files continued here (`ppo.train(resume_from=,
+      resume_env_from=)`) give the second run's TrainState bitwise.
+    * `enjoy` with the shipped HalfCheetah weights, one episode: return at
+      least the shipped-policy floor (3000), a launch a step; again for 100
+      steps with `--render`: a (100, 240, 320, 3) uint8 stack from the
+      native renderer; and on the file `train_ppo` wrote: it loads, finite.
+    Each run's seconds (the script's, and the process's) and its share in
+    env_step_kernel: launches times the kernel's graph-replayed ms at that
+    batch, measured here, over the script's time."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.parallel import ppo
+    from pybulletgym_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda", 0)
+    env_kernel_ms = {}
+    for env_id, Bk in ((CHEETAH, B), (ANT, B), (CHEETAH, 1)):
+        kenv = pt.make_batched(env_id, Bk)
+        ks = kenv.reset(seed=1)
+        ka = torch.rand((kenv.action_size, Bk), device=dev) * 2 - 1
+        env_kernel_ms[env_id, Bk] = graph_ms(lambda: kenv.step_fn(ks, ka))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    launches, records = {}, {}
+
+    def run(name, module, env_id, Bk, *args):
+        argv = [sys.executable, "-c", EXAMPLE_RUNNER, f"{EXAMPLES}.{module}", env_id, *args]
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True,
+                             timeout=EXAMPLE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        require(out.returncode == 0, f"{name}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+                                     f"{out.stderr[-6000:]}")
+        *lines, tail = out.stdout.splitlines()
+        rec = json.loads(tail)
+        n = rec["launches"]
+        kms = env_kernel_ms[env_id, Bk] * n["env_step_kernel"]
+        records[name] = dict(module=f"{EXAMPLES}.{module}", args=[env_id, *args],
+                             seconds=rec["seconds"], process_seconds=wall, launches=n,
+                             env_kernel_ms_per_launch=env_kernel_ms[env_id, Bk],
+                             env_kernel_share=kms / (rec["seconds"] * 1e3),
+                             output=lines[-4:], card=card)
+        emit("examples_run", name=name, **records[name])
+        require(n["physics_step_kernel"] == 0 and n["task_step_kernel"] == 0
+                and all(v == 0 for k, v in n.items() if k != "env_step_kernel"),
+                f"{name} launched other kernels: {n}")
+        launches[name] = n
+        return lines, n["env_step_kernel"], out.stderr
+
+    def episode(lines):
+        m = [re.match(r"episode 0: return ([-+0-9.]+) in (\d+) steps", ln) for ln in lines]
+        m = [x for x in m if x]
+        require(len(m) == 1, f"enjoy printed no episode: {lines[-5:]}")
+        return float(m[0].group(1)), int(m[0].group(2))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # train_ppo: HalfCheetah at full width
+        pol = os.path.join(tmp, "cheetah.npz")
+        lines, n, _ = run("train_ppo", "train_ppo", CHEETAH, B, "--iters", "3", "--batch",
+                          str(B), "--out", pol)
+        require(n == 3 * 32, f"train_ppo: {n} env_step_kernel launches, not 96")
+        require(lines[-1].startswith(f"saved {pol}"), f"train_ppo: {lines[-1:]}")
+        task = pt.make_task(CHEETAH)
+        sizes = [task.obs_dim, 64, 64]
+        want = {"n_layers": (), "log_std": (task.act_dim,)}
+        for i, (a, b) in enumerate(zip(sizes, sizes[1:] + [task.act_dim])):
+            want.update({f"w{i}": (a, b), f"b{i}": (b,)})
+        for i, (a, b) in enumerate(zip(sizes, sizes[1:] + [1])):
+            want.update({f"vw{i}": (a, b), f"vb{i}": (b,)})
+        with np.load(pol) as d:
+            got = {k: d[k].shape for k in d.files}
+            finite = all(np.isfinite(d[k]).all() for k in d.files)
+        require(got == want and finite, f"train_ppo's file: {got} (finite {finite})")
+
+        # train_loop twice: Ant at full width, resumed from the first run's files
+        wdir = os.path.join(tmp, "weights")
+        files = {k: os.path.join(wdir, f"{ANT}.{k}.npz") for k in ("trainstate", f"b{B}.envstate")}
+        lines, n1, _ = run("train_loop:1", "train_loop", ANT, B, "--iters", "2", "--batch",
+                           str(B), "--weights-dir", wdir)
+        require(lines[0].startswith("fresh start"), f"train_loop:1: {lines[:1]}")
+        first = {k: shutil.copy(f, os.path.join(tmp, f"first.{k}.npz")) for k, f in files.items()}
+        lines, n2, _ = run("train_loop:2", "train_loop", ANT, B, "--iters", "2", "--batch",
+                           str(B), "--weights-dir", wdir)
+        require(lines[0].startswith("resuming from"), f"train_loop:2: {lines[:1]}")
+        require(n1 == n2 == 2 * 32, f"train_loop: {n1}, {n2} env_step_kernel launches, not 64")
+        cfg = ppo.PPOConfig(rollout_length=32, learning_rate=3e-4, num_minibatches=8)
+        tant = pt.make_task(ANT)
+        like = ppo.init_train_state(0, tant.obs_dim, tant.act_dim, cfg)
+        ts1 = checkpoint.load(first["trainstate"], like)
+        ts2 = checkpoint.load(files["trainstate"], like)
+        cont = ppo.train(ANT, B, 2, cfg, resume_from=first["trainstate"],
+                         resume_env_from=first[f"b{B}.envstate"])[0]
+        l2, lc = checkpoint._flatten(ts2)[0], checkpoint._flatten(cont)[0]
+        gens = [(x, y) for x, y in zip(l2, lc) if isinstance(x, torch.Generator)]
+        tens = [(x, y) for x, y in zip(l2, lc) if not isinstance(x, torch.Generator)]
+        bitwise = (all(torch.equal(x.get_state(), y.get_state()) for x, y in gens)
+                   and all(torch.equal(x, y) for x, y in tens))
+        max_diff = max(float((x.float() - y.float()).abs().max()) for x, y in tens)
+        moved = max(float((x - y).detach().abs().max()) for x, y in
+                    zip(ts1.params.leaves(), ts2.params.leaves()))
+        records["train_loop:resume"] = dict(
+            opt_count=[int(ts1.opt_count), int(ts2.opt_count)], continued_bitwise=bitwise,
+            continued_max_abs_diff=max_diff, params_moved_max=moved, card=card)
+        emit("examples_resume", env=ANT, B=B, **records["train_loop:resume"])
+        require(int(ts1.opt_count) == 64 and int(ts2.opt_count) == 128,
+                f"opt_count {int(ts1.opt_count)}, {int(ts2.opt_count)}: not 64, 128")
+        require(bitwise, f"the second run is not the first continued (max diff {max_diff})")
+
+        # enjoy: the shipped weights, one episode; then frames; then train_ppo's file
+        lines, n, _ = run("enjoy", "enjoy", CHEETAH, 1, "--episodes", "1")
+        ret, steps = episode(lines)
+        records["enjoy"].update(episode_return=ret, episode_steps=steps,
+                                floor=POLICY_FLOOR[CHEETAH])
+        require(ret >= POLICY_FLOOR[CHEETAH] and steps == task.max_episode_steps,
+                f"enjoy: return {ret} in {steps} steps (floor {POLICY_FLOOR[CHEETAH]})")
+        require(n == steps, f"enjoy: {n} launches in {steps} steps")
+        frames = os.path.join(tmp, "frames.npy")
+        lines, n, err = run("enjoy:render", "enjoy", CHEETAH, 1, "--episodes", "1",
+                            "--max-steps", "100", "--render", frames)
+        stack = np.load(frames)
+        records["enjoy:render"].update(shape=list(stack.shape), dtype=str(stack.dtype))
+        require(stack.shape == (100, 240, 320, 3) and stack.dtype == np.uint8,
+                f"enjoy --render: {stack.shape} {stack.dtype}")
+        require("orthographic" not in err, "enjoy --render fell back to the orthographic view")
+        require(bool((stack[0] != stack[-1]).any()), "the frames do not move")
+        require(n == 100 and lines[-1] == f"saved 100 frames to {frames}", f"enjoy --render: {n}")
+        lines, n, _ = run("enjoy:train_ppo", "enjoy", CHEETAH, 1, "--episodes", "1",
+                          "--weights", pol)
+        ret, steps = episode(lines)
+        records["enjoy:train_ppo"].update(episode_return=ret, episode_steps=steps)
+        require(np.isfinite(ret) and n == steps, f"enjoy on train_ppo's file: {ret}, {n}")
+    emit("examples", card=card, runs={  # env_step_kernel launches, seconds, the kernel's share
+        name: [r["launches"]["env_step_kernel"], r["seconds"], r["process_seconds"],
+               r["env_kernel_share"]] for name, r in records.items() if "launches" in r})
+    return launches, records
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -2718,6 +2900,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         main_api["checkpoint"] = checkpoint_path(tmp)
     render_path()
+    main_examples, _ = examples_paths(card)
     main_user, task_entry = user_task_paths(card)
     main_ops, ops_timing = task_ops_paths(card)
     main_big, big_entries = big_model_paths(card)
@@ -2762,6 +2945,7 @@ def main():
                 if name == "env_step_kernel" else ["HalfCheetah, bthigh a cylinder"]),
             "per_model": per_model, "sac_launches": main_s[name],
             "api_launches": {path: m[name] for path, m in main_api.items()},
+            "examples_launches": {run: m[name] for run, m in main_examples.items()},
             "mesh_launches": main_mesh[name],
         })
     kernels[0]["composed_launches"] = {

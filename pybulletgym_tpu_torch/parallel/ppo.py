@@ -302,10 +302,17 @@ def make_train_step(task: Task, cfg: PPOConfig, step_fn: Optional[Callable] = No
 def train(env_id: str, batch_size: int, num_iterations: int,
           cfg: Optional[PPOConfig] = None, seed: int = 0, device="cuda",
           progress: Optional[Callable] = None, resume_from: Optional[str] = None,
-          mesh: Optional[pmesh.Mesh] = None, backend: str = "fused", graph: bool = True):
+          mesh: Optional[pmesh.Mesh] = None, backend: str = "fused", graph: bool = True,
+          resume_env_from: Optional[str] = None):
     """Training driver: build the env batch and the train step, loop.
-    `resume_from`: a TrainState checkpoint of the JAX package
-    (`utils/checkpoint.py` npz) to continue from instead of a fresh init.
+    `resume_from`: a TrainState checkpoint (`utils/checkpoint.py` npz, of
+    either package) to continue from instead of a fresh init; its shapes
+    must be those of `cfg` on this env (else ValueError, as in the JAX
+    package). A file of the port's restores the sampling stream exactly,
+    one of the JAX package's seeds it with the key.
+    `resume_env_from`: an `EnvState` checkpoint of `batch_size` envs to
+    continue instead of a reset; with both, a run continued from the files
+    another run saved is that run continued (bitwise on one device).
     With a `mesh` (every rank calls train), `batch_size` is the global
     batch, `device` is the mesh's, each rank resets and steps its block of
     the envs, and the learner state is broadcast from rank 0 (every rank
@@ -314,21 +321,24 @@ def train(env_id: str, batch_size: int, num_iterations: int,
     translate). Returns (ts, es: this rank's shard under a mesh, metrics of
     the last step)."""
     from pybulletgym_tpu_torch.api.registry import make_batched
-    from pybulletgym_tpu_torch.utils.interop import train_state_from_npz
+    from pybulletgym_tpu_torch.utils import checkpoint
 
     cfg = cfg or PPOConfig()
     lo, hi = (0, batch_size) if mesh is None else mesh.block(batch_size)
     if mesh is not None:
         device = mesh.device
+        if resume_env_from is not None:
+            raise ValueError("resume_env_from continues an unsharded run; it takes no mesh")
     env = make_batched(env_id, hi - lo, device=device, backend=backend, graph=graph)
     train_step = make_train_step(env.task, cfg, step_fn=env.step_fn, mesh=mesh)
+    ts = init_train_state(seed, env.observation_size, env.action_size, cfg, device)
     if resume_from is not None:
-        ts, _ = train_state_from_npz(resume_from, device=device, seed=seed)
-    else:
-        ts = init_train_state(seed, env.observation_size, env.action_size, cfg, device)
+        ts = checkpoint.load(resume_from, ts)
     if mesh is not None:
         pmesh.shard_params(ts, mesh)
     es = env.reset(seed=seed, first_env=lo)
+    if resume_env_from is not None:
+        es = checkpoint.load(resume_env_from, es)
     metrics = None
     for it in range(num_iterations):
         ts, es, metrics = train_step(ts, es)

@@ -5,12 +5,19 @@ A tree (an `EnvState`, a PPO `TrainState`, a SAC `SACState`, or any nest
 of NamedTuples, dicts, lists and tuples) is flattened as `jax.tree.flatten`
 flattens its JAX twin: NamedTuples in field order, dicts by sorted key,
 lists and tuples in order. Tensors, numpy arrays and Python scalars are
-leaves; so is a `torch.Generator` (its `get_state()` bytes), which holds
-the port's random stream where the JAX package keeps a key. An `nn.Module`
-contributes its `state_dict()` entries, in its `leaves()` order where it
-has one (`ActorCritic`). Leaf i is
-saved as `leaf_{i}`, so the JAX package's `checkpoint.load` reads an
-`EnvState` this module wrote, and this module reads the JAX package's.
+leaves; so is a `torch.Generator`, which holds the port's random stream
+where the JAX package keeps a key. An `nn.Module` contributes its
+`state_dict()` entries, in its `leaves()` order where it has one
+(`ActorCritic`). Leaf i is saved as `leaf_{i}`, so the JAX package's
+`checkpoint.load` reads an `EnvState` or a PPO `TrainState` this module
+wrote, and this module reads the JAX package's.
+
+A generator's leaf is a JAX key's uint32[2]: the two words of its initial
+seed, high word first (the seed `interop.sac_state_from_npz` makes of a
+JAX key). Its exact place in the stream, the `get_state()` bytes, is saved
+beside the leaves under `__torch_generator_{i}__`, which the JAX package
+does not read. `load` restores the stream from those bytes, or, from a
+JAX package's file, seeds the generator with the key's words.
 
 The structure is recorded under `__torch_tree__` (JAX's `__treedef__` is a
 string only JAX can make; `load` here ignores it).
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 STRUCTURE_KEY = "__torch_tree__"
+GENERATOR_KEY = "__torch_generator_{}__"
 
 
 def _module_keys(module: nn.Module) -> List[str]:
@@ -86,7 +94,8 @@ def _unflatten(like, leaves):
 
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Generator):
-        return x.get_state().numpy()
+        seed = x.initial_seed()
+        return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -99,14 +108,21 @@ def save(path: str, tree: Any) -> None:
         path,
         **{STRUCTURE_KEY: np.frombuffer(structure.encode(), dtype=np.uint8)},
         **{f"leaf_{i}": _to_numpy(x) for i, x in enumerate(leaves)},
+        **{GENERATOR_KEY.format(i): x.get_state().numpy() for i, x in enumerate(leaves)
+           if isinstance(x, torch.Generator)},
     )
 
 
-def _like(saved: np.ndarray, like):
-    """A saved leaf as the template leaf's type, dtype and device."""
+def _like(saved: np.ndarray, like, state=None):
+    """A saved leaf as the template leaf's type, dtype and device; a
+    generator from its saved `state` bytes, else seeded with the key's
+    words."""
     if isinstance(like, torch.Generator):
         gen = torch.Generator(device=like.device)
-        gen.set_state(torch.from_numpy(saved.astype(np.uint8)))
+        if state is None:
+            gen.manual_seed((int(saved[0]) << 32) | int(saved[1]))
+        else:
+            gen.set_state(torch.from_numpy(state.astype(np.uint8)))
         return gen
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.array(saved)).to(like.dtype).to(like.device)
@@ -140,8 +156,10 @@ def load(path: str, like: Any) -> Any:
                     f"saved {saved_structure[:120]}... != {structure[:120]}..."
                 )
         saved = [data[f"leaf_{i}"] for i in range(n)]
+        states = [data[GENERATOR_KEY.format(i)] if GENERATOR_KEY.format(i) in data else None
+                  for i in range(n)]
     for i, (s, l) in enumerate(zip(saved, leaves_like)):
-        shape = tuple(l.get_state().shape) if isinstance(l, torch.Generator) else tuple(np.shape(l))
+        shape = (2,) if isinstance(l, torch.Generator) else tuple(np.shape(l))
         if tuple(s.shape) != shape:
             raise ValueError(f"leaf {i}: checkpoint shape {s.shape} != template {shape} ({path})")
-    return _unflatten(like, iter([_like(s, l) for s, l in zip(saved, leaves_like)]))
+    return _unflatten(like, iter([_like(s, l, g) for s, l, g in zip(saved, leaves_like, states)]))

@@ -10,7 +10,7 @@ state, and a SAC learner's (`*.saclearner.npz`), cross as the JAX package's
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,31 @@ def policy_from_npz(path: str, device="cuda") -> MLPPolicy:
                     torch.as_tensor(d["obs_var"], dtype=torch.float32))
         squash = "squash" in d and bool(d["squash"])
     return MLPPolicy(ws, bs, squash=squash, norm=norm).to(device)
+
+
+def policy_to_npz(path: str, ts, normalized: Optional[bool] = None) -> None:
+    """Write a PPO `TrainState`'s networks as the JAX package's example
+    scripts write them (the keys `policy_from_npz` and `examples/enjoy.py`
+    read): `n_layers`, `log_std`, `w{i}`, `b{i}`, `vw{i}`, `vb{i}`; with
+    `normalized` (True or False, as `examples/train_loop.py` writes) also
+    `obs_mean`, `obs_var` and `normalized`."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    p = ts.params
+    extra = {} if normalized is None else dict(
+        obs_mean=np_(ts.obs_stats.mean), obs_var=np_(ts.obs_stats.var),
+        normalized=bool(normalized))
+    np.savez_compressed(
+        path,
+        n_layers=len(p.policy_w),
+        log_std=np_(p.log_std),
+        **{f"w{i}": np_(w) for i, w in enumerate(p.policy_w)},
+        **{f"b{i}": np_(b) for i, b in enumerate(p.policy_b)},
+        **{f"vw{i}": np_(w) for i, w in enumerate(p.value_w)},
+        **{f"vb{i}": np_(b) for i, b in enumerate(p.value_b)},
+        **extra,
+    )
 
 
 def train_state_from_npz(path: str, device="cuda", seed: int = 0) -> Tuple[object, np.ndarray]:

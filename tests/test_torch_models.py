@@ -107,12 +107,14 @@ def test_import_never_loads_jax():
         "from pybulletgym_tpu_torch.ops import cuda_engine, step, contacts, dynamics\n"
         "from pybulletgym_tpu_torch.utils import interop\n"
         "from pybulletgym_tpu_torch.parallel import networks, ppo\n"
+        "from pybulletgym_tpu_torch.examples import enjoy, train_loop, train_ppo\n"
         "pybulletgym_tpu_torch.make_task('HalfCheetahPyBulletEnv-v0')\n"
         "pybulletgym_tpu_torch.make_task('AntPyBulletEnv-v0')\n"
         "pybulletgym_tpu_torch.make_task('HumanoidFlagrunHarderPyBulletEnv-v0')\n"
         "pybulletgym_tpu_torch.make_task('AtlasPyBulletEnv-v0')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'pybulletgym_tpu' or m.startswith('pybulletgym_tpu.')]\n"
+        "       or m == 'pybulletgym_tpu' or m.startswith('pybulletgym_tpu.')\n"
+        "       or m == 'examples' or m.startswith('examples.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
