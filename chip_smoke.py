@@ -21,8 +21,10 @@ dofs than a group's 32 lanes, root paths past bit 31):
     launches; the quaternion stays a unit one), FlagrunHarder's cube
     throw, the physics kernel on HalfCheetah with a cylinder thigh (the
     disk rows' regular branch, which no shipped model reaches), and both
-    kernels at ragged batches (B=1, 3E+1, 4097) on HalfCheetah, Humanoid,
-    HumanoidMuJoCo and Atlas; ReacherMuJoCo's disk-drawn target is held to
+    kernels at ragged batches (B=1, 3E+1, 4097) on HalfCheetah and
+    HumanoidMuJoCo, and (B=1, 3E+1, 4096: the first envs of their B=4096
+    step, whose plain versions take tens of seconds) on Humanoid and Atlas;
+    ReacherMuJoCo's disk-drawn target is held to
     1 ulp and whether it is bitwise is printed;
   * replays the CPU golden rollouts (four walkers, Reacher, the pendula, 7
     MuJoCo mirrors) and the TPU-recorded ones (the humanoid family, the
@@ -123,11 +125,13 @@ dofs than a group's 32 lanes, root paths past bit 31):
     path with the launch counts reset just before it and read just after):
     builds the large class of the tables (-DENG_BIG_TABLES: engine.cu, one
     nvcc a width, and task_step.cu with a user's task's hooks, all started
-    together); registers TwoHumanoids-v0 (two copies of humanoid.xml in one
-    worldbody: 36 bodies, nv 46) and makes it by ID at B=4096: 20 steps with
-    forced resets through task_step_kernel's large build (20 launches,
-    nothing else), and through the composed backend around
-    physics_step_kernel's large build (20 launches, nothing else; each step
+    together right after the first build, beside the phases before this one,
+    as the huge and sized phases' builds are); registers TwoHumanoids-v0
+    (two copies of humanoid.xml in one worldbody: 36 bodies, nv 46) and
+    makes it by ID at B=4096: 10 steps with forced resets through
+    task_step_kernel's large build (10 launches, nothing else), and through
+    the composed backend around physics_step_kernel's large build (10
+    launches, nothing else; each step
     bitwise the eager composed step's); holds both against the plain
     version on the card within the humanoid budget, resets bitwise; holds
     seven free balls (nv 42) through the large physics build to the plain
@@ -137,11 +141,23 @@ dofs than a group's 32 lanes, root paths past bit 31):
     the tables and the forward-solved rows Y in global memory, Y a device
     buffer of B envs' slices allocated when the env is made) and registers
     FourHumanoids-v0 (four copies of humanoid.xml: 72 bodies, nv 92, one
-    env's scratch over a block's shared memory): 20 steps through
-    task_step_kernel's huge build (20 launches, nothing else) and composed
-    around physics_step_kernel's huge build (20, graph = eager bitwise),
+    env's scratch over a block's shared memory): 10 steps through
+    task_step_kernel's huge build (10 launches, nothing else) and composed
+    around physics_step_kernel's huge build (10, graph = eager bitwise),
     both held to the plain version at step 0 (resets bitwise), eleven free
     balls (nv 66) through the huge physics build, both huge kernels timed;
+  * drives models past the huge caps (`sized_model_paths`, the same paths
+    through `scene_paths` at B=1024): builds the sized class
+    (-DENG_SIZED_TABLES with caps from the model's sizes: a root-path mask
+    of ceil(nv / 32) words, the tables and each env's whole scratch in
+    global memory) for TenHumanoids-v0 (ten copies of humanoid.xml: 180
+    bodies, nv 230, eight mask words, the scratch outside Y over a block's
+    shared memory) and forty free balls (nv 240): 20 steps through
+    task_step_kernel's sized build (20 launches, nothing else) and composed
+    around physics_step_kernel's sized build (20, graph = eager bitwise),
+    both held to the plain version at step 0 (resets bitwise), the balls
+    through the sized physics build against the plain physics, both sized
+    kernels timed with their ptxas reports and buffer bytes;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -154,6 +170,7 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import ctypes
 import dataclasses
@@ -205,10 +222,13 @@ POLICY_FLOOR = {CHEETAH: 3000.0, ANT: 2000.0, HOPPER: 2000.0, WALKER: 750.0,
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 B = 4096
+T_IMPORT = time.perf_counter()
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "at_seconds": time.perf_counter() - T_IMPORT}),
+          flush=True)
 
 
 def require(cond, msg):
@@ -950,12 +970,25 @@ def task_ops_paths(card):
 
 BIG_ID = "TwoHumanoids-v0"
 HUGE_ID = "FourHumanoids-v0"
+SIZED_ID = "TenHumanoids-v0"
+# steps of a scene by ID; every third env is forced to reset before step 0
+# and the middle step. The two- and four-Humanoid scenes take 10, so that the
+# whole run, the ten-Humanoid scene's 20 included, ends within its time limit
 SCENE_STEPS = 20
-SCENE_FORCED_AT = (0, 10)  # steps before which every third env is forced to reset
-BIG_PLAIN_AT = (0, 10)  # steps held to the plain version (~15 s a step at B=4096 on an H100)
+EARLY_SCENE_STEPS = 10
+BIG_PLAIN_AT = (0,)  # steps held to the plain version (~15 s a step at B=4096 on an H100)
 HUGE_PLAIN_AT = (0,)  # the four-Humanoid scene's plain step takes ~3x the two's
+SIZED_PLAIN_AT = (0,)  # the ten-Humanoid scene's: ~3x the four's
 BALLS = 7  # free balls: nv 42, over the default caps' 40
 HUGE_BALLS = 11  # nv 66, over the large caps' 64
+SIZED_BALLS = 40  # nv 240: eight mask words, the scratch outside Y over 227 KB
+# The ten-Humanoid scene's batch: at B=4096 its scratch buffer is ~5.65 GB,
+# which fits, but a step of seconds would make the phase most of the run
+SIZED_B = 1024
+# timing launches of a scene's kernels: (graph-captured calls, replays,
+# eager calls), and of its composed step (graph, replay, eager)
+SCENE_TIMING = ((5, 2, 5), (10, 10, 3))
+SIZED_TIMING = ((2, 1, 2), (3, 3, 1))
 
 
 def humanoids_xml(n: int) -> str:
@@ -1060,10 +1093,10 @@ def balls_xml(n: int, z: float) -> str:
 
 def step_as(step, size):
     """A CudaPhysicsStep like `step` whose tables are the same model's in
-    the larger size class `size` (every array of a smaller class fits the
-    larger one's, a root path's words included), laid out again: the same
-    arithmetic, with the tables (and in the huge class Y) in global
-    memory."""
+    the larger fixed size class `size` (LARGE or HUGE: every array of a
+    smaller class fits the larger one's, a root path's words included), laid
+    out again: the same arithmetic, with the tables (and in the huge class Y)
+    in global memory."""
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
     other = copy.copy(step)
@@ -1077,29 +1110,70 @@ def step_as(step, size):
     ce.scratch_layout(t)
     other.tables, other.size = t, size
     other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[size]
-    other.device_tables, other.y_buffers = {}, {}
+    other.device_tables, other.buffers = {}, {}
     return other
 
 
-def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
-    """A humanoids scene over a size class's caps on the card, at B=4096,
-    each path with the launch counts reset just before it and read just
-    after. `size`: the tables' class (ops.cuda_engine.LARGE or HUGE), whose
-    builds' kernels count apart (`*_large`, `*_huge`). Returns ({path:
-    launches}, the class's entries of the kernels line less their launches,
-    the record of the `{tag}_model_paths` phase, the scene's task and its
-    fused env).
+def scene_build(scene_id, humanoids, n_balls, size):
+    """A humanoids scene's builds, started: `scene_id` registered
+    (`humanoids_xml(humanoids)`), its task's hooks traced
+    (`CudaTaskStep.prepare`), the physics steps of the scene and of `n_balls`
+    free balls packed in the size class `size`, and the nvcc jobs of the
+    class's engine.cu libraries (one nvcc a group width; in the sized class
+    one set for the scene's caps and one for the balls') and of task_step.cu
+    with the hooks started together (`ce.Builds`), running beside the caller
+    until `scene_paths` waits for them. Returns a namespace of all that."""
+    import types
 
-    * Build: engine.cu's libraries of the class (one nvcc a group width)
-      and task_step.cu's build with the scene task's translated hooks, all
-      started together (`{tag}_build`).
+    import pybulletgym_tpu_torch as pt
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    xml = humanoids_xml(humanoids)
+    pt.register(scene_id, lambda: humanoids_task(xml, humanoids), 1000)
+    task = pt.make_task(scene_id)
+    task_build = tk.CudaTaskStep(task)
+    t0 = time.perf_counter()
+    task_build.prepare()
+    trace_s = time.perf_counter() - t0
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    bm = parse_mjcf(balls_xml(n_balls, 0.09), "balls")
+    bcfg = PhysicsConfig()
+    bphys = ce.make_cuda_physics_step(bm, bcfg)[0]
+    jobs = {}
+    for st in (phys, bphys):
+        jobs.update({job[2]: job for job in ce._engine_jobs(size, st.caps)[0]})
+    tjob, tname = task_build.cuda_job()
+    return types.SimpleNamespace(
+        task=task, task_build=task_build, trace_s=trace_s, phys=phys, bm=bm, bcfg=bcfg,
+        bphys=bphys, n_jobs=len(jobs) + 1, tname=tname, started=time.perf_counter(),
+        builds=ce.Builds(list(jobs.values()) + [tjob]))
+
+
+def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
+                timing=SCENE_TIMING, build=None, steps=SCENE_STEPS):
+    """A humanoids scene over a size class's caps on the card, at B envs,
+    each path with the launch counts reset just before it and read just
+    after. `size`: the tables' class (ops.cuda_engine.LARGE, HUGE or SIZED),
+    whose builds' kernels count apart (`*_large`, `*_huge`, `*_sized`);
+    `timing`: the timing launches (SCENE_TIMING); `build`: the scene's
+    `scene_build`, if started ahead (its nvcc seconds are then not
+    recorded: they ran beside earlier phases); `steps`: the steps of each
+    path, every third env forced to reset before step 0 and step
+    steps // 2. Returns ({path: launches},
+    the class's entries of the kernels line less their launches, the record
+    of the `{tag}_model_paths` phase).
+
+    * Build: `scene_build`, waited for (`{tag}_build`).
     * `{tag}_fused`: `scene_id` (`humanoids_xml(humanoids)`) registered and
-      made by ID, the default backend: 20 steps of seeded actions, every
-      third env forced to reset before steps 0 and 10: the class's
-      task_step_kernel build 20 launches, nothing else.
+      made by ID, the default backend: `steps` steps of seeded actions,
+      with the forced resets: the class's task_step_kernel build `steps`
+      launches, nothing else.
     * `{tag}_composed`: the same ID with backend "composed" (the hooks in
       torch around the class's physics_step_kernel build, replayed from a
-      CUDA graph): its 20 launches, nothing else; each step bitwise the
+      CUDA graph): its `steps` launches, nothing else; each step bitwise the
       eager composed step's and within the humanoid budget of the task
       kernel's from the same input.
     * Held to the plain version on the card (the steps of `plain_at`, from
@@ -1109,7 +1183,8 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
       the plain physics, 3 steps, the walkers' bounds.
     * Each kernel's time (CUDA-graph-timed) beside its bound, the plain
       version's, its launch configuration, ptxas report, nvcc seconds and
-      the tables' (and Y's) bytes."""
+      the tables' bytes and the device buffer's (the huge class's Y, the
+      sized class's scratch)."""
     import numpy as np
     import torch
 
@@ -1118,10 +1193,9 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
 
     import pybulletgym_tpu_torch as pt
     from pybulletgym_tpu_torch.envs.base import compose_env_step, env_step_plain
-    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
     from pybulletgym_tpu_torch.ops import task_kernel as tk
-    from pybulletgym_tpu_torch.ops.step import PhysicsConfig, make_physics_step_plain
+    from pybulletgym_tpu_torch.ops.step import make_physics_step_plain
 
     dev = torch.device("cuda", 0)
     fields = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
@@ -1149,48 +1223,51 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
             raise AssertionError(f"{what}: {e}; max |dq| {(a.q - b.q).abs().max().item()}")
         return (a.q - b.q).abs().max().item()
 
-    # ---- build the class's libraries at once -----------------------------------
-    xml = humanoids_xml(humanoids)
-    pt.register(scene_id, lambda: humanoids_task(xml, humanoids), 1000)
-    task = pt.make_task(scene_id)
+    # ---- the class's libraries, built at once -----------------------------------
+    ahead = build is not None
+    build = build or scene_build(scene_id, humanoids, n_balls, size)
+    task, task_build, phys = build.task, build.task_build, build.phys
+    bm, bcfg, bphys = build.bm, build.bcfg, build.bphys
     m = task.model
-    task_build = tk.CudaTaskStep(task)
-    t0 = time.perf_counter()
-    task_build.prepare()
-    trace_s = time.perf_counter() - t0
     require(task_build.size == size and task_build.kernel == names["task"],
             f"{scene_id}: tables of caps_id {task_build.tables.caps_id}")
-    jobs, _ = ce._engine_jobs(size)
-    tjob, tname = task_build.cuda_job()
-    t0 = time.perf_counter()
-    logs = ce._compile(jobs + [tjob])
-    nvcc_s = time.perf_counter() - t0
-    _, elog = ce.load_cuda_library(size)
+    require(phys.size == size and phys.kernel == names["physics"], "the physics tables' class")
+    require(bphys.size == size and bm.nv == 6 * n_balls, "the balls' tables' class")
+    logs = build.builds.wait()
+    nvcc_s = None if ahead else time.perf_counter() - build.started
+    _, elog = ce.load_cuda_library(size, phys.caps)
     ptx = {names["physics"]: ptxas_report(elog),
            names["task"]: [dict(k, G=task_build.tables.lanes) for k in ptxas_report(
-               logs[os.path.join(ce.BUILD_DIR, tname)])]}
-    phys = ce.make_cuda_physics_step(m, task.physics)[0]
-    require(phys.size == size and phys.kernel == names["physics"], "the physics tables' class")
+               logs[os.path.join(ce.BUILD_DIR, build.tname)])]}
+    balls_ptx = ptxas_report(ce.load_cuda_library(size, bphys.caps)[1])
     config = {names["physics"]: ce.launch_config(phys.tables, "physics_step_kernel", B),
               names["task"]: task_build.launch_config(dev, B)}
     sizes = dict(bodies=len(m.bodies), nq=m.nq, nv=m.nv, act=task.act_dim, rows=phys.tables.nr,
                  pair_rows=phys.tables.npair, limit_rows=phys.tables.nl, obs=task.obs_dim)
-    y_bytes = 4 * ce.y_stride(task_build.tables)
-    emit(f"{tag}_build", env=scene_id, model=sizes, trace_seconds=trace_s, nvcc_seconds=nvcc_s,
-         nvcc_jobs=len(jobs) + 1, table_bytes=ctypes.sizeof(phys.tables),
-         y_bytes_per_env=y_bytes, y_buffer_bytes=y_bytes * B,
-         hook_statements=task_build.program.ops, ptxas=ptx, launch=config, card=card)
+    caps = {st.kernel if st is phys else "balls": dict(zip(ce.SIZED_CAPS, st.caps))
+            for st in (phys, bphys) if st.caps is not None}
+    if task_build.caps is not None:
+        caps[names["task"]] = dict(zip(ce.SIZED_CAPS, task_build.caps))
+    buf_bytes = 4 * ce.buffer_floats(task_build.tables)
+    emit(f"{tag}_build", env=scene_id, B=B, model=sizes, trace_seconds=build.trace_s,
+         nvcc_seconds=nvcc_s, built_beside_earlier_phases=ahead, nvcc_jobs=build.n_jobs,
+         table_bytes=ctypes.sizeof(phys.tables),
+         buffer_bytes_per_env=buf_bytes, buffer_bytes=buf_bytes * B,
+         y_bytes_per_env=4 * ce.y_stride(task_build.tables), caps=caps,
+         hook_statements=task_build.program.ops, ptxas=ptx, balls_ptxas=balls_ptx,
+         launch=config, card=card)
 
     # ---- the scene by ID: fused, then composed ---------------------------------
     acts = torch.as_tensor(np.random.default_rng(14).uniform(
-        -1, 1, (SCENE_STEPS, task.act_dim, B)).astype(np.float32), device=dev)
+        -1, 1, (steps, task.act_dim, B)).astype(np.float32), device=dev)
+    forced_at = (0, steps // 2)
     forced = torch.zeros(B, dtype=torch.bool, device=dev)
     forced[::3] = True
 
     def rollout(step_fn, fresh):
         s, out = fresh, []
-        for t in range(SCENE_STEPS):
-            if t in SCENE_FORCED_AT:
+        for t in range(steps):
+            if t in forced_at:
                 s = s._replace(terminated=s.terminated | forced)
             out.append((s, acts[t], step_fn(s, acts[t])))
             s = out[-1][2]
@@ -1202,14 +1279,14 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
     fresh = fused.reset(seed=3)
     ksteps, n = counted(lambda: rollout(fused.step_fn, fresh))
     launches[f"{tag}_fused"] = n
-    require(n == dict(none, **{names["task"]: SCENE_STEPS}), f"{scene_id} fused: {n}")
+    require(n == dict(none, **{names["task"]: steps}), f"{scene_id} fused: {n}")
     require(all(bool(torch.isfinite(o.q).all()) for _, _, o in ksteps), f"{scene_id}: non-finite")
 
     comp = pt.make_batched(scene_id, B, backend="composed")
     eager = pt.make_batched(scene_id, B, backend="composed", graph=False)
     csteps, n = counted(lambda: rollout(comp.step_fn, fresh))
     launches[f"{tag}_composed"] = n
-    require(n == dict(none, **{names["physics"]: SCENE_STEPS}), f"{scene_id} composed: {n}")
+    require(n == dict(none, **{names["physics"]: steps}), f"{scene_id} composed: {n}")
     worst_comp, comp_q_bitwise = 0.0, True
     for t, ((s, a, out), (ks, ka, kout)) in enumerate(zip(csteps, ksteps)):
         require(bitwise(out, eager.step_fn(s, a)),
@@ -1247,7 +1324,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
         c = comp.step_fn(s, a)
         vs_plain[t] = {names["task"]: hold(k, p, f"task kernel step {t}"),
                        names["physics"]: hold(c, p, f"composed step {t}")}
-        if t in SCENE_FORCED_AT:
+        if t in forced_at:
             rk, rp = reset_k(s, a), env_step_plain(task, s, a, 0)
             require(torch.equal(rk.q[:, forced], rp.q[:, forced])
                     and torch.equal(rk.v[:, forced], rp.v[:, forced])
@@ -1255,10 +1332,6 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
                     f"{scene_id} step {t}: the reset differs from the plain version's")
 
     # ---- free balls: the class's physics build against plain --------------------
-    bm = parse_mjcf(balls_xml(n_balls, 0.09), "balls")
-    bcfg = PhysicsConfig()
-    bphys = ce.make_cuda_physics_step(bm, bcfg)[0]
-    require(bphys.size == size and bm.nv == 6 * n_balls, "the balls' tables' class")
     bplain = make_physics_step_plain(bm, bcfg)[0]
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.as_tensor(np.repeat(bm.qpos0[:, None], B, 1), dtype=torch.float32, device=dev)
@@ -1273,10 +1346,11 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
         require(balls[-1]["mean_dq"] < 3e-4 and balls[-1]["max_dq"] < 1e-2, f"balls: {balls}")
         q, v = qp, vp
     bs, bt = q.contiguous(), (torch.rand((bm.nv, B), device=dev, generator=g) * 2 - 1)
-    balls_ms = graph_ms(lambda: bphys(bs, v, bt))
+    (n_graph, reps, n_eager), (c_graph, c_replay, c_eager) = timing
+    balls_ms = graph_ms(lambda: bphys(bs, v, bt), n=4 * n_graph, reps=reps + 1)
 
     # ---- times ------------------------------------------------------------------
-    s, a = ksteps[5][0], ksteps[5][1]
+    s, a = ksteps[min(5, steps // 2 - 1)][:2]  # an input between the forced resets
     share = (s.terminated | s.truncated).float().mean().item()
     tstep = fused.step_fn
     tau = torch.zeros((m.nv, B), device=dev)
@@ -1286,30 +1360,33 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
     timed = {names["task"]: (lambda: tstep(s, a), min(plain_ms)),
              names["physics"]: (lambda: phys(s.q, s.v, tau), min(phys_ms))}
     gr = next(iter(comp.step_fn._graphs.values()))
-    composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), 10),
-                    replay_ms=cuda_ms(gr.graph.replay, 10),
-                    eager_host_ms=host_ms(lambda: eager.step_fn(s, a), 3),
+    composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), c_graph),
+                    replay_ms=cuda_ms(gr.graph.replay, c_replay),
+                    eager_host_ms=host_ms(lambda: eager.step_fn(s, a), c_eager),
                     capture_ms=comp.step_fn.capture_ms)
     entries = []
     for name, (fn, p_ms) in timed.items():
         flops, nbytes = work[name]
         t_ops = flops * B / PEAK_FP32_FLOPS * 1e3
         t_bytes = (nbytes * B + ctypes.sizeof(phys.tables)) / PEAK_BYTES_PER_S * 1e3
-        ms = graph_ms(fn, n=5, reps=2)  # 10-170 ms a launch
+        ms = graph_ms(fn, n=n_graph, reps=reps)  # 10 ms to seconds a launch
         entries.append({
             "name": name, "route": "cuda",
             "source": TASK_SOURCE if name.startswith("task") else SOURCE,
             "build": ce.CLASS_FLAGS[size][0], "replaces": REPLACES[name[:-len(suffix)]],
             "max_abs_err": max(r[name] for r in vs_plain.values()),
-            "ms": ms, "eager_ms": cuda_ms(fn, 5), "plain_ms": p_ms,
+            "ms": ms, "eager_ms": cuda_ms(fn, n_eager), "plain_ms": p_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "B": B, "timed_on": scene_id, "env_steps_per_s": B * 1e3 / ms,
             "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
             "table_bytes": ctypes.sizeof(phys.tables), "launch": config[name], "ptxas": ptx[name],
+            "buffer_bytes": buf_bytes * B, "caps": caps.get(name),
             "nvcc_seconds": nvcc_s, "models": [scene_id] + (
                 [f"{n_balls} free balls"] if name.startswith("physics") else [])})
-    entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls}
-    record = dict(env=scene_id, B=B, steps=SCENE_STEPS, forced_reset_at=SCENE_FORCED_AT,
+    entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls, "caps": caps.get("balls"),
+                           "launch": ce.launch_config(bphys.tables, "physics_step_kernel", B),
+                           "ptxas": balls_ptx}
+    record = dict(env=scene_id, B=B, steps=steps, forced_reset_at=forced_at,
                   launches=launches, held_to_plain_at=plain_at, max_dq_vs_plain=vs_plain,
                   resets_bitwise=True, graph_vs_eager_bitwise=True,
                   max_dq_composed_vs_task=worst_comp, composed_q_bitwise_to_task=comp_q_bitwise,
@@ -1322,7 +1399,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size):
     return launches, entries, record
 
 
-def big_model_paths(card):
+def big_model_paths(card, build=None):
     """Models over the default tables' caps on the card: engine_core.h's
     large class (-DENG_BIG_TABLES, the tables in global memory), through
     `scene_paths` on TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
@@ -1331,15 +1408,17 @@ def big_model_paths(card):
     free balls (nv 42); then what the tables in global memory cost:
     Humanoid's physics kernel with its default tables (a kernel parameter)
     and with the same tables in the large class, from the same inputs.
-    Returns ({path: launches}, the large builds' entries of the kernels line
-    less their launches)."""
+    `build`: the scene's `scene_build`, if started ahead. Returns ({path:
+    launches}, the large builds' entries of the kernels line less their
+    launches)."""
     import numpy as np
     import torch
 
     import pybulletgym_tpu_torch as pt
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
-    launches, entries, record = scene_paths(card, "big", BIG_ID, 2, BALLS, BIG_PLAIN_AT, ce.LARGE)
+    launches, entries, record = scene_paths(card, "big", BIG_ID, 2, BALLS, BIG_PLAIN_AT, ce.LARGE,
+                                            build=build, steps=EARLY_SCENE_STEPS)
     dev = torch.device("cuda", 0)
     ht = pt.make_task(HUMANOID)
     hs = pt.make_batched(HUMANOID, B).reset(seed=3)
@@ -1361,7 +1440,7 @@ def big_model_paths(card):
     return launches, entries
 
 
-def huge_model_paths(card):
+def huge_model_paths(card, build=None):
     """Models over the large tables' caps, or whose one-env scratch outgrows
     a block's shared memory, on the card: engine_core.h's huge class
     (-DENG_HUGE_TABLES: the tables in global memory, the forward-solved
@@ -1370,9 +1449,9 @@ def huge_model_paths(card):
     of humanoid.xml: 72 bodies, nq 96, nv 92, 68 actuators, 116 floor rows,
     136 limit rows; one env's scratch 233,796 B, over a block's 232,448;
     paths `huge_fused`, `huge_composed`) held to plain at HUGE_PLAIN_AT,
-    and eleven free balls (nv 66, root paths past dof 63). Returns ({path:
-    launches}, the huge builds' entries of the kernels line less their
-    launches)."""
+    and eleven free balls (nv 66, root paths past dof 63). `build`: the
+    scene's `scene_build`, if started ahead. Returns ({path: launches}, the
+    huge builds' entries of the kernels line less their launches)."""
     import numpy as np
     import torch
 
@@ -1381,7 +1460,7 @@ def huge_model_paths(card):
 
     torch.cuda.reset_peak_memory_stats()
     launches, entries, record = scene_paths(card, "huge", HUGE_ID, 4, HUGE_BALLS, HUGE_PLAIN_AT,
-                                            ce.HUGE)
+                                            ce.HUGE, build=build, steps=EARLY_SCENE_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
     # ---- where the huge kernels' time goes: the physics kernel of the two-
@@ -1407,7 +1486,7 @@ def huge_model_paths(card):
             st0 = copy.copy(st)
             st0.tables = type(st.tables).from_buffer_copy(st.tables)
             st0.tables.iterations = 0
-            st0.device_tables, st0.y_buffers = {}, {}
+            st0.device_tables, st0.buffers = {}, {}
             steps[cls + "_no_sweeps"] = st0
         for st in steps.values():
             st.prepare(dev, B)
@@ -1422,6 +1501,36 @@ def huge_model_paths(card):
             "huge_bitwise_to_large": (all(torch.equal(x, y) for x, y in zip(outs["large"], outs["huge"]))
                                       if n == 2 else None)}
     emit("huge_model_paths", **record, peak_memory_bytes=peak, time_split=split)
+    return launches, entries
+
+
+def sized_model_paths(card, build=None):
+    """Models past the huge class on the card: engine_core.h's sized class
+    (-DENG_SIZED_TABLES with caps set from the model's sizes: a root-path
+    mask of ceil(nv / 32) words, the tables and the whole scratch in global
+    memory, the scratch a device buffer of B envs' slices allocated when the
+    env is made), through `scene_paths` on TenHumanoids-v0 (ten copies of
+    humanoid.xml: 180 bodies, nq 240, nv 230, 170 actuators, 290 floor rows,
+    340 limit rows; eight mask words, one env's scratch outside Y 260,404 B,
+    over a block's 232,448; paths `sized_fused`, `sized_composed`) at
+    B=SIZED_B, held to plain at SIZED_PLAIN_AT, and forty free balls (nv
+    240, scratch outside Y 250,404 B). `build`: its `scene_build`, if
+    started ahead. Returns ({path: launches}, the sized builds' entries of
+    the kernels line less their launches)."""
+    import torch
+
+    from pybulletgym_tpu_torch.ops import cuda_engine as ce
+
+    emit("sized_batch", B=SIZED_B, why="at B=4096 the scene's scratch buffer is ~5.65 GB, "
+         "which fits, but a step takes seconds: B=1024 keeps the phase a share of the run",
+         card=card)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, entries, record = scene_paths(card, "sized", SIZED_ID, 10, SIZED_BALLS,
+                                            SIZED_PLAIN_AT, ce.SIZED, SIZED_B, SIZED_TIMING,
+                                            build)
+    emit("sized_model_paths", **record, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t0)
     return launches, entries
 
 
@@ -1629,6 +1738,13 @@ def main():
     for k in ptxas:
         require(k["spill_stores"] == 0 and k["spill_loads"] == 0 and k["stack_bytes"] < 1024,
                 f"ptxas: {k}")
+    # the scene phases' libraries (nvcc of the ten-Humanoid hooks alone takes
+    # ~100 s) build beside the phases before them; killed at exit if still running
+    scene_builds = {tag: scene_build(*args) for tag, args in (
+        ("big", (BIG_ID, 2, BALLS, ce.LARGE)), ("huge", (HUGE_ID, 4, HUGE_BALLS, ce.HUGE)),
+        ("sized", (SIZED_ID, 10, SIZED_BALLS, ce.SIZED)))}
+    for build in scene_builds.values():
+        atexit.register(build.builds.stop)
 
     # ---- each model's launch configuration at B=4096 -------------------------
     configs = {}
@@ -1721,7 +1837,7 @@ def main():
         return dict(task=task, env=env, s0=s0, tau=tau, phys=phys,
                     phys_err=phys_err, env_err=env_err)
 
-    # ---- the humanoid family: both kernels vs plain, B=4096, 2 steps ---------
+    # ---- the humanoid family: both kernels vs plain, B=4096, one step --------
     # Bounds: the humanoid family's (tests/test_pallas_equivalence.py:80-86).
     def fam_bounds(what, dq, flips=0.0, aux=None):
         require(dq.median().item() < 1.5e-3 and dq.mean().item() < 5e-3
@@ -1765,9 +1881,12 @@ def main():
         return out, (time.perf_counter() - t0) * 1e3
 
     def parity_humanoid(env_id):
-        """Both kernels vs plain on a large model, B=4096, 2 steps: the
-        humanoid family's budget, or the walkers' where the model has no
-        pair rows (Atlas)."""
+        """Both kernels vs plain on a large model, B=4096: the physics step
+        from the reset, and one env step from it with every 3rd env forced
+        to reset (bitwise repeatable, the resets bitwise); the humanoid
+        family's budget, or the walkers' where the model has no pair rows
+        (Atlas). Returns the inputs and plain outputs too, which `ragged`
+        holds the kernels to on the first envs."""
         task = make_task(env_id)
         walker = ce.pack_tables(task).npair == 0
         rng = np.random.default_rng(0)
@@ -1786,62 +1905,56 @@ def main():
         (walker_bounds if walker else fam_bounds)(f"{env_id} physics kernel", dq, flips)
         require(torch.isfinite(qk).all().item() and torch.isfinite(vk).all().item(), "non-finite")
 
+        # one env step from the reset, every 3rd env forced to reset on it (one
+        # step keeps the whole run within its time limit: a plain step of these
+        # models takes 20-40 s on the card)
         step_k = env.step_fn
-        sk = sp = s0
-        env_err, plain_env_ms, lmem_env = 0.0, None, None
-        for t in range(2):
-            a = uniform(rng, task, B)
-            if t == 1:  # force every 3rd env to reset on this step
-                forced = torch.zeros(B, dtype=torch.bool, device=dev)
-                forced[::3] = True
-                sk = sk._replace(terminated=sk.terminated | forced)
-                sp = sp._replace(terminated=sp.terminated | forced)
-                again = step_k(sk, a)
-                reset_k = ce.make_cuda_env_step(task, frame_skip=0)(sk, a)
-                reset_p = env_step_plain(task, sk, a, frame_skip=0)
-                require(torch.equal(reset_k.q[:, forced], reset_p.q[:, forced]),
-                        "reset q differs from the plain version")
-                for k in ("target_x", "target_y", "flag_count", "flag_timeout", "frame"):
-                    if k in reset_p.aux:  # the flag draws and counters
-                        require(torch.equal(reset_k.aux[k][forced], reset_p.aux[k][forced]),
-                                f"reset aux {k} differs")
-            if t == 0:
-                sk, lmem_env = lmem_delta(lambda: step_k(sk, a), f"{env_id} env")
-                sp, plain_env_ms = timed(lambda: env_step_plain(task, sp, a))
-            else:
-                sk = step_k(sk, a)
-                for name in ("q", "v", "obs", "reward", "terminated", "truncated",
-                             "step_count", "epoch"):
-                    require(torch.equal(getattr(sk, name), getattr(again, name)),
-                            f"env kernel not repeatable in {name}")
-                sp = env_step_plain(task, sp, a)
-            torch.cuda.synchronize()
-            dq = (sk.q - sp.q).abs()
-            dob = (sk.obs - sp.obs).abs()
-            nf = len(task.spec.foot_geoms)
-            aux = {k: (sk.aux[k] - sp.aux[k]).abs().median().item() for k in sp.aux}
-            flips = (sk.terminated != sp.terminated).float().mean().item()
-            env_err = max(env_err, dq.max().item())
-            rec = dict(median_dq=dq.median().item(), mean_dq=dq.mean().item(),
-                       max_dq=dq.max().item(), term_flip_rate=flips,
-                       median_dreward=(sk.reward - sp.reward).abs().median().item(),
-                       obs_cont_mean=dob[:-nf].mean().item(),
-                       foot_flip_rate=(dob[-nf:] > 0.5).float().mean().item(), aux_median=aux)
-            emit("env_vs_plain", env=env_id, B=B, step=t + 1, **rec,
-                 local_memory_reserved_bytes=lmem_env if t == 0 else None)
-            if walker:
-                walker_bounds(f"{env_id} env kernel", dq, flips, rec)
-            else:
-                fam_bounds(f"{env_id} env kernel", dq, flips, aux)
-            for name in ("epoch", "step_count", "truncated"):
-                require(torch.equal(getattr(sk, name), getattr(sp, name)), f"{name} differs")
+        a = uniform(rng, task, B)
+        forced = torch.zeros(B, dtype=torch.bool, device=dev)
+        forced[::3] = True
+        ins = s0._replace(terminated=s0.terminated | forced)
+        sk, lmem_env = lmem_delta(lambda: step_k(ins, a), f"{env_id} env")
+        sp, plain_env_ms = timed(lambda: env_step_plain(task, ins, a))
+        again = step_k(ins, a)
+        for name in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
+            require(torch.equal(getattr(sk, name), getattr(again, name)),
+                    f"env kernel not repeatable in {name}")
+        reset_k = ce.make_cuda_env_step(task, frame_skip=0)(ins, a)
+        reset_p = env_step_plain(task, ins, a, frame_skip=0)
+        require(torch.equal(reset_k.q[:, forced], reset_p.q[:, forced]),
+                "reset q differs from the plain version")
+        for k in ("target_x", "target_y", "flag_count", "flag_timeout", "frame"):
+            if k in reset_p.aux:  # the flag draws and counters
+                require(torch.equal(reset_k.aux[k][forced], reset_p.aux[k][forced]),
+                        f"reset aux {k} differs")
+        torch.cuda.synchronize()
+        dq = (sk.q - sp.q).abs()
+        dob = (sk.obs - sp.obs).abs()
+        nf = len(task.spec.foot_geoms)
+        aux = {k: (sk.aux[k] - sp.aux[k]).abs().median().item() for k in sp.aux}
+        flips = (sk.terminated != sp.terminated).float().mean().item()
+        env_err = dq.max().item()
+        rec = dict(median_dq=dq.median().item(), mean_dq=dq.mean().item(),
+                   max_dq=dq.max().item(), term_flip_rate=flips,
+                   median_dreward=(sk.reward - sp.reward).abs().median().item(),
+                   obs_cont_mean=dob[:-nf].mean().item(),
+                   foot_flip_rate=(dob[-nf:] > 0.5).float().mean().item(), aux_median=aux)
+        emit("env_vs_plain", env=env_id, B=B, step=1, forced_reset_share=1 / 3, **rec,
+             local_memory_reserved_bytes=lmem_env)
+        if walker:
+            walker_bounds(f"{env_id} env kernel", dq, flips, rec)
+        else:
+            fam_bounds(f"{env_id} env kernel", dq, flips, aux)
+        for name in ("epoch", "step_count", "truncated"):
+            require(torch.equal(getattr(sk, name), getattr(sp, name)), f"{name} differs")
         quat = (1 - sk.q[3:7].norm(dim=0)).abs().max().item()
         emit("reset_and_repeat", env=env_id, reset_q_bitwise=True, repeat_bitwise=True,
              max_quat_norm_err=quat)
         require(quat < 1e-5, "quaternion drifted from unit norm")
         return dict(task=task, env=env, s0=s0, tau=tau, phys=phys, phys_err=phys_err,
                     env_err=env_err, plain_ms={"physics_step_kernel": plain_phys_ms,
-                                               "env_step_kernel": plain_env_ms})
+                                               "env_step_kernel": plain_env_ms},
+                    ragged=dict(s=ins, a=a, want_env=sp, want_phys=(qp, vp, dp)))
 
     # ---- FlagrunHarder's cube: a forced throw (frame 120, ground_counter 0) ---
     def cube(p):
@@ -1959,7 +2072,7 @@ def main():
                     env_err=env_err, plain_ms={"physics_step_kernel": plain_phys_ms,
                                                "env_step_kernel": plain_env_ms})
 
-    # ---- both kernels at ragged batches: B=1, 3E+1, 4097 ---------------------
+    # ---- both kernels at ragged batches: B=1, 3E+1, 4097 (4096) ---------------
     def take(st, n):
         """The first n envs of a batch-trailing state, each field contiguous."""
         f = lambda x: x[..., :n].contiguous()  # noqa: E731
@@ -1969,28 +2082,37 @@ def main():
                            aux={k: f(x) for k, x in st.aux.items()},
                            rewards={k: f(x) for k, x in st.rewards.items()})
 
-    def ragged(env_id):
+    def ragged(env_id, parity_run=None):
         """One plain env step and one plain physics step on 4097 envs (every
-        3rd due for an auto-reset); the kernels on the first n envs of the
-        same inputs are held to the first n columns (every env is
-        independent), for n = 1, 3E+1 (one env into a fourth block) and
-        4097. The bounds of the model's family."""
+        3rd due for an auto-reset), or those of the model's `parity_humanoid`
+        run (B=4096, the plain steps that dominate a large model's time
+        taken once); the kernels on the first n envs of the same inputs are
+        held to the first n columns (every env is independent), for n = 1,
+        3E+1 (one env into a fourth block) and all of them. The bounds of the
+        model's family."""
         task = make_task(env_id)
         humanoid = env_id in (HUMANOID, HARDER)  # else the walkers' budget
-        Br = 4097
-        env = make_batched(env_id, Br)
-        forced = torch.zeros(Br, dtype=torch.bool, device=dev)
-        forced[::3] = True
-        s = env.reset(seed=7)._replace(terminated=forced)
-        a = uniform(np.random.default_rng(7), task, Br)
-        tau = torques(task, a)
-        phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
-        want_env, want_phys = env_step_plain(task, s, a), phys.plain(s.q, s.v, tau)
+        if parity_run is None:
+            Br = 4097
+            env = make_batched(env_id, Br)
+            forced = torch.zeros(Br, dtype=torch.bool, device=dev)
+            forced[::3] = True
+            s = env.reset(seed=7)._replace(terminated=forced)
+            a = uniform(np.random.default_rng(7), task, Br)
+            tau = torques(task, a)
+            phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+            want_env, want_phys = env_step_plain(task, s, a), phys.plain(s.q, s.v, tau)
+            phys_in = (s.q, s.v, tau)
+        else:
+            r, env, phys = parity_run["ragged"], parity_run["env"], parity_run["phys"]
+            s, a, want_env, want_phys = r["s"], r["a"], r["want_env"], r["want_phys"]
+            phys_in = (parity_run["s0"].q, parity_run["s0"].v, parity_run["tau"])
+            Br = s.q.shape[-1]
         for kernel, tables in (("env_step_kernel", env.step_fn.tables),
                                ("physics_step_kernel", phys.tables)):
             E = ce.launch_config(tables, kernel)["E"]
             for n in (1, 3 * E + 1, Br):
-                sn, an, taun = take(s, n), a[:, :n].contiguous(), tau[:, :n].contiguous()
+                sn, an = take(s, n), a[:, :n].contiguous()
                 if kernel == "env_step_kernel":
                     out, want = env.step_fn(sn, an), take(want_env, n)
                     dq = (out.q - want.q).abs()
@@ -2000,7 +2122,7 @@ def main():
                         require(torch.equal(getattr(out, name), getattr(want, name)),
                                 f"{env_id} ragged {n}: {name} differs")
                 else:
-                    qk, vk, dk = phys(sn.q, sn.v, taun)
+                    qk, vk, dk = phys(*(x[:, :n].contiguous() for x in phys_in))
                     qp, vp, dp = (x[:, :n] for x in want_phys)
                     dq = (qk - qp).abs()
                     rec = dict(depth_sign_flip_rate=((dk > 0) != (dp > 0)).float().mean().item())
@@ -2609,7 +2731,7 @@ def main():
 
     # the humanoid family: both kernels, the cube, goldens, the three policies
     ph = parity_humanoid(HUMANOID)
-    ragged(HUMANOID)
+    ragged(HUMANOID, ph)
     golden(HUMANOID, tpu=True)
     main_h = policy_path(HUMANOID, (ph["phys"], ph["s0"].q, ph["s0"].v, ph["tau"]))
     pf = parity_humanoid(HARDER)
@@ -2648,7 +2770,7 @@ def main():
     # Atlas: both kernels at the walkers' budget (no pair rows), its ragged
     # batches, its TPU golden, its policy
     pat = parity_humanoid(ATLAS)
-    ragged(ATLAS)
+    ragged(ATLAS, pat)
     golden(ATLAS, tpu=True)
     main_at = policy_path(ATLAS, (pat["phys"], pat["s0"].q, pat["s0"].v, pat["tau"]))
 
@@ -2903,8 +3025,9 @@ def main():
     main_examples, _ = examples_paths(card)
     main_user, task_entry = user_task_paths(card)
     main_ops, ops_timing = task_ops_paths(card)
-    main_big, big_entries = big_model_paths(card)
-    main_huge, huge_entries = huge_model_paths(card)
+    main_big, big_entries = big_model_paths(card, scene_builds["big"])
+    main_huge, huge_entries = huge_model_paths(card, scene_builds["huge"])
+    main_sized, sized_entries = sized_model_paths(card, scene_builds["sized"])
     main_mesh = mesh_phases()
 
     # the local memory that the first launch of each kernel on each model
@@ -2959,8 +3082,9 @@ def main():
                         mesh_launches=main_mesh["task_step_kernel"],
                         models=task_entry["models"] + list(ops_timing)))
     for tag, main_scene, entries in (("big", main_big, big_entries),
-                                     ("huge", main_huge, huge_entries)):
-        for e in entries:  # the large and huge builds, launched on their own main paths only
+                                     ("huge", main_huge, huge_entries),
+                                     ("sized", main_sized, sized_entries)):
+        for e in entries:  # the large, huge and sized builds, on their own main paths only
             path = f"{tag}_fused" if e["name"].startswith("task") else f"{tag}_composed"
             kernels.append(dict(e, launches=main_scene[path][e["name"]]))
     emit("elapsed", seconds=time.perf_counter() - t_start)

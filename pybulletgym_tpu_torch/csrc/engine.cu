@@ -50,8 +50,14 @@
 // the forward-solved rows Y in a device buffer of B envs' slices (ybuf, an
 // argument after the tables): the shared memory a block asks for, which
 // launch_check and eng_launch_config bound, is the rest of the scratch.
+// The sized class (-DENG_SIZED_TABLES: caps set by the host from the model,
+// any size) keeps its tables in global memory as well, and the whole scratch
+// of env i in a device buffer of B slices of sc_stride floats (sbuf, in
+// ybuf's place): a block asks for no shared memory, the SM's 256 KB serve as
+// L1 for the slices, and E comes from the occupancy API on registers alone.
 // env_step_kernel's task classes all fit the default class; any other task
-// over its caps runs task_step_kernel's large or huge build (task_step.cu).
+// over its caps runs task_step_kernel's large, huge or sized build
+// (task_step.cu).
 //
 // Timing on a card: `python3 pybulletgym_tpu_torch/tools/kernel_ab.py ROOT_A
 // ROOT_B` times both kernels in two checkouts (P C C P, graph-replayed
@@ -73,6 +79,17 @@ constexpr int kMaxThreads = 128;  // E * G
 constexpr int kMinBlocks = 4;     // of 128 threads an SM: at most 128 registers a thread
 constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
+// Dynamic shared bytes of a block of E envs of `stride` floats: their
+// scratch, or none in the sized build (the scratch in sbuf).
+size_t shared_bytes(int E, int stride) {
+#ifdef ENG_SIZED_TABLES
+  (void)E, (void)stride;
+  return 0;
+#else
+  return (size_t)E * stride * sizeof(float);
+#endif
+}
+
 // This thread's group: its lanes in the warp.
 __device__ __forceinline__ eng::Group<G> my_group() {
   const int wl = threadIdx.x & 31;
@@ -84,7 +101,7 @@ __device__ __forceinline__ eng::Group<G> my_group() {
 }
 
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-physics_step_kernel(ENG_TABLES_PARAM, ENG_YBUF_PARAM const float* __restrict__ q,
+physics_step_kernel(ENG_TABLES_PARAM, ENG_BUF_PARAM const float* __restrict__ q,
                     const float* __restrict__ v, const float* __restrict__ tau,
                     float* __restrict__ q_out, float* __restrict__ v_out,
                     float* __restrict__ d_out, int B) {
@@ -93,8 +110,8 @@ physics_step_kernel(ENG_TABLES_PARAM, ENG_YBUF_PARAM const float* __restrict__ q
   const int E = blockDim.x / G, e = threadIdx.x / G;
   const int i = blockIdx.x * E + e;
   if (i >= B) return;  // the whole group: its lanes share i
-  eng::physics_step_one<G>(t, my_group(), smem + e * t.sc_stride ENG_ENV_Y(i), i, B, q, v, tau,
-                           q_out, v_out, d_out);
+  eng::physics_step_one<G>(t, my_group(), ENG_ENV_SCRATCH(e, i), i, B, q, v, tau, q_out, v_out,
+                           d_out);
 }
 
 #ifndef ENG_GLOBAL_TABLES
@@ -110,7 +127,7 @@ env_step_kernel(const __grid_constant__ eng::Tables t, eng::EnvIO io, int B) {
 
 int launch_check(const eng::Tables& t, int E) {
   if (t.lanes != G || t.nv > eng::lane_nv<G>() || E < 1 || E * G > kMaxThreads ||
-      (size_t)E * t.sc_stride * sizeof(float) > kMaxShared)
+      shared_bytes(E, t.sc_stride) > kMaxShared)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -129,10 +146,10 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // E, the envs a block, out[1] = resident blocks per SM, out[2] = dynamic
 // shared bytes a block, out[3] = registers a thread, out[4] = local (stack)
 // bytes a thread. kernel 0 is physics_step_kernel, 1 env_step_kernel (not
-// in the large and huge builds). E is the power of two (E * G <= 128 threads, E *
-// stride floats <= 227 KB) that keeps the most envs resident per SM, the
-// larger on a tie. Returns a cudaError_t, or cudaErrorInvalidValue if one
-// env's scratch does not fit.
+// in the large, huge and sized builds). E is the power of two (E * G <= 128
+// threads, E * stride floats <= 227 KB; in the sized build no shared memory)
+// that keeps the most envs resident per SM, the larger on a tie. Returns a
+// cudaError_t, or cudaErrorInvalidValue if one env's scratch does not fit.
 int eng_launch_config(int kernel, int stride, int32_t* out) {
 #ifdef ENG_GLOBAL_TABLES
   if (kernel != 0) return (int)cudaErrorInvalidValue;
@@ -140,15 +157,20 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 #else
   const void* fn = kernel == 0 ? (const void*)physics_step_kernel : (const void*)env_step_kernel;
 #endif
+#ifdef ENG_SIZED_TABLES
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxL1);
+#else
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kMaxShared);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+#endif
   if (err != cudaSuccess) return (int)err;
   int best_e = 0, best_blocks = 0;
   for (int E = 1; E * G <= kMaxThreads; E *= 2) {
-    const size_t bytes = (size_t)E * stride * sizeof(float);
+    const size_t bytes = shared_bytes(E, stride);
     if (bytes > kMaxShared) break;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, E * G, bytes);
@@ -164,7 +186,7 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = best_e;
   out[1] = best_blocks;
-  out[2] = (int32_t)(best_e * stride * sizeof(float));
+  out[2] = (int32_t)shared_bytes(best_e, stride);
   out[3] = attr.numRegs;
   out[4] = (int32_t)attr.localSizeBytes;
   return 0;
@@ -174,19 +196,19 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 // large and huge builds the device copy `dev_tables` is the kernel's and
 // `tables` is only checked), every other pointer a device pointer (in the
 // huge build `ybuf`, B x tables.sc[SC_YSTRIDE] floats, follows
-// `dev_tables`); E is
+// `dev_tables`; in the sized build `sbuf`, B x tables.sc_stride floats); E is
 // eng_launch_config's envs a block. Returns cudaGetLastError() of the
 // launch, or cudaErrorInvalidValue for tables of another G, more dofs than
 // this library's lanes hold (eng::lane_nv) or an E that does not fit.
-int launch_physics_step(const void* tables, ENG_DEV_TABLES ENG_YBUF_PARAM const float* q,
+int launch_physics_step(const void* tables, ENG_DEV_TABLES ENG_BUF_PARAM const float* q,
                         const float* v, const float* tau, float* q_out, float* v_out,
                         float* d_out, int B, int E, void* stream) {
   if (B <= 0) return 0;
   const eng::Tables& tg = *(const eng::Tables*)tables;
   if (int err = launch_check(tg, E)) return err;
   const int blocks = (B + E - 1) / E;
-  physics_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
-      ENG_KERNEL_TABLES(tg), ENG_KERNEL_Y q, v, tau, q_out, v_out, d_out, B);
+  physics_step_kernel<<<blocks, E * G, shared_bytes(E, tg.sc_stride), (cudaStream_t)stream>>>(
+      ENG_KERNEL_TABLES(tg), ENG_KERNEL_BUF q, v, tau, q_out, v_out, d_out, B);
   return (int)cudaGetLastError();
 }
 
@@ -205,7 +227,7 @@ int launch_env_step(const void* tables, const float* q, const float* v, const fl
   const eng::Tables& tg = *(const eng::Tables*)tables;
   if (int err = launch_check(tg, E)) return err;
   const int blocks = (B + E - 1) / E;
-  env_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
+  env_step_kernel<<<blocks, E * G, shared_bytes(E, tg.sc_stride), (cudaStream_t)stream>>>(
       tg, io, B);
   return (int)cudaGetLastError();
 }

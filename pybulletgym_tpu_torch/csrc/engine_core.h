@@ -45,7 +45,8 @@
 // the float offset of each ENG_SCRATCH array) so no array is sized by a
 // cap; the constants below bound only the tables. The huge class keeps Y,
 // most of a large model's scratch, in a second array per env (a device
-// buffer on the card, a second heap buffer on the host).
+// buffer on the card, a second heap buffer on the host); the sized class
+// keeps the whole array in a device buffer on the card.
 
 #pragma once
 
@@ -78,16 +79,16 @@
 
 // How the kernels of engine.cu and task_step.cu take the tables. The default
 // class: a __grid_constant__ parameter, passed by value from the host copy.
-// The large and huge classes (ENG_BIG_TABLES, ENG_HUGE_TABLES, below): a
-// pointer to a copy in global memory (dev_tables, a leading argument of each
-// launcher) that the wrapper uploads once when the env is made; the kernel
-// binds it to the `t` that the core reads. In the hot PGS sweep every lane of
-// a warp reads the same entry, a broadcast through L1. The launchers check
-// the host copy.
-#if defined(ENG_BIG_TABLES) && defined(ENG_HUGE_TABLES)
-#error "ENG_BIG_TABLES and ENG_HUGE_TABLES name two size classes: build one"
+// The large, huge and sized classes (ENG_BIG_TABLES, ENG_HUGE_TABLES,
+// ENG_SIZED_TABLES, below): a pointer to a copy in global memory
+// (dev_tables, a leading argument of each launcher) that the wrapper uploads
+// once when the env is made; the kernel binds it to the `t` that the core
+// reads. In the hot PGS sweep every lane of a warp reads the same entry, a
+// broadcast through L1. The launchers check the host copy.
+#if defined(ENG_BIG_TABLES) + defined(ENG_HUGE_TABLES) + defined(ENG_SIZED_TABLES) > 1
+#error "ENG_BIG_TABLES, ENG_HUGE_TABLES and ENG_SIZED_TABLES name three size classes: build one"
 #endif
-#if defined(ENG_BIG_TABLES) || defined(ENG_HUGE_TABLES)
+#if defined(ENG_BIG_TABLES) || defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
 #define ENG_GLOBAL_TABLES
 #endif
 #ifdef ENG_GLOBAL_TABLES
@@ -102,36 +103,48 @@
 #define ENG_KERNEL_TABLES(host) (host)
 #endif
 
-// Where the forward-solved constraint rows Y (and the arrays that share
-// their space) live. The default and large classes: in the env's slice of
-// shared memory with the rest of its scratch. The huge class: in the env's
-// slice of a device buffer of B x Tables::sc[SC_YSTRIDE] floats (ybuf, an
-// argument of its kernels and launchers after the tables), which the core's
-// functions take as a second base (ybase) beside the shared one.
-#ifdef ENG_HUGE_TABLES
+// Where an env's scratch lives. The default and large classes: in the env's
+// slice (env e of its block) of the block's dynamic shared memory `smem`.
+// The huge class: likewise, but the forward-solved constraint rows Y (and the
+// arrays that share their space) in env i's slice of a device buffer of B x
+// Tables::sc[SC_YSTRIDE] floats (ybuf, an argument of its kernels and
+// launchers after the tables), which the core's functions take as a second
+// base (ybase) beside the shared one. The sized class: the whole scratch, Y
+// included and laid out as in the default class, in env i's slice of a device
+// buffer of B x Tables::sc_stride floats (sbuf, in ybuf's place); a block
+// asks for no shared memory. ENG_ENV_SCRATCH(e, i) is the core's base
+// argument (or two) of env i, the e-th of its block.
+#if defined(ENG_HUGE_TABLES)
 #define ENG_Y_PARAM , float* ybase
 #define ENG_Y_ARG , ybase
-#define ENG_YBUF_PARAM float* __restrict__ ybuf,
-#define ENG_KERNEL_Y ybuf,
-#define ENG_ENV_Y(i) , ybuf + (size_t)(i) * t.sc[eng::SC_YSTRIDE]
+#define ENG_BUF_PARAM float* __restrict__ ybuf,
+#define ENG_KERNEL_BUF ybuf,
+#define ENG_ENV_SCRATCH(e, i) smem + (e) * t.sc_stride, ybuf + (size_t)(i) * t.sc[eng::SC_YSTRIDE]
+#elif defined(ENG_SIZED_TABLES)
+#define ENG_Y_PARAM
+#define ENG_Y_ARG
+#define ENG_BUF_PARAM float* __restrict__ sbuf,
+#define ENG_KERNEL_BUF sbuf,
+#define ENG_ENV_SCRATCH(e, i) sbuf + (size_t)(i) * t.sc_stride
 #else
 #define ENG_Y_PARAM
 #define ENG_Y_ARG
-#define ENG_YBUF_PARAM
-#define ENG_KERNEL_Y
-#define ENG_ENV_Y(i)
+#define ENG_BUF_PARAM
+#define ENG_KERNEL_BUF
+#define ENG_ENV_SCRATCH(e, i) smem + (e) * t.sc_stride
 #endif
 
 namespace eng {
 
 // ---- caps; pack_tables raises above them -----------------------------------
-// The Tables struct, in one of three size classes chosen at compile time. A
+// The Tables struct, in one of four size classes chosen at compile time. A
 // root-path mask is MASK_WORDS uint32 words (anc_mask, anc_mask_hi): two,
-// up to 64 dofs, in the default and large classes; four in the huge one.
+// up to 64 dofs, in the default and large classes; four in the huge one;
+// ceil(MAX_NV / 32) in the sized one.
 // The default class keeps the tables a __grid_constant__ kernel parameter
 // (at most 32,764 bytes); Atlas (31 bodies, nq 37, nv 36, 60 limit rows, 30
 // actuators, 31 part frames) is its largest shipped model.
-#if !defined(ENG_BIG_TABLES) && !defined(ENG_HUGE_TABLES)
+#if !defined(ENG_BIG_TABLES) && !defined(ENG_HUGE_TABLES) && !defined(ENG_SIZED_TABLES)
 constexpr int MAX_BODIES = 32;
 constexpr int MAX_NV = 40;
 constexpr int MAX_NQ = 41;        // a free joint has 7 q entries and 6 dofs
@@ -165,7 +178,7 @@ constexpr int MAX_LIMITS = BIG_MAX_LIMITS;
 constexpr int MAX_ACT = BIG_MAX_ACT;
 constexpr int MAX_PARTS = BIG_MAX_PARTS;
 constexpr int MAX_DRAWS = BIG_MAX_DRAWS;
-#else
+#elif defined(ENG_HUGE_TABLES)
 // The huge class (-DENG_HUGE_TABLES): models over the large class's caps,
 // or whose one-env scratch outgrows a block's shared memory, such as four
 // humanoids in one scene (72 bodies, nq 96, nv 92, 116 floor rows, 136
@@ -193,15 +206,43 @@ constexpr int MAX_LIMITS = HUGE_MAX_LIMITS;
 constexpr int MAX_ACT = HUGE_MAX_ACT;
 constexpr int MAX_PARTS = HUGE_MAX_PARTS;
 constexpr int MAX_DRAWS = HUGE_MAX_DRAWS;
+#else
+// The sized class (-DENG_SIZED_TABLES): models over the huge class's caps,
+// or whose scratch outside Y outgrows a block's shared memory, such as ten
+// humanoids in one scene (180 bodies, nq 240, nv 230, 290 floor rows, 340
+// limit rows, 170 actuators). Its caps are the model's own sizes, rounded up
+// by ops/cuda_engine.py · sized_caps and given as -DSIZED_MAX_*=n (and
+// -DSIZED_MASK_WORDS=ceil(MAX_NV / 32), at least 2), so no model size is
+// refused; one library serves every model that rounds to the same caps. The
+// tables live in global memory, and so does the whole scratch
+// (ENG_ENV_SCRATCH above).
+#if !defined(SIZED_MAX_BODIES) || !defined(SIZED_MAX_NV) || !defined(SIZED_MAX_NQ) ||    \
+    !defined(SIZED_MAX_ROWS) || !defined(SIZED_MAX_PAIRS) || !defined(SIZED_MAX_LIMITS) || \
+    !defined(SIZED_MAX_ACT) || !defined(SIZED_MAX_PARTS) || !defined(SIZED_MAX_DRAWS) ||   \
+    !defined(SIZED_MASK_WORDS)
+#error "the sized class takes its caps as -DSIZED_MAX_{BODIES,NV,NQ,ROWS,PAIRS,LIMITS,ACT,PARTS,DRAWS}=n and -DSIZED_MASK_WORDS=n"
 #endif
-#ifdef ENG_HUGE_TABLES
+constexpr int MAX_BODIES = SIZED_MAX_BODIES;
+constexpr int MAX_NV = SIZED_MAX_NV;
+constexpr int MAX_NQ = SIZED_MAX_NQ;
+constexpr int MAX_ROWS = SIZED_MAX_ROWS;
+constexpr int MAX_PAIRS = SIZED_MAX_PAIRS;
+constexpr int MAX_LIMITS = SIZED_MAX_LIMITS;
+constexpr int MAX_ACT = SIZED_MAX_ACT;
+constexpr int MAX_PARTS = SIZED_MAX_PARTS;
+constexpr int MAX_DRAWS = SIZED_MAX_DRAWS;
+#endif
+#if defined(ENG_HUGE_TABLES)
 constexpr int MASK_WORDS = HUGE_MASK_WORDS;
+#elif defined(ENG_SIZED_TABLES)
+constexpr int MASK_WORDS = SIZED_MASK_WORDS;
 #else
 constexpr int MASK_WORDS = 2;
 #endif
 // The size class of a model without pair rows within these (Hopper ... Ant,
 // Reacher, the pendula: caps_id 0; the others 1; a model of the large
-// class's tables 2, of the huge class's 3), kept as a model property
+// class's tables 2, of the huge class's 3, of the sized class's 4), kept as
+// a model property
 constexpr int WALKER_BODIES = 16;
 constexpr int WALKER_NV = 16;
 constexpr int WALKER_NQ = 17;
@@ -251,10 +292,12 @@ constexpr int MJ_DONE_HUMANOID = 4;
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
 // Tables::sc[SC_YSTRIDE]: in the huge class, the floats of one env's slice
-// of the Y buffer (0 in the others)
+// of the Y buffer (0 in the others; in the sized class Tables::sc_stride is
+// the floats of one env's slice of its buffer)
 constexpr int SC_YSTRIDE = SC_COUNT;
 static_assert(SC_COUNT < MAX_SLOTS, "Tables::sc is too short");
 static_assert(MAX_NV <= 32 * MASK_WORDS, "a root-path mask is MASK_WORDS 32-bit words");
+static_assert(MASK_WORDS >= 2, "anc_mask_hi holds at least one word a body");
 static_assert(MAX_DRAWS >= MAX_NQ && MAX_DRAWS >= MAX_NV, "a draw for every q and every dof");
 
 // The most dofs a library of G lanes steps: pick_lanes (ops/cuda_engine.py)
@@ -280,9 +323,9 @@ constexpr int lane_nv() {
   S(int32_t, nr)                                                              \
   S(int32_t, nl)                                                              \
   S(int32_t, npair) /* the last npair contact rows are pair rows */          \
-  S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 large class, 3 huge */ \
+  S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 large class, 3 huge, 4 sized */ \
   S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
-  S(int32_t, sc_stride) /* floats of one env's scratch (odd) */              \
+  S(int32_t, sc_stride) /* floats of one env's scratch (odd; sized: Y_ALIGN) */ \
   S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
   S(int32_t, sc_ldm) /* row stride of M and L (nv, made odd) */               \
   A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array; then \
@@ -503,7 +546,7 @@ static_assert(sizeof(Tables) + 256 <= 32764, "the tables outgrow the kernel para
 
 // A set of dofs in MASK_WORDS words. Every "is dof d on body i's root path"
 // test goes through on_path, which reads the word that holds d.
-#ifndef ENG_HUGE_TABLES
+#if !defined(ENG_HUGE_TABLES) && !defined(ENG_SIZED_TABLES)
 // two words: bit d of lo is dof d (0-31), bit d - 32 of hi is dof d (32-63)
 struct DofSet {
   uint32_t lo, hi;
@@ -513,7 +556,7 @@ ENG_HD DofSet anc_path(const Tables& t, int i) {
   return p;
 }
 ENG_HD bool on_path(DofSet p, int d) { return (((d < 32 ? p.lo : p.hi) >> (d & 31)) & 1u) != 0; }
-#else
+#elif defined(ENG_HUGE_TABLES)
 // four words: bit d - 32 w of w[w] is dof d; every index a constant, so a
 // set stays in registers
 static_assert(MASK_WORDS == 4, "the huge class's DofSet is four words");
@@ -535,6 +578,39 @@ ENG_HD DofSet dofs_minus(DofSet a, DofSet b) {  // a and not b
 }
 ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
   DofSet r = {{a.w[0] | b.w[0], a.w[1] | b.w[1], a.w[2] | b.w[2], a.w[3] | b.w[3]}};
+  return r;
+}
+#else
+// MASK_WORDS words, as the huge class's four: bit d - 32 k of w[k] is dof d.
+// Every loop over the words is unrolled, so each index is a constant and a
+// set stays in registers; on_path picks d's word with a chain of selects.
+struct DofSet {
+  uint32_t w[MASK_WORDS];
+};
+ENG_HD DofSet anc_path(const Tables& t, int i) {
+  DofSet p;
+  p.w[0] = t.anc_mask[i];
+  ENG_UNROLL
+  for (int k = 1; k < MASK_WORDS; ++k) p.w[k] = t.anc_mask_hi[(k - 1) * MAX_BODIES + i];
+  return p;
+}
+ENG_HD bool on_path(DofSet p, int d) {
+  const int k = d >> 5;
+  uint32_t w = p.w[0];
+  ENG_UNROLL
+  for (int j = 1; j < MASK_WORDS; ++j) w = k == j ? p.w[j] : w;
+  return ((w >> (d & 31)) & 1u) != 0;
+}
+ENG_HD DofSet dofs_minus(DofSet a, DofSet b) {  // a and not b
+  DofSet r;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] & ~b.w[k];
+  return r;
+}
+ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
+  DofSet r;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] | b.w[k];
   return r;
 }
 #endif
@@ -876,7 +952,8 @@ struct FK {
 // inert, avp, f and obs share the space of the constraint rows Y (rows 1..),
 // which are written only after the CRBA and read only before the outputs;
 // in the huge class Y and those four are offsets into the env's slice of
-// the Y buffer (ybase), the rest into its shared slice (base).
+// the Y buffer (ybase), the rest into its shared slice (base); in the sized
+// class all are offsets into its slice of the scratch buffer (base).
 struct Scr {
   float *q, *v, *tau, *act, *aux, *obs;
   FK fk;
@@ -1390,7 +1467,7 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       } else {
         const int k = r - nfloor;
         const DofSet ma = anc_path(t, t.pair_a[k]), mb = anc_path(t, t.pair_b[k]);
-#ifdef ENG_HUGE_TABLES
+#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
         plus = dofs_minus(ma, mb);
         minus = dofs_minus(mb, ma);
 #else  // two words, written out
@@ -1401,7 +1478,7 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
 #endif
         for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
       }
-#ifdef ENG_HUGE_TABLES
+#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
       const DofSet either = dofs_union(plus, minus);
 #else
       const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
@@ -2094,7 +2171,7 @@ ENG_HD void mj_pendulum_output(const Tables& t, const FK& fk, const float* q, co
 
 // ---- the two kernel bodies ---------------------------------------------------
 // Every lane of env i's group calls them with the env's scratch `base` (and
-// in the huge class its slice of the Y buffer, `ybase`).
+// in the huge class its slice of the Y buffer, `ybase`): ENG_ENV_SCRATCH.
 
 // `frame_skip` substeps with held torques; depths of the last substep.
 // pallas_engine.py · make_pallas_physics_step

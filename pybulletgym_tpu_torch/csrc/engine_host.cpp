@@ -4,9 +4,11 @@
 // g++ -O2 -ffp-contract=off and loaded through ctypes. It lets a machine
 // without a GPU run the kernels' own C++ against the plain PyTorch version,
 // at every group width, and in each size class of the tables (built with
-// -DENG_BIG_TABLES or -DENG_HUGE_TABLES, as the card's large and huge
-// libraries are; the huge class's Y in a second heap buffer, as the card
-// keeps it apart from the shared scratch). No env path routes to it.
+// -DENG_BIG_TABLES, -DENG_HUGE_TABLES or -DENG_SIZED_TABLES and the model's
+// -DSIZED_MAX_* caps, as the card's large, huge and sized libraries are; the
+// huge class's Y in a second heap buffer, as the card keeps it apart from the
+// shared scratch; the sized class's whole scratch in the one heap buffer, as
+// the card keeps it in a device buffer). No env path routes to it.
 
 #include <vector>
 

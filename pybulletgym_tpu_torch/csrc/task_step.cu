@@ -11,7 +11,10 @@
 // Built with -DENG_HUGE_TABLES for a model over the large caps or whose
 // scratch outgrows shared memory (the huge class): the tables as the large
 // class's, and Y in a device buffer of B envs' slices (ybuf, after the
-// tables), as engine.cu's huge build.
+// tables), as engine.cu's huge build. Built with -DENG_SIZED_TABLES and the
+// model's caps (-DSIZED_MAX_*) for any larger model: the tables in global
+// memory and the whole scratch in a device buffer of B envs' slices (sbuf,
+// after the tables), no shared memory, as engine.cu's sized build.
 
 #include <cuda_runtime.h>
 
@@ -27,6 +30,16 @@ constexpr int G = ENG_LANES;
 constexpr int kMaxThreads = 128;    // E * G
 constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
+// As engine.cu · shared_bytes: none in the sized build.
+size_t shared_bytes(int E, int stride) {
+#ifdef ENG_SIZED_TABLES
+  (void)E, (void)stride;
+  return 0;
+#else
+  return (size_t)E * stride * sizeof(float);
+#endif
+}
+
 __device__ __forceinline__ eng::Group<G> my_group() {
   const int wl = threadIdx.x & 31;
   const uint32_t ones = G == 32 ? 0xffffffffu : ((1u << G) - 1u);
@@ -37,13 +50,13 @@ __device__ __forceinline__ eng::Group<G> my_group() {
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-task_step_kernel(ENG_TABLES_PARAM, ENG_YBUF_PARAM eng::EnvIO io, int B) {
+task_step_kernel(ENG_TABLES_PARAM, ENG_BUF_PARAM eng::EnvIO io, int B) {
   ENG_TABLES_BIND
   extern __shared__ float smem[];
   const int E = blockDim.x / G, e = threadIdx.x / G;
   const int i = blockIdx.x * E + e;
   if (i >= B) return;
-  eng::task_step_one<G>(t, io, my_group(), smem + e * t.sc_stride ENG_ENV_Y(i), i, B);
+  eng::task_step_one<G>(t, io, my_group(), ENG_ENV_SCRATCH(e, i), i, B);
 }
 
 }  // namespace
@@ -62,15 +75,20 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // a thread.
 int task_launch_config(int stride, int32_t* out) {
   const void* fn = (const void*)task_step_kernel;
+#ifdef ENG_SIZED_TABLES
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxL1);
+#else
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kMaxShared);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+#endif
   if (err != cudaSuccess) return (int)err;
   int best_e = 0, best_blocks = 0;
   for (int E = 1; E * G <= kMaxThreads; E *= 2) {
-    const size_t bytes = (size_t)E * stride * sizeof(float);
+    const size_t bytes = shared_bytes(E, stride);
     if (bytes > kMaxShared) break;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, E * G, bytes);
@@ -86,7 +104,7 @@ int task_launch_config(int stride, int32_t* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = best_e;
   out[1] = best_blocks;
-  out[2] = (int32_t)(best_e * stride * sizeof(float));
+  out[2] = (int32_t)shared_bytes(best_e, stride);
   out[3] = attr.numRegs;
   out[4] = (int32_t)attr.localSizeBytes;
   return 0;
@@ -94,8 +112,9 @@ int task_launch_config(int stride, int32_t* out) {
 
 // The arguments of engine.cu · launch_env_step (in the large build, the
 // device copy of the tables after the host one, as launch_physics_step; in
-// the huge build, then the Y buffer).
-int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_YBUF_PARAM const float* q, const float* v,
+// the huge build, then the Y buffer; in the sized build, then the scratch
+// buffer).
+int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_BUF_PARAM const float* q, const float* v,
                      const float* act, const float* aux, const uint8_t* term, const uint8_t* trunc,
                      const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,
                      const int32_t* env_id, float* q_out, float* v_out, float* obs,
@@ -108,11 +127,11 @@ int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_YBUF_PARAM const flo
                    epoch_out, aux_out, comps};
   const eng::Tables& tg = *(const eng::Tables*)tables;
   if (tg.lanes != G || tg.nv > eng::lane_nv<G>() || E < 1 || E * G > kMaxThreads ||
-      (size_t)E * tg.sc_stride * sizeof(float) > kMaxShared)
+      shared_bytes(E, tg.sc_stride) > kMaxShared)
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + E - 1) / E;
-  task_step_kernel<<<blocks, E * G, E * tg.sc_stride * sizeof(float), (cudaStream_t)stream>>>(
-      ENG_KERNEL_TABLES(tg), ENG_KERNEL_Y io, B);
+  task_step_kernel<<<blocks, E * G, shared_bytes(E, tg.sc_stride), (cudaStream_t)stream>>>(
+      ENG_KERNEL_TABLES(tg), ENG_KERNEL_BUF io, B);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
 // Host twin of task_step.cu, for the CPU tests only: task_core.h in a loop
 // over envs (each env's lane group emulated as in engine_host.cpp), built
 // per task by ops/task_kernel.py with g++ -O1 -ffp-contract=off -include
-// <the task's generated hooks header>, and -DENG_BIG_TABLES or
-// -DENG_HUGE_TABLES for a model of the large or huge class, as task_step.cu
-// is (the huge class's Y in a second heap buffer). No env path routes to it.
+// <the task's generated hooks header>, and -DENG_BIG_TABLES,
+// -DENG_HUGE_TABLES or -DENG_SIZED_TABLES (with the model's -DSIZED_MAX_*
+// caps) for a model of the large, huge or sized class, as task_step.cu is
+// (the huge class's Y in a second heap buffer, the sized class's whole
+// scratch in the first). No env path routes to it.
 
 #include <vector>
 

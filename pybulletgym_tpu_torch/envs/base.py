@@ -237,7 +237,8 @@ class _StepGraph:
 
     def __init__(self, task: Task, physics, state: EnvState, action):
         dev = state.q.device
-        # the library, the launch configuration and the huge class's Y buffer: not capturable
+        # the library, the launch configuration and the huge class's Y buffer (the
+        # sized class's scratch buffer): not capturable
         physics.prepare(dev, state.q.shape[-1])
         self.physics = physics
         self.state = state._replace(
@@ -307,9 +308,10 @@ class ComposedEnvStep:
     `physics_step_kernel` (`ops.cuda_engine.CudaPhysicsStep`, one launch an
     env step for all `frame_skip` substeps; its large build for a model over
     the default tables' caps, its huge build for one over the large caps or
-    whose scratch outgrows shared memory), built at the first CUDA call or
-    by `prepare`: a model over the huge class's caps (128 bodies, nv 128)
-    raises there, naming the cap. With `graph=True`
+    whose scratch outgrows shared memory, its sized build, with caps set
+    from the model, for any larger one), built at the first CUDA call or by
+    `prepare`, which on a CUDA device also allocates the huge class's Y
+    buffer or the sized class's scratch buffer. With `graph=True`
     the first CUDA call for a batch shape warms the hooks up on a side
     stream (no physics launch) and captures the whole step in a
     `torch.cuda.CUDAGraph`; every call then copies the state and action into
@@ -345,7 +347,8 @@ class ComposedEnvStep:
     def prepare(self, device: torch.device, B: Optional[int] = None):
         """The physics step for `device`; on a CUDA device with a batch of B
         envs also its library, launch configuration, tables on the card and
-        (huge class) Y buffer, ahead of any capture."""
+        (huge class) Y buffer or (sized class) scratch buffer, ahead of any
+        capture."""
         phys = self.physics(device)
         if device.type == "cuda" and B is not None:
             phys.prepare(device, B)
@@ -399,11 +402,13 @@ class BatchedEnv:
     runs the task's hooks in torch around one physics-kernel launch,
     replayed from a CUDA graph unless graph=False. On the CPU either runs
     the plain version. The device is the GPU unless the caller asks for
-    "cpu". A CUDA device without a GPU, hooks that "fused" cannot translate
-    (on any device) and a model over the kernels' huge caps (128 bodies, nv
-    128: `ops.cuda_engine.caps_class`) raise here, at construction. On a
-    CUDA device the step's buffers (the huge class's Y: B slices of one
-    env's forward-solved rows) are allocated here too, once.
+    "cpu". A CUDA device without a GPU and hooks that "fused" cannot
+    translate (on any device) raise here, at construction; no model size is
+    refused (`ops.cuda_engine.caps_class`). On a CUDA device the step's
+    buffers (the huge class's Y: B slices of one env's forward-solved rows;
+    the sized class's: B slices of one env's whole scratch) are allocated
+    here too, once; a buffer that does not fit the card raises, naming the
+    bytes an env.
     """
 
     def __init__(self, task: Task, batch_size: int, device="cuda",

@@ -21,7 +21,7 @@ fixed-size `Tables` struct, whose layout is parsed from the header; it
 picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
 scratch in shared memory from the model's sizes (`scratch_layout`).
 
-The tables come in three size classes (`tables_type`, `tables_class`):
+The tables come in four size classes (`tables_type`, `tables_class`):
 the default, a `__grid_constant__` kernel parameter; the large class for
 models over its caps (up to 64 bodies and nv 64; `CAPS_BIG`), built with
 `-DENG_BIG_TABLES`, whose kernels read a copy of the tables in global
@@ -29,14 +29,21 @@ memory that the wrapper uploads once (`_tables_args`); and the huge class
 (up to 128 bodies and nv 128; `CAPS_HUGE`), built with `-DENG_HUGE_TABLES`,
 for models over the large caps or whose one-env scratch outgrows a block's
 shared memory: its tables in global memory too, and the forward-solved
-constraint rows Y in a device buffer of B envs' slices (`_y_args`), the
-rest of the scratch in shared memory. The large and huge classes build
-`physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s task
-classes all fit the default one.
+constraint rows Y in a device buffer of B envs' slices (`_buffer_args`), the
+rest of the scratch in shared memory; and the sized class (`CAPS_SIZED`),
+built with `-DENG_SIZED_TABLES` and caps set from the model's own sizes
+(`sized_caps`, given as `-DSIZED_MAX_*`), for a model over the huge caps or
+whose scratch outside Y outgrows shared memory: no model size is refused.
+Its tables are in global memory, and so is the whole scratch of each env,
+a device buffer of B envs' slices (`_buffer_args`, `buffer_floats`). The
+large, huge and sized classes build `physics_step_kernel` and
+`task_step_kernel`; `env_step_kernel`'s task classes all fit the default
+one.
 
-One library per group width in `LANE_WIDTHS` and class is built at first
-use with nvcc into `_build/` (keyed by the sources' content hash and the
-flags; the builds run in parallel) and loaded with ctypes. Each wrapper
+One library per group width in `LANE_WIDTHS` and class (in the sized class,
+and its caps) is built at first use with nvcc into `_build/` (keyed by the
+sources' content hash and the flags; the builds run in parallel) and
+loaded with ctypes. Each wrapper
 checks its tensors, allocates outputs with `torch.empty` and launches on
 the current stream without synchronising, with the envs-per-block that `launch_config` picks
 from the occupancy API. A CPU tensor goes to the plain PyTorch version; a
@@ -107,16 +114,24 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
-# The size classes of the tables (engine_core.h): their build flags, the
-# suffix of their kernels' names in LAUNCHES and of their libraries' names
-DEFAULT, LARGE, HUGE = 0, 1, 2
+# The size classes of the tables (engine_core.h): their build flags (the
+# sized class's caps follow as -D values: `class_flags`), the suffix of their
+# kernels' names in LAUNCHES and of their libraries' names
+DEFAULT, LARGE, HUGE, SIZED = 0, 1, 2, 3
 BIG_FLAG = "-DENG_BIG_TABLES"
 HUGE_FLAG = "-DENG_HUGE_TABLES"
-CLASS_FLAGS = ((), (BIG_FLAG,), (HUGE_FLAG,))
-KERNEL_SUFFIX = ("", "_large", "_huge")
-_LIB_SUFFIX = ("", "_big", "_huge")
+SIZED_FLAG = "-DENG_SIZED_TABLES"
+CLASS_FLAGS = ((), (BIG_FLAG,), (HUGE_FLAG,), (SIZED_FLAG,))
+KERNEL_SUFFIX = ("", "_large", "_huge", "_sized")
+_LIB_SUFFIX = ("", "_big", "_huge", "_sized")
 CAPS_BIG = 2  # the caps_id of a model that the large class holds, and not the default one
 CAPS_HUGE = 3  # ... that only the huge class holds
+CAPS_SIZED = 4  # ... that only a class sized to it holds
+# The sized class's caps, in the order of `sized_caps`' tuple (engine_core.h's
+# SIZED_MAX_*), and the multiple each is rounded up to, so that models of
+# similar sizes share a library
+SIZED_CAPS = ("BODIES", "NV", "NQ", "ROWS", "PAIRS", "LIMITS", "ACT", "PARTS", "DRAWS")
+SIZED_ROUND = 32
 
 _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
 
@@ -126,27 +141,34 @@ _CTYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32, "float": ctyp
 # ---------------------------------------------------------------------------
 
 
-def tables_type(size: int = DEFAULT):
+def tables_type(size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None):
     """ctypes mirror of `eng::Tables` and the header's caps, parsed from
     engine_core.h (the single source of the layout), for the size class
     `size`: DEFAULT, LARGE (or True; -DENG_BIG_TABLES, whose caps the header
-    names BIG_MAX_*) or HUGE (-DENG_HUGE_TABLES, HUGE_MAX_*). One class
-    object for each."""
+    names BIG_MAX_*), HUGE (-DENG_HUGE_TABLES, HUGE_MAX_*) or SIZED
+    (-DENG_SIZED_TABLES, with `caps`: the tuple of `sized_caps`, which the
+    build takes as -DSIZED_MAX_*). One class object for each (and each
+    sized caps)."""
     size = int(size)
-    if size not in (DEFAULT, LARGE, HUGE):
-        raise ValueError(f"size class {size}: DEFAULT, LARGE or HUGE")
-    return _tables_type(size)
+    if size not in (DEFAULT, LARGE, HUGE, SIZED):
+        raise ValueError(f"size class {size}: DEFAULT, LARGE, HUGE or SIZED")
+    if (size == SIZED) != (caps is not None):
+        raise ValueError("the sized class, and only it, takes caps (sized_caps)")
+    return _tables_type(size, None if caps is None else tuple(int(c) for c in caps))
 
 
 @functools.lru_cache(maxsize=None)
-def _tables_type(size: int):
+def _tables_type(size: int, sized: Optional[Tuple[int, ...]]):
     src = open(os.path.join(CSRC, "engine_core.h")).read()
     found = re.findall(r"constexpr int (\w+) = (\d+);", src)
     prefixes = ("BIG_", "HUGE_")
     caps = {k: int(v) for k, v in found if not k.startswith(prefixes)}
-    if size != DEFAULT:
+    if size in (LARGE, HUGE):
         pre = prefixes[size - 1]
         caps.update({k[len(pre):]: int(v) for k, v in found if k.startswith(pre)})
+    elif size == SIZED:
+        caps.update({"MAX_" + k: n for k, n in zip(SIZED_CAPS, sized)})
+        caps["MASK_WORDS"] = _sized_mask_words(sized)
     block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("#define ENG_DECL_S")]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
@@ -155,16 +177,49 @@ def _tables_type(size: int):
         if kind == "A":
             t = t * int(eval(count, {"__builtins__": {}}, caps))
         fields.append((name, t))
-    name = ("Tables", "BigTables", "HugeTables")[size]
-    return type(name, (ctypes.Structure,), {"_fields_": fields}), caps
+    name = ("Tables", "BigTables", "HugeTables", "SizedTables")[size]
+    return type(name, (ctypes.Structure,), {"_fields_": fields, "size_class": size,
+                                            "sized_caps": sized}), caps
 
 
 def tables_class(t) -> int:
-    """The size class of the tables `t`: DEFAULT, LARGE or HUGE."""
-    for size in (DEFAULT, LARGE, HUGE):
-        if type(t) is tables_type(size)[0]:
-            return size
-    raise TypeError(f"{type(t).__name__} is no class of the engine's tables")
+    """The size class of the tables `t`: DEFAULT, LARGE, HUGE or SIZED."""
+    size = getattr(type(t), "size_class", None)
+    if size is None or type(t) is not tables_type(size, tables_caps(t))[0]:
+        raise TypeError(f"{type(t).__name__} is no class of the engine's tables")
+    return size
+
+
+def tables_caps(t) -> Optional[Tuple[int, ...]]:
+    """The caps of sized tables `t` (`sized_caps`' tuple), None in the other
+    classes."""
+    return getattr(type(t), "sized_caps", None)
+
+
+def sized_caps(nb, nq, nv, nr, npair, nl, act=0) -> Tuple[int, ...]:
+    """The sized class's caps for these sizes, in SIZED_CAPS' order: each
+    size rounded up to a multiple of SIZED_ROUND (at least one), actuators at
+    least one a dof and part frames one a body (as the huge class's), a draw
+    for every q and every dof."""
+    r = lambda n: SIZED_ROUND * max(1, -(-int(n) // SIZED_ROUND))  # noqa: E731
+    bodies, dofs, qs = r(nb), r(nv), r(nq)
+    return (bodies, dofs, qs, r(nr), r(npair), r(nl), r(max(act, nv)), bodies, max(qs, dofs))
+
+
+def _sized_mask_words(caps: Tuple[int, ...]) -> int:
+    """The sized class's root-path mask words: ceil(NV / 32), at least the
+    two that anc_mask and anc_mask_hi hold (a model of many bodies and few
+    dofs)."""
+    return max(2, -(-caps[1] // 32))
+
+
+def class_flags(size: int, caps: Optional[Tuple[int, ...]] = None) -> Tuple[str, ...]:
+    """The build flags of the size class `size` (the sized class's with its
+    `caps` as -DSIZED_MAX_* and its mask words)."""
+    if size != SIZED:
+        return CLASS_FLAGS[size]
+    return (SIZED_FLAG, *(f"-DSIZED_MAX_{k}={n}" for k, n in zip(SIZED_CAPS, caps)),
+            f"-DSIZED_MASK_WORDS={_sized_mask_words(caps)}")
 
 
 def _set(arr, values, cap, what):
@@ -221,13 +276,15 @@ def _composite_masses(model: Model):
     return [_f32(v) for _, v in vals]
 
 
-def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0) -> int:
+def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0, outside_y_bytes=0) -> int:
     """The size class of these sizes: 0 (walker-sized) when they fit the
     WALKER_ caps and there are no pair rows, 1 within the default tables'
     caps, CAPS_BIG within the large class's, CAPS_HUGE within the huge
     class's; and CAPS_HUGE for any sizes whose one-env scratch
-    (`scratch_bytes`, all of it) outgrows a block's MAX_SHARED_BYTES. Raises
-    above the huge caps, naming each cap."""
+    (`scratch_bytes`, all of it) outgrows a block's MAX_SHARED_BYTES. Above
+    the huge caps, or where the scratch outside Y (`outside_y_bytes`) too
+    outgrows a block's shared memory, CAPS_SIZED: a class whose caps are the
+    sizes' own (`sized_caps`)."""
     sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
              "ACT": act}
     fits = scratch_bytes <= MAX_SHARED_BYTES
@@ -239,16 +296,14 @@ def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0) -> int:
     if fits and all(n <= big["MAX_" + k] for k, n in sizes.items()):
         return CAPS_BIG
     _, huge = tables_type(HUGE)
-    over = {k: n for k, n in sizes.items() if n > huge["MAX_" + k]}
-    if over:
-        raise NotImplementedError(f"sizes {over} exceed the kernels' caps "
-                                  f"{ {k: huge['MAX_' + k] for k in over} }")
+    if outside_y_bytes > MAX_SHARED_BYTES or any(n > huge["MAX_" + k] for k, n in sizes.items()):
+        return CAPS_SIZED
     return CAPS_HUGE
 
 
 def size_class(caps_id: int) -> int:
-    """The tables' size class of a caps_id: DEFAULT, LARGE or HUGE."""
-    return {CAPS_BIG: LARGE, CAPS_HUGE: HUGE}.get(caps_id, DEFAULT)
+    """The tables' size class of a caps_id: DEFAULT, LARGE, HUGE or SIZED."""
+    return {CAPS_BIG: LARGE, CAPS_HUGE: HUGE, CAPS_SIZED: SIZED}.get(caps_id, DEFAULT)
 
 
 def _plans(model: Model, cfg: PhysicsConfig):
@@ -262,16 +317,14 @@ def _plans(model: Model, cfg: PhysicsConfig):
 def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_dim=0) -> int:
     """The caps_id of a model's tables (`_pick_caps`, with the one-env
     scratch of a kernel with `act` actions, `naux` aux slots and `obs_dim`
-    observations; `plans`: the model's `_plans`, if at hand); raises for a
-    model over the huge class's caps, naming them."""
+    observations; `plans`: the model's `_plans`, if at hand). Every model has
+    one: past the huge class it is CAPS_SIZED."""
     _, pairs, rows, _, nl = plans or _plans(model, cfg)
     nb, nr = len(model.bodies), len(rows)
     shared, y = _scratch_sizes(nb, model.nq, model.nv, nr, len(pairs), nl, act, naux, obs_dim)
-    whole = (sum(shared.values()) + y["Y"]) | 1
-    try:
-        return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{model.name}: {e}") from None
+    outside = sum(shared.values()) | 1
+    whole = (outside + y["Y"]) | 1
+    return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole, 4 * outside)
 
 
 # The group widths G that the CUDA libraries (one each) and the host twin
@@ -279,25 +332,25 @@ def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_
 LANE_WIDTHS = (4, 8, 16, 32)
 
 
-def lane_nv(G: int, size: int = DEFAULT) -> int:
+def lane_nv(G: int, size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None) -> int:
     """The most dofs the CUDA library of G lanes steps (engine_core.h ·
     lane_nv) in the size class `size` (at G=32 the class's MAX_NV: 40, 64 or
-    128): its lanes' dof vectors are sized by it, and its launch refuses
-    tables with more."""
-    _, caps = tables_type(size)
-    return caps.get(f"LANE_NV_{G}", caps["MAX_NV"])
+    128, or the sized class's `caps`' NV): its lanes' dof vectors are sized
+    by it, and its launch refuses tables with more."""
+    _, c = tables_type(size, caps)
+    return c.get(f"LANE_NV_{G}", c["MAX_NV"])
 
 
-def pick_lanes(nv: int, size: int = DEFAULT) -> int:
+def pick_lanes(nv: int, size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None) -> int:
     """The group width G for a model of nv dofs: the narrowest whose
     library holds nv dofs (4 up to 4, 8 up to 12, 16 up to 16, else 32), as
     a width sweep on the H100 ranked them (`tools/kernel_ab.py --lanes`,
     PERF.md §6). Raises above the class's MAX_NV."""
     for G in LANE_WIDTHS:
-        if nv <= lane_nv(G, size):
+        if nv <= lane_nv(G, size, caps):
             return G
     raise NotImplementedError(f"{nv} dofs exceed the kernels' cap "
-                              f"{lane_nv(LANE_WIDTHS[-1], size)}")
+                              f"{lane_nv(LANE_WIDTHS[-1], size, caps)}")
 
 
 # 227 KB: the dynamic shared memory one block may use on sm_90
@@ -315,7 +368,8 @@ def scratch_slots() -> Tuple[str, ...]:
 
 # the arrays that live inside Y's rows 1.., in this order, and their floats a body
 _Y_ALIAS = (("inert", 13), ("avp", 6), ("f", 6))
-# a huge-class env's slice of the Y buffer is a multiple of this many floats (128 bytes)
+# a huge-class env's slice of the Y buffer, and a sized-class env's slice of
+# the scratch buffer, is a multiple of this many floats (128 bytes)
 Y_ALIGN = 32
 
 
@@ -347,12 +401,16 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     1.., which are dead whenever those are live. In the huge class Y (with
     those four) is laid out apart, at offset 0 of the env's slice of the Y
     buffer, whose floats (a multiple of Y_ALIGN) go to
-    t.sc[SC_YSTRIDE]; t.sc_stride is then the rest, in shared memory.
-    Returns {name: (offset, floats)}. Raises if what lives in shared memory
-    does not fit one block's."""
+    t.sc[SC_YSTRIDE]; t.sc_stride is then the rest, in shared memory. In
+    the sized class the whole scratch is laid out as in the default class
+    for the env's slice of the scratch buffer in global memory: t.sc_stride
+    (a multiple of Y_ALIGN) floats, any size. Returns {name: (offset,
+    floats)}. Raises if what lives in shared memory does not fit one
+    block's."""
     nv, ld = t.nv, t.nv | 1
     shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim)
-    huge = tables_class(t) == HUGE
+    size = tables_class(t)
+    huge = size == HUGE
     sizes = dict(shared) if huge else dict(shared, **y)
     slots = scratch_slots()
     if set(slots) != set(sizes):
@@ -368,11 +426,12 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     for name, n in _Y_ALIAS:
         out[name] = (y0, n * t.nb)
         y0 += n * t.nb
-    stride = off | 1
-    if stride * 4 > MAX_SHARED_BYTES:
+    stride = -(-off // Y_ALIGN) * Y_ALIGN if size == SIZED else off | 1
+    if size != SIZED and stride * 4 > MAX_SHARED_BYTES:
         what = "scratch outside Y" if huge else "scratch"
         raise NotImplementedError(f"one env's {what} ({stride * 4} bytes) exceeds a block's "
-                                  f"{MAX_SHARED_BYTES} bytes of shared memory")
+                                  f"{MAX_SHARED_BYTES} bytes of shared memory: pack_physics "
+                                  "gives such a model a larger class")
     for k, name in enumerate(slots):
         t.sc[k] = out[name][0]
     t.sc[len(slots)] = -(-y["Y"] // Y_ALIGN) * Y_ALIGN if huge else 0  # SC_YSTRIDE
@@ -386,19 +445,30 @@ def y_stride(t) -> int:
     return int(t.sc[len(scratch_slots())])
 
 
+def buffer_floats(t) -> int:
+    """The floats of one env's slice of the device buffer that the kernels
+    of the tables' class take after the tables: Y in the huge class
+    (`y_stride`), the whole scratch in the sized class (t.sc_stride), none in
+    the others."""
+    return int(t.sc_stride) if tables_class(t) == SIZED else y_stride(t)
+
+
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0,
                  naux=0, obs_dim=0):
     """Physics part of the tables (model, plans, solver constants), the
     size class (`caps_id`: a model over the default caps gets the large
     class's tables, one over the large caps or whose scratch with `act`
     actions, `naux` aux slots and `obs_dim` observations outgrows shared
-    memory the huge class's), the group width (`lanes`) and the scratch
-    layout. Raises for a model over the huge class's caps."""
+    memory the huge class's, one over the huge caps or whose scratch outside
+    Y outgrows shared memory the sized class's, with caps from its sizes),
+    the group width (`lanes`) and the scratch layout."""
     plans = _plans(model, cfg)
     floor, pairs, rows, lim, nl = plans
     caps_id = caps_class(model, cfg, act, plans, naux, obs_dim)
     size = size_class(caps_id)
-    Tables, caps = tables_type(size)
+    sized = (sized_caps(len(model.bodies), model.nq, model.nv, len(rows), len(pairs), nl, act)
+             if size == SIZED else None)
+    Tables, caps = tables_type(size, sized)
     t = Tables()
     t.caps_id = caps_id
     t.naux, t.obs_dim = naux, obs_dim
@@ -498,7 +568,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_sign[l] = _f32(lim.sign[l])
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
-    t.lanes = pick_lanes(model.nv, size)
+    t.lanes = pick_lanes(model.nv, size, sized)
     scratch_layout(t)
     return t
 
@@ -519,10 +589,7 @@ def _kernel_match(task):
     if kind is None or not any(getattr(mod, name, None) is type(task)
                                for mod in (locomotion, manipulation, pendula, mujoco_family)):
         return None, f"{name}: only {', '.join(TASK_KINDS)} are in the env-step kernel"
-    try:
-        size = size_class(caps_class(task.model, task.physics, task.act_dim))
-    except NotImplementedError as e:
-        return None, str(e)
+    size = size_class(caps_class(task.model, task.physics, task.act_dim))
     if size != DEFAULT:
         return None, (f"{name}: its model is over the env-step kernel's caps "
                       f"(task_step_kernel's {KERNEL_SUFFIX[size][1:]} build runs it)")
@@ -826,41 +893,62 @@ def _sources(names):
     return h
 
 
-def _compile(jobs) -> Dict[str, str]:
+class Builds:
     """Compile each (cmd_prefix, src, out_name, flags) job into
-    BUILD_DIR/out_name unless it is there, all at once in parallel; returns
-    {path: compiler output}. Builds into a temp file, then renames it into
-    place, so concurrent processes never load a half-written library."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out, running = {}, []
-    try:
-        for cmd_prefix, src, out_name, flags in jobs:
-            so = os.path.join(BUILD_DIR, out_name)
-            if os.path.exists(so):
-                log = so + ".log"
-                out[so] = open(log).read() if os.path.exists(log) else ""
-                continue
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = list(cmd_prefix) + list(flags) + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            running.append((proc, cmd, so, tmp))
-        for proc, cmd, so, tmp in running:
-            text = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(f"building failed ({' '.join(cmd)}):\n{text}")
-            with open(so + ".log", "w") as f:
-                f.write(text)
-            os.replace(tmp, so)
-            out[so] = text
-    finally:
-        for proc, _, _, tmp in running:
+    BUILD_DIR/out_name unless it is there: the compilers are all started
+    here, at once, and run beside the caller until `wait()`, which returns
+    {path: compiler output}; `stop()` kills any still running (`wait` does
+    on a failure). Builds into a temp file, then renames it into place, so
+    concurrent processes never load a half-written library."""
+
+    def __init__(self, jobs):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        self.out, self.running = {}, []
+        try:
+            for cmd_prefix, src, out_name, flags in jobs:
+                so = os.path.join(BUILD_DIR, out_name)
+                if os.path.exists(so):
+                    log = so + ".log"
+                    self.out[so] = open(log).read() if os.path.exists(log) else ""
+                    continue
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                cmd = (list(cmd_prefix) + list(flags)
+                       + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)])
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                self.running.append((proc, cmd, so, tmp))
+        except BaseException:
+            self.stop()
+            raise
+
+    def wait(self) -> Dict[str, str]:
+        try:
+            for proc, cmd, so, tmp in self.running:
+                text = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(f"building failed ({' '.join(cmd)}):\n{text}")
+                with open(so + ".log", "w") as f:
+                    f.write(text)
+                os.replace(tmp, so)
+                self.out[so] = text
+        finally:
+            self.stop()
+        return self.out
+
+    def stop(self):
+        for proc, _, _, tmp in self.running:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return out
+
+
+def _compile(jobs) -> Dict[str, str]:
+    """Build the jobs (`Builds`), all at once in parallel, and wait for
+    them; returns {path: compiler output}."""
+    return Builds(jobs).wait()
 
 
 def nvcc_path() -> str:
@@ -875,8 +963,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _check_layout(lib, size: int = DEFAULT):
-    Tables, caps = tables_type(size)
+def _check_layout(lib, size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None):
+    Tables, _ = tables_type(size, caps)
     lib.eng_tables_bytes.restype = ctypes.c_int
     lib.eng_tables_layout.restype = ctypes.c_int
     lib.eng_tables_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -892,11 +980,11 @@ _P = ctypes.c_void_p
 _ENV_ARGS = [_P] * 21 + [ctypes.c_int]
 
 
-def _engine_jobs(size: int):
+def _engine_jobs(size: int, caps: Optional[Tuple[int, ...]] = None):
     """The nvcc jobs of engine.cu, one per group width, for the size class
-    `size` (its flag in the content hash), and their libraries' names: {G:
-    name}."""
-    flags = NVCC_FLAGS + CLASS_FLAGS[size]
+    `size` (and the sized class's `caps`; its flags in the content hash), and
+    their libraries' names: {G: name}."""
+    flags = NVCC_FLAGS + class_flags(size, caps)
     h = _sources(["engine_core.h", "engine.cu"])
     h.update(" ".join(flags).encode())
     names = {G: f"libengine_cuda{_LIB_SUFFIX[size]}_g{G}_{h.hexdigest()[:16]}.so"
@@ -907,35 +995,36 @@ def _engine_jobs(size: int):
 
 def _extra_args(size: int) -> int:
     """The pointers a launcher of the size class takes after the host
-    tables: the tables' device copy (large and huge), then the Y buffer
-    (huge)."""
-    return (0, 1, 2)[size]
+    tables: the tables' device copy (large, huge and sized), then the Y
+    buffer (huge) or the scratch buffer (sized)."""
+    return (0, 1, 2, 2)[size]
 
 
-def load_cuda_library(size: int = DEFAULT):
+def load_cuda_library(size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None):
     """Build (once per source hash, one nvcc per group width, all started
     together) and load the CUDA libraries of the size class `size`
-    (DEFAULT, LARGE or True, HUGE). Returns ({G: ctypes library}, nvcc
-    output including -Xptxas -v, one section per G)."""
-    return _load_cuda_library(int(size))
+    (DEFAULT, LARGE or True, HUGE, or SIZED with its `caps`). Returns ({G:
+    ctypes library}, nvcc output including -Xptxas -v, one section per G)."""
+    return _load_cuda_library(int(size), None if caps is None else tuple(caps))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_cuda_library(size: int):
-    jobs, names = _engine_jobs(size)
+def _load_cuda_library(size: int, caps: Optional[Tuple[int, ...]]):
+    jobs, names = _engine_jobs(size, caps)
     built = _compile(jobs)
     libs, logs = {}, []
     for G in LANE_WIDTHS:
         so = os.path.join(BUILD_DIR, names[G])
         lib = ctypes.CDLL(so)
-        _check_layout(lib, size)
+        _check_layout(lib, size, caps)
         lib.eng_lanes.restype = ctypes.c_int
         if lib.eng_lanes() != G:
             raise RuntimeError(f"{so} is built for {lib.eng_lanes()} lanes, not {G}")
         lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
         lib.eng_launch_config.restype = ctypes.c_int
-        # the large and huge builds take the tables' device copy after the
-        # host copy (the huge one then the Y buffer), and have no env_step_kernel
+        # the large, huge and sized builds take the tables' device copy after
+        # the host copy (the huge one then the Y buffer, the sized one the
+        # scratch buffer), and have no env_step_kernel
         lib.launch_physics_step.argtypes = ([_P] * (7 + _extra_args(size)) + [ctypes.c_int] * 2
                                             + [_P])
         lib.launch_physics_step.restype = ctypes.c_int
@@ -952,8 +1041,8 @@ KERNELS = ("physics_step_kernel", "env_step_kernel")  # eng_launch_config's kern
 
 @functools.lru_cache(maxsize=None)
 def _launch_config(lanes: int, kernel: int, stride: int, device: int,
-                   size: int = DEFAULT) -> Dict[str, int]:
-    libs, _ = load_cuda_library(size)
+                   size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None) -> Dict[str, int]:
+    libs, _ = load_cuda_library(size, caps)
     out = (ctypes.c_int32 * 5)()
     with torch.cuda.device(device):
         rc = libs[lanes].eng_launch_config(kernel, stride, _P(ctypes.addressof(out)))
@@ -972,17 +1061,20 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     blocks (and envs) per SM from the occupancy API, the kernel's
     registers and local bytes a thread, and for a batch B the blocks. The
     shared bytes are those of the scratch outside Y in the huge class
-    (`y_bytes`: one env's slice of the Y buffer there, else 0). Raises for
+    (`y_bytes`: one env's slice of the Y buffer there, else 0), and none in
+    the sized class (`buffer_bytes`: one env's slice of the device buffer,
+    Y's in the huge class, the whole scratch's in the sized one). Raises for
     tables with more dofs than the library of their G holds, and for
-    env_step_kernel on the large and huge classes' tables."""
-    size = tables_class(tables)
-    if tables.nv > lane_nv(tables.lanes, size):
-        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes, size)} that the "
-                         f"library of G={tables.lanes} lanes holds")
+    env_step_kernel on the large, huge and sized classes' tables."""
+    size, caps = tables_class(tables), tables_caps(tables)
+    if tables.nv > lane_nv(tables.lanes, size, caps):
+        raise ValueError(f"{tables.nv} dofs exceed the {lane_nv(tables.lanes, size, caps)} that "
+                         f"the library of G={tables.lanes} lanes holds")
     if size != DEFAULT and kernel != "physics_step_kernel":
         raise ValueError(f"{kernel} has no build for the {KERNEL_SUFFIX[size][1:]} class's tables")
     cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device,
-                              size), y_bytes=4 * y_stride(tables))
+                              size, caps), y_bytes=4 * y_stride(tables),
+               buffer_bytes=4 * buffer_floats(tables))
     if B is not None:
         cfg["blocks"] = -(-B // cfg["E"])
     return cfg
@@ -1074,34 +1166,42 @@ def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device
     return args
 
 
-def _y_args(tables, buffers: Dict[tuple, torch.Tensor], device: torch.device, B: int):
-    """The huge class's Y buffer argument for a launch of B envs on
-    `device` (none in the other classes): B slices of `y_stride(tables)`
-    floats, allocated at the first call for each (device, B) and kept in
-    `buffers`, so that a CUDA graph replays its launch on the buffer it
-    captured. Raises if a capture would allocate it: the wrappers'
-    `prepare(device, B)` does that before any capture."""
-    if tables_class(tables) != HUGE:
+def _buffer_args(tables, buffers: Dict[tuple, torch.Tensor], device: torch.device, B: int):
+    """The device buffer argument for a launch of B envs on `device`: the
+    huge class's Y, the sized class's whole scratch (none in the other
+    classes): B slices of `buffer_floats(tables)` floats, allocated at the
+    first call for each (device, B) and kept in `buffers`, so that a CUDA
+    graph replays its launch on the buffer it captured. Raises if a capture
+    would allocate it (the wrappers' `prepare(device, B)` does that before
+    any capture), and if it does not fit the card, naming B and the bytes an
+    env: nothing falls back."""
+    n = buffer_floats(tables)
+    if n == 0:
         return []
     key = (device.index or 0, int(B))
     if key not in buffers:
+        what = "Y buffer" if tables_class(tables) == HUGE else "scratch buffer"
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"the Y buffer of B={B} envs is not allocated: call "
+            raise RuntimeError(f"the {what} of B={B} envs is not allocated: call "
                                "prepare(device, B) before capturing a CUDA graph")
-        buffers[key] = torch.empty((int(B), y_stride(tables)), dtype=torch.float32,
-                                   device=device)
+        try:
+            buffers[key] = torch.empty((int(B), n), dtype=torch.float32, device=device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(f"the {what} of B={B} envs ({4 * n} bytes an env, {4 * n * B} in "
+                               f"all) does not fit {device}: {e}") from None
     return [_P(buffers[key].data_ptr())]
 
 
 # Launches of each kernel by every wrapper instance since the last reset;
 # each wrapper also keeps its own `launches`. A launch recorded into a CUDA
 # graph counts in CAPTURED instead, and in LAUNCHES each time the graph's
-# owner replays it (`envs.base._StepGraph`). The large and huge classes'
-# builds count apart, as *_large and *_huge.
+# owner replays it (`envs.base._StepGraph`). The large, huge and sized
+# classes' builds count apart, as *_large, *_huge and *_sized.
 LAUNCHES: Dict[str, int] = {"physics_step_kernel": 0, "env_step_kernel": 0,
                             "task_step_kernel": 0, "physics_step_kernel_large": 0,
                             "task_step_kernel_large": 0, "physics_step_kernel_huge": 0,
-                            "task_step_kernel_huge": 0}
+                            "task_step_kernel_huge": 0, "physics_step_kernel_sized": 0,
+                            "task_step_kernel_sized": 0}
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -1128,34 +1228,34 @@ def count_launch(kernel: str, wrapper) -> None:
 class CudaPhysicsStep:
     """step(q (nq,B), v (nv,B), tau (nv,B)) -> (q', v', depths (R,B)).
 
-    CUDA tensors launch `physics_step_kernel` (its large or huge build for a
-    model over the default or large caps, the tables uploaded to the card
-    once; the huge build's Y buffer allocated once for each batch size);
-    CPU tensors run `make_physics_step_plain`. `launches` counts kernel
-    launches (a launch recorded into a CUDA graph: at each replay,
-    `count_launch`). One step at a time: the Y buffer of a batch size is
-    shared by its launches."""
+    CUDA tensors launch `physics_step_kernel` (its large, huge or sized
+    build for a model over the default, large or huge caps, the tables
+    uploaded to the card once; the huge build's Y buffer and the sized
+    build's scratch buffer allocated once for each batch size); CPU tensors
+    run `make_physics_step_plain`. `launches` counts kernel launches (a
+    launch recorded into a CUDA graph: at each replay, `count_launch`). One
+    step at a time: the buffer of a batch size is shared by its launches."""
 
     def __init__(self, model: Model, cfg: PhysicsConfig):
         self.model, self.cfg = model, cfg
         self.plain, self.plan, self.n_rows = make_physics_step_plain(model, cfg)
         self.tables = pack_physics(model, cfg)
-        self.size = tables_class(self.tables)
+        self.size, self.caps = tables_class(self.tables), tables_caps(self.tables)
         self.kernel = "physics_step_kernel" + KERNEL_SUFFIX[self.size]
         self.device_tables: Dict[int, torch.Tensor] = {}
-        self.y_buffers: Dict[tuple, torch.Tensor] = {}
+        self.buffers: Dict[tuple, torch.Tensor] = {}
         self.launches = 0
 
     def prepare(self, device: torch.device, B: Optional[int] = None):
         """Build the library, pick the launch configuration on `device` (the
-        occupancy API, cudaFuncSetAttribute), upload the large and huge
-        classes' tables and, for a batch of B envs, allocate the huge
-        class's Y buffer: ahead of a graph capture, which these calls would
-        break."""
+        occupancy API, cudaFuncSetAttribute), upload the large, huge and
+        sized classes' tables and, for a batch of B envs, allocate the huge
+        class's Y buffer or the sized class's scratch buffer: ahead of a
+        graph capture, which these calls would break."""
         launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
         _tables_args(self.tables, self.device_tables, device)
         if B is not None:
-            _y_args(self.tables, self.y_buffers, device, B)
+            _buffer_args(self.tables, self.buffers, device, B)
 
     def __call__(self, q, v, tau):
         if q.device.type == "cpu":
@@ -1166,14 +1266,14 @@ class CudaPhysicsStep:
         _check(q, "q", torch.float32, (m.nq, B), dev)
         _check(v, "v", torch.float32, (m.nv, B), dev)
         _check(tau, "tau", torch.float32, (m.nv, B), dev)
-        libs, _ = load_cuda_library(self.size)
+        libs, _ = load_cuda_library(self.size, self.caps)
         E = launch_config(self.tables, "physics_step_kernel", device=dev.index or 0)["E"]
         outs = [torch.empty((m.nq, B), device=dev), torch.empty((m.nv, B), device=dev),
                 torch.empty((self.n_rows, B), device=dev)]
         with torch.cuda.device(dev):
             rc = libs[self.tables.lanes].launch_physics_step(
                 *_tables_args(self.tables, self.device_tables, dev),
-                *_y_args(self.tables, self.y_buffers, dev, B),
+                *_buffer_args(self.tables, self.buffers, dev, B),
                 *_ptrs([q, v, tau] + outs), B, E, _P(torch.cuda.current_stream(dev).cuda_stream),
             )
         _launch_checked(rc, self.kernel)
@@ -1380,14 +1480,15 @@ def gxx_path() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _host_library(bf16_probe: bool, size: int):
-    flags = GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ()) + CLASS_FLAGS[size]
+def _host_library(bf16_probe: bool, size: int, caps: Optional[Tuple[int, ...]] = None):
+    flags = (GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
+             + class_flags(size, caps))
     h = _sources(["engine_core.h", "engine_host.cpp"])
     h.update(" ".join(flags).encode())
     name = f"libengine_host_{h.hexdigest()[:16]}.so"
     _compile([([gxx_path()], "engine_host.cpp", name, flags)])
     lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
-    _check_layout(lib, size)
+    _check_layout(lib, size, caps)
     lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
     lib.host_physics_step.restype = ctypes.c_int
     lib.host_env_step.argtypes = _ENV_ARGS
@@ -1399,8 +1500,9 @@ class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
     arithmetic on CPU tensors, each env's lane group emulated at the tables'
     width (`tables.lanes`, any of LANE_WIDTHS), built with the tables' class
-    (the large and huge ones at their first use; the huge one's Y in a
-    second heap buffer). Used only by tests and by
+    (the large, huge and sized ones at their first use; the huge one's Y in
+    a second heap buffer, the sized one's whole scratch in the first). Used
+    only by tests and by
     tools/bf16_probe.py (`bf16_probe=True` builds it with ENG_BF16_PROBE);
     no wrapper routes here."""
 
@@ -1408,7 +1510,7 @@ class HostTwin:
         self.bf16_probe = bf16_probe
 
     def _lib(self, tables):
-        return _host_library(self.bf16_probe, tables_class(tables))
+        return _host_library(self.bf16_probe, tables_class(tables), tables_caps(tables))
 
     def physics_step(self, tables, q, v, tau):
         nq, B = q.shape

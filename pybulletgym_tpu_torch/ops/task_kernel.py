@@ -16,7 +16,8 @@ env step by `CudaTaskStep`. A model over the default tables' caps takes
 the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
 `ops.cuda_engine`), one over the large caps or whose scratch outgrows a
 block's shared memory the huge class's (`-DENG_HUGE_TABLES`: Y in a device
-buffer too).
+buffer too), and any larger one a class sized to it (`-DENG_SIZED_TABLES`
+with the model's caps: the whole scratch in a device buffer).
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments) in float32, float64 and the
@@ -1126,11 +1127,12 @@ def _tag(source: str, names, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _cuda_job(source: str, lanes: int, size: int = ce.DEFAULT):
+def _cuda_job(source: str, lanes: int, size: int = ce.DEFAULT,
+              caps: Optional[Tuple[int, ...]] = None):
     """The nvcc job of task_step.cu with the hooks `source` for group width
-    `lanes` and the tables' size class `size` (the generated header
-    written), and its library's name."""
-    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",) + ce.CLASS_FLAGS[size]
+    `lanes` and the tables' size class `size` (and the sized class's `caps`;
+    the generated header written), and its library's name."""
+    flags = ce.NVCC_FLAGS + (f"-DENG_LANES={lanes}",) + ce.class_flags(size, caps)
     tag = _tag(source, _CORE + ["task_step.cu"], flags)
     header = _write_header(source, tag)
     name = f"libtask_cuda{ce._LIB_SUFFIX[size]}_g{lanes}_{tag}.so"
@@ -1147,23 +1149,26 @@ def build_task_libraries(steps) -> Dict[str, str]:
     return ce._compile(jobs)
 
 
-def load_task_library(source: str, lanes: int, size: int = ce.DEFAULT):
+def load_task_library(source: str, lanes: int, size: int = ce.DEFAULT,
+                      caps: Optional[Tuple[int, ...]] = None):
     """Build (once per content hash) and load task_step.cu with the hooks
-    `source` for group width `lanes` and the tables' size class `size`.
-    Returns (ctypes library, nvcc log)."""
-    return _load_task_library(source, int(lanes), int(size))
+    `source` for group width `lanes` and the tables' size class `size` (and
+    the sized class's `caps`). Returns (ctypes library, nvcc log)."""
+    return _load_task_library(source, int(lanes), int(size),
+                              None if caps is None else tuple(caps))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_task_library(source: str, lanes: int, size: int):
-    job, name = _cuda_job(source, lanes, size)
+def _load_task_library(source: str, lanes: int, size: int, caps: Optional[Tuple[int, ...]]):
+    job, name = _cuda_job(source, lanes, size, caps)
     built = ce._compile([job])
     lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-    ce._check_layout(lib, size)
+    ce._check_layout(lib, size, caps)
     lib.task_launch_config.argtypes = [ctypes.c_int, ce._P]
     lib.task_launch_config.restype = ctypes.c_int
-    # the large and huge builds take the tables' device copy after the host
-    # copy, the huge one then the Y buffer
+    # the large, huge and sized builds take the tables' device copy after
+    # the host copy, the huge one then the Y buffer, the sized one the
+    # scratch buffer
     lib.launch_task_step.argtypes = ([ce._P] * ce._extra_args(size) + ce._ENV_ARGS
                                      + [ctypes.c_int, ce._P])
     lib.launch_task_step.restype = ctypes.c_int
@@ -1191,8 +1196,9 @@ class CudaTaskStep:
     `envs.base.env_step_plain`. The task's horizon and constants are
     frozen into the kernel: after changing one, build a new step.
     `launches` counts kernel launches (none while a CUDA graph is
-    captured). The huge class's Y buffer is allocated once for each batch
-    size (by `prepare(device, B)` or the first step), so one step at a time."""
+    captured). The huge class's Y buffer and the sized class's scratch
+    buffer are allocated once for each batch size (by `prepare(device, B)`
+    or the first step), so one step at a time."""
 
     backend = "fused"
     kernel = "task_step_kernel"
@@ -1201,40 +1207,41 @@ class CudaTaskStep:
         self.task, self.frame_skip = task, frame_skip
         self.program = None
         self.tables = None
-        self.size = ce.DEFAULT
+        self.size, self.caps = ce.DEFAULT, None
         self.device_tables: Dict[int, torch.Tensor] = {}
-        self.y_buffers: Dict[tuple, torch.Tensor] = {}
+        self.buffers: Dict[tuple, torch.Tensor] = {}
         self.launches = 0
 
     def prepare(self, device: Optional[torch.device] = None, B: Optional[int] = None):
         """Translate the hooks and pack the tables; with a CUDA `device`,
         also build the library, pick the launch configuration, upload the
-        large and huge classes' tables and, for a batch of B envs, allocate
-        the huge class's Y buffer."""
+        large, huge and sized classes' tables and, for a batch of B envs,
+        allocate the huge class's Y buffer or the sized class's scratch
+        buffer."""
         if self.program is None:
             self.program = trace_hooks(self.task)
             self.tables = task_tables(self.task, self.program, self.frame_skip)
-            self.size = ce.tables_class(self.tables)
+            self.size, self.caps = ce.tables_class(self.tables), ce.tables_caps(self.tables)
             self.kernel = "task_step_kernel" + ce.KERNEL_SUFFIX[self.size]
         if device is not None and torch.device(device).type == "cuda":
             device = torch.device(device)
             cfg = self.launch_config(device)
             ce._tables_args(self.tables, self.device_tables, device)
             if B is not None:
-                ce._y_args(self.tables, self.y_buffers, device, B)
+                ce._buffer_args(self.tables, self.buffers, device, B)
             return cfg
         return None
 
     def cuda_job(self):
         """The nvcc job of this task's library, and the library's name."""
-        return _cuda_job(self.program.source, self.tables.lanes, self.size)
+        return _cuda_job(self.program.source, self.tables.lanes, self.size, self.caps)
 
     def library(self):
-        return load_task_library(self.program.source, self.tables.lanes, self.size)
+        return load_task_library(self.program.source, self.tables.lanes, self.size, self.caps)
 
     def launch_config(self, device: torch.device, B: Optional[int] = None) -> Dict[str, int]:
         self.prepare()
-        lanes = ce.lane_nv(self.tables.lanes, self.size)
+        lanes = ce.lane_nv(self.tables.lanes, self.size, self.caps)
         if self.tables.nv > lanes:
             raise ValueError(f"{self.tables.nv} dofs exceed the {lanes} "
                              f"that G={self.tables.lanes} lanes hold")
@@ -1242,6 +1249,7 @@ class CudaTaskStep:
                                        device.index or 0))
         cfg["G"], cfg["threads"] = self.tables.lanes, cfg["E"] * self.tables.lanes
         cfg["y_bytes"] = 4 * ce.y_stride(self.tables)
+        cfg["buffer_bytes"] = 4 * ce.buffer_floats(self.tables)
         if B is not None:
             cfg["blocks"] = -(-B // cfg["E"])
         return cfg
@@ -1260,7 +1268,7 @@ class CudaTaskStep:
         with torch.cuda.device(dev):
             rc = self.library()[0].launch_task_step(
                 *ce._tables_args(self.tables, self.device_tables, dev),
-                *ce._y_args(self.tables, self.y_buffers, dev, B), *ce._ptrs(ins + outs),
+                *ce._buffer_args(self.tables, self.buffers, dev, B), *ce._ptrs(ins + outs),
                 B, E, ce._P(torch.cuda.current_stream(dev).cuda_stream))
         ce._launch_checked(rc, self.kernel)
         ce.count_launch(self.kernel, self)
@@ -1270,8 +1278,8 @@ class CudaTaskStep:
 class HostTaskTwin:
     """task_step.cu's body built with g++ for the host, for the CPU tests:
     the kernel's own C++, the task's translated hooks included, on CPU
-    tensors (the huge class's Y in a second heap buffer). No wrapper routes
-    here."""
+    tensors (the huge class's Y in a second heap buffer, the sized class's
+    whole scratch in the first). No wrapper routes here."""
 
     FLAGS = ("-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
@@ -1280,14 +1288,14 @@ class HostTaskTwin:
         self.task = task
         self.program = trace_hooks(task)
         self.tables = task_tables(task, self.program, frame_skip)
-        size = ce.tables_class(self.tables)
-        flags = self.FLAGS + ce.CLASS_FLAGS[size]
+        size, caps = ce.tables_class(self.tables), ce.tables_caps(self.tables)
+        flags = self.FLAGS + ce.class_flags(size, caps)
         tag = _tag(self.program.source, _CORE + ["task_step_host.cpp"], flags)
         header = _write_header(self.program.source, tag)
         name = f"libtask_host_{tag}.so"
         ce._compile([([gxx], "task_step_host.cpp", name, flags + ("-include", header))])
         self.lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-        ce._check_layout(self.lib, size)
+        ce._check_layout(self.lib, size, caps)
         self.lib.host_task_step.argtypes = ce._ENV_ARGS
         self.lib.host_task_step.restype = ctypes.c_int
 

@@ -1,4 +1,4 @@
-"""Whether two checkouts build the same CUDA libraries of the default and large classes.
+"""Whether two checkouts build the same CUDA libraries of the default, large and huge classes.
 
     python3 pybulletgym_tpu_torch/tools/build_identity.py ROOT_A ROOT_B
         [--tasks HalfCheetahPyBulletEnv-v0,HumanoidPyBulletEnv-v0]
@@ -8,8 +8,10 @@ libraries of the default and the large class (`cuda_engine.
 load_cuda_library(False)` and `(True)`, one per group width G; the huge
 class's too where the root has it), for each listed env ID task_step.cu
 with that task's hooks translated (`ops.task_kernel.CudaTaskStep`, its
-shipped class taken as a user's task), and task_step.cu's large build with
-the two-Humanoid scene's task (the root's `chip_smoke.py`), and prints one
+shipped class taken as a user's task), task_step.cu's large build with the
+two-Humanoid scene's task and its huge build with the four-Humanoid scene's
+(the root's `chip_smoke.py`; the huge one where the root has
+`humanoids_task`), and prints one
 JSON line per library: each kernel's ptxas report
 (registers, stack frame, spill stores and loads) and the SHA-256 of the
 library's SASS (`cuobjdump -sass`: the instructions and their encodings,
@@ -76,9 +78,12 @@ for kind, size in classes:
         report(f"{kind} G={G}", lib, next(s for s in sections if s.startswith(f"{G}\n")))
 sys.path.insert(0, root)
 import chip_smoke as cs
-scene = (cs.humanoids_task(cs.humanoids_xml(2), 2) if hasattr(cs, "humanoids_task")
-         else cs.two_humanoid_task(cs.two_humanoids_xml()))
-for env_id, task in [(e, make_task(e)) for e in tasks] + [("TwoHumanoids-v0", scene)]:
+if hasattr(cs, "humanoids_task"):
+    scenes = [(f"{name}-v0", cs.humanoids_task(cs.humanoids_xml(n), n))
+              for name, n in (("TwoHumanoids", 2), ("FourHumanoids", 4))]
+else:
+    scenes = [("TwoHumanoids-v0", cs.two_humanoid_task(cs.two_humanoids_xml()))]
+for env_id, task in [(e, make_task(e)) for e in tasks] + scenes:
     st = tk.CudaTaskStep(task)
     st.prepare()
     lib, text = st.library()

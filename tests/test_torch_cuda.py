@@ -534,3 +534,45 @@ def test_huge_tables_physics_kernel_matches_plain():
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(out, (qk, vk, dk)))
+
+
+def test_sized_tables_physics_kernel_matches_plain():
+    """22 free balls (nv 132, over the huge class's 128 dofs: five mask
+    words) through physics_step_kernel's sized build (caps from the model,
+    the tables and the whole scratch in global memory), at the walker
+    budget, counted apart; a CUDA graph of the launch replays on the scratch
+    buffer that prepare allocated, bitwise."""
+    _need_gpu()
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    balls = "".join(
+        f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(22))
+    model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                       f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
+    phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
+    assert phys.size == ce.SIZED and phys.kernel == "physics_step_kernel_sized"
+    assert phys.caps == (32, 160, 160, 32, 32, 32, 160, 32, 160)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
+    v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
+    tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
+    phys.prepare(torch.device("cuda"), B)
+    assert phys.buffers[(0, B)].shape == (B, phys.tables.sc_stride)
+    assert ce.launch_config(phys.tables, "physics_step_kernel", B)["shared_bytes"] == 0
+    ce.reset_launch_counts()
+    qk, vk, dk = phys(q, v, tau)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES["physics_step_kernel_sized"] == phys.launches == 1
+    assert sum(ce.LAUNCHES.values()) == 1
+    qp, vp, dp = phys.plain(q, v, tau)
+    dq = (qk - qp).abs()
+    assert dq.mean() < 3e-4 and dq.max() < 1e-2
+    assert ((dk > 0) != (dp > 0)).float().mean() < 0.01
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = phys(q, v, tau)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(out, (qk, vk, dk)))

@@ -376,9 +376,9 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
     with pytest.raises(NotImplementedError, match="Pushed"):
         ce.pack_tables(Pushed(loco_t.HALF_CHEETAH))
     # a model above 128 dofs (22 free balls: 132), over the huge class's
-    # caps (seven balls, nv 42, are in the large class:
-    # test_torch_big_models.py; eleven, nv 66, in the huge one:
-    # test_torch_huge_models.py)
+    # caps, is not refused: it takes the sized class (seven balls, nv 42,
+    # are in the large class: test_torch_big_models.py; eleven, nv 66, in
+    # the huge one: test_torch_huge_models.py; test_torch_sized_models.py)
     balls = "".join(
         f'<body name="b{i}" pos="{i} 0 1"><joint name="j{i}" type="free"/>'
         f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(22))
@@ -387,8 +387,7 @@ def test_pack_tables_refuses_what_the_kernels_lack(tasks, tmp_path, twin):
                    f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
     model = load_mjcf(str(xml))
     assert model.nv == 132
-    with pytest.raises(NotImplementedError, match="'NV': 132"):
-        ce.pack_physics(model, tt.physics)
+    assert ce.tables_class(ce.pack_physics(model, tt.physics)) == ce.SIZED
     env = BatchedEnv(tt, 4, device="cpu")  # the kernel library is built lazily
     with pytest.raises(ValueError, match="action shape"):
         env.step(env.reset(), np.zeros((4, tt.act_dim - 1), np.float32))

@@ -19,7 +19,7 @@ nv 92, 68 actuators, 116 floor rows, 136 limit rows; its one-env scratch
 (d) size classes: the 26 shipped IDs stay default, the two-Humanoid scene
     and seven balls large; eleven balls, three and four Humanoids huge; a
     model past the huge caps, or whose scratch outside Y passes a block's
-    shared memory, raises naming the size;
+    shared memory, takes the sized class (tests/test_torch_sized_models.py);
 (e) `FourHumanoids-v0` registered and made by ID with `device="cpu"`, both
     backends, B=2 and one substep: the fused step is
     `task_step_kernel_huge`'s wrapper, and the two backends agree bitwise.
@@ -219,19 +219,22 @@ def test_size_classes():
     # large by its sizes, huge by its scratch: nv 64 and 256 rows need 233 KB of Y
     assert ce._pick_caps(64, 80, 64, 100, 0, 128, 64) == ce.CAPS_BIG
     assert ce._pick_caps(64, 80, 64, 256, 0, 128, 64, 240000) == ce.CAPS_HUGE
-    with pytest.raises(NotImplementedError, match="'NV': 132"):
-        ce.pack_physics(balls[22], cfg)
-    with pytest.raises(NotImplementedError, match="'BODIES': 129"):
-        ce._pick_caps(129, 150, 120, 10, 0, 0)
+    # past the huge caps: the sized class (tests/test_torch_sized_models.py)
+    t = ce.pack_physics(balls[22], cfg)
+    assert t.nv == 132 and t.caps_id == ce.CAPS_SIZED and ce.tables_class(t) == ce.SIZED
+    assert ce._pick_caps(129, 150, 120, 10, 0, 0) == ce.CAPS_SIZED
     # the four-word mask: dofs 0-127, refused past them
     assert ce._root_path_words([0, 33, 64, 127], 4) == (1, 2, 1, 0x80000000)
     with pytest.raises(ValueError, match="root-path mask"):
         ce._root_path_words([3, 128], 4)
-    # the scratch outside Y must fit a block's shared memory
+    # a scratch outside Y over a block's shared memory: the sized class
     t = ce.pack_physics(humanoids[4], cfg)
-    t.nq = 60000
-    with pytest.raises(NotImplementedError, match="scratch outside Y"):
-        ce.scratch_layout(t)
+    shared, y = ce._scratch_sizes(t.nb, 60000, t.nv, t.nr, t.npair, t.nl, t.act)
+    outside = 4 * sum(shared.values())
+    assert outside > ce.MAX_SHARED_BYTES
+    assert ce._pick_caps(t.nb, 60000, t.nv, t.nr, t.npair, t.nl, t.act, outside + 4 * y["Y"],
+                         outside) == ce.CAPS_SIZED
+    assert ce._pick_caps(64, 80, 64, 256, 0, 128, 64, 240000, 240000) == ce.CAPS_SIZED
 
 
 def test_scene_by_id_with_both_backends():
