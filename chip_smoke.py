@@ -138,26 +138,32 @@ dofs than a group's 32 lanes, root paths past bit 31):
     physics; times both large kernels beside their bounds;
   * drives models over the large tables' caps (`huge_model_paths`, the same
     paths through `scene_paths`): builds the huge class (-DENG_HUGE_TABLES:
-    the tables and the forward-solved rows Y in global memory, Y a device
-    buffer of B envs' slices allocated when the env is made) and registers
+    the substeps by the model's tree blocks, the tables and each env's
+    scratch in global memory, a device buffer of B envs' slices allocated
+    when the env is made) and registers
     FourHumanoids-v0 (four copies of humanoid.xml: 72 bodies, nv 92, one
     env's scratch over a block's shared memory): 10 steps through
     task_step_kernel's huge build (10 launches, nothing else) and composed
     around physics_step_kernel's huge build (10, graph = eager bitwise),
     both held to the plain version at step 0 (resets bitwise), eleven free
     balls (nv 66) through the huge physics build, both huge kernels timed;
+    each kernel (and the balls' build) also from the same inputs with its
+    tables widened to one block over all dofs, the same binary's dense
+    loops: equal under torch.equal, the zeros whose sign differs counted,
+    and timed beside;
   * drives models past the huge caps (`sized_model_paths`, the same paths
-    through `scene_paths` at B=1024): builds the sized class
+    through `scene_paths` at B=SIZED_B): builds the sized class
     (-DENG_SIZED_TABLES with caps from the model's sizes: a root-path mask
-    of ceil(nv / 32) words, the tables and each env's whole scratch in
-    global memory) for TenHumanoids-v0 (ten copies of humanoid.xml: 180
+    of ceil(nv / 32) words, tree blocks and the scratch as the huge class's)
+    for TenHumanoids-v0 (ten copies of humanoid.xml: 180
     bodies, nv 230, eight mask words, the scratch outside Y over a block's
     shared memory) and forty free balls (nv 240): 20 steps through
     task_step_kernel's sized build (20 launches, nothing else) and composed
     around physics_step_kernel's sized build (20, graph = eager bitwise),
     both held to the plain version at step 0 (resets bitwise), the balls
     through the sized physics build against the plain physics, both sized
-    kernels timed with their ptxas reports and buffer bytes;
+    kernels timed with their ptxas reports and buffer bytes, and against
+    their dense loops as the huge ones;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -279,6 +285,19 @@ def graph_ms(fn, n=20, reps=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (n * reps)
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits: floats compared as their
+    integer patterns (so -0.0 differs from +0.0 and a NaN equals itself)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
+    if as_int is None:
+        return bool(torch.equal(a, b))
+    return bool(torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int)))
 
 
 def ptxas_report(log):
@@ -820,10 +839,10 @@ def task_ops_paths(card):
         torch.cuda.synchronize()
         return out, dict(ce.LAUNCHES)
 
-    def bitwise(a, b):
-        return (all(torch.equal(getattr(a, k), getattr(b, k)) for k in fields)
-                and all(torch.equal(a.aux[k], b.aux[k]) for k in b.aux)
-                and all(torch.equal(a.rewards[k], b.rewards[k]) for k in b.rewards))
+    def bitwise(a, b):  # bit for bit: a zero's sign counts
+        return (all(same_bits(getattr(a, k), getattr(b, k)) for k in fields)
+                and all(same_bits(a.aux[k], b.aux[k]) for k in b.aux)
+                and all(same_bits(a.rewards[k], b.rewards[k]) for k in b.rewards))
 
     # ---- build both task kernels at once -----------------------------------
     pt.register(ut.OP_PROBE_ID, ut.op_probe(pendula, torch), 1000)
@@ -982,9 +1001,9 @@ SIZED_PLAIN_AT = (0,)  # the ten-Humanoid scene's: ~3x the four's
 BALLS = 7  # free balls: nv 42, over the default caps' 40
 HUGE_BALLS = 11  # nv 66, over the large caps' 64
 SIZED_BALLS = 40  # nv 240: eight mask words, the scratch outside Y over 227 KB
-# The ten-Humanoid scene's batch: at B=4096 its scratch buffer is ~5.65 GB,
-# which fits, but a step of seconds would make the phase most of the run
-SIZED_B = 1024
+# The ten-Humanoid scene's batch, the other scenes': its scratch buffer by
+# tree blocks is 162,304 B an env, 0.66 GB at B=4096
+SIZED_B = 4096
 # timing launches of a scene's kernels: (graph-captured calls, replays,
 # eager calls), and of its composed step (graph, replay, eager)
 SCENE_TIMING = ((5, 2, 5), (10, 10, 3))
@@ -1095,8 +1114,8 @@ def step_as(step, size):
     """A CudaPhysicsStep like `step` whose tables are the same model's in
     the larger fixed size class `size` (LARGE or HUGE: every array of a
     smaller class fits the larger one's, a root path's words included), laid
-    out again: the same arithmetic, with the tables (and in the huge class Y)
-    in global memory."""
+    out again (in the huge class by its tree blocks): the same results, with
+    the tables (and in the huge class the scratch) in global memory."""
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
     other = copy.copy(step)
@@ -1107,6 +1126,8 @@ def step_as(step, size):
             ctypes.memmove(getattr(t, name), x, ctypes.sizeof(x))
         else:
             setattr(t, name, x)
+    if size == ce.HUGE:
+        ce.tree_blocks(t)
     ce.scratch_layout(t)
     other.tables, other.size = t, size
     other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[size]
@@ -1183,8 +1204,8 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
       the plain physics, 3 steps, the walkers' bounds.
     * Each kernel's time (CUDA-graph-timed) beside its bound, the plain
       version's, its launch configuration, ptxas report, nvcc seconds and
-      the tables' bytes and the device buffer's (the huge class's Y, the
-      sized class's scratch)."""
+      the tables' bytes and the device buffer's (the huge and sized
+      classes' scratch)."""
     import numpy as np
     import torch
 
@@ -1252,8 +1273,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
     emit(f"{tag}_build", env=scene_id, B=B, model=sizes, trace_seconds=build.trace_s,
          nvcc_seconds=nvcc_s, built_beside_earlier_phases=ahead, nvcc_jobs=build.n_jobs,
          table_bytes=ctypes.sizeof(phys.tables),
-         buffer_bytes_per_env=buf_bytes, buffer_bytes=buf_bytes * B,
-         y_bytes_per_env=4 * ce.y_stride(task_build.tables), caps=caps,
+         buffer_bytes_per_env=buf_bytes, buffer_bytes=buf_bytes * B, caps=caps,
          hook_statements=task_build.program.ops, ptxas=ptx, balls_ptxas=balls_ptx,
          launch=config, card=card)
 
@@ -1307,7 +1327,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
         phys_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    # the fused step's library and Y buffers, its tables at frame_skip 0
+    # the fused step's library and buffers, its tables at frame_skip 0
     # (uploaded apart): the reset alone, without tracing the hooks again
     reset_k = copy.copy(fused.step_fn)
     reset_k.tables = type(reset_k.tables).from_buffer_copy(reset_k.tables)
@@ -1359,6 +1379,32 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             names["physics"]: ce.work_per_env_step(phys.tables, env_step=False)}
     timed = {names["task"]: (lambda: tstep(s, a), min(plain_ms)),
              names["physics"]: (lambda: phys(s.q, s.v, tau), min(phys_ms))}
+    # ---- the tree blocks (huge and sized classes) against the same binary's
+    # dense loops, its tables widened to one block: equal under torch.equal
+    # on the timed inputs and the balls', the zeros whose sign differs
+    # counted (bit patterns), timed beside (the time before the blocks)
+    dense = {}
+    if size in (ce.HUGE, ce.SIZED):
+        calls = {names["task"]: (tstep, lambda st: st(s, a)),
+                 names["physics"]: (phys, lambda st: st(s.q, s.v, tau)),
+                 "balls": (bphys, lambda st: st(bs, v, bt))}
+        for name, (st, call) in calls.items():
+            wide = ce.with_tables(st, ce.widen_blocks(st.tables))
+            x, y = call(st), call(wide)
+            if name == names["task"]:
+                x, y = ([getattr(o, k) for k in fields] for o in (x, y))
+            require(all(torch.equal(p, q) for p, q in zip(x, y)),
+                    f"{scene_id} {name}: the tree blocks differ from the dense loops")
+            signs = sum(int((p.view(torch.int32) != q.view(torch.int32)).sum())
+                        for p, q in zip(x, y) if p.dtype == torch.float32)
+            dense[name] = {"fn": (lambda c=call, w=wide: c(w)), "tables": wide.tables,
+                           "bitwise": all(same_bits(p, q) for p, q in zip(x, y)),
+                           "zero_sign_differences": signs}
+        dense["balls"]["ms"] = graph_ms(dense["balls"]["fn"], n=4 * n_graph, reps=reps + 1)
+        work_dense = {names["task"]: tk.work_per_task_step(dense[names["task"]]["tables"],
+                                                           tstep.program, share),
+                      names["physics"]: ce.work_per_env_step(dense[names["physics"]]["tables"],
+                                                             env_step=False)}
     gr = next(iter(comp.step_fn._graphs.values()))
     composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), c_graph),
                     replay_ms=cuda_ms(gr.graph.replay, c_replay),
@@ -1383,16 +1429,32 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             "buffer_bytes": buf_bytes * B, "caps": caps.get(name),
             "nvcc_seconds": nvcc_s, "models": [scene_id] + (
                 [f"{n_balls} free balls"] if name.startswith("physics") else [])})
+        if name in dense:  # the dense loops: the time and the bound before the blocks
+            d_ms = graph_ms(dense[name]["fn"], n=n_graph, reps=reps)
+            d_flops = work_dense[name][0]
+            entries[-1]["dense_loops"] = {
+                "ms": d_ms, "bitwise": dense[name]["bitwise"],
+                "zero_sign_differences": dense[name]["zero_sign_differences"],
+                "speedup": d_ms / ms, "flops_per_env_step": d_flops,
+                "bound_ms": max(d_flops * B / PEAK_FP32_FLOPS * 1e3, t_bytes),
+                "launch": (ce.launch_config(dense[name]["tables"], "physics_step_kernel", B)
+                           if name.startswith("physics") else None)}
     entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls, "caps": caps.get("balls"),
                            "launch": ce.launch_config(bphys.tables, "physics_step_kernel", B),
                            "ptxas": balls_ptx}
+    if dense:
+        entries[1]["balls"]["dense_loops"] = {
+            "ms": dense["balls"]["ms"], "bitwise": dense["balls"]["bitwise"],
+            "zero_sign_differences": dense["balls"]["zero_sign_differences"],
+            "speedup": dense["balls"]["ms"] / balls_ms}
     record = dict(env=scene_id, B=B, steps=steps, forced_reset_at=forced_at,
                   launches=launches, held_to_plain_at=plain_at, max_dq_vs_plain=vs_plain,
                   resets_bitwise=True, graph_vs_eager_bitwise=True,
                   max_dq_composed_vs_task=worst_comp, composed_q_bitwise_to_task=comp_q_bitwise,
                   composed=composed,
-                  kernels={e["name"]: {k: e[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                                          "bound_by", "env_steps_per_s")}
+                  kernels={e["name"]: {k: e.get(k) for k in ("ms", "eager_ms", "plain_ms",
+                                                              "bound_ms", "bound_by",
+                                                              "env_steps_per_s", "dense_loops")}
                            for e in entries},
                   plain_env_step_ms=min(plain_ms), plain_physics_ms=min(phys_ms), balls=balls,
                   balls_ms=balls_ms, card=card)
@@ -1443,9 +1505,9 @@ def big_model_paths(card, build=None):
 def huge_model_paths(card, build=None):
     """Models over the large tables' caps, or whose one-env scratch outgrows
     a block's shared memory, on the card: engine_core.h's huge class
-    (-DENG_HUGE_TABLES: the tables in global memory, the forward-solved
-    rows Y in a device buffer of B envs' slices, the rest of the scratch in
-    shared memory), through `scene_paths` on FourHumanoids-v0 (four copies
+    (-DENG_HUGE_TABLES: the substeps by the model's tree blocks, the tables
+    and each env's scratch in global memory, the scratch a device buffer of
+    B envs' slices), through `scene_paths` on FourHumanoids-v0 (four copies
     of humanoid.xml: 72 bodies, nq 96, nv 92, 68 actuators, 116 floor rows,
     136 limit rows; one env's scratch 233,796 B, over a block's 232,448;
     paths `huge_fused`, `huge_composed`) held to plain at HUGE_PLAIN_AT,
@@ -1466,8 +1528,9 @@ def huge_model_paths(card, build=None):
     # ---- where the huge kernels' time goes: the physics kernel of the two-
     # and four-Humanoid scenes from a seeded reset and seeded torques, each
     # with and without its PGS sweeps (iterations 0); the two-Humanoid
-    # scene's also in the huge class (Y in global memory) against its large
-    # tables (Y in shared memory), in turns L H H L
+    # scene's also in the huge class (tree blocks, the scratch in global
+    # memory) against its large tables (dense loops, the scratch in shared
+    # memory), in turns L H H L
     dev = torch.device("cuda", 0)
     ids = (torch.full((B,), 3, dtype=torch.uint32, device=dev),
            torch.arange(B, dtype=torch.int32, device=dev), torch.zeros(B, dtype=torch.uint32, device=dev))
@@ -1508,8 +1571,9 @@ def sized_model_paths(card, build=None):
     """Models past the huge class on the card: engine_core.h's sized class
     (-DENG_SIZED_TABLES with caps set from the model's sizes: a root-path
     mask of ceil(nv / 32) words, the tables and the whole scratch in global
-    memory, the scratch a device buffer of B envs' slices allocated when the
-    env is made), through `scene_paths` on TenHumanoids-v0 (ten copies of
+    memory by tree blocks, the scratch a device buffer of B envs' slices
+    allocated when the env is made), through `scene_paths` on
+    TenHumanoids-v0 (ten copies of
     humanoid.xml: 180 bodies, nq 240, nv 230, 170 actuators, 290 floor rows,
     340 limit rows; eight mask words, one env's scratch outside Y 260,404 B,
     over a block's 232,448; paths `sized_fused`, `sized_composed`) at
@@ -1521,9 +1585,8 @@ def sized_model_paths(card, build=None):
 
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
-    emit("sized_batch", B=SIZED_B, why="at B=4096 the scene's scratch buffer is ~5.65 GB, "
-         "which fits, but a step takes seconds: B=1024 keeps the phase a share of the run",
-         card=card)
+    emit("sized_batch", B=SIZED_B, why="the other scenes' batch: by tree blocks the scene's "
+         "scratch buffer is 162,304 B an env", card=card)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     launches, entries, record = scene_paths(card, "sized", SIZED_ID, 10, SIZED_BALLS,

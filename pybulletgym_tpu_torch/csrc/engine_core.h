@@ -105,30 +105,17 @@
 
 // Where an env's scratch lives. The default and large classes: in the env's
 // slice (env e of its block) of the block's dynamic shared memory `smem`.
-// The huge class: likewise, but the forward-solved constraint rows Y (and the
-// arrays that share their space) in env i's slice of a device buffer of B x
-// Tables::sc[SC_YSTRIDE] floats (ybuf, an argument of its kernels and
-// launchers after the tables), which the core's functions take as a second
-// base (ybase) beside the shared one. The sized class: the whole scratch, Y
-// included and laid out as in the default class, in env i's slice of a device
-// buffer of B x Tables::sc_stride floats (sbuf, in ybuf's place); a block
-// asks for no shared memory. ENG_ENV_SCRATCH(e, i) is the core's base
-// argument (or two) of env i, the e-th of its block.
-#if defined(ENG_HUGE_TABLES)
-#define ENG_Y_PARAM , float* ybase
-#define ENG_Y_ARG , ybase
-#define ENG_BUF_PARAM float* __restrict__ ybuf,
-#define ENG_KERNEL_BUF ybuf,
-#define ENG_ENV_SCRATCH(e, i) smem + (e) * t.sc_stride, ybuf + (size_t)(i) * t.sc[eng::SC_YSTRIDE]
-#elif defined(ENG_SIZED_TABLES)
-#define ENG_Y_PARAM
-#define ENG_Y_ARG
-#define ENG_BUF_PARAM float* __restrict__ sbuf,
-#define ENG_KERNEL_BUF sbuf,
-#define ENG_ENV_SCRATCH(e, i) sbuf + (size_t)(i) * t.sc_stride
+// The huge and sized classes: the whole scratch, laid out as in shared
+// memory, in env i's slice of a device buffer of B x Tables::sc_stride
+// floats (buf, an argument of their kernels and launchers after the
+// tables); a block asks for no shared memory and the SM's memory serves as
+// L1. ENG_ENV_SCRATCH(e, i) is the core's base argument of env i, the e-th
+// of its block.
+#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
+#define ENG_BUF_PARAM float* __restrict__ buf,
+#define ENG_KERNEL_BUF buf,
+#define ENG_ENV_SCRATCH(e, i) buf + (size_t)(i) * t.sc_stride
 #else
-#define ENG_Y_PARAM
-#define ENG_Y_ARG
 #define ENG_BUF_PARAM
 #define ENG_KERNEL_BUF
 #define ENG_ENV_SCRATCH(e, i) smem + (e) * t.sc_stride
@@ -183,10 +170,9 @@ constexpr int MAX_DRAWS = BIG_MAX_DRAWS;
 // or whose one-env scratch outgrows a block's shared memory, such as four
 // humanoids in one scene (72 bodies, nq 96, nv 92, 116 floor rows, 136
 // limit rows, 68 actuators). Its tables (~105 KB) live in global memory as
-// the large class's do, and so does Y (ENG_Y_PARAM above), which is most of
-// such a model's scratch. ops/cuda_engine.py reads these caps by their
-// HUGE_ names. Within them the scratch left in shared memory is at most
-// ~124 KB an env.
+// the large class's do; its scratch is stored by tree blocks (ENG_TREE_FIELDS
+// below) in a device buffer (ENG_ENV_SCRATCH above).
+// ops/cuda_engine.py reads these caps by their HUGE_ names.
 constexpr int HUGE_MAX_BODIES = 128;  // one body a dof at nv 128
 constexpr int HUGE_MAX_NV = 128;      // the four-word root-path mask's limit
 constexpr int HUGE_MAX_NQ = 160;      // nq <= 7/6 nv: 149 at nv 128
@@ -214,8 +200,8 @@ constexpr int MAX_DRAWS = HUGE_MAX_DRAWS;
 // by ops/cuda_engine.py · sized_caps and given as -DSIZED_MAX_*=n (and
 // -DSIZED_MASK_WORDS=ceil(MAX_NV / 32), at least 2), so no model size is
 // refused; one library serves every model that rounds to the same caps. The
-// tables live in global memory, and so does the whole scratch
-// (ENG_ENV_SCRATCH above).
+// tables live in global memory; the scratch is stored and placed as the
+// huge class's.
 #if !defined(SIZED_MAX_BODIES) || !defined(SIZED_MAX_NV) || !defined(SIZED_MAX_NQ) ||    \
     !defined(SIZED_MAX_ROWS) || !defined(SIZED_MAX_PAIRS) || !defined(SIZED_MAX_LIMITS) || \
     !defined(SIZED_MAX_ACT) || !defined(SIZED_MAX_PARTS) || !defined(SIZED_MAX_DRAWS) ||   \
@@ -291,11 +277,7 @@ constexpr int MJ_DONE_HUMANOID = 4;
 #define ENG_SLOT(name) SC_##name,
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
-// Tables::sc[SC_YSTRIDE]: in the huge class, the floats of one env's slice
-// of the Y buffer (0 in the others; in the sized class Tables::sc_stride is
-// the floats of one env's slice of its buffer)
-constexpr int SC_YSTRIDE = SC_COUNT;
-static_assert(SC_COUNT < MAX_SLOTS, "Tables::sc is too short");
+static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
 static_assert(MAX_NV <= 32 * MASK_WORDS, "a root-path mask is MASK_WORDS 32-bit words");
 static_assert(MASK_WORDS >= 2, "anc_mask_hi holds at least one word a body");
 static_assert(MAX_DRAWS >= MAX_NQ && MAX_DRAWS >= MAX_NV, "a draw for every q and every dof");
@@ -325,11 +307,10 @@ constexpr int lane_nv() {
   S(int32_t, npair) /* the last npair contact rows are pair rows */          \
   S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 large class, 3 huge, 4 sized */ \
   S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
-  S(int32_t, sc_stride) /* floats of one env's scratch (odd; sized: Y_ALIGN) */ \
+  S(int32_t, sc_stride) /* floats of one env's scratch (odd; huge, sized: Y_ALIGN) */ \
   S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
   S(int32_t, sc_ldm) /* row stride of M and L (nv, made odd) */               \
-  A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array; then \
-                               SC_YSTRIDE */                                 \
+  A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array */     \
   S(int32_t, frame_skip)                                                      \
   S(int32_t, iterations)                                                      \
   S(int32_t, e_comb_zero)                                                     \
@@ -532,10 +513,43 @@ constexpr int lane_nv() {
   S(float, mj_fwd)                                                            \
   S(float, mj_ctrl)
 
+// The tree blocks, in the huge and sized classes only (the default and large
+// layouts are as above). A tree is the set of bodies under one child of the
+// world; its dofs, widened to the interval that covers them and merged with
+// any tree whose interval overlaps, are a block. M is block-diagonal by
+// blocks, and so are L and every forward-solved row, so every dof loop of
+// the substep runs within a block or a row's support (the arithmetic of the
+// TPU kernel, whose traced program drops structural zeros), and L and Y are
+// stored by blocks and supports. ops/cuda_engine.py · pack_physics sets the
+// ranges from the model and scratch_layout the storage from the ranges; a
+// table edit that sets every range to [0, nv) gives the dense loops.
+#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
+#define ENG_TREE_BLOCKS
+#define ENG_TREE_FIELDS(S, A)                                                 \
+  A(int32_t, dof_lo, MAX_NV) /* the first dof of dof d's block */             \
+  A(int32_t, dof_hi, MAX_NV) /* one past its last dof */                      \
+  A(int32_t, l_row, MAX_NV) /* L(d, k) at L[l_row[d] + k], k in d's block;   \
+                               consecutive rows of a block l_row apart */     \
+  A(int32_t, row_lo, MAX_ROWS) /* contact row r's support [row_lo, row_hi): \
+                                  the first dof of its Jacobian to the end  \
+                                  of its last block */                      \
+  A(int32_t, row_hi, MAX_ROWS)                                                \
+  A(int32_t, row_y, MAX_ROWS) /* Y offset of row r's normal: dof d at      \
+                                 row_y[r] + d - row_lo[r]; its two tangents  \
+                                 follow, row_hi - row_lo floats apart */     \
+  A(int32_t, lim_lo, MAX_LIMITS) /* limit row m's support [lim_lo, lim_hi): \
+                                    from its dof to its block's end */      \
+  A(int32_t, lim_hi, MAX_LIMITS)                                              \
+  A(int32_t, lim_y, MAX_LIMITS) /* Y offset of limit row m, from lim_lo */
+#else
+#define ENG_TREE_FIELDS(S, A)
+#endif
+
 #define ENG_DECL_S(T, name) T name;
 #define ENG_DECL_A(T, name, n) T name[n];
 struct Tables {
   ENG_TABLE_FIELDS(ENG_DECL_S, ENG_DECL_A)
+  ENG_TREE_FIELDS(ENG_DECL_S, ENG_DECL_A)
 };
 #undef ENG_DECL_S
 #undef ENG_DECL_A
@@ -950,10 +964,7 @@ struct FK {
 
 // Pointers into one env's scratch (Tables::sc gives each array's offset).
 // inert, avp, f and obs share the space of the constraint rows Y (rows 1..),
-// which are written only after the CRBA and read only before the outputs;
-// in the huge class Y and those four are offsets into the env's slice of
-// the Y buffer (ybase), the rest into its shared slice (base); in the sized
-// class all are offsets into its slice of the scratch buffer (base).
+// which are written only after the CRBA and read only before the outputs.
 struct Scr {
   float *q, *v, *tau, *act, *aux, *obs;
   FK fk;
@@ -966,28 +977,23 @@ struct Scr {
   float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
 };
 
-ENG_HD Scr scratch(const Tables& t, float* base ENG_Y_PARAM) {
+ENG_HD Scr scratch(const Tables& t, float* base) {
   const int32_t* o = t.sc;
-#ifdef ENG_HUGE_TABLES
-  float* const yb = ybase;
-#else
-  float* const yb = base;
-#endif
   Scr s;
   s.q = base + o[SC_q];
   s.v = base + o[SC_v];
   s.tau = base + o[SC_tau];
   s.act = base + o[SC_act];
   s.aux = base + o[SC_aux];
-  s.obs = yb + o[SC_obs];
+  s.obs = base + o[SC_obs];
   s.fk.R = (M3*)(base + o[SC_R]);
   s.fk.p = (V3*)(base + o[SC_p]);
   s.fk.vel = (SV*)(base + o[SC_vel]);
   s.fk.com = (V3*)(base + o[SC_com]);
   s.fk.S = (SV*)(base + o[SC_S]);
-  s.inert = (Inertia*)(yb + o[SC_inert]);
-  s.avp = (SV*)(yb + o[SC_avp]);
-  s.f = (SV*)(yb + o[SC_f]);
+  s.inert = (Inertia*)(base + o[SC_inert]);
+  s.avp = (SV*)(base + o[SC_avp]);
+  s.f = (SV*)(base + o[SC_f]);
   s.L = base + o[SC_L];
   s.inv_diag = base + o[SC_inv_diag];
   s.depth = base + o[SC_depth];
@@ -997,7 +1003,7 @@ ENG_HD Scr scratch(const Tables& t, float* base ENG_Y_PARAM) {
   s.zp = base + o[SC_zp];
   s.v3o = base + o[SC_v3o];
   s.vp = base + o[SC_vp];
-  s.Y = yb + o[SC_Y];
+  s.Y = base + o[SC_Y];
   s.dinv = base + o[SC_dinv];
   s.b_vel = base + o[SC_b_vel];
   s.b_pos = base + o[SC_b_pos];
@@ -1154,15 +1160,19 @@ ENG_HD void composite_inertias(const Tables& t, Inertia* Ic) {
   }
 }
 
-// Row d of the lower triangle of M (entries e <= d), each entry as
-// mass_matrix computes it; one lane a row.
+// Row d of the lower triangle of M (entries e <= d; in the tree classes
+// those of d's block), each entry as mass_matrix computes it; one lane a row.
 ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, int d, float* Md) {
   const int i = t.dof_body[d];
   Inertia I = Ic[i];
   I.m = t.cmass[i];
   const SV F = inertia_mul(I, fk.S[d]);
   const DofSet path = anc_path(t, i);
+#ifdef ENG_TREE_BLOCKS
+  for (int e = t.dof_lo[d]; e <= d; ++e)
+#else
   for (int e = 0; e <= d; ++e)
+#endif
     Md[e] = on_path(path, e) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
   if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
 }
@@ -1295,6 +1305,163 @@ ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<K>, G>& z, const
   }
 }
 
+#ifdef ENG_TREE_BLOCKS
+// ---- the same by tree blocks (huge and sized classes) -----------------------
+// Each loop runs over a block or a row's support only: every term it leaves
+// out is an exact zero of the dense loop, and the terms it keeps are summed
+// in the same order, so the results are the dense loops' up to the sign of a
+// zero. Tensor cores do not apply: every sum keeps the reference's float32
+// order, and the blocks are 6-23 dofs wide.
+
+// The row stride of L in dof i's block (0 for a block's last row, whose
+// column has no entry below the diagonal)
+ENG_HD int l_stride(const Tables& t, int i) {
+  return i + 1 < t.dof_hi[i] ? t.l_row[i + 1] - t.l_row[i] : 0;
+}
+
+// cholesky by blocks: column j's k-sums from its block's first dof, its
+// rows only to the block's end
+template <int G>
+ENG_HD void cholesky_blocks(const Tables& t, const Group<G>& g, float* L, float* inv_diag) {
+  for (int j = 0; j < t.nv; ++j) {
+    const int lo = t.dof_lo[j], hi = t.dof_hi[j];
+    float* const Lj = L + t.l_row[j];
+    float s = Lj[j];
+    ENG_UNROLL4
+    for (int k = lo; k < j; ++k) s = s - Lj[k] * Lj[k];
+    const float djj = sqrtf(jmax(s, (float)1e-9));
+    const float inv = 1.f / djj;
+    EACH_LANE(g, l) {
+      for (int i = j + 1 + l; i < hi; i += G) {
+        float* Li = L + t.l_row[i];
+        float r = Li[j];
+        ENG_UNROLL4
+        for (int k = lo; k < j; ++k) r = r - Li[k] * Lj[k];
+        Li[j] = r * inv;
+      }
+    }
+    Lj[j] = djj;  // uniform: every lane stores the same bits
+    inv_diag[j] = inv;
+    g.sync();
+  }
+}
+
+// chol_fwd of a right-hand side that is zero outside [lo, hi), hi a block's
+// end, stored as y[d - lo]: the plain chol_solve_fwd carries its leading
+// zeros, and no dof past hi is reached
+ENG_HD void chol_fwd_rows(const Tables& t, const float* L, const float* inv_diag, int lo, int hi,
+                          float* y) {
+  for (int i = lo; i < hi; ++i) {
+    const float* Li = L + t.l_row[i];
+    float s = y[i - lo];
+    ENG_UNROLL4
+    for (int k = t.dof_lo[i] > lo ? t.dof_lo[i] : lo; k < i; ++k) s = s - Li[k] * y[k - lo];
+    y[i - lo] = s * inv_diag[i];
+  }
+}
+
+// chol_back within the blocks: x = L^-T y
+ENG_HD void chol_back_blocks(const Tables& t, const float* L, const float* inv_diag,
+                             const float* y, float* x) {
+  for (int i = t.nv - 1; i >= 0; --i) {
+    const float* Lki = L + t.l_row[i] + i;
+    const int ldb = l_stride(t, i);
+    float s = y[i];
+    ENG_UNROLL4
+    for (int k = i + 1; k < t.dof_hi[i]; ++k) s = s - Lki[(k - i) * ldb] * x[k];
+    x[i] = s * inv_diag[i];
+  }
+}
+
+// Right-hand side j of the forward solves: its support and its row of Y
+// (dof d at y[d - lo]). 0: the dynamics (every dof); 1 + 3 r + k: contact
+// row r's direction k; 1 + 3 nr + m: limit row m.
+struct Rhs {
+  int lo, hi;
+  float* y;
+};
+ENG_HD Rhs rhs_row(const Tables& t, const Scr& s, int j) {
+  Rhs h;
+  if (j == 0) {
+    h.lo = 0;
+    h.hi = t.nv;
+    h.y = s.Y;
+  } else if (j <= 3 * t.nr) {
+    const int r = (j - 1) / 3;
+    h.lo = t.row_lo[r];
+    h.hi = t.row_hi[r];
+    h.y = s.Y + t.row_y[r] + ((j - 1) - 3 * r) * (h.hi - h.lo);
+  } else {
+    const int m = j - 1 - 3 * t.nr;
+    h.lo = t.lim_lo[m];
+    h.hi = t.lim_hi[m];
+    h.y = s.Y + t.lim_y[m];
+  }
+  return h;
+}
+
+// Whether lane chunk k (dofs k G .. k G + G - 1) meets [lo, hi): uniform
+// over the group, so a chunk outside the support is skipped by every lane
+// and k stays a constant (the chunk's register)
+template <int G>
+ENG_HD bool chunk_meets(int k, int lo, int hi) {
+  return k * G < hi && (k + 1) * G > lo;
+}
+
+// lane_dot, lane_dot2 and lane_axpy of a row stored over [lo, hi)
+template <int G, int K>
+ENG_HD float lane_dot_rows(const Group<G>& g, int lo, int hi, const float* y,
+                           PerLane<LaneVec<K>, G>& z) {
+  PerLane<float, G> part;
+  EACH_LANE(g, l) {
+    float s = 0.f;
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      if (!chunk_meets<G>(k, lo, hi)) continue;
+      const int d = l + k * G;
+      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) s = s + y[d - lo] * z[l].x[k];
+    }
+    part[l] = s;
+  }
+  return group_sum(g, part);
+}
+
+template <int G, int K>
+ENG_HD void lane_dot2_rows(const Group<G>& g, int lo, int hi, const float* y,
+                           PerLane<LaneVec<K>, G>& z, PerLane<LaneVec<K>, G>& zp, float& vz,
+                           float& vzp) {
+  PerLane<float, G> a, b;
+  EACH_LANE(g, l) {
+    float s = 0.f, sp = 0.f;
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      if (!chunk_meets<G>(k, lo, hi)) continue;
+      const int d = l + k * G;
+      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) {
+        s = s + y[d - lo] * z[l].x[k];
+        sp = sp + y[d - lo] * zp[l].x[k];
+      }
+    }
+    a[l] = s;
+    b[l] = sp;
+  }
+  group_sum2(g, a, b, vz, vzp);
+}
+
+template <int G, int K>
+ENG_HD void lane_axpy_rows(const Group<G>& g, int lo, int hi, PerLane<LaneVec<K>, G>& z,
+                           const float* y, float a) {
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      if (!chunk_meets<G>(k, lo, hi)) continue;
+      const int d = l + k * G;
+      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) z[l].x[k] = z[l].x[k] + y[d - lo] * a;
+    }
+  }
+}
+#endif
+
 // ---- narrowphase of one capsule/sphere pair: contacts.py · narrowphase_scalar
 
 // Closest points of the segments, the normal from b into a, the depth, the
@@ -1405,6 +1572,67 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
   }
 }
 
+#ifdef ENG_TREE_BLOCKS
+// pgs_sweeps over each row's support (the tree classes)
+template <int G, int K>
+ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
+  const int nv = t.nv, nr = t.nr, nl = t.nl;
+  PerLane<LaneVec<K>, G> z, zp;
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      const int d = l + k * G;
+      z[l].x[k] = d < nv ? s.z[d] : 0.f;
+      zp[l].x[k] = 0.f;
+    }
+  }
+  for (int it = 0; it < t.iterations; ++it) {
+    for (int r = 0; r < nr; ++r) {
+      const int lo = t.row_lo[r], hi = t.row_hi[r];
+      const float* yn = s.Y + t.row_y[r];
+      const float* yt1 = yn + (hi - lo);
+      const float* yt2 = yt1 + (hi - lo);
+      float vn, vpn;
+      lane_dot2_rows(g, lo, hi, yn, z, zp, vn, vpn);
+      float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
+      lane_axpy_rows(g, lo, hi, zp, yn, nw - s.lam_p[r]);
+      s.lam_p[r] = nw;
+      nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
+      lane_axpy_rows(g, lo, hi, z, yn, nw - s.lam_n[r]);
+      s.lam_n[r] = nw;
+      float hi_t = t.row_mu[r] * nw;
+      float vt = lane_dot_rows(g, lo, hi, yt1, z);
+      nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi_t, hi_t);
+      lane_axpy_rows(g, lo, hi, z, yt1, nw - s.lam_t1[r]);
+      s.lam_t1[r] = nw;
+      vt = lane_dot_rows(g, lo, hi, yt2, z);
+      nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi_t, hi_t);
+      lane_axpy_rows(g, lo, hi, z, yt2, nw - s.lam_t2[r]);
+      s.lam_t2[r] = nw;
+    }
+    for (int m = 0; m < nl; ++m) {
+      const int lo = t.lim_lo[m], hi = t.lim_hi[m];
+      const float* w = s.Y + t.lim_y[m];
+      const float sign = t.lim_sign[m];
+      float vd = sign * lane_dot_rows(g, lo, hi, w, z);
+      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
+      lane_axpy_rows(g, lo, hi, z, w, sign * (nw - s.lam_l[m]));
+      s.lam_l[m] = nw;
+    }
+  }
+  EACH_LANE(g, l) {
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      const int d = l + k * G;
+      if (d < nv) {
+        s.z[d] = z[l].x[k];
+        s.zp[d] = zp[l].x[k];
+      }
+    }
+  }
+}
+#endif
+
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
 // Advances the scratch's q, v in place and writes the contact depths of this
@@ -1412,6 +1640,9 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
 template <int G>
 ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
   const int nv = t.nv, nr = t.nr, nl = t.nl, ld = t.sc_ld, ldm = t.sc_ldm;
+#ifdef ENG_TREE_BLOCKS
+  (void)ld, (void)ldm;  // L and Y are addressed by the tree tables
+#endif
   const int nfloor = nr - t.npair;
   const FK& fk = s.fk;
   float* const ydyn = s.Y;  // the dynamics right-hand side, then L^-1 of it
@@ -1432,7 +1663,11 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       if (t.neg_stiffness[d] != 0.f)
         tp = tp + t.neg_stiffness[d] * (s.q[t.dof_qadr[d]] - t.springref[d]);
       ydyn[d] = (s.tau[d] + tp) - ydyn[d];
+#ifdef ENG_TREE_BLOCKS
+      mass_matrix_row(t, fk, s.inert, d, s.L + t.l_row[d]);
+#else
       mass_matrix_row(t, fk, s.inert, d, s.L + d * ldm);
+#endif
     }
     // narrowphase (contacts.py · narrowphase_scalar): point and disk
     // candidates vs planes, then the pair rows, whose directions are per env
@@ -1448,7 +1683,11 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       pair_contact(t, fk, k, s.depth[nfloor + k], s.P[nfloor + k], s.dirs + 3 * k);
   }
   g.sync();
+#ifdef ENG_TREE_BLOCKS
+  cholesky_blocks(t, g, s.L, s.inv_diag);
+#else
   cholesky(g, nv, s.L, ldm, s.inv_diag);
+#endif
 
   const bool rows = nr > 0 || nl > 0;
   if (rows) {
@@ -1484,6 +1723,24 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
 #endif
       const V3 Pr = s.P[r];
+#ifdef ENG_TREE_BLOCKS
+      // over the row's support, stored from its first dof
+      const int lo = t.row_lo[r], hi = t.row_hi[r], len = hi - lo;
+      float* const yr = s.Y + t.row_y[r];
+      EACH_LANE(g, l) {
+        for (int d = lo + l; d < hi; d += G) {
+          if (on_path(either, d)) {
+            const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
+            for (int k = 0; k < 3; ++k) {
+              const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
+              yr[k * len + d - lo] = on_path(minus, d) ? -jd : jd;
+            }
+          } else {
+            for (int k = 0; k < 3; ++k) yr[k * len + d - lo] = 0.f;
+          }
+        }
+      }
+#else
       float* const yr = s.Y + (1 + 3 * r) * ld;
       EACH_LANE(g, l) {
         for (int d = l; d < nv; d += G) {
@@ -1498,18 +1755,37 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
           }
         }
       }
+#endif
     }
+#ifdef ENG_TREE_BLOCKS
+    // a limit row over its support, lanes over rows
+    EACH_LANE(g, l) {
+      for (int m = l; m < nl; m += G) {
+        const int lo = t.lim_lo[m], hi = t.lim_hi[m];
+        float* const w = s.Y + t.lim_y[m];
+        for (int d = lo; d < hi; ++d) w[d - lo] = d == t.lim_dof[m] ? 1.f : 0.f;
+      }
+    }
+#else
     float* const ylim = s.Y + (1 + 3 * nr) * ld;
     EACH_LANE(g, l) {
       for (int d = l; d < nv; d += G)
         for (int m = 0; m < nl; ++m) ylim[m * ld + d] = d == t.lim_dof[m] ? 1.f : 0.f;
     }
+#endif
     g.sync();
   }
   // the forward solves, one lane a right-hand side: L^-1 rhs, then y = L^-1 J^T
   const int nrhs = rows ? 1 + 3 * nr + nl : 1;
   EACH_LANE(g, l) {
+#ifdef ENG_TREE_BLOCKS
+    for (int j = l; j < nrhs; j += G) {
+      const Rhs h = rhs_row(t, s, j);
+      chol_fwd_rows(t, s.L, s.inv_diag, h.lo, h.hi, h.y);
+    }
+#else
     for (int j = l; j < nrhs; j += G) chol_fwd(nv, s.L, ldm, s.inv_diag, s.Y + j * ld);
+#endif
   }
   g.sync();
 
@@ -1517,9 +1793,17 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
     EACH_LANE(g, l) {
       for (int i = l; i < nv; i += G) {
+#ifdef ENG_TREE_BLOCKS
+        const float* Lki = s.L + t.l_row[i] + i;
+        const int ldb = l_stride(t, i);
+        float a = Lki[0] * s.v[i];
+        ENG_UNROLL4
+        for (int k = i + 1; k < t.dof_hi[i]; ++k) a = a + Lki[(k - i) * ldb] * s.v[k];
+#else
         float a = s.L[i * ldm + i] * s.v[i];
         ENG_UNROLL4
         for (int k = i + 1; k < nv; ++k) a = a + s.L[k * ldm + i] * s.v[k];
+#endif
         s.z[i] = a + t.dt * ydyn[i];
       }
     }
@@ -1528,16 +1812,29 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     // as point rows
     EACH_LANE(g, l) {
       for (int r = l; r < nr; r += G) {
+#ifdef ENG_TREE_BLOCKS
+        const int lo = t.row_lo[r], len = t.row_hi[r] - lo;
+        const float* yn = s.Y + t.row_y[r];
+        for (int k = 0; k < 3; ++k) {
+          const float* yk = yn + k * len;
+          s.dinv[3 * r + k] = 1.f / (dotn(len, yk, yk) + t.reg);
+        }
+#else
         const float* yn = s.Y + (1 + 3 * r) * ld;
         for (int k = 0; k < 3; ++k) {
           const float* yk = yn + k * ld;
           s.dinv[3 * r + k] = 1.f / (dotn(nv, yk, yk) + t.reg);
         }
+#endif
         const float dep = s.depth[r];
         if (t.e_comb_zero) {
           s.b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
         } else {
+#ifdef ENG_TREE_BLOCKS
+          float vn_pre = dotn(len, yn, s.z + lo);
+#else
           float vn_pre = dotn(nv, yn, s.z);
+#endif
           float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
           bool touching = dep >= vn_pre * t.dt;
           s.b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
@@ -1546,8 +1843,14 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         s.lam_n[r] = s.lam_t1[r] = s.lam_t2[r] = s.lam_p[r] = 0.f;
       }
       for (int m = l; m < nl; m += G) {
+#ifdef ENG_TREE_BLOCKS
+        const int len = t.lim_hi[m] - t.lim_lo[m];
+        const float* w = s.Y + t.lim_y[m];
+        s.dinv_l[m] = 1.f / (dotn(len, w, w) + t.reg);
+#else
         const float* w = s.Y + (1 + 3 * nr + m) * ld;
         s.dinv_l[m] = 1.f / (dotn(nv, w, w) + t.reg);
+#endif
         float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
         s.b_l[m] = t.limit_erp_over_dt * viol;
         s.lam_l[m] = 0.f;
@@ -1558,6 +1861,19 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     // the sweeps in one chunk a lane where the group has a lane for every
     // dof, so that only a model with more dofs than lanes (9-12 at G=8,
     // Atlas at G=32) carries the later chunks' registers and predicated steps
+#ifdef ENG_TREE_BLOCKS
+    if (lane_chunks<G>() > 1 && nv > G)
+      pgs_sweeps_rows<G, lane_chunks<G>()>(t, g, s);
+    else
+      pgs_sweeps_rows<G, 1>(t, g, s);
+    g.sync();
+    EACH_LANE(g, l) {
+      if (l == 0) chol_back_blocks(t, s.L, s.inv_diag, s.z, s.v3o);
+      if (l == (G > 1 ? 1 : 0)) chol_back_blocks(t, s.L, s.inv_diag, s.zp, s.vp);
+    }
+  } else if (g.leader()) {
+    chol_back_blocks(t, s.L, s.inv_diag, ydyn, s.v3o);  // qdd
+#else
     if (lane_chunks<G>() > 1 && nv > G)
       pgs_sweeps<G, lane_chunks<G>()>(t, g, s);
     else
@@ -1570,6 +1886,7 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   } else if (g.leader()) {
     chol_back(nv, s.L, ldm, s.inv_diag, ydyn, s.v3o);  // qdd
+#endif
     for (int d = 0; d < nv; ++d) {
       s.v3o[d] = s.v[d] + t.dt * s.v3o[d];
       s.vp[d] = 0.f;
@@ -2170,16 +2487,16 @@ ENG_HD void mj_pendulum_output(const Tables& t, const FK& fk, const float* q, co
 }
 
 // ---- the two kernel bodies ---------------------------------------------------
-// Every lane of env i's group calls them with the env's scratch `base` (and
-// in the huge class its slice of the Y buffer, `ybase`): ENG_ENV_SCRATCH.
+// Every lane of env i's group calls them with the env's scratch `base`:
+// ENG_ENV_SCRATCH.
 
 // `frame_skip` substeps with held torques; depths of the last substep.
 // pallas_engine.py · make_pallas_physics_step
 template <int G>
-ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base ENG_Y_PARAM, int i,
-                             int B, const float* q_in, const float* v_in, const float* tau_in,
+ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, int i, int B,
+                             const float* q_in, const float* v_in, const float* tau_in,
                              float* q_out, float* v_out, float* d_out) {
-  const Scr s = scratch(t, base ENG_Y_ARG);
+  const Scr s = scratch(t, base);
   EACH_LANE(g, l) {
     for (int k = l; k < t.nq; k += G) s.q[k] = q_in[k * B + i];
     for (int k = l; k < t.nv; k += G) {
@@ -2200,8 +2517,8 @@ ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base ENG
 // The whole env step. pallas_engine.py · make_pallas_env_step
 template <int G>
 ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
-                         float* base ENG_Y_PARAM, int i, int B) {
-  const Scr s = scratch(t, base ENG_Y_ARG);
+                         float* base, int i, int B) {
+  const Scr s = scratch(t, base);
   const bool done = io.term[i] != 0 || io.trunc[i] != 0;
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];
@@ -2289,6 +2606,7 @@ inline int tables_layout(int32_t* out, int cap) {
 #define ENG_OFF_S(T, name) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
 #define ENG_OFF_A(T, name, k) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
   ENG_TABLE_FIELDS(ENG_OFF_S, ENG_OFF_A)
+  ENG_TREE_FIELDS(ENG_OFF_S, ENG_OFF_A)
 #undef ENG_OFF_S
 #undef ENG_OFF_A
   return n;

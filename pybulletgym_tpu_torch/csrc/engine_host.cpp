@@ -5,10 +5,8 @@
 // without a GPU run the kernels' own C++ against the plain PyTorch version,
 // at every group width, and in each size class of the tables (built with
 // -DENG_BIG_TABLES, -DENG_HUGE_TABLES or -DENG_SIZED_TABLES and the model's
-// -DSIZED_MAX_* caps, as the card's large, huge and sized libraries are; the
-// huge class's Y in a second heap buffer, as the card keeps it apart from the
-// shared scratch; the sized class's whole scratch in the one heap buffer, as
-// the card keeps it in a device buffer). No env path routes to it.
+// -DSIZED_MAX_* caps, as the card's large, huge and sized libraries are).
+// No env path routes to it.
 
 #include <vector>
 
@@ -19,19 +17,17 @@ namespace {
 template <int G>
 void physics(const eng::Tables& t, const float* q, const float* v, const float* tau,
              float* q_out, float* v_out, float* d_out, int B) {
-  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
-  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
+  std::vector<float> scratch(t.sc_stride);
   const eng::Group<G> g = {0, 0u};
   for (int i = 0; i < B; ++i)
-    eng::physics_step_one<G>(t, g, scratch.data() ENG_Y_ARG, i, B, q, v, tau, q_out, v_out, d_out);
+    eng::physics_step_one<G>(t, g, scratch.data(), i, B, q, v, tau, q_out, v_out, d_out);
 }
 
 template <int G>
 void env(const eng::Tables& t, const eng::EnvIO& io, int B) {
-  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
-  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
+  std::vector<float> scratch(t.sc_stride);
   const eng::Group<G> g = {0, 0u};
-  for (int i = 0; i < B; ++i) eng::env_step_one<G>(t, io, g, scratch.data() ENG_Y_ARG, i, B);
+  for (int i = 0; i < B; ++i) eng::env_step_one<G>(t, io, g, scratch.data(), i, B);
 }
 
 // The group widths the libraries are built for (ops/cuda_engine.py ·

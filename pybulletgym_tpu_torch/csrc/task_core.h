@@ -29,8 +29,8 @@ namespace eng {
 
 template <int G>
 ENG_HD void task_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
-                          float* base ENG_Y_PARAM, int i, int B) {
-  const Scr s = scratch(t, base ENG_Y_ARG);
+                          float* base, int i, int B) {
+  const Scr s = scratch(t, base);
   const bool done = io.term[i] != 0 || io.trunc[i] != 0;
   const uint32_t epoch = io.epoch[i] + (done ? 1u : 0u);
   const uint32_t seed = io.seed[i];

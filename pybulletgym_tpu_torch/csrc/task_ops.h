@@ -82,20 +82,46 @@ TK_HD float rem(float a, float b) {
   return (r != 0.f && ((r < 0.f) != (b < 0.f))) ? r + b : r;
 }
 
+// -0.0: a zero with its sign bit set (an integer never is). A tie of zeros
+// is decided by sign bit, written out, so that g++ and nvcc agree.
 template <class T>
-TK_HD T maximum(T a, T b) { return (a != a) ? a : ((b != b) ? b : (a > b ? a : b)); }
+TK_HD bool neg_zero(T) { return false; }
+TK_HD bool neg_zero(float x) { return x == 0.f && signbit(x); }
+TK_HD bool neg_zero(double x) { return x == 0.0 && signbit(x); }
+
+// torch.maximum / minimum (and max / min of two tensors): torch's CUDA
+// kernel, NaN first, then ::max / ::min, which order -0.0 below +0.0
+// (maximum of a tie of zeros +0.0 unless both are -0.0, minimum -0.0 unless
+// both are +0.0)
 template <class T>
-TK_HD T minimum(T a, T b) { return (a != a) ? a : ((b != b) ? b : (a < b ? a : b)); }
-template <class T>
-TK_HD T clamp(T x, T lo, T hi) {
-  if (x != x) return x;
-  const T y = x < lo ? lo : x;
-  return y > hi ? hi : y;
+TK_HD T maximum(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : (a < b ? b : (neg_zero(a) ? b : a))));
 }
 template <class T>
-TK_HD T clamp_min(T x, T lo) { return (x != x) ? x : (x < lo ? lo : x); }
+TK_HD T minimum(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : (a > b ? b : (neg_zero(a) ? a : b))));
+}
+// The reductions' step (amax, amin, the max of logsumexp, the infinity
+// norms): torch's CUDA MaxNanFunctor / MinNanFunctor, (isnan(a) || a > b)
+// ? a : b, taken in index order; a tie keeps the later element.
 template <class T>
-TK_HD T clamp_max(T x, T hi) { return (x != x) ? x : (x > hi ? hi : x); }
+TK_HD T reduce_max(T a, T b) { return (a != a) ? a : ((b != b) ? b : (a > b ? a : b)); }
+template <class T>
+TK_HD T reduce_min(T a, T b) { return (a != a) ? a : ((b != b) ? b : (a < b ? a : b)); }
+// clamp, clamp_min, clamp_max: NaN x first, then ::min(::max(x, lo), hi)
+// with the ties of maximum and minimum; a NaN bound leaves x as it was
+template <class T>
+TK_HD T clamp_min(T x, T lo) {
+  return (x != x) ? x : ((x < lo || (x == lo && neg_zero(x))) ? lo : x);
+}
+template <class T>
+TK_HD T clamp_max(T x, T hi) {
+  return (x != x) ? x : ((x > hi || (x == hi && neg_zero(hi))) ? hi : x);
+}
+template <class T>
+TK_HD T clamp(T x, T lo, T hi) {
+  return (x != x) ? x : clamp_max(clamp_min(x, lo), hi);
+}
 TK_HD float sign(float x) { return (float)((0.f < x) - (x < 0.f)); }
 TK_HD int64_t sign(int64_t x) { return (int64_t)((0 < x) - (x < 0)); }
 TK_HD double sign(double x) { return (double)((0.0 < x) - (x < 0.0)); }

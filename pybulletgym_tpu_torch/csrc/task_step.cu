@@ -9,12 +9,11 @@
 // model over the default caps (engine_core.h's large class): the kernel
 // then reads the tables from a copy in global memory (ENG_TABLES_PARAM).
 // Built with -DENG_HUGE_TABLES for a model over the large caps or whose
-// scratch outgrows shared memory (the huge class): the tables as the large
-// class's, and Y in a device buffer of B envs' slices (ybuf, after the
-// tables), as engine.cu's huge build. Built with -DENG_SIZED_TABLES and the
-// model's caps (-DSIZED_MAX_*) for any larger model: the tables in global
-// memory and the whole scratch in a device buffer of B envs' slices (sbuf,
-// after the tables), no shared memory, as engine.cu's sized build.
+// scratch outgrows shared memory, or with -DENG_SIZED_TABLES and the model's
+// caps (-DSIZED_MAX_*) for any larger model: the tables as the large
+// class's, the substeps by the model's tree blocks, and the whole scratch in
+// a device buffer of B envs' slices (buf, after the tables), no shared
+// memory, as engine.cu's huge and sized builds.
 
 #include <cuda_runtime.h>
 
@@ -30,9 +29,9 @@ constexpr int G = ENG_LANES;
 constexpr int kMaxThreads = 128;    // E * G
 constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
-// As engine.cu · shared_bytes: none in the sized build.
+// As engine.cu · shared_bytes: none in the huge and sized builds.
 size_t shared_bytes(int E, int stride) {
-#ifdef ENG_SIZED_TABLES
+#ifdef ENG_TREE_BLOCKS
   (void)E, (void)stride;
   return 0;
 #else
@@ -75,7 +74,7 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // a thread.
 int task_launch_config(int stride, int32_t* out) {
   const void* fn = (const void*)task_step_kernel;
-#ifdef ENG_SIZED_TABLES
+#ifdef ENG_TREE_BLOCKS
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxL1);
 #else
@@ -110,10 +109,9 @@ int task_launch_config(int stride, int32_t* out) {
   return 0;
 }
 
-// The arguments of engine.cu · launch_env_step (in the large build, the
-// device copy of the tables after the host one, as launch_physics_step; in
-// the huge build, then the Y buffer; in the sized build, then the scratch
-// buffer).
+// The arguments of engine.cu · launch_env_step (in the large, huge and
+// sized builds, the device copy of the tables after the host one, as
+// launch_physics_step; in the huge and sized builds, then its buffer).
 int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_BUF_PARAM const float* q, const float* v,
                      const float* act, const float* aux, const uint8_t* term, const uint8_t* trunc,
                      const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,

@@ -3,9 +3,8 @@
 // per task by ops/task_kernel.py with g++ -O1 -ffp-contract=off -include
 // <the task's generated hooks header>, and -DENG_BIG_TABLES,
 // -DENG_HUGE_TABLES or -DENG_SIZED_TABLES (with the model's -DSIZED_MAX_*
-// caps) for a model of the large, huge or sized class, as task_step.cu is
-// (the huge class's Y in a second heap buffer, the sized class's whole
-// scratch in the first). No env path routes to it.
+// caps) for a model of the large, huge or sized class, as task_step.cu is.
+// No env path routes to it.
 
 #include <vector>
 
@@ -15,10 +14,9 @@ namespace {
 
 template <int G>
 void run(const eng::Tables& t, const eng::EnvIO& io, int B) {
-  std::vector<float> scratch(t.sc_stride), ys(t.sc[eng::SC_YSTRIDE]);
-  [[maybe_unused]] float* const ybase = ys.data();  // the huge class's Y
+  std::vector<float> scratch(t.sc_stride);
   const eng::Group<G> g = {0, 0u};
-  for (int i = 0; i < B; ++i) eng::task_step_one<G>(t, io, g, scratch.data() ENG_Y_ARG, i, B);
+  for (int i = 0; i < B; ++i) eng::task_step_one<G>(t, io, g, scratch.data(), i, B);
 }
 
 }  // namespace

@@ -25,20 +25,20 @@ The tables come in four size classes (`tables_type`, `tables_class`):
 the default, a `__grid_constant__` kernel parameter; the large class for
 models over its caps (up to 64 bodies and nv 64; `CAPS_BIG`), built with
 `-DENG_BIG_TABLES`, whose kernels read a copy of the tables in global
-memory that the wrapper uploads once (`_tables_args`); and the huge class
-(up to 128 bodies and nv 128; `CAPS_HUGE`), built with `-DENG_HUGE_TABLES`,
-for models over the large caps or whose one-env scratch outgrows a block's
-shared memory: its tables in global memory too, and the forward-solved
-constraint rows Y in a device buffer of B envs' slices (`_buffer_args`), the
-rest of the scratch in shared memory; and the sized class (`CAPS_SIZED`),
-built with `-DENG_SIZED_TABLES` and caps set from the model's own sizes
-(`sized_caps`, given as `-DSIZED_MAX_*`), for a model over the huge caps or
-whose scratch outside Y outgrows shared memory: no model size is refused.
-Its tables are in global memory, and so is the whole scratch of each env,
-a device buffer of B envs' slices (`_buffer_args`, `buffer_floats`). The
-large, huge and sized classes build `physics_step_kernel` and
-`task_step_kernel`; `env_step_kernel`'s task classes all fit the default
-one.
+memory that the wrapper uploads once (`_tables_args`); the huge class (up
+to 128 bodies and nv 128; `CAPS_HUGE`), built with `-DENG_HUGE_TABLES`, for
+models over the large caps or whose one-env scratch outgrows a block's
+shared memory; and the sized class (`CAPS_SIZED`), built with
+`-DENG_SIZED_TABLES` and caps set from the model's own sizes (`sized_caps`,
+given as `-DSIZED_MAX_*`), for a model over the huge caps or whose scratch
+outside Y outgrows shared memory: no model size is refused. The huge and
+sized classes read their tables from global memory too, and run the
+substep by the model's tree blocks (`tree_blocks`: every dof loop within a
+block of a tree's dofs or a constraint row's support, L stored by blocks
+and Y's rows over their supports), their whole scratch in a device buffer
+of B envs' slices (`_buffer_args`, `buffer_floats`). The large, huge and sized classes
+build `physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s task
+classes all fit the default one.
 
 One library per group width in `LANE_WIDTHS` and class (in the sized class,
 and its caps) is built at first use with nvcc into `_build/` (keyed by the
@@ -54,6 +54,7 @@ CUDA tensor launches the kernel or raises. There is no fallback.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 import hashlib
@@ -169,7 +170,10 @@ def _tables_type(size: int, sized: Optional[Tuple[int, ...]]):
     elif size == SIZED:
         caps.update({"MAX_" + k: n for k, n in zip(SIZED_CAPS, sized)})
         caps["MASK_WORDS"] = _sized_mask_words(sized)
-    block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("#define ENG_DECL_S")]
+    block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("// The tree blocks")]
+    if size in (HUGE, SIZED):  # ENG_TREE_FIELDS: the tree classes' ranges and offsets
+        tree = src.index("#define ENG_TREE_FIELDS(S, A)")
+        block += src[tree:src.index("#else", tree)]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
         kind, ctype, name, count = m.groups()
@@ -368,22 +372,27 @@ def scratch_slots() -> Tuple[str, ...]:
 
 # the arrays that live inside Y's rows 1.., in this order, and their floats a body
 _Y_ALIAS = (("inert", 13), ("avp", 6), ("f", 6))
-# a huge-class env's slice of the Y buffer, and a sized-class env's slice of
-# the scratch buffer, is a multiple of this many floats (128 bytes)
+# an env's slice of a huge or sized class's device buffer (Y, or the whole
+# scratch) is a multiple of this many floats (128 bytes)
 Y_ALIGN = 32
 
 
-def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0):
+def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats=None,
+                   y_rows=None):
     """The floats of each array of one env's scratch, as two dicts: those
     that live in shared memory in every class, and {"Y": floats} (the
-    forward-solved rows and, in their rows 1.., inert, avp, f and obs)."""
+    forward-solved rows and, in their rows 1.., inert, avp, f and obs). L
+    and Y's rows dense (nv rows of nv | 1 floats, 1 + 3 nr + nl rows of nv |
+    1), unless `l_floats` and `y_rows` (the tree classes' storage by blocks
+    and supports, `_tree_storage`) say otherwise."""
     ld = nv | 1
-    rows_y = (1 + 3 * nr + nl) * ld
+    rows_y = (1 + 3 * nr + nl) * ld if y_rows is None else y_rows
     shared = {
         "q": nq, "v": nv, "tau": nv, "act": act, "aux": naux, "obs": 0,
         "R": 9 * nb, "p": 3 * nb, "vel": 6 * nb, "com": 3 * nb, "S": 6 * nv,
         "inert": 0, "avp": 0, "f": 0,
-        "L": nv * ld, "inv_diag": nv, "depth": nr, "P": 3 * nr, "dirs": 9 * npair,
+        "L": nv * ld if l_floats is None else l_floats, "inv_diag": nv, "depth": nr,
+        "P": 3 * nr, "dirs": 9 * npair,
         "z": nv, "zp": nv, "v3o": nv, "vp": nv, "Y": 0,
         "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
         "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
@@ -392,26 +401,127 @@ def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0):
     return shared, {"Y": max(rows_y, ld + alias, ld + obs_dim)}
 
 
+def tree_blocks(t) -> None:
+    """Set the tree classes' ranges (engine_core.h · ENG_TREE_FIELDS) from
+    the model in the tables `t`: each dof's block, the dofs of the bodies
+    under one child of the world (parents come before children), widened
+    to the interval that covers them and merged with every tree whose
+    interval overlaps it, so that M is block-diagonal by blocks; and each
+    contact row's support, from the first dof of its Jacobian (body a's
+    root path, for a pair row the dofs on one of the two bodies' paths) to
+    the end of the block of its last. A pair row of two trees keeps the
+    range that covers both, the blocks between them included. A row whose
+    Jacobian is empty gets [0, 0). A limit row's support runs from its dof
+    to its block's end."""
+    nb, nv = t.nb, t.nv
+    root, span = [], {}
+    for i in range(nb):
+        p = t.parent[i]
+        root.append(i if p < 0 else root[p])
+        lo = t.v_adr[i]
+        hi = lo + (6 if t.jtype[i] == int(JointType.FREE) else 1)
+        a = span.setdefault(root[i], [lo, hi])
+        a[0], a[1] = min(a[0], lo), max(a[1], hi)
+    blocks = []
+    for lo, hi in sorted(span.values()):
+        if blocks and lo < blocks[-1][1]:
+            blocks[-1][1] = max(blocks[-1][1], hi)
+        else:
+            blocks.append([lo, hi])
+    if blocks[0][0] != 0 or blocks[-1][1] != nv or any(
+            a[1] != b[0] for a, b in zip(blocks, blocks[1:])):
+        raise ValueError(f"the bodies' dofs do not cover dofs 0-{nv - 1}: blocks {blocks}")
+    for lo, hi in blocks:
+        for d in range(lo, hi):
+            t.dof_lo[d], t.dof_hi[d] = lo, hi
+    nfloor = t.nr - t.npair
+    for r in range(t.nr):
+        if r < nfloor:
+            mask = root_path(t, t.row_body[r])
+        else:
+            k = r - nfloor
+            mask = root_path(t, t.pair_a[k]) ^ root_path(t, t.pair_b[k])
+        lo = (mask & -mask).bit_length() - 1 if mask else 0
+        t.row_lo[r], t.row_hi[r] = lo, t.dof_hi[mask.bit_length() - 1] if mask else 0
+    for m in range(t.nl):
+        t.lim_lo[m], t.lim_hi[m] = t.lim_dof[m], t.dof_hi[t.lim_dof[m]]
+
+
+def widen_blocks(t):
+    """A copy of the huge or sized class's tables `t` with one tree block
+    over all dofs and every contact and limit row's support [0, nv), laid
+    out again (`scratch_layout`): the same model, with the dense loops and
+    the dense L and Y. A table edit for tests and measurements (the time
+    before the blocks, on the same binary); no wrapper packs such tables."""
+    w = type(t).from_buffer_copy(t)
+    for d in range(w.nv):
+        w.dof_lo[d], w.dof_hi[d] = 0, w.nv
+    for r in range(w.nr):
+        w.row_lo[r], w.row_hi[r] = 0, w.nv
+    for m in range(w.nl):
+        w.lim_lo[m], w.lim_hi[m] = 0, w.nv
+    scratch_layout(w)
+    return w
+
+
+def with_tables(step, tables):
+    """A copy of the wrapper `step` (CudaPhysicsStep or task_kernel's
+    CudaTaskStep) that launches its library with `tables`, edited as
+    `widen_blocks` edits them: their own device copy and buffers."""
+    other = copy.copy(step)
+    other.tables = tables
+    other.device_tables, other.buffers = {}, {}
+    return other
+
+
+def _tree_storage(t) -> Tuple[int, int]:
+    """Lay out L by blocks and Y's rows over their supports for the tree
+    classes' tables `t` (their ranges set, `tree_blocks`): sets t.l_row (a
+    block of n dofs is n rows of n | 1 floats), t.row_y and t.lim_y (after
+    Y's dense row 0 of nv | 1 floats, each contact row's three directions,
+    then each limit row). Returns (L's floats, the floats of Y's rows)."""
+    nv = t.nv
+    off, d = 0, 0
+    while d < nv:
+        lo, hi = t.dof_lo[d], t.dof_hi[d]
+        ldb = (hi - lo) | 1
+        for i in range(lo, hi):
+            t.l_row[i] = off + (i - lo) * ldb - lo
+        off += (hi - lo) * ldb
+        d = hi
+    y = nv | 1
+    for r in range(t.nr):
+        t.row_y[r] = y
+        y += 3 * (t.row_hi[r] - t.row_lo[r])
+    for m in range(t.nl):
+        t.lim_y[m] = y
+        y += t.lim_hi[m] - t.lim_lo[m]
+    return off, y
+
+
 def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     """Lay out one env's scratch for the tables `t` from the model's sizes:
     sets t.sc (each array's float offset), t.sc_stride (odd, so that the
     envs of a warp start in different banks), t.sc_ld and t.sc_ldm (the
     row strides of Y and of M/L: nv made odd, so that lanes on different
     rows hit different banks). inert, avp, f and obs live inside Y's rows
-    1.., which are dead whenever those are live. In the huge class Y (with
-    those four) is laid out apart, at offset 0 of the env's slice of the Y
-    buffer, whose floats (a multiple of Y_ALIGN) go to
-    t.sc[SC_YSTRIDE]; t.sc_stride is then the rest, in shared memory. In
-    the sized class the whole scratch is laid out as in the default class
-    for the env's slice of the scratch buffer in global memory: t.sc_stride
-    (a multiple of Y_ALIGN) floats, any size. Returns {name: (offset,
-    floats)}. Raises if what lives in shared memory does not fit one
-    block's."""
+    1.., which are dead whenever those are live. In the huge and sized
+    classes L is stored by the tables' tree blocks and Y's rows over their
+    supports (`_tree_storage`), and the whole scratch is laid out for the
+    env's slice of the device buffer in global memory: t.sc_stride a
+    multiple of Y_ALIGN floats, any size. Timed on an H100 against the
+    scratch in shared memory and against Y alone in the buffer, this was the
+    fastest on four and ten Humanoids and forty balls at B=4096, by 1.03-5.9x
+    (eleven balls ran 6% faster in shared memory; PERF.md §6). Returns
+    {name: (offset, floats)}. Raises if a scratch in shared memory does not
+    fit one block's."""
     nv, ld = t.nv, t.nv | 1
-    shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim)
     size = tables_class(t)
-    huge = size == HUGE
-    sizes = dict(shared) if huge else dict(shared, **y)
+    tree = size in (HUGE, SIZED)
+    l_floats, y_rows = _tree_storage(t) if tree else (None, None)
+    shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim,
+                               l_floats, y_rows)
+    sizes = dict(shared, **y)
     slots = scratch_slots()
     if set(slots) != set(sizes):
         raise RuntimeError(f"engine_core.h's scratch slots {slots} differ from {sorted(sizes)}")
@@ -419,38 +529,27 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     for name in slots:
         out[name] = (off, sizes[name])
         off += sizes[name]
-    if huge:
-        out["Y"] = (0, y["Y"])
     y0 = out["Y"][0] + ld
     out["obs"] = (y0, t.obs_dim)
     for name, n in _Y_ALIAS:
         out[name] = (y0, n * t.nb)
         y0 += n * t.nb
-    stride = -(-off // Y_ALIGN) * Y_ALIGN if size == SIZED else off | 1
-    if size != SIZED and stride * 4 > MAX_SHARED_BYTES:
-        what = "scratch outside Y" if huge else "scratch"
-        raise NotImplementedError(f"one env's {what} ({stride * 4} bytes) exceeds a block's "
+    stride = -(-off // Y_ALIGN) * Y_ALIGN if tree else off | 1
+    if not tree and stride * 4 > MAX_SHARED_BYTES:
+        raise NotImplementedError(f"one env's scratch ({stride * 4} bytes) exceeds a block's "
                                   f"{MAX_SHARED_BYTES} bytes of shared memory: pack_physics "
                                   "gives such a model a larger class")
     for k, name in enumerate(slots):
         t.sc[k] = out[name][0]
-    t.sc[len(slots)] = -(-y["Y"] // Y_ALIGN) * Y_ALIGN if huge else 0  # SC_YSTRIDE
     t.sc_stride, t.sc_ld, t.sc_ldm = stride, ld, ld
     return out
 
 
-def y_stride(t) -> int:
-    """The floats of one env's slice of the huge class's Y buffer (0 in the
-    other classes)."""
-    return int(t.sc[len(scratch_slots())])
-
-
 def buffer_floats(t) -> int:
     """The floats of one env's slice of the device buffer that the kernels
-    of the tables' class take after the tables: Y in the huge class
-    (`y_stride`), the whole scratch in the sized class (t.sc_stride), none in
-    the others."""
-    return int(t.sc_stride) if tables_class(t) == SIZED else y_stride(t)
+    of the huge and sized classes take after the tables: the whole scratch
+    (t.sc_stride); none in the other classes."""
+    return int(t.sc_stride) if tables_class(t) in (HUGE, SIZED) else 0
 
 
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0,
@@ -569,6 +668,8 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
     t.lanes = pick_lanes(model.nv, size, sized)
+    if size in (HUGE, SIZED):
+        tree_blocks(t)
     scratch_layout(t)
     return t
 
@@ -1023,8 +1124,8 @@ def _load_cuda_library(size: int, caps: Optional[Tuple[int, ...]]):
         lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
         lib.eng_launch_config.restype = ctypes.c_int
         # the large, huge and sized builds take the tables' device copy after
-        # the host copy (the huge one then the Y buffer, the sized one the
-        # scratch buffer), and have no env_step_kernel
+        # the host copy (the huge and sized ones then their buffer), and have
+        # no env_step_kernel
         lib.launch_physics_step.argtypes = ([_P] * (7 + _extra_args(size)) + [ctypes.c_int] * 2
                                             + [_P])
         lib.launch_physics_step.restype = ctypes.c_int
@@ -1060,10 +1161,9 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     the envs a block E, threads and dynamic shared bytes a block, resident
     blocks (and envs) per SM from the occupancy API, the kernel's
     registers and local bytes a thread, and for a batch B the blocks. The
-    shared bytes are those of the scratch outside Y in the huge class
-    (`y_bytes`: one env's slice of the Y buffer there, else 0), and none in
-    the sized class (`buffer_bytes`: one env's slice of the device buffer,
-    Y's in the huge class, the whole scratch's in the sized one). Raises for
+    shared bytes are those of the scratch, none in the huge and sized
+    classes (`buffer_bytes`: one env's slice of their device buffer).
+    Raises for
     tables with more dofs than the library of their G holds, and for
     env_step_kernel on the large, huge and sized classes' tables."""
     size, caps = tables_class(tables), tables_caps(tables)
@@ -1073,8 +1173,7 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     if size != DEFAULT and kernel != "physics_step_kernel":
         raise ValueError(f"{kernel} has no build for the {KERNEL_SUFFIX[size][1:]} class's tables")
     cfg = dict(_launch_config(tables.lanes, KERNELS.index(kernel), tables.sc_stride, device,
-                              size, caps), y_bytes=4 * y_stride(tables),
-               buffer_bytes=4 * buffer_floats(tables))
+                              size, caps), buffer_bytes=4 * buffer_floats(tables))
     if B is not None:
         cfg["blocks"] = -(-B // cfg["E"])
     return cfg
@@ -1168,27 +1267,26 @@ def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device
 
 def _buffer_args(tables, buffers: Dict[tuple, torch.Tensor], device: torch.device, B: int):
     """The device buffer argument for a launch of B envs on `device`: the
-    huge class's Y, the sized class's whole scratch (none in the other
-    classes): B slices of `buffer_floats(tables)` floats, allocated at the
-    first call for each (device, B) and kept in `buffers`, so that a CUDA
-    graph replays its launch on the buffer it captured. Raises if a capture
-    would allocate it (the wrappers' `prepare(device, B)` does that before
-    any capture), and if it does not fit the card, naming B and the bytes an
-    env: nothing falls back."""
+    huge and sized classes' whole scratch (none in the other classes): B
+    slices of `buffer_floats(tables)` floats, allocated at the first call
+    for each (device, B) and kept in `buffers`, so that a CUDA graph replays
+    its launch on the buffer it captured. Raises if a capture would allocate
+    it (the wrappers' `prepare(device, B)` does that before any capture),
+    and if it does not fit the card, naming B and the bytes an env: nothing
+    falls back."""
     n = buffer_floats(tables)
     if n == 0:
         return []
     key = (device.index or 0, int(B))
     if key not in buffers:
-        what = "Y buffer" if tables_class(tables) == HUGE else "scratch buffer"
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"the {what} of B={B} envs is not allocated: call "
+            raise RuntimeError(f"the scratch buffer of B={B} envs is not allocated: call "
                                "prepare(device, B) before capturing a CUDA graph")
         try:
             buffers[key] = torch.empty((int(B), n), dtype=torch.float32, device=device)
         except torch.cuda.OutOfMemoryError as e:
-            raise RuntimeError(f"the {what} of B={B} envs ({4 * n} bytes an env, {4 * n * B} in "
-                               f"all) does not fit {device}: {e}") from None
+            raise RuntimeError(f"the scratch buffer of B={B} envs ({4 * n} bytes an env, "
+                               f"{4 * n * B} in all) does not fit {device}: {e}") from None
     return [_P(buffers[key].data_ptr())]
 
 
@@ -1230,8 +1328,8 @@ class CudaPhysicsStep:
 
     CUDA tensors launch `physics_step_kernel` (its large, huge or sized
     build for a model over the default, large or huge caps, the tables
-    uploaded to the card once; the huge build's Y buffer and the sized
-    build's scratch buffer allocated once for each batch size); CPU tensors
+    uploaded to the card once; the huge and sized builds' scratch buffer
+    allocated once for each batch size); CPU tensors
     run `make_physics_step_plain`. `launches` counts kernel launches (a
     launch recorded into a CUDA graph: at each replay, `count_launch`). One
     step at a time: the buffer of a batch size is shared by its launches."""
@@ -1250,8 +1348,8 @@ class CudaPhysicsStep:
         """Build the library, pick the launch configuration on `device` (the
         occupancy API, cudaFuncSetAttribute), upload the large, huge and
         sized classes' tables and, for a batch of B envs, allocate the huge
-        class's Y buffer or the sized class's scratch buffer: ahead of a
-        graph capture, which these calls would break."""
+        and sized classes' scratch buffer: ahead of a graph capture, which
+        these calls would break."""
         launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
         _tables_args(self.tables, self.device_tables, device)
         if B is not None:
@@ -1383,11 +1481,41 @@ def _chol_flops(n: int) -> Tuple[int, int]:
     return fact, sum(2 * i + 1 for i in range(n))
 
 
+def _tree_chol_flops(t) -> Tuple[int, int, int]:
+    """The tree classes' (factorisation, a back substitution, z = L^T v):
+    engine_core.h · cholesky_blocks, chol_back_blocks and z's loop, within
+    each dof's block."""
+    lo, hi = list(t.dof_lo[:t.nv]), list(t.dof_hi[:t.nv])
+    fact = sum(2 * (j - lo[j]) + 2 + (hi[j] - 1 - j) * (2 * (j - lo[j]) + 1) for j in range(t.nv))
+    back = sum(2 * (hi[i] - 1 - i) + 1 for i in range(t.nv))
+    return fact, back, sum(1 + 2 * (hi[i] - 1 - i) + 2 for i in range(t.nv))
+
+
+def _tree_solve_flops(t, lo: int, hi: int) -> int:
+    """engine_core.h · chol_fwd_rows of a right-hand side over [lo, hi)."""
+    return sum(2 * (i - max(lo, t.dof_lo[i])) + 1 for i in range(lo, hi))
+
+
 def substep_flops(t) -> int:
     """Float operations of one `substep` of engine_core.h for the tables
-    `t`, counted from its loop bounds."""
+    `t`, counted from its loop bounds: dense over the dofs in the default
+    and large classes, within the tree blocks and the rows' supports in the
+    huge and sized ones (`tree_blocks`; a pair row of two trees over the
+    range that covers both)."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
+    tree = hasattr(t, "dof_lo")
     fact, solve = _chol_flops(nv)
+    back = z_flops = solve
+    if tree:
+        fact, back, z_flops = _tree_chol_flops(t)
+        solve = _tree_solve_flops(t, 0, nv)  # the dynamics' right-hand side
+        rows_len = [t.row_hi[r] - t.row_lo[r] for r in range(nr)]
+        rows_solve = [_tree_solve_flops(t, t.row_lo[r], t.row_hi[r]) for r in range(nr)]
+        lim_len = [t.lim_hi[m] - t.lim_lo[m] for m in range(nl)]
+        lim_solve = sum(_tree_solve_flops(t, t.lim_lo[m], t.lim_hi[m]) for m in range(nl))
+    else:
+        rows_len, rows_solve, lim_len, lim_solve = [nv] * nr, [solve] * nr, [nv] * nl, nl * solve
+        z_flops = sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))
     nchild = sum(1 for i in range(nb) if t.parent[i] >= 0)  # sums into a parent
     n = _fk_flops(t, inert=True)
     n += nb * (3 * _SV_ADD + 2 * _SV_CROSS + 2 * _INERTIA_MUL) + nchild * _SV_ADD
@@ -1401,20 +1529,20 @@ def substep_flops(t) -> int:
     disks = [t.row_disk[r] for r in range(nfloor) if t.row_disk[r]]
     n += len(disks) * _DISK_RIM + sum(d == 2 for d in disks) * _V_CROSS
     if nr or nl:
-        n += sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))  # z
+        n += z_flops
         # the dofs a row's Jacobian touches: body a's root path, and for a
         # pair row body b's, less the dofs the two share
         masks = [root_path(t, t.row_body[r]) for r in range(nfloor)]
         masks += [root_path(t, t.pair_a[k]) ^ root_path(t, t.pair_b[k]) for k in range(t.npair)]
         ndofs = [bin(mask).count("1") for mask in masks]
-        n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * solve for k in ndofs)
-        n += nl * solve
-        setup_vel = 1 if t.e_comb_zero else 2 * nv + 4
-        n += nr * (3 * (2 * nv + 2) + setup_vel + 2) + nl * (2 * nv + 7)
-        n += t.iterations * (nr * (4 * 4 * nv + 17) + nl * (4 * nv + 5))
-        n += 2 * solve
+        n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * rs for k, rs in zip(ndofs, rows_solve))
+        n += lim_solve
+        n += sum(3 * (2 * k + 2) + (1 if t.e_comb_zero else 2 * k + 4) + 2 for k in rows_len)
+        n += sum(2 * k + 7 for k in lim_len)
+        n += t.iterations * (sum(4 * 4 * k + 17 for k in rows_len) + sum(4 * k + 5 for k in lim_len))
+        n += 2 * back
     else:
-        n += solve + 2 * nv
+        n += back + 2 * nv
     for i in range(nb):
         n += 6 + 2 * _M3_VEC + 6 + _QUAT_INTEGRATE if t.jtype[i] == int(JointType.FREE) else 3
     return n
@@ -1500,9 +1628,8 @@ class HostTwin:
     """engine_core.h built with g++ for the host: the kernels' own C++
     arithmetic on CPU tensors, each env's lane group emulated at the tables'
     width (`tables.lanes`, any of LANE_WIDTHS), built with the tables' class
-    (the large, huge and sized ones at their first use; the huge one's Y in
-    a second heap buffer, the sized one's whole scratch in the first). Used
-    only by tests and by
+    (the large, huge and sized ones at their first use). Used only by tests
+    and by
     tools/bf16_probe.py (`bf16_probe=True` builds it with ENG_BF16_PROBE);
     no wrapper routes here."""
 

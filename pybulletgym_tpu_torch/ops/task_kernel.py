@@ -15,9 +15,10 @@ per task into `_build/` (keyed by the content hash) and launched once per
 env step by `CudaTaskStep`. A model over the default tables' caps takes
 the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
 `ops.cuda_engine`), one over the large caps or whose scratch outgrows a
-block's shared memory the huge class's (`-DENG_HUGE_TABLES`: Y in a device
-buffer too), and any larger one a class sized to it (`-DENG_SIZED_TABLES`
-with the model's caps: the whole scratch in a device buffer).
+block's shared memory the huge class's (`-DENG_HUGE_TABLES`), and any
+larger one a class sized to it (`-DENG_SIZED_TABLES` with the model's caps):
+both run the substeps by the model's tree blocks, the scratch in a device
+buffer.
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments) in float32, float64 and the
@@ -792,13 +793,13 @@ class _Recorder(TorchDispatchMode):
             op = " && " if base == "all" else " || "
             return self.emit(R, "(" + op.join(self.expr(v, torch.bool) for v in xs) + ")", xs)
         if base in ("amax", "amin"):
-            fn = "tk::maximum" if base == "amax" else "tk::minimum"
+            fn = "tk::reduce_max" if base == "amax" else "tk::reduce_min"
             return self.emit(R, functools.reduce(lambda s, y: f"{fn}({s}, {y})", e), xs)
         if base == "prod":
             return self.emit(R, functools.reduce(lambda s, y: f"tk::mul({s}, {y})", e), xs,
                              (n - 1) * (R in _FLOAT))
         if base == "logsumexp":
-            m = self.emit(R, functools.reduce(lambda s, y: f"tk::maximum({s}, {y})", e), xs)
+            m = self.emit(R, functools.reduce(lambda s, y: f"tk::reduce_max({s}, {y})", e), xs)
             # torch: the maximum, 0 where it is infinite, taken out of the exponentials
             mm = self.emit(R, f"(tk::isinf_({m.expr}) ? {_literal(0, R)} : {m.expr})", [m])
             fn = "expf" if T == "float" else "exp"
@@ -810,7 +811,7 @@ class _Recorder(TorchDispatchMode):
             p = float(kwargs.get("ord", args[1] if len(args) > 1 else 2))
             ab = [f"{'fabsf' if T == 'float' else 'fabs'}({y})" for y in e]
             if p == math.inf or p == -math.inf:
-                fn = "tk::maximum" if p > 0 else "tk::minimum"
+                fn = "tk::reduce_max" if p > 0 else "tk::reduce_min"
                 return self.emit(R, functools.reduce(lambda s, y: f"{fn}({s}, {y})", ab), xs)
             zero = _literal(0, R)
             if p == 0:
@@ -1167,8 +1168,7 @@ def _load_task_library(source: str, lanes: int, size: int, caps: Optional[Tuple[
     lib.task_launch_config.argtypes = [ctypes.c_int, ce._P]
     lib.task_launch_config.restype = ctypes.c_int
     # the large, huge and sized builds take the tables' device copy after
-    # the host copy, the huge one then the Y buffer, the sized one the
-    # scratch buffer
+    # the host copy, the huge and sized ones then their buffer
     lib.launch_task_step.argtypes = ([ce._P] * ce._extra_args(size) + ce._ENV_ARGS
                                      + [ctypes.c_int, ce._P])
     lib.launch_task_step.restype = ctypes.c_int
@@ -1196,9 +1196,9 @@ class CudaTaskStep:
     `envs.base.env_step_plain`. The task's horizon and constants are
     frozen into the kernel: after changing one, build a new step.
     `launches` counts kernel launches (none while a CUDA graph is
-    captured). The huge class's Y buffer and the sized class's scratch
-    buffer are allocated once for each batch size (by `prepare(device, B)`
-    or the first step), so one step at a time."""
+    captured). The huge and sized classes' scratch buffer is allocated once
+    for each batch size (by `prepare(device, B)` or the first step), so one
+    step at a time."""
 
     backend = "fused"
     kernel = "task_step_kernel"
@@ -1216,8 +1216,7 @@ class CudaTaskStep:
         """Translate the hooks and pack the tables; with a CUDA `device`,
         also build the library, pick the launch configuration, upload the
         large, huge and sized classes' tables and, for a batch of B envs,
-        allocate the huge class's Y buffer or the sized class's scratch
-        buffer."""
+        allocate the huge and sized classes' scratch buffer."""
         if self.program is None:
             self.program = trace_hooks(self.task)
             self.tables = task_tables(self.task, self.program, self.frame_skip)
@@ -1248,7 +1247,6 @@ class CudaTaskStep:
         cfg = dict(_task_launch_config(self.library()[0], self.tables.sc_stride,
                                        device.index or 0))
         cfg["G"], cfg["threads"] = self.tables.lanes, cfg["E"] * self.tables.lanes
-        cfg["y_bytes"] = 4 * ce.y_stride(self.tables)
         cfg["buffer_bytes"] = 4 * ce.buffer_floats(self.tables)
         if B is not None:
             cfg["blocks"] = -(-B // cfg["E"])
@@ -1278,8 +1276,7 @@ class CudaTaskStep:
 class HostTaskTwin:
     """task_step.cu's body built with g++ for the host, for the CPU tests:
     the kernel's own C++, the task's translated hooks included, on CPU
-    tensors (the huge class's Y in a second heap buffer, the sized class's
-    whole scratch in the first). No wrapper routes here."""
+    tensors. No wrapper routes here."""
 
     FLAGS = ("-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 

@@ -500,9 +500,9 @@ def test_large_tables_physics_kernel_matches_plain():
 
 def test_huge_tables_physics_kernel_matches_plain():
     """Eleven free balls (nv 66, over the large class's 64 dofs) through
-    physics_step_kernel's huge build (the tables and the rows Y in global
+    physics_step_kernel's huge build (the tables and the scratch in global
     memory), at the walker budget, counted apart; a CUDA graph of the
-    launch replays on the Y buffer that prepare allocated, bitwise."""
+    launch replays on the buffer that prepare allocated, bitwise."""
     _need_gpu()
     from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
     from pybulletgym_tpu_torch.ops.step import PhysicsConfig
@@ -534,6 +534,29 @@ def test_huge_tables_physics_kernel_matches_plain():
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(out, (qk, vk, dk)))
+
+
+def test_tree_blocks_match_the_dense_loops():
+    """Eleven free balls through the huge physics build: the tables as
+    packed and widened to one block over all dofs (the dense loops,
+    ops.cuda_engine.widen_blocks): the same bits, zeros' signs included."""
+    _need_gpu()
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+
+    balls = "".join(
+        f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
+        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(11))
+    model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                       f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
+    phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
+    v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
+    tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
+    want = phys(q, v, tau)
+    got = ce.with_tables(phys, ce.widen_blocks(phys.tables))(q, v, tau)
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
 
 
 def test_sized_tables_physics_kernel_matches_plain():

@@ -1,7 +1,7 @@
 """Models past the large tables' caps: the huge class of the kernels'
 tables (engine_core.h, -DENG_HUGE_TABLES: up to 128 bodies and nv 128, a
-four-word root-path mask, the forward-solved rows Y apart from the shared
-scratch), on a scene of four Humanoids in one worldbody (72 bodies, nq 96,
+four-word root-path mask, since the tree blocks the whole scratch in a
+device buffer), on a scene of four Humanoids in one worldbody (72 bodies, nq 96,
 nv 92, 68 actuators, 116 floor rows, 136 limit rows; its one-env scratch
 233,796 bytes, over a block's 232,448) and on eleven free balls (nv 66, nq
 77). Held against the JAX package and the plain version, at small sizes:
@@ -136,10 +136,15 @@ def test_huge_twins_match_plain(scene):
     t = twin.tables
     assert ce.tables_class(t) == ce.HUGE and t.caps_id == ce.CAPS_HUGE
     assert (t.lanes, t.nb, t.nv, t.nr, t.nl, t.act) == (32, 72, 92, 116, 136, 68)
-    # the task kernel's scratch: 233,796 bytes in all, over a block's
-    # 232,448; Y apart (its slice 128-byte aligned), the rest 53,380
-    assert t.sc_stride * 4 == 53380 and ce.y_stride(t) * 4 == 180480
-    assert t.sc_stride * 4 + 180420 > ce.MAX_SHARED_BYTES
+    # the task kernel's scratch at its dense sizes, which choose the class:
+    # 233,796 bytes in all, over a block's 232,448 (Y 180,420, the rest
+    # 53,380); laid out by the tree blocks, 65,024 (128-byte aligned), all in
+    # the device buffer
+    shared, y = ce._scratch_sizes(t.nb, t.nq, t.nv, t.nr, t.npair, t.nl, t.act, t.naux,
+                                  t.obs_dim)
+    assert 4 * (sum(shared.values()) | 1) == 53380 and 4 * y["Y"] == 180420
+    assert 53380 + 180420 > ce.MAX_SHARED_BYTES
+    assert t.sc_stride * 4 == ce.buffer_floats(t) * 4 == 65024
     for p, h in zip(plain, forced_rollout(twin)):
         _q_bounds((p.q - h.q).abs().numpy(), 1e-5)
         assert torch.equal(p.epoch, h.epoch) and torch.equal(p.step_count, h.step_count)
@@ -215,7 +220,7 @@ def test_size_classes():
     for m in (humanoids[3], humanoids[4], balls[11]):
         t = ce.pack_physics(m, cfg)
         assert type(t) is Huge and t.caps_id == ce.CAPS_HUGE and t.lanes == 32, m.name
-        assert ce.y_stride(t) % ce.Y_ALIGN == 0 and ce.y_stride(t) > 0
+        assert ce.buffer_floats(t) % ce.Y_ALIGN == 0 and ce.buffer_floats(t) > 0
     # large by its sizes, huge by its scratch: nv 64 and 256 rows need 233 KB of Y
     assert ce._pick_caps(64, 80, 64, 100, 0, 128, 64) == ce.CAPS_BIG
     assert ce._pick_caps(64, 80, 64, 256, 0, 128, 64, 240000) == ce.CAPS_HUGE

@@ -161,10 +161,13 @@ def test_balls_through_the_sized_physics_twin():
     caps = ce.tables_caps(tab)
     assert ce.tables_class(tab) == ce.SIZED and tab.caps_id == ce.CAPS_SIZED
     assert tab.lanes == 32 and ce.lane_nv(32, ce.SIZED, caps) == 256
-    # the scratch outside Y alone is over a block's shared memory: the whole
-    # of it lives in the buffer, 128-byte aligned
+    # the scratch outside Y alone, at its dense sizes, is over a block's
+    # shared memory: the whole of it lives in the buffer, 128-byte aligned;
+    # laid out by the tree blocks, L is 40 blocks of 6 rows of 7 floats
     assert ce.buffer_floats(tab) == tab.sc_stride and tab.sc_stride % ce.Y_ALIGN == 0
-    assert tab.sc_stride * 4 - 4 * (tab.nv * (tab.nv | 1)) > 0 and tab.sc_stride * 4 > 250400
+    wide = ce.widen_blocks(tab)
+    assert wide.sc_stride * 4 - 4 * (tab.nv * (tab.nv | 1)) > 0 and wide.sc_stride * 4 > 250400
+    assert ce.scratch_layout(type(tab).from_buffer_copy(tab))["L"][1] == 40 * 6 * 7
     # the last ball's dofs 234-239: mask word 7
     assert ce.root_path(tab, 39) == sum(1 << d for d in range(234, 240))
     B = 8
@@ -241,7 +244,8 @@ def test_shipped_large_and_huge_classes_unchanged():
                      (balls_xml(11), ce.HUGE)):
         t = ce.pack_physics(mjcf_t.parse_mjcf(xml, "m"), cfg)
         assert ce.tables_class(t) == cls and ce.tables_caps(t) is None
-        assert ce.buffer_floats(t) == ce.y_stride(t)
+        # the huge class keeps the whole scratch in its buffer
+        assert ce.buffer_floats(t) == (t.sc_stride if cls == ce.HUGE else 0)
     # the huge class's four words hold dofs 0-127; the sized class's more
     with pytest.raises(ValueError, match="root-path mask"):
         ce._root_path_words([3, 128], 4)
@@ -269,13 +273,17 @@ def test_sized_class(name, act, caps, outside, y):
     t = ce.pack_physics(m, cfg, act=act)
     assert type(t) is ce.tables_type(ce.SIZED, caps)[0] and ce.tables_caps(t) == caps
     assert ce.sized_caps(len(m.bodies), m.nq, m.nv, len(rows), len(pairs), nl, act) == caps
-    assert t.caps_id == ce.CAPS_SIZED and t.lanes == 32 and ce.y_stride(t) == 0
+    assert t.caps_id == ce.CAPS_SIZED and t.lanes == 32 and ce.buffer_floats(t) == t.sc_stride
     assert len(t.anc_mask) == caps[0] and len(t.anc_mask_hi) == caps[0] * (caps[1] // 32 - 1)
     flags = ce.class_flags(ce.SIZED, caps)
     assert flags[0] == ce.SIZED_FLAG and f"-DSIZED_MASK_WORDS={caps[1] // 32}" in flags
     assert f"-DSIZED_MAX_NV={caps[1]}" in flags and len(flags) == 11
-    # the whole scratch in the buffer: at least what lives outside Y and Y
-    assert ce.buffer_floats(t) * 4 >= outside + y - 4 and t.sc_stride % ce.Y_ALIGN == 0
+    # the whole scratch in the buffer: at its dense sizes (the tables widened
+    # to one block, Y's rows nv floats apart, not nv | 1) at least what lives
+    # outside Y and Y; by tree blocks less
+    odd = 4 * (3 * len(rows) + nl) * (1 - m.nv % 2)
+    assert ce.buffer_floats(ce.widen_blocks(t)) * 4 >= outside + y - 4 - odd
+    assert ce.buffer_floats(t) < ce.buffer_floats(ce.widen_blocks(t)) and t.sc_stride % ce.Y_ALIGN == 0
     assert (outside > ce.MAX_SHARED_BYTES) == (name in ("humanoids10", "balls40"))
 
 

@@ -181,7 +181,19 @@ OP_ENTRIES = (
     ("transpose_sum", "bits"), ("dot_const", "bits"), ("keepdim_sum", "bits"),
     ("split_sum", "bits"), ("flip_first", "bits"), ("index_select_sum", "bits"),
     ("permute_sum", "bits"), ("expand_sum", "bits"), ("reshape_select", "bits"),
+    # ties of zeros (x and y are -0.0 and +0.0 in env 0, +0.0 and -0.0 in env
+    # 1): torch's CUDA kernels order -0.0 below +0.0 (::max, ::min) and its
+    # reductions keep the later of a tie, where its CPU kernels keep the
+    # first; the translation follows the CUDA kernels, so the CPU test holds
+    # the sign apart (TIE_BITS, tests/test_torch_tree_blocks.py) and
+    # chip_smoke.py bit for bit against the card
+    ("maximum_tie", 0), ("minimum_tie", 0), ("clamp_tie", 0), ("clamp_min_tie", 0),
+    ("clamp_max_tie", 0), ("amax_tie", 0), ("amin_tie", 0),
 )
+# The ties' results on torch's CUDA kernels, (env 0, env 1), True for -0.0
+TIE_BITS = {"maximum_tie": (False, False), "minimum_tie": (True, True),
+            "clamp_tie": (False, False), "clamp_min_tie": (False, False),
+            "clamp_max_tie": (True, True), "amax_tie": (False, True), "amin_tie": (False, True)}
 # gelu(+inf): torch's CPU kernel gives NaN, its CUDA kernel's formula (which
 # the translation follows) +inf; chip_smoke.py holds it there against the card
 FINITE_ONLY = ("gelu",)
@@ -230,6 +242,14 @@ def op_inputs(a, torch):
     xs = torch.where(a[2] > 0.75, nan, torch.where(a[2] < -0.75, inf,
                                                    torch.where(a[2] < -0.5, -inf, x)))
     return x, y, xs
+
+
+def tie_values(x, y, torch):
+    """{entry name: value} of the ties of zeros of OP_ENTRIES (TIE_BITS)."""
+    return {"maximum_tie": torch.maximum(x, y), "minimum_tie": torch.minimum(x, y),
+            "clamp_tie": torch.clamp(x, min=0.0, max=1.0),
+            "clamp_min_tie": torch.clamp_min(x, 0.0), "clamp_max_tie": torch.clamp_max(x, -0.0),
+            "amax_tie": torch.stack([x, y]).amax(0), "amin_tie": torch.stack([x, y]).amin(0)}
 
 
 def op_values(x, y, xs, env_id, torch):
@@ -312,6 +332,7 @@ def op_values(x, y, xs, env_id, torch):
         "permute_sum": torch.stack([u, w]).permute(1, 0, 2)[2].sum(0),
         "expand_sum": (x.expand(3, -1) * torch.stack([y, x, y])).sum(0),
         "reshape_select": u.reshape(2, 2, -1)[1, 0],
+        **tie_values(x, y, torch),
     }
     assert list(out) == [n for n, _ in OP_ENTRIES]
     return out
