@@ -123,10 +123,12 @@ dofs than a group's 32 lanes, root paths past bit 31):
     it; ms a step of both beside env_step_kernel's on Ant;
   * drives models over the default tables' caps (`big_model_paths`, each
     path with the launch counts reset just before it and read just after):
-    builds the large class of the tables (-DENG_BIG_TABLES: engine.cu, one
-    nvcc a width, and task_step.cu with a user's task's hooks, all started
-    together right after the first build, beside the phases before this one,
-    as the huge and sized phases' builds are); registers TwoHumanoids-v0
+    builds the large class of the tables (-DENG_BIG_TABLES: the substeps
+    by the model's tree blocks, the tables and each env's scratch in global
+    memory; engine.cu, one nvcc a width, and task_step.cu with a user's
+    task's hooks, all started together right after the first build, beside
+    the phases before this one, as the huge and sized phases' builds are);
+    registers TwoHumanoids-v0
     (two copies of humanoid.xml in one worldbody: 36 bodies, nv 46) and
     makes it by ID at B=4096: 10 steps with forced resets through
     task_step_kernel's large build (10 launches, nothing else), and through
@@ -135,7 +137,10 @@ dofs than a group's 32 lanes, root paths past bit 31):
     bitwise the eager composed step's); holds both against the plain
     version on the card within the humanoid budget, resets bitwise; holds
     seven free balls (nv 42) through the large physics build to the plain
-    physics; times both large kernels beside their bounds;
+    physics; times both large kernels beside their bounds; holds each (and
+    the balls') to the same binary's dense loops as the huge ones below;
+    Humanoid's physics kernel in the large class equal to the default
+    class's;
   * drives models over the large tables' caps (`huge_model_paths`, the same
     paths through `scene_paths`): builds the huge class (-DENG_HUGE_TABLES:
     the substeps by the model's tree blocks, the tables and each env's
@@ -149,21 +154,22 @@ dofs than a group's 32 lanes, root paths past bit 31):
     balls (nv 66) through the huge physics build, both huge kernels timed;
     each kernel (and the balls' build) also from the same inputs with its
     tables widened to one block over all dofs, the same binary's dense
-    loops: equal under torch.equal, the zeros whose sign differs counted,
-    and timed beside;
+    loops: the same bits (the zeros whose sign differs counted: none), and
+    timed beside; the plain step on the first SCENE_PLAIN_ENVS envs;
   * drives models past the huge caps (`sized_model_paths`, the same paths
     through `scene_paths` at B=SIZED_B): builds the sized class
     (-DENG_SIZED_TABLES with caps from the model's sizes: a root-path mask
     of ceil(nv / 32) words, tree blocks and the scratch as the huge class's)
     for TenHumanoids-v0 (ten copies of humanoid.xml: 180
     bodies, nv 230, eight mask words, the scratch outside Y over a block's
-    shared memory) and forty free balls (nv 240): 20 steps through
-    task_step_kernel's sized build (20 launches, nothing else) and composed
-    around physics_step_kernel's sized build (20, graph = eager bitwise),
-    both held to the plain version at step 0 (resets bitwise), the balls
-    through the sized physics build against the plain physics, both sized
-    kernels timed with their ptxas reports and buffer bytes, and against
-    their dense loops as the huge ones;
+    shared memory) and forty free balls (nv 240): 10 steps through
+    task_step_kernel's sized build (10 launches, nothing else) and composed
+    around physics_step_kernel's sized build (10, graph = eager bitwise),
+    both held to the plain version at step 0 on the first SCENE_PLAIN_ENVS
+    envs (resets bitwise), the balls through the sized physics build
+    against the plain physics, both sized kernels timed with their ptxas
+    reports and buffer bytes, and against their dense loops as the huge
+    ones;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
@@ -991,13 +997,17 @@ BIG_ID = "TwoHumanoids-v0"
 HUGE_ID = "FourHumanoids-v0"
 SIZED_ID = "TenHumanoids-v0"
 # steps of a scene by ID; every third env is forced to reset before step 0
-# and the middle step. The two- and four-Humanoid scenes take 10, so that the
-# whole run, the ten-Humanoid scene's 20 included, ends within its time limit
-SCENE_STEPS = 20
-EARLY_SCENE_STEPS = 10
+# and the middle step. 10, so that the whole run ends within its time limit
+# (the ten-Humanoid scene's eager composed step, held bitwise to the graph
+# replay each step, takes ~1.6 s)
+SCENE_STEPS = 10
 BIG_PLAIN_AT = (0,)  # steps held to the plain version (~15 s a step at B=4096 on an H100)
 HUGE_PLAIN_AT = (0,)  # the four-Humanoid scene's plain step takes ~3x the two's
 SIZED_PLAIN_AT = (0,)  # the ten-Humanoid scene's: ~3x the four's
+# the envs of the four- and ten-Humanoid scenes' plain step: the first 512 of
+# B=4096 (every third of them forced to reset), the kernels' outputs held
+# on the same envs
+SCENE_PLAIN_ENVS = 512
 BALLS = 7  # free balls: nv 42, over the default caps' 40
 HUGE_BALLS = 11  # nv 66, over the large caps' 64
 SIZED_BALLS = 40  # nv 240: eight mask words, the scratch outside Y over 227 KB
@@ -1110,12 +1120,20 @@ def balls_xml(n: int, z: float) -> str:
             f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
 
 
+def first_envs(x, n):
+    """The first n envs of a batch-trailing tensor or of an EnvState."""
+    if hasattr(x, "q"):
+        return type(x)(*[{k: first_envs(y, n) for k, y in f.items()} if isinstance(f, dict)
+                         else first_envs(f, n) for f in x])
+    return x[..., :n].contiguous()
+
+
 def step_as(step, size):
     """A CudaPhysicsStep like `step` whose tables are the same model's in
     the larger fixed size class `size` (LARGE or HUGE: every array of a
     smaller class fits the larger one's, a root path's words included), laid
-    out again (in the huge class by its tree blocks): the same results, with
-    the tables (and in the huge class the scratch) in global memory."""
+    out again by the class's tree blocks: the same results, with the tables
+    (and in the huge class the scratch) in global memory."""
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
     other = copy.copy(step)
@@ -1126,8 +1144,7 @@ def step_as(step, size):
             ctypes.memmove(getattr(t, name), x, ctypes.sizeof(x))
         else:
             setattr(t, name, x)
-    if size == ce.HUGE:
-        ce.tree_blocks(t)
+    ce.tree_blocks(t)
     ce.scratch_layout(t)
     other.tables, other.size = t, size
     other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[size]
@@ -1174,7 +1191,7 @@ def scene_build(scene_id, humanoids, n_balls, size):
 
 
 def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
-                timing=SCENE_TIMING, build=None, steps=SCENE_STEPS):
+                timing=SCENE_TIMING, build=None, steps=SCENE_STEPS, plain_envs=None):
     """A humanoids scene over a size class's caps on the card, at B envs,
     each path with the launch counts reset just before it and read just
     after. `size`: the tables' class (ops.cuda_engine.LARGE, HUGE or SIZED),
@@ -1183,7 +1200,8 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
     `scene_build`, if started ahead (its nvcc seconds are then not
     recorded: they ran beside earlier phases); `steps`: the steps of each
     path, every third env forced to reset before step 0 and step
-    steps // 2. Returns ({path: launches},
+    steps // 2; `plain_envs`: the first envs that the plain step holds (all
+    B if None). Returns ({path: launches},
     the class's entries of the kernels line less their launches, the record
     of the `{tag}_model_paths` phase).
 
@@ -1198,14 +1216,17 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
       eager composed step's and within the humanoid budget of the task
       kernel's from the same input.
     * Held to the plain version on the card (the steps of `plain_at`, from
-      the fused rollout's input): both kernels within the humanoid budget,
-      the forced resets (frame_skip 0) bitwise.
+      the fused rollout's input, on the first `plain_envs` envs): both
+      kernels within the humanoid budget, the forced resets (frame_skip 0)
+      bitwise.
     * `n_balls` free balls: the class's physics_step_kernel build against
       the plain physics, 3 steps, the walkers' bounds.
     * Each kernel's time (CUDA-graph-timed) beside its bound, the plain
       version's, its launch configuration, ptxas report, nvcc seconds and
-      the tables' bytes and the device buffer's (the huge and sized
-      classes' scratch)."""
+      the tables' bytes and the device buffer's (the scratch).
+    * Each kernel and the balls' build from the timed inputs with the
+      tables widened to one block (`ops.cuda_engine.widen_blocks`, the same
+      binary's dense loops): the same bits, timed beside."""
     import numpy as np
     import torch
 
@@ -1334,20 +1355,23 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
     reset_k.tables.frame_skip = 0
     reset_k.device_tables = {}
     vs_plain, plain_ms = {}, []
+    n_plain = plain_envs or B
+    cut = (lambda x: x) if n_plain == B else (lambda x: first_envs(x, n_plain))  # noqa: E731
     for t in plain_at:
         s, a, k = ksteps[t]
+        sp, ap = cut(s), cut(a)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p = compose_env_step(task, timed_plain_phys, s, a)  # env_step_plain, its physics timed
+        p = compose_env_step(task, timed_plain_phys, sp, ap)  # env_step_plain, its physics timed
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         c = comp.step_fn(s, a)
-        vs_plain[t] = {names["task"]: hold(k, p, f"task kernel step {t}"),
-                       names["physics"]: hold(c, p, f"composed step {t}")}
+        vs_plain[t] = {names["task"]: hold(cut(k), p, f"task kernel step {t}"),
+                       names["physics"]: hold(cut(c), p, f"composed step {t}")}
         if t in forced_at:
-            rk, rp = reset_k(s, a), env_step_plain(task, s, a, 0)
-            require(torch.equal(rk.q[:, forced], rp.q[:, forced])
-                    and torch.equal(rk.v[:, forced], rp.v[:, forced])
+            rk, rp = cut(reset_k(s, a)), env_step_plain(task, sp, ap, 0)
+            f = forced[:n_plain]
+            require(torch.equal(rk.q[:, f], rp.q[:, f]) and torch.equal(rk.v[:, f], rp.v[:, f])
                     and torch.equal(rk.epoch, rp.epoch) and torch.equal(rk.step_count, rp.step_count),
                     f"{scene_id} step {t}: the reset differs from the plain version's")
 
@@ -1379,32 +1403,32 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             names["physics"]: ce.work_per_env_step(phys.tables, env_step=False)}
     timed = {names["task"]: (lambda: tstep(s, a), min(plain_ms)),
              names["physics"]: (lambda: phys(s.q, s.v, tau), min(phys_ms))}
-    # ---- the tree blocks (huge and sized classes) against the same binary's
-    # dense loops, its tables widened to one block: equal under torch.equal
-    # on the timed inputs and the balls', the zeros whose sign differs
-    # counted (bit patterns), timed beside (the time before the blocks)
+    # ---- the tree blocks against the same binary's dense loops, its tables
+    # widened to one block: the same bits on the timed inputs and the
+    # balls', zeros' signs included (those whose sign differs counted), timed
+    # beside (the time before the blocks)
     dense = {}
-    if size in (ce.HUGE, ce.SIZED):
-        calls = {names["task"]: (tstep, lambda st: st(s, a)),
-                 names["physics"]: (phys, lambda st: st(s.q, s.v, tau)),
-                 "balls": (bphys, lambda st: st(bs, v, bt))}
-        for name, (st, call) in calls.items():
-            wide = ce.with_tables(st, ce.widen_blocks(st.tables))
-            x, y = call(st), call(wide)
-            if name == names["task"]:
-                x, y = ([getattr(o, k) for k in fields] for o in (x, y))
-            require(all(torch.equal(p, q) for p, q in zip(x, y)),
-                    f"{scene_id} {name}: the tree blocks differ from the dense loops")
-            signs = sum(int((p.view(torch.int32) != q.view(torch.int32)).sum())
-                        for p, q in zip(x, y) if p.dtype == torch.float32)
-            dense[name] = {"fn": (lambda c=call, w=wide: c(w)), "tables": wide.tables,
-                           "bitwise": all(same_bits(p, q) for p, q in zip(x, y)),
-                           "zero_sign_differences": signs}
-        dense["balls"]["ms"] = graph_ms(dense["balls"]["fn"], n=4 * n_graph, reps=reps + 1)
-        work_dense = {names["task"]: tk.work_per_task_step(dense[names["task"]]["tables"],
-                                                           tstep.program, share),
-                      names["physics"]: ce.work_per_env_step(dense[names["physics"]]["tables"],
-                                                             env_step=False)}
+    calls = {names["task"]: (tstep, lambda st: st(s, a)),
+             names["physics"]: (phys, lambda st: st(s.q, s.v, tau)),
+             "balls": (bphys, lambda st: st(bs, v, bt))}
+    for name, (st, call) in calls.items():
+        wide = ce.with_tables(st, ce.widen_blocks(st.tables))
+        x, y = call(st), call(wide)
+        if name == names["task"]:
+            x, y = ([getattr(o, k) for k in fields] for o in (x, y))
+        signs = sum(int((p.view(torch.int32) != q.view(torch.int32)).sum())
+                    for p, q in zip(x, y) if p.dtype == torch.float32)
+        require(all(torch.equal(p, q) for p, q in zip(x, y)) and signs == 0,
+                f"{scene_id} {name}: the tree blocks differ from the dense loops "
+                f"({signs} floats' bits differ)")
+        dense[name] = {"fn": (lambda c=call, w=wide: c(w)), "tables": wide.tables,
+                       "bitwise": all(same_bits(p, q) for p, q in zip(x, y)),
+                       "zero_sign_differences": signs}
+    dense["balls"]["ms"] = graph_ms(dense["balls"]["fn"], n=4 * n_graph, reps=reps + 1)
+    work_dense = {names["task"]: tk.work_per_task_step(dense[names["task"]]["tables"],
+                                                       tstep.program, share),
+                  names["physics"]: ce.work_per_env_step(dense[names["physics"]]["tables"],
+                                                         env_step=False)}
     gr = next(iter(comp.step_fn._graphs.values()))
     composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), c_graph),
                     replay_ms=cuda_ms(gr.graph.replay, c_replay),
@@ -1421,7 +1445,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             "source": TASK_SOURCE if name.startswith("task") else SOURCE,
             "build": ce.CLASS_FLAGS[size][0], "replaces": REPLACES[name[:-len(suffix)]],
             "max_abs_err": max(r[name] for r in vs_plain.values()),
-            "ms": ms, "eager_ms": cuda_ms(fn, n_eager), "plain_ms": p_ms,
+            "ms": ms, "eager_ms": cuda_ms(fn, n_eager), "plain_ms": p_ms, "plain_envs": n_plain,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "B": B, "timed_on": scene_id, "env_steps_per_s": B * 1e3 / ms,
             "flops_per_env_step": flops, "bytes_per_env_step": nbytes,
@@ -1429,26 +1453,26 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             "buffer_bytes": buf_bytes * B, "caps": caps.get(name),
             "nvcc_seconds": nvcc_s, "models": [scene_id] + (
                 [f"{n_balls} free balls"] if name.startswith("physics") else [])})
-        if name in dense:  # the dense loops: the time and the bound before the blocks
-            d_ms = graph_ms(dense[name]["fn"], n=n_graph, reps=reps)
-            d_flops = work_dense[name][0]
-            entries[-1]["dense_loops"] = {
-                "ms": d_ms, "bitwise": dense[name]["bitwise"],
-                "zero_sign_differences": dense[name]["zero_sign_differences"],
-                "speedup": d_ms / ms, "flops_per_env_step": d_flops,
-                "bound_ms": max(d_flops * B / PEAK_FP32_FLOPS * 1e3, t_bytes),
-                "launch": (ce.launch_config(dense[name]["tables"], "physics_step_kernel", B)
-                           if name.startswith("physics") else None)}
+        # the dense loops: the time and the bound before the blocks
+        d_ms = graph_ms(dense[name]["fn"], n=n_graph, reps=reps)
+        d_flops = work_dense[name][0]
+        entries[-1]["dense_loops"] = {
+            "ms": d_ms, "bitwise": dense[name]["bitwise"],
+            "zero_sign_differences": dense[name]["zero_sign_differences"],
+            "speedup": d_ms / ms, "flops_per_env_step": d_flops,
+            "bound_ms": max(d_flops * B / PEAK_FP32_FLOPS * 1e3, t_bytes),
+            "launch": (ce.launch_config(dense[name]["tables"], "physics_step_kernel", B)
+                       if name.startswith("physics") else None)}
     entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls, "caps": caps.get("balls"),
                            "launch": ce.launch_config(bphys.tables, "physics_step_kernel", B),
                            "ptxas": balls_ptx}
-    if dense:
-        entries[1]["balls"]["dense_loops"] = {
-            "ms": dense["balls"]["ms"], "bitwise": dense["balls"]["bitwise"],
-            "zero_sign_differences": dense["balls"]["zero_sign_differences"],
-            "speedup": dense["balls"]["ms"] / balls_ms}
+    entries[1]["balls"]["dense_loops"] = {
+        "ms": dense["balls"]["ms"], "bitwise": dense["balls"]["bitwise"],
+        "zero_sign_differences": dense["balls"]["zero_sign_differences"],
+        "speedup": dense["balls"]["ms"] / balls_ms}
     record = dict(env=scene_id, B=B, steps=steps, forced_reset_at=forced_at,
-                  launches=launches, held_to_plain_at=plain_at, max_dq_vs_plain=vs_plain,
+                  launches=launches, held_to_plain_at=plain_at, plain_envs=n_plain,
+                  max_dq_vs_plain=vs_plain,
                   resets_bitwise=True, graph_vs_eager_bitwise=True,
                   max_dq_composed_vs_task=worst_comp, composed_q_bitwise_to_task=comp_q_bitwise,
                   composed=composed,
@@ -1463,13 +1487,16 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
 
 def big_model_paths(card, build=None):
     """Models over the default tables' caps on the card: engine_core.h's
-    large class (-DENG_BIG_TABLES, the tables in global memory), through
+    large class (-DENG_BIG_TABLES: the substeps by the model's tree blocks,
+    the tables and each env's scratch in global memory), through
     `scene_paths` on TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
-    48, nv 46, 34 actuators, 58 floor rows, 68 limit rows; paths
-    `big_fused`, `big_composed`) held to plain at BIG_PLAIN_AT, and seven
-    free balls (nv 42); then what the tables in global memory cost:
-    Humanoid's physics kernel with its default tables (a kernel parameter)
-    and with the same tables in the large class, from the same inputs.
+    48, nv 46, 34 actuators, 58 floor rows, 68 limit rows; one env's scratch
+    32,384 B by tree blocks; paths `big_fused`, `big_composed`) held to
+    plain at BIG_PLAIN_AT, and seven free balls (nv 42); then what the
+    large class costs a model of the default one: Humanoid's physics kernel
+    with its default tables (a kernel parameter, the scratch in shared
+    memory) and with the same tables in the large class, from the same
+    inputs, equal under torch.equal.
     `build`: the scene's `scene_build`, if started ahead. Returns ({path:
     launches}, the large builds' entries of the kernels line less their
     launches)."""
@@ -1480,7 +1507,7 @@ def big_model_paths(card, build=None):
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
     launches, entries, record = scene_paths(card, "big", BIG_ID, 2, BALLS, BIG_PLAIN_AT, ce.LARGE,
-                                            build=build, steps=EARLY_SCENE_STEPS)
+                                            build=build)
     dev = torch.device("cuda", 0)
     ht = pt.make_task(HUMANOID)
     hs = pt.make_batched(HUMANOID, B).reset(seed=3)
@@ -1499,6 +1526,8 @@ def big_model_paths(card, build=None):
     tables_ab["large_again_ms"] = graph_ms(lambda: h_large(hs.q, hs.v, htau))
     tables_ab["default_again_ms"] = graph_ms(lambda: h_default(hs.q, hs.v, htau))
     emit("big_model_paths", **record, tables_in_global_memory=tables_ab)
+    require(tables_ab["bitwise"], f"{HUMANOID}: the large class's physics step differs from the "
+            "default class's")
     return launches, entries
 
 
@@ -1522,15 +1551,15 @@ def huge_model_paths(card, build=None):
 
     torch.cuda.reset_peak_memory_stats()
     launches, entries, record = scene_paths(card, "huge", HUGE_ID, 4, HUGE_BALLS, HUGE_PLAIN_AT,
-                                            ce.HUGE, build=build, steps=EARLY_SCENE_STEPS)
+                                            ce.HUGE, build=build, plain_envs=SCENE_PLAIN_ENVS)
     peak = torch.cuda.max_memory_allocated()
 
     # ---- where the huge kernels' time goes: the physics kernel of the two-
     # and four-Humanoid scenes from a seeded reset and seeded torques, each
     # with and without its PGS sweeps (iterations 0); the two-Humanoid
-    # scene's also in the huge class (tree blocks, the scratch in global
-    # memory) against its large tables (dense loops, the scratch in shared
-    # memory), in turns L H H L
+    # scene's also in the huge class against its large tables (both by tree
+    # blocks, the scratch in global memory: the two classes' caps and mask
+    # words apart), in turns L H H L
     dev = torch.device("cuda", 0)
     ids = (torch.full((B,), 3, dtype=torch.uint32, device=dev),
            torch.arange(B, dtype=torch.int32, device=dev), torch.zeros(B, dtype=torch.uint32, device=dev))
@@ -1591,7 +1620,7 @@ def sized_model_paths(card, build=None):
     t0 = time.perf_counter()
     launches, entries, record = scene_paths(card, "sized", SIZED_ID, 10, SIZED_BALLS,
                                             SIZED_PLAIN_AT, ce.SIZED, SIZED_B, SIZED_TIMING,
-                                            build)
+                                            build, plain_envs=SCENE_PLAIN_ENVS)
     emit("sized_model_paths", **record, peak_memory_bytes=torch.cuda.max_memory_allocated(),
          seconds=time.perf_counter() - t0)
     return launches, entries

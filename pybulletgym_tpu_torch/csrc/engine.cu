@@ -43,18 +43,18 @@
 // (rows, B); a group's lanes read and write an env's rows.
 //
 // The large size class (-DENG_BIG_TABLES, engine_core.h: up to 64 bodies and
-// nv 64) builds physics_step_kernel only, with the tables (~52 KB) in global
+// nv 64) builds physics_step_kernel only, with the tables (~58 KB) in global
 // memory: a pointer parameter (ENG_TABLES_PARAM), its launcher taking the
 // device copy beside the host one. The huge class (-DENG_HUGE_TABLES: up to
 // 128 bodies and nv 128) and the sized class (-DENG_SIZED_TABLES: caps set by
-// the host from the model, any size) do the same with their tables, and run
-// the substep by the model's tree blocks (engine_core.h · ENG_TREE_FIELDS):
-// every dof loop within a block or a constraint row's support, L stored by
-// blocks and Y's rows over their supports. Their whole scratch lives in a
-// device buffer of B envs' slices of sc_stride floats (buf, an argument
-// after the tables): a block asks for no shared memory, the SM's memory
-// serves as L1 for the slices, and E comes from the occupancy API on
-// registers alone.
+// the host from the model, any size) do the same with their tables. The
+// three run the substep by the model's tree blocks (engine_core.h ·
+// ENG_TREE_FIELDS): every dof loop within a block or a constraint row's
+// support, L stored by blocks and Y's rows over their supports. Their whole
+// scratch lives in a device buffer of B envs' slices of sc_stride floats
+// (buf, an argument after the tables): a block asks for no shared memory,
+// the SM's memory serves as L1 for the slices, and E comes from the
+// occupancy API on registers alone.
 // env_step_kernel's task classes all fit the default class; any other task
 // over its caps runs task_step_kernel's large, huge or sized build
 // (task_step.cu).
@@ -80,7 +80,7 @@ constexpr int kMinBlocks = 4;     // of 128 threads an SM: at most 128 registers
 constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
 // Dynamic shared bytes of a block of E envs of `stride` floats: their
-// scratch, or none in the huge and sized builds (the scratch in buf).
+// scratch, or none in the large, huge and sized builds (the scratch in buf).
 size_t shared_bytes(int E, int stride) {
 #ifdef ENG_TREE_BLOCKS
   (void)E, (void)stride;
@@ -147,8 +147,8 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // shared bytes a block, out[3] = registers a thread, out[4] = local (stack)
 // bytes a thread. kernel 0 is physics_step_kernel, 1 env_step_kernel (not
 // in the large, huge and sized builds). E is the power of two (E * G <= 128
-// threads, E * stride floats <= 227 KB; in the huge and sized builds no
-// shared memory) that keeps the most envs resident per SM, the larger on a
+// threads, E * stride floats <= 227 KB; in the large, huge and sized builds
+// no shared memory) that keeps the most envs resident per SM, the larger on a
 // tie. Returns a cudaError_t, or cudaErrorInvalidValue if one env's scratch
 // does not fit.
 int eng_launch_config(int kernel, int stride, int32_t* out) {
@@ -196,8 +196,8 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 // `tables` is a host pointer (copied into the launch's parameters; in the
 // large, huge and sized builds the device copy `dev_tables` is the kernel's
 // and `tables` is only checked), every other pointer a device pointer (in
-// the huge and sized builds `buf`, B x tables.sc_stride floats, follows
-// `dev_tables`); E is eng_launch_config's envs a block. Returns cudaGetLastError() of the
+// the large, huge and sized builds `buf`, B x tables.sc_stride floats,
+// follows `dev_tables`); E is eng_launch_config's envs a block. Returns cudaGetLastError() of the
 // launch, or cudaErrorInvalidValue for tables of another G, more dofs than
 // this library's lanes hold (eng::lane_nv) or an E that does not fit.
 int launch_physics_step(const void* tables, ENG_DEV_TABLES ENG_BUF_PARAM const float* q,

@@ -43,10 +43,8 @@
 // float array per env: dynamic shared memory on the card, a heap buffer on
 // the host. pack_physics lays it out from the model's sizes (Tables::sc,
 // the float offset of each ENG_SCRATCH array) so no array is sized by a
-// cap; the constants below bound only the tables. The huge class keeps Y,
-// most of a large model's scratch, in a second array per env (a device
-// buffer on the card, a second heap buffer on the host); the sized class
-// keeps the whole array in a device buffer on the card.
+// cap; the constants below bound only the tables. The large, huge and sized
+// classes keep the array in a device buffer on the card instead.
 
 #pragma once
 
@@ -77,14 +75,21 @@
 #define ENG_UNROLL4
 #endif
 
-// How the kernels of engine.cu and task_step.cu take the tables. The default
-// class: a __grid_constant__ parameter, passed by value from the host copy.
-// The large, huge and sized classes (ENG_BIG_TABLES, ENG_HUGE_TABLES,
-// ENG_SIZED_TABLES, below): a pointer to a copy in global memory
+// How the kernels of engine.cu and task_step.cu take the tables, and where
+// an env's scratch lives. The default class: the tables a __grid_constant__
+// parameter, passed by value from the host copy; the scratch the env's slice
+// (env e of its block) of the block's dynamic shared memory `smem`. The
+// large, huge and sized classes (ENG_BIG_TABLES, ENG_HUGE_TABLES,
+// ENG_SIZED_TABLES, below): the tables a pointer to a copy in global memory
 // (dev_tables, a leading argument of each launcher) that the wrapper uploads
-// once when the env is made; the kernel binds it to the `t` that the core
-// reads. In the hot PGS sweep every lane of a warp reads the same entry, a
-// broadcast through L1. The launchers check the host copy.
+// once when the env is made, which the kernel binds to the `t` that the core
+// reads (in the hot PGS sweep every lane of a warp reads the same entry, a
+// broadcast through L1; the launchers check the host copy); the whole
+// scratch, laid out as in shared memory, in env i's slice of a device buffer
+// of B x Tables::sc_stride floats (buf, an argument of their kernels and
+// launchers after the tables): a block asks for no shared memory and the
+// SM's memory serves as L1. ENG_ENV_SCRATCH(e, i) is the core's base
+// argument of env i, the e-th of its block.
 #if defined(ENG_BIG_TABLES) + defined(ENG_HUGE_TABLES) + defined(ENG_SIZED_TABLES) > 1
 #error "ENG_BIG_TABLES, ENG_HUGE_TABLES and ENG_SIZED_TABLES name three size classes: build one"
 #endif
@@ -96,26 +101,14 @@
 #define ENG_TABLES_BIND const eng::Tables& t = *tp;
 #define ENG_DEV_TABLES const void* dev_tables,
 #define ENG_KERNEL_TABLES(host) ((const eng::Tables*)dev_tables)
+#define ENG_BUF_PARAM float* __restrict__ buf,
+#define ENG_KERNEL_BUF buf,
+#define ENG_ENV_SCRATCH(e, i) buf + (size_t)(i) * t.sc_stride
 #else
 #define ENG_TABLES_PARAM const __grid_constant__ eng::Tables t
 #define ENG_TABLES_BIND
 #define ENG_DEV_TABLES
 #define ENG_KERNEL_TABLES(host) (host)
-#endif
-
-// Where an env's scratch lives. The default and large classes: in the env's
-// slice (env e of its block) of the block's dynamic shared memory `smem`.
-// The huge and sized classes: the whole scratch, laid out as in shared
-// memory, in env i's slice of a device buffer of B x Tables::sc_stride
-// floats (buf, an argument of their kernels and launchers after the
-// tables); a block asks for no shared memory and the SM's memory serves as
-// L1. ENG_ENV_SCRATCH(e, i) is the core's base argument of env i, the e-th
-// of its block.
-#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
-#define ENG_BUF_PARAM float* __restrict__ buf,
-#define ENG_KERNEL_BUF buf,
-#define ENG_ENV_SCRATCH(e, i) buf + (size_t)(i) * t.sc_stride
-#else
 #define ENG_BUF_PARAM
 #define ENG_KERNEL_BUF
 #define ENG_ENV_SCRATCH(e, i) smem + (e) * t.sc_stride
@@ -144,9 +137,10 @@ constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into
 #elif defined(ENG_BIG_TABLES)
 // The large class (-DENG_BIG_TABLES): models over the default caps, such as
 // two humanoids in one scene (36 bodies, nq 48, nv 46, 68 limit rows, 34
-// actuators). Its tables (~52 KB) outgrow the kernel parameters, so the
-// kernels read a copy in global memory (engine.cu). ops/cuda_engine.py
-// reads these caps by their BIG_ names.
+// actuators). Its tables (~58 KB) outgrow the kernel parameters, so the
+// kernels read a copy in global memory (engine.cu); its scratch is stored by
+// tree blocks in a device buffer, as the huge class's.
+// ops/cuda_engine.py reads these caps by their BIG_ names.
 constexpr int BIG_MAX_BODIES = 64;   // one body a dof at nv 64
 constexpr int BIG_MAX_NV = 64;       // the two-word root-path mask's limit
 constexpr int BIG_MAX_NQ = 80;       // nq <= 7/6 nv: 74 at nv 64 (ten free joints)
@@ -513,8 +507,8 @@ constexpr int lane_nv() {
   S(float, mj_fwd)                                                            \
   S(float, mj_ctrl)
 
-// The tree blocks, in the huge and sized classes only (the default and large
-// layouts are as above). A tree is the set of bodies under one child of the
+// The tree blocks, in the large, huge and sized classes (the default class's
+// layout is as above). A tree is the set of bodies under one child of the
 // world; its dofs, widened to the interval that covers them and merged with
 // any tree whose interval overlaps, are a block. M is block-diagonal by
 // blocks, and so are L and every forward-solved row, so every dof loop of
@@ -523,7 +517,7 @@ constexpr int lane_nv() {
 // stored by blocks and supports. ops/cuda_engine.py · pack_physics sets the
 // ranges from the model and scratch_layout the storage from the ranges; a
 // table edit that sets every range to [0, nv) gives the dense loops.
-#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
+#ifdef ENG_GLOBAL_TABLES
 #define ENG_TREE_BLOCKS
 #define ENG_TREE_FIELDS(S, A)                                                 \
   A(int32_t, dof_lo, MAX_NV) /* the first dof of dof d's block */             \
@@ -1306,7 +1300,7 @@ ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<K>, G>& z, const
 }
 
 #ifdef ENG_TREE_BLOCKS
-// ---- the same by tree blocks (huge and sized classes) -----------------------
+// ---- the same by tree blocks (large, huge and sized classes) ----------------
 // Each loop runs over a block or a row's support only: every term it leaves
 // out is an exact zero of the dense loop, and the terms it keeps are summed
 // in the same order, so the results are the dense loops' up to the sign of a

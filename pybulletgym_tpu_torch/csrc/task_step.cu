@@ -6,14 +6,14 @@
 // The hooks run in the leader lane of each env's group (task_core.h), the
 // substeps of engine_core.h on the whole group, with the scratch in
 // dynamic shared memory as in engine.cu. Built with -DENG_BIG_TABLES for a
-// model over the default caps (engine_core.h's large class): the kernel
-// then reads the tables from a copy in global memory (ENG_TABLES_PARAM).
-// Built with -DENG_HUGE_TABLES for a model over the large caps or whose
-// scratch outgrows shared memory, or with -DENG_SIZED_TABLES and the model's
-// caps (-DSIZED_MAX_*) for any larger model: the tables as the large
-// class's, the substeps by the model's tree blocks, and the whole scratch in
-// a device buffer of B envs' slices (buf, after the tables), no shared
-// memory, as engine.cu's huge and sized builds.
+// model over the default caps (engine_core.h's large class), with
+// -DENG_HUGE_TABLES for a model over the large caps or whose scratch
+// outgrows shared memory, or with -DENG_SIZED_TABLES and the model's caps
+// (-DSIZED_MAX_*) for any larger model: the kernel then reads the tables
+// from a copy in global memory (ENG_TABLES_PARAM), runs the substeps by the
+// model's tree blocks, and keeps the whole scratch in a device buffer of B
+// envs' slices (buf, after the tables), no shared memory, as engine.cu's
+// large, huge and sized builds.
 
 #include <cuda_runtime.h>
 
@@ -29,7 +29,7 @@ constexpr int G = ENG_LANES;
 constexpr int kMaxThreads = 128;    // E * G
 constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory on sm_90
 
-// As engine.cu · shared_bytes: none in the huge and sized builds.
+// As engine.cu · shared_bytes: none in the large, huge and sized builds.
 size_t shared_bytes(int E, int stride) {
 #ifdef ENG_TREE_BLOCKS
   (void)E, (void)stride;
@@ -111,7 +111,7 @@ int task_launch_config(int stride, int32_t* out) {
 
 // The arguments of engine.cu · launch_env_step (in the large, huge and
 // sized builds, the device copy of the tables after the host one, as
-// launch_physics_step; in the huge and sized builds, then its buffer).
+// launch_physics_step, then its buffer).
 int launch_task_step(const void* tables, ENG_DEV_TABLES ENG_BUF_PARAM const float* q, const float* v,
                      const float* act, const float* aux, const uint8_t* term, const uint8_t* trunc,
                      const int32_t* step_count, const uint32_t* epoch, const uint32_t* seed,

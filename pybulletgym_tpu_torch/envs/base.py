@@ -237,8 +237,8 @@ class _StepGraph:
 
     def __init__(self, task: Task, physics, state: EnvState, action):
         dev = state.q.device
-        # the library, the launch configuration and the huge and sized
-        # classes' scratch buffer: not capturable
+        # the library, the launch configuration and the large, huge and
+        # sized classes' scratch buffer: not capturable
         physics.prepare(dev, state.q.shape[-1])
         self.physics = physics
         self.state = state._replace(
@@ -310,8 +310,8 @@ class ComposedEnvStep:
     the default tables' caps, its huge build for one over the large caps or
     whose scratch outgrows shared memory, its sized build, with caps set
     from the model, for any larger one), built at the first CUDA call or by
-    `prepare`, which on a CUDA device also allocates the huge and sized
-    classes' scratch buffer. With `graph=True`
+    `prepare`, which on a CUDA device also allocates the large, huge and
+    sized classes' scratch buffer. With `graph=True`
     the first CUDA call for a batch shape warms the hooks up on a side
     stream (no physics launch) and captures the whole step in a
     `torch.cuda.CUDAGraph`; every call then copies the state and action into
@@ -347,7 +347,7 @@ class ComposedEnvStep:
     def prepare(self, device: torch.device, B: Optional[int] = None):
         """The physics step for `device`; on a CUDA device with a batch of B
         envs also its library, launch configuration, tables on the card and
-        (huge and sized classes) scratch buffer, ahead of any capture."""
+        (large, huge and sized classes) scratch buffer, ahead of any capture."""
         phys = self.physics(device)
         if device.type == "cuda" and B is not None:
             phys.prepare(device, B)
@@ -404,7 +404,7 @@ class BatchedEnv:
     "cpu". A CUDA device without a GPU and hooks that "fused" cannot
     translate (on any device) raise here, at construction; no model size is
     refused (`ops.cuda_engine.caps_class`). On a CUDA device the step's
-    buffers (the huge and sized classes': B slices of one env's scratch,
+    buffers (the large, huge and sized classes': B slices of one env's scratch,
     stored by the model's tree blocks) are allocated here too, once; a
     buffer that does not fit the card raises, naming the bytes an env.
     """

@@ -32,13 +32,13 @@ shared memory; and the sized class (`CAPS_SIZED`), built with
 `-DENG_SIZED_TABLES` and caps set from the model's own sizes (`sized_caps`,
 given as `-DSIZED_MAX_*`), for a model over the huge caps or whose scratch
 outside Y outgrows shared memory: no model size is refused. The huge and
-sized classes read their tables from global memory too, and run the
-substep by the model's tree blocks (`tree_blocks`: every dof loop within a
-block of a tree's dofs or a constraint row's support, L stored by blocks
-and Y's rows over their supports), their whole scratch in a device buffer
-of B envs' slices (`_buffer_args`, `buffer_floats`). The large, huge and sized classes
-build `physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s task
-classes all fit the default one.
+sized classes read their tables from global memory too. The large, huge and
+sized classes run the substep by the model's tree blocks (`tree_blocks`:
+every dof loop within a block of a tree's dofs or a constraint row's
+support, L stored by blocks and Y's rows over their supports), their whole
+scratch in a device buffer of B envs' slices (`_buffer_args`,
+`buffer_floats`), and build `physics_step_kernel` and `task_step_kernel`;
+`env_step_kernel`'s task classes all fit the default one.
 
 One library per group width in `LANE_WIDTHS` and class (in the sized class,
 and its caps) is built at first use with nvcc into `_build/` (keyed by the
@@ -171,7 +171,7 @@ def _tables_type(size: int, sized: Optional[Tuple[int, ...]]):
         caps.update({"MAX_" + k: n for k, n in zip(SIZED_CAPS, sized)})
         caps["MASK_WORDS"] = _sized_mask_words(sized)
     block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("// The tree blocks")]
-    if size in (HUGE, SIZED):  # ENG_TREE_FIELDS: the tree classes' ranges and offsets
+    if size != DEFAULT:  # ENG_TREE_FIELDS: the tree classes' ranges and offsets
         tree = src.index("#define ENG_TREE_FIELDS(S, A)")
         block += src[tree:src.index("#else", tree)]
     fields = []
@@ -448,7 +448,7 @@ def tree_blocks(t) -> None:
 
 
 def widen_blocks(t):
-    """A copy of the huge or sized class's tables `t` with one tree block
+    """A copy of the large, huge or sized class's tables `t` with one tree block
     over all dofs and every contact and limit row's support [0, nv), laid
     out again (`scratch_layout`): the same model, with the dense loops and
     the dense L and Y. A table edit for tests and measurements (the time
@@ -505,19 +505,20 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     envs of a warp start in different banks), t.sc_ld and t.sc_ldm (the
     row strides of Y and of M/L: nv made odd, so that lanes on different
     rows hit different banks). inert, avp, f and obs live inside Y's rows
-    1.., which are dead whenever those are live. In the huge and sized
-    classes L is stored by the tables' tree blocks and Y's rows over their
-    supports (`_tree_storage`), and the whole scratch is laid out for the
-    env's slice of the device buffer in global memory: t.sc_stride a
+    1.., which are dead whenever those are live. In the large, huge and
+    sized classes L is stored by the tables' tree blocks and Y's rows over
+    their supports (`_tree_storage`), and the whole scratch is laid out for
+    the env's slice of the device buffer in global memory: t.sc_stride a
     multiple of Y_ALIGN floats, any size. Timed on an H100 against the
-    scratch in shared memory and against Y alone in the buffer, this was the
-    fastest on four and ten Humanoids and forty balls at B=4096, by 1.03-5.9x
-    (eleven balls ran 6% faster in shared memory; PERF.md §6). Returns
-    {name: (offset, floats)}. Raises if a scratch in shared memory does not
-    fit one block's."""
+    scratch in shared memory (and in the huge class against Y alone in the
+    buffer), this was the fastest on two, four and ten Humanoids' physics
+    kernels at B=4096, by 1.13-5.9x, and within 0.4% on two Humanoids' task
+    kernel (seven and eleven balls ran 32% and 6% faster in shared memory;
+    PERF.md §6). Returns {name: (offset, floats)}. Raises if a scratch in
+    shared memory does not fit one block's."""
     nv, ld = t.nv, t.nv | 1
     size = tables_class(t)
-    tree = size in (HUGE, SIZED)
+    tree = size != DEFAULT
     l_floats, y_rows = _tree_storage(t) if tree else (None, None)
     shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim,
                                l_floats, y_rows)
@@ -547,9 +548,9 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
 
 def buffer_floats(t) -> int:
     """The floats of one env's slice of the device buffer that the kernels
-    of the huge and sized classes take after the tables: the whole scratch
-    (t.sc_stride); none in the other classes."""
-    return int(t.sc_stride) if tables_class(t) in (HUGE, SIZED) else 0
+    of the large, huge and sized classes take after the tables: the whole
+    scratch (t.sc_stride); none in the default class."""
+    return int(t.sc_stride) if tables_class(t) != DEFAULT else 0
 
 
 def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = None, act=0,
@@ -668,7 +669,7 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
     t.lanes = pick_lanes(model.nv, size, sized)
-    if size in (HUGE, SIZED):
+    if size != DEFAULT:
         tree_blocks(t)
     scratch_layout(t)
     return t
@@ -1096,9 +1097,9 @@ def _engine_jobs(size: int, caps: Optional[Tuple[int, ...]] = None):
 
 def _extra_args(size: int) -> int:
     """The pointers a launcher of the size class takes after the host
-    tables: the tables' device copy (large, huge and sized), then the Y
-    buffer (huge) or the scratch buffer (sized)."""
-    return (0, 1, 2, 2)[size]
+    tables: the tables' device copy and the scratch buffer (large, huge and
+    sized)."""
+    return 0 if size == DEFAULT else 2
 
 
 def load_cuda_library(size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None):
@@ -1123,9 +1124,8 @@ def _load_cuda_library(size: int, caps: Optional[Tuple[int, ...]]):
             raise RuntimeError(f"{so} is built for {lib.eng_lanes()} lanes, not {G}")
         lib.eng_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, _P]
         lib.eng_launch_config.restype = ctypes.c_int
-        # the large, huge and sized builds take the tables' device copy after
-        # the host copy (the huge and sized ones then their buffer), and have
-        # no env_step_kernel
+        # the large, huge and sized builds take the tables' device copy and
+        # their buffer after the host copy, and have no env_step_kernel
         lib.launch_physics_step.argtypes = ([_P] * (7 + _extra_args(size)) + [ctypes.c_int] * 2
                                             + [_P])
         lib.launch_physics_step.restype = ctypes.c_int
@@ -1161,7 +1161,7 @@ def launch_config(tables, kernel: str, B: Optional[int] = None, device: int = 0)
     the envs a block E, threads and dynamic shared bytes a block, resident
     blocks (and envs) per SM from the occupancy API, the kernel's
     registers and local bytes a thread, and for a batch B the blocks. The
-    shared bytes are those of the scratch, none in the huge and sized
+    shared bytes are those of the scratch, none in the large, huge and sized
     classes (`buffer_bytes`: one env's slice of their device buffer).
     Raises for
     tables with more dofs than the library of their G holds, and for
@@ -1252,7 +1252,7 @@ def _launch_checked(rc: int, what: str):
 
 def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device):
     """The launchers' leading arguments for `tables`: the host copy and, for
-    the large and huge classes, the device copy that their kernels read,
+    the large, huge and sized classes, the device copy that their kernels read,
     uploaded to `device` at the first call and kept in `uploaded` (by device
     index). The wrappers call this before a CUDA graph captures a launch."""
     args = [_P(ctypes.addressof(tables))]
@@ -1267,7 +1267,7 @@ def _tables_args(tables, uploaded: Dict[int, torch.Tensor], device: torch.device
 
 def _buffer_args(tables, buffers: Dict[tuple, torch.Tensor], device: torch.device, B: int):
     """The device buffer argument for a launch of B envs on `device`: the
-    huge and sized classes' whole scratch (none in the other classes): B
+    large, huge and sized classes' whole scratch (none in the default one): B
     slices of `buffer_floats(tables)` floats, allocated at the first call
     for each (device, B) and kept in `buffers`, so that a CUDA graph replays
     its launch on the buffer it captured. Raises if a capture would allocate
@@ -1328,8 +1328,8 @@ class CudaPhysicsStep:
 
     CUDA tensors launch `physics_step_kernel` (its large, huge or sized
     build for a model over the default, large or huge caps, the tables
-    uploaded to the card once; the huge and sized builds' scratch buffer
-    allocated once for each batch size); CPU tensors
+    uploaded to the card once; the large, huge and sized builds' scratch
+    buffer allocated once for each batch size); CPU tensors
     run `make_physics_step_plain`. `launches` counts kernel launches (a
     launch recorded into a CUDA graph: at each replay, `count_launch`). One
     step at a time: the buffer of a batch size is shared by its launches."""
@@ -1347,8 +1347,8 @@ class CudaPhysicsStep:
     def prepare(self, device: torch.device, B: Optional[int] = None):
         """Build the library, pick the launch configuration on `device` (the
         occupancy API, cudaFuncSetAttribute), upload the large, huge and
-        sized classes' tables and, for a batch of B envs, allocate the huge
-        and sized classes' scratch buffer: ahead of a graph capture, which
+        sized classes' tables and, for a batch of B envs, allocate their
+        scratch buffer: ahead of a graph capture, which
         these calls would break."""
         launch_config(self.tables, "physics_step_kernel", device=device.index or 0)
         _tables_args(self.tables, self.device_tables, device)
@@ -1499,9 +1499,9 @@ def _tree_solve_flops(t, lo: int, hi: int) -> int:
 def substep_flops(t) -> int:
     """Float operations of one `substep` of engine_core.h for the tables
     `t`, counted from its loop bounds: dense over the dofs in the default
-    and large classes, within the tree blocks and the rows' supports in the
-    huge and sized ones (`tree_blocks`; a pair row of two trees over the
-    range that covers both)."""
+    class, within the tree blocks and the rows' supports in the large, huge
+    and sized ones (`tree_blocks`; a pair row of two trees over the range
+    that covers both)."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
     tree = hasattr(t, "dof_lo")
     fact, solve = _chol_flops(nv)

@@ -17,8 +17,8 @@ the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
 `ops.cuda_engine`), one over the large caps or whose scratch outgrows a
 block's shared memory the huge class's (`-DENG_HUGE_TABLES`), and any
 larger one a class sized to it (`-DENG_SIZED_TABLES` with the model's caps):
-both run the substeps by the model's tree blocks, the scratch in a device
-buffer.
+the three run the substeps by the model's tree blocks, the scratch in a
+device buffer.
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments) in float32, float64 and the
@@ -1167,8 +1167,8 @@ def _load_task_library(source: str, lanes: int, size: int, caps: Optional[Tuple[
     ce._check_layout(lib, size, caps)
     lib.task_launch_config.argtypes = [ctypes.c_int, ce._P]
     lib.task_launch_config.restype = ctypes.c_int
-    # the large, huge and sized builds take the tables' device copy after
-    # the host copy, the huge and sized ones then their buffer
+    # the large, huge and sized builds take the tables' device copy and
+    # their buffer after the host copy
     lib.launch_task_step.argtypes = ([ce._P] * ce._extra_args(size) + ce._ENV_ARGS
                                      + [ctypes.c_int, ce._P])
     lib.launch_task_step.restype = ctypes.c_int
@@ -1196,9 +1196,9 @@ class CudaTaskStep:
     `envs.base.env_step_plain`. The task's horizon and constants are
     frozen into the kernel: after changing one, build a new step.
     `launches` counts kernel launches (none while a CUDA graph is
-    captured). The huge and sized classes' scratch buffer is allocated once
-    for each batch size (by `prepare(device, B)` or the first step), so one
-    step at a time."""
+    captured). The large, huge and sized classes' scratch buffer is
+    allocated once for each batch size (by `prepare(device, B)` or the first
+    step), so one step at a time."""
 
     backend = "fused"
     kernel = "task_step_kernel"
@@ -1216,7 +1216,7 @@ class CudaTaskStep:
         """Translate the hooks and pack the tables; with a CUDA `device`,
         also build the library, pick the launch configuration, upload the
         large, huge and sized classes' tables and, for a batch of B envs,
-        allocate the huge and sized classes' scratch buffer."""
+        allocate their scratch buffer."""
         if self.program is None:
             self.program = trace_hooks(self.task)
             self.tables = task_tables(self.task, self.program, self.frame_skip)

@@ -3,7 +3,7 @@
     python3 pybulletgym_tpu_torch/tools/kernel_phases.py
         [--envs HalfCheetahPyBulletEnv-v0,...] [--batch 4096] [--lanes 8,16,32]
     python3 pybulletgym_tpu_torch/tools/kernel_phases.py
-        --scenes FourHumanoids-v0:4096,TenHumanoids-v0:1024,balls40:1024
+        --scenes TwoHumanoids-v0:4096,FourHumanoids-v0:4096,balls40:1024
         [--kernels physics,task] [--calls 5,2]
 
 For each env id (`--envs`) it times `env_step_kernel` (graph-replayed
@@ -29,9 +29,9 @@ batch after its colon. Besides the edits above, `rows0` (nr = nl = 0: no
 contact or limit rows) leaves FK/RNE, the CRBA, the Cholesky, the dynamics
 solve and the integration, so that rows = it0 - rows0 (the narrowphase, the
 Jacobians, their forward solves, z and the PGS set-up) and dynamics = rows0
-- fs0. In the huge and sized classes each edit is timed twice: with the
-tables' tree blocks as packed (`tree`), and widened to one block over all
-dofs (`dense`, `ops.cuda_engine.widen_blocks`): the dense loops'
+- fs0. In the large, huge and sized classes each edit is timed twice: with
+the tables' tree blocks as packed (`tree`), and widened to one block over
+all dofs (`dense`, `ops.cuda_engine.widen_blocks`): the dense loops'
 arithmetic and storage, the same binary, so the two give a before and after
 on one card. The outputs of the two are compared bit for bit
 (`bitwise_to_dense`: q, v and the depths of the physics kernel, the state

@@ -537,26 +537,67 @@ def test_huge_tables_physics_kernel_matches_plain():
 
 
 def test_tree_blocks_match_the_dense_loops():
-    """Eleven free balls through the huge physics build: the tables as
-    packed and widened to one block over all dofs (the dense loops,
-    ops.cuda_engine.widen_blocks): the same bits, zeros' signs included."""
+    """Eleven free balls through the huge physics build, seven through the
+    large one, and the two-Humanoid scene (chip_smoke.py's humanoids_task)
+    through both large builds from a reset state, every third env forced to
+    reset: the tables as packed and widened to one block over all dofs (the
+    dense loops, ops.cuda_engine.widen_blocks), the same bits, zeros' signs
+    included."""
     _need_gpu()
+    import os
+    import sys
+
+    from pybulletgym_tpu_torch.envs.base import reset_fn
     from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
     from pybulletgym_tpu_torch.ops.step import PhysicsConfig
 
-    balls = "".join(
-        f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
-        f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(11))
-    model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
-                       f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
-    phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
-    g = torch.Generator(device="cuda").manual_seed(4)
-    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
-    v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
-    tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
-    want = phys(q, v, tau)
-    got = ce.with_tables(phys, ce.widen_blocks(phys.tables))(q, v, tau)
-    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
+    def bits(xs):
+        return [x.view(torch.int32) if x.dtype == torch.float32 else x for x in xs]
+
+    def same(step, call):
+        want = call(step)
+        got = call(ce.with_tables(step, ce.widen_blocks(step.tables)))
+        if hasattr(want, "q"):
+            keys = ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch")
+            want, got = ([getattr(o, k) for k in keys] for o in (want, got))
+        return all(torch.equal(x, y) for x, y in zip(bits(got), bits(want)))
+
+    for n, size in ((11, ce.HUGE), (7, ce.LARGE)):
+        balls = "".join(
+            f'<body name="b{i}" pos="{0.3 * i} 0 0.09"><joint name="j{i}" type="free"/>'
+            f'<geom name="g{i}" type="sphere" size="0.1"/></body>' for i in range(n))
+        model = parse_mjcf('<mujoco model="balls"><worldbody><geom name="floor" type="plane" '
+                           f'size="10 10 0.1"/>{balls}</worldbody></mujoco>', "balls")
+        phys = ce.make_cuda_physics_step(model, PhysicsConfig())[0]
+        assert phys.size == size
+        g = torch.Generator(device="cuda").manual_seed(4)
+        q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")[:, None].repeat(1, B)
+        v = torch.rand((model.nv, B), device="cuda", generator=g) - 0.5
+        tau = torch.rand((model.nv, B), device="cuda", generator=g) * 2 - 1
+        assert same(phys, lambda st: st(q, v, tau)), n
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    task = cs.humanoids_task(cs.humanoids_xml(2), 2)
+    dev = torch.device("cuda")
+    s = reset_fn(task, torch.full((B,), 3, dtype=torch.uint32, device=dev),
+                 torch.arange(B, dtype=torch.int32, device=dev),
+                 torch.zeros(B, dtype=torch.uint32, device=dev))
+    forced = torch.zeros(B, dtype=torch.bool, device=dev)
+    forced[::3] = True
+    s = s._replace(terminated=forced)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.rand((task.act_dim, B), device=dev, generator=g) * 2 - 1
+    tau = torch.zeros((task.model.nv, B), device=dev)
+    tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    fused = tk.CudaTaskStep(task)
+    fused.prepare(dev, B)
+    assert phys.size == fused.size == ce.LARGE
+    assert same(phys, lambda st: st(s.q, s.v, tau))
+    assert same(fused, lambda st: st(s, a))
 
 
 def test_sized_tables_physics_kernel_matches_plain():

@@ -202,7 +202,7 @@ def test_size_classes():
     """(d)"""
     Big, big = ce.tables_type(ce.LARGE)
     Huge, huge = ce.tables_type(ce.HUGE)
-    assert ce.tables_type(True)[0] is Big and ctypes.sizeof(Big) == 52688
+    assert ce.tables_type(True)[0] is Big and ctypes.sizeof(Big) == 58064
     assert {k: huge["MAX_" + k] for k in ("BODIES", "NV", "NQ", "ROWS", "PAIRS", "LIMITS",
                                           "ACT")} == dict(BODIES=128, NV=128, NQ=160, ROWS=512,
                                                           PAIRS=256, LIMITS=256, ACT=128)

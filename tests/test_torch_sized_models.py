@@ -244,8 +244,8 @@ def test_shipped_large_and_huge_classes_unchanged():
                      (balls_xml(11), ce.HUGE)):
         t = ce.pack_physics(mjcf_t.parse_mjcf(xml, "m"), cfg)
         assert ce.tables_class(t) == cls and ce.tables_caps(t) is None
-        # the huge class keeps the whole scratch in its buffer
-        assert ce.buffer_floats(t) == (t.sc_stride if cls == ce.HUGE else 0)
+        # the large and huge classes keep the whole scratch in their buffer
+        assert ce.buffer_floats(t) == t.sc_stride and t.sc_stride % ce.Y_ALIGN == 0
     # the huge class's four words hold dofs 0-127; the sized class's more
     with pytest.raises(ValueError, match="root-path mask"):
         ce._root_path_words([3, 128], 4)

@@ -1,22 +1,26 @@
-"""The huge and sized classes' tree blocks (engine_core.h · ENG_TREE_FIELDS):
-every dof loop of their substep bounded by a model's trees, L stored by
-blocks and Y's rows over their supports, against the dense loops of the same
-code (the tables widened to one block, `ops.cuda_engine.widen_blocks`)
-and the plain version, at small sizes:
+"""The large, huge and sized classes' tree blocks (engine_core.h ·
+ENG_TREE_FIELDS): every dof loop of their substep bounded by a model's
+trees, L stored by blocks and Y's rows over their supports, against the
+dense loops of the same code (the tables widened to one block,
+`ops.cuda_engine.widen_blocks`) and the plain version, at small sizes:
 
-(a) the tree ranges and row supports that `pack_physics` gives four and ten
-    Humanoids, 22 and 40 balls, and a scene of touching trees with pair
-    rows (one within a tree, one between two trees with a third tree's dofs
-    between them), as parsed and with two trees' bodies interleaved, equal
-    ranges derived from the JAX package's `Model.ancestor_dofs` and plans;
-(b) the huge and sized host twins (the kernels' own C++ built with g++) on
-    three Humanoids (huge), 22 balls (sized) and the pair scene, as parsed
-    and interleaved (huge), equal the same twins given widened tables bit
-    for bit (a zero's sign included), over 3 steps (the task twin with a
-    forced reset), and stay within the plain version's bounds;
+(a) the tree ranges and row supports that `pack_physics` gives two, four
+    and ten Humanoids, 7, 22 and 40 balls, and a scene of touching trees
+    with pair rows (one within a tree, one between two trees with a third
+    tree's dofs between them), as parsed and with two trees' bodies
+    interleaved, with eight balls (nv 70: huge) and with four (nv 46:
+    large), equal ranges derived from the JAX package's
+    `Model.ancestor_dofs` and plans;
+(b) the large, huge and sized host twins (the kernels' own C++ built with
+    g++) on two Humanoids (large), three Humanoids (huge), 22 balls (sized)
+    and the pair scenes, as parsed and interleaved (huge and large), equal
+    the same twins given widened tables bit for bit (a zero's sign
+    included), over 3 steps (the task twin with a forced reset), and stay
+    within the plain version's bounds;
 (c) `substep_flops` counts the bounded loops: n copies of a tree cost n
     times one copy's Cholesky and back substitution, a floor row's forward
-    solve what one copy's does, and widened tables the dense count;
+    solve what one copy's does, and widened tables the dense count (two
+    Humanoids: 288,882 operations a substep against 900,939);
 (d) torch's CUDA results at ties of zeros of maximum, minimum, clamp,
     clamp_min, clamp_max, amax and amin, bit for bit, through
     `HostTaskTwin` (TIE_BITS of tests/torch_user_tasks.py).
@@ -44,7 +48,8 @@ from test_torch_humanoid import _q_bounds
 from test_torch_sized_models import BallsTask, _walkers
 
 SCENES = {"humanoids4": (humanoids_xml, 4), "humanoids10": (humanoids_xml, 10),
-          "balls22": (balls_xml, 22), "balls40": (balls_xml, 40)}
+          "balls22": (balls_xml, 22), "balls40": (balls_xml, 40),
+          "humanoids2": (humanoids_xml, 2), "balls7": (balls_xml, 7)}
 
 
 def _blocks_from_jax(mj):
@@ -80,7 +85,8 @@ def test_tree_ranges_match_the_jax_model(name):
     mj, mt = (mod.parse_mjcf(xml(n), name) for mod in (mjcf_j, mjcf_t))
     cfg = step_t.PhysicsConfig()
     t = ce.pack_physics(mt, cfg)
-    assert ce.tables_class(t) in (ce.HUGE, ce.SIZED)
+    large = name in ("humanoids2", "balls7")
+    assert ce.tables_class(t) == ce.LARGE if large else ce.tables_class(t) in (ce.HUGE, ce.SIZED)
     block = _blocks_from_jax(mj)
     assert [(t.dof_lo[d], t.dof_hi[d]) for d in range(t.nv)] == [block[d] for d in range(t.nv)]
     floor, pairs = ct_j.build_contact_plan(mj, cfg.solver)
@@ -105,8 +111,8 @@ def test_tree_ranges_match_the_jax_model(name):
     assert wide["Y"][1] == (t.nv | 1) + (3 * t.nr + t.nl) * t.nv
 
 
-def _humanoids3():
-    task = humanoids_task(_PKG_T, torch, 3)(humanoids_xml(3))
+def _humanoids(n):
+    task = humanoids_task(_PKG_T, torch, n)(humanoids_xml(n))
     task.physics = dataclasses.replace(task.physics, frame_skip=1)
     return task
 
@@ -135,35 +141,38 @@ def _same_state(a, b):
         assert _same_bits(getattr(a, k), getattr(b, k)), k
 
 
-@pytest.mark.parametrize("scene", ["humanoids3", "balls22"])
+_TWIN_CLASS = {"humanoids3": ce.HUGE, "balls22": ce.SIZED, "humanoids2": ce.LARGE}
+
+
+@pytest.mark.parametrize("scene", ["humanoids3", "balls22", "humanoids2"])
 def test_task_twin_equals_the_widened_tables(scene):
     """(b) the task twin, 3 steps of one substep, env 0 forced to reset
     before the second; the plain version's bounds on the first step"""
-    task = _humanoids3() if scene == "humanoids3" else BallsTask(22)
+    task = BallsTask(22) if scene == "balls22" else _humanoids(int(scene[-1]))
     B = 2
     s0 = reset_fn(task, *_ids(B, 5))
     acts = [torch.from_numpy(np.random.default_rng(30 + t).uniform(
         -1, 1, (task.act_dim, B)).astype(np.float32)) for t in range(3)]
     forced = torch.tensor([True, False])
     twin = tk.HostTaskTwin(task)
-    assert ce.tables_class(twin.tables) == (ce.HUGE if scene == "humanoids3" else ce.SIZED)
+    assert ce.tables_class(twin.tables) == _TWIN_CLASS[scene]
     tree = _rollout(twin, s0, acts, forced)
     twin.tables = ce.widen_blocks(twin.tables)
     for a, b in zip(tree, _rollout(twin, s0, acts, forced)):
         _same_state(a, b)
     assert tree[1].epoch[0] == 1 and tree[1].step_count[0] == 1
     p = env_step_plain(task, s0, acts[0])
-    if scene == "humanoids3":
+    if scene != "balls22":
         _q_bounds((p.q - tree[0].q).abs().numpy(), 1e-5)
     else:
         _walkers(p.q - tree[0].q)
 
 
-@pytest.mark.parametrize("scene", ["humanoids3", "balls22"])
+@pytest.mark.parametrize("scene", ["humanoids3", "balls22", "humanoids2"])
 def test_physics_twin_equals_the_widened_tables(scene):
     """(b) the physics twin, 3 steps of one substep from a seeded state"""
-    if scene == "humanoids3":
-        task = _humanoids3()
+    if scene != "balls22":
+        task = _humanoids(int(scene[-1]))
         m, cfg = task.model, task.physics
         s0 = reset_fn(task, *_ids(2, 5))
         q, v = s0.q, s0.v
@@ -174,6 +183,7 @@ def test_physics_twin_equals_the_widened_tables(scene):
         q = torch.from_numpy(np.repeat(m.qpos0[:, None], 2, 1).astype(np.float32))
         v = torch.from_numpy(rng.uniform(-0.5, 0.5, (m.nv, 2)).astype(np.float32))
     t = ce.pack_physics(m, cfg)
+    assert ce.tables_class(t) == _TWIN_CLASS[scene]
     w = ce.widen_blocks(t)
     hw = ce.HostTwin()
     rng = np.random.default_rng(3)
@@ -184,11 +194,12 @@ def test_physics_twin_equals_the_widened_tables(scene):
         q, v = got[0], got[1]
 
 
-# Three touching trees and eight balls (nv 70: the huge class): tree A, a
-# free sphere with two hinged capsules that cross at its centre (one
-# limited); tree M, a ball far off; tree C, a free sphere overlapping A's,
-# with two hinged capsules; and the balls. Pair rows: A's two capsules (one
-# tree) and the spheres of A and C (two trees, M's dofs between them).
+# Three touching trees and eight balls (nv 70: the huge class) or four (nv
+# 46: the large class): tree A, a free sphere with two hinged capsules that
+# cross at its centre (one limited); tree M, a ball far off; tree C, a free
+# sphere overlapping A's, with two hinged capsules; and the balls. Pair
+# rows: A's two capsules (one tree) and the spheres of A and C (two trees,
+# M's dofs between them).
 _ARMS = ('<body name="{p}a"><joint name="{p}ja" type="hinge" axis="0 1 0"{lim}/>'
          '<geom name="{p}ga" type="capsule" fromto="0 0 0 0.3 0 -0.1" size="0.04"/></body>'
          '<body name="{p}b"><joint name="{p}jb" type="hinge" axis="1 0 0"/>'
@@ -196,11 +207,11 @@ _ARMS = ('<body name="{p}a"><joint name="{p}ja" type="hinge" axis="0 1 0"{lim}/>
 PAIRS = (("Aga", "Agb"), ("As", "Cs"))
 
 
-def pairs_xml() -> str:
+def pairs_xml(n_balls: int = 8) -> str:
     tree = ('<body name="{p}" pos="{x} 0 0.5"><joint name="{p}j" type="free"/>'
             '<geom name="{p}s" type="sphere" size="0.1"/>' + _ARMS + '</body>')
     balls = "".join(f'<body name="b{i}" pos="{0.3 * i} 2 0.09"><joint name="bj{i}" type="free"/>'
-                    f'<geom name="bg{i}" type="sphere" size="0.1"/></body>' for i in range(8))
+                    f'<geom name="bg{i}" type="sphere" size="0.1"/></body>' for i in range(n_balls))
     return ('<mujoco model="pairs"><worldbody><geom name="floor" type="plane" size="10 10 0.1"/>'
             + tree.format(p="A", x=0, lim=' limited="true" range="-30 30"')
             + '<body name="M" pos="5 0 0.09"><joint name="Mj" type="free"/>'
@@ -241,13 +252,20 @@ def _reorder(m, order):
         dof_body=tuple(new[m.dof_body[d]] for d in vmap))
 
 
+# the pair scenes: (balls, interleaved?, the tables' class, nv)
+PAIR_SCENES = {"parsed": (8, False, ce.HUGE, 70), "interleaved": (8, True, ce.HUGE, 70),
+               "large_parsed": (4, False, ce.LARGE, 46),
+               "large_interleaved": (4, True, ce.LARGE, 46)}
+
+
 def _pair_scene(name, mod):
-    """The pair scene's model for the loader `mod`: as parsed, or with A's
-    and C's bodies interleaved (A, C, A's arms, M, C's arms, the balls), so
-    that the two trees' dof intervals overlap and merge into one block with
-    M inside it."""
-    m = mod.parse_mjcf(pairs_xml(), "pairs")
-    if name == "interleaved":
+    """The pair scene `name` of PAIR_SCENES for the loader `mod`: as parsed,
+    or with A's and C's bodies interleaved (A, C, A's arms, M, C's arms,
+    the balls), so that the two trees' dof intervals overlap and merge into
+    one block with M inside it."""
+    balls, interleaved, _, _ = PAIR_SCENES[name]
+    m = mod.parse_mjcf(pairs_xml(balls), "pairs")
+    if interleaved:
         idx = {b.name: i for i, b in enumerate(m.bodies)}
         first = ["A", "C", "Aa", "Ab", "M", "Ca", "Cb"]
         m = _reorder(m, [idx[n] for n in first] + [i for i in range(len(m.bodies))
@@ -260,7 +278,7 @@ def _pair_cfgs():
                  for pkg, ct in ((step_j, ct_j), (step_t, ct_t)))
 
 
-@pytest.mark.parametrize("name", ["parsed", "interleaved"])
+@pytest.mark.parametrize("name", list(PAIR_SCENES))
 def test_pair_and_interleaved_supports_match_the_jax_plan(name):
     """(a) the pair scene: blocks from the JAX model (two, A's and C's, merged
     where interleaved), each floor, pair and limit row's support from the
@@ -270,11 +288,12 @@ def test_pair_and_interleaved_supports_match_the_jax_plan(name):
     cfg_j, cfg_t = _pair_cfgs()
     mj, mt = _pair_scene(name, mjcf_j), _pair_scene(name, mjcf_t)
     t = ce.pack_physics(mt, cfg_t)
-    assert ce.tables_class(t) == ce.HUGE and (t.nv, t.npair) == (70, 2)
+    _, interleaved, size, nv = PAIR_SCENES[name]
+    assert ce.tables_class(t) == size and (t.nv, t.npair) == (nv, 2)
     block = _blocks_from_jax(mj)
     assert [(t.dof_lo[d], t.dof_hi[d]) for d in range(t.nv)] == [block[d] for d in range(t.nv)]
     a, m_, c = (mj.body_index(n) for n in ("A", "M", "C"))
-    if name == "interleaved":
+    if interleaved:
         assert block[0] == (0, 22) and block[mj.body_dofs[m_][0]] == (0, 22)
     else:
         assert (block[0], block[8], block[14]) == ((0, 8), (8, 14), (14, 22))
@@ -297,14 +316,15 @@ def test_pair_and_interleaved_supports_match_the_jax_plan(name):
         assert (t.lim_lo[k], t.lim_hi[k]) == (d, block[d][1])
 
 
-@pytest.mark.parametrize("name", ["parsed", "interleaved"])
+@pytest.mark.parametrize("name", list(PAIR_SCENES))
 def test_pair_scene_twin_equals_the_widened_tables(name):
-    """(b) the pair scene through the huge physics twin, 3 steps of one
-    substep: bit for bit the widened tables', both pair rows in contact,
-    and within the walkers' bounds of the plain version"""
+    """(b) the pair scene through the huge or large physics twin, 3 steps of
+    one substep: bit for bit the widened tables', both pair rows in
+    contact, and within the walkers' bounds of the plain version"""
     _, cfg = _pair_cfgs()
     m = _pair_scene(name, mjcf_t)
     t = ce.pack_physics(m, cfg)
+    assert ce.tables_class(t) == PAIR_SCENES[name][2]
     w = ce.widen_blocks(t)
     hw = ce.HostTwin()
     plain = step_t.make_physics_step_plain(m, cfg)[0]
@@ -338,6 +358,11 @@ def test_substep_flops_count_the_blocks():
         assert ce.substep_flops(w) > 9 * ce.substep_flops(t)
     balls = ce.pack_physics(mjcf_t.parse_mjcf(balls_xml(40, 0.09), "balls"), cfg)
     assert ce._tree_chol_flops(balls)[:2] == tuple(40 * x for x in ce._chol_flops(6))
+    # two Humanoids, the large class: the blocks' count and the dense one
+    t = ce.pack_physics(mjcf_t.parse_mjcf(humanoids_xml(2), "h2"), cfg)
+    assert ce.tables_class(t) == ce.LARGE
+    assert ce._tree_chol_flops(t)[:2] == (2 * fact1, 2 * solve1)
+    assert (ce.substep_flops(t), ce.substep_flops(ce.widen_blocks(t))) == (288882, 900939)
 
 
 class TieProbe(pendula.InvertedPendulumTask):
