@@ -11,19 +11,23 @@
 //
 // What bounds it on this card: not bytes (a HalfCheetah env moves ~350
 // bytes a step) and not the float rate, but the latency of long chains of
-// dependent operations per env: the Cholesky columns, the forward solves
+// dependent operations per env: the factorization of M, the forward solves
 // of every constraint row, and the PGS sweeps, which are Gauss-Seidel over
-// rows, each row a dot product over the dofs followed by an update. Those
-// chains need their scratch close (L is nv*nv floats, the forward-solved
-// rows Y (1 + 3 rows + limits)*nv; an env's whole scratch is 42 KB for the
-// humanoid, 56 KB for FlagrunHarder) and many envs in flight on every SM.
+// rows, each row a dot product followed by an update. Those chains need
+// their scratch close and many envs in flight on every SM. So the default
+// class runs them over the dof tree's root paths (engine_core.h ·
+// ENG_PATH_FIELDS, ltl_factor): M = L^T L without fill, each row's solve,
+// storage, set-up and sweep over its support, which keeps an env's whole
+// scratch small (Atlas 20,932 bytes against 48,604 with dense L and rows,
+// Humanoid 27,660, FlagrunHarder 30,764).
 //
 // Design. A group of G lanes of one warp steps one env (G a power of two,
 // one library per G, built from this file with -DENG_LANES=G; pack_physics
 // picks G from the model's dofs). The lanes split the parallel phases of
 // engine_core.h: dofs (passive forces, CRBA rows, Jacobian entries, z),
 // rows (narrowphase, the PGS set-up), right-hand sides (the forward
-// solves, one lane each), bodies (the integration); the body-recursive
+// solves, one lane each), a dof's ancestors' rows (each step of the
+// factorization), bodies (the integration); the body-recursive
 // parts (FK, RNE, the composite inertias, reset, the task's outputs) run in
 // one lane. Each PGS dot product is lane products plus a fixed xor
 // butterfly (__shfl_xor_sync over the group), its update lane-parallel on

@@ -11,9 +11,12 @@
 // bodies, dofs, contact rows, limit rows and task constants. Every sum is
 // taken in the order of the JAX package's unrolled sums; a structural zero
 // is a stored 0 that adds nothing, so the rounding follows the plain version
-// (up to FMA contraction on the GPU and the last bits of sinf/cosf). The one
-// exception is the PGS sweep's dot products, which sum lane partials and
-// then a fixed xor butterfly over the group (group_sum).
+// (up to FMA contraction on the GPU and the last bits of sinf/cosf). The
+// exceptions: the PGS sweep's dot products, which sum lane partials and
+// then a fixed xor butterfly over the group (group_sum), and in the default
+// class the factorization of M and its solves, which run over the dof
+// tree's root paths (M = L^T L, ltl_factor) where the plain version takes a
+// dense Cholesky: the same function, other roundings.
 //
 // Scope: free, hinge and slide joints (any number of free roots), point
 // and disk (cylinder end-cap) contacts against planes, capsule/sphere pairs
@@ -267,7 +270,7 @@ constexpr int MJ_DONE_HUMANOID = 4;
   X(R) X(p) X(vel) X(com) X(S) X(inert) X(avp) X(f)                           \
   X(L) X(inv_diag) X(depth) X(P) X(dirs) X(z) X(zp) X(v3o) X(vp)        \
   X(Y) X(dinv) X(b_vel) X(b_pos) X(dinv_l) X(b_l)                             \
-  X(lam_n) X(lam_t1) X(lam_t2) X(lam_p) X(lam_l)
+  X(lam_n) X(lam_t1) X(lam_t2) X(lam_p) X(lam_l) X(dofs)
 #define ENG_SLOT(name) SC_##name,
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
@@ -302,8 +305,8 @@ constexpr int lane_nv() {
   S(int32_t, caps_id) /* 0 walker-sized, 1 large, 2 large class, 3 huge, 4 sized */ \
   S(int32_t, lanes) /* G, the lanes of an env's group (a power of two) */     \
   S(int32_t, sc_stride) /* floats of one env's scratch (odd; huge, sized: Y_ALIGN) */ \
-  S(int32_t, sc_ld) /* row stride of Y (nv, made odd) */                      \
-  S(int32_t, sc_ldm) /* row stride of M and L (nv, made odd) */               \
+  S(int32_t, sc_ld) /* Y's dynamics row: nv, made odd */                      \
+  S(int32_t, sc_ldm) /* nv, made odd; no kernel reads it */                   \
   A(int32_t, sc, MAX_SLOTS) /* float offset of each ENG_SCRATCH array */     \
   S(int32_t, frame_skip)                                                      \
   S(int32_t, iterations)                                                      \
@@ -539,11 +542,62 @@ constexpr int lane_nv() {
 #define ENG_TREE_FIELDS(S, A)
 #endif
 
+// The root paths, in the default class. Dofs are numbered parents first and
+// a body's dofs after its parent body's, so dof d's ancestors in the dof
+// tree (Featherstone's lambda chain) are the dofs of its body's root path
+// below d, lowest first; their count is d's depth. M = L^T L factors over
+// that tree without fill (L(d, e) != 0 only for e an ancestor of d or d),
+// so L is stored by ancestor rows: row d holds dof_depth[d] + 1 floats,
+// L(d, e) at L[anc_row[d] + dof_depth[e]], root first. A constraint row's
+// support is the union of its bodies' root paths (closed under ancestors),
+// and L^-T of a vector on it stays on it, so Y stores each row over its
+// support by position: a dof d of body a's root path at dof_depth[d], a
+// dof of body b's path only (a pair row) after those, at dof_depth[d] + na,
+// na the dofs of a's path that are not on b's (`PathRow`). Row j is contact
+// row j (j < nr), then limit row j - nr (its support its dof's chain).
+// These dofs are the model's in the order of dof_perm: a free joint's
+// linear dofs before its angular ones, so that the leaf-first elimination
+// takes the angular ones first, their pivots the body's inertia about the
+// origin, and the linear ones last, as the plain version's root-first
+// Cholesky does. The other way round the angular pivots are the Schur
+// complement that is the body's inertia about its COM, which float32 loses
+// to the parallel-axis term of a body far from the origin: it can turn
+// negative. dof_perm is its own inverse and keeps each body's dofs in their
+// index range (so its root-path mask).
+// ops/cuda_engine.py · _path_storage sets these from the model's root paths
+// and lays out L and Y. The kernels read them at uniform indices in the
+// PGS sweep (one row ahead) and at lane-divergent ones once a substep.
+#ifndef ENG_GLOBAL_TABLES
+#define ENG_PATH_FIELDS(S, A)                                                 \
+  A(int32_t, dof_perm, MAX_NV) /* the model's dof of dof d (above) */         \
+  A(int32_t, dof_depth, MAX_NV) /* the ancestors of dof d */                  \
+  A(int32_t, anc_row, MAX_NV) /* the float offset of d's row of L */          \
+  A(uint32_t, dof_anc, 2 * MAX_NV) /* d's ancestors: mask words 2d, 2d + 1 */ \
+  A(int32_t, path_y, MAX_ROWS + MAX_LIMITS) /* Y offset of row j (a contact \
+                                               row's normal; its tangents   \
+                                               follow, its support's size   \
+                                               apart) */                    \
+  A(uint32_t, path_u, 2 * MAX_ROWS + 2 * MAX_LIMITS) /* row j's support */  \
+  A(uint32_t, pair_pa, 2 * MAX_PAIRS) /* pair row k's body a's root path */   \
+  A(int32_t, pair_na, MAX_PAIRS) /* its dofs that are not on body b's */     \
+  /* timing only (tools/kernel_phases.py): 0 runs the whole substep; 1       \
+     returns after FK, RNE and the composite inertias, 2 after the CRBA rows \
+     and the narrowphase, 3 after the factorization */                       \
+  S(int32_t, stop_after)
+// The longest support a row of the default class may have: its forward
+// solve keeps the row in registers (path_solve_t). pack_physics gives a
+// model with a longer one the large class.
+constexpr int PATH_CAP = 24;
+#else
+#define ENG_PATH_FIELDS(S, A)
+#endif
+
 #define ENG_DECL_S(T, name) T name;
 #define ENG_DECL_A(T, name, n) T name[n];
 struct Tables {
   ENG_TABLE_FIELDS(ENG_DECL_S, ENG_DECL_A)
   ENG_TREE_FIELDS(ENG_DECL_S, ENG_DECL_A)
+  ENG_PATH_FIELDS(ENG_DECL_S, ENG_DECL_A)
 };
 #undef ENG_DECL_S
 #undef ENG_DECL_A
@@ -620,6 +674,58 @@ ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
   ENG_UNROLL
   for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] | b.w[k];
   return r;
+}
+#endif
+
+#ifndef ENG_GLOBAL_TABLES
+// ---- dof sets of the default class's root paths (two words) -----------------
+ENG_HD int popc32(uint32_t w) {
+#ifdef __CUDA_ARCH__
+  return __popc(w);
+#else
+  return __builtin_popcount(w);
+#endif
+}
+ENG_HD int low_bit(uint32_t w) {  // w != 0
+#ifdef __CUDA_ARCH__
+  return __ffs(w) - 1;
+#else
+  return __builtin_ctz(w);
+#endif
+}
+ENG_HD int high_bit(uint32_t w) {  // w != 0
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(w);
+#else
+  return 31 - __builtin_clz(w);
+#endif
+}
+ENG_HD int dofs_count(DofSet p) { return popc32(p.lo) + popc32(p.hi); }
+ENG_HD DofSet dofs_and_not(DofSet a, DofSet b) {
+  DofSet r = {a.lo & ~b.lo, a.hi & ~b.hi};
+  return r;
+}
+// Removes and returns p's highest dof (p not empty)
+ENG_HD int dofs_pop_high(DofSet& p) {
+  if (p.hi) {
+    const int b = high_bit(p.hi);
+    p.hi &= ~(1u << b);
+    return 32 + b;
+  }
+  const int b = high_bit(p.lo);
+  p.lo &= ~(1u << b);
+  return b;
+}
+// Removes and returns p's lowest dof (p not empty)
+ENG_HD int dofs_pop_low(DofSet& p) {
+  if (p.lo) {
+    const int b = low_bit(p.lo);
+    p.lo &= p.lo - 1u;
+    return b;
+  }
+  const int b = low_bit(p.hi);
+  p.hi &= p.hi - 1u;
+  return 32 + b;
 }
 #endif
 
@@ -969,6 +1075,7 @@ struct Scr {
   float *z, *zp, *v3o, *vp, *Y;
   float *dinv, *b_vel, *b_pos, *dinv_l, *b_l;
   float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
+  int32_t* dofs;  // the default class's dof records (dofs_fill)
 };
 
 ENG_HD Scr scratch(const Tables& t, float* base) {
@@ -1008,6 +1115,7 @@ ENG_HD Scr scratch(const Tables& t, float* base) {
   s.lam_t2 = base + o[SC_lam_t2];
   s.lam_p = base + o[SC_lam_p];
   s.lam_l = base + o[SC_lam_l];
+  s.dofs = (int32_t*)(base + o[SC_dofs]);
   return s;
 }
 
@@ -1154,70 +1262,257 @@ ENG_HD void composite_inertias(const Tables& t, Inertia* Ic) {
   }
 }
 
-// Row d of the lower triangle of M (entries e <= d; in the tree classes
-// those of d's block), each entry as mass_matrix computes it; one lane a row.
+#ifdef ENG_TREE_BLOCKS
+// Row d of the lower triangle of M (entries e <= d of d's block), each entry
+// as mass_matrix computes it; one lane a row.
 ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, int d, float* Md) {
   const int i = t.dof_body[d];
   Inertia I = Ic[i];
   I.m = t.cmass[i];
   const SV F = inertia_mul(I, fk.S[d]);
   const DofSet path = anc_path(t, i);
-#ifdef ENG_TREE_BLOCKS
   for (int e = t.dof_lo[d]; e <= d; ++e)
-#else
-  for (int e = 0; e <= d; ++e)
-#endif
     Md[e] = on_path(path, e) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
   if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
 }
+#endif
 
-// Lower Cholesky M = L L^T in place (row stride ldm; the upper triangle is
-// never read), column by column: the diagonal is uniform, the lanes split
-// the rows below it, each entry's k-sum in the order of the plain version.
+#ifndef ENG_TREE_BLOCKS
+// ---- M = L^T L over the dof tree (the default class) --------------------------
+// Featherstone's LTL factorization ("Efficient factorization of the
+// joint-space inertia matrix for branched kinematic trees", IJRR 2005;
+// MuJoCo factors M the same way): from the last dof to the first, each
+// dof's row is scaled by its diagonal and folded into its ancestors' rows.
+// Parents come before children, so nothing fills in and L is stored by
+// ancestor rows (Tables::anc_row; Atlas's 351 floats against the dense
+// 1,332). M^-1 = L^-1 L^-T, so the square-root-space PGS runs on z = L v +
+// dt L^-T rhs and the rows Y_r = L^-T J_r^T (Y^T Y is J M^-1 J^T, as the
+// plain version's L^-1 J^T of M = L L^T gives it: the PGS iterates are the
+// plain version's up to rounding), and v = L^-1 z. A dof off a row's
+// support has no descendant on it, so L^-T of the row stays on the support:
+// its solve, storage, set-up and sweeps run over the support only. The
+// sums are not in the plain version's order (its dense Cholesky's): the
+// kernels hold its budgets, not its bits.
+
+// A constraint row's support (Tables::path_u) and where the row's
+// forward-solved entries sit: a dof of body a's path (a chain; a limit
+// row's: its dof's chain) at its depth, positions 0 .. |a| - 1; a dof of
+// body b's path only (`bo`; pair rows) at its depth plus na. y: the row's
+// offset in Y.
+struct PathRow {
+  DofSet a, bo, u;  // a's path, b's less a's, the support (their union)
+  int na, n, y;     // |a's path - b's path|, the support's size, Y offset
+};
+// Row j's table words (RowRaw, a pair row's with its body a's: PAIR), and
+// its PathRow from them: two steps, so that the PGS sweep can read a row's
+// words a row before it derives anything from them (sweep_rows)
+struct RowRaw {
+  int y, na;
+  DofSet u, a;
+  float c;  // the sweep's constant: a contact row's mu, a limit row's sign
+};
+template <bool PAIR>
+ENG_HD RowRaw row_raw(const Tables& t, int j) {
+  RowRaw w;
+  w.y = t.path_y[j];
+  w.u.lo = t.path_u[2 * j];
+  w.u.hi = t.path_u[2 * j + 1];
+  w.na = 0;
+  w.a.lo = w.a.hi = 0u;
+  w.c = j < t.nr ? t.row_mu[j] : t.lim_sign[j - t.nr];
+  if (PAIR) {
+    const int k = j - (t.nr - t.npair);
+    w.a.lo = t.pair_pa[2 * k];
+    w.a.hi = t.pair_pa[2 * k + 1];
+    w.na = t.pair_na[k];
+  }
+  return w;
+}
+template <bool PAIR>
+ENG_HD PathRow row_of(const RowRaw& w) {
+  PathRow p;
+  p.y = w.y;
+  p.u = w.u;
+  p.n = dofs_count(w.u);
+  if (PAIR) {
+    p.a = w.a;
+    p.na = w.na;
+    p.bo = dofs_and_not(w.u, w.a);
+  } else {
+    p.a = w.u;
+    p.na = p.n;
+    p.bo.lo = p.bo.hi = 0u;
+  }
+  return p;
+}
+// row j: contact row j (j < nr), or limit row j - nr
+ENG_HD PathRow row_path(const Tables& t, int j) {
+  return j >= t.nr - t.npair && j < t.nr ? row_of<true>(row_raw<true>(t, j))
+                                         : row_of<false>(row_raw<false>(t, j));
+}
+// Dof d's ancestor row in L, the model's dof (dof_perm), its depth and its
+// ancestors: four int32 words a dof in the scratch's `dofs` (the row in the
+// low 16 bits of the first, the model's dof above), which dofs_fill copies
+// from the tables once a launch, because the substep reads them at
+// lane-divergent indices (the factorization's rows, the forward solves'
+// positions), which the constant cache serves one address at a time
+struct DofPath {
+  int row, model, depth;
+  DofSet anc;
+};
+ENG_HD DofPath dof_path(const Scr& s, int d) {
+  const int32_t* q = s.dofs + 4 * d;
+  DofPath p = {q[0] & 0xffff, q[0] >> 16, q[1], {(uint32_t)q[2], (uint32_t)q[3]}};
+  return p;
+}
+// the model's dof of dof d, and the offset of its row of L
+ENG_HD int dof_model(const Scr& s, int d) { return s.dofs[4 * d] >> 16; }
+ENG_HD int dof_row(const Scr& s, int d) { return s.dofs[4 * d] & 0xffff; }
+// the lanes over dofs; the caller's next g.sync() ends the phase
 template <int G>
-ENG_HD void cholesky(const Group<G>& g, int n, float* L, int ldm, float* inv_diag) {
-  for (int j = 0; j < n; ++j) {
-    const float* Lj = L + j * ldm;
-    float s = Lj[j];
-    ENG_UNROLL4
-    for (int k = 0; k < j; ++k) s = s - Lj[k] * Lj[k];
-    const float djj = sqrtf(jmax(s, (float)1e-9));
-    const float inv = 1.f / djj;
+ENG_HD void dofs_fill(const Tables& t, const Group<G>& g, const Scr& s) {
+  EACH_LANE(g, l) {
+    for (int d = l; d < t.nv; d += G) {
+      int32_t* q = s.dofs + 4 * d;
+      q[0] = t.anc_row[d] | t.dof_perm[d] << 16;
+      q[1] = t.dof_depth[d];
+      q[2] = (int32_t)t.dof_anc[2 * d];
+      q[3] = (int32_t)t.dof_anc[2 * d + 1];
+    }
+  }
+}
+
+// Row k of M over k's ancestors and k (its ancestor row, root first), each
+// entry as mass_matrix computes it for the model's dofs; one lane a row.
+ENG_HD void mass_matrix_row(const Tables& t, const Scr& s, int k) {
+  const DofPath pk = dof_path(s, k);
+  const int d = pk.model, i = t.dof_body[d];
+  Inertia I = s.inert[i];
+  I.m = t.cmass[i];
+  const SV F = inertia_mul(I, s.fk.S[d]);
+  float* const Md = s.L + pk.row;
+  DofSet anc = pk.anc;
+  for (int m = 0; anc.lo | anc.hi; ++m) {
+    const int e = dof_model(s, dofs_pop_low(anc));
+    Md[m] = sv_dot(mm_operand(s.fk.S[e]), mm_operand(F));
+  }
+  Md[pk.depth] = sv_dot(mm_operand(s.fk.S[d]), mm_operand(F));
+  if (t.armature[d] != 0.f) Md[pk.depth] = Md[pk.depth] + t.armature[d];
+}
+
+// The registers of a row in path_solve_t: the longest support the library
+// takes (a library of G lanes takes at most lane_nv<G>() dofs); the host
+// twin emulates any model at any G
+template <int G>
+constexpr int path_regs() {
+#ifdef __CUDACC__
+  return lane_nv<G>() < PATH_CAP ? lane_nv<G>() : PATH_CAP;
+#else
+  return PATH_CAP;
+#endif
+}
+
+// The factorization in place over M's ancestor rows (mass_matrix_row), and
+// the dynamics' right-hand side y (Y's row 0) to L^-T y beside it. Dof k's
+// step subtracts H(k, i) H(k, j) / H(k, k) from each ancestor i's row (j
+// its ancestors and i; four entries at a time loaded into registers, then
+// stored, so that their loads do not wait on stores) and L(k, i) x_k from
+// y_i, the lanes over the dofs below k (each its own dof's row, if an
+// ancestor of k: at most k's depth, 15 on Atlas), one g.sync() a dof. Each
+// row's off-diagonal entries are scaled by 1 / L(k, k) in the next step,
+// which no longer reads them.
+template <int G>
+ENG_HD void ltl_factor(const Tables& t, const Group<G>& g, const Scr& s) {
+  float* const L = s.L;
+  float* const y = s.Y;
+  for (int k = t.nv - 1; k >= 0; --k) {
+    const DofPath pk = dof_path(s, k);
+    float* const Lk = L + pk.row;
+    const float dkk = sqrtf(jmax(Lk[pk.depth], (float)1e-9));
+    const float inv = 1.f / dkk;
+    const float inv2 = inv * inv;
+    const float x = y[k] * inv;
     EACH_LANE(g, l) {
-      for (int i = j + 1 + l; i < n; i += G) {
-        float* Li = L + i * ldm;
-        float r = Li[j];
-        ENG_UNROLL4
-        for (int k = 0; k < j; ++k) r = r - Li[k] * Lj[k];
-        Li[j] = r * inv;
+      for (int i = l; i < k; i += G) {  // lanes over dofs: k's ancestors lie below k
+        if (!on_path(pk.anc, i)) continue;
+        const int m = s.dofs[4 * i + 1];  // i's depth: H(k, i) at Lk[m]
+        float* const Li = L + dof_row(s, i);
+        const float hkm = Lk[m];
+        const float a = hkm * inv2;
+        for (int j0 = 0; j0 <= m; j0 += 4) {
+          float li[4];
+          ENG_UNROLL
+          for (int q = 0; q < 4; ++q)
+            if (j0 + q <= m) li[q] = Li[j0 + q] - a * Lk[j0 + q];
+          ENG_UNROLL
+          for (int q = 0; q < 4; ++q)
+            if (j0 + q <= m) Li[j0 + q] = li[q];
+        }
+        y[i] = y[i] - (hkm * inv) * x;
+      }
+      if (k + 1 < t.nv) {
+        const DofPath pn = dof_path(s, k + 1);
+        const float in = s.inv_diag[k + 1];
+        for (int m = l; m < pn.depth; m += G) L[pn.row + m] = L[pn.row + m] * in;
       }
     }
-    L[j * ldm + j] = djj;  // uniform: every lane stores the same bits
-    inv_diag[j] = inv;
+    Lk[pk.depth] = dkk;  // uniform: every lane stores the same bits
+    s.inv_diag[k] = inv;
+    y[k] = x;
     g.sync();
   }
 }
 
-// y = L^-1 y in place
-ENG_HD void chol_fwd(int n, const float* L, int ldm, const float* inv_diag, float* y) {
-  for (int i = 0; i < n; ++i) {
-    float s = y[i];
-    ENG_UNROLL4
-    for (int k = 0; k < i; ++k) s = s - L[i * ldm + k] * y[k];
-    y[i] = s * inv_diag[i];
+// x = L^-1 z: from the root, each entry less its ancestors' terms, x by
+// the model's dofs. One lane.
+ENG_HD void ltl_solve(const Tables& t, const Scr& s, const float* z, float* x) {
+  for (int i = 0; i < t.nv; ++i) {
+    const DofPath pi = dof_path(s, i);
+    const float* const Li = s.L + pi.row;
+    float a = z[i];
+    DofSet anc = pi.anc;
+    for (int m = 0; anc.lo | anc.hi; ++m) a = a - Li[m] * x[dof_model(s, dofs_pop_low(anc))];
+    x[pi.model] = a * s.inv_diag[i];
   }
 }
 
-// x = L^-T y
-ENG_HD void chol_back(int n, const float* L, int ldm, const float* inv_diag, const float* y,
-                      float* x) {
-  for (int i = n - 1; i >= 0; --i) {
-    float s = y[i];
-    ENG_UNROLL4
-    for (int k = i + 1; k < n; ++k) s = s - L[k * ldm + i] * x[k];
-    x[i] = s * inv_diag[i];
+// the position of dof d (depth dd) of the support in the row
+ENG_HD int path_pos(const PathRow& p, int d, int dd) { return on_path(p.bo, d) ? dd + p.na : dd; }
+
+// y = L^-T y for a right-hand side on a row's support, stored by position
+// (PathRow), in P registers: positions from the last to the first, each
+// solved entry subtracted from its ancestors' positions. Every index is a
+// constant, so the row stays in registers. A pair row (PAIR) keeps b's
+// dofs above a's path: their ancestors are the dofs of a's path that b
+// shares (positions below c) and b's own earlier ones (at depth + na).
+template <int P, bool PAIR>
+ENG_HD void path_solve_t(const Scr& s, const PathRow& p, float* y) {
+  const int n = p.n, nab = n - dofs_count(p.bo);  // |a's path|
+  const int c = nab - p.na;
+  DofSet wa = p.a, wb = p.bo;
+  float x[P];
+  ENG_UNROLL
+  for (int j = 0; j < P; ++j) x[j] = j < n ? y[j] : 0.f;
+  ENG_UNROLL
+  for (int j = P - 1; j >= 0; --j) {
+    if (j < n) {
+      const bool in_b = PAIR && j >= nab;
+      const int d = in_b ? dofs_pop_high(wb) : dofs_pop_high(wa);
+      const float xj = x[j] * s.inv_diag[d];
+      x[j] = xj;
+      const float* const Ld = s.L + dof_row(s, d);
+      ENG_UNROLL
+      for (int m = 0; m < j; ++m) {
+        if (in_b && m >= c && m < nab) continue;  // a's dofs off b's path
+        x[m] = x[m] - Ld[m >= nab ? m - p.na : m] * xj;
+      }
+    }
   }
+  ENG_UNROLL
+  for (int j = 0; j < P; ++j)
+    if (j < n) y[j] = x[j];
 }
+#endif
 
 // sum of a[d] * b[d] in dof order (the probe's operands)
 ENG_HD float dotn(int n, const float* a, const float* b) {
@@ -1248,37 +1543,81 @@ ENG_HD void group_sum2(const Group<G>& g, PerLane<float, G>& a, PerLane<float, G
 #endif
 }
 
-// The PGS sweep's dot of a constraint row with the group's vector: lane
-// products in dof order, then the butterfly.
-template <int G, int K>
-ENG_HD float lane_dot(const Group<G>& g, int n, const float* y, PerLane<LaneVec<K>, G>& z) {
-  PerLane<float, G> part;
+#ifndef ENG_TREE_BLOCKS
+// A row's entries as the PGS sweep's lanes hold them: lane l's dof of chunk
+// k meets the row's entry at the dof's position (its normal's, and a
+// contact row's two tangents'), 0 off the row's support, as the plain
+// version's dense row holds it; loaded into registers one row ahead
+// (row_regs), so that no load waits on the chain of the row before (and no
+// shuffle: each lane holds its own dofs' z).
+template <int K>
+struct LaneInt {
+  int x[K];
+};
+template <int K>
+struct RowRegs {
+  float n[K], t1[K], t2[K];
+};
+
+// Loads row p's entries (a contact row's three directions, or a limit
+// row's one: THREE; a pair row's positions: PAIR) into the lanes'
+// registers. A lane off the support loads the row's first entries, which
+// every row has, and keeps 0: no branch.
+template <int G, int K, bool THREE, bool PAIR>
+ENG_HD void row_regs(const Group<G>& g, const PathRow& p, const float* Y,
+                     PerLane<LaneInt<K>, G>& dep, PerLane<RowRegs<K>, G>& out) {
   EACH_LANE(g, l) {
-    float s = 0.f;
+    RowRegs<K>& o = out[l];
     ENG_UNROLL
     for (int k = 0; k < K; ++k) {
       const int d = l + k * G;
-      if (d < n) s = s + y[d] * z[l].x[k];
+      const bool on = on_path(p.u, d);
+      const int pos = PAIR ? path_pos(p, d, dep[l].x[k]) : dep[l].x[k];
+      const float* y = Y + p.y + (on ? pos : 0);
+      const float n = y[0];
+      o.n[k] = on ? n : 0.f;
+      if (THREE) {
+        const float t1 = y[p.n], t2 = y[2 * p.n];
+        o.t1[k] = on ? t1 : 0.f;
+        o.t2[k] = on ? t2 : 0.f;
+      }
     }
+  }
+}
+
+// The sweep's dot of a row's direction (0: normal, 1 and 2: tangents) with
+// the group's vector: lane products in chunk order, then the butterfly;
+// and of the normal with two vectors, their butterflies overlapped.
+template <int K>
+ENG_HD const float* row_dir(const RowRegs<K>& r, int dir) {
+  return dir == 1 ? r.t1 : dir == 2 ? r.t2 : r.n;
+}
+
+template <int G, int K>
+ENG_HD float path_dot(const Group<G>& g, PerLane<RowRegs<K>, G>& row, int dir,
+                      PerLane<LaneVec<K>, G>& z) {
+  PerLane<float, G> part;
+  EACH_LANE(g, l) {
+    const float* y = row_dir(row[l], dir);
+    float s = 0.f;
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) s = s + y[k] * z[l].x[k];
     part[l] = s;
   }
   return group_sum(g, part);
 }
 
-// lane_dot of one row with two vectors, their butterflies overlapped
 template <int G, int K>
-ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<K>, G>& z,
+ENG_HD void path_dot2(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
                       PerLane<LaneVec<K>, G>& zp, float& vz, float& vzp) {
   PerLane<float, G> a, b;
   EACH_LANE(g, l) {
+    const RowRegs<K>& r = row[l];
     float s = 0.f, sp = 0.f;
     ENG_UNROLL
     for (int k = 0; k < K; ++k) {
-      const int d = l + k * G;
-      if (d < n) {
-        s = s + y[d] * z[l].x[k];
-        sp = sp + y[d] * zp[l].x[k];
-      }
+      s = s + r.n[k] * z[l].x[k];
+      sp = sp + r.n[k] * zp[l].x[k];
     }
     a[l] = s;
     b[l] = sp;
@@ -1286,18 +1625,17 @@ ENG_HD void lane_dot2(const Group<G>& g, int n, const float* y, PerLane<LaneVec<
   group_sum2(g, a, b, vz, vzp);
 }
 
-// z += y * a, each lane its own dofs
+// z += y * a, each lane its own dofs (y 0 off the row's support)
 template <int G, int K>
-ENG_HD void lane_axpy(const Group<G>& g, int n, PerLane<LaneVec<K>, G>& z, const float* y,
-                      float a) {
+ENG_HD void path_axpy(const Group<G>& g, PerLane<RowRegs<K>, G>& row, int dir,
+                      PerLane<LaneVec<K>, G>& z, float a) {
   EACH_LANE(g, l) {
+    const float* y = row_dir(row[l], dir);
     ENG_UNROLL
-    for (int k = 0; k < K; ++k) {
-      const int d = l + k * G;
-      if (d < n) z[l].x[k] = z[l].x[k] + y[d] * a;
-    }
+    for (int k = 0; k < K; ++k) z[l].x[k] = z[l].x[k] + y[k] * a;
   }
 }
+#endif
 
 #ifdef ENG_TREE_BLOCKS
 // ---- the same by tree blocks (large, huge and sized classes) ----------------
@@ -1402,7 +1740,8 @@ ENG_HD bool chunk_meets(int k, int lo, int hi) {
   return k * G < hi && (k + 1) * G > lo;
 }
 
-// lane_dot, lane_dot2 and lane_axpy of a row stored over [lo, hi)
+// The sweep's dot, its dot with two vectors and its update, of a row stored
+// over [lo, hi)
 template <int G, int K>
 ENG_HD float lane_dot_rows(const Group<G>& g, int lo, int hi, const float* y,
                            PerLane<LaneVec<K>, G>& z) {
@@ -1505,54 +1844,90 @@ ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
   return v3_scale(e, t.row_rim[r]);
 }
 
-// The PGS sweeps (contacts.py · solve_scalar): Gauss-Seidel over rows; z and
-// zp (the scratch's, on entry and exit) live in the lanes' registers in K
-// chunks, the multipliers are uniform (every lane stores the same bits).
+#ifndef ENG_TREE_BLOCKS
+// One contact row's step of a sweep (contacts.py · solve_scalar), its
+// entries in the lanes' registers: the split-impulse row reads and writes
+// only zp, so its update goes first and its dot shares the normal dot's
+// butterfly; the multipliers are uniform (every lane stores the same bits).
+template <int G, int K>
+ENG_HD void contact_sweep(const Group<G>& g, const Scr& s, int r, float mu,
+                          PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
+                          PerLane<LaneVec<K>, G>& zp) {
+  float vn, vpn;
+  path_dot2(g, row, z, zp, vn, vpn);
+  float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
+  path_axpy(g, row, 0, zp, nw - s.lam_p[r]);
+  s.lam_p[r] = nw;
+  nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
+  path_axpy(g, row, 0, z, nw - s.lam_n[r]);
+  s.lam_n[r] = nw;
+  float hi = mu * nw;
+  float vt = path_dot(g, row, 1, z);
+  nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
+  path_axpy(g, row, 1, z, nw - s.lam_t1[r]);
+  s.lam_t1[r] = nw;
+  vt = path_dot(g, row, 2, z);
+  nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
+  path_axpy(g, row, 2, z, nw - s.lam_t2[r]);
+  s.lam_t2[r] = nw;
+}
+
+// Rows lo .. hi - 1 of one kind (a contact row's three directions or a
+// limit row's one: THREE; pair rows: PAIR) in a sweep. Each row's entries
+// are loaded into registers a row ahead (row_regs) from its table words,
+// read a row before that (row_raw): no instruction of a row's chain waits
+// on a load, and no load on a table read issued in the same row (a warp
+// issues in order).
+template <int G, int K, bool THREE, bool PAIR>
+ENG_HD void sweep_rows(const Tables& t, const Group<G>& g, const Scr& s, int lo, int hi,
+                       PerLane<LaneInt<K>, G>& dep, PerLane<LaneVec<K>, G>& z,
+                       PerLane<LaneVec<K>, G>& zp) {
+  if (lo >= hi) return;
+  PerLane<RowRegs<K>, G> row, next;
+  const RowRaw w0 = row_raw<PAIR>(t, lo);
+  row_regs<G, K, THREE, PAIR>(g, row_of<PAIR>(w0), s.Y, dep, row);
+  float c = w0.c;
+  RowRaw w = row_raw<PAIR>(t, lo + 1 < hi ? lo + 1 : lo);
+  for (int j = lo; j < hi; ++j) {
+    row_regs<G, K, THREE, PAIR>(g, row_of<PAIR>(w), s.Y, dep, next);
+    const float c_next = w.c;
+    w = row_raw<PAIR>(t, j + 2 < hi ? j + 2 : hi - 1);
+    if (THREE) {
+      contact_sweep(g, s, j, c, row, z, zp);
+    } else {
+      const int m = j - t.nr;
+      float vd = c * path_dot(g, row, 0, z);
+      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
+      path_axpy(g, row, 0, z, c * (nw - s.lam_l[m]));
+      s.lam_l[m] = nw;
+    }
+    row = next;
+    c = c_next;
+  }
+}
+
+// The PGS sweeps: Gauss-Seidel over the floor rows, the pair rows, then the
+// limit rows (sweep_rows), each row's dots and updates over its support;
+// z and zp (the scratch's, on entry and exit) live in the lanes' registers
+// in K chunks by dof, beside each dof's depth.
 template <int G, int K>
 ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
-  const int nv = t.nv, nr = t.nr, nl = t.nl, ld = t.sc_ld;
+  const int nv = t.nv, nr = t.nr, nfloor = nr - t.npair;
   PerLane<LaneVec<K>, G> z, zp;
+  PerLane<LaneInt<K>, G> dep;
   EACH_LANE(g, l) {
     ENG_UNROLL
     for (int k = 0; k < K; ++k) {
       const int d = l + k * G;
       z[l].x[k] = d < nv ? s.z[d] : 0.f;
       zp[l].x[k] = 0.f;
+      dep[l].x[k] = d < nv ? s.dofs[4 * d + 1] : 0;
     }
   }
   for (int it = 0; it < t.iterations; ++it) {
-    for (int r = 0; r < nr; ++r) {
-      const float* yn = s.Y + (1 + 3 * r) * ld;
-      const float* yt1 = yn + ld;
-      const float* yt2 = yn + 2 * ld;
-      // the split-impulse row reads and writes only zp, so its update
-      // goes first and its dot shares the normal dot's butterfly
-      float vn, vpn;
-      lane_dot2(g, nv, yn, z, zp, vn, vpn);
-      float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
-      lane_axpy(g, nv, zp, yn, nw - s.lam_p[r]);
-      s.lam_p[r] = nw;
-      nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
-      lane_axpy(g, nv, z, yn, nw - s.lam_n[r]);
-      s.lam_n[r] = nw;
-      float hi = t.row_mu[r] * nw;
-      float vt = lane_dot(g, nv, yt1, z);
-      nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
-      lane_axpy(g, nv, z, yt1, nw - s.lam_t1[r]);
-      s.lam_t1[r] = nw;
-      vt = lane_dot(g, nv, yt2, z);
-      nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
-      lane_axpy(g, nv, z, yt2, nw - s.lam_t2[r]);
-      s.lam_t2[r] = nw;
-    }
-    for (int m = 0; m < nl; ++m) {
-      const float* w = s.Y + (1 + 3 * nr + m) * ld;
-      const float sign = t.lim_sign[m];
-      float vd = sign * lane_dot(g, nv, w, z);
-      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
-      lane_axpy(g, nv, z, w, sign * (nw - s.lam_l[m]));
-      s.lam_l[m] = nw;
-    }
+    sweep_rows<G, K, true, false>(t, g, s, 0, nfloor, dep, z, zp);
+    sweep_rows<G, K, true, true>(t, g, s, nfloor, nr, dep, z, zp);
+    sweep_rows<G, K, false, false>(t, g, s, nr, nr + t.nl, dep, z, zp);
   }
   EACH_LANE(g, l) {
     ENG_UNROLL
@@ -1565,6 +1940,7 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   }
 }
+#endif
 
 #ifdef ENG_TREE_BLOCKS
 // pgs_sweeps over each row's support (the tree classes)
@@ -1627,27 +2003,72 @@ ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
 }
 #endif
 
+#ifndef ENG_TREE_BLOCKS
+// Contact row r's J^T (contacts.py · scalar_jacobians) into its rows of Y,
+// by position over its support (PathRow): body a's path's dofs in order,
+// then b's own; a dof's weight +1 on body a's root path only, -1 on body
+// b's only (pair rows), 0 on both. One lane a row.
+ENG_HD void jacobian_row(const Tables& t, const Scr& s, int r) {
+  const int nfloor = t.nr - t.npair;
+  const PathRow p = row_path(t, r);
+  DofSet plus = p.u, minus = {0u, 0u};
+  V3 dirs[3];
+  if (r < nfloor) {
+    dirs[0] = v3_load(t.row_n + 3 * r);
+    dirs[1] = v3_load(t.row_t1 + 3 * r);
+    dirs[2] = v3_load(t.row_t2 + 3 * r);
+  } else {
+    const int k = r - nfloor;
+    const DofSet mb = anc_path(t, t.pair_b[k]);
+    plus = dofs_and_not(p.a, mb);
+    minus = p.bo;
+    for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
+  }
+  const V3 Pr = s.P[r];
+  float* const yr = s.Y + p.y;
+  DofSet w = p.a;
+  for (int j = 0; j < p.n; ++j) {
+    const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
+    if (on_path(plus, d) || on_path(minus, d)) {
+      const SV& S = s.fk.S[dof_model(s, d)];
+      const V3 vel = v3_add(S.lin, v3_cross(S.ang, Pr));
+      for (int k = 0; k < 3; ++k) {
+        const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
+        yr[k * p.n + j] = on_path(minus, d) ? -jd : jd;
+      }
+    } else {
+      for (int k = 0; k < 3; ++k) yr[k * p.n + j] = 0.f;
+    }
+  }
+}
+#endif
+
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
 // Advances the scratch's q, v in place and writes the contact depths of this
 // substep. Every lane of the group calls it; it ends synchronised.
 template <int G>
 ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
-  const int nv = t.nv, nr = t.nr, nl = t.nl, ld = t.sc_ld, ldm = t.sc_ldm;
-#ifdef ENG_TREE_BLOCKS
-  (void)ld, (void)ldm;  // L and Y are addressed by the tree tables
-#endif
+  const int nv = t.nv, nr = t.nr, nl = t.nl;
   const int nfloor = nr - t.npair;
   const FK& fk = s.fk;
-  float* const ydyn = s.Y;  // the dynamics right-hand side, then L^-1 of it
+  // the dynamics right-hand side, then L^-1 of it (the default class: L^-T)
+  float* const ydyn = s.Y;
 
   // FK, RNE and the composite inertias recurse over the bodies: one lane
   if (g.leader()) {
     forward_kinematics(t, s.q, s.v, fk, s.inert);
+#ifdef ENG_TREE_BLOCKS
     bias_forces(t, fk, s.inert, s.avp, s.f, ydyn);
+#else
+    bias_forces(t, fk, s.inert, s.avp, s.f, s.z);  // by the model's dofs
+#endif
     composite_inertias(t, s.inert);
   }
   g.sync();
+#ifndef ENG_TREE_BLOCKS
+  if (t.stop_after == 1) return;
+#endif
   EACH_LANE(g, l) {
     for (int d = l; d < nv; d += G) {
       // passive forces (dynamics.py · passive_forces); pack_tables zeroes
@@ -1656,11 +2077,12 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * s.v[d];
       if (t.neg_stiffness[d] != 0.f)
         tp = tp + t.neg_stiffness[d] * (s.q[t.dof_qadr[d]] - t.springref[d]);
-      ydyn[d] = (s.tau[d] + tp) - ydyn[d];
 #ifdef ENG_TREE_BLOCKS
+      ydyn[d] = (s.tau[d] + tp) - ydyn[d];
       mass_matrix_row(t, fk, s.inert, d, s.L + t.l_row[d]);
 #else
-      mass_matrix_row(t, fk, s.inert, d, s.L + d * ldm);
+      ydyn[t.dof_perm[d]] = (s.tau[d] + tp) - s.z[d];  // by the factor's dofs
+      mass_matrix_row(t, s, d);
 #endif
     }
     // narrowphase (contacts.py · narrowphase_scalar): point and disk
@@ -1680,15 +2102,19 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
 #ifdef ENG_TREE_BLOCKS
   cholesky_blocks(t, g, s.L, s.inv_diag);
 #else
-  cholesky(g, nv, s.L, ldm, s.inv_diag);
+  if (t.stop_after == 2) return;
+  ltl_factor(t, g, s);  // and ydyn to L^-T ydyn
+  if (t.stop_after == 3) return;
 #endif
 
   const bool rows = nr > 0 || nl > 0;
   if (rows) {
     // constraint rows J^T (contacts.py · scalar_jacobians, step.py) into
-    // Y's rows 1 .. 3 nr, lanes over dofs: 3 directions per contact row. A
-    // dof's weight is +1 on body a's root path only, -1 on body b's only
-    // (pair rows), 0 on both or neither. Then one unit vector per limit.
+    // Y's rows after the dynamics', lanes over dofs (the default class:
+    // over rows): 3 directions per contact row. A dof's weight is +1 on
+    // body a's root path only, -1 on body b's only (pair rows), 0 on both
+    // or neither. Then one unit vector per limit.
+#ifdef ENG_TREE_BLOCKS
     for (int r = 0; r < nr; ++r) {
       DofSet plus, minus = {0u, 0u};
       V3 dirs[3];
@@ -1717,7 +2143,6 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
 #endif
       const V3 Pr = s.P[r];
-#ifdef ENG_TREE_BLOCKS
       // over the row's support, stored from its first dof
       const int lo = t.row_lo[r], hi = t.row_hi[r], len = hi - lo;
       float* const yr = s.Y + t.row_y[r];
@@ -1734,23 +2159,13 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
           }
         }
       }
-#else
-      float* const yr = s.Y + (1 + 3 * r) * ld;
-      EACH_LANE(g, l) {
-        for (int d = l; d < nv; d += G) {
-          if (on_path(either, d)) {
-            const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
-            for (int k = 0; k < 3; ++k) {
-              const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
-              yr[k * ld + d] = on_path(minus, d) ? -jd : jd;
-            }
-          } else {
-            for (int k = 0; k < 3; ++k) yr[k * ld + d] = 0.f;
-          }
-        }
-      }
-#endif
     }
+#else
+    // lanes over rows, each over its support (jacobian_row)
+    EACH_LANE(g, l) {
+      for (int r = l; r < nr; r += G) jacobian_row(t, s, r);
+    }
+#endif
 #ifdef ENG_TREE_BLOCKS
     // a limit row over its support, lanes over rows
     EACH_LANE(g, l) {
@@ -1761,30 +2176,49 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       }
     }
 #else
-    float* const ylim = s.Y + (1 + 3 * nr) * ld;
+    // a limit row over its dof's chain (its dof last), lanes over rows
     EACH_LANE(g, l) {
-      for (int d = l; d < nv; d += G)
-        for (int m = 0; m < nl; ++m) ylim[m * ld + d] = d == t.lim_dof[m] ? 1.f : 0.f;
+      for (int m = l; m < nl; m += G) {
+        const PathRow p = row_path(t, nr + m);
+        float* const w = s.Y + p.y;
+        for (int j = 0; j < p.n; ++j) w[j] = j == p.n - 1 ? 1.f : 0.f;
+      }
     }
 #endif
     g.sync();
   }
   // the forward solves, one lane a right-hand side: L^-1 rhs, then y = L^-1 J^T
+  // (the default class: y = L^-T J^T over each row's support; L^-T rhs came
+  // with the factorization)
+#ifdef ENG_TREE_BLOCKS
   const int nrhs = rows ? 1 + 3 * nr + nl : 1;
   EACH_LANE(g, l) {
-#ifdef ENG_TREE_BLOCKS
     for (int j = l; j < nrhs; j += G) {
       const Rhs h = rhs_row(t, s, j);
       chol_fwd_rows(t, s.L, s.inv_diag, h.lo, h.hi, h.y);
     }
-#else
-    for (int j = l; j < nrhs; j += G) chol_fwd(nv, s.L, ldm, s.inv_diag, s.Y + j * ld);
-#endif
   }
   g.sync();
+#else
+  if (rows) {
+    EACH_LANE(g, l) {
+      for (int j = l; j < 3 * nr + nl; j += G) {
+        const int r = j < 3 * nr ? j / 3 : j - 2 * nr;  // a contact row's direction, or a limit row
+        const PathRow p = row_path(t, r);
+        float* const y = s.Y + p.y + (j < 3 * nr ? (j - 3 * r) * p.n : 0);
+        if (r < nfloor || r >= nr)
+          path_solve_t<path_regs<G>(), false>(s, p, y);
+        else
+          path_solve_t<path_regs<G>(), true>(s, p, y);
+      }
+    }
+    g.sync();
+  }
+#endif
 
   if (rows) {
     // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
+    // (the default class: z = L v + dt L^-T rhs)
     EACH_LANE(g, l) {
       for (int i = l; i < nv; i += G) {
 #ifdef ENG_TREE_BLOCKS
@@ -1794,9 +2228,12 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         ENG_UNROLL4
         for (int k = i + 1; k < t.dof_hi[i]; ++k) a = a + Lki[(k - i) * ldb] * s.v[k];
 #else
-        float a = s.L[i * ldm + i] * s.v[i];
-        ENG_UNROLL4
-        for (int k = i + 1; k < nv; ++k) a = a + s.L[k * ldm + i] * s.v[k];
+        const DofPath pi = dof_path(s, i);
+        const float* const Li = s.L + pi.row;
+        DofSet anc = pi.anc;
+        float a = 0.f;
+        for (int m = 0; anc.lo | anc.hi; ++m) a = a + Li[m] * s.v[dof_model(s, dofs_pop_low(anc))];
+        a = a + Li[pi.depth] * s.v[pi.model];
 #endif
         s.z[i] = a + t.dt * ydyn[i];
       }
@@ -1814,10 +2251,11 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
           s.dinv[3 * r + k] = 1.f / (dotn(len, yk, yk) + t.reg);
         }
 #else
-        const float* yn = s.Y + (1 + 3 * r) * ld;
+        const PathRow p = row_path(t, r);
+        const float* yn = s.Y + p.y;
         for (int k = 0; k < 3; ++k) {
-          const float* yk = yn + k * ld;
-          s.dinv[3 * r + k] = 1.f / (dotn(nv, yk, yk) + t.reg);
+          const float* yk = yn + k * p.n;
+          s.dinv[3 * r + k] = 1.f / (dotn(p.n, yk, yk) + t.reg);
         }
 #endif
         const float dep = s.depth[r];
@@ -1827,7 +2265,13 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
 #ifdef ENG_TREE_BLOCKS
           float vn_pre = dotn(len, yn, s.z + lo);
 #else
-          float vn_pre = dotn(nv, yn, s.z);
+          // over the support by position
+          float vn_pre = 0.f;
+          DofSet w = p.a;
+          for (int j = 0; j < p.n; ++j) {
+            const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
+            vn_pre = vn_pre + mm_operand(yn[j]) * mm_operand(s.z[d]);
+          }
 #endif
           float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
           bool touching = dep >= vn_pre * t.dt;
@@ -1842,8 +2286,9 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         const float* w = s.Y + t.lim_y[m];
         s.dinv_l[m] = 1.f / (dotn(len, w, w) + t.reg);
 #else
-        const float* w = s.Y + (1 + 3 * nr + m) * ld;
-        s.dinv_l[m] = 1.f / (dotn(nv, w, w) + t.reg);
+        const PathRow p = row_path(t, nr + m);
+        const float* w = s.Y + p.y;
+        s.dinv_l[m] = 1.f / (dotn(p.n, w, w) + t.reg);
 #endif
         float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
         s.b_l[m] = t.limit_erp_over_dt * viol;
@@ -1873,13 +2318,13 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     else
       pgs_sweeps<G, 1>(t, g, s);
     g.sync();
-    // the two back substitutions, one lane each
+    // v = L^-1 z and vp = L^-1 zp, one lane each
     EACH_LANE(g, l) {
-      if (l == 0) chol_back(nv, s.L, ldm, s.inv_diag, s.z, s.v3o);
-      if (l == (G > 1 ? 1 : 0)) chol_back(nv, s.L, ldm, s.inv_diag, s.zp, s.vp);
+      if (l == 0) ltl_solve(t, s, s.z, s.v3o);
+      if (l == (G > 1 ? 1 : 0)) ltl_solve(t, s, s.zp, s.vp);
     }
   } else if (g.leader()) {
-    chol_back(nv, s.L, ldm, s.inv_diag, ydyn, s.v3o);  // qdd
+    ltl_solve(t, s, ydyn, s.v3o);  // qdd
 #endif
     for (int d = 0; d < nv; ++d) {
       s.v3o[d] = s.v[d] + t.dt * s.v3o[d];
@@ -2499,6 +2944,9 @@ ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, in
     }
     for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
+#ifndef ENG_TREE_BLOCKS
+  dofs_fill(t, g, s);
+#endif
   g.sync();
   for (int st = 0; st < t.frame_skip; ++st) substep(t, g, s);
   EACH_LANE(g, l) {
@@ -2530,6 +2978,9 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
     for (int k = l; k < t.act; k += G) s.act[k] = jclip(io.act[k * B + i], -1.f, 1.f);
     for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
+#ifndef ENG_TREE_BLOCKS
+  dofs_fill(t, g, s);
+#endif
   g.sync();
   if (g.leader()) {
     // auto-reset [ref: env_bases.py · BaseBulletEnv.reset], then the
@@ -2601,6 +3052,7 @@ inline int tables_layout(int32_t* out, int cap) {
 #define ENG_OFF_A(T, name, k) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
   ENG_TABLE_FIELDS(ENG_OFF_S, ENG_OFF_A)
   ENG_TREE_FIELDS(ENG_OFF_S, ENG_OFF_A)
+  ENG_PATH_FIELDS(ENG_OFF_S, ENG_OFF_A)
 #undef ENG_OFF_S
 #undef ENG_OFF_A
   return n;

@@ -23,6 +23,17 @@ void physics(const eng::Tables& t, const float* q, const float* v, const float* 
     eng::physics_step_one<G>(t, g, scratch.data(), i, B, q, v, tau, q_out, v_out, d_out);
 }
 
+// Env i's physics step alone, its scratch copied out (tests only: L, M and
+// the forward-solved rows as the step leaves them; with the tables'
+// stop_after, as a substep leaves them when it stops).
+template <int G>
+void physics_scratch(const eng::Tables& t, const float* q, const float* v, const float* tau,
+                     int i, int B, float* out) {
+  std::vector<float> q_out(t.nq * B), v_out(t.nv * B), d_out(t.nr * B + 1);
+  const eng::Group<G> g = {0, 0u};
+  eng::physics_step_one<G>(t, g, out, i, B, q, v, tau, q_out.data(), v_out.data(), d_out.data());
+}
+
 template <int G>
 void env(const eng::Tables& t, const eng::EnvIO& io, int B) {
   std::vector<float> scratch(t.sc_stride);
@@ -50,6 +61,12 @@ struct Physics {
 };
 
 template <int G>
+struct Scratch {
+  template <class... A>
+  static void run(A&&... a) { physics_scratch<G>(a...); }
+};
+
+template <int G>
 struct Env {
   template <class... A>
   static void run(A&&... a) { env<G>(a...); }
@@ -68,6 +85,13 @@ int host_physics_step(const void* tables, const float* q, const float* v, const 
                       float* q_out, float* v_out, float* d_out, int B) {
   const eng::Tables& t = *(const eng::Tables*)tables;
   return by_lanes<Physics>(t.lanes, t, q, v, tau, q_out, v_out, d_out, B);
+}
+
+// `out`: tables.sc_stride floats
+int host_physics_scratch(const void* tables, const float* q, const float* v, const float* tau,
+                         int i, int B, float* out) {
+  const eng::Tables& t = *(const eng::Tables*)tables;
+  return by_lanes<Scratch>(t.lanes, t, q, v, tau, i, B, out);
 }
 
 int host_env_step(const void* tables, const float* q, const float* v, const float* act,

@@ -3,9 +3,9 @@
 Counterpart of the JAX package's `ops/pallas_engine.py`:
 
 * `make_cuda_physics_step(model, cfg)` replaces `make_pallas_physics_step`:
-  frame_skip substeps of FK -> RNE/CRBA -> Cholesky -> narrowphase ->
-  square-root-space PGS -> semi-implicit Euler, a group of G lanes of one
-  warp per env.
+  frame_skip substeps of FK -> RNE/CRBA -> factorization of M ->
+  narrowphase -> square-root-space PGS -> semi-implicit Euler, a group of G
+  lanes of one warp per env.
 * `make_cuda_env_step(task)` replaces `make_pallas_env_step`: the whole env
   step (auto-reset with Threefry draws, the pre-physics hook, torques,
   substeps, obs/reward/termination, NaN guard, step count, truncation) in
@@ -19,7 +19,9 @@ and their `extern "C"` launchers). `pack_tables` flattens the frozen
 `Model`, the contact and limit plans and the task constants into one
 fixed-size `Tables` struct, whose layout is parsed from the header; it
 picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
-scratch in shared memory from the model's sizes (`scratch_layout`).
+scratch in shared memory from the model's sizes (`scratch_layout`): in the
+default class M = L^T L over the dof tree's root paths, L by ancestor rows
+and each constraint row over its support (`_path_storage`).
 
 The tables come in four size classes (`tables_type`, `tables_class`):
 the default, a `__grid_constant__` kernel parameter; the large class for
@@ -171,9 +173,11 @@ def _tables_type(size: int, sized: Optional[Tuple[int, ...]]):
         caps.update({"MAX_" + k: n for k, n in zip(SIZED_CAPS, sized)})
         caps["MASK_WORDS"] = _sized_mask_words(sized)
     block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("// The tree blocks")]
-    if size != DEFAULT:  # ENG_TREE_FIELDS: the tree classes' ranges and offsets
-        tree = src.index("#define ENG_TREE_FIELDS(S, A)")
-        block += src[tree:src.index("#else", tree)]
+    # ENG_TREE_FIELDS: the tree classes' ranges and offsets; ENG_PATH_FIELDS:
+    # the default class's root paths
+    at = src.index("#define ENG_TREE_FIELDS(S, A)" if size != DEFAULT else
+                   "#define ENG_PATH_FIELDS(S, A)")
+    block += src[at:src.index("#else", at)]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
         kind, ctype, name, count = m.groups()
@@ -280,20 +284,28 @@ def _composite_masses(model: Model):
     return [_f32(v) for _, v in vals]
 
 
-def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0, outside_y_bytes=0) -> int:
+def _pick_caps(nb, nq, nv, nr, npair, nl, act=0, scratch_bytes=0, outside_y_bytes=0,
+               path_bytes=None, longest=0) -> int:
     """The size class of these sizes: 0 (walker-sized) when they fit the
     WALKER_ caps and there are no pair rows, 1 within the default tables'
     caps, CAPS_BIG within the large class's, CAPS_HUGE within the huge
     class's; and CAPS_HUGE for any sizes whose one-env scratch
-    (`scratch_bytes`, all of it) outgrows a block's MAX_SHARED_BYTES. Above
-    the huge caps, or where the scratch outside Y (`outside_y_bytes`) too
-    outgrows a block's shared memory, CAPS_SIZED: a class whose caps are the
-    sizes' own (`sized_caps`)."""
+    (`scratch_bytes`, all of it, L and Y dense) outgrows a block's
+    MAX_SHARED_BYTES. Above the huge caps, or where the scratch outside Y
+    (`outside_y_bytes`) too outgrows a block's shared memory, CAPS_SIZED: a
+    class whose caps are the sizes' own (`sized_caps`). The default class
+    stores L and Y by root paths: it takes the sizes where that scratch
+    (`path_bytes`, `scratch_bytes` if not given) fits a block and no row's
+    support, and no dof's chain of ancestors, has more than PATH_CAP dofs
+    (`longest`): the factorization and the forward solves keep them in
+    registers."""
     sizes = {"BODIES": nb, "NQ": nq, "NV": nv, "ROWS": nr, "PAIRS": npair, "LIMITS": nl,
              "ACT": act}
     fits = scratch_bytes <= MAX_SHARED_BYTES
     _, caps = tables_type()
-    if fits and all(n <= caps["MAX_" + k] for k, n in sizes.items()):
+    fits_paths = (scratch_bytes if path_bytes is None else path_bytes) <= MAX_SHARED_BYTES
+    if (fits_paths and longest <= caps["PATH_CAP"]
+            and all(n <= caps["MAX_" + k] for k, n in sizes.items())):
         walker = all(n <= caps["WALKER_" + k] for k, n in sizes.items() if k != "PAIRS")
         return 0 if walker and npair == 0 else 1
     _, big = tables_type(LARGE)
@@ -323,12 +335,23 @@ def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_
     scratch of a kernel with `act` actions, `naux` aux slots and `obs_dim`
     observations; `plans`: the model's `_plans`, if at hand). Every model has
     one: past the huge class it is CAPS_SIZED."""
-    _, pairs, rows, _, nl = plans or _plans(model, cfg)
+    plans = plans or _plans(model, cfg)
+    floor, pairs, rows, lim, nl = plans
     nb, nr = len(model.bodies), len(rows)
-    shared, y = _scratch_sizes(nb, model.nq, model.nv, nr, len(pairs), nl, act, naux, obs_dim)
+    sizes = (nb, model.nq, model.nv, nr, len(pairs), nl, act, naux, obs_dim)
+    shared, y = _scratch_sizes(*sizes)
     outside = sum(shared.values()) | 1
     whole = (outside + y["Y"]) | 1
-    return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole, 4 * outside)
+    mask = [sum(1 << d for d in dofs) for dofs in model.ancestor_dofs]
+    dof_body = [i for i, dofs in enumerate(model.body_dofs) for _ in dofs]
+    row_masks = [(mask[c.body], 0) for c in sc_rows((floor, []))]
+    row_masks += [(mask[c.body_a], mask[c.body_b]) for c in pairs]
+    lim_dofs = [] if lim is None else [int(d) for d in lim.dof]
+    depth, _, l_floats, row_n, lim_n = _path_sizes(model.nv, mask, dof_body, row_masks, lim_dofs)
+    shared, y = _scratch_sizes(*sizes, l_floats, _path_y(model.nv, row_n, lim_n)[2], dofs=True)
+    paths = (sum(shared.values()) + y["Y"]) | 1
+    return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole, 4 * outside,
+                      4 * paths, max(row_n + lim_n + [k + 1 for k in depth], default=0))
 
 
 # The group widths G that the CUDA libraries (one each) and the host twin
@@ -378,13 +401,16 @@ Y_ALIGN = 32
 
 
 def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats=None,
-                   y_rows=None):
+                   y_rows=None, dofs=False):
     """The floats of each array of one env's scratch, as two dicts: those
     that live in shared memory in every class, and {"Y": floats} (the
     forward-solved rows and, in their rows 1.., inert, avp, f and obs). L
     and Y's rows dense (nv rows of nv | 1 floats, 1 + 3 nr + nl rows of nv |
     1), unless `l_floats` and `y_rows` (the tree classes' storage by blocks
-    and supports, `_tree_storage`) say otherwise."""
+    and supports, `_tree_storage`, or the default class's by root paths,
+    `_path_storage`) say otherwise. `dofs`: the default class's dof records
+    (engine_core.h · dofs_fill: four words a dof); none in the other
+    classes."""
     ld = nv | 1
     rows_y = (1 + 3 * nr + nl) * ld if y_rows is None else y_rows
     shared = {
@@ -396,6 +422,7 @@ def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats
         "z": nv, "zp": nv, "v3o": nv, "vp": nv, "Y": 0,
         "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
         "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
+        "dofs": 4 * nv if dofs else 0,
     }
     alias = sum(n * nb for _, n in _Y_ALIAS)
     return shared, {"Y": max(rows_y, ld + alias, ld + obs_dim)}
@@ -499,13 +526,92 @@ def _tree_storage(t) -> Tuple[int, int]:
     return off, y
 
 
+def _path_sizes(nv, body_masks, dof_body, row_masks, lim_dofs):
+    """The default class's storage by root paths (engine_core.h ·
+    ENG_PATH_FIELDS) from each body's root-path mask (bit d: dof d), each
+    dof's body, each contact row's bodies' masks (a, b; b 0 for a floor
+    row) and each limit row's dof: (each dof's depth, the offset of each
+    dof's ancestor row in L, L's floats, each contact row's support size,
+    each limit row's)."""
+    depth = [bin(body_masks[dof_body[d]] & ((1 << d) - 1)).count("1") for d in range(nv)]
+    rows = [0]
+    for d in range(nv):
+        rows.append(rows[-1] + depth[d] + 1)
+    return (depth, rows[:nv], rows[nv], [bin(a | b).count("1") for a, b in row_masks],
+            [depth[d] + 1 for d in lim_dofs])
+
+
+def _path_y(nv, row_n, lim_n):
+    """Y's rows by root paths: (each contact row's offset, each limit row's
+    and, last, the floats of Y's rows): the dynamics' dense row of nv | 1
+    floats, each contact row's three directions over its support, then each
+    limit row over its dof's chain."""
+    y = nv | 1
+    row_y = []
+    for n in row_n:
+        row_y.append(y)
+        y += 3 * n
+    lim_y = []
+    for n in lim_n:
+        lim_y.append(y)
+        y += n
+    return row_y, lim_y, y
+
+
+def _path_storage(t) -> Tuple[int, int]:
+    """Set the default class's root paths (engine_core.h · ENG_PATH_FIELDS)
+    from the tables' root-path masks, and lay out L by ancestor rows and Y's
+    rows over their supports: t.dof_perm (the factor's order of the dofs: a
+    free joint's linear ones before its angular ones), t.dof_depth,
+    t.anc_row and t.dof_anc (each dof's ancestors), t.path_u and t.path_y (each contact row's support,
+    then each limit row's: its dof's chain; each row's Y offset), t.pair_pa
+    and t.pair_na (a pair row's body a's path and its dofs off body b's).
+    Returns (L's floats, the floats of Y's rows). A row past the tables'
+    arrays (tables edited beyond their caps) has no support to read and
+    counts as dense (nv dofs)."""
+    nv, nfloor, caps = t.nv, t.nr - t.npair, len(t.row_body)
+    masks = [root_path(t, i) for i in range(t.nb)]
+    row_masks = [(masks[t.row_body[r]], 0) if r < nfloor else
+                 (masks[t.pair_a[r - nfloor]], masks[t.pair_b[r - nfloor]])
+                 for r in range(min(t.nr, caps))]
+    lims = [t.lim_dof[m] for m in range(min(t.nl, len(t.lim_dof)))]
+    depth, rows, l_floats, row_n, lim_n = _path_sizes(nv, masks, list(t.dof_body), row_masks, lims)
+    row_n += [nv] * (t.nr - len(row_masks))
+    lim_n += [nv] * (t.nl - len(lims))
+    row_y, lim_y, y = _path_y(nv, row_n, lim_n)
+    for d in range(nv):
+        anc = masks[t.dof_body[d]] & ((1 << d) - 1)
+        t.dof_perm[d] = d
+        t.dof_depth[d], t.anc_row[d] = depth[d], rows[d]
+        t.dof_anc[2 * d], t.dof_anc[2 * d + 1] = anc & 0xFFFFFFFF, anc >> 32
+    for i in range(t.nb):  # a free joint's linear dofs before its angular ones
+        if t.jtype[i] == int(JointType.FREE):
+            a = t.v_adr[i]
+            for k in range(3):
+                t.dof_perm[a + k], t.dof_perm[a + 3 + k] = a + 3 + k, a + k
+    chains = [masks[t.dof_body[d]] & ((2 << d) - 1) for d in lims]
+    rows = [(r, a | b, row_y[r]) for r, (a, b) in enumerate(row_masks)]
+    rows += [(t.nr + m, u, lim_y[m]) for m, u in enumerate(chains)]
+    for j, u, off in rows:
+        if j < len(t.path_y):
+            t.path_u[2 * j], t.path_u[2 * j + 1] = u & 0xFFFFFFFF, u >> 32
+            t.path_y[j] = off
+    for r in range(nfloor, len(row_masks)):
+        a, b = row_masks[r]
+        k = r - nfloor
+        t.pair_pa[2 * k], t.pair_pa[2 * k + 1] = a & 0xFFFFFFFF, a >> 32
+        t.pair_na[k] = bin(a & ~b).count("1")
+    return l_floats, y
+
+
 def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     """Lay out one env's scratch for the tables `t` from the model's sizes:
     sets t.sc (each array's float offset), t.sc_stride (odd, so that the
-    envs of a warp start in different banks), t.sc_ld and t.sc_ldm (the
-    row strides of Y and of M/L: nv made odd, so that lanes on different
-    rows hit different banks). inert, avp, f and obs live inside Y's rows
-    1.., which are dead whenever those are live. In the large, huge and
+    envs of a warp start in different banks), t.sc_ld and t.sc_ldm (nv made
+    odd: Y's dynamics row). inert, avp, f and obs live inside Y's rows
+    after the dynamics', which are dead whenever those are live. The default
+    class stores L by ancestor rows and Y's rows over their supports
+    (`_path_storage`, engine_core.h · ENG_PATH_FIELDS). In the large, huge and
     sized classes L is stored by the tables' tree blocks and Y's rows over
     their supports (`_tree_storage`), and the whole scratch is laid out for
     the env's slice of the device buffer in global memory: t.sc_stride a
@@ -519,9 +625,9 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     nv, ld = t.nv, t.nv | 1
     size = tables_class(t)
     tree = size != DEFAULT
-    l_floats, y_rows = _tree_storage(t) if tree else (None, None)
+    l_floats, y_rows = _tree_storage(t) if tree else _path_storage(t)
     shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim,
-                               l_floats, y_rows)
+                               l_floats, y_rows, dofs=not tree)
     sizes = dict(shared, **y)
     slots = scratch_slots()
     if set(slots) != set(sizes):
@@ -1496,17 +1602,41 @@ def _tree_solve_flops(t, lo: int, hi: int) -> int:
     return sum(2 * (i - max(lo, t.dof_lo[i])) + 1 for i in range(lo, hi))
 
 
-def substep_flops(t) -> int:
+def _path_flops(t) -> Tuple[int, int, int, int, list, list, list, int]:
+    """The default class's loops over root paths (engine_core.h · ltl_factor,
+    ltl_solve, z's loop, path_solve_t): (factorization, the dynamics' L^-T
+    solve that rides on it, a back substitution L^-1 z, z = L v + dt y, each
+    contact row's support size, each row's forward solve, each limit row's
+    support size, the limit rows' solves). A solved entry at depth k costs
+    one product and k products and sums (the dynamics' k more products:
+    L(k, i) from H(k, i))."""
+    nv, nfloor = t.nv, t.nr - t.npair
+    depth = [t.dof_depth[d] for d in range(nv)]
+    fact = sum(3 + sum(1 + 2 * (m + 1) for m in range(k)) + k for k in depth)
+    solve = sum(1 + 3 * k for k in depth)
+    z_flops = sum(2 * (k + 1) + 2 for k in depth)
+    masks = [root_path(t, t.row_body[r]) for r in range(nfloor)]
+    masks += [root_path(t, t.pair_a[k]) | root_path(t, t.pair_b[k]) for k in range(t.npair)]
+    rows_len = [bin(m).count("1") for m in masks]
+    rows_solve = [sum(1 + 2 * depth[d] for d in range(nv) if m >> d & 1) for m in masks]
+    lim_len = [depth[t.lim_dof[m]] + 1 for m in range(t.nl)]
+    return fact, solve, solve, z_flops, rows_len, rows_solve, lim_len, sum(n * n for n in lim_len)
+
+
+def substep_flops(t, dense: bool = False) -> int:
     """Float operations of one `substep` of engine_core.h for the tables
-    `t`, counted from its loop bounds: dense over the dofs in the default
-    class, within the tree blocks and the rows' supports in the large, huge
-    and sized ones (`tree_blocks`; a pair row of two trees over the range
-    that covers both)."""
+    `t`, counted from its loop bounds: over the dof tree's root paths in the
+    default class (`_path_flops`; `dense`: the dense Cholesky and rows over
+    every dof that the class ran before), within the tree blocks and the
+    rows' supports in the large, huge and sized ones (`tree_blocks`; a pair
+    row of two trees over the range that covers both)."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
     tree = hasattr(t, "dof_lo")
     fact, solve = _chol_flops(nv)
     back = z_flops = solve
-    if tree:
+    if not tree and not dense:
+        fact, solve, back, z_flops, rows_len, rows_solve, lim_len, lim_solve = _path_flops(t)
+    elif tree:
         fact, back, z_flops = _tree_chol_flops(t)
         solve = _tree_solve_flops(t, 0, nv)  # the dynamics' right-hand side
         rows_len = [t.row_hi[r] - t.row_lo[r] for r in range(nr)]
@@ -1548,13 +1678,14 @@ def substep_flops(t) -> int:
     return n
 
 
-def work_per_env_step(t, env_step: bool = True) -> Tuple[int, int]:
+def work_per_env_step(t, env_step: bool = True, dense: bool = False) -> Tuple[int, int]:
     """(float operations, bytes) that one env of one launch needs, for the
-    tables `t`: `env_step_kernel`, or `physics_step_kernel`. Work that
+    tables `t`: `env_step_kernel`, or `physics_step_kernel` (`dense`: the
+    default class's count before its root paths, `substep_flops`). Work that
     depends on the data is not counted: auto-reset draws, a new flag, a cube
     throw. Bytes count each input read once and each output written once;
     the tables once per launch are left to the caller."""
-    n = t.frame_skip * substep_flops(t)
+    n = t.frame_skip * substep_flops(t, dense)
     f32 = 4
     if not env_step:
         return n, f32 * (2 * t.nq + 2 * t.nv + t.nv + t.nr)
@@ -1621,6 +1752,8 @@ def _host_library(bf16_probe: bool, size: int, caps: Optional[Tuple[int, ...]] =
     lib.host_physics_step.restype = ctypes.c_int
     lib.host_env_step.argtypes = _ENV_ARGS
     lib.host_env_step.restype = ctypes.c_int
+    lib.host_physics_scratch.argtypes = [_P] * 4 + [ctypes.c_int] * 2 + [_P]
+    lib.host_physics_scratch.restype = ctypes.c_int
     return lib
 
 
@@ -1649,6 +1782,20 @@ class HostTwin:
                                                  *_ptrs([q, v, tau] + outs), B)
         _launch_checked(rc, "host physics step")
         return tuple(outs)
+
+    def physics_scratch(self, tables, q, v, tau, env: int = 0) -> np.ndarray:
+        """Env `env`'s scratch after its physics step (`tables.sc_stride`
+        floats, laid out by `scratch_layout`): L, the forward-solved rows
+        and the rest as the step leaves them (or, with `tables.stop_after`,
+        as a substep leaves them where it stops)."""
+        out = np.zeros(tables.sc_stride, np.float32)
+        for x, name in ((q, "q"), (v, "v"), (tau, "tau")):
+            _check(x, name, torch.float32, x.shape, torch.device("cpu"))
+        rc = self._lib(tables).host_physics_scratch(
+            ctypes.addressof(tables), *_ptrs([q, v, tau]), env, q.shape[-1],
+            out.ctypes.data_as(_P))
+        _launch_checked(rc, "host physics scratch")
+        return out
 
     def env_step(self, tables, task, state, action):
         ins, outs = _env_tensors(task, tables, state, action)

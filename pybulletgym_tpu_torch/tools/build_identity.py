@@ -1,4 +1,4 @@
-"""Whether two checkouts build the same CUDA libraries of the default, large and huge classes.
+"""Whether two checkouts build the same CUDA libraries of the default, large, huge and sized classes.
 
     python3 pybulletgym_tpu_torch/tools/build_identity.py ROOT_A ROOT_B
         [--tasks HalfCheetahPyBulletEnv-v0,HumanoidPyBulletEnv-v0]
@@ -6,7 +6,9 @@
 For each root, a fresh process (PYTHONPATH=ROOT) builds engine.cu's
 libraries of the default and the large class (`cuda_engine.
 load_cuda_library(False)` and `(True)`, one per group width G; the huge
-class's too where the root has it), for each listed env ID task_step.cu
+class's too where the root has it, and the sized class's at the
+ten-Humanoid scene's caps where the root has that scene), for each listed
+env ID task_step.cu
 with that task's hooks translated (`ops.task_kernel.CudaTaskStep`, its
 shipped class taken as a user's task), task_step.cu's large build with the
 two-Humanoid scene's task and its huge build with the four-Humanoid scene's
@@ -68,16 +70,20 @@ def report(label, lib, text):
     print(json.dumps({"root": root, "lib": label, "ptxas": ptxas(text), "sass_sha256": digest,
                       "sass_lines": n}), flush=True)
 
-# the classes by the argument both roots' load_cuda_library take
-classes = [("engine", False), ("engine_large", True)] + (
-    [("engine_huge", ce.HUGE)] if hasattr(ce, "HUGE") else [])
-for kind, size in classes:
-    libs, log = ce.load_cuda_library(size)
+sys.path.insert(0, root)
+import chip_smoke as cs
+# the classes by the arguments both roots' load_cuda_library take
+classes = [("engine", (False,)), ("engine_large", (True,))] + (
+    [("engine_huge", (ce.HUGE,))] if hasattr(ce, "HUGE") else [])
+if hasattr(ce, "SIZED") and hasattr(cs, "humanoids_task"):
+    ten = cs.humanoids_task(cs.humanoids_xml(10), 10)
+    classes.append(("engine_sized", (ce.SIZED, ce.tables_caps(
+        ce.pack_physics(ten.model, ten.physics)))))
+for kind, args in classes:
+    libs, log = ce.load_cuda_library(*args)
     sections = log.split("== G=")[1:]
     for G, lib in sorted(libs.items()):
         report(f"{kind} G={G}", lib, next(s for s in sections if s.startswith(f"{G}\n")))
-sys.path.insert(0, root)
-import chip_smoke as cs
 if hasattr(cs, "humanoids_task"):
     scenes = [(f"{name}-v0", cs.humanoids_task(cs.humanoids_xml(n), n))
               for name, n in (("TwoHumanoids", 2), ("FourHumanoids", 4))]

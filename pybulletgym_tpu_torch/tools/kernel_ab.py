@@ -14,8 +14,12 @@ events: 50 launches after 5 warm-ups ("ms": host time between launches
 included, which bounds the small models), and 20 launches captured in a
 CUDA graph and replayed 3 times ("graph_ms": the device's time a launch),
 on a post-reset state and random actions in [-1, 1]. It prints one JSON line per (root, env, kernel), then
-the card's name and power limit. Needs one CUDA GPU; uses only entry points
-that every slice of the port has.
+the card's name and power limit; where the checkout counts its kernels'
+work (`cuda_engine.work_per_env_step`), each line also carries the bound
+that count gives ("bound_ms": operations over 67 TFLOP/s or bytes over 3.35
+TB/s, the larger, "bound_by"), so that two checkouts' counts sit side by
+side. Needs one CUDA GPU; uses only entry points that every slice of the
+port has.
 
 --lanes times a checkout with lane-group kernels (`cuda_engine.LANE_WIDTHS`)
 once per listed group width G, overriding the width that `pick_lanes`
@@ -69,6 +73,14 @@ def graph_ms(fn, n=20, reps=3):
     torch.cuda.synchronize()
     return a.elapsed_time(b) / (n * reps)
 
+def bound(t, name):
+    # the least time of the launch's work on an H100 (67 TFLOP/s float32,
+    # 3.35 TB/s): each env's operations and bytes, the tables once
+    import ctypes
+    flops, nbytes = ce.work_per_env_step(t, env_step=name == "env_step_kernel")
+    t_ops, t_bytes = flops * B / 67e12 * 1e3, (nbytes * B + ctypes.sizeof(t)) / 3.35e12 * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
 root, B, envs = sys.argv[1], int(sys.argv[2]), sys.argv[3].split(",")
 widths = [int(x) for x in sys.argv[4].split(",")] if sys.argv[4] else []
 if not hasattr(ce, "LANE_WIDTHS"):
@@ -95,6 +107,9 @@ for env_id in envs:
                          ("physics_step_kernel", lambda: phys(s.q, s.v, tau))):
             rec = {"root": root, "env": env_id, "kernel": name, "B": B, "lanes": lanes,
                    "ms": ms(fn), "graph_ms": graph_ms(fn)}
+            if hasattr(ce, "work_per_env_step"):
+                rec.update(bound(env.step_fn.tables if name == "env_step_kernel" else phys.tables,
+                                 name))
             if lanes is not None:
                 t = env.step_fn.tables if name == "env_step_kernel" else phys.tables
                 rec["launch"] = ce.launch_config(t, name, B)

@@ -2,6 +2,7 @@
 
     python3 pybulletgym_tpu_torch/tools/kernel_phases.py
         [--envs HalfCheetahPyBulletEnv-v0,...] [--batch 4096] [--lanes 8,16,32]
+        [--root CHECKOUT]
     python3 pybulletgym_tpu_torch/tools/kernel_phases.py
         --scenes TwoHumanoids-v0:4096,FourHumanoids-v0:4096,balls40:1024
         [--kernels physics,task] [--calls 5,2]
@@ -15,9 +16,20 @@ and random actions, with the launch's tables changed one field at a time:
   * `frame_skip` = 0: the launch without substeps (inputs, the task's
     outputs, the writes).
 
-From these: sweeps = full - it0, rest of the substeps = it0 - fs0, and
-outputs = fs0. --lanes repeats it at each listed group width G in place of
-`pick_lanes`'s.
+  * `rows0` (nr = nl = 0: no contact or limit rows, as below);
+  * where the tables have `stop_after` (the default class over root paths,
+    engine_core.h · ENG_PATH_FIELDS), `stop_after` = 1, 2 and 3: each
+    substep returns after FK, RNE and the composite inertias (one lane),
+    after the CRBA rows and the narrowphase, after the factorization of M.
+
+From these: sweeps = full - it0, rest of the substeps = it0 - fs0, rows =
+it0 - rows0 (the narrowphase, the Jacobians, their forward solves, z, the
+PGS set-up and the second back substitution), dynamics = rows0 - fs0, and
+outputs = fs0; with the stops, FK/RNE = stop1 - fs0, CRBA = stop2 - stop1
+(with the narrowphase), factorization = stop3 - stop2. --lanes repeats it
+at each listed group width G in place of `pick_lanes`'s. --root times the
+package of another checkout (its kernels built from its sources) with this
+script, for a before and after on one card.
 
 `--scenes` splits `physics_step_kernel` and `task_step_kernel` in the build
 of a scene's size class instead: a multi-Humanoid scene by ID (the IDs of
@@ -55,7 +67,10 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+# the checkout whose package is timed: --root's, else this file's
+PKG_ROOT = (os.path.abspath(sys.argv[sys.argv.index("--root") + 1]) if "--root" in sys.argv
+            else ROOT)
+sys.path.insert(0, PKG_ROOT)
 from pybulletgym_tpu_torch import make_batched, make_task  # noqa: E402
 from pybulletgym_tpu_torch.ops import cuda_engine as ce  # noqa: E402
 
@@ -93,6 +108,7 @@ def edited(t, field, value):
 
 EDITS = (("full", None, None), ("it0", "iterations", 0), ("it1", "iterations", 1),
          ("rows0", "rows", 0), ("fs0", "frame_skip", 0))
+STOPS = (("stop1", "stop_after", 1), ("stop2", "stop_after", 2), ("stop3", "stop_after", 3))
 
 
 def split(step, call, calls):
@@ -168,6 +184,7 @@ def main(argv=None):
     p.add_argument("--scenes", default="", help="scene:B,... (FourHumanoids-v0:4096, balls40:1024)")
     p.add_argument("--kernels", default="physics,task", help="a scene's kernels")
     p.add_argument("--calls", default="20,3", help="graph-captured calls, replays")
+    p.add_argument("--root", default=ROOT, help="the checkout whose package is timed")
     args = p.parse_args(argv)
     B = args.batch
     calls = tuple(int(x) for x in args.calls.split(","))
@@ -205,19 +222,23 @@ def main(argv=None):
             packed = ce.pack_tables(task)
             if lanes is not None:
                 packed.lanes = lanes
-            rec = {"env": env_id, "B": B, "lanes": packed.lanes,
+            rec = {"env": env_id, "B": B, "lanes": packed.lanes, "root": args.root,
                    "frame_skip": packed.frame_skip, "iterations": packed.iterations,
                    "launch": ce.launch_config(packed, "env_step_kernel", B)}
-            for name, field, value in EDITS:
-                if field == "rows":
-                    continue
-                ctypes.memmove(ctypes.addressof(step.tables), ctypes.addressof(packed),
-                               ctypes.sizeof(packed))
-                if field is not None:
-                    setattr(step.tables, field, value)
+            stops = STOPS if hasattr(packed, "stop_after") else ()
+            for name, field, value in EDITS + stops:
+                e = edited(packed, field, value)
+                ctypes.memmove(ctypes.addressof(step.tables), ctypes.addressof(e),
+                               ctypes.sizeof(e))
                 rec[name] = graph_ms(lambda: step(s, a), *calls)
             rec["sweeps_ms"] = rec["full"] - rec["it0"]
             rec["one_sweep_ms"] = rec["it1"] - rec["it0"]
+            rec["rows_ms"] = rec["it0"] - rec["rows0"]
+            rec["dynamics_ms"] = rec["rows0"] - rec["fs0"]
+            if stops:
+                rec["fk_rne_ms"] = rec["stop1"] - rec["fs0"]
+                rec["crba_narrowphase_ms"] = rec["stop2"] - rec["stop1"]
+                rec["factorization_ms"] = rec["stop3"] - rec["stop2"]
             rec["substeps_without_sweeps_ms"] = rec["it0"] - rec["fs0"]
             rec["outside_substeps_ms"] = rec["fs0"]
             print(json.dumps(rec), flush=True)

@@ -127,6 +127,7 @@ def test_right_foot_rows_see_dofs_32_to_35(task, twin):
     probe = type(tab).from_buffer_copy(tab)
     for i in range(probe.nb):
         probe.anc_mask_hi[i] = 0
+    ce.scratch_layout(probe)  # the root paths' tables, derived from the words
     _, vx, _ = twin.physics_step(probe, q, v, tau)
     assert not torch.allclose(vx[HIGH_DOFS], vp[HIGH_DOFS], atol=1e-3)
 

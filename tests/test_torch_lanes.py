@@ -153,7 +153,15 @@ def test_scratch_layout_fits_a_block(env_id):
     for k in aliased:
         o, n = layout[k]
         assert y0 + t.sc_ld <= o and o + n <= y0 + ny, k
-    assert ny >= (1 + 3 * t.nr + t.nl) * t.sc_ld
+    # Y holds the dynamics row and every row over its root-path support: a
+    # contact row's three directions over its bodies' paths, a limit row
+    # over its dof's ancestors and the dof
+    nfloor = t.nr - t.npair
+    paths = [ce.root_path(t, t.row_body[r]) if r < nfloor else
+             ce.root_path(t, t.pair_a[r - nfloor]) | ce.root_path(t, t.pair_b[r - nfloor])
+             for r in range(t.nr)]
+    lims = sum(t.dof_depth[t.lim_dof[m]] + 1 for m in range(t.nl))
+    assert ny >= t.sc_ld + 3 * sum(bin(p).count("1") for p in paths) + lims
 
 
 def test_scratch_layout_refuses_what_does_not_fit():
