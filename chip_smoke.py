@@ -174,7 +174,9 @@ dofs than a group's 32 lanes, root paths past bit 31):
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
-    16384 too).
+    16384 too), and prints for each model of the default class its PGS
+    sweep's group sums (`sweep_blocks`: one butterfly a contact row and one
+    a limit row or limit pair) beside its kernels' times and launch.
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
 last lines are the kernels' summary, the card's name and power limit as
@@ -3161,6 +3163,23 @@ def main():
     runs.update({env_id: (p, t_fixed[env_id], main_fixed[env_id]) for env_id, p in fixed.items()})
     runs.update({env_id: (p, t_mj[env_id], main_mj[env_id]) for env_id, p in mj.items()})
     runs[ATLAS] = (pat, t_at, main_at)
+
+    # the default class's PGS sweep by each row's own block: one butterfly a
+    # contact row and one a limit row or pair (ops/cuda_engine.py ·
+    # sweep_group_sums), beside the per-direction sweep's count, each model's
+    # kernel times from this run and its launch
+    for env_id, (p, t, _) in runs.items():
+        tab = ce.pack_tables(p["task"])
+        pairs = sum(ce.limit_pairs(tab))
+        sums = ce.sweep_group_sums(tab)
+        emit("sweep_blocks", env=env_id, B=B, contact_rows=tab.nr, limit_rows=tab.nl,
+             limit_pairs=pairs, group_sums_a_sweep=sums,
+             per_direction_group_sums_a_sweep=3 * tab.nr + tab.nl,
+             env_ms=t["env_step_kernel"]["ms"], physics_ms=t["physics_step_kernel"]["ms"],
+             scratch_bytes_per_env=4 * tab.sc_stride, launch=configs[env_id]["env_step_kernel"],
+             card=card)
+        require(sums == tab.nr + tab.nl - pairs and 2 * pairs <= tab.nl,
+                f"{env_id}: {sums} group sums a sweep")
     errs = {k: max(p[e] for p, _, _ in runs.values()) for k, e in err_key.items()}
     errs["physics_step_kernel"] = max(errs["physics_step_kernel"], disk_err)
     kernels = []

@@ -18,8 +18,9 @@
 // class runs them over the dof tree's root paths (engine_core.h ·
 // ENG_PATH_FIELDS, ltl_factor): M = L^T L without fill, each row's solve,
 // storage, set-up and sweep over its support, which keeps an env's whole
-// scratch small (Atlas 20,932 bytes against 48,604 with dense L and rows,
-// Humanoid 27,660, FlagrunHarder 30,764).
+// scratch small (Atlas 20,308 bytes against 48,604 with dense L and rows,
+// Humanoid 28,140, FlagrunHarder 31,372), and its PGS sweep runs one
+// butterfly a contact row and one a limit pair (contact_step, limit_step).
 //
 // Design. A group of G lanes of one warp steps one env (G a power of two,
 // one library per G, built from this file with -DENG_LANES=G; pack_physics

@@ -16,7 +16,11 @@
 // then a fixed xor butterfly over the group (group_sum), and in the default
 // class the factorization of M and its solves, which run over the dof
 // tree's root paths (M = L^T L, ltl_factor) where the plain version takes a
-// dense Cholesky: the same function, other roundings.
+// dense Cholesky, and the sweep's later dots of a row: a contact row's
+// tangent dots and a limit pair's second dot are formed from the row's first
+// dots and its Gram entries (contact_step, limit_step), where the plain
+// version takes a fresh dot after each update. The same functions, other
+// roundings.
 //
 // Scope: free, hinge and slide joints (any number of free roots), point
 // and disk (cylinder end-cap) contacts against planes, capsule/sphere pairs
@@ -270,10 +274,23 @@ constexpr int MJ_DONE_HUMANOID = 4;
   X(R) X(p) X(vel) X(com) X(S) X(inert) X(avp) X(f)                           \
   X(L) X(inv_diag) X(depth) X(P) X(dirs) X(z) X(zp) X(v3o) X(vp)        \
   X(Y) X(dinv) X(b_vel) X(b_pos) X(dinv_l) X(b_l)                             \
-  X(lam_n) X(lam_t1) X(lam_t2) X(lam_p) X(lam_l) X(dofs)
+  X(lam_n) X(lam_t1) X(lam_t2) X(lam_p) X(lam_l) X(dofs) X(crow) X(lrow)
 #define ENG_SLOT(name) SC_##name,
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
+// The default class keeps its PGS scalars by row, so that one address
+// reaches a row's scalars in the sweep: a contact row's CROW floats in crow
+// (its multipliers, right-hand sides, inverse diagonals and the Gram entries
+// of its directions, y_n.y_t1, y_n.y_t2, y_t1.y_t2) and a limit row's LROW
+// in lrow (its multiplier, right-hand side and inverse diagonal; in a limit
+// pair's second row the pair's |w|^2, its inverse diagonal the first's). The
+// large, huge and sized classes keep an array each (dinv ... lam_l), which
+// the default class leaves empty. ops/cuda_engine.py sizes both.
+enum CRow {
+  CR_LAM_N, CR_LAM_T1, CR_LAM_T2, CR_LAM_P, CR_B_VEL, CR_B_POS,
+  CR_DINV, CR_GRAM = CR_DINV + 3, CROW = CR_GRAM + 3
+};
+enum LRow { LR_LAM, LR_B, LR_D, LROW };
 static_assert(SC_COUNT <= MAX_SLOTS, "Tables::sc is too short");
 static_assert(MAX_NV <= 32 * MASK_WORDS, "a root-path mask is MASK_WORDS 32-bit words");
 static_assert(MASK_WORDS >= 2, "anc_mask_hi holds at least one word a body");
@@ -576,10 +593,15 @@ constexpr int lane_nv() {
   A(int32_t, path_y, MAX_ROWS + MAX_LIMITS) /* Y offset of row j (a contact \
                                                row's normal; its tangents   \
                                                follow, its support's size   \
-                                               apart) */                    \
+                                               apart; a limit pair's rows   \
+                                               one offset) */               \
   A(uint32_t, path_u, 2 * MAX_ROWS + 2 * MAX_LIMITS) /* row j's support */  \
   A(uint32_t, pair_pa, 2 * MAX_PAIRS) /* pair row k's body a's root path */   \
   A(int32_t, pair_na, MAX_PAIRS) /* its dofs that are not on body b's */     \
+  /* the sweep's limit steps: a limit row, or a pair (rows m, m + 1 of one   \
+     dof, one Y row), each solved, set up and swept as one (limit_step) */   \
+  S(int32_t, lim_steps)                                                       \
+  A(int32_t, lim_first, MAX_LIMITS) /* step k's first limit row */            \
   /* timing only (tools/kernel_phases.py): 0 runs the whole substep; 1       \
      returns after FK, RNE and the composite inertias, 2 after the CRBA rows \
      and the narrowphase, 3 after the factorization */                       \
@@ -811,6 +833,27 @@ struct LaneVec {
 // The sum of the lanes' partials: the xor butterfly, offsets G/2 .. 1, each
 // lane adding its partner's value to its own. Every lane ends with the same
 // bits (a + b == b + a), and the host replays the card's order.
+#ifndef __CUDA_ARCH__
+// The butterflies the host twin has run (a group_sum, group_sum2 or
+// group_sum4 is one: its shuffles overlap on the card), so that a test can
+// count a sweep's dependent group sums; the card keeps no count.
+inline long long& host_group_sums() {
+  static long long n = 0;
+  return n;
+}
+template <int G>
+float host_butterfly(const PerLane<float, G>& part) {
+  float s[G];
+  for (int l = 0; l < G; ++l) s[l] = part.x[l];
+  for (int o = G / 2; o > 0; o >>= 1) {
+    float n[G];
+    for (int l = 0; l < G; ++l) n[l] = s[l] + s[l ^ o];
+    for (int l = 0; l < G; ++l) s[l] = n[l];
+  }
+  return s[0];
+}
+#endif
+
 template <int G>
 ENG_HD float group_sum(const Group<G>& g, PerLane<float, G>& part) {
 #ifdef __CUDA_ARCH__
@@ -820,14 +863,8 @@ ENG_HD float group_sum(const Group<G>& g, PerLane<float, G>& part) {
   return s;
 #else
   (void)g;
-  float s[G];
-  for (int l = 0; l < G; ++l) s[l] = part.x[l];
-  for (int o = G / 2; o > 0; o >>= 1) {
-    float n[G];
-    for (int l = 0; l < G; ++l) n[l] = s[l] + s[l ^ o];
-    for (int l = 0; l < G; ++l) s[l] = n[l];
-  }
-  return s[0];
+  ++host_group_sums();
+  return host_butterfly(part);
 #endif
 }
 
@@ -1076,6 +1113,7 @@ struct Scr {
   float *dinv, *b_vel, *b_pos, *dinv_l, *b_l;
   float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
   int32_t* dofs;  // the default class's dof records (dofs_fill)
+  float *crow, *lrow;  // the default class's PGS scalars by row (CRow, LRow)
 };
 
 ENG_HD Scr scratch(const Tables& t, float* base) {
@@ -1116,6 +1154,8 @@ ENG_HD Scr scratch(const Tables& t, float* base) {
   s.lam_p = base + o[SC_lam_p];
   s.lam_l = base + o[SC_lam_l];
   s.dofs = (int32_t*)(base + o[SC_dofs]);
+  s.crow = base + o[SC_crow];
+  s.lrow = base + o[SC_lrow];
   return s;
 }
 
@@ -1310,6 +1350,10 @@ struct RowRaw {
   int y, na;
   DofSet u, a;
   float c;  // the sweep's constant: a contact row's mu, a limit row's sign
+  // a limit step's rows (limit_raw): its first limit row m, 2 where the
+  // step is a pair (the second row's sign c2), else 1
+  int m, step;
+  float c2;
 };
 template <bool PAIR>
 ENG_HD RowRaw row_raw(const Tables& t, int j) {
@@ -1320,6 +1364,9 @@ ENG_HD RowRaw row_raw(const Tables& t, int j) {
   w.na = 0;
   w.a.lo = w.a.hi = 0u;
   w.c = j < t.nr ? t.row_mu[j] : t.lim_sign[j - t.nr];
+  w.m = 0;
+  w.step = 1;
+  w.c2 = 0.f;
   if (PAIR) {
     const int k = j - (t.nr - t.npair);
     w.a.lo = t.pair_pa[2 * k];
@@ -1349,6 +1396,21 @@ ENG_HD PathRow row_of(const RowRaw& w) {
 ENG_HD PathRow row_path(const Tables& t, int j) {
   return j >= t.nr - t.npair && j < t.nr ? row_of<true>(row_raw<true>(t, j))
                                          : row_of<false>(row_raw<false>(t, j));
+}
+// The rows of limit step k (Tables::lim_first): a row, or a pair of one
+// dof's two rows, which share one Y row (ops/cuda_engine.py ·
+// limit_seconds) and are solved, set up and swept as one
+ENG_HD int limit_step_rows(const Tables& t, int k) {
+  return (k + 1 < t.lim_steps ? t.lim_first[k + 1] : t.nl) - t.lim_first[k];
+}
+// limit step k's words: its first row's, its rows and the second's sign
+ENG_HD RowRaw limit_raw(const Tables& t, int k) {
+  const int m = t.lim_first[k];
+  RowRaw w = row_raw<false>(t, t.nr + m);
+  w.m = m;
+  w.step = limit_step_rows(t, k);
+  w.c2 = t.lim_sign[m + w.step - 1];
+  return w;
 }
 // Dof d's ancestor row in L, the model's dof (dof_perm), its depth and its
 // ancestors: four int32 words a dof in the scratch's `dofs` (the row in the
@@ -1538,8 +1600,34 @@ ENG_HD void group_sum2(const Group<G>& g, PerLane<float, G>& a, PerLane<float, G
   sa = x;
   sb = y;
 #else
-  sa = group_sum(g, a);
-  sb = group_sum(g, b);
+  (void)g;
+  ++host_group_sums();
+  sa = host_butterfly(a);
+  sb = host_butterfly(b);
+#endif
+}
+
+// Four independent group sums through one butterfly, as group_sum2's two
+template <int G>
+ENG_HD void group_sum4(const Group<G>& g, PerLane<float, G>* p, float* out) {
+#ifdef __CUDA_ARCH__
+  float x[4];
+  ENG_UNROLL
+  for (int k = 0; k < 4; ++k) x[k] = p[k].x;
+  ENG_UNROLL
+  for (int o = G / 2; o > 0; o >>= 1) {
+    float xo[4];
+    ENG_UNROLL
+    for (int k = 0; k < 4; ++k) xo[k] = __shfl_xor_sync(g.mask, x[k], o);
+    ENG_UNROLL
+    for (int k = 0; k < 4; ++k) x[k] = x[k] + xo[k];
+  }
+  ENG_UNROLL
+  for (int k = 0; k < 4; ++k) out[k] = x[k];
+#else
+  (void)g;
+  ++host_group_sums();
+  for (int k = 0; k < 4; ++k) out[k] = host_butterfly(p[k]);
 #endif
 }
 
@@ -1585,54 +1673,48 @@ ENG_HD void row_regs(const Group<G>& g, const PathRow& p, const float* Y,
   }
 }
 
-// The sweep's dot of a row's direction (0: normal, 1 and 2: tangents) with
-// the group's vector: lane products in chunk order, then the butterfly;
-// and of the normal with two vectors, their butterflies overlapped.
-template <int K>
-ENG_HD const float* row_dir(const RowRegs<K>& r, int dir) {
-  return dir == 1 ? r.t1 : dir == 2 ? r.t2 : r.n;
-}
-
+// The sweep's dot of a limit row with the group's vector: lane products in
+// chunk order, then the butterfly; and a contact row's four dots (its normal
+// with z and zp, its tangents with z), their butterflies one (group_sum4).
 template <int G, int K>
-ENG_HD float path_dot(const Group<G>& g, PerLane<RowRegs<K>, G>& row, int dir,
-                      PerLane<LaneVec<K>, G>& z) {
+ENG_HD float path_dot(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z) {
   PerLane<float, G> part;
   EACH_LANE(g, l) {
-    const float* y = row_dir(row[l], dir);
     float s = 0.f;
     ENG_UNROLL
-    for (int k = 0; k < K; ++k) s = s + y[k] * z[l].x[k];
+    for (int k = 0; k < K; ++k) s = s + row[l].n[k] * z[l].x[k];
     part[l] = s;
   }
   return group_sum(g, part);
 }
 
 template <int G, int K>
-ENG_HD void path_dot2(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
-                      PerLane<LaneVec<K>, G>& zp, float& vz, float& vzp) {
-  PerLane<float, G> a, b;
+ENG_HD void path_dot4(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
+                      PerLane<LaneVec<K>, G>& zp, float* out) {
+  PerLane<float, G> part[4];
   EACH_LANE(g, l) {
     const RowRegs<K>& r = row[l];
-    float s = 0.f, sp = 0.f;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
     ENG_UNROLL
     for (int k = 0; k < K; ++k) {
-      s = s + r.n[k] * z[l].x[k];
-      sp = sp + r.n[k] * zp[l].x[k];
+      s[0] = s[0] + r.n[k] * z[l].x[k];
+      s[1] = s[1] + r.n[k] * zp[l].x[k];
+      s[2] = s[2] + r.t1[k] * z[l].x[k];
+      s[3] = s[3] + r.t2[k] * z[l].x[k];
     }
-    a[l] = s;
-    b[l] = sp;
+    ENG_UNROLL
+    for (int i = 0; i < 4; ++i) part[i][l] = s[i];
   }
-  group_sum2(g, a, b, vz, vzp);
+  group_sum4(g, part, out);
 }
 
 // z += y * a, each lane its own dofs (y 0 off the row's support)
 template <int G, int K>
-ENG_HD void path_axpy(const Group<G>& g, PerLane<RowRegs<K>, G>& row, int dir,
-                      PerLane<LaneVec<K>, G>& z, float a) {
+ENG_HD void path_axpy(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
+                      float a) {
   EACH_LANE(g, l) {
-    const float* y = row_dir(row[l], dir);
     ENG_UNROLL
-    for (int k = 0; k < K; ++k) z[l].x[k] = z[l].x[k] + y[k] * a;
+    for (int k = 0; k < K; ++k) z[l].x[k] = z[l].x[k] + row[l].n[k] * a;
   }
 }
 #endif
@@ -1846,70 +1928,119 @@ ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
 
 #ifndef ENG_TREE_BLOCKS
 // One contact row's step of a sweep (contacts.py · solve_scalar), its
-// entries in the lanes' registers: the split-impulse row reads and writes
-// only zp, so its update goes first and its dot shares the normal dot's
-// butterfly; the multipliers are uniform (every lane stores the same bits).
+// entries in the lanes' registers: one butterfly for the row's four dots
+// (path_dot4), then its chain in scalars, read from the row's CRow block
+// after the butterfly (read earlier, they hold registers through it, which
+// cost the small models' blocks of 128 threads a block an SM on an H100).
+// After the normal's update z += y_n dn, a tangent's dot is y_t1.z + dn
+// (y_t1.y_n), and the second tangent's y_t2.z + dn (y_t2.y_n) + dt1
+// (y_t2.y_t1): the Gram entries of the set-up give the Gauss-Seidel
+// iterates of the per-direction order (other roundings). The split-impulse
+// row reads and writes only zp. z takes the three updates at the row's end,
+// in the order of three axpys; the multipliers are uniform (every lane
+// stores the same bits).
 template <int G, int K>
-ENG_HD void contact_sweep(const Group<G>& g, const Scr& s, int r, float mu,
-                          PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
-                          PerLane<LaneVec<K>, G>& zp) {
-  float vn, vpn;
-  path_dot2(g, row, z, zp, vn, vpn);
-  float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
-  path_axpy(g, row, 0, zp, nw - s.lam_p[r]);
-  s.lam_p[r] = nw;
-  nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
-  path_axpy(g, row, 0, z, nw - s.lam_n[r]);
-  s.lam_n[r] = nw;
-  float hi = mu * nw;
-  float vt = path_dot(g, row, 1, z);
-  nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi, hi);
-  path_axpy(g, row, 1, z, nw - s.lam_t1[r]);
-  s.lam_t1[r] = nw;
-  vt = path_dot(g, row, 2, z);
-  nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi, hi);
-  path_axpy(g, row, 2, z, nw - s.lam_t2[r]);
-  s.lam_t2[r] = nw;
+ENG_HD void contact_step(const Group<G>& g, const Scr& s, int r, float mu,
+                         PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z,
+                         PerLane<LaneVec<K>, G>& zp) {
+  float d[4];  // y_n.z, y_n.zp, y_t1.z, y_t2.z
+  path_dot4(g, row, z, zp, d);
+  float* const c = s.crow + CROW * r;
+  const float dn = c[CR_DINV], *gram = c + CR_GRAM;
+  const float lp = jmax(c[CR_LAM_P] + (c[CR_B_POS] - d[1]) * dn, 0.f);
+  const float ap = lp - c[CR_LAM_P];
+  const float ln = jmax(c[CR_LAM_N] + (c[CR_B_VEL] - d[0]) * dn, 0.f);
+  const float an = ln - c[CR_LAM_N];
+  const float hi = mu * ln;
+  const float l1 = jclip(c[CR_LAM_T1] - (d[2] + an * gram[0]) * c[CR_DINV + 1], -hi, hi);
+  const float a1 = l1 - c[CR_LAM_T1];
+  const float l2 =
+      jclip(c[CR_LAM_T2] - ((d[3] + an * gram[1]) + a1 * gram[2]) * c[CR_DINV + 2], -hi, hi);
+  const float a2 = l2 - c[CR_LAM_T2];
+  EACH_LANE(g, l) {
+    const RowRegs<K>& y = row[l];
+    ENG_UNROLL
+    for (int k = 0; k < K; ++k) {
+      zp[l].x[k] = zp[l].x[k] + y.n[k] * ap;
+      z[l].x[k] = ((z[l].x[k] + y.n[k] * an) + y.t1[k] * a1) + y.t2[k] * a2;
+    }
+  }
+  c[CR_LAM_P] = lp;
+  c[CR_LAM_N] = ln;
+  c[CR_LAM_T1] = l1;
+  c[CR_LAM_T2] = l2;
 }
 
-// Rows lo .. hi - 1 of one kind (a contact row's three directions or a
-// limit row's one: THREE; pair rows: PAIR) in a sweep. Each row's entries
-// are loaded into registers a row ahead (row_regs) from its table words,
-// read a row before that (row_raw): no instruction of a row's chain waits
-// on a load, and no load on a table read issued in the same row (a warp
-// issues in order).
-template <int G, int K, bool THREE, bool PAIR>
-ENG_HD void sweep_rows(const Tables& t, const Group<G>& g, const Scr& s, int lo, int hi,
-                       PerLane<LaneInt<K>, G>& dep, PerLane<LaneVec<K>, G>& z,
-                       PerLane<LaneVec<K>, G>& zp) {
+// One limit step: a row, or a pair (limit_raw), whose rows are one w =
+// L^-T e_d: one butterfly for w.z; the second row's dot is c2 (w.z + a
+// |w|^2), a the first row's update; z takes the pair's update at once.
+template <int G, int K>
+ENG_HD void limit_step(const Group<G>& g, const Scr& s, int m, const RowRaw& w,
+                       PerLane<RowRegs<K>, G>& row, PerLane<LaneVec<K>, G>& z) {
+  const float u = path_dot(g, row, z);
+  float* const c = s.lrow + LROW * m;  // the step's first row, then its second
+  const float l0 = jmax(c[LR_LAM] + (c[LR_B] - w.c * u) * c[LR_D], 0.f);
+  float a = w.c * (l0 - c[LR_LAM]);
+  c[LR_LAM] = l0;
+  if (w.step == 2) {
+    float* const c2 = c + LROW;
+    const float l1 = jmax(c2[LR_LAM] + (c2[LR_B] - w.c2 * (u + a * c2[LR_D])) * c[LR_D], 0.f);
+    a = a + w.c2 * (l1 - c2[LR_LAM]);
+    c2[LR_LAM] = l1;
+  }
+  path_axpy(g, row, z, a);
+}
+
+// Contact rows lo .. hi - 1 (pair rows: PAIR) in a sweep. Each row's
+// entries are loaded into registers a row ahead (row_regs) from its table
+// words, read a row before that (row_raw): no instruction of a row's chain
+// waits on a load, and no load on a table read issued in the same row (a
+// warp issues in order).
+template <int G, int K, bool PAIR>
+ENG_HD void sweep_contacts(const Tables& t, const Group<G>& g, const Scr& s, int lo, int hi,
+                           PerLane<LaneInt<K>, G>& dep, PerLane<LaneVec<K>, G>& z,
+                           PerLane<LaneVec<K>, G>& zp) {
   if (lo >= hi) return;
   PerLane<RowRegs<K>, G> row, next;
   const RowRaw w0 = row_raw<PAIR>(t, lo);
-  row_regs<G, K, THREE, PAIR>(g, row_of<PAIR>(w0), s.Y, dep, row);
-  float c = w0.c;
+  row_regs<G, K, true, PAIR>(g, row_of<PAIR>(w0), s.Y, dep, row);
+  float mu = w0.c;
   RowRaw w = row_raw<PAIR>(t, lo + 1 < hi ? lo + 1 : lo);
   for (int j = lo; j < hi; ++j) {
-    row_regs<G, K, THREE, PAIR>(g, row_of<PAIR>(w), s.Y, dep, next);
-    const float c_next = w.c;
+    row_regs<G, K, true, PAIR>(g, row_of<PAIR>(w), s.Y, dep, next);
+    const float mu_next = w.c;
     w = row_raw<PAIR>(t, j + 2 < hi ? j + 2 : hi - 1);
-    if (THREE) {
-      contact_sweep(g, s, j, c, row, z, zp);
-    } else {
-      const int m = j - t.nr;
-      float vd = c * path_dot(g, row, 0, z);
-      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
-      path_axpy(g, row, 0, z, c * (nw - s.lam_l[m]));
-      s.lam_l[m] = nw;
-    }
+    contact_step(g, s, j, mu, row, z, zp);
     row = next;
-    c = c_next;
+    mu = mu_next;
+  }
+}
+
+// The limit steps in a sweep (limit_raw: a row, or a pair), each step's
+// entries loaded a step ahead from its words, read in the step before (a
+// sweep has few limit steps).
+template <int G, int K>
+ENG_HD void sweep_limits(const Tables& t, const Group<G>& g, const Scr& s,
+                         PerLane<LaneInt<K>, G>& dep, PerLane<LaneVec<K>, G>& z) {
+  const int n = t.lim_steps;
+  if (n == 0) return;
+  PerLane<RowRegs<K>, G> row, next;
+  RowRaw cur = limit_raw(t, 0);
+  row_regs<G, K, false, false>(g, row_of<false>(cur), s.Y, dep, row);
+  for (int k = 0; k < n; ++k) {
+    const RowRaw w = limit_raw(t, k + 1 < n ? k + 1 : k);
+    row_regs<G, K, false, false>(g, row_of<false>(w), s.Y, dep, next);
+    limit_step(g, s, cur.m, cur, row, z);
+    row = next;
+    cur = w;
   }
 }
 
 // The PGS sweeps: Gauss-Seidel over the floor rows, the pair rows, then the
-// limit rows (sweep_rows), each row's dots and updates over its support;
-// z and zp (the scratch's, on entry and exit) live in the lanes' registers
-// in K chunks by dof, beside each dof's depth.
+// limit rows, each row's dots and updates over its support; z and zp (the
+// scratch's, on entry and exit) live in the lanes' registers in K chunks by
+// dof, beside each dof's depth. A contact row's step runs one butterfly, and
+// so does a limit row's or a limit pair's.
 template <int G, int K>
 ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
   const int nv = t.nv, nr = t.nr, nfloor = nr - t.npair;
@@ -1925,9 +2056,9 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   }
   for (int it = 0; it < t.iterations; ++it) {
-    sweep_rows<G, K, true, false>(t, g, s, 0, nfloor, dep, z, zp);
-    sweep_rows<G, K, true, true>(t, g, s, nfloor, nr, dep, z, zp);
-    sweep_rows<G, K, false, false>(t, g, s, nr, nr + t.nl, dep, z, zp);
+    sweep_contacts<G, K, false>(t, g, s, 0, nfloor, dep, z, zp);
+    sweep_contacts<G, K, true>(t, g, s, nfloor, nr, dep, z, zp);
+    sweep_limits<G, K>(t, g, s, dep, z);
   }
   EACH_LANE(g, l) {
     ENG_UNROLL
@@ -2176,10 +2307,11 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       }
     }
 #else
-    // a limit row over its dof's chain (its dof last), lanes over rows
+    // a limit row over its dof's chain (its dof last), lanes over limit
+    // steps (a pair's one row)
     EACH_LANE(g, l) {
-      for (int m = l; m < nl; m += G) {
-        const PathRow p = row_path(t, nr + m);
+      for (int k = l; k < t.lim_steps; k += G) {
+        const PathRow p = row_path(t, nr + t.lim_first[k]);
         float* const w = s.Y + p.y;
         for (int j = 0; j < p.n; ++j) w[j] = j == p.n - 1 ? 1.f : 0.f;
       }
@@ -2202,8 +2334,9 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
 #else
   if (rows) {
     EACH_LANE(g, l) {
-      for (int j = l; j < 3 * nr + nl; j += G) {
-        const int r = j < 3 * nr ? j / 3 : j - 2 * nr;  // a contact row's direction, or a limit row
+      for (int j = l; j < 3 * nr + t.lim_steps; j += G) {
+        // a contact row's direction, or a limit step's row
+        const int r = j < 3 * nr ? j / 3 : nr + t.lim_first[j - 3 * nr];
         const PathRow p = row_path(t, r);
         float* const y = s.Y + p.y + (j < 3 * nr ? (j - 3 * r) * p.n : 0);
         if (r < nfloor || r >= nr)
@@ -2241,38 +2374,20 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     g.sync();
     // PGS set-up (contacts.py · solve_scalar), lanes over rows; pair rows
     // as point rows
+#ifdef ENG_TREE_BLOCKS
     EACH_LANE(g, l) {
       for (int r = l; r < nr; r += G) {
-#ifdef ENG_TREE_BLOCKS
         const int lo = t.row_lo[r], len = t.row_hi[r] - lo;
         const float* yn = s.Y + t.row_y[r];
         for (int k = 0; k < 3; ++k) {
           const float* yk = yn + k * len;
           s.dinv[3 * r + k] = 1.f / (dotn(len, yk, yk) + t.reg);
         }
-#else
-        const PathRow p = row_path(t, r);
-        const float* yn = s.Y + p.y;
-        for (int k = 0; k < 3; ++k) {
-          const float* yk = yn + k * p.n;
-          s.dinv[3 * r + k] = 1.f / (dotn(p.n, yk, yk) + t.reg);
-        }
-#endif
         const float dep = s.depth[r];
         if (t.e_comb_zero) {
           s.b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
         } else {
-#ifdef ENG_TREE_BLOCKS
           float vn_pre = dotn(len, yn, s.z + lo);
-#else
-          // over the support by position
-          float vn_pre = 0.f;
-          DofSet w = p.a;
-          for (int j = 0; j < p.n; ++j) {
-            const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
-            vn_pre = vn_pre + mm_operand(yn[j]) * mm_operand(s.z[d]);
-          }
-#endif
           float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
           bool touching = dep >= vn_pre * t.dt;
           s.b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
@@ -2281,20 +2396,64 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         s.lam_n[r] = s.lam_t1[r] = s.lam_t2[r] = s.lam_p[r] = 0.f;
       }
       for (int m = l; m < nl; m += G) {
-#ifdef ENG_TREE_BLOCKS
         const int len = t.lim_hi[m] - t.lim_lo[m];
         const float* w = s.Y + t.lim_y[m];
         s.dinv_l[m] = 1.f / (dotn(len, w, w) + t.reg);
-#else
-        const PathRow p = row_path(t, nr + m);
-        const float* w = s.Y + p.y;
-        s.dinv_l[m] = 1.f / (dotn(p.n, w, w) + t.reg);
-#endif
         float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
         s.b_l[m] = t.limit_erp_over_dt * viol;
         s.lam_l[m] = 0.f;
       }
     }
+#else
+    // (into each row's CRow or LRow block)
+    EACH_LANE(g, l) {
+      for (int r = l; r < nr; r += G) {
+        const PathRow p = row_path(t, r);
+        const float* yn = s.Y + p.y;
+        float* const c = s.crow + CROW * r;
+        for (int k = 0; k < 3; ++k) {
+          const float* yk = yn + k * p.n;
+          c[CR_DINV + k] = 1.f / (dotn(p.n, yk, yk) + t.reg);
+        }
+        // the Gram entries of the sweep's tangent dots (contact_step)
+        c[CR_GRAM] = dotn(p.n, yn, yn + p.n);
+        c[CR_GRAM + 1] = dotn(p.n, yn, yn + 2 * p.n);
+        c[CR_GRAM + 2] = dotn(p.n, yn + p.n, yn + 2 * p.n);
+        const float dep = s.depth[r];
+        if (t.e_comb_zero) {
+          c[CR_B_VEL] = dep > 0.f ? 0.f : dep / t.dt;
+        } else {
+          // over the support by position
+          float vn_pre = 0.f;
+          DofSet w = p.a;
+          for (int j = 0; j < p.n; ++j) {
+            const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
+            vn_pre = vn_pre + mm_operand(yn[j]) * mm_operand(s.z[d]);
+          }
+          float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
+          bool touching = dep >= vn_pre * t.dt;
+          c[CR_B_VEL] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
+        }
+        c[CR_B_POS] = t.erp_over_dt * (dep - t.slop);
+        c[CR_LAM_N] = c[CR_LAM_T1] = c[CR_LAM_T2] = c[CR_LAM_P] = 0.f;
+      }
+      // a limit step's inverse diagonal by its first row, and a pair's |w|^2
+      // in its second row's
+      for (int k = l; k < t.lim_steps; k += G) {
+        const int m = t.lim_first[k];
+        const PathRow p = row_path(t, nr + m);
+        const float* w = s.Y + p.y;
+        const float w2 = dotn(p.n, w, w);
+        s.lrow[LROW * m + LR_D] = 1.f / (w2 + t.reg);
+        if (limit_step_rows(t, k) == 2) s.lrow[LROW * (m + 1) + LR_D] = w2;
+      }
+      for (int m = l; m < nl; m += G) {
+        float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
+        s.lrow[LROW * m + LR_B] = t.limit_erp_over_dt * viol;
+        s.lrow[LROW * m + LR_LAM] = 0.f;
+      }
+    }
+#endif
     g.sync();
 
     // the sweeps in one chunk a lane where the group has a lane for every

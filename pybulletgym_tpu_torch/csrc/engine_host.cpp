@@ -80,6 +80,15 @@ int eng_tables_layout(int32_t* out, int cap) { return eng::tables_layout(out, ca
 
 int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 
+// The butterflies the twin has run since the last call (engine_core.h ·
+// host_group_sums: a group_sum, group_sum2 or group_sum4 is one); the count
+// starts again from 0.
+long long host_group_sums_take() {
+  const long long n = eng::host_group_sums();
+  eng::host_group_sums() = 0;
+  return n;
+}
+
 // Returns 1 for tables of a group width the twin is not built for.
 int host_physics_step(const void* tables, const float* q, const float* v, const float* tau,
                       float* q_out, float* v_out, float* d_out, int B) {

@@ -348,7 +348,8 @@ def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_
     row_masks += [(mask[c.body_a], mask[c.body_b]) for c in pairs]
     lim_dofs = [] if lim is None else [int(d) for d in lim.dof]
     depth, _, l_floats, row_n, lim_n = _path_sizes(model.nv, mask, dof_body, row_masks, lim_dofs)
-    shared, y = _scratch_sizes(*sizes, l_floats, _path_y(model.nv, row_n, lim_n)[2], dofs=True)
+    y_rows = _path_y(model.nv, row_n, lim_n, limit_seconds(lim_dofs))[2]
+    shared, y = _scratch_sizes(*sizes, l_floats, y_rows, dofs=True)
     paths = (sum(shared.values()) + y["Y"]) | 1
     return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole, 4 * outside,
                       4 * paths, max(row_n + lim_n + [k + 1 for k in depth], default=0))
@@ -395,6 +396,9 @@ def scratch_slots() -> Tuple[str, ...]:
 
 # the arrays that live inside Y's rows 1.., in this order, and their floats a body
 _Y_ALIAS = (("inert", 13), ("avp", 6), ("f", 6))
+# the default class's PGS scalars a contact row and a limit row (engine_core.h ·
+# CRow, LRow)
+_CROW, _LROW = 12, 3
 # an env's slice of a huge or sized class's device buffer (Y, or the whole
 # scratch) is a multiple of this many floats (128 bytes)
 Y_ALIGN = 32
@@ -409,10 +413,14 @@ def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats
     1), unless `l_floats` and `y_rows` (the tree classes' storage by blocks
     and supports, `_tree_storage`, or the default class's by root paths,
     `_path_storage`) say otherwise. `dofs`: the default class's dof records
-    (engine_core.h · dofs_fill: four words a dof); none in the other
-    classes."""
+    (engine_core.h · dofs_fill: four words a dof), and its PGS scalars by
+    row (crow, lrow: a contact row's multipliers, right-hand sides, inverse
+    diagonals and Gram entries, a limit row's three) in place of the other
+    classes' array each (dinv ... lam_l)."""
     ld = nv | 1
     rows_y = (1 + 3 * nr + nl) * ld if y_rows is None else y_rows
+    pgs = {"dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
+           "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl}
     shared = {
         "q": nq, "v": nv, "tau": nv, "act": act, "aux": naux, "obs": 0,
         "R": 9 * nb, "p": 3 * nb, "vel": 6 * nb, "com": 3 * nb, "S": 6 * nv,
@@ -420,9 +428,9 @@ def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats
         "L": nv * ld if l_floats is None else l_floats, "inv_diag": nv, "depth": nr,
         "P": 3 * nr, "dirs": 9 * npair,
         "z": nv, "zp": nv, "v3o": nv, "vp": nv, "Y": 0,
-        "dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
-        "lam_n": nr, "lam_t1": nr, "lam_t2": nr, "lam_p": nr, "lam_l": nl,
+        **{k: 0 if dofs else n for k, n in pgs.items()},
         "dofs": 4 * nv if dofs else 0,
+        "crow": _CROW * nr if dofs else 0, "lrow": _LROW * nl if dofs else 0,
     }
     alias = sum(n * nb for _, n in _Y_ALIAS)
     return shared, {"Y": max(rows_y, ld + alias, ld + obs_dim)}
@@ -541,31 +549,50 @@ def _path_sizes(nv, body_masks, dof_body, row_masks, lim_dofs):
             [depth[d] + 1 for d in lim_dofs])
 
 
-def _path_y(nv, row_n, lim_n):
+def limit_seconds(lim_dofs) -> list:
+    """Which limit rows are the second of a pair: rows m - 1 and m of one
+    dof (a joint's lower and upper limit, `contacts.build_limit_plan`),
+    row m - 1 not itself a second. Both rows of a pair are w = L^-T e_d: they
+    share one row of Y (`_path_y`), and the PGS sweep steps the pair as one
+    (engine_core.h · sweep_limits). A row without a partner stands alone."""
+    second = []
+    for m, d in enumerate(lim_dofs):
+        second.append(m > 0 and lim_dofs[m - 1] == d and not second[m - 1])
+    return second
+
+
+def _path_y(nv, row_n, lim_n, lim_second=None):
     """Y's rows by root paths: (each contact row's offset, each limit row's
     and, last, the floats of Y's rows): the dynamics' dense row of nv | 1
     floats, each contact row's three directions over its support, then each
-    limit row over its dof's chain."""
+    limit row over its dof's chain, the second of a pair (`lim_second`,
+    `limit_seconds`) at its first's offset."""
     y = nv | 1
     row_y = []
     for n in row_n:
         row_y.append(y)
         y += 3 * n
     lim_y = []
-    for n in lim_n:
+    for m, n in enumerate(lim_n):
+        if lim_second is not None and lim_second[m]:
+            lim_y.append(lim_y[-1])
+            continue
         lim_y.append(y)
         y += n
     return row_y, lim_y, y
 
 
-def _path_storage(t) -> Tuple[int, int]:
+def _path_storage(t, pair_limits: bool = True) -> Tuple[int, int]:
     """Set the default class's root paths (engine_core.h · ENG_PATH_FIELDS)
     from the tables' root-path masks, and lay out L by ancestor rows and Y's
     rows over their supports: t.dof_perm (the factor's order of the dofs: a
     free joint's linear ones before its angular ones), t.dof_depth,
     t.anc_row and t.dof_anc (each dof's ancestors), t.path_u and t.path_y (each contact row's support,
-    then each limit row's: its dof's chain; each row's Y offset), t.pair_pa
-    and t.pair_na (a pair row's body a's path and its dofs off body b's).
+    then each limit row's: its dof's chain; each row's Y offset, one for both
+    rows of a limit pair unless `pair_limits` is false), t.pair_pa
+    and t.pair_na (a pair row's body a's path and its dofs off body b's),
+    t.lim_steps and t.lim_first (the sweep's limit steps: each pair's first
+    row, and each row without a partner).
     Returns (L's floats, the floats of Y's rows). A row past the tables'
     arrays (tables edited beyond their caps) has no support to read and
     counts as dense (nv dofs)."""
@@ -578,7 +605,12 @@ def _path_storage(t) -> Tuple[int, int]:
     depth, rows, l_floats, row_n, lim_n = _path_sizes(nv, masks, list(t.dof_body), row_masks, lims)
     row_n += [nv] * (t.nr - len(row_masks))
     lim_n += [nv] * (t.nl - len(lims))
-    row_y, lim_y, y = _path_y(nv, row_n, lim_n)
+    second = limit_seconds(lims) if pair_limits else [False] * len(lims)
+    row_y, lim_y, y = _path_y(nv, row_n, lim_n, second + [False] * (t.nl - len(lims)))
+    firsts = [m for m, sec in enumerate(second) if not sec]
+    t.lim_steps = len(firsts)
+    for k, m in enumerate(firsts):
+        t.lim_first[k] = m
     for d in range(nv):
         anc = masks[t.dof_body[d]] & ((1 << d) - 1)
         t.dof_perm[d] = d
@@ -604,14 +636,15 @@ def _path_storage(t) -> Tuple[int, int]:
     return l_floats, y
 
 
-def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
+def scratch_layout(t, pair_limits: bool = True) -> Dict[str, Tuple[int, int]]:
     """Lay out one env's scratch for the tables `t` from the model's sizes:
     sets t.sc (each array's float offset), t.sc_stride (odd, so that the
     envs of a warp start in different banks), t.sc_ld and t.sc_ldm (nv made
     odd: Y's dynamics row). inert, avp, f and obs live inside Y's rows
     after the dynamics', which are dead whenever those are live. The default
     class stores L by ancestor rows and Y's rows over their supports
-    (`_path_storage`, engine_core.h · ENG_PATH_FIELDS). In the large, huge and
+    (`_path_storage`, engine_core.h · ENG_PATH_FIELDS; a limit pair's two
+    rows one row of Y unless `pair_limits` is false). In the large, huge and
     sized classes L is stored by the tables' tree blocks and Y's rows over
     their supports (`_tree_storage`), and the whole scratch is laid out for
     the env's slice of the device buffer in global memory: t.sc_stride a
@@ -625,7 +658,7 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
     nv, ld = t.nv, t.nv | 1
     size = tables_class(t)
     tree = size != DEFAULT
-    l_floats, y_rows = _tree_storage(t) if tree else _path_storage(t)
+    l_floats, y_rows = _tree_storage(t) if tree else _path_storage(t, pair_limits)
     shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim,
                                l_floats, y_rows, dofs=not tree)
     sizes = dict(shared, **y)
@@ -650,6 +683,17 @@ def scratch_layout(t) -> Dict[str, Tuple[int, int]]:
         t.sc[k] = out[name][0]
     t.sc_stride, t.sc_ld, t.sc_ldm = stride, ld, ld
     return out
+
+
+def unpaired_limits(t):
+    """A copy of the default class's tables `t` with each limit row its own
+    row of Y, laid out again (`scratch_layout(..., pair_limits=False)`): the
+    storage before limit pairs, whose rows phase solves each limit row and
+    whose sweep steps each limit row alone. A table edit for tests and
+    measurements; no wrapper packs such tables."""
+    u = type(t).from_buffer_copy(t)
+    scratch_layout(u, pair_limits=False)
+    return u
 
 
 def buffer_floats(t) -> int:
@@ -1602,14 +1646,34 @@ def _tree_solve_flops(t, lo: int, hi: int) -> int:
     return sum(2 * (i - max(lo, t.dof_lo[i])) + 1 for i in range(lo, hi))
 
 
+def limit_pairs(t) -> list:
+    """Each limit row's place in the default class's sweep, as the kernels
+    read it from the tables (t.lim_first, engine_core.h · limit_raw): 1 for
+    the second row of a pair (solved, set up and swept with the row before,
+    whose Y row it shares), else 0."""
+    firsts = set(t.lim_first[:t.lim_steps])
+    return [int(m not in firsts) for m in range(t.nl)]
+
+
+def sweep_group_sums(t) -> int:
+    """The dependent group sums (butterflies) of one PGS sweep for the
+    tables `t`: in the default class one a contact row and one a limit row
+    or limit pair (engine_core.h · contact_step, limit_step); in the large,
+    huge and sized classes three a contact row (the normal's two dots share
+    one) and one a limit row."""
+    if tables_class(t) != DEFAULT:
+        return 3 * t.nr + t.nl
+    return t.nr + t.lim_steps
+
+
 def _path_flops(t) -> Tuple[int, int, int, int, list, list, list, int]:
     """The default class's loops over root paths (engine_core.h · ltl_factor,
     ltl_solve, z's loop, path_solve_t): (factorization, the dynamics' L^-T
     solve that rides on it, a back substitution L^-1 z, z = L v + dt y, each
     contact row's support size, each row's forward solve, each limit row's
-    support size, the limit rows' solves). A solved entry at depth k costs
-    one product and k products and sums (the dynamics' k more products:
-    L(k, i) from H(k, i))."""
+    support size, the limit rows' solves: a pair's one row solved once). A
+    solved entry at depth k costs one product and k products and sums (the
+    dynamics' k more products: L(k, i) from H(k, i))."""
     nv, nfloor = t.nv, t.nr - t.npair
     depth = [t.dof_depth[d] for d in range(nv)]
     fact = sum(3 + sum(1 + 2 * (m + 1) for m in range(k)) + k for k in depth)
@@ -1620,16 +1684,19 @@ def _path_flops(t) -> Tuple[int, int, int, int, list, list, list, int]:
     rows_len = [bin(m).count("1") for m in masks]
     rows_solve = [sum(1 + 2 * depth[d] for d in range(nv) if m >> d & 1) for m in masks]
     lim_len = [depth[t.lim_dof[m]] + 1 for m in range(t.nl)]
-    return fact, solve, solve, z_flops, rows_len, rows_solve, lim_len, sum(n * n for n in lim_len)
+    lim_solve = sum(n * n for n, second in zip(lim_len, limit_pairs(t)) if not second)
+    return fact, solve, solve, z_flops, rows_len, rows_solve, lim_len, lim_solve
 
 
 def substep_flops(t, dense: bool = False) -> int:
     """Float operations of one `substep` of engine_core.h for the tables
     `t`, counted from its loop bounds: over the dof tree's root paths in the
-    default class (`_path_flops`; `dense`: the dense Cholesky and rows over
-    every dof that the class ran before), within the tree blocks and the
-    rows' supports in the large, huge and sized ones (`tree_blocks`; a pair
-    row of two trees over the range that covers both)."""
+    default class (`_path_flops`; the sweep's Gram entries at set-up, a limit
+    pair's one solve, set-up and step; `dense`: the dense Cholesky, rows
+    over every dof and per-direction sweep that the class ran before),
+    within the tree blocks and the rows' supports in the large, huge and
+    sized ones (`tree_blocks`; a pair row of two trees over the range that
+    covers both)."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
     tree = hasattr(t, "dof_lo")
     fact, solve = _chol_flops(nv)
@@ -1668,8 +1735,22 @@ def substep_flops(t, dense: bool = False) -> int:
         n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * rs for k, rs in zip(ndofs, rows_solve))
         n += lim_solve
         n += sum(3 * (2 * k + 2) + (1 if t.e_comb_zero else 2 * k + 4) + 2 for k in rows_len)
-        n += sum(2 * k + 7 for k in lim_len)
-        n += t.iterations * (sum(4 * 4 * k + 17 for k in rows_len) + sum(4 * k + 5 for k in lim_len))
+        if tree or dense:
+            n += sum(2 * k + 7 for k in lim_len)
+            n += t.iterations * (sum(4 * 4 * k + 17 for k in rows_len)
+                                 + sum(4 * k + 5 for k in lim_len))
+        else:
+            # the Gram entries (three dots a row); a limit row's |w|^2 and
+            # inverse diagonal once a pair; a contact step's four dots, its
+            # Gram corrections and three fused updates; a pair's one dot,
+            # its second row's corrected dot and one update
+            second = limit_pairs(t)
+            n += sum(3 * 2 * k for k in rows_len)
+            n += sum(3 if sec else 2 * k + 7 for k, sec in zip(lim_len, second))
+            steps = [k for k, sec in zip(lim_len, second) if not sec]
+            pairs = [k for k, sec in zip(lim_len[:-1], second[1:]) if sec]
+            n += t.iterations * (sum(4 * 4 * k + 23 for k in rows_len)
+                                 + sum(4 * k + 5 for k in steps) + 10 * len(pairs))
         n += 2 * back
     else:
         n += back + 2 * nv
@@ -1754,6 +1835,7 @@ def _host_library(bf16_probe: bool, size: int, caps: Optional[Tuple[int, ...]] =
     lib.host_env_step.restype = ctypes.c_int
     lib.host_physics_scratch.argtypes = [_P] * 4 + [ctypes.c_int] * 2 + [_P]
     lib.host_physics_scratch.restype = ctypes.c_int
+    lib.host_group_sums_take.restype = ctypes.c_longlong
     return lib
 
 
@@ -1796,6 +1878,11 @@ class HostTwin:
             out.ctypes.data_as(_P))
         _launch_checked(rc, "host physics scratch")
         return out
+
+    def group_sums(self, tables) -> int:
+        """The butterflies (dependent group sums, `sweep_group_sums`) that
+        the twin of the tables' class has run since this was last called."""
+        return int(self._lib(tables).host_group_sums_take())
 
     def env_step(self, tables, task, state, action):
         ins, outs = _env_tensors(task, tables, state, action)

@@ -18,7 +18,8 @@ the card's name and power limit; where the checkout counts its kernels'
 work (`cuda_engine.work_per_env_step`), each line also carries the bound
 that count gives ("bound_ms": operations over 67 TFLOP/s or bytes over 3.35
 TB/s, the larger, "bound_by"), so that two checkouts' counts sit side by
-side. Needs one CUDA GPU; uses only entry points that every slice of the
+side, and where it has `cuda_engine.launch_config`, the launch ("launch":
+G, envs a block, shared bytes, resident blocks an SM). Needs one CUDA GPU; uses only entry points that every slice of the
 port has.
 
 --lanes times a checkout with lane-group kernels (`cuda_engine.LANE_WIDTHS`)
@@ -110,7 +111,7 @@ for env_id in envs:
             if hasattr(ce, "work_per_env_step"):
                 rec.update(bound(env.step_fn.tables if name == "env_step_kernel" else phys.tables,
                                  name))
-            if lanes is not None:
+            if lanes is not None or hasattr(ce, "launch_config"):
                 t = env.step_fn.tables if name == "env_step_kernel" else phys.tables
                 rec["launch"] = ce.launch_config(t, name, B)
             print(json.dumps(rec), flush=True)

@@ -333,11 +333,11 @@ def test_size_classes():
     """(f)"""
     Tables, caps = ce.tables_type()
     BigTables, big = ce.tables_type(True)
-    # the default class's tables: 26,096 B of fields, and 3,828 B of its root
-    # paths (engine_core.h · ENG_PATH_FIELDS); the large class's: 52,688 B of
-    # the default class's fields at its caps, and 5,376 B of the tree blocks'
-    # ranges and offsets
-    assert ctypes.sizeof(Tables) == 29924 and ctypes.sizeof(BigTables) == 58064
+    # the default class's tables: 26,096 B of fields, and 4,088 B of its root
+    # paths and limit steps (engine_core.h · ENG_PATH_FIELDS); the large
+    # class's: 52,688 B of the default class's fields at its caps, and 5,376
+    # B of the tree blocks' ranges and offsets
+    assert ctypes.sizeof(Tables) == 30184 and ctypes.sizeof(BigTables) == 58064
     assert {k: big["MAX_" + k] for k in ("BODIES", "NV", "NQ", "ROWS", "PAIRS", "LIMITS",
                                          "ACT")} == dict(BODIES=64, NV=64, NQ=80, ROWS=256,
                                                          PAIRS=128, LIMITS=128, ACT=64)

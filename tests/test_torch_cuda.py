@@ -23,8 +23,12 @@ the env kernel. A user's task (a HalfCheetah subclass with its own reward
 and aux key) through task_step_kernel, its hooks translated, at the walker
 budget, and through the composed backend's CUDA graph (one physics launch
 a replay). Seven free balls (nv 42) through physics_step_kernel's large
-build (engine_core.h's large tables' class), at the walker budget.
+build (engine_core.h's large tables' class), at the walker budget. The
+default class's PGS sweep (one butterfly a contact row and a limit pair)
+against the host twin on HalfCheetah, Humanoid and Atlas.
 """
+
+import shutil
 
 import pytest
 import torch
@@ -640,3 +644,38 @@ def test_sized_tables_physics_kernel_matches_plain():
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(out, (qk, vk, dk)))
+
+
+@pytest.mark.parametrize("env_id", [ENV, HUMANOID, ATLAS])
+def test_sweep_matches_the_twin(env_id):
+    """The card's PGS sweep by each row's block (one butterfly of four dots
+    a contact row, one a limit pair) against the host twin, which emulates
+    the same butterflies in the card's order: one physics step (four
+    substeps) from a landed state (30 env steps of random actions), B=300,
+    the same tables. The two differ only by FMA contraction: |dq| mean 1e-5,
+    max 2e-3, each env's largest |dv| within 2e-3 of its largest |v| (3-10x
+    the differences an H100 showed; the walkers' budget against the plain
+    version is 3e-4 / 1e-2)."""
+    _need_gpu()
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the host twin")
+    task = make_task(env_id)
+    env = make_batched(env_id, B, device="cuda")
+    s = env.reset(seed=4)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(30):
+        s = env.step_fn(s, torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1)
+    phys = ce.make_cuda_physics_step(task.model, task.physics)[0]
+    assert ce.sweep_group_sums(phys.tables) == (phys.tables.nr + phys.tables.nl
+                                                - sum(ce.limit_pairs(phys.tables)))
+    tau = torch.zeros((task.model.nv, B), device="cuda")
+    act = torch.as_tensor(task.act_dofs, dtype=torch.int64, device="cuda")
+    tau[act] = torch.as_tensor(task.gains, device="cuda") * (
+        torch.rand((task.act_dim, B), device="cuda", generator=g) * 2 - 1)
+    qk, vk, _ = (x.cpu() for x in phys(s.q, s.v, tau))
+    qh, vh, _ = ce.HostTwin().physics_step(phys.tables, s.q.cpu().contiguous(),
+                                           s.v.cpu().contiguous(), tau.cpu().contiguous())
+    dq = (qk - qh).abs()
+    assert dq.mean() < 1e-5 and dq.max() < 2e-3, (dq.mean(), dq.max())
+    rel = (vk - vh).abs().amax(0) / (vh.abs().amax(0) + 1e-6)
+    assert rel.max() < 2e-3, rel.max()

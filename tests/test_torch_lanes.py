@@ -155,12 +155,13 @@ def test_scratch_layout_fits_a_block(env_id):
         assert y0 + t.sc_ld <= o and o + n <= y0 + ny, k
     # Y holds the dynamics row and every row over its root-path support: a
     # contact row's three directions over its bodies' paths, a limit row
-    # over its dof's ancestors and the dof
+    # over its dof's ancestors and the dof (a limit pair's two rows one)
     nfloor = t.nr - t.npair
     paths = [ce.root_path(t, t.row_body[r]) if r < nfloor else
              ce.root_path(t, t.pair_a[r - nfloor]) | ce.root_path(t, t.pair_b[r - nfloor])
              for r in range(t.nr)]
-    lims = sum(t.dof_depth[t.lim_dof[m]] + 1 for m in range(t.nl))
+    second = ce.limit_pairs(t)
+    lims = sum(t.dof_depth[t.lim_dof[m]] + 1 for m in range(t.nl) if not second[m])
     assert ny >= t.sc_ld + 3 * sum(bin(p).count("1") for p in paths) + lims
 
 

@@ -193,17 +193,19 @@ def test_twin_step_matches_plain(env_id, twin):
 
 
 def test_atlas_work_over_root_paths():
-    """(d) one substep's operations: over root paths, and the dense count of
-    the dense Cholesky and rows (3.8x)"""
+    """(d) one substep's operations: over root paths (since the sweep by each
+    row's block, its Gram entries and limit pairs: 156,225 before), and the
+    dense count of the dense Cholesky and rows (4.0x)"""
     t = ce.pack_tables(make_task(ATLAS))
-    assert (ce.substep_flops(t), ce.substep_flops(t, dense=True)) == (156225, 600923)
-    assert ce.work_per_env_step(t)[0] == 633372
+    assert (ce.substep_flops(t), ce.substep_flops(t, dense=True)) == (151335, 600923)
+    assert ce.work_per_env_step(t)[0] == 613812
 
 
 def test_atlas_bytes_an_env():
-    """(e) 20,932 bytes an env (48,604 with L and Y dense): L 351 floats
-    (1,332 dense), Y 2,614 (8,695), the dof records 144 (4 words a dof)"""
+    """(e) 20,308 bytes an env (48,604 with L and Y dense; 20,932 with a row
+    of Y a limit row): L 351 floats (1,332 dense), Y 2,284 (8,695; 2,614),
+    the dof records 144 (4 words a dof)"""
     t = ce.pack_tables(make_task(ATLAS))
     lay = ce.scratch_layout(t)
-    assert (4 * t.sc_stride, lay["L"][1], lay["Y"][1], lay["dofs"][1]) == (20932, 351, 2614, 144)
+    assert (4 * t.sc_stride, lay["L"][1], lay["Y"][1], lay["dofs"][1]) == (20308, 351, 2284, 144)
     assert max(t.dof_depth[d] for d in range(t.nv)) + 1 == 16 <= ce.tables_type()[1]["PATH_CAP"]
