@@ -123,9 +123,9 @@ dofs than a group's 32 lanes, root paths past bit 31):
     it; ms a step of both beside env_step_kernel's on Ant;
   * drives models over the default tables' caps (`big_model_paths`, each
     path with the launch counts reset just before it and read just after):
-    builds the large class of the tables (-DENG_BIG_TABLES: the substeps
-    by the model's tree blocks, the tables and each env's scratch in global
-    memory; engine.cu, one nvcc a width, and task_step.cu with a user's
+    builds the large class of the tables (-DENG_BIG_TABLES: the default
+    class's substep over root paths, the sweep by row windows, the tables
+    and each env's scratch in global memory; engine.cu, one nvcc a width, and task_step.cu with a user's
     task's hooks, all started together right after the first build, beside
     the phases before this one, as the huge and sized phases' builds are);
     registers TwoHumanoids-v0
@@ -137,14 +137,14 @@ dofs than a group's 32 lanes, root paths past bit 31):
     bitwise the eager composed step's); holds both against the plain
     version on the card within the humanoid budget, resets bitwise; holds
     seven free balls (nv 42) through the large physics build to the plain
-    physics; times both large kernels beside their bounds; holds each (and
-    the balls') to the same binary's dense loops as the huge ones below;
+    physics; times both large kernels beside their bounds; holds the
+    physics build (and the balls') to the host twin as the huge ones below;
     Humanoid's physics kernel in the large class and in the default class
     (which factors M over root paths) each within the humanoid budget of
     the plain step and of the other;
   * drives models over the large tables' caps (`huge_model_paths`, the same
     paths through `scene_paths`): builds the huge class (-DENG_HUGE_TABLES:
-    the substeps by the model's tree blocks, the tables and each env's
+    the substep over root paths as the large class's, the tables and each env's
     scratch in global memory, a device buffer of B envs' slices allocated
     when the env is made) and registers
     FourHumanoids-v0 (four copies of humanoid.xml: 72 bodies, nv 92, one
@@ -153,14 +153,15 @@ dofs than a group's 32 lanes, root paths past bit 31):
     around physics_step_kernel's huge build (10, graph = eager bitwise),
     both held to the plain version at step 0 (resets bitwise), eleven free
     balls (nv 66) through the huge physics build, both huge kernels timed;
-    each kernel (and the balls' build) also from the same inputs with its
-    tables widened to one block over all dofs, the same binary's dense
-    loops: the same bits (the zeros whose sign differs counted: none), and
-    timed beside; the plain step on the first SCENE_PLAIN_ENVS envs;
+    the physics build (and the balls') against the host twin (the same
+    core built with g++) on the first TWIN_ENVS envs of the timed inputs,
+    within the bounds of FMA contraction, and a `sweep_blocks` line each;
+    the task build against the task's host twin (its resets bitwise);
+    the plain step on the first SCENE_PLAIN_ENVS envs;
   * drives models past the huge caps (`sized_model_paths`, the same paths
     through `scene_paths` at B=SIZED_B): builds the sized class
     (-DENG_SIZED_TABLES with caps from the model's sizes: a root-path mask
-    of ceil(nv / 32) words, tree blocks and the scratch as the huge class's)
+    of ceil(nv / 32) words, the substep and the scratch as the huge class's)
     for TenHumanoids-v0 (ten copies of humanoid.xml: 180
     bodies, nv 230, eight mask words, the scratch outside Y over a block's
     shared memory) and forty free balls (nv 240): 10 steps through
@@ -169,13 +170,12 @@ dofs than a group's 32 lanes, root paths past bit 31):
     both held to the plain version at step 0 on the first SCENE_PLAIN_ENVS
     envs (resets bitwise), the balls through the sized physics build
     against the plain physics, both sized kernels timed with their ptxas
-    reports and buffer bytes, and against their dense loops as the huge
-    ones;
+    reports and buffer bytes, and held to the host twin as the huge ones;
   * times the kernels (a launch's device time: launches captured in a CUDA
     graph and replayed; and back-to-back eager launches), the plain
     versions and the env-steps/s (FlagrunHarder and Pusher at B=4096 and
-    16384 too), and prints for each model of the default class its PGS
-    sweep's group sums (`sweep_blocks`: one butterfly a contact row and one
+    16384 too), and prints for each model of the default class (and each
+    scene above) its PGS sweep's group sums (`sweep_blocks`: one butterfly a contact row and one
     a limit row or limit pair) beside its kernels' times and launch.
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
@@ -1015,8 +1015,18 @@ BALLS = 7  # free balls: nv 42, over the default caps' 40
 HUGE_BALLS = 11  # nv 66, over the large caps' 64
 SIZED_BALLS = 40  # nv 240: eight mask words, the scratch outside Y over 227 KB
 # The ten-Humanoid scene's batch, the other scenes': its scratch buffer by
-# tree blocks is 162,304 B an env, 0.66 GB at B=4096
+# root paths is 108,928 B an env, 0.45 GB at B=4096
 SIZED_B = 4096
+# the envs of a scene's kernels and its balls' held to the host twins, and
+# the mean |dq| allowed. The card and the twin differ by rounding only:
+# built with --fmad=false the card equals the twin bit for bit on eleven and
+# forty balls, and the Humanoid scenes' gap halves, what stays being
+# sinf/cosf's last bits (tools/twin_gap.py on an H100 80GB HBM3). The gap
+# grows with the scene, whose torsos stand farther from the origin (2, 4.7,
+# 13.6 m): mean |dq| 4.5e-7, 2.9e-6, 1.9e-5 on two, four and ten Humanoids
+# (1.8e-5 in this script's timed input); 1e-4 is 5x the largest reading
+TWIN_ENVS = 8
+TWIN_MEAN_DQ = 1e-4
 # timing launches of a scene's kernels: (graph-captured calls, replays,
 # eager calls), and of its composed step (graph, replay, eager)
 SCENE_TIMING = ((5, 2, 5), (10, 10, 3))
@@ -1123,37 +1133,74 @@ def balls_xml(n: int, z: float) -> str:
             f'size="10 10 0.1"/>{balls}</worldbody></mujoco>')
 
 
-def first_envs(x, n):
-    """The first n envs of a batch-trailing tensor or of an EnvState."""
+def first_envs(x, n, device=None):
+    """The first n envs of a batch-trailing tensor or of an EnvState (moved
+    to `device` if given)."""
     if hasattr(x, "q"):
-        return type(x)(*[{k: first_envs(y, n) for k, y in f.items()} if isinstance(f, dict)
-                         else first_envs(f, n) for f in x])
-    return x[..., :n].contiguous()
+        return type(x)(*[{k: first_envs(y, n, device) for k, y in f.items()}
+                         if isinstance(f, dict) else first_envs(f, n, device) for f in x])
+    x = x[..., :n].contiguous()
+    return x if device is None else x.to(device)
+
+
+def reset_only(step):
+    """A copy of the task kernel wrapper `step` (CudaTaskStep) whose tables
+    are at frame_skip 0 (uploaded apart): the same library and buffers, the
+    resets without the substeps, without tracing the hooks again."""
+    other = copy.copy(step)
+    other.tables = type(step.tables).from_buffer_copy(step.tables)
+    other.tables.frame_skip = 0
+    other.device_tables = {}
+    return other
+
+
+def task_vs_twin(step, s, a, n=TWIN_ENVS, mean_dq=TWIN_MEAN_DQ):
+    """The task kernel build `step` (a CudaTaskStep) from the state `s` and
+    the actions `a` on the card, against the task's host twin
+    (ops.task_kernel.HostTaskTwin: task_step.cu's body built with g++, its
+    library built ahead by `scene_build`) on the first n envs: q within
+    mean |dq| `mean_dq` and max 2e-3, each env's largest |dv| within 2e-3
+    of its largest |v|, epoch and step_count bit for bit; and the resets
+    (both at frame_skip 0, `reset_only`): q, v, epoch and step_count bit for
+    bit on the envs that `s` resets, of which there must be one. Returns the
+    record; raises on a miss."""
+    import torch
+
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+
+    cpu = torch.device("cpu")
+    sh, ah = first_envs(s, n, cpu), first_envs(a, n, cpu)
+    k = first_envs(step(s, a), n, cpu)
+    h = tk.HostTaskTwin(step.task, program=step.program)(sh, ah)
+    dq = (k.q - h.q).abs()
+    rel = ((k.v - h.v).abs().amax(0) / (h.v.abs().amax(0) + 1e-6)).max().item()
+    rk = first_envs(reset_only(step)(s, a), n, cpu)
+    rh = tk.HostTaskTwin(step.task, frame_skip=0, program=step.program)(sh, ah)
+    f = sh.terminated | sh.truncated
+    rec = {"envs": n, "reset_envs": int(f.sum()),
+           "bitwise": same_bits(k.q, h.q) and same_bits(k.v, h.v),
+           "mean_dq": dq.mean().item(), "max_dq": dq.max().item(), "max_rel_dv": rel,
+           "max_d_reward": (k.reward - h.reward).abs().max().item()}
+    require(rec["mean_dq"] < mean_dq and rec["max_dq"] < 2e-3 and rel < 2e-3,
+            f"{step.kernel}: the card differs from the task's host twin: {rec}")
+    require(torch.equal(k.epoch, h.epoch) and torch.equal(k.step_count, h.step_count),
+            f"{step.kernel}: epoch or step_count differs from the host twin's")
+    require(bool(f.any()) and same_bits(rk.q[:, f], rh.q[:, f])
+            and same_bits(rk.v[:, f], rh.v[:, f]) and torch.equal(rk.epoch, rh.epoch)
+            and torch.equal(rk.step_count, rh.step_count),
+            f"{step.kernel}: the resets differ from the host twin's")
+    return rec
 
 
 def step_as(step, size):
     """A CudaPhysicsStep like `step` whose tables are the same model's in
-    the larger fixed size class `size` (LARGE or HUGE: every array of a
-    smaller class fits the larger one's, a root path's words included), laid
-    out again by the class's tree blocks: the same model, with the tables
-    (and in the huge class the scratch) in global memory. The default
-    class's root-path fields have no place in the larger classes."""
+    the larger fixed size class `size` (LARGE or HUGE:
+    `ops.cuda_engine.tables_in_class`): the same model, with the tables and
+    the scratch in global memory."""
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
     other = copy.copy(step)
-    src, t = step.tables, ce.tables_type(size)[0]()
-    fields = {name for name, _ in type(t)._fields_}
-    for name, _ in type(src)._fields_:
-        if name not in fields:
-            continue
-        x = getattr(src, name)
-        if isinstance(x, ctypes.Array):
-            ctypes.memmove(getattr(t, name), x, ctypes.sizeof(x))
-        else:
-            setattr(t, name, x)
-    ce.tree_blocks(t)
-    ce.scratch_layout(t)
-    other.tables, other.size = t, size
+    other.tables, other.size = ce.tables_in_class(step.tables, size), size
     other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[size]
     other.device_tables, other.buffers = {}, {}
     return other
@@ -1166,8 +1213,9 @@ def scene_build(scene_id, humanoids, n_balls, size):
     free balls packed in the size class `size`, and the nvcc jobs of the
     class's engine.cu libraries (one nvcc a group width; in the sized class
     one set for the scene's caps and one for the balls') and of task_step.cu
-    with the hooks started together (`ce.Builds`), running beside the caller
-    until `scene_paths` waits for them. Returns a namespace of all that."""
+    with the hooks, and the g++ jobs of the class's host twin and of the
+    task's (`HostTaskTwin`), started together (`ce.Builds`), running beside
+    the caller until `scene_paths` waits for them. Returns a namespace of all that."""
     import types
 
     import pybulletgym_tpu_torch as pt
@@ -1190,6 +1238,10 @@ def scene_build(scene_id, humanoids, n_balls, size):
     jobs = {}
     for st in (phys, bphys):
         jobs.update({job[2]: job for job in ce._engine_jobs(size, st.caps)[0]})
+        twin = ce.host_job(size, st.caps)  # the host twin, against which scene_paths holds the card
+        jobs[twin[2]] = twin
+    twin = tk.host_task_job(task_build.program, task_build.tables)[0]  # the task's host twin
+    jobs[twin[2]] = twin
     tjob, tname = task_build.cuda_job()
     return types.SimpleNamespace(
         task=task, task_build=task_build, trace_s=trace_s, phys=phys, bm=bm, bcfg=bcfg,
@@ -1228,12 +1280,17 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
       bitwise.
     * `n_balls` free balls: the class's physics_step_kernel build against
       the plain physics, 3 steps, the walkers' bounds.
-    * Each kernel's time (CUDA-graph-timed) beside its bound, the plain
-      version's, its launch configuration, ptxas report, nvcc seconds and
-      the tables' bytes and the device buffer's (the scratch).
-    * Each kernel and the balls' build from the timed inputs with the
-      tables widened to one block (`ops.cuda_engine.widen_blocks`, the same
-      binary's dense loops): the same bits, timed beside."""
+    * Each kernel's time (CUDA-graph-timed) beside its bound (over root
+      paths, the dense count beside), the plain version's, its launch
+      configuration, ptxas report, nvcc seconds and the tables' bytes and
+      the device buffer's (the scratch; the dense layout's beside).
+    * The physics build and the balls' from the timed inputs against the
+      host twin (the same core built with g++) on the first TWIN_ENVS envs,
+      within the FMA-contraction bounds of tests/test_torch_cuda.py, and a
+      `sweep_blocks` line each: one butterfly a contact row and a limit
+      step. The task build against the task's host twin (`task_vs_twin`)
+      from the input of the second forced resets: the same bounds, the
+      resets, epoch and step_count bit for bit."""
     import numpy as np
     import torch
 
@@ -1355,12 +1412,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
         phys_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    # the fused step's library and buffers, its tables at frame_skip 0
-    # (uploaded apart): the reset alone, without tracing the hooks again
-    reset_k = copy.copy(fused.step_fn)
-    reset_k.tables = type(reset_k.tables).from_buffer_copy(reset_k.tables)
-    reset_k.tables.frame_skip = 0
-    reset_k.device_tables = {}
+    reset_k = reset_only(fused.step_fn)
     vs_plain, plain_ms = {}, []
     n_plain = plain_envs or B
     cut = (lambda x: x) if n_plain == B else (lambda x: first_envs(x, n_plain))  # noqa: E731
@@ -1410,32 +1462,33 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             names["physics"]: ce.work_per_env_step(phys.tables, env_step=False)}
     timed = {names["task"]: (lambda: tstep(s, a), min(plain_ms)),
              names["physics"]: (lambda: phys(s.q, s.v, tau), min(phys_ms))}
-    # ---- the tree blocks against the same binary's dense loops, its tables
-    # widened to one block: the same bits on the timed inputs and the
-    # balls', zeros' signs included (those whose sign differs counted), timed
-    # beside (the time before the blocks)
-    dense = {}
-    calls = {names["task"]: (tstep, lambda st: st(s, a)),
-             names["physics"]: (phys, lambda st: st(s.q, s.v, tau)),
-             "balls": (bphys, lambda st: st(bs, v, bt))}
-    for name, (st, call) in calls.items():
-        wide = ce.with_tables(st, ce.widen_blocks(st.tables))
-        x, y = call(st), call(wide)
-        if name == names["task"]:
-            x, y = ([getattr(o, k) for k in fields] for o in (x, y))
-        signs = sum(int((p.view(torch.int32) != q.view(torch.int32)).sum())
-                    for p, q in zip(x, y) if p.dtype == torch.float32)
-        require(all(torch.equal(p, q) for p, q in zip(x, y)) and signs == 0,
-                f"{scene_id} {name}: the tree blocks differ from the dense loops "
-                f"({signs} floats' bits differ)")
-        dense[name] = {"fn": (lambda c=call, w=wide: c(w)), "tables": wide.tables,
-                       "bitwise": all(same_bits(p, q) for p, q in zip(x, y)),
-                       "zero_sign_differences": signs}
-    dense["balls"]["ms"] = graph_ms(dense["balls"]["fn"], n=4 * n_graph, reps=reps + 1)
-    work_dense = {names["task"]: tk.work_per_task_step(dense[names["task"]]["tables"],
-                                                       tstep.program, share),
-                  names["physics"]: ce.work_per_env_step(dense[names["physics"]]["tables"],
-                                                         env_step=False)}
+    work_dense = {names["task"]: tk.work_per_task_step(tstep.tables, tstep.program, share,
+                                                       dense=True),
+                  names["physics"]: ce.work_per_env_step(phys.tables, env_step=False, dense=True)}
+    # ---- the card against the host twin (engine_host.cpp: the same core
+    # built with g++, the lanes and butterflies emulated in the card's order)
+    # on the first TWIN_ENVS envs of the timed inputs, the scene's physics
+    # build and the balls'. nvcc contracts products and sums into FMAs and
+    # the card's sinf/cosf round otherwise than the host's, so the two agree
+    # to those roundings, not bit for bit: max |dq| 2e-3 and each env's
+    # largest |dv| within 2e-3 of its largest |v| (as tests/test_torch_cuda.py
+    # · test_sweep_matches_the_twin), mean |dq| TWIN_MEAN_DQ
+    twin = {}
+    for name, (st, args) in {names["physics"]: (phys, (s.q, s.v, tau)),
+                             "balls": (bphys, (bs, v, bt))}.items():
+        k = [x[..., :TWIN_ENVS].cpu() for x in st(*args)]
+        h = ce.HostTwin().physics_step(st.tables, *[x[..., :TWIN_ENVS].cpu().contiguous()
+                                                    for x in args])
+        dq = (k[0] - h[0]).abs()
+        rel = ((k[1] - h[1]).abs().amax(0) / (h[1].abs().amax(0) + 1e-6)).max().item()
+        twin[name] = {"envs": TWIN_ENVS, "bitwise": all(same_bits(x, y) for x, y in zip(k, h)),
+                      "mean_dq": dq.mean().item(), "max_dq": dq.max().item(),
+                      "max_rel_dv": rel, "max_d_depth": (k[2] - h[2]).abs().max().item()}
+        require(twin[name]["mean_dq"] < TWIN_MEAN_DQ and twin[name]["max_dq"] < 2e-3 and rel < 2e-3,
+                f"{scene_id} {name}: the card differs from the host twin: {twin[name]}")
+    # the task build against the task's host twin, from the input of the
+    # rollout's second forced resets (envs 0, 3, 6 of the first TWIN_ENVS)
+    twin[names["task"]] = task_vs_twin(tstep, *ksteps[forced_at[1]][:2])
     gr = next(iter(comp.step_fn._graphs.values()))
     composed = dict(graph_host_ms=host_ms(lambda: comp.step_fn(s, a), c_graph),
                     replay_ms=cuda_ms(gr.graph.replay, c_replay),
@@ -1460,23 +1513,32 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
             "buffer_bytes": buf_bytes * B, "caps": caps.get(name),
             "nvcc_seconds": nvcc_s, "models": [scene_id] + (
                 [f"{n_balls} free balls"] if name.startswith("physics") else [])})
-        # the dense loops: the time and the bound before the blocks
-        d_ms = graph_ms(dense[name]["fn"], n=n_graph, reps=reps)
-        d_flops = work_dense[name][0]
-        entries[-1]["dense_loops"] = {
-            "ms": d_ms, "bitwise": dense[name]["bitwise"],
-            "zero_sign_differences": dense[name]["zero_sign_differences"],
-            "speedup": d_ms / ms, "flops_per_env_step": d_flops,
-            "bound_ms": max(d_flops * B / PEAK_FP32_FLOPS * 1e3, t_bytes),
-            "launch": (ce.launch_config(dense[name]["tables"], "physics_step_kernel", B)
-                       if name.startswith("physics") else None)}
+        entries[-1]["dense"] = {  # L, Y and the sweep dense: the work before the root paths
+            "flops_per_env_step": work_dense[name][0],
+            "bound_ms": max(work_dense[name][0] * B / PEAK_FP32_FLOPS * 1e3, t_bytes),
+            "buffer_bytes_per_env": 4 * ce.dense_stride(tstep.tables if name.startswith(
+                "task") else phys.tables)}
+        entries[-1]["twin"] = twin[name]
     entries[1]["balls"] = {"ms": balls_ms, "vs_plain": balls, "caps": caps.get("balls"),
                            "launch": ce.launch_config(bphys.tables, "physics_step_kernel", B),
-                           "ptxas": balls_ptx}
-    entries[1]["balls"]["dense_loops"] = {
-        "ms": dense["balls"]["ms"], "bitwise": dense["balls"]["bitwise"],
-        "zero_sign_differences": dense["balls"]["zero_sign_differences"],
-        "speedup": dense["balls"]["ms"] / balls_ms}
+                           "ptxas": balls_ptx, "twin": twin["balls"],
+                           "buffer_bytes_per_env": 4 * ce.buffer_floats(bphys.tables)}
+    # the sweep: one butterfly a contact row and one a limit step
+    # (ops/cuda_engine.py · sweep_group_sums), beside the per-direction count
+    for st, label in ((phys, scene_id), (bphys, f"{n_balls} free balls")):
+        tab = st.tables
+        pairs = sum(ce.limit_pairs(tab))
+        sums = ce.sweep_group_sums(tab)
+        wide = sum(tab.path_w1[j] > tab.path_w0[j] + 1 for j in range(tab.nr + tab.nl))
+        emit("sweep_blocks", env=label, B=B, kernel=st.kernel, contact_rows=tab.nr,
+             limit_rows=tab.nl, limit_pairs=pairs, group_sums_a_sweep=sums,
+             per_direction_group_sums_a_sweep=3 * tab.nr + tab.nl, rows_past_a_window=wide,
+             physics_ms=entries[1]["ms"] if st is phys else balls_ms,
+             task_ms=entries[0]["ms"] if st is phys else None,
+             scratch_bytes_per_env=4 * tab.sc_stride, dense_bytes_per_env=4 * ce.dense_stride(tab),
+             launch=ce.launch_config(tab, "physics_step_kernel", B), card=card)
+        require(sums == tab.nr + tab.nl - pairs and 2 * pairs <= tab.nl,
+                f"{label}: {sums} group sums a sweep")
     record = dict(env=scene_id, B=B, steps=steps, forced_reset_at=forced_at,
                   launches=launches, held_to_plain_at=plain_at, plain_envs=n_plain,
                   max_dq_vs_plain=vs_plain,
@@ -1485,7 +1547,7 @@ def scene_paths(card, tag, scene_id, humanoids, n_balls, plain_at, size, B=B,
                   composed=composed,
                   kernels={e["name"]: {k: e.get(k) for k in ("ms", "eager_ms", "plain_ms",
                                                               "bound_ms", "bound_by",
-                                                              "env_steps_per_s", "dense_loops")}
+                                                              "env_steps_per_s", "dense", "twin")}
                            for e in entries},
                   plain_env_step_ms=min(plain_ms), plain_physics_ms=min(phys_ms), balls=balls,
                   balls_ms=balls_ms, card=card)
@@ -1503,19 +1565,20 @@ def humanoid_budget(a, b):
 
 def big_model_paths(card, humanoid, build=None):
     """Models over the default tables' caps on the card: engine_core.h's
-    large class (-DENG_BIG_TABLES: the substeps by the model's tree blocks,
-    the tables and each env's scratch in global memory), through
-    `scene_paths` on TwoHumanoids-v0 (the two-Humanoid scene: 36 bodies, nq
-    48, nv 46, 34 actuators, 58 floor rows, 68 limit rows; one env's scratch
-    32,384 B by tree blocks; paths `big_fused`, `big_composed`) held to
+    large class (-DENG_BIG_TABLES: the default class's substep over root
+    paths, the sweep by row windows, the tables and each env's scratch in
+    global memory), through `scene_paths` on TwoHumanoids-v0 (the
+    two-Humanoid scene: 36 bodies, nq 48, nv 46, 34 actuators, 58 floor
+    rows, 68 limit rows; one env's scratch 20,736 B by root paths; paths
+    `big_fused`, `big_composed`) held to
     plain at BIG_PLAIN_AT, and seven free balls (nv 42); then what the
     large class costs a model of the default one: Humanoid's physics kernel
     with its default tables (a kernel parameter, the scratch in shared
     memory, M factored over root paths) and with the same tables in the
-    large class (by tree blocks, a dense factor in the one block), from the
-    inputs of `humanoid` (main's Humanoid parity phase: its reset state,
-    torques and plain physics output), each within the humanoid budget of
-    the plain step and of the other: the two classes factor M differently.
+    large class (the same substep, the sweep by row windows, another build
+    of nvcc's), from the inputs of `humanoid` (main's Humanoid parity
+    phase: its reset state, torques and plain physics output), each within
+    the humanoid budget of the plain step and of the other.
     `build`: the scene's `scene_build`, if started ahead. Returns ({path:
     launches}, the large builds' entries of the kernels line less their
     launches)."""
@@ -1550,11 +1613,11 @@ def big_model_paths(card, humanoid, build=None):
 def huge_model_paths(card, build=None):
     """Models over the large tables' caps, or whose one-env scratch outgrows
     a block's shared memory, on the card: engine_core.h's huge class
-    (-DENG_HUGE_TABLES: the substeps by the model's tree blocks, the tables
+    (-DENG_HUGE_TABLES: the large class's substep, four mask words, the tables
     and each env's scratch in global memory, the scratch a device buffer of
     B envs' slices), through `scene_paths` on FourHumanoids-v0 (four copies
     of humanoid.xml: 72 bodies, nq 96, nv 92, 68 actuators, 116 floor rows,
-    136 limit rows; one env's scratch 233,796 B, over a block's 232,448;
+    136 limit rows; one env's scratch 233,796 B dense, over a block's 232,448;
     paths `huge_fused`, `huge_composed`) held to plain at HUGE_PLAIN_AT,
     and eleven free balls (nv 66, root paths past dof 63). `build`: the
     scene's `scene_build`, if started ahead. Returns ({path: launches}, the
@@ -1573,9 +1636,9 @@ def huge_model_paths(card, build=None):
     # ---- where the huge kernels' time goes: the physics kernel of the two-
     # and four-Humanoid scenes from a seeded reset and seeded torques, each
     # with and without its PGS sweeps (iterations 0); the two-Humanoid
-    # scene's also in the huge class against its large tables (both by tree
-    # blocks, the scratch in global memory: the two classes' caps and mask
-    # words apart), in turns L H H L
+    # scene's also in the huge class against its large tables (both over
+    # root paths, the scratch in global memory: the two classes' caps and
+    # mask words apart), in turns L H H L
     dev = torch.device("cuda", 0)
     ids = (torch.full((B,), 3, dtype=torch.uint32, device=dev),
            torch.arange(B, dtype=torch.int32, device=dev), torch.zeros(B, dtype=torch.uint32, device=dev))
@@ -1615,8 +1678,8 @@ def huge_model_paths(card, build=None):
 def sized_model_paths(card, build=None):
     """Models past the huge class on the card: engine_core.h's sized class
     (-DENG_SIZED_TABLES with caps set from the model's sizes: a root-path
-    mask of ceil(nv / 32) words, the tables and the whole scratch in global
-    memory by tree blocks, the scratch a device buffer of B envs' slices
+    mask of ceil(nv / 32) words, the huge class's substep, the tables and
+    the whole scratch in global memory, the scratch a device buffer of B envs' slices
     allocated when the env is made), through `scene_paths` on
     TenHumanoids-v0 (ten copies of
     humanoid.xml: 180 bodies, nq 240, nv 230, 170 actuators, 290 floor rows,
@@ -1630,8 +1693,8 @@ def sized_model_paths(card, build=None):
 
     from pybulletgym_tpu_torch.ops import cuda_engine as ce
 
-    emit("sized_batch", B=SIZED_B, why="the other scenes' batch: by tree blocks the scene's "
-         "scratch buffer is 162,304 B an env", card=card)
+    emit("sized_batch", B=SIZED_B, why="the other scenes' batch: by root paths the scene's "
+         "scratch buffer is 108,928 B an env", card=card)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     launches, entries, record = scene_paths(card, "sized", SIZED_ID, 10, SIZED_BALLS,

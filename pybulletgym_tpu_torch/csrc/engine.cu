@@ -14,13 +14,14 @@
 // dependent operations per env: the factorization of M, the forward solves
 // of every constraint row, and the PGS sweeps, which are Gauss-Seidel over
 // rows, each row a dot product followed by an update. Those chains need
-// their scratch close and many envs in flight on every SM. So the default
-// class runs them over the dof tree's root paths (engine_core.h ·
+// their scratch close and many envs in flight on every SM. So every class
+// runs them over the dof tree's root paths (engine_core.h ·
 // ENG_PATH_FIELDS, ltl_factor): M = L^T L without fill, each row's solve,
 // storage, set-up and sweep over its support, which keeps an env's whole
 // scratch small (Atlas 20,308 bytes against 48,604 with dense L and rows,
-// Humanoid 28,140, FlagrunHarder 31,372), and its PGS sweep runs one
-// butterfly a contact row and one a limit pair (contact_step, limit_step).
+// Humanoid 28,140, FlagrunHarder 31,372; two Humanoids in one scene
+// 20,736 against 63,872), and its PGS sweep runs one butterfly a contact
+// row and one a limit pair (contact_step, limit_step; win_step).
 //
 // Design. A group of G lanes of one warp steps one env (G a power of two,
 // one library per G, built from this file with -DENG_LANES=G; pack_physics
@@ -48,14 +49,15 @@
 // (rows, B); a group's lanes read and write an env's rows.
 //
 // The large size class (-DENG_BIG_TABLES, engine_core.h: up to 64 bodies and
-// nv 64) builds physics_step_kernel only, with the tables (~58 KB) in global
+// nv 64) builds physics_step_kernel only, with the tables (~70 KB) in global
 // memory: a pointer parameter (ENG_TABLES_PARAM), its launcher taking the
 // device copy beside the host one. The huge class (-DENG_HUGE_TABLES: up to
 // 128 bodies and nv 128) and the sized class (-DENG_SIZED_TABLES: caps set by
 // the host from the model, any size) do the same with their tables. The
-// three run the substep by the model's tree blocks (engine_core.h ·
-// ENG_TREE_FIELDS): every dof loop within a block or a constraint row's
-// support, L stored by blocks and Y's rows over their supports. Their whole
+// three run the default class's substep over root paths; their PGS sweep
+// holds a row by its window of two mask words (engine_core.h ·
+// pgs_sweeps_win), since their models' many dofs would not fit a whole row
+// in a lane's registers. Their whole
 // scratch lives in a device buffer of B envs' slices of sc_stride floats
 // (buf, an argument after the tables): a block asks for no shared memory,
 // the SM's memory serves as L1 for the slices, and E comes from the
@@ -87,7 +89,7 @@ constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory o
 // Dynamic shared bytes of a block of E envs of `stride` floats: their
 // scratch, or none in the large, huge and sized builds (the scratch in buf).
 size_t shared_bytes(int E, int stride) {
-#ifdef ENG_TREE_BLOCKS
+#ifdef ENG_GLOBAL_TABLES
   (void)E, (void)stride;
   return 0;
 #else
@@ -163,7 +165,7 @@ int eng_launch_config(int kernel, int stride, int32_t* out) {
 #else
   const void* fn = kernel == 0 ? (const void*)physics_step_kernel : (const void*)env_step_kernel;
 #endif
-#ifdef ENG_TREE_BLOCKS
+#ifdef ENG_GLOBAL_TABLES
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxL1);
 #else

@@ -13,14 +13,13 @@
 // is a stored 0 that adds nothing, so the rounding follows the plain version
 // (up to FMA contraction on the GPU and the last bits of sinf/cosf). The
 // exceptions: the PGS sweep's dot products, which sum lane partials and
-// then a fixed xor butterfly over the group (group_sum), and in the default
-// class the factorization of M and its solves, which run over the dof
-// tree's root paths (M = L^T L, ltl_factor) where the plain version takes a
-// dense Cholesky, and the sweep's later dots of a row: a contact row's
-// tangent dots and a limit pair's second dot are formed from the row's first
-// dots and its Gram entries (contact_step, limit_step), where the plain
-// version takes a fresh dot after each update. The same functions, other
-// roundings.
+// then a fixed xor butterfly over the group (group_sum), the factorization
+// of M and its solves, which run over the dof tree's root paths (M = L^T L,
+// ltl_factor) where the plain version takes a dense Cholesky, and the
+// sweep's later dots of a row: a contact row's tangent dots and a limit
+// pair's second dot are formed from the row's first dots and its Gram
+// entries (contact_step, limit_step), where the plain version takes a fresh
+// dot after each update. The same functions, other roundings.
 //
 // Scope: free, hinge and slide joints (any number of free roots), point
 // and disk (cylinder end-cap) contacts against planes, capsule/sphere pairs
@@ -51,7 +50,8 @@
 // the host. pack_physics lays it out from the model's sizes (Tables::sc,
 // the float offset of each ENG_SCRATCH array) so no array is sized by a
 // cap; the constants below bound only the tables. The large, huge and sized
-// classes keep the array in a device buffer on the card instead.
+// classes keep the array in a device buffer on the card instead. Every class
+// runs the same substep (the sweep holds a row by its window in these three).
 
 #pragma once
 
@@ -144,9 +144,9 @@ constexpr int MAX_DRAWS = 41;     // reset draws into q (up to MAX_NQ), and into
 #elif defined(ENG_BIG_TABLES)
 // The large class (-DENG_BIG_TABLES): models over the default caps, such as
 // two humanoids in one scene (36 bodies, nq 48, nv 46, 68 limit rows, 34
-// actuators). Its tables (~58 KB) outgrow the kernel parameters, so the
-// kernels read a copy in global memory (engine.cu); its scratch is stored by
-// tree blocks in a device buffer, as the huge class's.
+// actuators). Its tables (~70 KB) outgrow the kernel parameters, so the
+// kernels read a copy in global memory (engine.cu); its scratch lives in a
+// device buffer, as the huge class's.
 // ops/cuda_engine.py reads these caps by their BIG_ names.
 constexpr int BIG_MAX_BODIES = 64;   // one body a dof at nv 64
 constexpr int BIG_MAX_NV = 64;       // the two-word root-path mask's limit
@@ -171,8 +171,8 @@ constexpr int MAX_DRAWS = BIG_MAX_DRAWS;
 // or whose one-env scratch outgrows a block's shared memory, such as four
 // humanoids in one scene (72 bodies, nq 96, nv 92, 116 floor rows, 136
 // limit rows, 68 actuators). Its tables (~105 KB) live in global memory as
-// the large class's do; its scratch is stored by tree blocks (ENG_TREE_FIELDS
-// below) in a device buffer (ENG_ENV_SCRATCH above).
+// the large class's do; its scratch lives in a device buffer
+// (ENG_ENV_SCRATCH above).
 // ops/cuda_engine.py reads these caps by their HUGE_ names.
 constexpr int HUGE_MAX_BODIES = 128;  // one body a dof at nv 128
 constexpr int HUGE_MAX_NV = 128;      // the four-word root-path mask's limit
@@ -278,14 +278,14 @@ constexpr int MJ_DONE_HUMANOID = 4;
 #define ENG_SLOT(name) SC_##name,
 enum Slot { ENG_SCRATCH(ENG_SLOT) SC_COUNT };
 #undef ENG_SLOT
-// The default class keeps its PGS scalars by row, so that one address
-// reaches a row's scalars in the sweep: a contact row's CROW floats in crow
-// (its multipliers, right-hand sides, inverse diagonals and the Gram entries
-// of its directions, y_n.y_t1, y_n.y_t2, y_t1.y_t2) and a limit row's LROW
-// in lrow (its multiplier, right-hand side and inverse diagonal; in a limit
-// pair's second row the pair's |w|^2, its inverse diagonal the first's). The
-// large, huge and sized classes keep an array each (dinv ... lam_l), which
-// the default class leaves empty. ops/cuda_engine.py sizes both.
+// Every class keeps its PGS scalars by row, so that one address reaches a
+// row's scalars in the sweep: a contact row's CROW floats in crow (its
+// multipliers, right-hand sides, inverse diagonals, Gram entries y_n.y_t1,
+// y_n.y_t2, y_t1.y_t2) and a limit row's LROW in lrow (multiplier, right-hand
+// side, inverse diagonal; a limit pair's second row the pair's |w|^2, its
+// inverse diagonal the first's); ops/cuda_engine.py sizes both. dinv ...
+// lam_l are empty and unread: removing them moved Tables::sc's indices and
+// took the G=8 env kernels 2.0-2.3% slower on an H100 (PERF.md §6).
 enum CRow {
   CR_LAM_N, CR_LAM_T1, CR_LAM_T2, CR_LAM_P, CR_B_VEL, CR_B_POS,
   CR_DINV, CR_GRAM = CR_DINV + 3, CROW = CR_GRAM + 3
@@ -527,51 +527,19 @@ constexpr int lane_nv() {
   S(float, mj_fwd)                                                            \
   S(float, mj_ctrl)
 
-// The tree blocks, in the large, huge and sized classes (the default class's
-// layout is as above). A tree is the set of bodies under one child of the
-// world; its dofs, widened to the interval that covers them and merged with
-// any tree whose interval overlaps, are a block. M is block-diagonal by
-// blocks, and so are L and every forward-solved row, so every dof loop of
-// the substep runs within a block or a row's support (the arithmetic of the
-// TPU kernel, whose traced program drops structural zeros), and L and Y are
-// stored by blocks and supports. ops/cuda_engine.py · pack_physics sets the
-// ranges from the model and scratch_layout the storage from the ranges; a
-// table edit that sets every range to [0, nv) gives the dense loops.
-#ifdef ENG_GLOBAL_TABLES
-#define ENG_TREE_BLOCKS
-#define ENG_TREE_FIELDS(S, A)                                                 \
-  A(int32_t, dof_lo, MAX_NV) /* the first dof of dof d's block */             \
-  A(int32_t, dof_hi, MAX_NV) /* one past its last dof */                      \
-  A(int32_t, l_row, MAX_NV) /* L(d, k) at L[l_row[d] + k], k in d's block;   \
-                               consecutive rows of a block l_row apart */     \
-  A(int32_t, row_lo, MAX_ROWS) /* contact row r's support [row_lo, row_hi): \
-                                  the first dof of its Jacobian to the end  \
-                                  of its last block */                      \
-  A(int32_t, row_hi, MAX_ROWS)                                                \
-  A(int32_t, row_y, MAX_ROWS) /* Y offset of row r's normal: dof d at      \
-                                 row_y[r] + d - row_lo[r]; its two tangents  \
-                                 follow, row_hi - row_lo floats apart */     \
-  A(int32_t, lim_lo, MAX_LIMITS) /* limit row m's support [lim_lo, lim_hi): \
-                                    from its dof to its block's end */      \
-  A(int32_t, lim_hi, MAX_LIMITS)                                              \
-  A(int32_t, lim_y, MAX_LIMITS) /* Y offset of limit row m, from lim_lo */
-#else
-#define ENG_TREE_FIELDS(S, A)
-#endif
-
-// The root paths, in the default class. Dofs are numbered parents first and
-// a body's dofs after its parent body's, so dof d's ancestors in the dof
-// tree (Featherstone's lambda chain) are the dofs of its body's root path
-// below d, lowest first; their count is d's depth. M = L^T L factors over
-// that tree without fill (L(d, e) != 0 only for e an ancestor of d or d),
-// so L is stored by ancestor rows: row d holds dof_depth[d] + 1 floats,
-// L(d, e) at L[anc_row[d] + dof_depth[e]], root first. A constraint row's
-// support is the union of its bodies' root paths (closed under ancestors),
-// and L^-T of a vector on it stays on it, so Y stores each row over its
-// support by position: a dof d of body a's root path at dof_depth[d], a
-// dof of body b's path only (a pair row) after those, at dof_depth[d] + na,
-// na the dofs of a's path that are not on b's (`PathRow`). Row j is contact
-// row j (j < nr), then limit row j - nr (its support its dof's chain).
+// The root paths, in every class. Dofs are numbered parents first and a
+// body's dofs after its parent body's, so dof d's ancestors in the dof tree
+// (Featherstone's lambda chain) are the dofs of its body's root path below
+// d, lowest first; their count is d's depth. M = L^T L factors over that
+// tree without fill (L(d, e) != 0 only for e an ancestor of d or d), so L
+// is stored by ancestor rows: row d holds dof_depth[d] + 1 floats, L(d, e)
+// at L[anc_row[d] + dof_depth[e]], root first. A constraint row's support
+// is the union of its bodies' root paths (closed under ancestors), and
+// L^-T of a vector on it stays on it, so Y stores each row over its support
+// by position: a dof d of body a's root path at dof_depth[d], a dof of body
+// b's path only (a pair row) after those, at dof_depth[d] + na, na the dofs
+// of a's path that are not on b's (`PathRow`). Row j is contact row j (j <
+// nr), then limit row j - nr (its support its dof's chain).
 // These dofs are the model's in the order of dof_perm: a free joint's
 // linear dofs before its angular ones, so that the leaf-first elimination
 // takes the angular ones first, their pivots the body's inertia about the
@@ -580,23 +548,24 @@ constexpr int lane_nv() {
 // complement that is the body's inertia about its COM, which float32 loses
 // to the parallel-axis term of a body far from the origin: it can turn
 // negative. dof_perm is its own inverse and keeps each body's dofs in their
-// index range (so its root-path mask).
+// index range (so its root-path mask). A set of dofs is MASK_WORDS words.
 // ops/cuda_engine.py · _path_storage sets these from the model's root paths
 // and lays out L and Y. The kernels read them at uniform indices in the
 // PGS sweep (one row ahead) and at lane-divergent ones once a substep.
-#ifndef ENG_GLOBAL_TABLES
 #define ENG_PATH_FIELDS(S, A)                                                 \
   A(int32_t, dof_perm, MAX_NV) /* the model's dof of dof d (above) */         \
   A(int32_t, dof_depth, MAX_NV) /* the ancestors of dof d */                  \
   A(int32_t, anc_row, MAX_NV) /* the float offset of d's row of L */          \
-  A(uint32_t, dof_anc, 2 * MAX_NV) /* d's ancestors: mask words 2d, 2d + 1 */ \
+  A(uint32_t, dof_anc, MASK_WORDS * MAX_NV) /* d's ancestors: words from    \
+                                               MASK_WORDS d */              \
   A(int32_t, path_y, MAX_ROWS + MAX_LIMITS) /* Y offset of row j (a contact \
                                                row's normal; its tangents   \
                                                follow, its support's size   \
                                                apart; a limit pair's rows   \
                                                one offset) */               \
-  A(uint32_t, path_u, 2 * MAX_ROWS + 2 * MAX_LIMITS) /* row j's support */  \
-  A(uint32_t, pair_pa, 2 * MAX_PAIRS) /* pair row k's body a's root path */   \
+  A(uint32_t, path_u, MASK_WORDS * MAX_ROWS + MASK_WORDS * MAX_LIMITS) /*   \
+                                                 row j's support */         \
+  A(uint32_t, pair_pa, MASK_WORDS * MAX_PAIRS) /* pair row k's body a's path */ \
   A(int32_t, pair_na, MAX_PAIRS) /* its dofs that are not on body b's */     \
   /* the sweep's limit steps: a limit row, or a pair (rows m, m + 1 of one   \
      dof, one Y row), each solved, set up and swept as one (limit_step) */   \
@@ -606,19 +575,34 @@ constexpr int lane_nv() {
      returns after FK, RNE and the composite inertias, 2 after the CRBA rows \
      and the narrowphase, 3 after the factorization */                       \
   S(int32_t, stop_after)
-// The longest support a row of the default class may have: its forward
-// solve keeps the row in registers (path_solve_t). pack_physics gives a
-// model with a longer one the large class.
+// The longest support whose forward solve keeps the row in registers
+// (path_solve_t). pack_physics gives a model with a longer one a global
+// class, which solves such a row in the scratch (path_solve_mem).
 constexpr int PATH_CAP = 24;
+
+// The global classes' sweep windows (pgs_sweeps_win) and the factorization's
+// lower bound: their models have many trees, a dof's ancestors and most
+// rows' supports within one.
+#ifdef ENG_GLOBAL_TABLES
+#define ENG_WIN_FIELDS(S, A)                                                  \
+  A(int32_t, dof_lo, MAX_NV) /* the lowest of dof d's ancestors, or d */      \
+  A(int32_t, path_n, MAX_ROWS + MAX_LIMITS) /* row j's support's size */      \
+  A(int32_t, path_w0, MAX_ROWS + MAX_LIMITS) /* its window's first word   \
+                                                (<= MASK_WORDS - 2) */       \
+  A(int32_t, path_w1, MAX_ROWS + MAX_LIMITS) /* its support's last word */   \
+  A(uint32_t, path_win, 2 * MAX_ROWS + 2 * MAX_LIMITS) /* its support's     \
+                                                         words w0, w0 + 1 */ \
+  A(uint32_t, pair_win, 2 * MAX_PAIRS) /* pair row k's body a's, likewise */ \
+  A(int32_t, pair_nab, MAX_PAIRS) /* the dofs of body a's path */
 #else
-#define ENG_PATH_FIELDS(S, A)
+#define ENG_WIN_FIELDS(S, A)
 #endif
 
 #define ENG_DECL_S(T, name) T name;
 #define ENG_DECL_A(T, name, n) T name[n];
 struct Tables {
   ENG_TABLE_FIELDS(ENG_DECL_S, ENG_DECL_A)
-  ENG_TREE_FIELDS(ENG_DECL_S, ENG_DECL_A)
+  ENG_WIN_FIELDS(ENG_DECL_S, ENG_DECL_A)
   ENG_PATH_FIELDS(ENG_DECL_S, ENG_DECL_A)
 };
 #undef ENG_DECL_S
@@ -630,77 +614,6 @@ static_assert(sizeof(Tables) + 256 <= 32764, "the tables outgrow the kernel para
 
 // A set of dofs in MASK_WORDS words. Every "is dof d on body i's root path"
 // test goes through on_path, which reads the word that holds d.
-#if !defined(ENG_HUGE_TABLES) && !defined(ENG_SIZED_TABLES)
-// two words: bit d of lo is dof d (0-31), bit d - 32 of hi is dof d (32-63)
-struct DofSet {
-  uint32_t lo, hi;
-};
-ENG_HD DofSet anc_path(const Tables& t, int i) {
-  DofSet p = {t.anc_mask[i], t.anc_mask_hi[i]};
-  return p;
-}
-ENG_HD bool on_path(DofSet p, int d) { return (((d < 32 ? p.lo : p.hi) >> (d & 31)) & 1u) != 0; }
-#elif defined(ENG_HUGE_TABLES)
-// four words: bit d - 32 w of w[w] is dof d; every index a constant, so a
-// set stays in registers
-static_assert(MASK_WORDS == 4, "the huge class's DofSet is four words");
-struct DofSet {
-  uint32_t w[4];
-};
-ENG_HD DofSet anc_path(const Tables& t, int i) {
-  DofSet p = {{t.anc_mask[i], t.anc_mask_hi[i], t.anc_mask_hi[MAX_BODIES + i],
-               t.anc_mask_hi[2 * MAX_BODIES + i]}};
-  return p;
-}
-ENG_HD bool on_path(DofSet p, int d) {
-  const uint32_t w = d < 64 ? (d < 32 ? p.w[0] : p.w[1]) : (d < 96 ? p.w[2] : p.w[3]);
-  return ((w >> (d & 31)) & 1u) != 0;
-}
-ENG_HD DofSet dofs_minus(DofSet a, DofSet b) {  // a and not b
-  DofSet r = {{a.w[0] & ~b.w[0], a.w[1] & ~b.w[1], a.w[2] & ~b.w[2], a.w[3] & ~b.w[3]}};
-  return r;
-}
-ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
-  DofSet r = {{a.w[0] | b.w[0], a.w[1] | b.w[1], a.w[2] | b.w[2], a.w[3] | b.w[3]}};
-  return r;
-}
-#else
-// MASK_WORDS words, as the huge class's four: bit d - 32 k of w[k] is dof d.
-// Every loop over the words is unrolled, so each index is a constant and a
-// set stays in registers; on_path picks d's word with a chain of selects.
-struct DofSet {
-  uint32_t w[MASK_WORDS];
-};
-ENG_HD DofSet anc_path(const Tables& t, int i) {
-  DofSet p;
-  p.w[0] = t.anc_mask[i];
-  ENG_UNROLL
-  for (int k = 1; k < MASK_WORDS; ++k) p.w[k] = t.anc_mask_hi[(k - 1) * MAX_BODIES + i];
-  return p;
-}
-ENG_HD bool on_path(DofSet p, int d) {
-  const int k = d >> 5;
-  uint32_t w = p.w[0];
-  ENG_UNROLL
-  for (int j = 1; j < MASK_WORDS; ++j) w = k == j ? p.w[j] : w;
-  return ((w >> (d & 31)) & 1u) != 0;
-}
-ENG_HD DofSet dofs_minus(DofSet a, DofSet b) {  // a and not b
-  DofSet r;
-  ENG_UNROLL
-  for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] & ~b.w[k];
-  return r;
-}
-ENG_HD DofSet dofs_union(DofSet a, DofSet b) {
-  DofSet r;
-  ENG_UNROLL
-  for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] | b.w[k];
-  return r;
-}
-#endif
-
-#ifndef ENG_GLOBAL_TABLES
-// ---- dof sets of the default class's root paths (two words) -----------------
 ENG_HD int popc32(uint32_t w) {
 #ifdef __CUDA_ARCH__
   return __popc(w);
@@ -722,6 +635,26 @@ ENG_HD int high_bit(uint32_t w) {  // w != 0
   return 31 - __builtin_clz(w);
 #endif
 }
+#if !defined(ENG_HUGE_TABLES) && !defined(ENG_SIZED_TABLES)
+// two words: bit d of lo is dof d (0-31), bit d - 32 of hi is dof d (32-63)
+struct DofSet {
+  uint32_t lo, hi;
+};
+ENG_HD DofSet anc_path(const Tables& t, int i) {
+  DofSet p = {t.anc_mask[i], t.anc_mask_hi[i]};
+  return p;
+}
+// the set in words MASK_WORDS j, MASK_WORDS j + 1 of a table array
+ENG_HD DofSet dofs_at(const uint32_t* a, int j) {
+  DofSet p = {a[MASK_WORDS * j], a[MASK_WORDS * j + 1]};
+  return p;
+}
+ENG_HD DofSet dofs_none() {
+  DofSet p = {0u, 0u};
+  return p;
+}
+ENG_HD bool on_path(DofSet p, int d) { return (((d < 32 ? p.lo : p.hi) >> (d & 31)) & 1u) != 0; }
+ENG_HD bool dofs_any(DofSet p) { return (p.lo | p.hi) != 0u; }
 ENG_HD int dofs_count(DofSet p) { return popc32(p.lo) + popc32(p.hi); }
 ENG_HD DofSet dofs_and_not(DofSet a, DofSet b) {
   DofSet r = {a.lo & ~b.lo, a.hi & ~b.hi};
@@ -748,6 +681,80 @@ ENG_HD int dofs_pop_low(DofSet& p) {
   const int b = low_bit(p.hi);
   p.hi &= p.hi - 1u;
   return 32 + b;
+}
+#else
+// MASK_WORDS words (four in the huge class): bit d - 32 k of w[k] is dof d.
+// Every loop over the words is unrolled, so each index is a constant and a
+// set stays in registers; on_path picks d's word with a chain of selects,
+// and a pop scans the words from one end for the first that is not empty.
+struct DofSet {
+  uint32_t w[MASK_WORDS];
+};
+ENG_HD DofSet anc_path(const Tables& t, int i) {
+  DofSet p;
+  p.w[0] = t.anc_mask[i];
+  ENG_UNROLL
+  for (int k = 1; k < MASK_WORDS; ++k) p.w[k] = t.anc_mask_hi[(k - 1) * MAX_BODIES + i];
+  return p;
+}
+ENG_HD DofSet dofs_at(const uint32_t* a, int j) {
+  DofSet p;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) p.w[k] = a[MASK_WORDS * j + k];
+  return p;
+}
+ENG_HD DofSet dofs_none() { return DofSet{}; }
+ENG_HD bool on_path(DofSet p, int d) {
+  const int k = d >> 5;
+  uint32_t w = p.w[0];
+  ENG_UNROLL
+  for (int j = 1; j < MASK_WORDS; ++j) w = k == j ? p.w[j] : w;
+  return ((w >> (d & 31)) & 1u) != 0;
+}
+ENG_HD bool dofs_any(DofSet p) {
+  uint32_t a = 0u;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) a |= p.w[k];
+  return a != 0u;
+}
+ENG_HD int dofs_count(DofSet p) {
+  int n = 0;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) n += popc32(p.w[k]);
+  return n;
+}
+ENG_HD DofSet dofs_and_not(DofSet a, DofSet b) {
+  DofSet r;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) r.w[k] = a.w[k] & ~b.w[k];
+  return r;
+}
+ENG_HD int dofs_pop_high(DofSet& p) {
+  int d = 0;
+  bool found = false;
+  ENG_UNROLL
+  for (int k = MASK_WORDS - 1; k >= 0; --k) {
+    if (!found && p.w[k] != 0u) {
+      const int b = high_bit(p.w[k]);
+      p.w[k] &= ~(1u << b);
+      d = 32 * k + b;
+      found = true;
+    }
+  }
+  return d;
+}
+ENG_HD int dofs_pop_low(DofSet& p) {
+  int d = 0;
+  bool found = false;
+  ENG_UNROLL
+  for (int k = 0; k < MASK_WORDS; ++k) {
+    if (!found && p.w[k] != 0u) {
+      d = 32 * k + low_bit(p.w[k]);
+      p.w[k] &= p.w[k] - 1u;
+      found = true;
+    }
+  }
+  return d;
 }
 #endif
 
@@ -1112,8 +1119,8 @@ struct Scr {
   float *z, *zp, *v3o, *vp, *Y;
   float *dinv, *b_vel, *b_pos, *dinv_l, *b_l;
   float *lam_n, *lam_t1, *lam_t2, *lam_p, *lam_l;
-  int32_t* dofs;  // the default class's dof records (dofs_fill)
-  float *crow, *lrow;  // the default class's PGS scalars by row (CRow, LRow)
+  int32_t* dofs;  // the dof records (dofs_fill)
+  float *crow, *lrow;  // the PGS scalars by row (CRow, LRow)
 };
 
 ENG_HD Scr scratch(const Tables& t, float* base) {
@@ -1302,23 +1309,7 @@ ENG_HD void composite_inertias(const Tables& t, Inertia* Ic) {
   }
 }
 
-#ifdef ENG_TREE_BLOCKS
-// Row d of the lower triangle of M (entries e <= d of d's block), each entry
-// as mass_matrix computes it; one lane a row.
-ENG_HD void mass_matrix_row(const Tables& t, const FK& fk, const Inertia* Ic, int d, float* Md) {
-  const int i = t.dof_body[d];
-  Inertia I = Ic[i];
-  I.m = t.cmass[i];
-  const SV F = inertia_mul(I, fk.S[d]);
-  const DofSet path = anc_path(t, i);
-  for (int e = t.dof_lo[d]; e <= d; ++e)
-    Md[e] = on_path(path, e) ? sv_dot(mm_operand(fk.S[e]), mm_operand(F)) : 0.f;
-  if (t.armature[d] != 0.f) Md[d] = Md[d] + t.armature[d];
-}
-#endif
-
-#ifndef ENG_TREE_BLOCKS
-// ---- M = L^T L over the dof tree (the default class) --------------------------
+// ---- M = L^T L over the dof tree --------------------------------------------
 // Featherstone's LTL factorization ("Efficient factorization of the
 // joint-space inertia matrix for branched kinematic trees", IJRR 2005;
 // MuJoCo factors M the same way): from the last dof to the first, each
@@ -1359,18 +1350,16 @@ template <bool PAIR>
 ENG_HD RowRaw row_raw(const Tables& t, int j) {
   RowRaw w;
   w.y = t.path_y[j];
-  w.u.lo = t.path_u[2 * j];
-  w.u.hi = t.path_u[2 * j + 1];
+  w.u = dofs_at(t.path_u, j);
   w.na = 0;
-  w.a.lo = w.a.hi = 0u;
+  w.a = dofs_none();
   w.c = j < t.nr ? t.row_mu[j] : t.lim_sign[j - t.nr];
   w.m = 0;
   w.step = 1;
   w.c2 = 0.f;
   if (PAIR) {
     const int k = j - (t.nr - t.npair);
-    w.a.lo = t.pair_pa[2 * k];
-    w.a.hi = t.pair_pa[2 * k + 1];
+    w.a = dofs_at(t.pair_pa, k);
     w.na = t.pair_na[k];
   }
   return w;
@@ -1388,7 +1377,7 @@ ENG_HD PathRow row_of(const RowRaw& w) {
   } else {
     p.a = w.u;
     p.na = p.n;
-    p.bo.lo = p.bo.hi = 0u;
+    p.bo = dofs_none();
   }
   return p;
 }
@@ -1413,15 +1402,18 @@ ENG_HD RowRaw limit_raw(const Tables& t, int k) {
   return w;
 }
 // Dof d's ancestor row in L, the model's dof (dof_perm), its depth and its
-// ancestors: four int32 words a dof in the scratch's `dofs` (the row in the
-// low 16 bits of the first, the model's dof above), which dofs_fill copies
-// from the tables once a launch, because the substep reads them at
-// lane-divergent indices (the factorization's rows, the forward solves'
-// positions), which the constant cache serves one address at a time
+// ancestors: DOF_WORDS words a dof in the scratch's `dofs` (copied by
+// dofs_fill once a launch: the substep reads them at lane-divergent
+// indices). The default class packs the row in the low 16 bits of word 0,
+// the model's dof above, then the depth and two mask words; the global
+// classes (no cap on L or nv): the row, the depth, the model's dof, then
+// MASK_WORDS mask words.
 struct DofPath {
   int row, model, depth;
   DofSet anc;
 };
+#ifndef ENG_GLOBAL_TABLES
+constexpr int DOF_WORDS = 4;
 ENG_HD DofPath dof_path(const Scr& s, int d) {
   const int32_t* q = s.dofs + 4 * d;
   DofPath p = {q[0] & 0xffff, q[0] >> 16, q[1], {(uint32_t)q[2], (uint32_t)q[3]}};
@@ -1443,6 +1435,39 @@ ENG_HD void dofs_fill(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   }
 }
+// the lowest dof that can be an ancestor of dof k
+ENG_HD int anc_lo(const Tables&, int) { return 0; }
+#else
+constexpr int DOF_WORDS = 3 + MASK_WORDS;
+ENG_HD DofPath dof_path(const Scr& s, int d) {
+  const int32_t* q = s.dofs + DOF_WORDS * d;
+  DofPath p;
+  p.row = q[0];
+  p.depth = q[1];
+  p.model = q[2];
+  p.anc = dofs_at((const uint32_t*)q + 3, 0);
+  return p;
+}
+ENG_HD int dof_model(const Scr& s, int d) { return s.dofs[DOF_WORDS * d + 2]; }
+ENG_HD int dof_row(const Scr& s, int d) { return s.dofs[DOF_WORDS * d]; }
+template <int G>
+ENG_HD void dofs_fill(const Tables& t, const Group<G>& g, const Scr& s) {
+  EACH_LANE(g, l) {
+    for (int d = l; d < t.nv; d += G) {
+      int32_t* q = s.dofs + DOF_WORDS * d;
+      q[0] = t.anc_row[d];
+      q[1] = t.dof_depth[d];
+      q[2] = t.dof_perm[d];
+      for (int k = 0; k < MASK_WORDS; ++k) q[3 + k] = (int32_t)t.dof_anc[MASK_WORDS * d + k];
+    }
+  }
+}
+// the lowest dof that can be an ancestor of dof k: a model of many trees
+// bounds the factorization's lanes by k's tree
+ENG_HD int anc_lo(const Tables& t, int k) { return t.dof_lo[k]; }
+#endif
+// dof d's depth: its ancestors
+ENG_HD int dof_depth(const Scr& s, int d) { return s.dofs[DOF_WORDS * d + 1]; }
 
 // Row k of M over k's ancestors and k (its ancestor row, root first), each
 // entry as mass_matrix computes it for the model's dofs; one lane a row.
@@ -1454,7 +1479,7 @@ ENG_HD void mass_matrix_row(const Tables& t, const Scr& s, int k) {
   const SV F = inertia_mul(I, s.fk.S[d]);
   float* const Md = s.L + pk.row;
   DofSet anc = pk.anc;
-  for (int m = 0; anc.lo | anc.hi; ++m) {
+  for (int m = 0; dofs_any(anc); ++m) {
     const int e = dof_model(s, dofs_pop_low(anc));
     Md[m] = sv_dot(mm_operand(s.fk.S[e]), mm_operand(F));
   }
@@ -1495,9 +1520,9 @@ ENG_HD void ltl_factor(const Tables& t, const Group<G>& g, const Scr& s) {
     const float inv2 = inv * inv;
     const float x = y[k] * inv;
     EACH_LANE(g, l) {
-      for (int i = l; i < k; i += G) {  // lanes over dofs: k's ancestors lie below k
+      for (int i = anc_lo(t, k) + l; i < k; i += G) {  // lanes over dofs: k's ancestors
         if (!on_path(pk.anc, i)) continue;
-        const int m = s.dofs[4 * i + 1];  // i's depth: H(k, i) at Lk[m]
+        const int m = dof_depth(s, i);  // i's depth: H(k, i) at Lk[m]
         float* const Li = L + dof_row(s, i);
         const float hkm = Lk[m];
         const float a = hkm * inv2;
@@ -1533,7 +1558,7 @@ ENG_HD void ltl_solve(const Tables& t, const Scr& s, const float* z, float* x) {
     const float* const Li = s.L + pi.row;
     float a = z[i];
     DofSet anc = pi.anc;
-    for (int m = 0; anc.lo | anc.hi; ++m) a = a - Li[m] * x[dof_model(s, dofs_pop_low(anc))];
+    for (int m = 0; dofs_any(anc); ++m) a = a - Li[m] * x[dof_model(s, dofs_pop_low(anc))];
     x[pi.model] = a * s.inv_diag[i];
   }
 }
@@ -1574,7 +1599,47 @@ ENG_HD void path_solve_t(const Scr& s, const PathRow& p, float* y) {
   for (int j = 0; j < P; ++j)
     if (j < n) y[j] = x[j];
 }
+
+#ifdef ENG_GLOBAL_TABLES
+// path_solve_t of a support past PATH_CAP in the scratch, y in place, the
+// same operations in order. Not inlined: beside path_solve_t it cost the
+// physics builds 20-56 B of spills at their 128 registers (ptxas, sm_90a).
+template <bool PAIR>
+#ifdef __CUDA_ARCH__
+__device__ __noinline__
+#else
+inline
 #endif
+void path_solve_mem(const Scr& s, const PathRow& p, float* y) {
+  const int n = p.n, nab = n - dofs_count(p.bo);
+  const int c = nab - p.na;
+  DofSet wa = p.a, wb = p.bo;
+  for (int j = n - 1; j >= 0; --j) {
+    const bool in_b = PAIR && j >= nab;
+    const int d = in_b ? dofs_pop_high(wb) : dofs_pop_high(wa);
+    const float xj = y[j] * s.inv_diag[d];
+    y[j] = xj;
+    const float* const Ld = s.L + dof_row(s, d);
+    for (int m = 0; m < j; ++m) {
+      if (in_b && m >= c && m < nab) continue;
+      y[m] = y[m] - Ld[m >= nab ? m - p.na : m] * xj;
+    }
+  }
+}
+#endif
+
+// A row's forward solve: in registers (path_solve_t); in the global classes
+// in the scratch where its support is longer than PATH_CAP
+template <int G, bool PAIR>
+ENG_HD void path_solve(const Scr& s, const PathRow& p, float* y) {
+#ifdef ENG_GLOBAL_TABLES
+  if (p.n > PATH_CAP) {
+    path_solve_mem<PAIR>(s, p, y);
+    return;
+  }
+#endif
+  path_solve_t<path_regs<G>(), PAIR>(s, p, y);
+}
 
 // sum of a[d] * b[d] in dof order (the probe's operands)
 ENG_HD float dotn(int n, const float* a, const float* b) {
@@ -1584,30 +1649,8 @@ ENG_HD float dotn(int n, const float* a, const float* b) {
   return s;
 }
 
-// Two independent group sums through one butterfly (each as group_sum
-// computes it alone), so that their shuffles overlap.
-template <int G>
-ENG_HD void group_sum2(const Group<G>& g, PerLane<float, G>& a, PerLane<float, G>& b,
-                       float& sa, float& sb) {
-#ifdef __CUDA_ARCH__
-  float x = a.x, y = b.x;
-  ENG_UNROLL
-  for (int o = G / 2; o > 0; o >>= 1) {
-    const float xo = __shfl_xor_sync(g.mask, x, o), yo = __shfl_xor_sync(g.mask, y, o);
-    x = x + xo;
-    y = y + yo;
-  }
-  sa = x;
-  sb = y;
-#else
-  (void)g;
-  ++host_group_sums();
-  sa = host_butterfly(a);
-  sb = host_butterfly(b);
-#endif
-}
-
-// Four independent group sums through one butterfly, as group_sum2's two
+// Four independent group sums through one butterfly (each as group_sum
+// computes it alone), so that their shuffles overlap
 template <int G>
 ENG_HD void group_sum4(const Group<G>& g, PerLane<float, G>* p, float* out) {
 #ifdef __CUDA_ARCH__
@@ -1631,7 +1674,6 @@ ENG_HD void group_sum4(const Group<G>& g, PerLane<float, G>* p, float* out) {
 #endif
 }
 
-#ifndef ENG_TREE_BLOCKS
 // A row's entries as the PGS sweep's lanes hold them: lane l's dof of chunk
 // k meets the row's entry at the dof's position (its normal's, and a
 // contact row's two tangents'), 0 off the row's support, as the plain
@@ -1717,165 +1759,6 @@ ENG_HD void path_axpy(const Group<G>& g, PerLane<RowRegs<K>, G>& row, PerLane<La
     for (int k = 0; k < K; ++k) z[l].x[k] = z[l].x[k] + row[l].n[k] * a;
   }
 }
-#endif
-
-#ifdef ENG_TREE_BLOCKS
-// ---- the same by tree blocks (large, huge and sized classes) ----------------
-// Each loop runs over a block or a row's support only: every term it leaves
-// out is an exact zero of the dense loop, and the terms it keeps are summed
-// in the same order, so the results are the dense loops' up to the sign of a
-// zero. Tensor cores do not apply: every sum keeps the reference's float32
-// order, and the blocks are 6-23 dofs wide.
-
-// The row stride of L in dof i's block (0 for a block's last row, whose
-// column has no entry below the diagonal)
-ENG_HD int l_stride(const Tables& t, int i) {
-  return i + 1 < t.dof_hi[i] ? t.l_row[i + 1] - t.l_row[i] : 0;
-}
-
-// cholesky by blocks: column j's k-sums from its block's first dof, its
-// rows only to the block's end
-template <int G>
-ENG_HD void cholesky_blocks(const Tables& t, const Group<G>& g, float* L, float* inv_diag) {
-  for (int j = 0; j < t.nv; ++j) {
-    const int lo = t.dof_lo[j], hi = t.dof_hi[j];
-    float* const Lj = L + t.l_row[j];
-    float s = Lj[j];
-    ENG_UNROLL4
-    for (int k = lo; k < j; ++k) s = s - Lj[k] * Lj[k];
-    const float djj = sqrtf(jmax(s, (float)1e-9));
-    const float inv = 1.f / djj;
-    EACH_LANE(g, l) {
-      for (int i = j + 1 + l; i < hi; i += G) {
-        float* Li = L + t.l_row[i];
-        float r = Li[j];
-        ENG_UNROLL4
-        for (int k = lo; k < j; ++k) r = r - Li[k] * Lj[k];
-        Li[j] = r * inv;
-      }
-    }
-    Lj[j] = djj;  // uniform: every lane stores the same bits
-    inv_diag[j] = inv;
-    g.sync();
-  }
-}
-
-// chol_fwd of a right-hand side that is zero outside [lo, hi), hi a block's
-// end, stored as y[d - lo]: the plain chol_solve_fwd carries its leading
-// zeros, and no dof past hi is reached
-ENG_HD void chol_fwd_rows(const Tables& t, const float* L, const float* inv_diag, int lo, int hi,
-                          float* y) {
-  for (int i = lo; i < hi; ++i) {
-    const float* Li = L + t.l_row[i];
-    float s = y[i - lo];
-    ENG_UNROLL4
-    for (int k = t.dof_lo[i] > lo ? t.dof_lo[i] : lo; k < i; ++k) s = s - Li[k] * y[k - lo];
-    y[i - lo] = s * inv_diag[i];
-  }
-}
-
-// chol_back within the blocks: x = L^-T y
-ENG_HD void chol_back_blocks(const Tables& t, const float* L, const float* inv_diag,
-                             const float* y, float* x) {
-  for (int i = t.nv - 1; i >= 0; --i) {
-    const float* Lki = L + t.l_row[i] + i;
-    const int ldb = l_stride(t, i);
-    float s = y[i];
-    ENG_UNROLL4
-    for (int k = i + 1; k < t.dof_hi[i]; ++k) s = s - Lki[(k - i) * ldb] * x[k];
-    x[i] = s * inv_diag[i];
-  }
-}
-
-// Right-hand side j of the forward solves: its support and its row of Y
-// (dof d at y[d - lo]). 0: the dynamics (every dof); 1 + 3 r + k: contact
-// row r's direction k; 1 + 3 nr + m: limit row m.
-struct Rhs {
-  int lo, hi;
-  float* y;
-};
-ENG_HD Rhs rhs_row(const Tables& t, const Scr& s, int j) {
-  Rhs h;
-  if (j == 0) {
-    h.lo = 0;
-    h.hi = t.nv;
-    h.y = s.Y;
-  } else if (j <= 3 * t.nr) {
-    const int r = (j - 1) / 3;
-    h.lo = t.row_lo[r];
-    h.hi = t.row_hi[r];
-    h.y = s.Y + t.row_y[r] + ((j - 1) - 3 * r) * (h.hi - h.lo);
-  } else {
-    const int m = j - 1 - 3 * t.nr;
-    h.lo = t.lim_lo[m];
-    h.hi = t.lim_hi[m];
-    h.y = s.Y + t.lim_y[m];
-  }
-  return h;
-}
-
-// Whether lane chunk k (dofs k G .. k G + G - 1) meets [lo, hi): uniform
-// over the group, so a chunk outside the support is skipped by every lane
-// and k stays a constant (the chunk's register)
-template <int G>
-ENG_HD bool chunk_meets(int k, int lo, int hi) {
-  return k * G < hi && (k + 1) * G > lo;
-}
-
-// The sweep's dot, its dot with two vectors and its update, of a row stored
-// over [lo, hi)
-template <int G, int K>
-ENG_HD float lane_dot_rows(const Group<G>& g, int lo, int hi, const float* y,
-                           PerLane<LaneVec<K>, G>& z) {
-  PerLane<float, G> part;
-  EACH_LANE(g, l) {
-    float s = 0.f;
-    ENG_UNROLL
-    for (int k = 0; k < K; ++k) {
-      if (!chunk_meets<G>(k, lo, hi)) continue;
-      const int d = l + k * G;
-      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) s = s + y[d - lo] * z[l].x[k];
-    }
-    part[l] = s;
-  }
-  return group_sum(g, part);
-}
-
-template <int G, int K>
-ENG_HD void lane_dot2_rows(const Group<G>& g, int lo, int hi, const float* y,
-                           PerLane<LaneVec<K>, G>& z, PerLane<LaneVec<K>, G>& zp, float& vz,
-                           float& vzp) {
-  PerLane<float, G> a, b;
-  EACH_LANE(g, l) {
-    float s = 0.f, sp = 0.f;
-    ENG_UNROLL
-    for (int k = 0; k < K; ++k) {
-      if (!chunk_meets<G>(k, lo, hi)) continue;
-      const int d = l + k * G;
-      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) {
-        s = s + y[d - lo] * z[l].x[k];
-        sp = sp + y[d - lo] * zp[l].x[k];
-      }
-    }
-    a[l] = s;
-    b[l] = sp;
-  }
-  group_sum2(g, a, b, vz, vzp);
-}
-
-template <int G, int K>
-ENG_HD void lane_axpy_rows(const Group<G>& g, int lo, int hi, PerLane<LaneVec<K>, G>& z,
-                           const float* y, float a) {
-  EACH_LANE(g, l) {
-    ENG_UNROLL
-    for (int k = 0; k < K; ++k) {
-      if (!chunk_meets<G>(k, lo, hi)) continue;
-      const int d = l + k * G;
-      if ((unsigned)(d - lo) < (unsigned)(hi - lo)) z[l].x[k] = z[l].x[k] + y[d - lo] * a;
-    }
-  }
-}
-#endif
 
 // ---- narrowphase of one capsule/sphere pair: contacts.py · narrowphase_scalar
 
@@ -1926,7 +1809,51 @@ ENG_HD V3 disk_rim(const Tables& t, const M3& R, V3 n, int r) {
   return v3_scale(e, t.row_rim[r]);
 }
 
-#ifndef ENG_TREE_BLOCKS
+// contact_step's scalar chain (below) as win_step runs it, from the row's
+// four dots d and its CRow block c (a register copy): the new multipliers
+// and their changes. contact_step keeps its own text: calling this chain
+// from it moves the default class's SASS (PERF.md §6).
+struct ContactStep {
+  float lp, ap, ln, an, l1, a1, l2, a2;
+};
+ENG_HD ContactStep contact_chain(const float* c, float mu, const float* d) {
+  ContactStep u;
+  const float dn = c[CR_DINV], *gram = c + CR_GRAM;
+  u.lp = jmax(c[CR_LAM_P] + (c[CR_B_POS] - d[1]) * dn, 0.f);
+  u.ap = u.lp - c[CR_LAM_P];
+  u.ln = jmax(c[CR_LAM_N] + (c[CR_B_VEL] - d[0]) * dn, 0.f);
+  u.an = u.ln - c[CR_LAM_N];
+  const float hi = mu * u.ln;
+  u.l1 = jclip(c[CR_LAM_T1] - (d[2] + u.an * gram[0]) * c[CR_DINV + 1], -hi, hi);
+  u.a1 = u.l1 - c[CR_LAM_T1];
+  u.l2 = jclip(c[CR_LAM_T2] - ((d[3] + u.an * gram[1]) + u.a1 * gram[2]) * c[CR_DINV + 2], -hi,
+               hi);
+  u.a2 = u.l2 - c[CR_LAM_T2];
+  return u;
+}
+ENG_HD void contact_store(float* c, const ContactStep& u) {
+  c[CR_LAM_P] = u.lp;
+  c[CR_LAM_N] = u.ln;
+  c[CR_LAM_T1] = u.l1;
+  c[CR_LAM_T2] = u.l2;
+}
+
+// limit_step's chain (below) as win_step runs it, from u = w.z and the LRow
+// blocks r (a register copy): stores the multipliers in c, returns z's update.
+ENG_HD float limit_chain(const float* r, float* c, float sign, int step, float sign2,
+                         float u) {
+  const float l0 = jmax(r[LR_LAM] + (r[LR_B] - sign * u) * r[LR_D], 0.f);
+  float a = sign * (l0 - r[LR_LAM]);
+  c[LR_LAM] = l0;
+  if (step == 2) {
+    const float* const r2 = r + LROW;
+    const float l1 = jmax(r2[LR_LAM] + (r2[LR_B] - sign2 * (u + a * r2[LR_D])) * r[LR_D], 0.f);
+    a = a + sign2 * (l1 - r2[LR_LAM]);
+    c[LROW + LR_LAM] = l1;
+  }
+  return a;
+}
+
 // One contact row's step of a sweep (contacts.py · solve_scalar), its
 // entries in the lanes' registers: one butterfly for the row's four dots
 // (path_dot4), then its chain in scalars, read from the row's CRow block
@@ -2036,11 +1963,11 @@ ENG_HD void sweep_limits(const Tables& t, const Group<G>& g, const Scr& s,
   }
 }
 
-// The PGS sweeps: Gauss-Seidel over the floor rows, the pair rows, then the
-// limit rows, each row's dots and updates over its support; z and zp (the
-// scratch's, on entry and exit) live in the lanes' registers in K chunks by
-// dof, beside each dof's depth. A contact row's step runs one butterfly, and
-// so does a limit row's or a limit pair's.
+// The PGS sweeps of the default class: Gauss-Seidel over the floor rows, the
+// pair rows, then the limit rows, each row's dots and updates over its
+// support; z and zp (the scratch's, on entry and exit) live in the lanes'
+// registers in K chunks by dof, beside each dof's depth. A contact row's
+// step runs one butterfly, and so does a limit row's or a limit pair's.
 template <int G, int K>
 ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
   const int nv = t.nv, nr = t.nr, nfloor = nr - t.npair;
@@ -2052,7 +1979,7 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
       const int d = l + k * G;
       z[l].x[k] = d < nv ? s.z[d] : 0.f;
       zp[l].x[k] = 0.f;
-      dep[l].x[k] = d < nv ? s.dofs[4 * d + 1] : 0;
+      dep[l].x[k] = d < nv ? dof_depth(s, d) : 0;
     }
   }
   for (int it = 0; it < t.iterations; ++it) {
@@ -2071,13 +1998,254 @@ ENG_HD void pgs_sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   }
 }
-#endif
 
-#ifdef ENG_TREE_BLOCKS
-// pgs_sweeps over each row's support (the tree classes)
+#ifdef ENG_GLOBAL_TABLES
+// ---- the sweep of the global classes: a row by its window -------------------
+// Their lanes hold z and zp by dof in K chunks (2 to 8 at G = 32 on two to
+// ten Humanoids), as pgs_sweeps does, but a row's entries only over its
+// window: the W = win_chunks chunks of the two mask words from path_w0
+// (chunks from c0 = 32 w0 / G), which hold every support within a tree of up
+// to 33 dofs. A chunk outside the window is skipped by the whole group, so k
+// stays a constant and z a register. A row over more words (a pair row of
+// two trees apart) takes its further windows in its step, its partials in
+// chunk order and one butterfly all the same. Their scratch is in global
+// memory, so no load is on a row's chain: its table words are read two
+// rows ahead (fixed addresses), its entries a row ahead (their positions
+// ranks in the window's words) and its PGS scalars at its step's start.
 template <int G, int K>
-ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
-  const int nv = t.nv, nr = t.nr, nl = t.nl;
+constexpr int win_chunks() {
+  return K < 64 / G ? K : 64 / G;
+}
+
+// Row j's words for the sweep (j: contact row j, or limit row j - nr): its
+// Y offset, support size, |a| (body a's path; any other row's support),
+// window's first word and last word, the support's and body a's words in
+// the window, the row's mu or sign, a limit step's rows (limit_raw)
+struct WinRaw {
+  int j, y, n, na, w0, w1;
+  uint32_t u[2], a[2];
+  float c;
+  int m, step;
+  float c2;
+};
+// row j's support's and body a's words wk, wk + 1 (0 past the last word),
+// and the dofs of each in the words before wk (ba, bb: a, and the support
+// less a)
+ENG_HD void win_words(const Tables& t, int j, int wk, uint32_t* u, uint32_t* a, int& ba,
+                      int& bb) {
+  const int k = j - (t.nr - t.npair);
+  const bool pair = k >= 0 && j < t.nr;
+  const uint32_t* pu = t.path_u + MASK_WORDS * j;
+  const uint32_t* pa = t.pair_pa + MASK_WORDS * (pair ? k : 0);
+  ba = bb = 0;
+  for (int i = 0; i < wk; ++i) {
+    const uint32_t ui = pu[i], ai = pair ? pa[i] : ui;
+    ba += popc32(ai);
+    bb += popc32(ui & ~ai);
+  }
+  ENG_UNROLL
+  for (int i = 0; i < 2; ++i) {
+    const bool in = wk + i < MASK_WORDS;
+    u[i] = in ? pu[wk + i] : 0u;
+    a[i] = pair && in ? pa[wk + i] : u[i];
+  }
+}
+ENG_HD WinRaw win_raw(const Tables& t, int j) {
+  WinRaw w;
+  const int k = j - (t.nr - t.npair);
+  const bool pair = k >= 0 && j < t.nr;
+  w.j = j;
+  w.y = t.path_y[j];
+  w.n = t.path_n[j];
+  w.w0 = t.path_w0[j];
+  w.w1 = t.path_w1[j];
+  w.u[0] = t.path_win[2 * j];
+  w.u[1] = t.path_win[2 * j + 1];
+  w.a[0] = pair ? t.pair_win[2 * k] : w.u[0];
+  w.a[1] = pair ? t.pair_win[2 * k + 1] : w.u[1];
+  w.na = pair ? t.pair_nab[k] : w.n;
+  w.c = j < t.nr ? t.row_mu[j] : t.lim_sign[j - t.nr];
+  w.m = 0;
+  w.step = 1;
+  w.c2 = 0.f;
+  return w;
+}
+ENG_HD WinRaw limit_win_raw(const Tables& t, int k) {
+  const int m = t.lim_first[k];
+  WinRaw w = win_raw(t, t.nr + m);
+  w.m = m;
+  w.step = limit_step_rows(t, k);
+  w.c2 = t.lim_sign[m + w.step - 1];
+  return w;
+}
+
+// Lane l's entries of row w over a window of words (u, a, and the dofs
+// before them, ba, bb: win_words): slot i holds the lane's dof of the
+// window's chunk i, 0 off the support, its position its rank in body a's
+// path or |a| plus its rank in the rest (PathRow); a lane off the support
+// reads the row's first entries, which every row has: no branch.
+template <int G, int W, bool THREE>
+ENG_HD void win_load(const Scr& s, const WinRaw& w, const uint32_t* u, const uint32_t* a, int ba,
+                     int bb, int l, RowRegs<W>& o) {
+  ENG_UNROLL
+  for (int i = 0; i < W; ++i) {
+    const int b = l + i * G;  // the dof's bit in the window
+    const int sh = b & 31;
+    const uint32_t below = (1u << sh) - 1u;
+    const uint32_t m0 = b < 32 ? below : ~0u, m1 = b < 32 ? 0u : below;
+    const uint32_t uw = b < 32 ? u[0] : u[1], aw = b < 32 ? a[0] : a[1];
+    const bool on = ((uw >> sh) & 1u) != 0, in_a = ((aw >> sh) & 1u) != 0;
+    const int rank_a = popc32(a[0] & m0) + popc32(a[1] & m1);
+    const int rank_b = popc32(u[0] & ~a[0] & m0) + popc32(u[1] & ~a[1] & m1);
+    const int pos = in_a ? ba + rank_a : w.na + bb + rank_b;
+    const float* y = s.Y + w.y + (on ? pos : 0);
+    const float n = y[0];
+    o.n[i] = on ? n : 0.f;
+    if (THREE) {
+      const float t1 = y[w.n], t2 = y[2 * w.n];
+      o.t1[i] = on ? t1 : 0.f;
+      o.t2[i] = on ? t2 : 0.f;
+    } else {
+      o.t1[i] = o.t2[i] = 0.f;
+    }
+  }
+}
+
+// Slot i of a window's entries (i uniform), selected without an index
+template <int W>
+ENG_HD void win_slot(const RowRegs<W>& r, int i, float& n, float& t1, float& t2) {
+  n = r.n[0];
+  t1 = r.t1[0];
+  t2 = r.t2[0];
+  ENG_UNROLL
+  for (int q = 1; q < W; ++q) {
+    n = i == q ? r.n[q] : n;
+    t1 = i == q ? r.t1[q] : t1;
+    t2 = i == q ? r.t2[q] : t2;
+  }
+}
+
+// A lane's partials over a window from chunk c0: a contact row's four dots
+// (FOUR), or a limit row's one, acc[0]
+template <int K, int W, bool FOUR>
+ENG_HD void win_dots(const RowRegs<W>& r, int c0, const LaneVec<K>& z, const LaneVec<K>& zp,
+                     float* acc) {
+  ENG_UNROLL
+  for (int k = 0; k < K; ++k) {
+    const int i = k - c0;
+    if (i < 0 || i >= W) continue;
+    float n, t1, t2;
+    win_slot<W>(r, i, n, t1, t2);
+    acc[0] = acc[0] + n * z.x[k];
+    if (FOUR) {
+      acc[1] = acc[1] + n * zp.x[k];
+      acc[2] = acc[2] + t1 * z.x[k];
+      acc[3] = acc[3] + t2 * z.x[k];
+    }
+  }
+}
+
+// A lane's update over a window: a contact row's three of z and one of zp
+// (FOUR), or a limit step's z += w an
+template <int K, int W, bool FOUR>
+ENG_HD void win_update(const RowRegs<W>& r, int c0, LaneVec<K>& z, LaneVec<K>& zp, float ap,
+                       float an, float a1, float a2) {
+  ENG_UNROLL
+  for (int k = 0; k < K; ++k) {
+    const int i = k - c0;
+    if (i < 0 || i >= W) continue;
+    float n, t1, t2;
+    win_slot<W>(r, i, n, t1, t2);
+    if (FOUR) {
+      zp.x[k] = zp.x[k] + n * ap;
+      z.x[k] = ((z.x[k] + n * an) + t1 * a1) + t2 * a2;
+    } else {
+      z.x[k] = z.x[k] + n * an;
+    }
+  }
+}
+
+// One row's step of a sweep by windows: a contact row (FOUR: its four dots,
+// contact_chain) or a limit step (its dot, limit_chain); `row` its first
+// window's entries, `r` its PGS scalars
+template <int G, int K, bool FOUR>
+ENG_HD void win_step(const Tables& t, const Group<G>& g, const Scr& s, const WinRaw& w,
+                     PerLane<RowRegs<win_chunks<G, K>()>, G>& row, const float* r,
+                     PerLane<LaneVec<K>, G>& z, PerLane<LaneVec<K>, G>& zp) {
+  constexpr int W = win_chunks<G, K>();
+  const int c0 = 32 * w.w0 / G;
+  PerLane<float, G> part[4];
+  EACH_LANE(g, l) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    win_dots<K, W, FOUR>(row[l], c0, z[l], zp[l], acc);
+    for (int wk = w.w0 + 2; wk <= w.w1; wk += 2) {  // a wide row's further windows
+      uint32_t u[2], a[2];
+      int ba, bb;
+      win_words(t, w.j, wk, u, a, ba, bb);
+      RowRegs<W> o;
+      win_load<G, W, FOUR>(s, w, u, a, ba, bb, l, o);
+      win_dots<K, W, FOUR>(o, 32 * wk / G, z[l], zp[l], acc);
+    }
+    ENG_UNROLL
+    for (int i = 0; i < (FOUR ? 4 : 1); ++i) part[i][l] = acc[i];
+  }
+  ContactStep u = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float* const c = FOUR ? s.crow + CROW * w.j : s.lrow + LROW * w.m;
+  if (FOUR) {
+    float d[4];
+    group_sum4(g, part, d);
+    u = contact_chain(r, w.c, d);
+  } else {
+    u.an = limit_chain(r, c, w.c, w.step, w.c2, group_sum(g, part[0]));
+  }
+  EACH_LANE(g, l) {
+    win_update<K, W, FOUR>(row[l], c0, z[l], zp[l], u.ap, u.an, u.a1, u.a2);
+    for (int wk = w.w0 + 2; wk <= w.w1; wk += 2) {
+      uint32_t uw[2], aw[2];
+      int ba, bb;
+      win_words(t, w.j, wk, uw, aw, ba, bb);
+      RowRegs<W> o;
+      win_load<G, W, FOUR>(s, w, uw, aw, ba, bb, l, o);
+      win_update<K, W, FOUR>(o, 32 * wk / G, z[l], zp[l], u.ap, u.an, u.a1, u.a2);
+    }
+  }
+  if (FOUR) contact_store(c, u);
+}
+
+// The contact rows (FOUR), or the limit steps, of a sweep: each row's words
+// read two rows ahead, its first window's entries a row ahead, its scalars
+// (its CRow block, or a limit step's LRow blocks) at its step's start.
+template <int G, int K, bool FOUR>
+ENG_HD void sweep_win(const Tables& t, const Group<G>& g, const Scr& s,
+                      PerLane<LaneVec<K>, G>& z, PerLane<LaneVec<K>, G>& zp) {
+  constexpr int W = win_chunks<G, K>();
+  constexpr int R = FOUR ? CROW : 2 * LROW;
+  const int n = FOUR ? t.nr : t.lim_steps;
+  if (n == 0) return;
+  PerLane<RowRegs<W>, G> row, next;
+  WinRaw cur = FOUR ? win_raw(t, 0) : limit_win_raw(t, 0);
+  EACH_LANE(g, l) win_load<G, W, FOUR>(s, cur, cur.u, cur.a, 0, 0, l, row[l]);
+  WinRaw w = FOUR ? win_raw(t, n > 1 ? 1 : 0) : limit_win_raw(t, n > 1 ? 1 : 0);
+  for (int j = 0; j < n; ++j) {
+    EACH_LANE(g, l) win_load<G, W, FOUR>(s, w, w.u, w.a, 0, 0, l, next[l]);
+    const int j2 = j + 2 < n ? j + 2 : n - 1;
+    const WinRaw after = FOUR ? win_raw(t, j2) : limit_win_raw(t, j2);
+    const float* const c = FOUR ? s.crow + CROW * cur.j : s.lrow + LROW * cur.m;
+    float r[R];
+    ENG_UNROLL
+    for (int i = 0; i < R; ++i) r[i] = FOUR || i < LROW || cur.step == 2 ? c[i] : 0.f;
+    win_step<G, K, FOUR>(t, g, s, cur, row, r, z, zp);
+    row = next;
+    cur = w;
+    w = after;
+  }
+}
+
+// The PGS sweeps of the global classes: the contact rows in order (floor
+// rows, then pair rows), then the limit steps, as pgs_sweeps
+template <int G, int K>
+ENG_HD void pgs_sweeps_win(const Tables& t, const Group<G>& g, const Scr& s) {
+  const int nv = t.nv;
   PerLane<LaneVec<K>, G> z, zp;
   EACH_LANE(g, l) {
     ENG_UNROLL
@@ -2088,38 +2256,8 @@ ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   }
   for (int it = 0; it < t.iterations; ++it) {
-    for (int r = 0; r < nr; ++r) {
-      const int lo = t.row_lo[r], hi = t.row_hi[r];
-      const float* yn = s.Y + t.row_y[r];
-      const float* yt1 = yn + (hi - lo);
-      const float* yt2 = yt1 + (hi - lo);
-      float vn, vpn;
-      lane_dot2_rows(g, lo, hi, yn, z, zp, vn, vpn);
-      float nw = jmax(s.lam_p[r] + (s.b_pos[r] - vpn) * s.dinv[3 * r], 0.f);
-      lane_axpy_rows(g, lo, hi, zp, yn, nw - s.lam_p[r]);
-      s.lam_p[r] = nw;
-      nw = jmax(s.lam_n[r] + (s.b_vel[r] - vn) * s.dinv[3 * r], 0.f);
-      lane_axpy_rows(g, lo, hi, z, yn, nw - s.lam_n[r]);
-      s.lam_n[r] = nw;
-      float hi_t = t.row_mu[r] * nw;
-      float vt = lane_dot_rows(g, lo, hi, yt1, z);
-      nw = jclip(s.lam_t1[r] - vt * s.dinv[3 * r + 1], -hi_t, hi_t);
-      lane_axpy_rows(g, lo, hi, z, yt1, nw - s.lam_t1[r]);
-      s.lam_t1[r] = nw;
-      vt = lane_dot_rows(g, lo, hi, yt2, z);
-      nw = jclip(s.lam_t2[r] - vt * s.dinv[3 * r + 2], -hi_t, hi_t);
-      lane_axpy_rows(g, lo, hi, z, yt2, nw - s.lam_t2[r]);
-      s.lam_t2[r] = nw;
-    }
-    for (int m = 0; m < nl; ++m) {
-      const int lo = t.lim_lo[m], hi = t.lim_hi[m];
-      const float* w = s.Y + t.lim_y[m];
-      const float sign = t.lim_sign[m];
-      float vd = sign * lane_dot_rows(g, lo, hi, w, z);
-      float nw = jmax(s.lam_l[m] + (s.b_l[m] - vd) * s.dinv_l[m], 0.f);
-      lane_axpy_rows(g, lo, hi, z, w, sign * (nw - s.lam_l[m]));
-      s.lam_l[m] = nw;
-    }
+    sweep_win<G, K, true>(t, g, s, z, zp);
+    sweep_win<G, K, false>(t, g, s, z, zp);
   }
   EACH_LANE(g, l) {
     ENG_UNROLL
@@ -2134,7 +2272,16 @@ ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
 }
 #endif
 
-#ifndef ENG_TREE_BLOCKS
+// The PGS sweeps of the class, z and zp in K chunks a lane
+template <int G, int K>
+ENG_HD void sweeps(const Tables& t, const Group<G>& g, const Scr& s) {
+#ifdef ENG_GLOBAL_TABLES
+  pgs_sweeps_win<G, K>(t, g, s);
+#else
+  pgs_sweeps<G, K>(t, g, s);
+#endif
+}
+
 // Contact row r's J^T (contacts.py · scalar_jacobians) into its rows of Y,
 // by position over its support (PathRow): body a's path's dofs in order,
 // then b's own; a dof's weight +1 on body a's root path only, -1 on body
@@ -2142,7 +2289,7 @@ ENG_HD void pgs_sweeps_rows(const Tables& t, const Group<G>& g, const Scr& s) {
 ENG_HD void jacobian_row(const Tables& t, const Scr& s, int r) {
   const int nfloor = t.nr - t.npair;
   const PathRow p = row_path(t, r);
-  DofSet plus = p.u, minus = {0u, 0u};
+  DofSet plus = p.u, minus = dofs_none();
   V3 dirs[3];
   if (r < nfloor) {
     dirs[0] = v3_load(t.row_n + 3 * r);
@@ -2159,7 +2306,7 @@ ENG_HD void jacobian_row(const Tables& t, const Scr& s, int r) {
   float* const yr = s.Y + p.y;
   DofSet w = p.a;
   for (int j = 0; j < p.n; ++j) {
-    const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
+    const int d = dofs_any(w) ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
     if (on_path(plus, d) || on_path(minus, d)) {
       const SV& S = s.fk.S[dof_model(s, d)];
       const V3 vel = v3_add(S.lin, v3_cross(S.ang, Pr));
@@ -2172,7 +2319,6 @@ ENG_HD void jacobian_row(const Tables& t, const Scr& s, int r) {
     }
   }
 }
-#endif
 
 // ---- one physics substep: step.py · make_substep_scalar --------------------
 
@@ -2183,23 +2329,17 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
   const int nv = t.nv, nr = t.nr, nl = t.nl;
   const int nfloor = nr - t.npair;
   const FK& fk = s.fk;
-  // the dynamics right-hand side, then L^-1 of it (the default class: L^-T)
+  // the dynamics right-hand side, then L^-T of it
   float* const ydyn = s.Y;
 
   // FK, RNE and the composite inertias recurse over the bodies: one lane
   if (g.leader()) {
     forward_kinematics(t, s.q, s.v, fk, s.inert);
-#ifdef ENG_TREE_BLOCKS
-    bias_forces(t, fk, s.inert, s.avp, s.f, ydyn);
-#else
     bias_forces(t, fk, s.inert, s.avp, s.f, s.z);  // by the model's dofs
-#endif
     composite_inertias(t, s.inert);
   }
   g.sync();
-#ifndef ENG_TREE_BLOCKS
   if (t.stop_after == 1) return;
-#endif
   EACH_LANE(g, l) {
     for (int d = l; d < nv; d += G) {
       // passive forces (dynamics.py · passive_forces); pack_tables zeroes
@@ -2208,13 +2348,8 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       if (t.neg_damping[d] != 0.f) tp = tp + t.neg_damping[d] * s.v[d];
       if (t.neg_stiffness[d] != 0.f)
         tp = tp + t.neg_stiffness[d] * (s.q[t.dof_qadr[d]] - t.springref[d]);
-#ifdef ENG_TREE_BLOCKS
-      ydyn[d] = (s.tau[d] + tp) - ydyn[d];
-      mass_matrix_row(t, fk, s.inert, d, s.L + t.l_row[d]);
-#else
       ydyn[t.dof_perm[d]] = (s.tau[d] + tp) - s.z[d];  // by the factor's dofs
       mass_matrix_row(t, s, d);
-#endif
     }
     // narrowphase (contacts.py · narrowphase_scalar): point and disk
     // candidates vs planes, then the pair rows, whose directions are per env
@@ -2230,83 +2365,18 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
       pair_contact(t, fk, k, s.depth[nfloor + k], s.P[nfloor + k], s.dirs + 3 * k);
   }
   g.sync();
-#ifdef ENG_TREE_BLOCKS
-  cholesky_blocks(t, g, s.L, s.inv_diag);
-#else
   if (t.stop_after == 2) return;
   ltl_factor(t, g, s);  // and ydyn to L^-T ydyn
   if (t.stop_after == 3) return;
-#endif
 
   const bool rows = nr > 0 || nl > 0;
   if (rows) {
     // constraint rows J^T (contacts.py · scalar_jacobians, step.py) into
-    // Y's rows after the dynamics', lanes over dofs (the default class:
-    // over rows): 3 directions per contact row. A dof's weight is +1 on
-    // body a's root path only, -1 on body b's only (pair rows), 0 on both
-    // or neither. Then one unit vector per limit.
-#ifdef ENG_TREE_BLOCKS
-    for (int r = 0; r < nr; ++r) {
-      DofSet plus, minus = {0u, 0u};
-      V3 dirs[3];
-      if (r < nfloor) {
-        plus = anc_path(t, t.row_body[r]);
-        dirs[0] = v3_load(t.row_n + 3 * r);
-        dirs[1] = v3_load(t.row_t1 + 3 * r);
-        dirs[2] = v3_load(t.row_t2 + 3 * r);
-      } else {
-        const int k = r - nfloor;
-        const DofSet ma = anc_path(t, t.pair_a[k]), mb = anc_path(t, t.pair_b[k]);
-#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
-        plus = dofs_minus(ma, mb);
-        minus = dofs_minus(mb, ma);
-#else  // two words, written out
-        plus.lo = ma.lo & ~mb.lo;
-        plus.hi = ma.hi & ~mb.hi;
-        minus.lo = mb.lo & ~ma.lo;
-        minus.hi = mb.hi & ~ma.hi;
-#endif
-        for (int j = 0; j < 3; ++j) dirs[j] = s.dirs[3 * k + j];
-      }
-#if defined(ENG_HUGE_TABLES) || defined(ENG_SIZED_TABLES)
-      const DofSet either = dofs_union(plus, minus);
-#else
-      const DofSet either = {plus.lo | minus.lo, plus.hi | minus.hi};
-#endif
-      const V3 Pr = s.P[r];
-      // over the row's support, stored from its first dof
-      const int lo = t.row_lo[r], hi = t.row_hi[r], len = hi - lo;
-      float* const yr = s.Y + t.row_y[r];
-      EACH_LANE(g, l) {
-        for (int d = lo + l; d < hi; d += G) {
-          if (on_path(either, d)) {
-            const V3 vel = v3_add(fk.S[d].lin, v3_cross(fk.S[d].ang, Pr));
-            for (int k = 0; k < 3; ++k) {
-              const float jd = v3_dot(mm_operand(dirs[k]), mm_operand(vel));
-              yr[k * len + d - lo] = on_path(minus, d) ? -jd : jd;
-            }
-          } else {
-            for (int k = 0; k < 3; ++k) yr[k * len + d - lo] = 0.f;
-          }
-        }
-      }
-    }
-#else
-    // lanes over rows, each over its support (jacobian_row)
+    // Y's rows after the dynamics', lanes over rows, each over its support
+    // (jacobian_row): 3 directions per contact row
     EACH_LANE(g, l) {
       for (int r = l; r < nr; r += G) jacobian_row(t, s, r);
     }
-#endif
-#ifdef ENG_TREE_BLOCKS
-    // a limit row over its support, lanes over rows
-    EACH_LANE(g, l) {
-      for (int m = l; m < nl; m += G) {
-        const int lo = t.lim_lo[m], hi = t.lim_hi[m];
-        float* const w = s.Y + t.lim_y[m];
-        for (int d = lo; d < hi; ++d) w[d - lo] = d == t.lim_dof[m] ? 1.f : 0.f;
-      }
-    }
-#else
     // a limit row over its dof's chain (its dof last), lanes over limit
     // steps (a pair's one row)
     EACH_LANE(g, l) {
@@ -2316,22 +2386,10 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         for (int j = 0; j < p.n; ++j) w[j] = j == p.n - 1 ? 1.f : 0.f;
       }
     }
-#endif
     g.sync();
   }
-  // the forward solves, one lane a right-hand side: L^-1 rhs, then y = L^-1 J^T
-  // (the default class: y = L^-T J^T over each row's support; L^-T rhs came
-  // with the factorization)
-#ifdef ENG_TREE_BLOCKS
-  const int nrhs = rows ? 1 + 3 * nr + nl : 1;
-  EACH_LANE(g, l) {
-    for (int j = l; j < nrhs; j += G) {
-      const Rhs h = rhs_row(t, s, j);
-      chol_fwd_rows(t, s.L, s.inv_diag, h.lo, h.hi, h.y);
-    }
-  }
-  g.sync();
-#else
+  // the forward solves, one lane a right-hand side: y = L^-T J^T over each
+  // row's support (L^-T rhs came with the factorization)
   if (rows) {
     EACH_LANE(g, l) {
       for (int j = l; j < 3 * nr + t.lim_steps; j += G) {
@@ -2340,72 +2398,30 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         const PathRow p = row_path(t, r);
         float* const y = s.Y + p.y + (j < 3 * nr ? (j - 3 * r) * p.n : 0);
         if (r < nfloor || r >= nr)
-          path_solve_t<path_regs<G>(), false>(s, p, y);
+          path_solve<G, false>(s, p, y);
         else
-          path_solve_t<path_regs<G>(), true>(s, p, y);
+          path_solve<G, true>(s, p, y);
       }
     }
     g.sync();
   }
-#endif
 
   if (rows) {
-    // z = L^T v + dt L^-1 rhs: the PGS runs in Cholesky square-root space
-    // (the default class: z = L v + dt L^-T rhs)
+    // z = L v + dt L^-T rhs: the PGS runs in Cholesky square-root space
     EACH_LANE(g, l) {
       for (int i = l; i < nv; i += G) {
-#ifdef ENG_TREE_BLOCKS
-        const float* Lki = s.L + t.l_row[i] + i;
-        const int ldb = l_stride(t, i);
-        float a = Lki[0] * s.v[i];
-        ENG_UNROLL4
-        for (int k = i + 1; k < t.dof_hi[i]; ++k) a = a + Lki[(k - i) * ldb] * s.v[k];
-#else
         const DofPath pi = dof_path(s, i);
         const float* const Li = s.L + pi.row;
         DofSet anc = pi.anc;
         float a = 0.f;
-        for (int m = 0; anc.lo | anc.hi; ++m) a = a + Li[m] * s.v[dof_model(s, dofs_pop_low(anc))];
+        for (int m = 0; dofs_any(anc); ++m) a = a + Li[m] * s.v[dof_model(s, dofs_pop_low(anc))];
         a = a + Li[pi.depth] * s.v[pi.model];
-#endif
         s.z[i] = a + t.dt * ydyn[i];
       }
     }
     g.sync();
-    // PGS set-up (contacts.py · solve_scalar), lanes over rows; pair rows
-    // as point rows
-#ifdef ENG_TREE_BLOCKS
-    EACH_LANE(g, l) {
-      for (int r = l; r < nr; r += G) {
-        const int lo = t.row_lo[r], len = t.row_hi[r] - lo;
-        const float* yn = s.Y + t.row_y[r];
-        for (int k = 0; k < 3; ++k) {
-          const float* yk = yn + k * len;
-          s.dinv[3 * r + k] = 1.f / (dotn(len, yk, yk) + t.reg);
-        }
-        const float dep = s.depth[r];
-        if (t.e_comb_zero) {
-          s.b_vel[r] = dep > 0.f ? 0.f : dep / t.dt;
-        } else {
-          float vn_pre = dotn(len, yn, s.z + lo);
-          float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
-          bool touching = dep >= vn_pre * t.dt;
-          s.b_vel[r] = dep > 0.f ? bounce : ((bounce > 0.f && touching) ? bounce : dep / t.dt);
-        }
-        s.b_pos[r] = t.erp_over_dt * (dep - t.slop);
-        s.lam_n[r] = s.lam_t1[r] = s.lam_t2[r] = s.lam_p[r] = 0.f;
-      }
-      for (int m = l; m < nl; m += G) {
-        const int len = t.lim_hi[m] - t.lim_lo[m];
-        const float* w = s.Y + t.lim_y[m];
-        s.dinv_l[m] = 1.f / (dotn(len, w, w) + t.reg);
-        float viol = t.lim_sign[m] * (t.lim_bound[m] - s.q[t.lim_qadr[m]]);
-        s.b_l[m] = t.limit_erp_over_dt * viol;
-        s.lam_l[m] = 0.f;
-      }
-    }
-#else
-    // (into each row's CRow or LRow block)
+    // PGS set-up (contacts.py · solve_scalar), lanes over rows, into each
+    // row's CRow or LRow block; pair rows as point rows
     EACH_LANE(g, l) {
       for (int r = l; r < nr; r += G) {
         const PathRow p = row_path(t, r);
@@ -2427,7 +2443,7 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
           float vn_pre = 0.f;
           DofSet w = p.a;
           for (int j = 0; j < p.n; ++j) {
-            const int d = w.lo | w.hi ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
+            const int d = dofs_any(w) ? dofs_pop_low(w) : (w = p.bo, dofs_pop_low(w));
             vn_pre = vn_pre + mm_operand(yn[j]) * mm_operand(s.z[d]);
           }
           float bounce = vn_pre < t.neg_rest_threshold ? t.neg_e_comb * vn_pre : 0.f;
@@ -2453,29 +2469,15 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
         s.lrow[LROW * m + LR_LAM] = 0.f;
       }
     }
-#endif
     g.sync();
 
     // the sweeps in one chunk a lane where the group has a lane for every
     // dof, so that only a model with more dofs than lanes (9-12 at G=8,
     // Atlas at G=32) carries the later chunks' registers and predicated steps
-#ifdef ENG_TREE_BLOCKS
     if (lane_chunks<G>() > 1 && nv > G)
-      pgs_sweeps_rows<G, lane_chunks<G>()>(t, g, s);
+      sweeps<G, lane_chunks<G>()>(t, g, s);
     else
-      pgs_sweeps_rows<G, 1>(t, g, s);
-    g.sync();
-    EACH_LANE(g, l) {
-      if (l == 0) chol_back_blocks(t, s.L, s.inv_diag, s.z, s.v3o);
-      if (l == (G > 1 ? 1 : 0)) chol_back_blocks(t, s.L, s.inv_diag, s.zp, s.vp);
-    }
-  } else if (g.leader()) {
-    chol_back_blocks(t, s.L, s.inv_diag, ydyn, s.v3o);  // qdd
-#else
-    if (lane_chunks<G>() > 1 && nv > G)
-      pgs_sweeps<G, lane_chunks<G>()>(t, g, s);
-    else
-      pgs_sweeps<G, 1>(t, g, s);
+      sweeps<G, 1>(t, g, s);
     g.sync();
     // v = L^-1 z and vp = L^-1 zp, one lane each
     EACH_LANE(g, l) {
@@ -2484,7 +2486,6 @@ ENG_HD void substep(const Tables& t, const Group<G>& g, const Scr& s) {
     }
   } else if (g.leader()) {
     ltl_solve(t, s, ydyn, s.v3o);  // qdd
-#endif
     for (int d = 0; d < nv; ++d) {
       s.v3o[d] = s.v[d] + t.dt * s.v3o[d];
       s.vp[d] = 0.f;
@@ -3103,9 +3104,7 @@ ENG_HD void physics_step_one(const Tables& t, const Group<G>& g, float* base, in
     }
     for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
-#ifndef ENG_TREE_BLOCKS
   dofs_fill(t, g, s);
-#endif
   g.sync();
   for (int st = 0; st < t.frame_skip; ++st) substep(t, g, s);
   EACH_LANE(g, l) {
@@ -3137,9 +3136,7 @@ ENG_HD void env_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
     for (int k = l; k < t.act; k += G) s.act[k] = jclip(io.act[k * B + i], -1.f, 1.f);
     for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
-#ifndef ENG_TREE_BLOCKS
   dofs_fill(t, g, s);
-#endif
   g.sync();
   if (g.leader()) {
     // auto-reset [ref: env_bases.py · BaseBulletEnv.reset], then the
@@ -3210,7 +3207,7 @@ inline int tables_layout(int32_t* out, int cap) {
 #define ENG_OFF_S(T, name) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
 #define ENG_OFF_A(T, name, k) if (n < cap) out[n] = (int32_t)offsetof(Tables, name); ++n;
   ENG_TABLE_FIELDS(ENG_OFF_S, ENG_OFF_A)
-  ENG_TREE_FIELDS(ENG_OFF_S, ENG_OFF_A)
+  ENG_WIN_FIELDS(ENG_OFF_S, ENG_OFF_A)
   ENG_PATH_FIELDS(ENG_OFF_S, ENG_OFF_A)
 #undef ENG_OFF_S
 #undef ENG_OFF_A

@@ -45,9 +45,7 @@ ENG_HD void task_step_one(const Tables& t, const EnvIO& io, const Group<G>& g,
     for (int k = l; k < t.act; k += G) s.act[k] = jclip(io.act[k * B + i], -1.f, 1.f);
     for (int r = l; r < t.nr; r += G) s.depth[r] = 0.f;
   }
-#ifndef ENG_TREE_BLOCKS
   dofs_fill(t, g, s);
-#endif
   g.sync();
   // the task state lives in the leader's registers across the substeps
   float aux[hooks::NAUX > 0 ? hooks::NAUX : 1];

@@ -10,8 +10,8 @@
 // -DENG_HUGE_TABLES for a model over the large caps or whose scratch
 // outgrows shared memory, or with -DENG_SIZED_TABLES and the model's caps
 // (-DSIZED_MAX_*) for any larger model: the kernel then reads the tables
-// from a copy in global memory (ENG_TABLES_PARAM), runs the substeps by the
-// model's tree blocks, and keeps the whole scratch in a device buffer of B
+// from a copy in global memory (ENG_TABLES_PARAM), runs the default class's
+// substep with the sweep by row windows, and keeps the whole scratch in a device buffer of B
 // envs' slices (buf, after the tables), no shared memory, as engine.cu's
 // large, huge and sized builds.
 
@@ -31,7 +31,7 @@ constexpr int kMaxShared = 232448;  // 227 KB: a block's dynamic shared memory o
 
 // As engine.cu · shared_bytes: none in the large, huge and sized builds.
 size_t shared_bytes(int E, int stride) {
-#ifdef ENG_TREE_BLOCKS
+#ifdef ENG_GLOBAL_TABLES
   (void)E, (void)stride;
   return 0;
 #else
@@ -74,7 +74,7 @@ int eng_tables_bytes() { return (int)sizeof(eng::Tables); }
 // a thread.
 int task_launch_config(int stride, int32_t* out) {
   const void* fn = (const void*)task_step_kernel;
-#ifdef ENG_TREE_BLOCKS
+#ifdef ENG_GLOBAL_TABLES
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxL1);
 #else

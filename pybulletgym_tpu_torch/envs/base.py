@@ -405,7 +405,7 @@ class BatchedEnv:
     translate (on any device) raise here, at construction; no model size is
     refused (`ops.cuda_engine.caps_class`). On a CUDA device the step's
     buffers (the large, huge and sized classes': B slices of one env's scratch,
-    stored by the model's tree blocks) are allocated here too, once; a
+    stored by the model's root paths) are allocated here too, once; a
     buffer that does not fit the card raises, naming the bytes an env.
     """
 

@@ -19,9 +19,9 @@ and their `extern "C"` launchers). `pack_tables` flattens the frozen
 `Model`, the contact and limit plans and the task constants into one
 fixed-size `Tables` struct, whose layout is parsed from the header; it
 picks the group width G (`lanes`, `pick_lanes`) and lays out each env's
-scratch in shared memory from the model's sizes (`scratch_layout`): in the
-default class M = L^T L over the dof tree's root paths, L by ancestor rows
-and each constraint row over its support (`_path_storage`).
+scratch from the model's sizes (`scratch_layout`): in every class M = L^T L
+over the dof tree's root paths, L by ancestor rows and each constraint row
+over its support (`_path_storage`).
 
 The tables come in four size classes (`tables_type`, `tables_class`):
 the default, a `__grid_constant__` kernel parameter; the large class for
@@ -35,12 +35,11 @@ shared memory; and the sized class (`CAPS_SIZED`), built with
 given as `-DSIZED_MAX_*`), for a model over the huge caps or whose scratch
 outside Y outgrows shared memory: no model size is refused. The huge and
 sized classes read their tables from global memory too. The large, huge and
-sized classes run the substep by the model's tree blocks (`tree_blocks`:
-every dof loop within a block of a tree's dofs or a constraint row's
-support, L stored by blocks and Y's rows over their supports), their whole
-scratch in a device buffer of B envs' slices (`_buffer_args`,
-`buffer_floats`), and build `physics_step_kernel` and `task_step_kernel`;
-`env_step_kernel`'s task classes all fit the default one.
+sized classes (the global classes) keep their whole scratch in a device
+buffer of B envs' slices (`_buffer_args`, `buffer_floats`), hold a PGS
+row by its window of two mask words (engine_core.h · pgs_sweeps_win), and
+build `physics_step_kernel` and `task_step_kernel`; `env_step_kernel`'s
+task classes all fit the default one.
 
 One library per group width in `LANE_WIDTHS` and class (in the sized class,
 and its caps) is built at first use with nvcc into `_build/` (keyed by the
@@ -172,12 +171,14 @@ def _tables_type(size: int, sized: Optional[Tuple[int, ...]]):
     elif size == SIZED:
         caps.update({"MAX_" + k: n for k, n in zip(SIZED_CAPS, sized)})
         caps["MASK_WORDS"] = _sized_mask_words(sized)
-    block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("// The tree blocks")]
-    # ENG_TREE_FIELDS: the tree classes' ranges and offsets; ENG_PATH_FIELDS:
-    # the default class's root paths
-    at = src.index("#define ENG_TREE_FIELDS(S, A)" if size != DEFAULT else
-                   "#define ENG_PATH_FIELDS(S, A)")
-    block += src[at:src.index("#else", at)]
+    block = src[src.index("#define ENG_TABLE_FIELDS"):src.index("// The root paths, in every class")]
+    # ENG_WIN_FIELDS: the global classes' sweep windows; ENG_PATH_FIELDS: the
+    # root paths of every class
+    if size != DEFAULT:
+        at = src.index("#define ENG_WIN_FIELDS(S, A)")
+        block += src[at:src.index("#else", at)]
+    at = src.index("#define ENG_PATH_FIELDS(S, A)")
+    block += src[at:src.index("// The longest support", at)]
     fields = []
     for m in re.finditer(r"\b([SA])\((\w+), (\w+)(?:, ([^)]+))?\)", block):
         kind, ctype, name, count = m.groups()
@@ -349,7 +350,7 @@ def caps_class(model: Model, cfg: PhysicsConfig, act=0, plans=None, naux=0, obs_
     lim_dofs = [] if lim is None else [int(d) for d in lim.dof]
     depth, _, l_floats, row_n, lim_n = _path_sizes(model.nv, mask, dof_body, row_masks, lim_dofs)
     y_rows = _path_y(model.nv, row_n, lim_n, limit_seconds(lim_dofs))[2]
-    shared, y = _scratch_sizes(*sizes, l_floats, y_rows, dofs=True)
+    shared, y = _scratch_sizes(*sizes, l_floats, y_rows, dofs=dof_words())
     paths = (sum(shared.values()) + y["Y"]) | 1
     return _pick_caps(nb, model.nq, model.nv, nr, len(pairs), nl, act, 4 * whole, 4 * outside,
                       4 * paths, max(row_n + lim_n + [k + 1 for k in depth], default=0))
@@ -405,18 +406,19 @@ Y_ALIGN = 32
 
 
 def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats=None,
-                   y_rows=None, dofs=False):
+                   y_rows=None, dofs=0):
     """The floats of each array of one env's scratch, as two dicts: those
     that live in shared memory in every class, and {"Y": floats} (the
     forward-solved rows and, in their rows 1.., inert, avp, f and obs). L
     and Y's rows dense (nv rows of nv | 1 floats, 1 + 3 nr + nl rows of nv |
-    1), unless `l_floats` and `y_rows` (the tree classes' storage by blocks
-    and supports, `_tree_storage`, or the default class's by root paths,
-    `_path_storage`) say otherwise. `dofs`: the default class's dof records
-    (engine_core.h · dofs_fill: four words a dof), and its PGS scalars by
-    row (crow, lrow: a contact row's multipliers, right-hand sides, inverse
-    diagonals and Gram entries, a limit row's three) in place of the other
-    classes' array each (dinv ... lam_l)."""
+    1), unless `l_floats` and `y_rows` (the storage by root paths,
+    `_path_storage`) say otherwise. `dofs`: the words a dof of the dof
+    records (engine_core.h · dofs_fill, DOF_WORDS: `dof_words`) with the PGS
+    scalars by row (crow, lrow: a contact row's multipliers, right-hand
+    sides, inverse diagonals and Gram entries, a limit row's three) in place
+    of an array each (dinv ... lam_l, then empty: no kernel reads them), as
+    the kernels of every class read them since the root paths; 0 for the
+    dense sizes."""
     ld = nv | 1
     rows_y = (1 + 3 * nr + nl) * ld if y_rows is None else y_rows
     pgs = {"dinv": 3 * nr, "b_vel": nr, "b_pos": nr, "dinv_l": nl, "b_l": nl,
@@ -429,109 +431,29 @@ def _scratch_sizes(nb, nq, nv, nr, npair, nl, act=0, naux=0, obs_dim=0, l_floats
         "P": 3 * nr, "dirs": 9 * npair,
         "z": nv, "zp": nv, "v3o": nv, "vp": nv, "Y": 0,
         **{k: 0 if dofs else n for k, n in pgs.items()},
-        "dofs": 4 * nv if dofs else 0,
+        "dofs": dofs * nv,
         "crow": _CROW * nr if dofs else 0, "lrow": _LROW * nl if dofs else 0,
     }
     alias = sum(n * nb for _, n in _Y_ALIAS)
     return shared, {"Y": max(rows_y, ld + alias, ld + obs_dim)}
 
 
-def tree_blocks(t) -> None:
-    """Set the tree classes' ranges (engine_core.h · ENG_TREE_FIELDS) from
-    the model in the tables `t`: each dof's block, the dofs of the bodies
-    under one child of the world (parents come before children), widened
-    to the interval that covers them and merged with every tree whose
-    interval overlaps it, so that M is block-diagonal by blocks; and each
-    contact row's support, from the first dof of its Jacobian (body a's
-    root path, for a pair row the dofs on one of the two bodies' paths) to
-    the end of the block of its last. A pair row of two trees keeps the
-    range that covers both, the blocks between them included. A row whose
-    Jacobian is empty gets [0, 0). A limit row's support runs from its dof
-    to its block's end."""
-    nb, nv = t.nb, t.nv
-    root, span = [], {}
-    for i in range(nb):
-        p = t.parent[i]
-        root.append(i if p < 0 else root[p])
-        lo = t.v_adr[i]
-        hi = lo + (6 if t.jtype[i] == int(JointType.FREE) else 1)
-        a = span.setdefault(root[i], [lo, hi])
-        a[0], a[1] = min(a[0], lo), max(a[1], hi)
-    blocks = []
-    for lo, hi in sorted(span.values()):
-        if blocks and lo < blocks[-1][1]:
-            blocks[-1][1] = max(blocks[-1][1], hi)
-        else:
-            blocks.append([lo, hi])
-    if blocks[0][0] != 0 or blocks[-1][1] != nv or any(
-            a[1] != b[0] for a, b in zip(blocks, blocks[1:])):
-        raise ValueError(f"the bodies' dofs do not cover dofs 0-{nv - 1}: blocks {blocks}")
-    for lo, hi in blocks:
-        for d in range(lo, hi):
-            t.dof_lo[d], t.dof_hi[d] = lo, hi
-    nfloor = t.nr - t.npair
-    for r in range(t.nr):
-        if r < nfloor:
-            mask = root_path(t, t.row_body[r])
-        else:
-            k = r - nfloor
-            mask = root_path(t, t.pair_a[k]) ^ root_path(t, t.pair_b[k])
-        lo = (mask & -mask).bit_length() - 1 if mask else 0
-        t.row_lo[r], t.row_hi[r] = lo, t.dof_hi[mask.bit_length() - 1] if mask else 0
-    for m in range(t.nl):
-        t.lim_lo[m], t.lim_hi[m] = t.lim_dof[m], t.dof_hi[t.lim_dof[m]]
-
-
-def widen_blocks(t):
-    """A copy of the large, huge or sized class's tables `t` with one tree block
-    over all dofs and every contact and limit row's support [0, nv), laid
-    out again (`scratch_layout`): the same model, with the dense loops and
-    the dense L and Y. A table edit for tests and measurements (the time
-    before the blocks, on the same binary); no wrapper packs such tables."""
-    w = type(t).from_buffer_copy(t)
-    for d in range(w.nv):
-        w.dof_lo[d], w.dof_hi[d] = 0, w.nv
-    for r in range(w.nr):
-        w.row_lo[r], w.row_hi[r] = 0, w.nv
-    for m in range(w.nl):
-        w.lim_lo[m], w.lim_hi[m] = 0, w.nv
-    scratch_layout(w)
-    return w
+def dof_words(size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None) -> int:
+    """The int32 words of a dof's record in the scratch (engine_core.h ·
+    DOF_WORDS): four in the default class (the row of L and the model's dof
+    packed in one), 3 + MASK_WORDS in the global ones."""
+    return 4 if size == DEFAULT else 3 + tables_type(size, caps)[1]["MASK_WORDS"]
 
 
 def with_tables(step, tables):
     """A copy of the wrapper `step` (CudaPhysicsStep or task_kernel's
-    CudaTaskStep) that launches its library with `tables`, edited as
-    `widen_blocks` edits them: their own device copy and buffers."""
+    CudaTaskStep) that launches its library with `tables` (the same model's,
+    edited: tools/kernel_phases.py's `stop_after` or iterations): their own
+    device copy and buffers."""
     other = copy.copy(step)
     other.tables = tables
     other.device_tables, other.buffers = {}, {}
     return other
-
-
-def _tree_storage(t) -> Tuple[int, int]:
-    """Lay out L by blocks and Y's rows over their supports for the tree
-    classes' tables `t` (their ranges set, `tree_blocks`): sets t.l_row (a
-    block of n dofs is n rows of n | 1 floats), t.row_y and t.lim_y (after
-    Y's dense row 0 of nv | 1 floats, each contact row's three directions,
-    then each limit row). Returns (L's floats, the floats of Y's rows)."""
-    nv = t.nv
-    off, d = 0, 0
-    while d < nv:
-        lo, hi = t.dof_lo[d], t.dof_hi[d]
-        ldb = (hi - lo) | 1
-        for i in range(lo, hi):
-            t.l_row[i] = off + (i - lo) * ldb - lo
-        off += (hi - lo) * ldb
-        d = hi
-    y = nv | 1
-    for r in range(t.nr):
-        t.row_y[r] = y
-        y += 3 * (t.row_hi[r] - t.row_lo[r])
-    for m in range(t.nl):
-        t.lim_y[m] = y
-        y += t.lim_hi[m] - t.lim_lo[m]
-    return off, y
 
 
 def _path_sizes(nv, body_masks, dof_body, row_masks, lim_dofs):
@@ -583,20 +505,33 @@ def _path_y(nv, row_n, lim_n, lim_second=None):
 
 
 def _path_storage(t, pair_limits: bool = True) -> Tuple[int, int]:
-    """Set the default class's root paths (engine_core.h · ENG_PATH_FIELDS)
-    from the tables' root-path masks, and lay out L by ancestor rows and Y's
-    rows over their supports: t.dof_perm (the factor's order of the dofs: a
-    free joint's linear ones before its angular ones), t.dof_depth,
-    t.anc_row and t.dof_anc (each dof's ancestors), t.path_u and t.path_y (each contact row's support,
-    then each limit row's: its dof's chain; each row's Y offset, one for both
-    rows of a limit pair unless `pair_limits` is false), t.pair_pa
-    and t.pair_na (a pair row's body a's path and its dofs off body b's),
-    t.lim_steps and t.lim_first (the sweep's limit steps: each pair's first
-    row, and each row without a partner).
-    Returns (L's floats, the floats of Y's rows). A row past the tables'
-    arrays (tables edited beyond their caps) has no support to read and
-    counts as dense (nv dofs)."""
+    """Set the root paths (engine_core.h · ENG_PATH_FIELDS) from the tables'
+    root-path masks, and lay out L by ancestor rows and Y's rows over their
+    supports: t.dof_perm (the factor's order of the dofs: a free joint's
+    linear ones before its angular ones), t.dof_depth, t.anc_row and
+    t.dof_anc (each dof's ancestors), t.path_u and t.path_y (each contact
+    row's support, then each limit row's: its dof's chain; each row's Y
+    offset, one for both rows of a limit pair unless `pair_limits` is
+    false), t.pair_pa and t.pair_na (a pair row's body a's path and its dofs
+    off body b's), t.lim_steps and t.lim_first (the sweep's limit steps:
+    each pair's first row, and each row without a partner); a set in the
+    class's MASK_WORDS words. In the global classes also ENG_WIN_FIELDS:
+    t.dof_lo (each dof's lowest ancestor, or itself), t.path_n (each row's
+    support's size), t.path_w0 and t.path_w1 (the first word of its sweep
+    window, at most MASK_WORDS - 2, and the last word that holds a dof of
+    it), t.path_win and t.pair_win (the support's and a pair row's body a's
+    words in the window), t.pair_nab (a pair row's body a's path's dofs).
+    Returns (L's floats, the floats of Y's rows). A row past the
+    tables' arrays (tables edited beyond their caps) has no support to read
+    and counts as dense (nv dofs)."""
     nv, nfloor, caps = t.nv, t.nr - t.npair, len(t.row_body)
+    words = len(t.dof_anc) // len(t.dof_depth)
+    full = (1 << 32) - 1
+
+    def put(arr, j, mask):
+        for w in range(words):
+            arr[words * j + w] = mask >> (32 * w) & full
+
     masks = [root_path(t, i) for i in range(t.nb)]
     row_masks = [(masks[t.row_body[r]], 0) if r < nfloor else
                  (masks[t.pair_a[r - nfloor]], masks[t.pair_b[r - nfloor]])
@@ -611,11 +546,14 @@ def _path_storage(t, pair_limits: bool = True) -> Tuple[int, int]:
     t.lim_steps = len(firsts)
     for k, m in enumerate(firsts):
         t.lim_first[k] = m
+    win = hasattr(t, "path_w0")
     for d in range(nv):
         anc = masks[t.dof_body[d]] & ((1 << d) - 1)
         t.dof_perm[d] = d
         t.dof_depth[d], t.anc_row[d] = depth[d], rows[d]
-        t.dof_anc[2 * d], t.dof_anc[2 * d + 1] = anc & 0xFFFFFFFF, anc >> 32
+        put(t.dof_anc, d, anc)
+        if win:
+            t.dof_lo[d] = (anc & -anc).bit_length() - 1 if anc else d
     for i in range(t.nb):  # a free joint's linear dofs before its angular ones
         if t.jtype[i] == int(JointType.FREE):
             a = t.v_adr[i]
@@ -626,41 +564,51 @@ def _path_storage(t, pair_limits: bool = True) -> Tuple[int, int]:
     rows += [(t.nr + m, u, lim_y[m]) for m, u in enumerate(chains)]
     for j, u, off in rows:
         if j < len(t.path_y):
-            t.path_u[2 * j], t.path_u[2 * j + 1] = u & 0xFFFFFFFF, u >> 32
+            put(t.path_u, j, u)
             t.path_y[j] = off
+            if win:
+                first = ((u & -u).bit_length() - 1) // 32 if u else 0
+                w0 = min(first, words - 2)
+                t.path_n[j] = bin(u).count("1")
+                t.path_w0[j] = w0
+                t.path_w1[j] = max((u.bit_length() - 1) // 32, w0) if u else w0
+                t.path_win[2 * j], t.path_win[2 * j + 1] = u >> 32 * w0 & full, u >> 32 * w0 + 32 & full
     for r in range(nfloor, len(row_masks)):
         a, b = row_masks[r]
         k = r - nfloor
-        t.pair_pa[2 * k], t.pair_pa[2 * k + 1] = a & 0xFFFFFFFF, a >> 32
+        put(t.pair_pa, k, a)
         t.pair_na[k] = bin(a & ~b).count("1")
+        if win:
+            w0 = t.path_w0[r]
+            t.pair_win[2 * k], t.pair_win[2 * k + 1] = a >> 32 * w0 & full, a >> 32 * w0 + 32 & full
+            t.pair_nab[k] = bin(a).count("1")
     return l_floats, y
 
 
 def scratch_layout(t, pair_limits: bool = True) -> Dict[str, Tuple[int, int]]:
     """Lay out one env's scratch for the tables `t` from the model's sizes:
-    sets t.sc (each array's float offset), t.sc_stride (odd, so that the
-    envs of a warp start in different banks), t.sc_ld and t.sc_ldm (nv made
-    odd: Y's dynamics row). inert, avp, f and obs live inside Y's rows
-    after the dynamics', which are dead whenever those are live. The default
+    sets t.sc (each array's float offset), t.sc_stride, t.sc_ld and t.sc_ldm
+    (nv made odd: Y's dynamics row). inert, avp, f and obs live inside Y's
+    rows after the dynamics', which are dead whenever those are live. Every
     class stores L by ancestor rows and Y's rows over their supports
     (`_path_storage`, engine_core.h · ENG_PATH_FIELDS; a limit pair's two
-    rows one row of Y unless `pair_limits` is false). In the large, huge and
-    sized classes L is stored by the tables' tree blocks and Y's rows over
-    their supports (`_tree_storage`), and the whole scratch is laid out for
-    the env's slice of the device buffer in global memory: t.sc_stride a
-    multiple of Y_ALIGN floats, any size. Timed on an H100 against the
-    scratch in shared memory (and in the huge class against Y alone in the
-    buffer), this was the fastest on two, four and ten Humanoids' physics
-    kernels at B=4096, by 1.13-5.9x, and within 0.4% on two Humanoids' task
-    kernel (seven and eleven balls ran 32% and 6% faster in shared memory;
-    PERF.md §6). Returns {name: (offset, floats)}. Raises if a scratch in
-    shared memory does not fit one block's."""
+    rows one row of Y unless `pair_limits` is false). The default class's
+    scratch is a slice of shared memory (t.sc_stride odd, so that the envs
+    of a warp start in different banks); the large, huge and sized classes
+    lay the whole scratch out for the env's slice of the device buffer in
+    global memory: t.sc_stride a multiple of Y_ALIGN floats, any size. Timed
+    on an H100 against the scratch in shared memory (and in the huge class
+    against Y alone in the buffer), this was the fastest on two, four and
+    ten Humanoids' physics kernels at B=4096, by 1.13-5.9x, and within 0.4%
+    on two Humanoids' task kernel (seven and eleven balls ran 32% and 6%
+    faster in shared memory; PERF.md §6). Returns {name: (offset, floats)}.
+    Raises if a scratch in shared memory does not fit one block's."""
     nv, ld = t.nv, t.nv | 1
     size = tables_class(t)
-    tree = size != DEFAULT
-    l_floats, y_rows = _tree_storage(t) if tree else _path_storage(t, pair_limits)
+    glob = size != DEFAULT
+    l_floats, y_rows = _path_storage(t, pair_limits)
     shared, y = _scratch_sizes(t.nb, t.nq, nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim,
-                               l_floats, y_rows, dofs=not tree)
+                               l_floats, y_rows, dofs=dof_words(size, tables_caps(t)))
     sizes = dict(shared, **y)
     slots = scratch_slots()
     if set(slots) != set(sizes):
@@ -674,14 +622,45 @@ def scratch_layout(t, pair_limits: bool = True) -> Dict[str, Tuple[int, int]]:
     for name, n in _Y_ALIAS:
         out[name] = (y0, n * t.nb)
         y0 += n * t.nb
-    stride = -(-off // Y_ALIGN) * Y_ALIGN if tree else off | 1
-    if not tree and stride * 4 > MAX_SHARED_BYTES:
+    stride = -(-off // Y_ALIGN) * Y_ALIGN if glob else off | 1
+    if not glob and stride * 4 > MAX_SHARED_BYTES:
         raise NotImplementedError(f"one env's scratch ({stride * 4} bytes) exceeds a block's "
                                   f"{MAX_SHARED_BYTES} bytes of shared memory: pack_physics "
                                   "gives such a model a larger class")
     for k, name in enumerate(slots):
         t.sc[k] = out[name][0]
     t.sc_stride, t.sc_ld, t.sc_ldm = stride, ld, ld
+    return out
+
+
+def tables_in_class(t, size: int, caps: Optional[Tuple[int, ...]] = None):
+    """A copy of the tables `t` in the larger class `size` (LARGE, HUGE or
+    SIZED, the last with `caps`, by default t's own `sized_caps`): every
+    array of a smaller class fits a larger one's, its entries copied in
+    order, each body's root path in the class's mask words; the root paths
+    and the scratch laid out again (`scratch_layout`). The same model in a
+    larger class's tables, for tests and measurements; no wrapper packs
+    such tables."""
+    if size == SIZED and caps is None:
+        caps = sized_caps(t.nb, t.nq, t.nv, t.nr, t.npair, t.nl, t.act)
+    Tables, c = tables_type(size, caps)
+    out = Tables()
+    fields = {name for name, _ in Tables._fields_}
+    for name, _ in type(t)._fields_:
+        if name not in fields:
+            continue
+        x = getattr(t, name)
+        if isinstance(x, ctypes.Array):
+            ctypes.memmove(getattr(out, name), x,
+                           min(ctypes.sizeof(x), ctypes.sizeof(getattr(out, name))))
+        else:
+            setattr(out, name, x)
+    for i in range(t.nb):
+        bits = root_path(t, i)
+        _set_root_path(out, i, _root_path_words([d for d in range(t.nv) if bits >> d & 1],
+                                                c["MASK_WORDS"]))
+    out.caps_id = {LARGE: CAPS_BIG, HUGE: CAPS_HUGE, SIZED: CAPS_SIZED}[size]
+    scratch_layout(out)
     return out
 
 
@@ -694,6 +673,16 @@ def unpaired_limits(t):
     u = type(t).from_buffer_copy(t)
     scratch_layout(u, pair_limits=False)
     return u
+
+
+def dense_stride(t) -> int:
+    """The floats of one env's scratch for the tables `t` with L and Y's
+    rows dense (nv | 1 floats a row) and the PGS scalars an array each (the
+    storage before the root paths), rounded as `scratch_layout` rounds the
+    class's stride: the dense figure beside t.sc_stride."""
+    shared, y = _scratch_sizes(t.nb, t.nq, t.nv, t.nr, t.npair, t.nl, t.act, t.naux, t.obs_dim)
+    off = sum(shared.values()) + y["Y"]
+    return -(-off // Y_ALIGN) * Y_ALIGN if tables_class(t) != DEFAULT else off | 1
 
 
 def buffer_floats(t) -> int:
@@ -819,8 +808,6 @@ def pack_physics(model: Model, cfg: PhysicsConfig, frame_skip: Optional[int] = N
         t.lim_bound[l] = _f32(lim.bound[l])
     t.act = act
     t.lanes = pick_lanes(model.nv, size, sized)
-    if size != DEFAULT:
-        tree_blocks(t)
     scratch_layout(t)
     return t
 
@@ -1631,21 +1618,6 @@ def _chol_flops(n: int) -> Tuple[int, int]:
     return fact, sum(2 * i + 1 for i in range(n))
 
 
-def _tree_chol_flops(t) -> Tuple[int, int, int]:
-    """The tree classes' (factorisation, a back substitution, z = L^T v):
-    engine_core.h · cholesky_blocks, chol_back_blocks and z's loop, within
-    each dof's block."""
-    lo, hi = list(t.dof_lo[:t.nv]), list(t.dof_hi[:t.nv])
-    fact = sum(2 * (j - lo[j]) + 2 + (hi[j] - 1 - j) * (2 * (j - lo[j]) + 1) for j in range(t.nv))
-    back = sum(2 * (hi[i] - 1 - i) + 1 for i in range(t.nv))
-    return fact, back, sum(1 + 2 * (hi[i] - 1 - i) + 2 for i in range(t.nv))
-
-
-def _tree_solve_flops(t, lo: int, hi: int) -> int:
-    """engine_core.h · chol_fwd_rows of a right-hand side over [lo, hi)."""
-    return sum(2 * (i - max(lo, t.dof_lo[i])) + 1 for i in range(lo, hi))
-
-
 def limit_pairs(t) -> list:
     """Each limit row's place in the default class's sweep, as the kernels
     read it from the tables (t.lim_first, engine_core.h · limit_raw): 1 for
@@ -1657,12 +1629,9 @@ def limit_pairs(t) -> list:
 
 def sweep_group_sums(t) -> int:
     """The dependent group sums (butterflies) of one PGS sweep for the
-    tables `t`: in the default class one a contact row and one a limit row
-    or limit pair (engine_core.h · contact_step, limit_step); in the large,
-    huge and sized classes three a contact row (the normal's two dots share
-    one) and one a limit row."""
-    if tables_class(t) != DEFAULT:
-        return 3 * t.nr + t.nl
+    tables `t`: one a contact row and one a limit row or limit pair
+    (engine_core.h · contact_step, limit_step; in the global classes
+    win_step, however many windows a row spans)."""
     return t.nr + t.lim_steps
 
 
@@ -1690,26 +1659,17 @@ def _path_flops(t) -> Tuple[int, int, int, int, list, list, list, int]:
 
 def substep_flops(t, dense: bool = False) -> int:
     """Float operations of one `substep` of engine_core.h for the tables
-    `t`, counted from its loop bounds: over the dof tree's root paths in the
-    default class (`_path_flops`; the sweep's Gram entries at set-up, a limit
-    pair's one solve, set-up and step; `dense`: the dense Cholesky, rows
-    over every dof and per-direction sweep that the class ran before),
-    within the tree blocks and the rows' supports in the large, huge and
-    sized ones (`tree_blocks`; a pair row of two trees over the range that
-    covers both)."""
+    `t`, counted from its loop bounds: over the dof tree's root paths
+    (`_path_flops`; the sweep's Gram entries at set-up, a limit pair's one
+    solve, set-up and step). `dense`: the dense Cholesky, rows over every
+    dof and per-direction sweep that the default class ran before its root
+    paths, and the large, huge and sized classes before their tree blocks
+    (the work the plain version does)."""
     nb, nv, nr, nl = t.nb, t.nv, t.nr, t.nl
-    tree = hasattr(t, "dof_lo")
     fact, solve = _chol_flops(nv)
     back = z_flops = solve
-    if not tree and not dense:
+    if not dense:
         fact, solve, back, z_flops, rows_len, rows_solve, lim_len, lim_solve = _path_flops(t)
-    elif tree:
-        fact, back, z_flops = _tree_chol_flops(t)
-        solve = _tree_solve_flops(t, 0, nv)  # the dynamics' right-hand side
-        rows_len = [t.row_hi[r] - t.row_lo[r] for r in range(nr)]
-        rows_solve = [_tree_solve_flops(t, t.row_lo[r], t.row_hi[r]) for r in range(nr)]
-        lim_len = [t.lim_hi[m] - t.lim_lo[m] for m in range(nl)]
-        lim_solve = sum(_tree_solve_flops(t, t.lim_lo[m], t.lim_hi[m]) for m in range(nl))
     else:
         rows_len, rows_solve, lim_len, lim_solve = [nv] * nr, [solve] * nr, [nv] * nl, nl * solve
         z_flops = sum(1 + 2 * (nv - 1 - i) + 2 for i in range(nv))
@@ -1735,7 +1695,7 @@ def substep_flops(t, dense: bool = False) -> int:
         n += sum(k * (_V_CROSS + _V_ADD + 3 * _V_DOT) + 3 * rs for k, rs in zip(ndofs, rows_solve))
         n += lim_solve
         n += sum(3 * (2 * k + 2) + (1 if t.e_comb_zero else 2 * k + 4) + 2 for k in rows_len)
-        if tree or dense:
+        if dense:
             n += sum(2 * k + 7 for k in lim_len)
             n += t.iterations * (sum(4 * 4 * k + 17 for k in rows_len)
                                  + sum(4 * k + 5 for k in lim_len))
@@ -1819,15 +1779,23 @@ def gxx_path() -> str:
     return gxx
 
 
-@functools.lru_cache(maxsize=None)
-def _host_library(bf16_probe: bool, size: int, caps: Optional[Tuple[int, ...]] = None):
+def host_job(size: int = DEFAULT, caps: Optional[Tuple[int, ...]] = None,
+             bf16_probe: bool = False):
+    """The g++ job of the host twin's library of a class (engine_host.cpp;
+    `HostTwin`), as `Builds` takes it, so that a caller can start it beside
+    others."""
     flags = (GXX_FLAGS + (("-DENG_BF16_PROBE",) if bf16_probe else ())
              + class_flags(size, caps))
     h = _sources(["engine_core.h", "engine_host.cpp"])
     h.update(" ".join(flags).encode())
-    name = f"libengine_host_{h.hexdigest()[:16]}.so"
-    _compile([([gxx_path()], "engine_host.cpp", name, flags)])
-    lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
+    return [gxx_path()], "engine_host.cpp", f"libengine_host_{h.hexdigest()[:16]}.so", flags
+
+
+@functools.lru_cache(maxsize=None)
+def _host_library(bf16_probe: bool, size: int, caps: Optional[Tuple[int, ...]] = None):
+    job = host_job(size, caps, bf16_probe)
+    _compile([job])
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, job[2]))
     _check_layout(lib, size, caps)
     lib.host_physics_step.argtypes = [_P] * 7 + [ctypes.c_int]
     lib.host_physics_step.restype = ctypes.c_int

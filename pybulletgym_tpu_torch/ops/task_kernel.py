@@ -17,8 +17,8 @@ the large class's build (`-DENG_BIG_TABLES`: the tables in global memory,
 `ops.cuda_engine`), one over the large caps or whose scratch outgrows a
 block's shared memory the huge class's (`-DENG_HUGE_TABLES`), and any
 larger one a class sized to it (`-DENG_SIZED_TABLES` with the model's caps):
-the three run the substeps by the model's tree blocks, the scratch in a
-device buffer.
+the three run the default class's substep over root paths, the scratch in
+a device buffer.
 
 What the translation keeps from torch: each op's dtype and type promotion
 (`torch.result_type` of the traced arguments) in float32, float64 and the
@@ -1088,15 +1088,17 @@ def task_tables(task, program: HookProgram, frame_skip: Optional[int] = None):
     return t
 
 
-def work_per_task_step(t, program: HookProgram, reset_share: float) -> Tuple[float, int]:
+def work_per_task_step(t, program: HookProgram, reset_share: float,
+                       dense: bool = False) -> Tuple[float, int]:
     """(float operations, bytes) that one env of one `task_step_kernel`
-    launch needs, for the tables `t` and the hooks `program`: the substeps,
-    the hooks, and the reset's share of envs (`reset_share`) times the
-    reset's operations. Bytes count each input read once and each output
-    written once; the tables once per launch are left to the caller."""
+    launch needs, for the tables `t` and the hooks `program`: the substeps
+    (`dense`: their count before the root paths, `ce.substep_flops`), the
+    hooks, and the reset's share of envs (`reset_share`) times the reset's
+    operations. Bytes count each input read once and each output written
+    once; the tables once per launch are left to the caller."""
     f = program.flops
-    n = (t.frame_skip * ce.substep_flops(t) + f["pre_physics"] + f["action_tau"] + f["output"]
-         + reset_share * f["initial_state"])
+    n = (t.frame_skip * ce.substep_flops(t, dense) + f["pre_physics"] + f["action_tau"]
+         + f["output"] + reset_share * f["initial_state"])
     ins = 4 * (t.nq + t.nv + t.act + t.naux) + 2 + 4 * 4  # term, trunc, step, epoch, seed, id
     outs = 4 * (t.nq + t.nv + t.obs_dim + 1 + t.naux + t.ncomp) + 2 + 4 * 2
     return n, ins + outs
@@ -1273,26 +1275,35 @@ class CudaTaskStep:
         return ce._env_state(state, outs)
 
 
+def host_task_job(program, tables):
+    """The g++ job of a task's host twin (`HostTaskTwin`) for its traced
+    hooks `program` and its tables' class, and its library's name: started
+    beside other builds (`ce.Builds`), it leaves the library that
+    HostTaskTwin then loads."""
+    size, caps = ce.tables_class(tables), ce.tables_caps(tables)
+    flags = HostTaskTwin.FLAGS + ce.class_flags(size, caps)
+    tag = _tag(program.source, _CORE + ["task_step_host.cpp"], flags)
+    header = _write_header(program.source, tag)
+    name = f"libtask_host_{tag}.so"
+    return ([ce.gxx_path()], "task_step_host.cpp", name, flags + ("-include", header)), name
+
+
 class HostTaskTwin:
-    """task_step.cu's body built with g++ for the host, for the CPU tests:
-    the kernel's own C++, the task's translated hooks included, on CPU
-    tensors. No wrapper routes here."""
+    """task_step.cu's body built with g++ for the host, for the CPU tests
+    and for holding the card to it: the kernel's own C++, the task's
+    translated hooks included, on CPU tensors. `program`: the task's traced
+    hooks, if at hand (a CudaTaskStep's). No wrapper routes here."""
 
     FLAGS = ("-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
-    def __init__(self, task, frame_skip: Optional[int] = None):
-        gxx = ce.gxx_path()
+    def __init__(self, task, frame_skip: Optional[int] = None, program=None):
         self.task = task
-        self.program = trace_hooks(task)
+        self.program = program or trace_hooks(task)
         self.tables = task_tables(task, self.program, frame_skip)
-        size, caps = ce.tables_class(self.tables), ce.tables_caps(self.tables)
-        flags = self.FLAGS + ce.class_flags(size, caps)
-        tag = _tag(self.program.source, _CORE + ["task_step_host.cpp"], flags)
-        header = _write_header(self.program.source, tag)
-        name = f"libtask_host_{tag}.so"
-        ce._compile([([gxx], "task_step_host.cpp", name, flags + ("-include", header))])
+        job, name = host_task_job(self.program, self.tables)
+        ce._compile([job])
         self.lib = ctypes.CDLL(os.path.join(ce.BUILD_DIR, name))
-        ce._check_layout(self.lib, size, caps)
+        ce._check_layout(self.lib, ce.tables_class(self.tables), ce.tables_caps(self.tables))
         self.lib.host_task_step.argtypes = ce._ENV_ARGS
         self.lib.host_task_step.restype = ctypes.c_int
 

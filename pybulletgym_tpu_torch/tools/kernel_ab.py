@@ -22,6 +22,13 @@ side, and where it has `cuda_engine.launch_config`, the launch ("launch":
 G, envs a block, shared bytes, resident blocks an SM). Needs one CUDA GPU; uses only entry points that every slice of the
 port has.
 
+Besides the shipped IDs, --envs takes the scenes of chip_smoke.py by ID
+(`TwoHumanoids-v0`, `FourHumanoids-v0`, `TenHumanoids-v0`: registered from
+the checkout's own `chip_smoke.humanoids_task`; their step is
+`task_step_kernel`, its line named by its build) and `ballsN`, N free balls
+on the floor (`chip_smoke.balls_xml`; the physics kernel only, from qpos0
+with random velocities and torques): the large, huge and sized builds.
+
 --lanes times a checkout with lane-group kernels (`cuda_engine.LANE_WIDTHS`)
 once per listed group width G, overriding the width that `pick_lanes`
 chooses (the line's "lanes"; "lanes": null is the checkout's own choice);
@@ -82,13 +89,52 @@ def bound(t, name):
     t_ops, t_bytes = flops * B / 67e12 * 1e3, (nbytes * B + ctypes.sizeof(t)) / 3.35e12 * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
+def task_bound(st, reset_share):
+    # task_step_kernel's bound: the hooks' operations beside the substeps'
+    import ctypes
+    from pybulletgym_tpu_torch.ops import task_kernel as tk
+    flops, nbytes = tk.work_per_task_step(st.tables, st.program, reset_share)
+    t_ops, t_bytes = flops * B / 67e12 * 1e3, (nbytes * B + ctypes.sizeof(st.tables)) / 3.35e12 * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+def balls(n):
+    # n free balls on the floor (the root's chip_smoke.balls_xml): the physics kernel alone
+    import numpy as np
+    from pybulletgym_tpu_torch.models.mjcf import parse_mjcf
+    from pybulletgym_tpu_torch.ops.step import PhysicsConfig
+    m = parse_mjcf(cs.balls_xml(n, 0.09), "balls")
+    phys = ce.make_cuda_physics_step(m, PhysicsConfig())[0]
+    q = torch.as_tensor(np.repeat(m.qpos0[:, None], B, 1), dtype=torch.float32, device=dev)
+    v = torch.rand((m.nv, B), device=dev, generator=g) - 0.5
+    tau = torch.rand((m.nv, B), device=dev, generator=g) * 2 - 1
+    fn = lambda: phys(q, v, tau)
+    fn()
+    rec = {"root": root, "env": f"balls{n}", "kernel": phys.kernel, "B": B, "lanes": None,
+           "ms": ms(fn), "graph_ms": graph_ms(fn)}
+    rec.update(bound(phys.tables, "physics_step_kernel"))
+    rec["launch"] = ce.launch_config(phys.tables, "physics_step_kernel", B)
+    rec["scratch_bytes_per_env"] = 4 * phys.tables.sc_stride
+    print(json.dumps(rec), flush=True)
+
 root, B, envs = sys.argv[1], int(sys.argv[2]), sys.argv[3].split(",")
 widths = [int(x) for x in sys.argv[4].split(",")] if sys.argv[4] else []
 if not hasattr(ce, "LANE_WIDTHS"):
     widths = []
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
+# the scenes of chip_smoke.py by ID: copies of humanoid.xml in one worldbody
+SCENES = {"TwoHumanoids-v0": 2, "FourHumanoids-v0": 4, "TenHumanoids-v0": 10}
+if any(e in SCENES or e.startswith("balls") for e in envs):
+    import pybulletgym_tpu_torch as pt
+    sys.path.insert(0, root)
+    import chip_smoke as cs
 for env_id in envs:
+    if env_id.startswith("balls"):
+        balls(int(env_id[5:]))
+        continue
+    if env_id in SCENES:
+        n = SCENES[env_id]
+        pt.register(env_id, lambda n=n: cs.humanoids_task(cs.humanoids_xml(n), n), 1000)
     task = make_task(env_id)
     env = make_batched(env_id, B)
     s = env.reset(seed=0)
@@ -97,6 +143,7 @@ for env_id in envs:
     zero = torch.zeros(B, device=dev)  # the task's torques (action_tau_scalar)
     tau = torch.stack([zero if isinstance(x, float) else x
                        for x in task.action_tau_scalar(list(torch.clamp(a, -1.0, 1.0)))], 0)
+    step_kernel = getattr(env.step_fn, "kernel", "env_step_kernel")
     for lanes in widths or [None]:
         if lanes is not None and hasattr(ce, "lane_nv") and task.model.nv > ce.lane_nv(lanes):
             print(json.dumps({"root": root, "env": env_id, "B": B, "lanes": lanes,
@@ -104,16 +151,24 @@ for env_id in envs:
             continue
         if lanes is not None:
             env.step_fn.tables.lanes = phys.tables.lanes = lanes
-        for name, fn in (("env_step_kernel", lambda: env.step_fn(s, a)),
+        for name, fn in ((step_kernel, lambda: env.step_fn(s, a)),
                          ("physics_step_kernel", lambda: phys(s.q, s.v, tau))):
             rec = {"root": root, "env": env_id, "kernel": name, "B": B, "lanes": lanes,
                    "ms": ms(fn), "graph_ms": graph_ms(fn)}
-            if hasattr(ce, "work_per_env_step"):
+            task_step = name.startswith("task_step_kernel")
+            if name == "physics_step_kernel":
+                rec["kernel"] = getattr(phys, "kernel", name)
+            if task_step:
+                rec.update(task_bound(env.step_fn, 0.0))
+                rec["launch"] = env.step_fn.launch_config(dev, B)
+            elif hasattr(ce, "work_per_env_step"):
                 rec.update(bound(env.step_fn.tables if name == "env_step_kernel" else phys.tables,
                                  name))
-            if lanes is not None or hasattr(ce, "launch_config"):
+            if not task_step and (lanes is not None or hasattr(ce, "launch_config")):
                 t = env.step_fn.tables if name == "env_step_kernel" else phys.tables
                 rec["launch"] = ce.launch_config(t, name, B)
+            t = env.step_fn.tables if name != "physics_step_kernel" else phys.tables
+            rec["scratch_bytes_per_env"] = 4 * t.sc_stride
             print(json.dumps(rec), flush=True)
 """
 

@@ -5,7 +5,7 @@
         [--root CHECKOUT]
     python3 pybulletgym_tpu_torch/tools/kernel_phases.py
         --scenes TwoHumanoids-v0:4096,FourHumanoids-v0:4096,balls40:1024
-        [--kernels physics,task] [--calls 5,2]
+        [--kernels physics,task] [--calls 5,2] [--words 3,8]
 
 For each env id (`--envs`) it times `env_step_kernel` (graph-replayed
 launches, CUDA events, as kernel_ab.py's "graph_ms") on a post-reset state
@@ -37,18 +37,21 @@ chip_smoke.py, `TwoHumanoids-v0`, `FourHumanoids-v0`, `TenHumanoids-v0`,
 registered here from its `humanoids_task`), the physics kernel from the
 ID's reset state and torques, the task kernel by `make_batched(id, B)`; or
 `ballsN`, N free balls (`chip_smoke.balls_xml`), physics only; each at the
-batch after its colon. Besides the edits above, `rows0` (nr = nl = 0: no
-contact or limit rows) leaves FK/RNE, the CRBA, the Cholesky, the dynamics
-solve and the integration, so that rows = it0 - rows0 (the narrowphase, the
-Jacobians, their forward solves, z and the PGS set-up) and dynamics = rows0
-- fs0. In the large, huge and sized classes each edit is timed twice: with
-the tables' tree blocks as packed (`tree`), and widened to one block over
-all dofs (`dense`, `ops.cuda_engine.widen_blocks`): the dense loops'
-arithmetic and storage, the same binary, so the two give a before and after
-on one card. The outputs of the two are compared bit for bit
-(`bitwise_to_dense`: q, v and the depths of the physics kernel, the state
-of the task kernel, -0.0 and +0.0 told apart; `equal_to_dense`: the same
-under torch.equal, which holds them equal).
+batch after its colon. The same edits and phases as above: `rows0` (nr = nl
+= 0: no contact or limit rows) leaves FK/RNE, the CRBA, the factorization,
+the dynamics solve and the integration, so that rows = it0 - rows0 (the
+narrowphase, the Jacobians, their forward solves, z and the PGS set-up) and
+dynamics = rows0 - fs0, split by the stops where the tables have
+`stop_after` (every class since the large, huge and sized ones run the
+default class's substep; a checkout before that, --root, has them in the
+default class only). --root with --scenes splits the scenes in another
+checkout's builds, for a before and after on one card. `--words` splits
+each scene's physics kernel again with its tables moved into the sized
+class of its own caps but W root-path mask words (NV = 32 W:
+`in_words`), for each W listed that holds its dofs: the same model, rows
+and arithmetic, only
+the width of the dof sets and records changed, so that what the mask
+words cost each phase reads apart from the rest.
 
 The arithmetic of a launch with changed tables is not the model's; only
 its time is read. Prints one JSON line per env or scene and kernel, then
@@ -111,16 +114,21 @@ EDITS = (("full", None, None), ("it0", "iterations", 0), ("it1", "iterations", 1
 STOPS = (("stop1", "stop_after", 1), ("stop2", "stop_after", 2), ("stop3", "stop_after", 3))
 
 
-def split(step, call, calls):
-    """The edits' times of `step` launched by `call(step)`, and the phases."""
+def split(step, call, calls, stops=()):
+    """The edits' (and `stops`') times of `step` launched by `call(step)`,
+    and the phases."""
     rec = {}
-    for name, field, value in EDITS:
+    for name, field, value in EDITS + stops:
         st = ce.with_tables(step, edited(step.tables, field, value))
         rec[name] = graph_ms(lambda: call(st), *calls)
     rec["sweeps_ms"] = rec["full"] - rec["it0"]
     rec["one_sweep_ms"] = rec["it1"] - rec["it0"]
     rec["rows_ms"] = rec["it0"] - rec["rows0"]
     rec["dynamics_ms"] = rec["rows0"] - rec["fs0"]
+    if stops:
+        rec["fk_rne_ms"] = rec["stop1"] - rec["fs0"]
+        rec["crba_narrowphase_ms"] = rec["stop2"] - rec["stop1"]
+        rec["factorization_ms"] = rec["stop3"] - rec["stop2"]
     rec["substeps_without_sweeps_ms"] = rec["it0"] - rec["fs0"]
     rec["outside_substeps_ms"] = rec["fs0"]
     return rec
@@ -150,7 +158,8 @@ def scene_steps(name, B, kernels, dev):
     xml = cs.humanoids_xml(n)
     pt.register(name, lambda: cs.humanoids_task(xml, n), 1000)
     task = make_task(name)
-    env = make_batched(name, B)
+    # the composed backend's reset (the fused one's bits) builds no task kernel
+    env = make_batched(name, B, **({} if "task" in kernels else {"backend": "composed"}))
     s = env.reset(seed=0)
     a = torch.rand((task.act_dim, B), device=dev, generator=g) * 2 - 1
     if "task" in kernels:
@@ -161,6 +170,20 @@ def scene_steps(name, B, kernels, dev):
         tau[task.act_dofs] = torch.tensor(task.gears, device=dev)[:, None] * a
         out["physics"] = (phys, lambda st: st(s.q, s.v, tau))
     return out
+
+
+def in_words(step, words):
+    """A copy of the physics wrapper `step` whose tables are its own in the
+    sized class of the model's caps (`ce.sized_caps`) with NV = 32 `words`
+    (and a draw for every dof): `words` root-path mask words."""
+    t = step.tables
+    caps = list(ce.sized_caps(t.nb, t.nq, t.nv, t.nr, t.npair, t.nl, t.act))
+    caps[1] = 32 * words
+    caps[6], caps[8] = max(caps[6], caps[1]), max(caps[8], caps[1])
+    other = ce.with_tables(step, ce.tables_in_class(t, ce.SIZED, tuple(caps)))
+    other.size, other.caps = ce.SIZED, tuple(caps)
+    other.kernel = "physics_step_kernel" + ce.KERNEL_SUFFIX[ce.SIZED]
+    return other
 
 
 def same(a, b, bits=True):
@@ -184,33 +207,39 @@ def main(argv=None):
     p.add_argument("--scenes", default="", help="scene:B,... (FourHumanoids-v0:4096, balls40:1024)")
     p.add_argument("--kernels", default="physics,task", help="a scene's kernels")
     p.add_argument("--calls", default="20,3", help="graph-captured calls, replays")
+    p.add_argument("--words", default="", help="a scene's physics kernel again at these "
+                   "mask words, e.g. 3,8")
     p.add_argument("--root", default=ROOT, help="the checkout whose package is timed")
     args = p.parse_args(argv)
     B = args.batch
     calls = tuple(int(x) for x in args.calls.split(","))
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    words = [int(x) for x in args.words.split(",") if x]
+    scenes = []
     for item in [x for x in args.scenes.split(",") if x]:
         name, Bs = item.split(":")
-        for kernel, (step, call) in scene_steps(name, int(Bs), args.kernels.split(","),
-                                                dev).items():
+        steps = scene_steps(name, int(Bs), args.kernels.split(","), dev)
+        if "physics" in steps:
+            phys, call = steps["physics"]
+            steps.update({f"physics@{w}": (in_words(phys, w), call) for w in words
+                          if 32 * w >= phys.tables.nv})
+        scenes.append((name, Bs, steps))
+    # every physics library at once, one nvcc a group width and class
+    ce.Builds(list({job[2]: job for _, _, steps in scenes for kernel, (st, _) in steps.items()
+                    if kernel.startswith("physics")
+                    for job in ce._engine_jobs(st.size, st.caps)[0]}.values())).wait()
+    for name, Bs, steps in scenes:
+        for kernel, (step, call) in steps.items():
             if hasattr(step, "prepare"):
                 step.prepare(dev, int(Bs))
-            tree = hasattr(step.tables, "dof_lo")
+            stops = STOPS if hasattr(step.tables, "stop_after") else ()
             rec = {"scene": name, "B": int(Bs), "kernel": step.kernel, "calls": calls,
-                   "tree": split(step, call, calls)}
+                   "root": args.root, "scratch_bytes_per_env": 4 * step.tables.sc_stride,
+                   "mask_words": ce.tables_type(ce.tables_class(step.tables), ce.tables_caps(
+                       step.tables))[1]["MASK_WORDS"], **split(step, call, calls, stops)}
             rec["launch"] = (step.launch_config(dev, int(Bs)) if kernel == "task" else
                              ce.launch_config(step.tables, "physics_step_kernel", int(Bs)))
-            if tree:
-                dense = ce.with_tables(step, ce.widen_blocks(step.tables))
-                rec["dense"] = split(dense, call, calls)
-                rec["dense_launch"] = (dense.launch_config(dev, int(Bs)) if kernel == "task" else
-                                       ce.launch_config(dense.tables, "physics_step_kernel",
-                                                        int(Bs)))
-                x, y = call(step), call(dense)
-                rec["bitwise_to_dense"] = same(x, y)
-                rec["equal_to_dense"] = same(x, y, bits=False)
-                rec["speedup"] = rec["dense"]["full"] / rec["tree"]["full"]
             print(json.dumps(rec), flush=True)
     for env_id in [x for x in args.envs.split(",") if x and not args.scenes]:
         task = make_task(env_id)

@@ -12,10 +12,10 @@ the scene on a CPU):
     written once for each package) against the eager JAX kernel body at
     frame_skip 0 (a forced reset: q, epoch and step count bitwise) and 1;
 (d) the large class's host twins (`HostTwin.physics_step`, `HostTaskTwin`:
-    the kernels' own C++ built with g++ and -DENG_BIG_TABLES, the substep by
-    the two trees' blocks) against the plain step at B=8 for 3 steps of one
-    substep, resets bitwise; the scratch by blocks against the widened
-    tables';
+    the kernels' own C++ built with g++ and -DENG_BIG_TABLES, the substep
+    over the dof tree's root paths) against the plain step at B=8 for 3
+    steps of one substep, resets bitwise; the scratch by root paths against
+    its dense sizes;
 (e) the seven balls through the large physics twin against plain;
 (f) the size class of every shipped ID is the default (its tables 26,096
     bytes), that of the scene and the balls the large one, and eleven balls
@@ -290,11 +290,11 @@ def test_large_twins_match_plain(scene):
     # the physics twin from the plain rollout's states and torques (the
     # task has no pre-physics hook): its envs not reset in the step
     tab = ce.pack_physics(tt.model, dataclasses.replace(tt.physics, frame_skip=1))
-    assert ce.tables_class(tab) == ce.LARGE and ctypes.sizeof(tab) == 58064
-    # one env's scratch, the whole of it in the device buffer: 32,384 B by
-    # the two trees' blocks, 62,848 B with the tables widened to one block
-    assert 4 * ce.buffer_floats(tab) == 4 * tab.sc_stride == 32384
-    assert 4 * ce.buffer_floats(ce.widen_blocks(tab)) == 62848
+    assert ce.tables_class(tab) == ce.LARGE and ctypes.sizeof(tab) == 70104
+    # one env's scratch, the whole of it in the device buffer: 20,736 B by
+    # root paths, 63,872 B with L and Y dense
+    assert 4 * ce.buffer_floats(tab) == 4 * tab.sc_stride == 20736
+    assert 4 * ce.dense_stride(tab) == 63872
     hw = ce.HostTwin()
     for t, (s, p) in enumerate(zip([s0] + plain[:2], plain)):
         tau = torch.zeros((tt.model.nv, B))
@@ -335,9 +335,9 @@ def test_size_classes():
     BigTables, big = ce.tables_type(True)
     # the default class's tables: 26,096 B of fields, and 4,088 B of its root
     # paths and limit steps (engine_core.h · ENG_PATH_FIELDS); the large
-    # class's: 52,688 B of the default class's fields at its caps, and 5,376
-    # B of the tree blocks' ranges and offsets
-    assert ctypes.sizeof(Tables) == 30184 and ctypes.sizeof(BigTables) == 58064
+    # class's: 52,688 B of the default class's fields at its caps, 7,944 B
+    # of the root paths and 9,472 B of the sweep's windows (ENG_WIN_FIELDS)
+    assert ctypes.sizeof(Tables) == 30184 and ctypes.sizeof(BigTables) == 70104
     assert {k: big["MAX_" + k] for k in ("BODIES", "NV", "NQ", "ROWS", "PAIRS", "LIMITS",
                                          "ACT")} == dict(BODIES=64, NV=64, NQ=80, ROWS=256,
                                                          PAIRS=128, LIMITS=128, ACT=64)

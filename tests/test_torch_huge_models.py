@@ -1,7 +1,6 @@
 """Models past the large tables' caps: the huge class of the kernels'
 tables (engine_core.h, -DENG_HUGE_TABLES: up to 128 bodies and nv 128, a
-four-word root-path mask, since the tree blocks the whole scratch in a
-device buffer), on a scene of four Humanoids in one worldbody (72 bodies, nq 96,
+four-word root-path mask, the whole scratch in a device buffer), on a scene of four Humanoids in one worldbody (72 bodies, nq 96,
 nv 92, 68 actuators, 116 floor rows, 136 limit rows; its one-env scratch
 233,796 bytes, over a block's 232,448) and on eleven free balls (nv 66, nq
 77). Held against the JAX package and the plain version, at small sizes:
@@ -67,11 +66,16 @@ def scene():
 
 def _high_words_zeroed(tab):
     """A copy of huge tables with every body's mask words 2 and 3 (dofs
-    64-127) zeroed."""
+    64-127) zeroed, and those words of every set the substep reads (each
+    dof's ancestors, each row's support, each pair row's body a's path)."""
     probe = type(tab).from_buffer_copy(tab)
     nb = len(probe.anc_mask)
     for i in range(probe.nb):
         probe.anc_mask_hi[nb + i] = probe.anc_mask_hi[2 * nb + i] = 0
+    for name in ("dof_anc", "path_u", "pair_pa"):
+        arr = getattr(probe, name)
+        for j in range(len(arr) // 4):
+            arr[4 * j + 2] = arr[4 * j + 3] = 0
     return probe
 
 
@@ -138,13 +142,13 @@ def test_huge_twins_match_plain(scene):
     assert (t.lanes, t.nb, t.nv, t.nr, t.nl, t.act) == (32, 72, 92, 116, 136, 68)
     # the task kernel's scratch at its dense sizes, which choose the class:
     # 233,796 bytes in all, over a block's 232,448 (Y 180,420, the rest
-    # 53,380); laid out by the tree blocks, 65,024 (128-byte aligned), all in
+    # 53,380); laid out by root paths, 42,368 (128-byte aligned), all in
     # the device buffer
     shared, y = ce._scratch_sizes(t.nb, t.nq, t.nv, t.nr, t.npair, t.nl, t.act, t.naux,
                                   t.obs_dim)
     assert 4 * (sum(shared.values()) | 1) == 53380 and 4 * y["Y"] == 180420
     assert 53380 + 180420 > ce.MAX_SHARED_BYTES
-    assert t.sc_stride * 4 == ce.buffer_floats(t) * 4 == 65024
+    assert t.sc_stride * 4 == ce.buffer_floats(t) * 4 == 42368
     for p, h in zip(plain, forced_rollout(twin)):
         _q_bounds((p.q - h.q).abs().numpy(), 1e-5)
         assert torch.equal(p.epoch, h.epoch) and torch.equal(p.step_count, h.step_count)
@@ -202,7 +206,7 @@ def test_size_classes():
     """(d)"""
     Big, big = ce.tables_type(ce.LARGE)
     Huge, huge = ce.tables_type(ce.HUGE)
-    assert ce.tables_type(True)[0] is Big and ctypes.sizeof(Big) == 58064
+    assert ce.tables_type(True)[0] is Big and ctypes.sizeof(Big) == 70104
     assert {k: huge["MAX_" + k] for k in ("BODIES", "NV", "NQ", "ROWS", "PAIRS", "LIMITS",
                                           "ACT")} == dict(BODIES=128, NV=128, NQ=160, ROWS=512,
                                                           PAIRS=256, LIMITS=256, ACT=128)

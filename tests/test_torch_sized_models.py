@@ -60,12 +60,20 @@ def _walkers(dq):
 
 
 def _words_zeroed(tab, first):
-    """A copy of sized tables with every body's mask words >= `first` zeroed."""
+    """A copy of sized tables with every body's mask words >= `first`
+    zeroed, and those words of every set the substep reads (each dof's
+    ancestors, each row's support, each pair row's body a's path)."""
     probe = type(tab).from_buffer_copy(tab)
     nb = len(probe.anc_mask)
-    for w in range(max(first, 1), len(probe.anc_mask_hi) // nb + 1):
+    words = len(probe.anc_mask_hi) // nb + 1
+    for w in range(max(first, 1), words):
         for i in range(probe.nb):
             probe.anc_mask_hi[(w - 1) * nb + i] = 0
+    for name in ("dof_anc", "path_u", "pair_pa"):
+        arr = getattr(probe, name)
+        for j in range(len(arr) // words):
+            for w in range(first, words):
+                arr[words * j + w] = 0
     return probe
 
 
@@ -163,11 +171,11 @@ def test_balls_through_the_sized_physics_twin():
     assert tab.lanes == 32 and ce.lane_nv(32, ce.SIZED, caps) == 256
     # the scratch outside Y alone, at its dense sizes, is over a block's
     # shared memory: the whole of it lives in the buffer, 128-byte aligned;
-    # laid out by the tree blocks, L is 40 blocks of 6 rows of 7 floats
+    # laid out by root paths, L is 40 balls' ancestor rows of 1-6 floats
     assert ce.buffer_floats(tab) == tab.sc_stride and tab.sc_stride % ce.Y_ALIGN == 0
-    wide = ce.widen_blocks(tab)
-    assert wide.sc_stride * 4 - 4 * (tab.nv * (tab.nv | 1)) > 0 and wide.sc_stride * 4 > 250400
-    assert ce.scratch_layout(type(tab).from_buffer_copy(tab))["L"][1] == 40 * 6 * 7
+    dense = ce.dense_stride(tab)
+    assert dense * 4 - 4 * (tab.nv * (tab.nv | 1)) > 0 and dense * 4 > 250400
+    assert ce.scratch_layout(type(tab).from_buffer_copy(tab))["L"][1] == 40 * 21
     # the last ball's dofs 234-239: mask word 7
     assert ce.root_path(tab, 39) == sum(1 << d for d in range(234, 240))
     B = 8
@@ -278,12 +286,10 @@ def test_sized_class(name, act, caps, outside, y):
     flags = ce.class_flags(ce.SIZED, caps)
     assert flags[0] == ce.SIZED_FLAG and f"-DSIZED_MASK_WORDS={caps[1] // 32}" in flags
     assert f"-DSIZED_MAX_NV={caps[1]}" in flags and len(flags) == 11
-    # the whole scratch in the buffer: at its dense sizes (the tables widened
-    # to one block, Y's rows nv floats apart, not nv | 1) at least what lives
-    # outside Y and Y; by tree blocks less
-    odd = 4 * (3 * len(rows) + nl) * (1 - m.nv % 2)
-    assert ce.buffer_floats(ce.widen_blocks(t)) * 4 >= outside + y - 4 - odd
-    assert ce.buffer_floats(t) < ce.buffer_floats(ce.widen_blocks(t)) and t.sc_stride % ce.Y_ALIGN == 0
+    # the whole scratch in the buffer: at its dense sizes (L and Y's rows
+    # dense) at least what lives outside Y and Y; by root paths less
+    assert ce.dense_stride(t) * 4 >= outside + y - 4
+    assert ce.buffer_floats(t) < ce.dense_stride(t) and t.sc_stride % ce.Y_ALIGN == 0
     assert (outside > ce.MAX_SHARED_BYTES) == (name in ("humanoids10", "balls40"))
 
 

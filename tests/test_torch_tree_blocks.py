@@ -1,27 +1,16 @@
-"""The large, huge and sized classes' tree blocks (engine_core.h ·
-ENG_TREE_FIELDS): every dof loop of their substep bounded by a model's
-trees, L stored by blocks and Y's rows over their supports, against the
-dense loops of the same code (the tables widened to one block,
-`ops.cuda_engine.widen_blocks`) and the plain version, at small sizes:
+"""The large, huge and sized classes' root paths and window fields
+(engine_core.h · ENG_PATH_FIELDS, ENG_WIN_FIELDS) against the model's trees,
+at small sizes (the substep itself on these classes: tests/test_torch_tree_paths.py):
 
-(a) the tree ranges and row supports that `pack_physics` gives two, four
-    and ten Humanoids, 7, 22 and 40 balls, and a scene of touching trees
-    with pair rows (one within a tree, one between two trees with a third
-    tree's dofs between them), as parsed and with two trees' bodies
-    interleaved, with eight balls (nv 70: huge) and with four (nv 46:
-    large), equal ranges derived from the JAX package's
-    `Model.ancestor_dofs` and plans;
-(b) the large, huge and sized host twins (the kernels' own C++ built with
-    g++) on two Humanoids (large), three Humanoids (huge), 22 balls (sized)
-    and the pair scenes, as parsed and interleaved (huge and large), equal
-    the same twins given widened tables bit for bit (a zero's sign
-    included), over 3 steps (the task twin with a forced reset), and stay
-    within the plain version's bounds;
-(c) `substep_flops` counts the bounded loops: n copies of a tree cost n
-    times one copy's Cholesky and back substitution, a floor row's forward
-    solve what one copy's does, and widened tables the dense count (two
-    Humanoids: 288,882 operations a substep against 900,939);
-(d) torch's CUDA results at ties of zeros of maximum, minimum, clamp,
+(a) the supports that `pack_physics` gives two, four and ten Humanoids, 7,
+    22 and 40 balls, and a scene of touching trees with pair rows (one
+    within a tree, one between two trees with a third tree's dofs between
+    them), as parsed and with two trees' bodies interleaved, with eight
+    balls (nv 70: huge) and with four (nv 46: large): each dof's lowest
+    ancestor, each floor, pair and limit row's support, its size and its
+    sweep window, and L's and Y's floats, equal what the JAX package's
+    `Model.ancestor_dofs` and plans give;
+(b) torch's CUDA results at ties of zeros of maximum, minimum, clamp,
     clamp_min, clamp_max, amax and amin, bit for bit, through
     `HostTaskTwin` (TIE_BITS of tests/torch_user_tasks.py).
 """
@@ -37,15 +26,13 @@ from pybulletgym_tpu.models import mjcf as mjcf_j
 from pybulletgym_tpu.ops import contacts as ct_j
 from pybulletgym_tpu.ops import step as step_j
 from pybulletgym_tpu_torch.envs import pendula
-from pybulletgym_tpu_torch.envs.base import env_step_plain, reset_fn
+from pybulletgym_tpu_torch.envs.base import reset_fn
 from pybulletgym_tpu_torch.models import mjcf as mjcf_t
 from pybulletgym_tpu_torch.ops import contacts as ct_t
 from pybulletgym_tpu_torch.ops import cuda_engine as ce
 from pybulletgym_tpu_torch.ops import step as step_t
 from pybulletgym_tpu_torch.ops import task_kernel as tk
 from test_torch_big_models import _PKG_T, _ids, balls_xml, humanoids_task, humanoids_xml
-from test_torch_humanoid import _q_bounds
-from test_torch_sized_models import BallsTask, _walkers
 
 SCENES = {"humanoids4": (humanoids_xml, 4), "humanoids10": (humanoids_xml, 10),
           "balls22": (balls_xml, 22), "balls40": (balls_xml, 40),
@@ -78,6 +65,33 @@ def _blocks_from_jax(mj):
     return block
 
 
+def _mask(dofs):
+    return sum(1 << int(d) for d in dofs)
+
+
+def _words(t):
+    return len(t.dof_anc) // len(t.dof_depth)
+
+
+def _row_mask(t, j):
+    w = _words(t)
+    return sum(t.path_u[w * j + k] << 32 * k for k in range(w))
+
+
+def _assert_window(t, j, mask):
+    """Row j's support `mask`, its size and its sweep window's words"""
+    assert _row_mask(t, j) == mask and t.path_n[j] == bin(mask).count("1"), j
+    first, last = ((mask & -mask).bit_length() - 1) // 32, (mask.bit_length() - 1) // 32
+    assert (t.path_w0[j], t.path_w1[j]) == (min(first, _words(t) - 2), last), j
+
+
+def _assert_dof_lo(t, mj):
+    """Each dof's lowest ancestor (or itself) from the JAX model's root paths"""
+    for d in range(t.nv):
+        anc = [e for e in mj.ancestor_dofs[mj.dof_body[d]] if e < d]
+        assert t.dof_lo[d] == (min(anc) if anc else d), d
+
+
 @pytest.mark.parametrize("name", list(SCENES))
 def test_tree_ranges_match_the_jax_model(name):
     """(a)"""
@@ -88,110 +102,36 @@ def test_tree_ranges_match_the_jax_model(name):
     large = name in ("humanoids2", "balls7")
     assert ce.tables_class(t) == ce.LARGE if large else ce.tables_class(t) in (ce.HUGE, ce.SIZED)
     block = _blocks_from_jax(mj)
-    assert [(t.dof_lo[d], t.dof_hi[d]) for d in range(t.nv)] == [block[d] for d in range(t.nv)]
+    _assert_dof_lo(t, mj)
+    # a tree's dofs hang from its first: one block a Humanoid (23 dofs) or a
+    # ball (6), each dof's lowest ancestor its block's first dof
+    width = 23 if name.startswith("h") else 6
+    assert {hi - lo for lo, hi in block.values()} == {width}
+    assert [t.dof_lo[d] for d in range(t.nv)] == [block[d][0] for d in range(t.nv)]
     floor, pairs = ct_j.build_contact_plan(mj, cfg.solver)
     bodies = [c.body for c in floor for _ in range(4 if c.kind == "disk" else 1)]
     assert not pairs and len(bodies) == t.nr
     for r, b in enumerate(bodies):
-        path = mj.ancestor_dofs[b]
-        assert (t.row_lo[r], t.row_hi[r]) == (min(path), block[max(path)][1]), r
+        _assert_window(t, r, _mask(mj.ancestor_dofs[b]))
     lim = ct_j.build_limit_plan(mj)
+    chains = []
     for m, d in enumerate([] if lim is None else np.asarray(lim.dof).tolist()):
-        assert (t.lim_lo[m], t.lim_hi[m]) == (d, block[d][1])
-    # one block a Humanoid (23 dofs) or a ball (6); L and Y stored by them
-    width = 23 if name.startswith("h") else 6
-    assert {hi - lo for lo, hi in block.values()} == {width}
+        chains.append([e for e in mj.ancestor_dofs[mj.dof_body[d]] if e <= d])
+        _assert_window(t, t.nr + m, _mask(chains[-1]))
+    # L by ancestor rows; Y's rows over their supports, a limit pair's one
     layout = ce.scratch_layout(type(t).from_buffer_copy(t))
-    assert layout["L"][1] == (t.nv // width) * width * (width | 1)
-    ys = 3 * sum(t.row_hi[r] - t.row_lo[r] for r in range(t.nr))
-    ys += sum(t.lim_hi[m] - t.lim_lo[m] for m in range(t.nl))
+    depth = [len([e for e in mj.ancestor_dofs[mj.dof_body[d]] if e < d]) for d in range(t.nv)]
+    assert layout["L"][1] == sum(k + 1 for k in depth) < t.nv * (t.nv | 1)
+    second = ce.limit_seconds([c[-1] for c in chains])
+    ys = 3 * sum(t.path_n[r] for r in range(t.nr))
+    ys += sum(len(c) for c, sec in zip(chains, second) if not sec)
     assert layout["Y"][1] == max((t.nv | 1) + ys, (t.nv | 1) + 25 * t.nb)
-    wide = ce.scratch_layout(ce.widen_blocks(t))
-    assert wide["L"][1] == t.nv * (t.nv | 1)
-    assert wide["Y"][1] == (t.nv | 1) + (3 * t.nr + t.nl) * t.nv
 
 
 def _humanoids(n):
     task = humanoids_task(_PKG_T, torch, n)(humanoids_xml(n))
     task.physics = dataclasses.replace(task.physics, frame_skip=1)
     return task
-
-
-def _rollout(step, s0, acts, forced):
-    out, s = [], s0
-    for t, a in enumerate(acts):
-        if t == 1:
-            s = s._replace(terminated=s.terminated | forced)
-        s = step(s, a)
-        out.append(s)
-    return out
-
-
-def _bits(x):
-    """A tensor's bit pattern: float32 as int32, so that -0.0 differs from +0.0."""
-    return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-
-def _same_bits(a, b):
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
-
-
-def _same_state(a, b):
-    for k in ("q", "v", "obs", "reward", "terminated", "truncated", "step_count", "epoch"):
-        assert _same_bits(getattr(a, k), getattr(b, k)), k
-
-
-_TWIN_CLASS = {"humanoids3": ce.HUGE, "balls22": ce.SIZED, "humanoids2": ce.LARGE}
-
-
-@pytest.mark.parametrize("scene", ["humanoids3", "balls22", "humanoids2"])
-def test_task_twin_equals_the_widened_tables(scene):
-    """(b) the task twin, 3 steps of one substep, env 0 forced to reset
-    before the second; the plain version's bounds on the first step"""
-    task = BallsTask(22) if scene == "balls22" else _humanoids(int(scene[-1]))
-    B = 2
-    s0 = reset_fn(task, *_ids(B, 5))
-    acts = [torch.from_numpy(np.random.default_rng(30 + t).uniform(
-        -1, 1, (task.act_dim, B)).astype(np.float32)) for t in range(3)]
-    forced = torch.tensor([True, False])
-    twin = tk.HostTaskTwin(task)
-    assert ce.tables_class(twin.tables) == _TWIN_CLASS[scene]
-    tree = _rollout(twin, s0, acts, forced)
-    twin.tables = ce.widen_blocks(twin.tables)
-    for a, b in zip(tree, _rollout(twin, s0, acts, forced)):
-        _same_state(a, b)
-    assert tree[1].epoch[0] == 1 and tree[1].step_count[0] == 1
-    p = env_step_plain(task, s0, acts[0])
-    if scene != "balls22":
-        _q_bounds((p.q - tree[0].q).abs().numpy(), 1e-5)
-    else:
-        _walkers(p.q - tree[0].q)
-
-
-@pytest.mark.parametrize("scene", ["humanoids3", "balls22", "humanoids2"])
-def test_physics_twin_equals_the_widened_tables(scene):
-    """(b) the physics twin, 3 steps of one substep from a seeded state"""
-    if scene != "balls22":
-        task = _humanoids(int(scene[-1]))
-        m, cfg = task.model, task.physics
-        s0 = reset_fn(task, *_ids(2, 5))
-        q, v = s0.q, s0.v
-    else:
-        m = mjcf_t.parse_mjcf(balls_xml(22, 0.09), "balls")
-        cfg = step_t.PhysicsConfig(frame_skip=1)
-        rng = np.random.default_rng(2)
-        q = torch.from_numpy(np.repeat(m.qpos0[:, None], 2, 1).astype(np.float32))
-        v = torch.from_numpy(rng.uniform(-0.5, 0.5, (m.nv, 2)).astype(np.float32))
-    t = ce.pack_physics(m, cfg)
-    assert ce.tables_class(t) == _TWIN_CLASS[scene]
-    w = ce.widen_blocks(t)
-    hw = ce.HostTwin()
-    rng = np.random.default_rng(3)
-    for _ in range(3):
-        tau = torch.from_numpy(rng.uniform(-1, 1, (m.nv, 2)).astype(np.float32))
-        got, dense = hw.physics_step(t, q, v, tau), hw.physics_step(w, q, v, tau)
-        assert all(_same_bits(x, y) for x, y in zip(got, dense))
-        q, v = got[0], got[1]
 
 
 # Three touching trees and eight balls (nv 70: the huge class) or four (nv
@@ -280,19 +220,20 @@ def _pair_cfgs():
 
 @pytest.mark.parametrize("name", list(PAIR_SCENES))
 def test_pair_and_interleaved_supports_match_the_jax_plan(name):
-    """(a) the pair scene: blocks from the JAX model (two, A's and C's, merged
-    where interleaved), each floor, pair and limit row's support from the
-    JAX contact and limit plans: a pair row's runs from the first dof on
-    one of its bodies' root paths but not both to the end of the block of
-    the last, across M where the pair is A's and C's spheres"""
+    """(a) the pair scene: each dof's lowest ancestor from the JAX model,
+    each floor, pair and limit row's support from the JAX contact and limit
+    plans: a pair row's the union of its bodies' root paths (body a's path
+    first, `pair_pa`, and its dofs off b's, `pair_na`), which leaves out M
+    where the pair is A's and C's spheres, whose dof intervals merge into
+    one block with M inside where interleaved"""
     cfg_j, cfg_t = _pair_cfgs()
     mj, mt = _pair_scene(name, mjcf_j), _pair_scene(name, mjcf_t)
     t = ce.pack_physics(mt, cfg_t)
     _, interleaved, size, nv = PAIR_SCENES[name]
     assert ce.tables_class(t) == size and (t.nv, t.npair) == (nv, 2)
     block = _blocks_from_jax(mj)
-    assert [(t.dof_lo[d], t.dof_hi[d]) for d in range(t.nv)] == [block[d] for d in range(t.nv)]
-    a, m_, c = (mj.body_index(n) for n in ("A", "M", "C"))
+    _assert_dof_lo(t, mj)
+    m_ = mj.body_index("M")
     if interleaved:
         assert block[0] == (0, 22) and block[mj.body_dofs[m_][0]] == (0, 22)
     else:
@@ -301,68 +242,20 @@ def test_pair_and_interleaved_supports_match_the_jax_plan(name):
     nfloor = sum(4 if f.kind == "disk" else 1 for f in floor)
     assert t.nr == nfloor + 2 and len(pairs) == 2
     for r, f in enumerate(floor):
-        path = mj.ancestor_dofs[f.body]
-        assert (t.row_lo[r], t.row_hi[r]) == (min(path), block[max(path)][1]), r
+        _assert_window(t, r, _mask(mj.ancestor_dofs[f.body]))
+    w = _words(t)
     for k, p in enumerate(pairs):
-        dofs = set(mj.ancestor_dofs[p.body_a]) ^ set(mj.ancestor_dofs[p.body_b])
-        r = nfloor + k
-        assert (t.row_lo[r], t.row_hi[r]) == (min(dofs), block[max(dofs)][1]), k
+        a, b = (set(mj.ancestor_dofs[x]) for x in (p.body_a, p.body_b))
+        _assert_window(t, nfloor + k, _mask(a | b))
+        assert sum(t.pair_pa[w * k + i] << 32 * i for i in range(w)) == _mask(a)
+        assert t.pair_na[k] == len(a - b)
     across = nfloor + [p.geom for p in pairs].index("As")
-    assert t.row_lo[across] <= mj.body_dofs[m_][0] < t.row_hi[across]
+    assert not _row_mask(t, across) >> mj.body_dofs[m_][0] & 1
     lim = ct_j.build_limit_plan(mj)
     dofs = np.asarray(lim.dof).tolist()
     assert len(dofs) == t.nl and mj.joint_names[dofs[0]] == "Aja"
     for k, d in enumerate(dofs):
-        assert (t.lim_lo[k], t.lim_hi[k]) == (d, block[d][1])
-
-
-@pytest.mark.parametrize("name", list(PAIR_SCENES))
-def test_pair_scene_twin_equals_the_widened_tables(name):
-    """(b) the pair scene through the huge or large physics twin, 3 steps of
-    one substep: bit for bit the widened tables', both pair rows in
-    contact, and within the walkers' bounds of the plain version"""
-    _, cfg = _pair_cfgs()
-    m = _pair_scene(name, mjcf_t)
-    t = ce.pack_physics(m, cfg)
-    assert ce.tables_class(t) == PAIR_SCENES[name][2]
-    w = ce.widen_blocks(t)
-    hw = ce.HostTwin()
-    plain = step_t.make_physics_step_plain(m, cfg)[0]
-    rng = np.random.default_rng(7)
-    q = torch.from_numpy(np.repeat(m.qpos0[:, None], 2, 1).astype(np.float32))
-    v = torch.from_numpy(rng.uniform(-0.5, 0.5, (m.nv, 2)).astype(np.float32))
-    for k in range(3):
-        tau = torch.from_numpy(rng.uniform(-1, 1, (m.nv, 2)).astype(np.float32))
-        got, dense = hw.physics_step(t, q, v, tau), hw.physics_step(w, q, v, tau)
-        assert all(_same_bits(x, y) for x, y in zip(got, dense))
-        if k == 0:
-            assert (got[2][t.nr - 2:] > 0).all()  # both pair rows in contact
-            _walkers(plain(q, v, tau)[0] - got[0])
-        q, v = got[0], got[1]
-
-
-def test_substep_flops_count_the_blocks():
-    """(c)"""
-    cfg = step_t.PhysicsConfig()
-    one = mjcf_t.parse_mjcf(humanoids_xml(1), "h1")
-    fact1, solve1 = ce._chol_flops(one.nv)
-    for n in (4, 10):
-        t = ce.pack_physics(mjcf_t.parse_mjcf(humanoids_xml(n), f"h{n}"), cfg)
-        fact, back, _ = ce._tree_chol_flops(t)
-        assert (fact, back) == (n * fact1, n * solve1)
-        assert ce._tree_solve_flops(t, 0, t.nv) == n * solve1
-        last = t.nr - 1  # a floor row of the last Humanoid: one copy's solve
-        assert ce._tree_solve_flops(t, t.row_lo[last], t.row_hi[last]) == solve1
-        w = ce.widen_blocks(t)
-        assert ce._tree_chol_flops(w)[:2] == ce._chol_flops(t.nv)
-        assert ce.substep_flops(w) > 9 * ce.substep_flops(t)
-    balls = ce.pack_physics(mjcf_t.parse_mjcf(balls_xml(40, 0.09), "balls"), cfg)
-    assert ce._tree_chol_flops(balls)[:2] == tuple(40 * x for x in ce._chol_flops(6))
-    # two Humanoids, the large class: the blocks' count and the dense one
-    t = ce.pack_physics(mjcf_t.parse_mjcf(humanoids_xml(2), "h2"), cfg)
-    assert ce.tables_class(t) == ce.LARGE
-    assert ce._tree_chol_flops(t)[:2] == (2 * fact1, 2 * solve1)
-    assert (ce.substep_flops(t), ce.substep_flops(ce.widen_blocks(t))) == (288882, 900939)
+        _assert_window(t, t.nr + k, _mask(e for e in mj.ancestor_dofs[mj.dof_body[d]] if e <= d))
 
 
 class TieProbe(pendula.InvertedPendulumTask):
